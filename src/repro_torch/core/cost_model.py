@@ -1,0 +1,327 @@
+"""Alpha-beta cost model for the managed decisions (port of
+``repro.core.cost_model``, the sections the serving path prices with).
+
+The port prices with an NVIDIA H100 (``H100``, the ``DEFAULT_HW``).
+``TPU_V5E`` is kept so tests can hold the port's decisions to the
+reference's on the same machine model.  The remaining sections of the
+reference (collective, halo, attention, pipeline, checkpoint and MoE
+decisions) come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+# ---------------------------------------------------------------------------
+# Hardware models
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareModel:
+    """Alpha-beta(-gamma) machine description.
+
+    alpha_s:        per-message latency, seconds
+    link_bw:        per-link bandwidth, bytes/second
+    peak_flops:     per-chip peak (bf16 dense), flop/s
+    hbm_bw:         per-chip device-memory bandwidth, bytes/second
+    vmem_bytes:     per-core fast-memory capacity (a TPU core's VMEM; on a
+                    GPU the shared memory one thread block may use)
+    hbm_bytes:      per-chip main memory capacity
+    """
+
+    name: str
+    alpha_s: float
+    link_bw: float
+    peak_flops: float
+    hbm_bw: float
+    vmem_bytes: int = 0
+    hbm_bytes: int = 0
+    issue_overhead_s: float = 1.0e-7
+    overlap_eff: float = 1.0
+    scalar_flops: float = 0.0
+
+
+# TPU v5e — the reference's production target (kept for decision parity
+# tests; none of its numbers describe the port's hardware).
+TPU_V5E = HardwareModel(
+    name="tpu_v5e",
+    alpha_s=1.0e-6,
+    link_bw=50.0e9,
+    peak_flops=197.0e12,
+    hbm_bw=819.0e9,
+    vmem_bytes=128 * 1024 * 1024,
+    hbm_bytes=16 * 1024 ** 3,
+)
+
+# NVIDIA H100 SXM, data-sheet values: 989 TFLOP/s dense bf16, 3.35 TB/s
+# HBM3, 80 GB, 227 KB of shared memory per thread block, NVLink 450 GB/s
+# each way.  alpha_s is a placeholder until the torch.distributed
+# collectives measure it; the one-card serving path never prices it
+# except in the swap term's per-chunk latency.
+H100 = HardwareModel(
+    name="h100_sxm",
+    alpha_s=1.0e-6,
+    link_bw=450.0e9,
+    peak_flops=989.0e12,
+    hbm_bw=3.35e12,
+    vmem_bytes=227 * 1024,
+    hbm_bytes=80 * 10 ** 9,
+)
+
+DEFAULT_HW = H100
+
+
+# ---------------------------------------------------------------------------
+# Serving schedule decision (static waves vs continuous batching, quantum C)
+# ---------------------------------------------------------------------------
+#
+# Per-engine-step time is the decode roofline: every step streams the
+# weights once from HBM and does 2*N flops per slot-token —
+# max(P_bytes/hbm_bw, 2*N*B/peak).  The scheduler seeds C and the mode
+# from this model and corrects both online from the measured step-latency
+# counters (serve/metrics.py) — the paper's iteration-(k)->(k+1) loop.
+
+
+#: default per-dispatch overhead (host scheduling + launch) used when no
+#: measurement is available yet
+DISPATCH_OVERHEAD_S = 1.0e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeScheduleDecision:
+    """Outcome of the serve-schedule decision for one serving call site."""
+    mode: str                      # "static" | "continuous"
+    chunk: int                     # scheduling quantum C (tokens/slot/call)
+    tok_s: dict[str, float]        # "mode:C" -> modeled useful tokens/s
+    static_tok_s: float            # best static variant
+    chosen_tok_s: float
+    step_s: float                  # per-engine-step seconds (whole batch)
+    dispatch_s: float              # per-quantum dispatch overhead
+    ttft_s: float                  # modeled mean TTFT at the chosen schedule
+
+    @property
+    def predicted_speedup(self) -> float:
+        if self.chosen_tok_s <= 0:
+            return 1.0
+        return self.chosen_tok_s / max(self.static_tok_s, 1e-30)
+
+
+def serve_step_time(n_params: float, batch_slots: int, *,
+                    dtype_bytes: int = 2,
+                    hw: HardwareModel = DEFAULT_HW) -> float:
+    """Decode-step roofline: one token for each of ``batch_slots`` slots
+    streams the weights once from HBM (memory-bound at small batch) against
+    2*N flops per slot-token (compute-bound once the batch is large)."""
+    mem = n_params * dtype_bytes / hw.hbm_bw
+    flops = 2.0 * n_params * max(1, batch_slots) / hw.peak_flops
+    return max(mem, flops)
+
+
+def serve_schedule_times(n_params: float, batch_slots: int,
+                         mean_prompt: float, mean_new: float, *,
+                         max_prompt: float | None = None,
+                         dtype_bytes: int = 2,
+                         hw: HardwareModel = DEFAULT_HW,
+                         dispatch_s: float = DISPATCH_OVERHEAD_S,
+                         measured_step_s: float | None = None,
+                         measured_dispatch_s: float | None = None,
+                         candidate_chunks: Sequence[int] = (1, 2, 4, 8, 16,
+                                                            32)
+                         ) -> tuple[dict[str, float], float, float]:
+    """(variant -> useful tokens/s, step_s, dispatch_s) for every
+    "mode:C" candidate.  Measured overrides replace the modeled roofline
+    terms (metrics.py feeds them back between quanta)."""
+    b = max(1, batch_slots)
+    step = measured_step_s if measured_step_s is not None else \
+        serve_step_time(n_params, b, dtype_bytes=dtype_bytes, hw=hw)
+    disp = measured_dispatch_s if measured_dispatch_s is not None \
+        else dispatch_s
+    mean_total = max(1.0, float(mean_prompt) + float(mean_new))
+    max_total = max(mean_total,
+                    float(max_prompt if max_prompt is not None
+                          else mean_prompt) + float(mean_new))
+    times: dict[str, float] = {}
+    for c in sorted({int(c) for c in candidate_chunks if c >= 1}):
+        quantum = disp + c * step
+        # static: padding to the wave's longest request is the only waste
+        occ_static = mean_total / max_total
+        times[f"static:{c}"] = b * c * occ_static / quantum
+        # continuous: a request completing mid-quantum idles its slot for
+        # C/2 steps on average before the boundary refill
+        occ_cont = max(0.0, 1.0 - 0.5 * c / mean_total)
+        times[f"continuous:{c}"] = b * c * occ_cont / quantum
+    return times, step, disp
+
+
+def serve_ttft_s(chunk: int, mean_prompt: float, step_s: float,
+                 dispatch_s: float) -> float:
+    """Modeled TTFT for a request admitted from the queue: half a quantum
+    of boundary wait plus the prompt steps (each quantum pays one
+    dispatch)."""
+    c = max(1, int(chunk))
+    quanta = math.ceil(max(1.0, float(mean_prompt)) / c)
+    return 0.5 * (dispatch_s + c * step_s) + quanta * dispatch_s \
+        + float(mean_prompt) * step_s
+
+
+def decide_serve_schedule(n_params: float, batch_slots: int,
+                          mean_prompt: float, mean_new: float, *,
+                          max_prompt: float | None = None,
+                          dtype_bytes: int = 2,
+                          hw: HardwareModel = DEFAULT_HW,
+                          dispatch_s: float = DISPATCH_OVERHEAD_S,
+                          measured_step_s: float | None = None,
+                          measured_dispatch_s: float | None = None,
+                          candidate_chunks: Sequence[int] = (1, 2, 4, 8, 16,
+                                                             32),
+                          ttft_budget_s: float | None = None,
+                          force_mode: str | None = None,
+                          force_chunk: int | None = None
+                          ) -> ServeScheduleDecision:
+    """Pick the batching mode and scheduling quantum for one serving call
+    site.  ``force_mode``/``force_chunk`` pin the choice (an MDMPConfig
+    bulk override, or an explicit caller pin) while still reporting the
+    modeled table; a ``ttft_budget_s`` drops continuous candidates whose
+    modeled TTFT overruns it (the smallest candidate always survives)."""
+    times, step, disp = serve_schedule_times(
+        n_params, batch_slots, mean_prompt, mean_new,
+        max_prompt=max_prompt, dtype_bytes=dtype_bytes, hw=hw,
+        dispatch_s=dispatch_s, measured_step_s=measured_step_s,
+        measured_dispatch_s=measured_dispatch_s,
+        candidate_chunks=candidate_chunks)
+
+    def ttft(c: int) -> float:
+        return serve_ttft_s(c, mean_prompt, step, disp)
+
+    chunks = sorted({int(v.split(":")[1]) for v in times})
+    static_best = max((times[f"static:{c}"], c) for c in chunks)
+    cont_ok = [c for c in chunks
+               if ttft_budget_s is None or ttft(c) <= ttft_budget_s]
+    if not cont_ok:
+        cont_ok = [min(chunks)]
+    cont_best = max((times[f"continuous:{c}"], c) for c in cont_ok)
+
+    mode, chunk = (("continuous", cont_best[1])
+                   if cont_best[0] > static_best[0]
+                   else ("static", static_best[1]))
+    if force_mode is not None:
+        if force_mode not in ("static", "continuous"):
+            raise ValueError(f"unknown serve schedule {force_mode!r}")
+        mode = force_mode
+        chunk = (cont_best if mode == "continuous" else static_best)[1]
+    if force_chunk is not None:
+        chunk = max(1, int(force_chunk))
+        if f"{mode}:{chunk}" not in times:
+            times[f"{mode}:{chunk}"] = serve_schedule_times(
+                n_params, batch_slots, mean_prompt, mean_new,
+                max_prompt=max_prompt, dtype_bytes=dtype_bytes, hw=hw,
+                dispatch_s=dispatch_s, measured_step_s=measured_step_s,
+                measured_dispatch_s=measured_dispatch_s,
+                candidate_chunks=(chunk,))[0][f"{mode}:{chunk}"]
+    return ServeScheduleDecision(
+        mode=mode, chunk=chunk, tok_s=times,
+        static_tok_s=static_best[0], chosen_tok_s=times[f"{mode}:{chunk}"],
+        step_s=step, dispatch_s=disp, ttft_s=ttft(chunk))
+
+
+# ---------------------------------------------------------------------------
+# Preemption decision (swap vs drop-and-recompute vs head-of-line wait)
+# ---------------------------------------------------------------------------
+#
+#   swap       — D2H the victim's page chain (row-sliced chunks metered
+#                by overlap.drain_chunk_bytes), H2D it back on
+#                re-admission.  Cost: 2 * KV bytes over the host-link
+#                bandwidth (measured from prior swaps when available)
+#                plus per-chunk alpha.
+#   recompute  — release the pages and rebuild the victim as a
+#                prompt+generated continuation: the KV is re-earned by
+#                prefill-replay FLOPs, 2*N per replayed token.
+#   wait       — evict nobody: stall the growing slot for a quantum and
+#                let retirements free pages naturally (the soonest-
+#                finishing other slot's remaining steps at the measured
+#                step time); infinite when every slot is stalled.
+
+
+#: default D2H/H2D bandwidth for KV swap traffic before any transfer has
+#: been measured (a PCIe gen4 x16 host link; the measured swap bandwidth
+#: replaces it after the first swap)
+PCIE_BW = 1.6e10
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptDecision:
+    """Outcome of the preemption-policy decision for one overload event."""
+    policy: str                    # "swap" | "recompute" | "wait"
+    victim_pages: int
+    swap_bytes: int                # KV bytes resident in the victim chain
+    chunk_bytes: int               # metered D2H slice size
+    pcie_bw: float                 # bytes/s (measured or default)
+    replay_tokens: int
+    times: dict[str, float]        # policy -> predicted seconds
+    recompute_s: float             # the unmanaged drop-everything baseline
+    chosen_s: float
+
+    @property
+    def predicted_speedup(self) -> float:
+        """Modeled gain over always-drop-and-recompute."""
+        return max(self.recompute_s, 1e-12) / max(self.chosen_s, 1e-12)
+
+
+def decide_preempt(victim_pages: int, page_bytes: int,
+                   replay_tokens: int, n_params: float, *,
+                   step_s: float | None = None,
+                   batch_slots: int = 1, dtype_bytes: int = 2,
+                   pcie_bw: float | None = None,
+                   chunk_bytes: int | None = None,
+                   wait_s: float | None = None,
+                   allow_swap: bool = True,
+                   hw: HardwareModel = DEFAULT_HW,
+                   force_policy: str | None = None) -> PreemptDecision:
+    """Pick the preemption policy for one pool-exhaustion event.
+
+    ``victim_pages``/``page_bytes`` size the swap transfer (both
+    directions), ``replay_tokens`` the prefill-replay FLOPs, ``wait_s``
+    the instrumented head-of-line estimate (None = nothing will free —
+    waiting can't help).  ``chunk_bytes`` is the metered D2H slice
+    (overlap.drain_chunk_bytes); when absent the same budget formula is
+    applied to the step time.  ``allow_swap=False`` removes swap from
+    the candidate set.  ``force_policy`` pins the choice while still
+    reporting the modeled table."""
+    bw = float(pcie_bw) if pcie_bw else PCIE_BW
+    step = (float(step_s) if step_s is not None else
+            serve_step_time(n_params, batch_slots,
+                            dtype_bytes=dtype_bytes, hw=hw))
+    swap_bytes = int(victim_pages) * int(page_bytes)
+    if chunk_bytes is None:
+        # overlap.drain_chunk_bytes' budget formula, inlined to keep the
+        # cost model import-cycle-free (budget=0.1 of one step)
+        chunk_bytes = max(1 << 16, min(1 << 27, int(0.1 * step * bw)))
+    chunk_bytes = max(1, int(chunk_bytes))
+    n_chunks = max(1, math.ceil(max(1, swap_bytes) / chunk_bytes))
+    times = {
+        "swap": (2.0 * swap_bytes / bw + 2.0 * n_chunks * hw.alpha_s
+                 if allow_swap else math.inf),
+        "recompute": 2.0 * max(0, replay_tokens) * max(n_params, 1.0)
+        / hw.peak_flops,
+        "wait": float(wait_s) if wait_s is not None else math.inf,
+    }
+    recompute_s = times["recompute"]
+    if force_policy is not None:
+        if force_policy not in times:
+            raise ValueError(f"unknown preempt policy {force_policy!r}")
+        policy = force_policy
+    else:
+        policy = min(times, key=lambda p: (times[p], p))
+    chosen = times[policy]
+    if not math.isfinite(chosen):
+        # a pinned-but-impossible policy (wait with nothing retiring)
+        # degrades to the always-possible rebuild
+        policy, chosen = "recompute", recompute_s
+    return PreemptDecision(
+        policy=policy, victim_pages=int(victim_pages),
+        swap_bytes=swap_bytes, chunk_bytes=chunk_bytes, pcie_bw=bw,
+        replay_tokens=int(replay_tokens), times=times,
+        recompute_s=recompute_s, chosen_s=chosen)

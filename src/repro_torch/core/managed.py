@@ -1,0 +1,302 @@
+"""Managed runtime — configuration, the decision log, and the serving
+resolvers (port of ``repro.core.managed``).
+
+The reference expresses every collective through a ``managed_*`` entry
+point that picks bulk or interleaved execution from the cost model and
+logs a ``DecisionRecord``.  In this slice every mesh axis has size 1, so
+``managed_all_reduce`` / ``managed_all_gather`` are the identity (as the
+reference's are at axis size 1) and raise above it; their
+``torch.distributed`` form comes with the managed-collectives slice.
+The serving resolvers (``resolve_serve_schedule``, ``resolve_preempt``)
+are ported whole: they run on the host and price with ``DEFAULT_HW``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any
+
+import torch
+
+from repro_torch.core import cost_model
+from repro_torch.core.cost_model import DEFAULT_HW, HardwareModel
+from repro_torch.parallel.sharding import MeshCtx
+
+# ---------------------------------------------------------------------------
+# Global MDMP configuration + decision log (the managed-runtime audit trail)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MDMPConfig:
+    """Process-wide MDMP behaviour.  ``mode='auto'`` lets the cost model pick
+    per call site; forcing ``bulk`` reproduces the unmanaged baseline,
+    forcing ``interleaved`` the always-intermingle mode."""
+    mode: str = "auto"                # auto | bulk | interleaved
+    chunks: int | None = None         # override ring sub-chunking
+    hw: HardwareModel = DEFAULT_HW
+    log_decisions: bool = True
+
+
+_STATE = threading.local()
+
+
+def get_config() -> MDMPConfig:
+    cfg = getattr(_STATE, "config", None)
+    if cfg is None:
+        cfg = MDMPConfig()
+        _STATE.config = cfg
+    return cfg
+
+
+class use_config:
+    """``with managed.use_config(MDMPConfig(mode='bulk')): ...``"""
+
+    def __init__(self, config: MDMPConfig):
+        self._new = config
+
+    def __enter__(self) -> MDMPConfig:
+        self._old = getattr(_STATE, "config", None)
+        _STATE.config = self._new
+        return self._new
+
+    def __exit__(self, *exc: Any) -> None:
+        _STATE.config = self._old
+
+
+@dataclasses.dataclass(frozen=True)
+class DecisionRecord:
+    op: str
+    axis: str
+    nbytes: int
+    mode: str
+    chunks: int
+    predicted_bulk_s: float
+    predicted_interleaved_s: float
+    #: monotonic log time (``time.perf_counter``), stamped by
+    #: ``log_decision``; excluded from equality so decision-trail
+    #: comparisons stay timestamp-free.
+    t: float | None = dataclasses.field(default=None, compare=False)
+
+
+#: Every DecisionRecord ``op`` the managed runtime may emit (the same
+#: registry as the reference, so trails compare op for op).
+DECISION_OPS = frozenset({
+    "halo_aggregation", "attention_schedule", "pipeline_schedule",
+    "serve_schedule", "preempt_policy", "ckpt_interval", "moe_dispatch",
+    "all_gather", "reduce_scatter", "all_reduce", "all_to_all",
+    "all_gather_matmul", "all_gather_matmul_multi", "gram_ag_ring",
+    "matmul_reduce_scatter", "ring_attention", "expert_stream",
+    "program_plan",
+    "lint",
+})
+
+_DECISION_LOG: list[DecisionRecord] = []
+
+
+def log_decision(rec: DecisionRecord) -> None:
+    """Append to the audit trail, enforcing the op-name registry."""
+    if rec.op not in DECISION_OPS:
+        raise ValueError(f"unregistered DecisionRecord op {rec.op!r}; add "
+                         f"it to managed.DECISION_OPS")
+    if rec.t is None:
+        object.__setattr__(rec, "t", time.perf_counter())
+    _DECISION_LOG.append(rec)
+
+
+def decision_log() -> list[DecisionRecord]:
+    return list(_DECISION_LOG)
+
+
+def clear_decision_log() -> None:
+    _DECISION_LOG.clear()
+
+
+class capture_decisions:
+    """``with managed.capture_decisions() as cap: ...`` — scoped view of
+    the decisions logged inside the block, without clearing the global
+    trail.  ``cap.records`` re-slices the trail on every access."""
+
+    def __init__(self) -> None:
+        self._start = 0
+        self._end: int | None = None
+
+    def __enter__(self) -> "capture_decisions":
+        self._start = len(_DECISION_LOG)
+        self._end = None
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self._end = len(_DECISION_LOG)
+
+    @property
+    def records(self) -> list[DecisionRecord]:
+        return list(_DECISION_LOG[self._start:self._end])
+
+
+# ---------------------------------------------------------------------------
+# Program-plan override (the planner's hook into every resolver)
+# ---------------------------------------------------------------------------
+#
+# Precedence, most-binding first: explicit caller knob > program-plan knob
+# > ambient mode > cost-model auto.  The plan is duck-typed (anything with
+# ``knob_for(op, axis) -> dict | None``); the planner itself is ported in
+# a later slice.
+
+
+def install_plan(plan: Any | None) -> None:
+    """Install (or clear, with None) the active program plan for this
+    thread."""
+    _STATE.plan = plan
+
+
+def active_plan() -> Any | None:
+    return getattr(_STATE, "plan", None)
+
+
+class use_plan:
+    """``with managed.use_plan(program_plan): ...`` — scoped install."""
+
+    def __init__(self, plan: Any | None):
+        self._new = plan
+
+    def __enter__(self) -> Any | None:
+        self._old = getattr(_STATE, "plan", None)
+        _STATE.plan = self._new
+        return self._new
+
+    def __exit__(self, *exc: Any) -> None:
+        _STATE.plan = self._old
+
+
+def _plan_knob(op: str, axis_name: str) -> dict | None:
+    plan = active_plan()
+    if plan is None:
+        return None
+    return plan.knob_for(op, axis_name)
+
+
+# ---------------------------------------------------------------------------
+# Collectives at axis size 1
+# ---------------------------------------------------------------------------
+
+
+def _axis_size(axis_name: str, ctx: MeshCtx) -> int:
+    return ctx.axis_sizes.get(axis_name, 1)
+
+
+def _multi_rank(op: str, axis_name: str, n: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{op} over axis {axis_name!r} of size {n}: the torch.distributed "
+        "collectives come with ROADMAP Queue 1 slice 4")
+
+
+def managed_all_reduce(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
+                       mode: str | None = None) -> torch.Tensor:
+    """Sum ``x`` across ``axis_name`` — the identity at axis size 1."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x
+    raise _multi_rank("managed_all_reduce", axis_name, n)
+
+
+def managed_all_gather(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
+                       mode: str | None = None) -> torch.Tensor:
+    """All-gather ``x`` (tiled along axis 0) across ``axis_name`` — the
+    identity at axis size 1."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x
+    raise _multi_rank("managed_all_gather", axis_name, n)
+
+
+# ---------------------------------------------------------------------------
+# Serving resolvers
+# ---------------------------------------------------------------------------
+
+
+def resolve_serve_schedule(axis_name: str, batch_slots: int,
+                           mean_prompt: float, mean_new: float,
+                           n_params: float, *, dtype_bytes: int = 2,
+                           max_prompt: float | None = None,
+                           measured_step_s: float | None = None,
+                           measured_dispatch_s: float | None = None,
+                           ttft_budget_s: float | None = None,
+                           mode: str | None = None,
+                           schedule: str | None = None,
+                           chunk: int | None = None
+                           ) -> cost_model.ServeScheduleDecision:
+    """The managed-runtime entry for the serving schedule (static waves vs
+    continuous batching, plus the scheduling quantum C).  ``mode='bulk'``
+    pins static waves (the unmanaged baseline); ``mode='interleaved'``
+    pins continuous batching; ``schedule``/``chunk`` pin an explicit
+    choice.  Measured step/dispatch seconds from ``serve/metrics.py``
+    override the modeled roofline terms.  The DecisionRecord reuses
+    ``chunks`` to carry C and the predicted fields to carry
+    seconds-per-token."""
+    cfg = get_config()
+    pk = _plan_knob("serve_schedule", axis_name)
+    if pk is not None and schedule is None and chunk is None and \
+            mode in (None, "auto"):
+        schedule = pk.get("mode")
+        chunk = pk.get("chunks")
+    eff_mode = mode or cfg.mode
+    force = {"bulk": "static", "interleaved": "continuous"}.get(eff_mode,
+                                                                schedule)
+    decision = cost_model.decide_serve_schedule(
+        n_params, batch_slots, mean_prompt, mean_new,
+        max_prompt=max_prompt, dtype_bytes=dtype_bytes, hw=cfg.hw,
+        measured_step_s=measured_step_s,
+        measured_dispatch_s=measured_dispatch_s,
+        ttft_budget_s=ttft_budget_s, force_mode=force, force_chunk=chunk)
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op="serve_schedule", axis=axis_name,
+            nbytes=int(n_params) * dtype_bytes,
+            mode=decision.mode, chunks=decision.chunk,
+            predicted_bulk_s=1.0 / max(decision.static_tok_s, 1e-30),
+            predicted_interleaved_s=1.0 / max(decision.chosen_tok_s,
+                                              1e-30)))
+    return decision
+
+
+def resolve_preempt(axis_name: str, victim_pages: int, page_bytes: int,
+                    replay_tokens: int, n_params: float, *,
+                    batch_slots: int = 1, dtype_bytes: int = 2,
+                    measured_step_s: float | None = None,
+                    measured_pcie_bw: float | None = None,
+                    chunk_bytes: int | None = None,
+                    wait_s: float | None = None,
+                    allow_swap: bool = True,
+                    mode: str | None = None,
+                    policy: str | None = None
+                    ) -> cost_model.PreemptDecision:
+    """The managed-runtime entry for the serving preemption knob (swap a
+    victim's KV pages to host vs drop-and-recompute vs head-of-line
+    wait).  ``mode='bulk'`` pins drop-and-recompute; ``mode='interleaved'``
+    pins swap; an explicit ``policy`` wins over the ambient mode.  The
+    DecisionRecord reuses ``chunks`` to carry the victim's page count and
+    the predicted fields to carry recompute-vs-chosen seconds."""
+    cfg = get_config()
+    pk = _plan_knob("preempt_policy", axis_name)
+    if pk is not None and policy is None and mode in (None, "auto"):
+        policy = pk.get("mode")
+    eff_mode = mode or cfg.mode
+    force = policy if policy is not None else \
+        {"bulk": "recompute", "interleaved": "swap"}.get(eff_mode)
+    decision = cost_model.decide_preempt(
+        victim_pages, page_bytes, replay_tokens, n_params,
+        step_s=measured_step_s, batch_slots=batch_slots,
+        dtype_bytes=dtype_bytes, pcie_bw=measured_pcie_bw,
+        chunk_bytes=chunk_bytes, wait_s=wait_s, allow_swap=allow_swap,
+        hw=cfg.hw, force_policy=force)
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op="preempt_policy", axis=axis_name,
+            nbytes=decision.swap_bytes,
+            mode=decision.policy, chunks=decision.victim_pages,
+            predicted_bulk_s=decision.recompute_s,
+            predicted_interleaved_s=decision.chosen_s))
+    return decision

@@ -1,0 +1,151 @@
+"""Serving CLI — the managed serving runtime on one CUDA card
+(port of ``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+        --reduced --device cpu
+
+Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no card
+is there.  Weights are random, drawn from ``--seed``.  ``--schedule
+static`` reproduces the unmanaged baseline (padded waves); ``continuous``
+pins continuous batching; ``auto`` lets the managed runtime pick mode +
+scheduling quantum from the serve cost model and correct it online.
+Prompt lengths are MIXED (--prompt-len down to --min-prompt-len).
+
+Overload knobs: ``--pages`` under-provisions the KV page pool so
+optimistic admission needs its preemption backstop (``--preempt``);
+``--slo-ttft`` / ``--max-queue`` turn on SLO shedding and queue
+backpressure; ``--fault-plan 'burst@3:16'`` injects a deterministic
+arrival flood.  The whole-program planner (``--plan program|auto``), the
+static verifier (``--verify warn|strict``) and ``--trace`` are ported with
+ROADMAP Queue 1 slice 11; this CLI accepts ``--plan local`` and
+``--verify off`` only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core import managed
+from repro_torch.core.faults import FaultPlan
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
+from repro_torch.parallel.sharding import MeshCtx
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.scheduler import RequestRejected
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=configs.list_archs())
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--min-prompt-len", type=int, default=4)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--pages", type=int, default=None,
+                    help="page-pool size (default slots*max_seq worth; "
+                    "smaller values exercise the preemption backstop)")
+    ap.add_argument("--schedule", default="auto",
+                    choices=("static", "continuous", "auto"))
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="pin the scheduling quantum C")
+    ap.add_argument("--preempt", default="auto",
+                    choices=("swap", "recompute", "auto"),
+                    help="pool-exhaustion policy (auto = cost model)")
+    ap.add_argument("--slo-ttft", type=float, default=None,
+                    help="TTFT SLO in seconds (estimates beyond it shed)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="pending-queue bound (backpressure shedding)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="e.g. 'burst@3:16;pool_squeeze@5:0.5'")
+    ap.add_argument("--plan", default="local", choices=("local",),
+                    help="communication planning scope (the program "
+                         "planner comes with a later slice)")
+    ap.add_argument("--mdmp-mode", default="auto")
+    ap.add_argument("--verify", default="off", choices=("off",),
+                    help="static-verifier preflight (comes with a later "
+                         "slice)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    ctx = MeshCtx(axis_sizes={"data": 1, "model": 1},
+                  mdmp_mode=args.mdmp_mode)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = Model(cfg, ctx, device=device).init(gen)
+
+    plan = (FaultPlan.parse(args.fault_plan) if args.fault_plan
+            else None)
+    engine = ServeEngine(model, slots=args.slots,
+                         max_seq=args.max_seq, page_size=args.page_size,
+                         n_pages=args.pages, schedule=args.schedule,
+                         chunk=args.chunk, fault_plan=plan,
+                         preempt=args.preempt,
+                         slo_ttft_s=args.slo_ttft,
+                         max_queue=args.max_queue)
+    rng = np.random.default_rng(0)
+    lo = min(args.min_prompt_len, args.prompt_len)
+    plens = rng.integers(lo, args.prompt_len + 1, size=args.requests)
+    rids = []
+    for p in plens:
+        prompt = rng.integers(0, cfg.vocab_size - 1,
+                              size=int(p)).astype(np.int32)
+        try:
+            rids.append(engine.submit(prompt, args.new_tokens))
+        except RequestRejected as e:          # shed at the door
+            print(f"shed: {e}")
+            rids.append(None)
+
+    t0 = time.perf_counter()
+    out = engine.run()
+    dt = time.perf_counter() - t0
+    served = sum(len(v) for v in out.values())
+    total = int(sum(int(plens[i]) for i, r in enumerate(rids)
+                    if r is not None)) + served
+    s = engine.metrics.summary()
+    print(f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s end-to-end; "
+          f"{s['useful_tok_s']:.1f} useful tok/s, occupancy "
+          f"{s['occupancy']:.2f}, batch {args.slots} slots)")
+    print(f"TTFT {s['mean_ttft_s'] * 1e3:.1f}ms  TPOT "
+          f"{s['mean_tpot_s'] * 1e3:.2f}ms  quanta {s['quanta']}  "
+          f"pages high-water {engine.pt.high_water}/"
+          f"{engine.cache_cfg.n_pages}")
+    print(f"overload: sheds {s['sheds']}  preempts {s['preempts']}  "
+          f"swap {s['swap_bytes']} B  p99 TTFT "
+          f"{s['p99_ttft_s'] * 1e3:.1f}ms")
+    if args.slo_ttft is not None:
+        met = engine.metrics.slo_met_tokens(args.slo_ttft)
+        print(f"SLO-goodput: {met} tokens within "
+              f"{args.slo_ttft * 1e3:.0f}ms TTFT "
+              f"({met / dt:.1f} tok/s)")
+    for rec in managed.decision_log():
+        if rec.op == "serve_schedule":
+            print(f"decision serve_schedule({rec.mode}, C={rec.chunks}) "
+                  f"pred static={rec.predicted_bulk_s * 1e6:.1f}us/tok "
+                  f"chosen={rec.predicted_interleaved_s * 1e6:.1f}us/tok")
+        elif rec.op == "preempt_policy":
+            print(f"decision preempt_policy({rec.mode}, "
+                  f"pages={rec.chunks}, {rec.nbytes} B) "
+                  f"pred recompute={rec.predicted_bulk_s * 1e3:.2f}ms "
+                  f"chosen={rec.predicted_interleaved_s * 1e3:.2f}ms")
+    for i, r in enumerate(rids[:4]):
+        if r is not None and r in out:
+            print(f"  req{i} (P={int(plens[i])}): {out[r].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,487 @@
+"""Serving engine — the step loop over the paged cache (port of
+``repro.serve.engine``).
+
+One dispatched quantum advances every decode slot by up to C tokens:
+slots still inside their prompt consume prompt tokens (chunked prefill),
+slots past it feed their own last sample back (decode).  The reference
+compiles the quantum as one ``lax.scan`` over ``Model.decode_step_paged``;
+the port runs it as a Python loop of C decode steps on the device, with
+one host sync per quantum (the sampled tokens).  C — the scheduling
+quantum — is the managed knob, chosen by ``managed.resolve_serve_schedule``
+from the serve cost model and corrected online from serve/metrics.py's
+measured step latencies.
+
+The cache is the paged pool of serve/kv_cache.py: per-layer page pools,
+one host-side page table, pages recycled through the free list as
+requests retire.  The pools are updated in place (the reference donates
+them).  This slice serves the dense decoder family.
+
+Overload is a managed condition, not a crash.  Admission is optimistic
+(watermark mode commits only the prompt's pages), and when the pool
+exhausts mid-decode (``PagePoolExhausted``) the engine preempts: pick a
+victim, then either SWAP its page chain to host (D2H in
+``overlap.drain_chunk_bytes``-metered page slices, restored on
+re-admission), DROP it for prefill-replay (``scheduler.continuation``),
+or stall the growing slot one quantum — whichever
+``managed.resolve_preempt`` prices cheapest.  Greedy decoding makes both
+eviction paths token-equal to the no-overload run.  The ``burst`` and
+``pool_squeeze`` fault kinds drive this machinery deterministically.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import cost_model, managed, overlap
+from repro_torch.core.faults import FaultPlan
+from repro_torch.models import attention
+from repro_torch.models.model import Model
+from repro_torch.obs.calibrate import Recalibrator
+from repro_torch.obs.tracer import get_tracer
+from repro_torch.serve.kv_cache import (PagedCacheConfig, PagePoolExhausted,
+                                        PageTable)
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.scheduler import (QuantumPlan, Request,
+                                         RequestRejected, ServeScheduler)
+
+
+class ServeEngine:
+    """Continuous-batching serving loop over the paged cache."""
+
+    def __init__(self, model: Model, *,
+                 slots: int = 4, max_seq: int = 256, page_size: int = 8,
+                 n_pages: int | None = None, schedule: str = "auto",
+                 chunk: int | None = None,
+                 metrics: ServeMetrics | None = None,
+                 fault_plan: FaultPlan | None = None,
+                 admission: str = "watermark", watermark: int = 0,
+                 preempt: str = "auto",
+                 slo_ttft_s: float | None = None,
+                 max_queue: int | None = None, burst_new: int = 8):
+        if preempt not in ("auto", "swap", "recompute", "none"):
+            raise ValueError(f"unknown preempt policy {preempt!r}")
+        self.model = model
+        self.device = model.device
+        self.slots = slots
+        n_sh = attention.cache_shards(model.ctx)
+        pages_per_seq = max(1, math.ceil(max_seq / page_size))
+        if n_pages is None:
+            n_pages = slots * pages_per_seq
+        n_pages = ((n_pages + n_sh - 1) // n_sh) * n_sh
+        self.cache_cfg = PagedCacheConfig(
+            slots=slots, page_size=page_size, n_pages=n_pages,
+            max_pages_per_seq=pages_per_seq)
+        self.pt = PageTable(self.cache_cfg)
+        self.metrics = metrics or ServeMetrics()
+        self._n_params = model.cfg.param_count()
+        self._dtype_bytes = model.dtype.itemsize
+        self.scheduler = ServeScheduler(
+            slots, schedule=schedule, chunk=chunk,
+            cache_cfg=self.cache_cfg, admission=admission,
+            watermark=watermark, slo_ttft_s=slo_ttft_s,
+            max_queue=max_queue,
+            model_step_s=cost_model.serve_step_time(
+                self._n_params, slots, dtype_bytes=self._dtype_bytes))
+        self._schedule = schedule
+        self._preempt = preempt
+        self._burst_new = int(burst_new)
+        self._cache_specs = model.paged_cache_specs(slots, n_pages,
+                                                    page_size)
+        # bytes per pool page, summed across the pools (each pool is
+        # layer-stacked [L, Np + 1, page, KV, hd], so a page spans layers)
+        self._page_bytes = sum(
+            math.prod(shape) // shape[1] * dtype.itemsize
+            for shape, dtype in self._cache_specs.values())
+        self._rid = 0
+        # the online-correction trigger (obs.Recalibrator): fire once as
+        # soon as 3 quanta are measured, then again whenever the per-step
+        # seconds drift >25% off the value the schedule was last resolved
+        # against
+        self.recal = Recalibrator(threshold=0.25, warmup=3)
+        self.fault_plan = fault_plan
+        self._quantum_idx = 0     # lifetime quantum counter (fault clock)
+        #: decode steps run on the device (warmup included) — each one
+        #: launches the paged-attention kernel once per layer
+        self.decode_steps = 0
+        self._warm = False
+        self.results: dict[int, np.ndarray] = {}
+        #: rid -> (n_pages, host page rows per pool, consumed, last_out,
+        #: generated) for swapped-out victims awaiting re-admit
+        self._swapped: dict[int, tuple] = {}
+        #: rid -> tokens generated before a recompute eviction (stitched
+        #: in front of the continuation's output at retirement)
+        self._gen_prefix: dict[int, list[int]] = {}
+        #: rids evicted since the last dispatched quantum; admission holds
+        #: them at the queue head so eviction cannot chase re-admission
+        self._hold: set[int] = set()
+        self.cache = {name: torch.zeros(shape, dtype=dtype,
+                                        device=self.device)
+                      for name, (shape, dtype) in self._cache_specs.items()}
+
+    # -- device state --------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _table(self) -> torch.Tensor:
+        return torch.from_numpy(self.pt.table).to(self.device)
+
+    def warmup(self) -> None:
+        """Build the kernels and warm the device libraries outside the
+        measured loop: one decode step with every slot inactive writes
+        only the pools' trailing page and leaves all state as it was."""
+        z = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
+        self.model.decode_step_paged(self.cache, self._table(), z, z,
+                                     z.bool())
+        self.decode_steps += 1
+        self._sync()
+        self._warm = True
+
+    def _run_quantum(self, plan: QuantumPlan) -> np.ndarray:
+        """Run one quantum on the device: step t feeds slot b
+        ``tokens[b, t]`` while t < n_in[b] (prompt / chain seed) and its own
+        previous sample afterwards; slots with t >= steps[b] are inactive
+        (no cache write, no position advance).  Steps past the longest
+        slot's count are not run: they would change nothing.  Returns the
+        sampled tokens [slots, C] (one host sync)."""
+        dev = self.device
+        table = self._table()
+        tokens = torch.from_numpy(plan.tokens).to(dev)
+        n_in = torch.from_numpy(plan.n_in).to(dev)
+        steps = torch.from_numpy(plan.steps).to(dev)
+        pos = torch.from_numpy(plan.pos).to(dev)
+        last = tokens[:, 0]
+        out = torch.zeros_like(tokens)
+        for t in range(int(plan.steps.max())):
+            tok = torch.where(t < n_in, tokens[:, t], last)
+            act = t < steps
+            nxt, self.cache = self.model.decode_step_paged(
+                self.cache, table, tok, pos, act)
+            pos = pos + act.to(torch.int32)
+            last = torch.where(act, nxt, last)
+            out[:, t] = nxt
+            self.decode_steps += 1
+        return out.cpu().numpy()
+
+    # -- queue ---------------------------------------------------------------
+
+    def submit(self, prompt: np.ndarray, max_new: int,
+               ttft_slo_s: float | None = None) -> int:
+        rid = self._rid
+        self._rid += 1
+        req = Request(rid=rid, prompt=np.asarray(prompt, np.int32).ravel(),
+                      max_new=int(max_new), ttft_slo_s=ttft_slo_s)
+        self.submit_request(req)
+        return rid
+
+    def submit_request(self, req: Request) -> None:
+        """Submit a pre-built request, preserving its rid — the failover
+        path: a drained replica's requests re-admit here with their
+        generated prefix folded into the prompt.  Infeasible requests
+        raise the typed ``RequestRejected`` and shed ones ``RequestShed``
+        (scheduler.submit) — the rid is consumed either way."""
+        self._rid = max(self._rid, req.rid + 1)
+        self.scheduler.submit(req, self.metrics)
+
+    def drain(self) -> list[tuple[Request, list[int]]]:
+        """Evacuate a dead replica: free every in-flight request's page
+        chain and hand back [(request, generated_prefix)] rebuilt for a
+        survivor (scheduler.drain).  Finished requests retire into
+        ``self.results``; the caller stitches prefix + survivor output
+        for the rest.  Swapped-out host state is dropped — the original
+        request is still queued and replays from scratch elsewhere."""
+        out = self.scheduler.drain(self.pt, self.results)
+        self._swapped.clear()
+        self.scheduler.restore_pages.clear()
+        for rid, pre in list(self._gen_prefix.items()):
+            if rid in self.results:
+                self.results[rid] = np.concatenate(
+                    [np.asarray(pre, np.int32), self.results[rid]])
+                del self._gen_prefix[rid]
+        return [(req, self._gen_prefix.pop(req.rid, []) + prefix)
+                for req, prefix in out]
+
+    # -- overload faults -----------------------------------------------------
+
+    def _inject_burst(self, n: int) -> None:
+        """A ``burst@q:n`` event: n synthetic arrivals at this quantum
+        boundary, prompts seeded from the quantum index so the flood is
+        identical across runs.  Shed/rejected arrivals are recorded by
+        admission control and dropped — overload degrades, never kills."""
+        rng = np.random.default_rng(0xB0 + 997 * self._quantum_idx)
+        for _ in range(max(0, n)):
+            plen = int(rng.integers(4, 17))
+            prompt = rng.integers(1, 1000, size=plen).astype(np.int32)
+            try:
+                self.submit(prompt, self._burst_new)
+            except RequestRejected:
+                pass
+
+    def _apply_overload_events(self) -> None:
+        if self.fault_plan is None:
+            return
+        for ev in self.fault_plan.serve_overload(self._quantum_idx):
+            if ev.kind == "burst":
+                self._inject_burst(int(ev.arg))
+            else:                             # pool_squeeze@q:frac
+                self.pt.squeeze(float(ev.arg))
+
+    # -- preemption (the optimistic-admission backstop) ----------------------
+
+    def _swap_chunk_pages(self, page_bytes: int) -> int:
+        """Pages per metered transfer slice: the drain's chunk meter
+        applied to eviction traffic."""
+        step = self.scheduler.step_s_hint(self.metrics) or 1e-3
+        bw = self.metrics.swap_bw_estimate() or cost_model.PCIE_BW
+        cb = overlap.drain_chunk_bytes(step, bw)
+        return max(1, cb // max(1, page_bytes))
+
+    def _swap_out(self, slot: int) -> None:
+        """Evict ``slot`` by draining its resident KV pages to host in
+        page-sliced chunks; the original request requeues at the front and
+        restores (``_swap_in``) once admission finds its pages again."""
+        sch, pt = self.scheduler, self.pt
+        rs = sch.active[slot]
+        keep = pt.cfg.pages_needed(rs.consumed)
+        ids = torch.as_tensor(pt.chain(slot)[:keep], dtype=torch.long,
+                              device=self.device)
+        t0 = time.perf_counter()
+        host: dict[str, torch.Tensor] = {}
+        nbytes = 0
+        with get_tracer().span("serve.swap_out", op="preempt_policy",
+                               axis="serve", track="serve",
+                               buffer="kv_pages", slot=slot) as sp:
+            for name, leaf in self.cache.items():
+                page_bytes = leaf[:, 0].numel() * leaf.element_size()
+                ppc = self._swap_chunk_pages(page_bytes)
+                parts = [leaf.index_select(1, ids[i:i + ppc]).cpu()
+                         for i in range(0, len(ids), ppc)]
+                rows = (torch.cat(parts, dim=1) if parts else
+                        leaf.new_zeros(leaf.shape[:1] + (0,)
+                                       + leaf.shape[2:]).cpu())
+                host[name] = rows
+                nbytes += rows.numel() * rows.element_size()
+            if sp is not None:
+                sp.note(nbytes=nbytes)
+        self.metrics.note_swap(nbytes, time.perf_counter() - t0)
+        rs = sch.preempt(slot, pt)
+        self._swapped[rs.req.rid] = (len(ids), host, rs.consumed,
+                                     rs.last_out, list(rs.generated))
+        sch.restore_pages[rs.req.rid] = keep
+        sch.requeue_front(rs.req)
+        self._hold.add(rs.req.rid)
+        self.metrics.on_preempt(rs.req.rid, "swap")
+
+    def _swap_in(self, rs) -> None:
+        """Restore a swapped victim into its new slot: reallocate a page
+        chain for its consumed positions and push the host rows back
+        (H2D, same chunk meter), then resume decoding mid-chain."""
+        data = self._swapped.pop(rs.req.rid, None)
+        if data is None:
+            return
+        n_ids, host, consumed, last_out, generated = data
+        pt = self.pt
+        pt.ensure(rs.slot, consumed)
+        new_ids = torch.as_tensor(pt.chain(rs.slot)[:n_ids],
+                                  dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        nbytes = 0
+        with get_tracer().span("serve.swap_in", op="preempt_policy",
+                               axis="serve", track="serve",
+                               buffer="kv_pages", slot=rs.slot) as sp:
+            for name, rows in host.items():
+                if not len(new_ids):
+                    continue
+                leaf = self.cache[name]
+                page_bytes = leaf[:, 0].numel() * leaf.element_size()
+                ppc = self._swap_chunk_pages(page_bytes)
+                for i in range(0, len(new_ids), ppc):
+                    leaf[:, new_ids[i:i + ppc]] = \
+                        rows[:, i:i + ppc].to(self.device)
+                nbytes += rows.numel() * rows.element_size()
+            self._sync()
+            if sp is not None:
+                sp.note(nbytes=nbytes)
+        self.metrics.note_swap(nbytes, time.perf_counter() - t0)
+        rs.consumed = consumed
+        rs.last_out = last_out
+        rs.generated = list(generated)
+        self.scheduler.restore_pages.pop(rs.req.rid, None)
+
+    def _drop_recompute(self, slot: int) -> None:
+        """Evict ``slot`` by releasing its pages outright; the request
+        requeues as a prompt+generated continuation whose prefill REPLAYS
+        the lost KV (greedy decoding keeps the token chain equal)."""
+        sch = self.scheduler
+        with get_tracer().span("serve.recompute_evict",
+                               op="preempt_policy", axis="serve",
+                               track="serve", buffer="kv_pages",
+                               slot=slot):
+            rs = sch.preempt(slot, self.pt)
+            rid = rs.req.rid
+            cont = sch.continuation(rs)
+            if cont is None:                  # already finished: retire
+                self._retire(rid, rs.generated)
+                return
+            if rs.generated:
+                self._gen_prefix[rid] = (self._gen_prefix.get(rid, [])
+                                         + list(rs.generated))
+            sch.requeue_front(cont)
+            self._hold.add(rid)
+        self.metrics.on_preempt(rid, "recompute")
+
+    def _retire(self, rid: int, generated: list[int]) -> None:
+        pre = self._gen_prefix.pop(rid, [])
+        self.results[rid] = np.asarray(list(pre) + list(generated),
+                                       np.int32)
+
+    def _cap_to_resident(self, plan, stalled: list[int]) -> int:
+        """The WAIT policy: clamp each stalled slot's quantum steps to
+        the positions its already-allocated chain can hold.  Returns the
+        batch's total steps after clamping."""
+        for s in stalled:
+            rs = self.scheduler.active[s]
+            fit = (self.pt.pages_held(s) * self.cache_cfg.page_size
+                   - rs.consumed)
+            plan.steps[s] = max(0, min(int(plan.steps[s]), fit))
+        return int(plan.steps.sum())
+
+    def _handle_exhaustion(self, plan, stalled: list[int]) -> bool:
+        """React to ``PagePoolExhausted`` on this quantum's page growth.
+        Returns True when a victim was evicted (the caller re-admits and
+        re-plans), False when ``plan.steps`` were capped in place and the
+        clamped quantum should dispatch (wait)."""
+        sch, pt = self.scheduler, self.pt
+        can_wait = self._cap_to_resident(plan, stalled) > 0
+        if self._preempt == "none":
+            # the unmanaged baseline: no eviction machinery — stall while
+            # anything progresses, die when nothing can
+            if not can_wait:
+                raise RuntimeError(
+                    "serve queue stalled: page pool exhausted and "
+                    f"preemption is disabled ({self.cache_cfg})")
+            return False
+        victim = sch.select_victim(pt, prefer_not=stalled[0])
+        if victim is None or len(sch.active) == 1:
+            # no victim — or evicting the SOLE slot, which can never
+            # help: its continuation needs at least the pages it holds
+            # now, so eviction would only trade a stall for a thrash
+            if can_wait:
+                return False
+            raise RuntimeError(
+                "serve queue stalled: page pool exhausted with no "
+                f"evictable victim ({self.cache_cfg})")
+        vrs = sch.active[victim]
+        victim_pages = pt.pages_held(victim)
+        step = sch.step_s_hint(self.metrics)
+        # soonest a retirement frees pages naturally — only meaningful
+        # when the clamped batch still progresses toward one
+        wait_s = None
+        if can_wait and step is not None:
+            rem = [rs.req.total_steps - rs.consumed
+                   for s, rs in sch.active.items() if s not in stalled]
+            if rem:
+                wait_s = min(rem) * step
+        policy = None if self._preempt == "auto" else self._preempt
+        d = managed.resolve_preempt(
+            sch.axis_name, victim_pages, self._page_bytes, vrs.consumed,
+            self._n_params, batch_slots=self.slots,
+            dtype_bytes=self._dtype_bytes, measured_step_s=step,
+            measured_pcie_bw=self.metrics.swap_bw_estimate(),
+            wait_s=wait_s, policy=policy)
+        if d.policy == "wait":
+            return False
+        if d.policy == "swap":
+            self._swap_out(victim)
+        else:
+            self._drop_recompute(victim)
+        return True
+
+    # -- the step loop -------------------------------------------------------
+
+    def run(self) -> dict[int, np.ndarray]:
+        """Serve the queue to completion; returns rid -> generated tokens.
+        The schedule decision (and any online correction) is visible in
+        ``managed.decision_log()`` as ``op="serve_schedule"`` records,
+        and every pool-exhaustion event as ``op="preempt_policy"``."""
+        sch = self.scheduler
+        if not sch.has_work() and not (
+                self.fault_plan and self.fault_plan.unfired()):
+            return {}
+        sch.decide(self._n_params, self._dtype_bytes)
+        if sch.chunk is None:       # queue was empty (pure fault drive)
+            return self.results
+        if not self._warm:
+            self.warmup()
+        # warmup is over: TTFT measures serving from here
+        self.metrics.rebase_pending()
+        results = self.results
+        while sch.has_work():
+            self._apply_overload_events()
+            for rs in sch.admit(self.pt, hold=self._hold):
+                if rs.req.rid in self._swapped:
+                    self._swap_in(rs)
+            plan = sch.plan_quantum(sch.chunk)
+            if int(plan.steps.sum()) == 0:
+                # admit() ran just above with an empty batch and still
+                # produced nothing: the head request can never fit
+                raise RuntimeError(
+                    "serve queue stalled: request exceeds the page pool "
+                    f"({self.cache_cfg})")
+            stalled = []
+            for slot in sorted(sch.active):
+                rs = sch.active[slot]
+                try:
+                    self.pt.ensure(slot,
+                                   rs.consumed + int(plan.steps[slot]))
+                except PagePoolExhausted:
+                    stalled.append(slot)
+            if stalled and self._handle_exhaustion(plan, stalled):
+                continue              # victim evicted: re-admit, re-plan
+            if int(plan.steps.sum()) == 0:
+                continue              # whole batch stalled this quantum
+            if self.fault_plan is not None:
+                # the fault clock ticks on dispatched quanta; a
+                # replica_death here leaves finished work in self.results
+                # and in-flight state intact for drain()
+                self.fault_plan.serve_quantum(self._quantum_idx)
+            self._quantum_idx += 1
+            useful = int(plan.steps.sum())
+            t0 = time.perf_counter()
+            # scale = useful slot-steps: dur/scale is measured seconds
+            # per token, the unit resolve_serve_schedule predicts
+            with get_tracer().span(
+                    "serve.quantum", op="serve_schedule", axis="serve",
+                    track="serve", chunk=plan.chunk, scale=useful,
+                    quantum=self._quantum_idx - 1, reads="kv_pages"):
+                out_np = self._run_quantum(plan)
+            wall = time.perf_counter() - t0
+            self._hold.clear()    # a quantum dispatched: evictees may
+            # re-enter admission on the next planning round
+            self.metrics.note_quantum(wall, plan.chunk, useful,
+                                      self.slots)
+            self.recal.note(wall / max(1, plan.chunk))
+            for rs in sch.complete_quantum(plan, out_np, self.pt,
+                                           self.metrics):
+                self._retire(rs.req.rid, rs.generated)
+            self._maybe_retune()
+        return results
+
+    def _maybe_retune(self) -> None:
+        """The iteration-(k)->(k+1) correction: once enough quanta are
+        measured, re-resolve the schedule with the observed step/dispatch
+        seconds."""
+        if self._schedule != "auto" or not self.recal.should_retune():
+            return
+        self.scheduler.decide(
+            self._n_params, self._dtype_bytes,
+            measured_step_s=self.metrics.step_s_estimate(),
+            measured_dispatch_s=self.metrics.dispatch_s_estimate())
+        # rebase on the measurement EWMA at resolve time; the next
+        # retune needs a further >threshold sustained drift from here
+        self.recal.rebase()
