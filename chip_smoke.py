@@ -11,14 +11,26 @@ phase that fails:
   1. build   — compile every kernel under src/repro_torch/kernels/csrc
                with nvcc (one process per source, all at once);
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
-               the card at the stated tolerances, then timed beside its
+               the card at the stated tolerances (paged attention; flash
+               attention forward and backward), then timed beside its
                bound, the plain version and a library yardstick;
   3. serve   — phi4-mini-3.8b at its published size (32 layers, bf16,
                seeded random weights) through ServeEngine; the kernel's
                launch count must equal n_layers x decode steps;
   4. e2e     — the same prompts through the engine at full width, 2
                layers, f32, once with the kernel and once with the plain
-               version pinned: the greedy tokens must be equal.
+               version pinned: the greedy tokens must be equal;
+  5. train   — phi4-mini-3.8b at its published size (32 layers, bf16,
+               B=2, S=1024, AdamW with f32 moments, remat) for 5 steps of
+               build_train_step: finite losses, and exactly 64 forward
+               (32 layers + 32 recomputed) and 32 backward flash launches
+               per step; then prefill_sp on 2 prompts of 1024 tokens;
+  6. parity  — training, prefill and generation at full width, 2 layers,
+               f32, TF32 off, with the flash kernels and with the plain
+               versions pinned: gradients, 3 steps' losses and updates,
+               and greedy tokens agree; the contiguous Generator's tokens
+               equal the paged engine's; TrainLoop recovers from an
+               injected failure through its checkpoints.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -32,8 +44,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -242,6 +256,151 @@ def phase_kernel(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: flash attention forward and backward, kernel vs plain, and times
+# ---------------------------------------------------------------------------
+
+#: (B, Sq, Skv, H, KV, causal, window, q_offset), head_dim 128: GQA 32/8
+#: and MQA 48/1 (granite-34b's heads), causal and not, windows 0 and 64,
+#: q_offset > 0 with Sq < Skv, and Sq, Skv that are not multiples of 64
+FLASH_CASES = [
+    (2, 256, 256, 32, 8, True, 0, 0),
+    (1, 200, 200, 32, 8, False, 0, 0),
+    (2, 130, 130, 32, 8, True, 64, 0),
+    (1, 77, 141, 32, 8, False, 64, 0),
+    (1, 96, 300, 48, 1, True, 0, 204),
+    (1, 45, 190, 48, 1, True, 64, 120),
+    (1, 100, 100, 48, 1, False, 0, 0),
+]
+#: the training phase's attention: phi4-mini at B=2, S=1024, causal
+TRAIN_ATTN = dict(b=2, s=1024, h=32, kvh=8, hd=128)
+
+
+def flash_bounds(b, s, h, kvh, hd, itemsize):
+    """Least times at the training shape (causal, each input read once,
+    each output written once): the forward's QK^T and PV over the
+    unmasked pairs; the backward's recomputed QK^T, dP, dV, dK and dQ.
+    Returns {"fwd"|"bwd": (ms, 'bytes'|'operations')}."""
+    pairs = b * h * s * (s + 1) // 2
+    q_bytes = b * s * h * hd * itemsize
+    kv_bytes = 2 * b * s * kvh * hd * itemsize
+    lse_bytes = b * s * h * 4
+    out = {}
+    for name, flops, nbytes in (
+            ("fwd", 4.0 * pairs * hd, 2 * q_bytes + kv_bytes + lse_bytes),
+            ("bwd", 10.0 * pairs * hd,
+             4 * q_bytes + 2 * kv_bytes + lse_bytes)):
+        t_ops = flops / PEAK["bfloat16"]
+        t_bytes = nbytes / HBM_BW
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def flash_inputs(torch, gen, b, sq, skv, h, kvh, hd, dtype):
+    dev = torch.device("cuda")
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                          (b, skv, kvh, hd), (b, sq, h, hd))]
+
+
+def phase_flash(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for b, sq, skv, h, kvh, causal, window, q_off in FLASH_CASES:
+            q, k, v, dout = flash_inputs(torch, gen, b, sq, skv, h, kvh,
+                                         128, dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_off)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            want_out, want_lse = fa.flash_attention_torch(
+                q.float(), k.float(), v.float(), **kw)
+            wants = fa.flash_attention_bwd_torch(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), **kw)
+            name = (f"{str(dtype)[6:]} B={b} Sq={sq} Skv={skv} H={h} "
+                    f"KV={kvh} causal={causal} window={window} "
+                    f"q_offset={q_off}")
+            line = []
+            for what, got, want, t in (
+                    ("out", out, want_out, tol), ("lse", lse, want_lse, 1e-4),
+                    ("dq", grads[0], wants[0], tol),
+                    ("dk", grads[1], wants[1], tol),
+                    ("dv", grads[2], wants[2], tol)):
+                if not torch.isfinite(got.float()).all():
+                    fail(f"flash {what} not finite ({name})")
+                err = (got.float() - want).abs().max().item()
+                scale = max(1.0, want.abs().max().item())
+                if err > t * scale:
+                    fail(f"flash kernel {what} disagrees with the plain "
+                         f"version ({name}): max|err| {err:.3e} > {t} x "
+                         f"{scale:.3g}")
+                line.append(f"{what} {err:.2e}")
+                if dtype == torch.bfloat16 and what != "lse":
+                    key = "fwd" if what == "out" else "bwd"
+                    errs[key] = max(errs[key], err)
+            print(f"  flash kernels vs plain {name}: max|err| "
+                  f"{', '.join(line)} (tolerance {tol} x max(1, max|want|),"
+                  f" lse 1e-4)", flush=True)
+
+    # times at the training shape, bf16, causal; two input sets so that
+    # consecutive calls do not find their inputs in the 50 MB L2
+    t = TRAIN_ATTN
+    sets = [flash_inputs(torch, gen, t["b"], t["s"], t["s"], t["h"],
+                         t["kvh"], t["hd"], torch.bfloat16)
+            for _ in range(2)]
+    fwd_res = []
+    for q, k, v, _ in sets:
+        fwd_res.append(fa.flash_attention_fwd(q, k, v))
+    kernel_fwd = [lambda s=s: fa.flash_attention_fwd(*s[:3]) for s in sets]
+    plain_fwd = [lambda s=s: fa.flash_attention_torch(*s[:3]) for s in sets]
+    kernel_bwd = [lambda s=s, r=r: fa.flash_attention_bwd(*s[:3], *r, s[3])
+                  for s, r in zip(sets, fwd_res)]
+    plain_bwd = [lambda s=s, r=r: fa.flash_attention_bwd_torch(
+        *s[:3], *r, s[3]) for s, r in zip(sets, fwd_res)]
+    lib_in = [[x.transpose(1, 2).contiguous() for x in s] for s in sets]
+    lib_fwd = [lambda s=s: F.scaled_dot_product_attention(
+        *s[:3], is_causal=True, enable_gqa=True) for s in lib_in]
+    lib_graph = []
+    for s in lib_in:
+        leaves = [x.detach().requires_grad_() for x in s[:3]]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        lib_graph.append((out, leaves, s[3]))
+    lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2],
+                                               retain_graph=True)
+               for g in lib_graph]
+    times = {
+        "fwd": dict(ms=graph_ms(torch, kernel_fwd * 4, 5),
+                    plain_ms=graph_ms(torch, plain_fwd, 3),
+                    library_ms=graph_ms(torch, lib_fwd * 4, 5)),
+        "bwd": dict(ms=graph_ms(torch, kernel_bwd * 2, 5),
+                    plain_ms=graph_ms(torch, plain_bwd, 3),
+                    library_ms=eager_ms(torch, lib_bwd, 10)),
+    }
+    bounds = flash_bounds(t["b"], t["s"], t["h"], t["kvh"], t["hd"], 2)
+    for name, what in (("fwd", "forward"), ("bwd", "backward")):
+        tm = times[name]
+        tm["bound_ms"], tm["bound_by"] = bounds[name]
+        lib = ("F.scaled_dot_product_attention(is_causal=True, "
+               "enable_gqa=True)" if name == "fwd" else
+               "the backward of that call (autograd, from Python)")
+        print(f"  flash_attention {what} at the training shape (B=2, "
+              f"S=1024, 32/8 heads, hd 128, causal, bf16): kernel "
+              f"{tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+              f"({tm['bound_by']}; the kernel reaches "
+              f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
+              f"{tm['plain_ms']:.4f} ms, library yardstick {lib} "
+              f"{tm['library_ms']:.4f} ms", flush=True)
+    return times, errs
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -406,6 +565,282 @@ def phase_e2e(torch):
           f"plain path", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the training path
+# ---------------------------------------------------------------------------
+
+
+def device_ms_by_kernel(torch, prof, n: int) -> dict[str, float]:
+    """Device milliseconds per step by kernel name from a profile of ``n``
+    steps."""
+    per_kernel: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type.name == "CUDA":
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / n
+    return per_kernel
+
+
+def train_batch(torch, data, step):
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in data.global_batch_at(step).items()}
+
+
+def phase_train(torch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import build_train_step
+
+    cfg = configs.get_config("phi4-mini-3.8b")
+    b, s = TRAIN_ATTN["b"], TRAIN_ATTN["s"]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = Model(cfg, device="cuda").init(gen)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100,
+                          moment_dtype=cfg.moment_dtype)
+    opt = adamw_init(model.params(), opt_cfg)
+    step = build_train_step(model, opt_cfg)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b, seed=SEED))
+    print(f"  phi4-mini-3.8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.2f} B params in bf16, f32 AdamW "
+          f"moments, remat={cfg.remat}; B={b}, S={s}", flush=True)
+    losses, walls, counts = [], [], []
+    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0     # counts of this run only
+    for i in range(5):
+        batch = train_batch(torch, data, i)
+        f0, b0 = fa.FWD_LAUNCHES, fa.BWD_LAUNCHES
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        counts.append((fa.FWD_LAUNCHES - f0, fa.BWD_LAUNCHES - b0))
+        print(f"  step {i}: loss {loss:.4f}, {walls[-1] * 1e3:.1f} ms host "
+              f"wall, grad norm {float(metrics['grad_norm']):.4f}, flash "
+              f"launches {counts[-1][0]} forward / {counts[-1][1]} "
+              f"backward", flush=True)
+    launches = {"fwd": fa.FWD_LAUNCHES, "bwd": fa.BWD_LAUNCHES}
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    want = (2 * cfg.n_layers, cfg.n_layers)
+    if any(c != want for c in counts):
+        fail(f"flash launches per step {counts} != {want} (layers + "
+             "remat recompute forward, layers backward)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tok_s = b * s * 3 / sum(walls[2:])
+    print(f"  5 steps: losses {[round(x, 4) for x in losses]}; after 2 "
+          f"warm-up steps {sum(walls[2:]) / 3 * 1e3:.1f} ms per step = "
+          f"{tok_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB",
+          flush=True)
+
+    # where one step's device time goes (a sixth step, outside the counts)
+    batch = train_batch(torch, data, 5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    per_kernel = device_ms_by_kernel(torch, prof, 1)
+    dev_ms = sum(per_kernel.values())
+    flash_ms = sum(v for k, v in per_kernel.items() if "flash_" in k)
+    print(f"  one step under torch.profiler: {prof_wall * 1e3:.1f} ms host "
+          f"wall, {dev_ms:.1f} ms device time (busy share "
+          f"{dev_ms / (prof_wall * 1e3) * 100:.1f}%), flash kernels "
+          f"{flash_ms:.1f} ms ({flash_ms / max(dev_ms, 1e-9) * 100:.1f}%)",
+          flush=True)
+    if not per_kernel:
+        print("  torch.profiler recorded no device time", flush=True)
+    groups: dict[str, float] = {}
+    for name, ms in per_kernel.items():
+        group = ("flash attention" if "flash_" in name else
+                 "GEMM" if any(t in name for t in ("nvjet", "gemm", "xmma",
+                                                   "cutlass")) else
+                 "copies" if "copy" in name or "Memcpy" in name else
+                 "other elementwise and reductions")
+        groups[group] = groups.get(group, 0.0) + ms
+    print("  device time per step by kind: " + "; ".join(
+        f"{g} {ms:.1f} ms ({ms / max(dev_ms, 1e-9) * 100:.1f}%)"
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {ms:.2f} ms/step ({ms / max(dev_ms, 1e-9) * 100:.1f}%) "
+              f"{name[:90]}", flush=True)
+
+    # prefill of 2 prompts of 1024 tokens through the same weights
+    del opt, step, batch, metrics
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(data.global_batch_at(6)["tokens"]).cuda()
+    model.prefill_sp({"tokens": tokens})                  # warm-up
+    f0 = fa.FWD_LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    if fa.FWD_LAUNCHES - f0 != cfg.n_layers:
+        fail(f"prefill launched the flash forward "
+             f"{fa.FWD_LAUNCHES - f0} times, not {cfg.n_layers}")
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (
+            b, cfg.padded_vocab):
+        fail(f"prefill logits {tuple(logits.shape)} not finite")
+    print(f"  prefill_sp of {b} prompts x {s} tokens: {pre_ms:.1f} ms "
+          f"({b * s / pre_ms * 1e3:.0f} tokens/s), cache "
+          f"{tuple(cache['kv'][0].shape)} x 2", flush=True)
+    del model, logits, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity(torch):
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model, flatten_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.serve_loop import Generator
+    from repro_torch.train.train_loop import (TrainLoop, TrainLoopConfig,
+                                              build_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config("phi4-mini-3.8b"),
+                              n_layers=2, dtype="float32")
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_ATTN["s"],
+                                      global_batch=TRAIN_ATTN["b"],
+                                      seed=SEED))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    runs = {}
+    for engine in ("auto", "torch"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        model = Model(cfg, device="cuda", attn_engine=engine).init(gen)
+        p0 = {k: v.detach().clone() for k, v in
+              flatten_specs(model.params()).items()}
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        loss, _ = model.loss_sp(train_batch(torch, data, 0))
+        grads = torch.autograd.grad(
+            loss, list(flatten_specs(model.params()).values()))
+        grads = dict(zip(flatten_specs(model.params()), grads))
+        want = (2 * cfg.n_layers, cfg.n_layers) if engine == "auto" \
+            else (0, 0)
+        if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
+            fail(f"{engine}: flash launches {fa.FWD_LAUNCHES} / "
+                 f"{fa.BWD_LAUNCHES} for one loss and gradient, not {want}")
+        step = build_train_step(model, opt_cfg)
+        opt = adamw_init(model.params(), opt_cfg)
+        losses = []
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        for i in range(3):
+            opt, m = step(opt, train_batch(torch, data, i))
+            losses.append(float(m["loss"]))
+        if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != tuple(3 * w for w in want):
+            fail(f"{engine}: flash launches {fa.FWD_LAUNCHES} / "
+                 f"{fa.BWD_LAUNCHES} in 3 steps, not {3 * want[0]} / "
+                 f"{3 * want[1]}")
+        upd = {k: (v.detach() - p0[k]) for k, v in
+               flatten_specs(model.params()).items()}
+        prompts = data.global_batch_at(9)["tokens"][:, :256]
+        logits, _ = model.prefill_sp({"tokens": torch.from_numpy(
+            prompts).cuda()})
+        runs[engine] = dict(loss=loss.item(), grads=grads, losses=losses,
+                            upd=upd, greedy=logits.argmax(-1).cpu())
+        if engine == "auto":
+            kernel_model = model
+        else:
+            del model
+        del opt, step, p0
+        torch.cuda.empty_cache()
+    a, b = runs["auto"], runs["torch"]
+    if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]):
+        fail(f"loss {a['loss']} (kernels) != {b['loss']} (plain)")
+    worst = max(((g - b["grads"][k]).abs().max().item()
+                 / max(b["grads"][k].abs().max().item(), 1e-30), k)
+                for k, g in a["grads"].items())
+    if worst[0] > 1e-4:
+        fail(f"gradient {worst[1]} differs by {worst[0]:.2e} of its "
+             "largest magnitude between kernels and plain")
+    if not np.allclose(a["losses"], b["losses"], rtol=1e-5, atol=0):
+        fail(f"3-step losses {a['losses']} != {b['losses']}")
+    upd_err = max(((u - b["upd"][k]).norm() / max(b["upd"][k].norm(),
+                                                  1e-30)).item()
+                  for k, u in a["upd"].items())
+    if upd_err > 1e-3:
+        fail(f"parameter updates after 3 steps differ by {upd_err:.2e} "
+             "(relative norm) between kernels and plain")
+    if not torch.equal(a["greedy"], b["greedy"]):
+        fail(f"prefill greedy tokens {a['greedy'].tolist()} (kernels) != "
+             f"{b['greedy'].tolist()} (plain)")
+    print(f"  phi4-mini-3.8b full width, 2 layers, f32 (TF32 off), "
+          f"B={TRAIN_ATTN['b']}, S={TRAIN_ATTN['s']}: loss "
+          f"{a['loss']:.6f} vs {b['loss']:.6f}; every "
+          f"gradient within {worst[0]:.2e} of its largest magnitude "
+          f"(tolerance 1e-4); 3 steps' losses {a['losses']} vs "
+          f"{b['losses']} (rtol 1e-5); updates within {upd_err:.2e} "
+          f"(relative norm, tolerance 1e-3); prefill greedy tokens equal",
+          flush=True)
+
+    # the contiguous Generator against the paged ServeEngine, kernel model
+    prompts = data.global_batch_at(10)["tokens"][:, :96]
+    shape = ShapeConfig("smoke", 256, prompts.shape[0], "decode")
+    contiguous = Generator(kernel_model, shape).generate(prompts, 16)
+    paged = Generator(kernel_model, shape, engine="paged",
+                      page_size=16).generate(prompts, 16)
+    if not np.array_equal(contiguous, paged):
+        fail(f"contiguous Generator {contiguous.tolist()} != paged engine "
+             f"{paged.tolist()}")
+    print(f"  Generator: contiguous cache and paged ServeEngine give the "
+          f"same {paged.shape[1]} greedy tokens for {paged.shape[0]} "
+          f"prompts of {prompts.shape[1]}", flush=True)
+
+    # TrainLoop with an injected failure, checkpoints in a temporary dir
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        boom = {"armed": True}
+
+        def fault(i):
+            if i == 2 and boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected failure")
+
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+        loop = TrainLoop(build_train_step(kernel_model, opt_cfg),
+                         kernel_model, opt_cfg, data,
+                         TrainLoopConfig(total_steps=3, ckpt_every=2,
+                                         ckpt_dir=ckpt_dir, keep=1),
+                         fault_hook=fault)
+        t0 = time.perf_counter()
+        opt, s0 = loop.init_state(SEED)
+        out = loop.run(opt, s0)
+        wall = time.perf_counter() - t0
+        if out["step"] != 3 or out["restarts"] != 1 or not all(
+                np.isfinite(h["loss"]) for h in out["history"]):
+            fail(f"TrainLoop ended at {out['step']} with "
+                 f"{out['restarts']} restarts: {out['history']}")
+        saves = loop.ckpt_metrics.saves
+        print(f"  TrainLoop: 3 steps, a failure at step 2 restored from "
+              f"the step-2 checkpoint ({len(saves)} saves of "
+              f"{saves[-1].nbytes / 1e9:.2f} GB, snapshot "
+              f"{saves[-1].snapshot_s:.2f} s, drain {saves[-1].drain_s:.2f}"
+              f" s, write {saves[-1].write_s:.2f} s); {wall:.1f} s in all",
+              flush=True)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del kernel_model, loop, opt, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -435,18 +870,35 @@ def main() -> int:
 
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)
+    flash_t, flash_err = phase_flash(torch)
     print("phase 3: serve phi4-mini-3.8b at full size", flush=True)
     launches = phase_serve(torch)
     print("phase 4: kernel path vs plain path, end to end", flush=True)
     phase_e2e(torch)
+    print("phase 5: train phi4-mini-3.8b at full size", flush=True)
+    flash_launches = phase_train(torch)
+    print("phase 6: training, prefill and generation, kernels vs plain",
+          flush=True)
+    phase_parity(torch)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
 
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     kernels = [dict(name="paged_attention", route="cuda",
                     source="src/repro_torch/kernels/csrc/paged_attention.cu",
                     replaces="src/repro/kernels/paged_attention.py:103",
-                    launches=launches, max_abs_err=err, **main_t)]
+                    launches=launches, max_abs_err=err, **main_t),
+               dict(name="flash_attention_fwd", route="cuda",
+                    source=flash_src,
+                    replaces="src/repro/kernels/flash_attention.py:100",
+                    launches=flash_launches["fwd"],
+                    max_abs_err=flash_err["fwd"], **flash_t["fwd"]),
+               dict(name="flash_attention_bwd", route="cuda",
+                    source=flash_src,
+                    replaces="src/repro/kernels/ops.py:203",
+                    launches=flash_launches["bwd"],
+                    max_abs_err=flash_err["bwd"], **flash_t["bwd"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

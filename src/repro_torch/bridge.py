@@ -1,4 +1,5 @@
-"""Carry the reference's weights into the port.
+"""Carry the reference's weights and optimizer state into the port, and
+back.
 
 ``repro.models.model.Model.init(key)`` draws its weights with
 ``jax.random``, which torch cannot reproduce.  A parity test therefore
@@ -6,6 +7,9 @@ converts the reference tree to numpy (``np.asarray`` on each leaf) and
 copies it into the port's ``Model`` here, so that both compute the same
 function.  The layouts are identical by construction (the port's
 ``param_specs`` equal the reference's), so this is a shape-checked copy.
+The way back (``params_to_numpy``, ``adamw_state_to_numpy``) gives numpy
+trees in the reference's nesting, bf16 widened to f32 (numpy has no
+bf16), so a test can compare updated weights and moments.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model, flatten_specs
+from repro_torch.models.model import (Model, flatten_specs,
+                                      unflatten_specs)
 
 
 def _to_torch(arr: Any) -> torch.Tensor:
@@ -43,3 +48,52 @@ def params_from_numpy(tree: dict, model: Model) -> Model:
                              f"{tuple(dst[name].shape)}")
         dst[name].copy_(src.to(dst[name].dtype))
     return model
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _tree_to_numpy(tree: dict) -> dict:
+    return unflatten_specs({k: _to_numpy(v)
+                            for k, v in flatten_specs(tree).items()})
+
+
+def params_to_numpy(model: Model) -> dict:
+    """The model's parameters as a numpy tree in the reference's nesting."""
+    return _tree_to_numpy(model.params())
+
+
+def adamw_state_to_numpy(state: dict) -> dict:
+    """AdamW state {"mu", "nu", "step"} (optim/adamw.py) as numpy."""
+    return {"mu": _tree_to_numpy(state["mu"]),
+            "nu": _tree_to_numpy(state["nu"]),
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def adamw_state_from_numpy(tree: dict, model: Model,
+                           moment_dtype: str = "float32") -> dict:
+    """The reference's AdamW state (numpy leaves) as the port's, on the
+    model's device, shape-checked against the model's parameters."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[moment_dtype]
+    params = flatten_specs(model.params())
+    out = {}
+    for which in ("mu", "nu"):
+        got = flatten_specs(tree[which])
+        if set(got) != set(params):
+            raise ValueError(f"{which}: parameter names differ")
+        leaves = {}
+        for name, arr in got.items():
+            t = _to_torch(arr).to(dt)
+            if tuple(t.shape) != tuple(params[name].shape):
+                raise ValueError(f"{which}/{name}: shape {tuple(t.shape)} "
+                                 f"!= {tuple(params[name].shape)}")
+            leaves[name] = t.to(model.device)
+        out[which] = unflatten_specs(leaves)
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=model.device)
+    return out
+

@@ -212,6 +212,39 @@ def managed_all_gather(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
     raise _multi_rank("managed_all_gather", axis_name, n)
 
 
+def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name: str,
+                      ctx: MeshCtx, *, mode: str | None = None
+                      ) -> torch.Tensor:
+    """``all_gather(x, axis) @ w`` — a plain product at axis size 1, whose
+    autograd gradient is the reference's custom VJP at that size."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x @ w
+    raise _multi_rank("all_gather_matmul", axis_name, n)
+
+
+def all_gather_matmul_multi(x: torch.Tensor, ws: list[torch.Tensor],
+                            axis_name: str, ctx: MeshCtx, *,
+                            mode: str | None = None) -> list[torch.Tensor]:
+    """``[all_gather(x) @ w for w in ws]`` with one ring for all — plain
+    products at axis size 1."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return [x @ w for w in ws]
+    raise _multi_rank("all_gather_matmul_multi", axis_name, n)
+
+
+def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis_name: str,
+                          ctx: MeshCtx, *, mode: str | None = None
+                          ) -> torch.Tensor:
+    """``reduce_scatter(x @ w)`` over rows — a plain product at axis size
+    1."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x @ w
+    raise _multi_rank("matmul_reduce_scatter", axis_name, n)
+
+
 # ---------------------------------------------------------------------------
 # Serving resolvers
 # ---------------------------------------------------------------------------

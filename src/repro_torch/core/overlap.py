@@ -1,7 +1,25 @@
-"""Transfer metering (port of ``repro.core.overlap``; the FSDP gather and
-gradient-bucketing helpers come with the training slice)."""
+"""FSDP gather and transfer metering (port of ``repro.core.overlap``; the
+gradient-bucketing helpers come with the managed collectives, ROADMAP
+Queue 1 slice 4)."""
 
 from __future__ import annotations
+
+import torch
+
+from repro_torch.parallel.sharding import MeshCtx
+
+
+def fsdp_gather(w_shard: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
+                axis: int = 0, mode: str | None = None) -> torch.Tensor:
+    """Gather an FSDP-sharded parameter (sharded on ``axis``) for use — the
+    identity at axis size 1, where autograd's gradient is the identity too
+    (the reference's as-ready reduce-scatter of the gradient)."""
+    n = ctx.axis_sizes.get(axis_name, 1)
+    if n == 1:
+        return w_shard
+    raise NotImplementedError(
+        f"fsdp_gather over axis {axis_name!r} of size {n}: the "
+        "torch.distributed collectives come with ROADMAP Queue 1 slice 4")
 
 
 def drain_chunk_bytes(step_s: float, write_bw: float, *,

@@ -1,23 +1,57 @@
-"""Online-softmax partials: init / merge / finalize (port of the plain
-combinators of ``repro.kernels.flash_attention``).
+"""Flash attention — hand-written CUDA kernels + plain PyTorch versions
+(port of ``repro.kernels.flash_attention`` and of the blockwise engines
+of ``repro.kernels.ops``).
 
-Public carry layout (matches q): m, l: [B, Sq, H] f32; acc: [B, Sq, H, hd]
-f32.  ``out = acc / l`` and ``lse = m + log(l)`` only at finalize — every
-intermediate stays unnormalised so partials from disjoint KV ranges
-combine with one LSE merge.  ``NEG_INF`` is finite, so fully masked rows
-give zeros, not NaN.
+Causal / sliding-window GQA attention with an online softmax that never
+materialises the [Sq, Skv] logits.  q: [B, Sq, H, hd]; k, v: [B, Skv, KV,
+hd]; query head h reads kv head ``h * KV // H``; ``q_offset`` is the
+global position of q[0] relative to k[0].
 
-The flash-attention kernel itself (``flash_attention_pallas`` in the
-reference) is ported with the training slice.
+Two engines with identical math, forward and backward:
+
+  * the CUDA kernels ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``), in
+    place of the reference's Pallas TPU kernel ``flash_attention_pallas``
+    and its jnp flash backward ``ops._flash_bwd_blockwise``.  The forward
+    emits the lse beside the output, so the backward needs no second pass
+    (see the source's note);
+  * ``flash_attention_torch`` / ``flash_attention_bwd_torch`` — the
+    blockwise loops of ``ops._blockwise_fwd`` / ``_flash_bwd_blockwise``
+    over kv blocks, with ragged kv zero-padded and masked (``_pad_kv``).
+
+``flash_attention_fwd`` / ``flash_attention_bwd`` dispatch on the
+tensor's device: a CUDA tensor launches the kernel (or raises), a CPU
+tensor takes the plain version.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``
+count wrapper calls that launched a kernel, so a run can show that its
+main path went through them.
+
+Also here: the online-softmax partials combinators.  Public carry layout
+(matches q): m, l: [B, Sq, H] f32; acc: [B, Sq, H, hd] f32.  ``out = acc /
+l`` and ``lse = m + log(l)`` only at finalize — every intermediate stays
+unnormalised so partials from disjoint KV ranges combine with one LSE
+merge.  ``NEG_INF`` is finite, so fully masked rows give zeros, not NaN.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
+
+from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
 Partials = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+#: forward / backward wrapper calls that launched their kernels since the
+#: counts were last set to 0
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the kernels are compiled for
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def init_partials(b: int, sq: int, h: int, hd: int,
@@ -51,3 +85,268 @@ def finalize_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     out = (acc / l_safe[..., None]).to(out_dtype)
     lse = m + torch.log(l_safe)
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the blockwise engines of the reference's ops.py)
+# ---------------------------------------------------------------------------
+
+
+def _pad_kv(k: torch.Tensor, v: torch.Tensor, blk: int
+            ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Zero-pad ragged kv to a multiple of ``blk``; returns (k, v, skv)."""
+    skv = k.shape[1]
+    if skv % blk:
+        pad = blk - skv % blk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v, skv
+
+
+def _blk_mask(sq: int, blk: int, ki: int, qpos: torch.Tensor,
+              skv_valid: int, causal: bool, window: int) -> torch.Tensor:
+    kpos = ki * blk + torch.arange(blk, device=qpos.device)
+    mask = (kpos < skv_valid)[None, :].expand(sq, blk)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window > 0:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return mask
+
+
+def _grouped(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[B, Sq, H(, hd)] -> [b, kvh, g, sq(, hd)] in f32 (GQA layout)."""
+    b, sq, h = x.shape[:3]
+    x = x.float().reshape(b, sq, kvh, h // kvh, *x.shape[3:])
+    return x.permute(0, 2, 3, 1, 4) if x.dim() == 5 else x.permute(0, 2, 3, 1)
+
+
+def _ungrouped(x: torch.Tensor) -> torch.Tensor:
+    """[b, kvh, g, sq(, hd)] -> [B, Sq, H(, hd)]."""
+    b, kvh, g, sq = x.shape[:4]
+    if x.dim() == 4:
+        return x.permute(0, 3, 1, 2).reshape(b, sq, kvh * g)
+    return x.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * g, x.shape[-1])
+
+
+def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0, blk_kv: int = 512
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Online-softmax forward over kv blocks of ``blk_kv`` (port of
+    ``ops._blockwise_fwd``).  Returns (out [B, Sq, H, hd] in q's type,
+    lse [B, Sq, H] f32)."""
+    b, sq, h, hd = q.shape
+    k, v, skv_valid = _pad_kv(k, v, max(1, min(blk_kv, k.shape[1])))
+    skv = k.shape[1]
+    blk = max(1, min(blk_kv, skv))
+    kvh = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qf = _grouped(q, kvh) * scale                    # [b,kvh,g,sq,hd]
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full(qf.shape[:4], NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for ki in range(skv // blk):
+        ks = k[:, ki * blk:(ki + 1) * blk].float()
+        vs = v[:, ki * blk:(ki + 1) * blk].float()
+        logits = torch.einsum("bkgqd,bskd->bkgqs", qf, ks)
+        mask = _blk_mask(sq, blk, ki, qpos, skv_valid, causal, window)
+        logits = torch.where(mask, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(logits - m_new[..., None]), 0.0)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd",
+                                                    p, vs)
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    out = _ungrouped(acc / l_safe[..., None]).to(q.dtype)
+    lse = _ungrouped(m + torch.log(l_safe))
+    return out, lse
+
+
+def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              q_offset: int = 0, blk_kv: int = 512
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Flash backward: recompute p per kv block from (q, k, lse) (port of
+    ``ops._flash_bwd_blockwise``).  Returns (dq in q's type, dk, dv in
+    k's and v's types)."""
+    b, sq, h, hd = q.shape
+    k_dtype, v_dtype = k.dtype, v.dtype
+    k, v, skv_valid = _pad_kv(k, v, max(1, min(blk_kv, k.shape[1])))
+    skv = k.shape[1]
+    blk = max(1, min(blk_kv, skv))
+    kvh = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qf = _grouped(q, kvh)                            # [b,kvh,g,sq,hd]
+    do = _grouped(dout, kvh)
+    dsum = (do * _grouped(out, kvh)).sum(dim=-1)     # [b,kvh,g,sq]
+    lse_g = _grouped(lse, kvh)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for ki in range(skv // blk):
+        ks = k[:, ki * blk:(ki + 1) * blk].float()
+        vs = v[:, ki * blk:(ki + 1) * blk].float()
+        logits = torch.einsum("bkgqd,bskd->bkgqs", qf * scale, ks)
+        mask = _blk_mask(sq, blk, ki, qpos, skv_valid, causal, window)
+        p = torch.where(mask, torch.exp(logits - lse_g[..., None]), 0.0)
+        dvs.append(torch.einsum("bkgqs,bkgqd->bskd", p, do))
+        dp = torch.einsum("bkgqd,bskd->bkgqs", do, vs)
+        ds = p * (dp - dsum[..., None]) * scale
+        dq = dq + torch.einsum("bkgqs,bskd->bkgqd", ds, ks)
+        dks.append(torch.einsum("bkgqs,bkgqd->bskd", ds, qf))
+    dq = _ungrouped(dq).to(q.dtype)
+    dk = torch.cat(dks, dim=1)[:, :skv_valid].to(k_dtype)
+    dv = torch.cat(dvs, dim=1)[:, :skv_valid].to(v_dtype)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    if lib.flash_attention_fwd_launch.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_fwd_launch.argtypes = [
+            i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+        lib.flash_attention_fwd_launch.restype = i
+        lib.flash_attention_bwd_launch.argtypes = [
+            i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
+            p]
+        lib.flash_attention_bwd_launch.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *rest: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be [B, Sq, H, hd] and k, v [B, Skv, KV, "
+                         f"hd]; got {tuple(q.shape)}, {tuple(k.shape)}")
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    devs = {t.device for t in (q, k, v, *rest)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
+
+
+def _check_kernel_inputs(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no flash-attention kernel for {q.device}")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in tensors):
+        raise TypeError(f"the kernels take f32 or bf16 q, k, v of one type; "
+                        f"got {q.dtype}, "
+                        f"{[t.dtype for t in tensors]}")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernels are built for head_dim in "
+                         f"{KERNEL_HEAD_DIMS}; got {q.shape[3]}")
+    if not all(t.is_contiguous() for t in (q, *tensors)):
+        raise ValueError("the kernels take contiguous tensors")
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, which: str) -> None:
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention {which} kernel launch failed: "
+                           f"{msg}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, engine: str = "auto"
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Sq, H, hd] in q's type, lse [B, Sq, H] f32).
+
+    A CUDA tensor launches the forward kernel; a CPU tensor takes the plain
+    version.  ``engine="torch"`` pins the plain version on any device (a
+    test-only switch that holds the kernel against it end to end)."""
+    global FWD_LAUNCHES
+    _check(q, k, v)
+    if engine not in ("auto", "torch"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "torch" or q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    _check_kernel_inputs(q, k, v)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, sq, skv, h, kvh, hd,
+            int(q_offset), int(window), int(bool(causal)),
+            1.0 / math.sqrt(hd), stream)
+    _raise_on(lib, err, "forward")
+    FWD_LAUNCHES += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0,
+                        engine: str = "auto"
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq in q's type, dk, dv in k's type) from the forward's (out, lse)
+    and the output gradient ``dout``.  Dispatch as ``flash_attention_fwd``:
+    a CUDA tensor launches the backward kernels (dsum pre-pass, dK/dV,
+    dQ) and counts once."""
+    global BWD_LAUNCHES
+    _check(q, k, v, out, lse, dout)
+    if out.shape != q.shape or dout.shape != q.shape \
+            or tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} "
+                         f"and lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if engine not in ("auto", "torch"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "torch" or q.device.type == "cpu":
+        return flash_attention_bwd_torch(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
+    _check_kernel_inputs(q, k, v, out, dout)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("lse must be contiguous f32")
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh,
+            hd, int(q_offset), int(window), int(bool(causal)),
+            1.0 / math.sqrt(hd), stream)
+    _raise_on(lib, err, "backward")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv

@@ -1,0 +1,113 @@
+"""Training CLI — the fault-tolerant train loop on one CUDA card (port of
+``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
+        --reduced --device cpu --steps 5
+
+Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no card
+is there.  Weights are random, drawn from ``--seed``; the batches come
+from the synthetic, resumable data pipeline.  The port runs one card, so
+``--mesh`` takes ``1x1`` only.  Flags of later slices are refused with
+the slice that brings them: ``--pipeline`` other than ``none`` (slice
+9), ``--moe-dispatch`` (slice 7), ``--fault-plan``, ``--ckpt-every auto``
+and ``--compress-pod`` (slices 10 and 9), and the whole-program planner,
+the static verifier and ``--trace`` (slice 11): ``--plan local`` and
+``--verify off`` only.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch import configs
+from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel.sharding import MeshCtx
+from repro_torch.train.train_loop import (TrainLoop, TrainLoopConfig,
+                                          build_train_step)
+
+#: flag -> the ROADMAP Queue 1 slice that brings it
+LATER = {"--moe-dispatch": 7, "--compress-pod": 9, "--fault-plan": 10,
+         "--trace": 11}
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=configs.list_archs())
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--mdmp-mode", default="auto",
+                    choices=["auto", "bulk", "interleaved"])
+    ap.add_argument("--pipeline", default="none", choices=["none"],
+                    help="pipeline stages come with a later slice")
+    ap.add_argument("--plan", default="local", choices=["local"],
+                    help="communication planning scope (the program "
+                         "planner comes with a later slice)")
+    ap.add_argument("--verify", default="off", choices=["off"],
+                    help="static-verifier preflight (comes with a later "
+                         "slice)")
+    ap.add_argument("--mesh", default="1x1", choices=["1x1"],
+                    help="data x model; one card")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (default: under the "
+                         "system's temporary directory)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-every", default=None,
+                    help="checkpoint interval in steps")
+    ap.add_argument("--moe-dispatch", default=None)
+    ap.add_argument("--compress-pod", action="store_true")
+    ap.add_argument("--fault-plan", default=None)
+    ap.add_argument("--trace", default=None, metavar="PATH")
+    args = ap.parse_args(argv)
+
+    for flag, slice_ in LATER.items():
+        if getattr(args, flag[2:].replace("-", "_")):
+            ap.error(f"{flag} comes with ROADMAP Queue 1 slice {slice_}")
+    if args.ckpt_every == "auto":
+        ap.error("--ckpt-every auto (the managed cadence) comes with "
+                 "ROADMAP Queue 1 slice 10")
+
+    device = resolve_device(args.device)
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    ctx = MeshCtx(axis_sizes={"data": 1, "model": 1},
+                  mdmp_mode=args.mdmp_mode)
+    model = Model(cfg, ctx, device=device)
+    print(f"arch={args.arch} params={cfg.param_count() / 1e6:.1f}M "
+          f"mesh=(1, 1) device={device} mdmp={args.mdmp_mode}")
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
+                          total_steps=args.steps,
+                          moment_dtype=cfg.moment_dtype)
+    step_fn = build_train_step(model, opt_cfg)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=args.seq,
+                                      global_batch=args.batch))
+    ckpt_every = (max(5, args.steps // 4) if args.ckpt_every is None
+                  else int(args.ckpt_every))
+    loop_cfg = TrainLoopConfig(total_steps=args.steps,
+                               ckpt_every=ckpt_every)
+    if args.ckpt is not None:
+        loop_cfg.ckpt_dir = args.ckpt
+    loop = TrainLoop(step_fn, model, opt_cfg, data, loop_cfg)
+    opt, s0 = (loop.resume_or_init(args.seed) if args.resume
+               else loop.init_state(args.seed))
+    out = loop.run(opt, s0)
+    for h in out["history"][:: max(1, len(out["history"]) // 10)]:
+        print(f"  step {h['step']:4d} loss {h['loss']:.4f} "
+              f"{h['time_s']:.2f}s")
+    print(f"done at step {out['step']}, final loss "
+          f"{out['history'][-1]['loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,20 @@
-"""Attention — the paged decode flow of the serving runtime (port of
-``repro.models.attention``; the SP flow and the contiguous-cache decode
-come with the training slice).
+"""Attention — SP flow (train / prefill), the contiguous-cache decode
+flow and the paged decode flow of the serving runtime (port of
+``repro.models.attention``).
 
-Decode flow (batch replicated; KV pool sharded over data x model on the
-page dim):
+SP flow (x sequence-sharded over ``model``):
+  * one all-gather-matmul ring computes Q (this rank's heads) and K/V
+    (replicated kv weights);
+  * flash attention over the full sequence for the local heads — the
+    CUDA kernels on a card (kernels/ops.py);
+  * output projection as matmul-reduce-scatter back to sequence shards.
+The Ulysses and ring schedules come with ROADMAP Queue 1 slice 6.
+
+Contiguous decode flow (batch replicated; KV cache [B, S, KV, hd] sharded
+over the cache axes on the sequence dim): the oracle of the paged flow.
+
+Paged decode flow (batch replicated; KV pool sharded over data x model on
+the page dim):
   * q/k/v via weight-stationary contractions closed over 'data';
   * the new K/V row is written into the slot's page in place;
   * all q heads are gathered over 'model' (tiny), paged attention runs
@@ -16,11 +27,17 @@ until the managed collectives are ported.
 
 from __future__ import annotations
 
+import math
+from typing import Any
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import managed
+from repro_torch.core.overlap import fsdp_gather
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as paged
+from repro_torch.kernels import ref
 from repro_torch.models import layers
 from repro_torch.parallel.sharding import MeshCtx
 
@@ -34,6 +51,97 @@ def padded_kv_heads(cfg: ModelConfig) -> int:
     return kv
 
 
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int = 0, q_offset: int = 0,
+           engine: str = "auto") -> torch.Tensor:
+    """q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd]; GQA via head grouping.
+    ``q_offset``: global position of q[0] relative to k[0]; ``window`` > 0:
+    sliding-window attention.  Flash attention (the CUDA kernels for a
+    CUDA tensor) where ``ops.flash_attention_applicable``, else the dense
+    reference; ``engine="torch"`` pins the plain flash engines (tests)."""
+    if engine == "torch" or ops.flash_attention_applicable(q, k, v):
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, engine=engine)
+    return attend_ref(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset)
+
+
+def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool, window: int = 0,
+               q_offset: int = 0) -> torch.Tensor:
+    """Dense attention (the reference's attend_ref, which is its
+    flash_attention_ref)."""
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+
+
+def _local_kv_slice(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                    ctx: MeshCtx) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The kv heads this rank's q heads use: all of them at tp=1."""
+    hp = cfg.padded_heads
+    kvp = padded_kv_heads(cfg)
+    h_loc = hp // ctx.tp
+    g = hp // kvp                       # q heads per kv head
+    kv_count = max(1, h_loc // g)
+    if kv_count == kvp:
+        return k, v, kvp
+    raise NotImplementedError(
+        f"slicing {kvp} kv heads over tp={ctx.tp} comes with ROADMAP "
+        "Queue 1 slice 4")
+
+
+# ---------------------------------------------------------------------------
+# SP flow (training / prefill)
+# ---------------------------------------------------------------------------
+
+
+def attention_sp(x: torch.Tensor, params: dict, cfg: ModelConfig,
+                 ctx: MeshCtx, *, causal: bool = True, window: int = 0,
+                 return_kv: bool = False, engine: str = "auto") -> Any:
+    """x: [B, S_loc, D] -> [B, S_loc, D].  When ``return_kv`` (prefill),
+    also returns this rank's (k, v) sequence slice for the cache.
+    ``engine`` pins the flash-attention engine (tests only)."""
+    b, s_loc, _ = x.shape
+    h_loc = cfg.padded_heads // ctx.tp
+    kvh = padded_kv_heads(cfg)
+    hd = cfg.head_dim
+
+    wq = fsdp_gather(params["w_q"], "data", ctx, mode=ctx.mdmp_mode)
+    wkv = fsdp_gather(params["w_kv"], "data", ctx, mode=ctx.mdmp_mode)
+    wo = fsdp_gather(params["w_o"], "data", ctx, axis=1, mode=ctx.mdmp_mode)
+
+    x2 = layers.to_ring(x)
+    q2, kv2 = managed.all_gather_matmul_multi(x2, [wq, wkv], "model", ctx,
+                                              mode=ctx.mdmp_mode)
+    s_full = q2.shape[0] // b
+    q = layers.from_ring(q2, b).reshape(b, s_full, h_loc, hd)
+    k, v = layers.from_ring(kv2, b).chunk(2, dim=-1)
+    k = k.reshape(b, s_full, kvh, hd)
+    v = v.reshape(b, s_full, kvh, hd)
+
+    if not cfg.attention_free and cfg.rope_theta > 0:
+        pos = torch.arange(s_full, device=x.device)
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+
+    k_att, v_att, _ = _local_kv_slice(k, v, cfg, ctx)
+    o = attend(q, k_att, v_att, causal=causal, window=window, engine=engine)
+    o2 = layers.to_ring(o.reshape(b, s_full, h_loc * hd))
+    y2 = managed.matmul_reduce_scatter(o2, wo, "model", ctx,
+                                       mode=ctx.mdmp_mode)
+    y = layers.from_ring(y2.to(x.dtype), b)
+    if return_kv:
+        # this rank's own sequence slice of the (replicated) kv: all of it
+        # at tp=1
+        return y, (k[:, :s_loc], v[:, :s_loc])
+    return y
+
+
 def cache_axes(ctx: MeshCtx) -> tuple[str, ...]:
     """Mesh axes the KV-cache page dim is sharded over."""
     return (("pod", "data", "model") if ctx.has_pod else ("data", "model"))
@@ -44,6 +152,83 @@ def cache_shards(ctx: MeshCtx) -> int:
     for ax in cache_axes(ctx):
         n *= ctx.axis_sizes.get(ax, 1)
     return n
+
+
+def attention_decode(x: torch.Tensor,
+                     kv_cache: tuple[torch.Tensor, torch.Tensor], pos: int,
+                     params: dict, cfg: ModelConfig, ctx: MeshCtx, *,
+                     window: int = 0
+                     ) -> tuple[torch.Tensor,
+                                tuple[torch.Tensor, torch.Tensor]]:
+    """One-token decode attention against the CONTIGUOUS cache.
+
+    x:        [B, D] (batch replicated over the mesh)
+    kv_cache: (k, v) each [B, S_shard, KV, hd] — for SWA layers S_shard
+              covers the window as a ring buffer.  Updated IN PLACE (the
+              reference returns an updated copy of a donated buffer); a
+              position past the cache is not written, as the reference's
+              owner test drops it.
+    pos:      the global position being written / attended.
+    Returns (y [B, D], cache)."""
+    n_sh = cache_shards(ctx)
+    if n_sh != 1:
+        raise NotImplementedError(
+            f"contiguous decode over {n_sh} cache shards comes with "
+            "ROADMAP Queue 1 slice 4")
+    b = x.shape[0]
+    h = cfg.padded_heads
+    h_loc = h // ctx.tp
+    kvh = padded_kv_heads(cfg)
+    hd = cfg.head_dim
+    k_cache, v_cache = kv_cache
+    s_shard = k_cache.shape[1]
+
+    qkv = managed.managed_all_reduce(
+        torch.cat([x @ params["w_q"], x @ params["w_kv"]], dim=-1),
+        "data", ctx, mode=ctx.mdmp_mode)
+    q, knew, vnew = qkv.split([h_loc * hd, kvh * hd, kvh * hd], dim=-1)
+    q = q.reshape(b, h_loc, hd)
+    knew = knew.reshape(b, kvh, hd)
+    vnew = vnew.reshape(b, kvh, hd)
+    if cfg.rope_theta > 0:
+        posv = torch.tensor([pos], device=x.device)
+        q = layers.apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
+        knew = layers.apply_rope(knew[:, None], posv, cfg.rope_theta)[:, 0]
+
+    slot_global = pos if window <= 0 else pos % (s_shard * n_sh)
+    if slot_global // s_shard == 0:          # this (only) shard owns pos
+        k_cache[:, slot_global % s_shard] = knew.to(k_cache.dtype)
+        v_cache[:, slot_global % s_shard] = vnew.to(v_cache.dtype)
+
+    q_all = managed.managed_all_gather(
+        q.transpose(0, 1), "model", ctx, mode=ctx.mdmp_mode)  # [H, B, hd]
+    qg = q_all.transpose(0, 1).reshape(b, kvh, h // kvh, hd)
+    # products of the cache's type accumulated in f32 (the reference's
+    # preferred_element_type=f32)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                          k_cache.float()) * (1.0 / math.sqrt(hd))
+    slot_ids = torch.arange(s_shard, device=x.device)
+    if window > 0:
+        # ring buffer: slot holds position p iff p % ring == slot
+        ring = s_shard * n_sh
+        cand = torch.where(slot_ids <= pos % ring,
+                           (pos // ring) * ring + slot_ids,
+                           (pos // ring - 1) * ring + slot_ids)
+        valid = (cand >= max(0, pos + 1 - window)) & (cand <= pos)
+    else:
+        valid = slot_ids <= pos
+    logits = torch.where(valid, logits, -math.inf)
+    m = logits.amax(dim=-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    o = (o / torch.clamp(l[..., None], min=1e-30)).reshape(b, h, hd)
+    o_my = o.to(x.dtype)[:, :h_loc]            # this model rank's heads
+    y = managed.managed_all_reduce(
+        o_my.reshape(b, h_loc * hd) @ params["w_o"], "model", ctx,
+        mode=ctx.mdmp_mode)
+    return y.to(x.dtype), (k_cache, v_cache)
 
 
 def attention_decode_paged(x: torch.Tensor,

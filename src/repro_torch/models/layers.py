@@ -1,12 +1,14 @@
-"""Shared layers — norms, MLPs, embeddings, RoPE — for the decode flow
-(port of the decode half of ``repro.models.layers``).
+"""Shared layers — norms, MLPs, embeddings, RoPE, the loss (port of
+``repro.models.layers``).
 
-Decode flow ("TP-2D"): the residual is [B, D_loc(data)], the batch is
-replicated, and the feature/vocab contractions close with managed
-all-reduces over ``data`` / ``model``.  At axis size 1 those are the
-identity (core/managed.py), so each function below is the plain
-one-device computation.  The SP-flow (training/prefill) layers come with
-the training slice.
+SP flow (training / prefill): the residual is [B, S_loc, D] (sequence
+sharded over ``model``), ring ops work on the S-major [S_loc * B, D]
+layout, and weights are FSDP-gathered on use.  Decode flow ("TP-2D"): the
+residual is [B, D_loc(data)], the batch is replicated, and the
+feature/vocab contractions close with managed all-reduces over ``data`` /
+``model``.  At axis size 1 every collective and gather is the identity
+(core/managed.py, core/overlap.py), so each function below is the plain
+one-device computation.
 """
 
 from __future__ import annotations
@@ -16,7 +18,24 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import managed
+from repro_torch.core.overlap import fsdp_gather
 from repro_torch.parallel.sharding import MeshCtx
+
+# ---------------------------------------------------------------------------
+# Layout shuffles between [B, S_loc, D] and the S-major ring layout
+# ---------------------------------------------------------------------------
+
+
+def to_ring(x: torch.Tensor) -> torch.Tensor:
+    """[B, S_loc, D] -> [S_loc*B, D] (S-major)."""
+    b, s, d = x.shape
+    return x.transpose(0, 1).reshape(s * b, d)
+
+
+def from_ring(x2: torch.Tensor, batch: int) -> torch.Tensor:
+    """[S*B, D] -> [B, S, D]."""
+    sb, d = x2.shape
+    return x2.reshape(sb // batch, batch, d).transpose(0, 1)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -68,6 +87,30 @@ def gated(name: str) -> bool:
     return name in ("swiglu", "geglu")
 
 
+def mlp_block_sp(x: torch.Tensor, params: dict, cfg: ModelConfig,
+                 ctx: MeshCtx) -> torch.Tensor:
+    """Dense MLP, SP flow: AG-matmul up (+gate in the same ring), local
+    activation, matmul-RS down.  x: [B, S_loc, D] -> same."""
+    b = x.shape[0]
+    w_up = fsdp_gather(params["w_up"], "data", ctx, mode=ctx.mdmp_mode)
+    w_down = fsdp_gather(params["w_down"], "data", ctx, axis=1,
+                         mode=ctx.mdmp_mode)
+    x2 = to_ring(x)
+    if gated(cfg.mlp):
+        w_gate = fsdp_gather(params["w_gate"], "data", ctx,
+                             mode=ctx.mdmp_mode)
+        u, g = managed.all_gather_matmul_multi(x2, [w_up, w_gate], "model",
+                                               ctx, mode=ctx.mdmp_mode)
+        h = activation(cfg.mlp, u, g)
+    else:
+        u2 = managed.all_gather_matmul(x2, w_up, "model", ctx,
+                                       mode=ctx.mdmp_mode)
+        h = activation(cfg.mlp, u2, None)
+    y2 = managed.matmul_reduce_scatter(h, w_down, "model", ctx,
+                                       mode=ctx.mdmp_mode)
+    return from_ring(y2.to(x.dtype), b)
+
+
 def mlp_block_decode(x: torch.Tensor, params: dict, cfg: ModelConfig,
                      ctx: MeshCtx) -> torch.Tensor:
     """Dense MLP, decode flow: x [B, D_loc(data)] -> same.
@@ -93,21 +136,83 @@ def mlp_block_decode(x: torch.Tensor, params: dict, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def embed_decode(tokens: torch.Tensor, table_loc: torch.Tensor,
-                 cfg: ModelConfig, ctx: MeshCtx) -> torch.Tensor:
-    """Decode-flow lookup: tokens [B] -> x [B, D_loc(data)].  The reference
-    contracts a one-hot over the vocab; at tp=1 the row lookup gives the
-    identical values without the [B, V] one-hot.  A token outside the
-    table embeds to zeros, as its all-zero one-hot does (and an
-    out-of-range index would be a device-side assert on CUDA)."""
+def _require_tp1(what: str, ctx: MeshCtx) -> None:
     if ctx.tp != 1:
         raise NotImplementedError(
-            "vocab-parallel embed_decode comes with ROADMAP Queue 1 slice 4")
-    v = table_loc.shape[0]
+            f"vocab-parallel {what} comes with ROADMAP Queue 1 slice 4")
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens`` — the reference's one-hot
+    contraction at tp=1 without the [..., V] one-hot.  A token outside the
+    table gives zeros, as its all-zero one-hot does (an out-of-range index
+    would be a device-side assert on CUDA)."""
+    v = table.shape[0]
     tok = tokens.long()
     inside = (tok >= 0) & (tok < v)
-    return table_loc[tok.clamp(0, v - 1)] * inside[:, None].to(
-        table_loc.dtype)
+    return table[tok.clamp(0, v - 1)] * inside[..., None].to(table.dtype)
+
+
+def embed_sp(tokens: torch.Tensor, table_loc: torch.Tensor,
+             cfg: ModelConfig, ctx: MeshCtx) -> torch.Tensor:
+    """SP-flow lookup: tokens [B, S] -> x [B, S_loc, D].  The reference
+    contracts a one-hot over the vocab in a matmul-reduce-scatter; at tp=1
+    that is a row lookup, whose gradient scatters into the table rows."""
+    _require_tp1("embed_sp", ctx)
+    if table_loc.shape[-1] != cfg.d_model:
+        table_loc = fsdp_gather(table_loc, "data", ctx, axis=1,
+                                mode=ctx.mdmp_mode)
+    return _lookup(table_loc, tokens)
+
+
+def lm_loss_sp(x: torch.Tensor, unembed_loc: torch.Tensor,
+               tokens: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx, *,
+               chunk: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over the logits, chunked over the sequence so the
+    [*, V] logits tensor never fully materialises (as the reference, whose
+    chunks cover ``(S // chunk') * chunk'`` positions).
+
+    x: [B, S_loc, D]; unembed_loc: [D, V]; tokens: [B, S] labels (< 0 are
+    ignored).  Returns (sum_loss / tp, count / tp); the caller sums over
+    all axes.  The logits of a bf16 model are the bf16 product cast to
+    f32, where the reference keeps the f32 accumulator
+    (``preferred_element_type``); in f32 the two are the same."""
+    _require_tp1("lm_loss_sp", ctx)
+    b = x.shape[0]
+    w = fsdp_gather(unembed_loc, "data", ctx, mode=ctx.mdmp_mode)  # [D, V]
+    x_full = from_ring(managed.managed_all_gather(to_ring(x), "model", ctx,
+                                                  mode=ctx.mdmp_mode), b)
+    s = x_full.shape[1]
+    n_chunks = max(1, s // max(chunk, 1))
+    chunk = s // n_chunks
+    v = w.shape[1]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        xs = x_full[:, i * chunk:(i + 1) * chunk]
+        lbl = tokens[:, i * chunk:(i + 1) * chunk].long()
+        logits = (xs @ w).float()                           # [B, c, V]
+        # the max is a constant shift: detached, as the reference's
+        # stop_gradient keeps it out of AD
+        lmax = logits.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(logits - lmax).sum(dim=-1,
+                                                     keepdim=True)) + lmax
+        inside = (lbl >= 0) & (lbl < v)
+        tgt = logits.gather(-1, lbl.clamp(0, v - 1)[..., None]) \
+            * inside[..., None]
+        nll = (lse - tgt)[..., 0]
+        valid = (lbl >= 0).float()
+        loss_sum = loss_sum + (nll * valid).sum()
+        count = count + valid.sum()
+    return loss_sum / ctx.tp, count / ctx.tp
+
+
+def embed_decode(tokens: torch.Tensor, table_loc: torch.Tensor,
+                 cfg: ModelConfig, ctx: MeshCtx) -> torch.Tensor:
+    """Decode-flow lookup: tokens [B] -> x [B, D_loc(data)] (a row lookup at
+    tp=1, see ``_lookup``)."""
+    _require_tp1("embed_decode", ctx)
+    return _lookup(table_loc, tokens)
 
 
 def logits_decode(x: torch.Tensor, unembed_loc: torch.Tensor,
@@ -121,9 +226,7 @@ def logits_decode(x: torch.Tensor, unembed_loc: torch.Tensor,
 def greedy_sample(logits_loc: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
     """Greedy decode over [B, V] logits: the lowest index among the maxima
     (``torch.argmax`` returns the first maximum), int32, on the device."""
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            "vocab-parallel greedy_sample comes with ROADMAP Queue 1 slice 4")
+    _require_tp1("greedy_sample", ctx)
     return torch.argmax(logits_loc, dim=-1).to(torch.int32)
 
 

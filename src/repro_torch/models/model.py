@@ -1,12 +1,21 @@
-"""Model: ModelConfig -> parameter specs, init, and the paged decode step
-(port of the serving half of ``repro.models.model``).
+"""Model: ModelConfig -> parameter specs, init, and the entry points (port
+of ``repro.models.model``, dense family):
+
+  * ``loss_sp(batch)``                    training loss (SP flow)
+  * ``prefill_sp(batch)``                 prefill -> (last-token logits,
+                                          cache)
+  * ``decode_step(cache, token, pos)``    one-token decode, contiguous
+                                          cache
+  * ``decode_step_paged(...)``            one-token decode, paged cache
 
 ``Model`` is an ``nn.Module`` holding its parameters in the reference's
 layout: weights are used as ``x @ w`` (``w_q`` is [D, Hp*hd]) and layer
 weights are stacked [L, ...] exactly as ``param_specs`` says, so
 ``bridge.params_from_numpy`` is a plain copy of the reference's tree.
-Parameters live on the model's device (``cuda`` unless the caller asks
-for the CPU) and carry no gradients: this slice serves.
+The entry points read the module's own parameters (the reference passes
+the tree in).  Parameters live on the model's device (``cuda`` unless the
+caller asks for the CPU) and require gradients for training; serving
+runs under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -17,11 +26,12 @@ from typing import Any
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import managed
+from repro_torch.core.overlap import fsdp_gather
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, transformer
-from repro_torch.parallel.sharding import MeshCtx, ParamSpec
+from repro_torch.parallel.sharding import MeshCtx, ParamSpec, pad_to_multiple
 
 PS = ParamSpec
 
@@ -45,12 +55,25 @@ def flatten_specs(tree: dict, prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def unflatten_specs(flat: dict[str, Any]) -> dict:
+    """{"a/b": leaf} -> nested dict (the inverse of ``flatten_specs``)."""
+    out: dict[str, Any] = {}
+    for key, leaf in flat.items():
+        node = out
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: MeshCtx | None = None, *,
                  device: str | torch.device | None = None,
-                 paged_engine: str = "auto"):
-        """``paged_engine="torch"`` pins the plain paged attention on any
-        device (tests hold the kernel against it end to end)."""
+                 paged_engine: str = "auto", attn_engine: str = "auto"):
+        """``paged_engine="torch"`` / ``attn_engine="torch"`` pin the plain
+        paged / flash attention on any device (tests hold the kernels
+        against them end to end)."""
         super().__init__()
         transformer.require_dense(cfg)
         self.cfg = cfg
@@ -58,6 +81,7 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.paged_engine = paged_engine
+        self.attn_engine = attn_engine
         specs = self.param_specs()
         self.top = nn.ParameterDict({
             k: self._empty(s) for k, s in specs.items() if k != "layers"})
@@ -68,8 +92,7 @@ class Model(nn.Module):
         return nn.Parameter(
             torch.empty(spec.local_shape(self.ctx),
                         dtype=DTYPES.get(spec.dtype, self.dtype),
-                        device=self.device),
-            requires_grad=False)
+                        device=self.device))
 
     # ------------------------------------------------------------------
     # Parameter specs
@@ -151,8 +174,83 @@ class Model(nn.Module):
         return self
 
     # ------------------------------------------------------------------
-    # Decode (paged serving flow)
+    # Forward (SP flow)
     # ------------------------------------------------------------------
+
+    def _assemble_input_sp(self, batch: dict) -> torch.Tensor:
+        """Embed tokens [B, S] -> x [B, S_loc, D]."""
+        return layers.embed_sp(batch["tokens"], self.top["embed"], self.cfg,
+                               self.ctx)
+
+    def _unembed(self) -> torch.Tensor:
+        """[D, V]: the transposed embedding when tied."""
+        if self.cfg.tie_embeddings:
+            return self.top["embed"].T
+        return self.top["unembed"]
+
+    def loss_sp(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Training loss.  batch: tokens [B, S], labels [B, S] (labels < 0
+        are ignored).  Returns (loss, metrics)."""
+        cfg, ctx = self.cfg, self.ctx
+        x = self._assemble_input_sp(batch)
+        x, _ = transformer.stack_sp(x, dict(self.layers.items()), cfg, ctx,
+                                    causal=True, engine=self.attn_engine)
+        x = layers.rms_norm(x, self.top["final_ln"], cfg.norm_eps)
+        loss_sum, count = layers.lm_loss_sp(x, self._unembed(),
+                                            batch["labels"], cfg, ctx)
+        for ax in ctx.all_axes:
+            loss_sum = managed.managed_all_reduce(loss_sum, ax, ctx)
+            count = managed.managed_all_reduce(count, ax, ctx)
+        loss = loss_sum / torch.clamp(count, min=1.0)
+        return loss, {"loss": loss, "tokens": count}
+
+    # ------------------------------------------------------------------
+    # Prefill (SP flow, collects the cache in prefill layout)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def prefill_sp(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Prefill: (logits of the LAST position [B, V] f32, cache in
+        prefill layout {"kv": (k, v) each [L, B, S_loc, KV, hd]})."""
+        cfg, ctx = self.cfg, self.ctx
+        x = self._assemble_input_sp(batch)
+        x, kvs = transformer.stack_sp(
+            x, dict(self.layers.items()), cfg, ctx, causal=True,
+            collect_kv=True, remat=False, engine=self.attn_engine)
+        x = layers.rms_norm(x, self.top["final_ln"], cfg.norm_eps)
+        # the final position lives on the last model rank's shard: the
+        # masked all-reduce broadcasts it (rank 0 is that rank at tp=1)
+        last = managed.managed_all_reduce(x[:, -1, :].float(), "model", ctx)
+        wg = fsdp_gather(self._unembed(), "data", ctx, axis=0,
+                         mode=ctx.mdmp_mode)
+        logits = last @ wg.float()
+        return logits, {"kv": kvs}
+
+    # ------------------------------------------------------------------
+    # Decode (contiguous cache and paged serving flow)
+    # ------------------------------------------------------------------
+
+    def _logits_decode(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, ctx = self.cfg, self.ctx
+        x = layers.rms_norm_sharded(
+            x, transformer._ln_loc(self.top["final_ln"], ctx), cfg.norm_eps,
+            "data", ctx)
+        if cfg.tie_embeddings:
+            return managed.managed_all_reduce(
+                x @ self.top["embed"].T, "data", ctx, mode=ctx.mdmp_mode)
+        return layers.logits_decode(x, self.top["unembed"], ctx)
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, token: torch.Tensor, pos: int
+                    ) -> tuple[torch.Tensor, dict]:
+        """One greedy decode step against the CONTIGUOUS cache.  token: [B]
+        int32; pos: the position written and attended.  Returns
+        (next_token [B] int32, cache), the cache written in place."""
+        x = layers.embed_decode(token, self.top["embed"], self.cfg,
+                                self.ctx)
+        x, cache = transformer.stack_decode(x, dict(self.layers.items()),
+                                            cache, pos, self.cfg, self.ctx)
+        return layers.greedy_sample(self._logits_decode(x), self.ctx), cache
 
     @torch.no_grad()
     def decode_logits_paged(self, cache: dict, table: torch.Tensor,
@@ -164,20 +262,11 @@ class Model(nn.Module):
         per-slot positions; active: [B] bool.  The cache is written in
         place; rows of inactive slots are garbage the engine discards."""
         cfg, ctx = self.cfg, self.ctx
-        p = self.params()
-        x = layers.embed_decode(token, p["embed"], cfg, ctx)
+        x = layers.embed_decode(token, self.top["embed"], cfg, ctx)
         x, cache = transformer.stack_decode_paged(
-            x, p["layers"], cache, table, pos, active, cfg, ctx,
-            engine=self.paged_engine)
-        x = layers.rms_norm_sharded(x, transformer._ln_loc(p["final_ln"],
-                                                           ctx),
-                                    cfg.norm_eps, "data", ctx)
-        if cfg.tie_embeddings:
-            logits = managed.managed_all_reduce(
-                x @ p["embed"].T, "data", ctx, mode=ctx.mdmp_mode)
-        else:
-            logits = layers.logits_decode(x, p["unembed"], ctx)
-        return logits, cache
+            x, dict(self.layers.items()), cache, table, pos, active, cfg,
+            ctx, engine=self.paged_engine)
+        return self._logits_decode(x), cache
 
     def decode_step_paged(self, cache: dict, table: torch.Tensor,
                           token: torch.Tensor, pos: torch.Tensor,
@@ -190,7 +279,25 @@ class Model(nn.Module):
         return layers.greedy_sample(logits, self.ctx), cache
 
     # ------------------------------------------------------------------
-    # Paged-cache construction (serving runtime; serve/)
+    # Cache construction
+    # ------------------------------------------------------------------
+
+    def decode_cache_specs(self, shape: ShapeConfig
+                           ) -> dict[str, tuple[tuple[int, ...],
+                                                torch.dtype]]:
+        """{"k"|"v": (shape, dtype)} of the contiguous decode cache:
+        [L, B, S, KV, hd] stacked over layers, S covering the sequence (or
+        the sliding window, as a ring buffer) padded to the cache
+        shards."""
+        cfg, ctx = self.cfg, self.ctx
+        n_sh = attention.cache_shards(ctx)
+        w = transformer.layer_window(cfg, 0)
+        s_total = min(shape.seq_len, w) if w else shape.seq_len
+        s_pad = pad_to_multiple(max(s_total, n_sh), n_sh)
+        kv = ((cfg.n_layers, shape.global_batch, s_pad,
+               attention.padded_kv_heads(cfg), cfg.head_dim), self.dtype)
+        return {"k": kv, "v": kv}
+
     # ------------------------------------------------------------------
 
     def paged_cache_specs(self, slots: int, n_pages: int, page_size: int

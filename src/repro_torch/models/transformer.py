@@ -1,10 +1,13 @@
-"""Block assembly over layers for the paged decode flow (port of the
-serving half of ``repro.models.transformer``).
+"""Block assembly over layers (port of ``repro.models.transformer``).
 
-Layer weights are stacked on a leading ``layers`` dim as in the reference;
-the reference scans over them with ``lax.scan``, the port loops in Python
-over views of the stacked tensors.  This slice ports the dense family;
-the others raise and name the ROADMAP slice that brings them.
+SP-flow blocks (train / prefill) take and return [B, S_loc, D]; decode
+blocks [B, D_loc(data)].  Layer weights are stacked on a leading
+``layers`` dim as in the reference; the reference scans over them with
+``lax.scan`` (with ``jax.checkpoint`` around the block for training
+remat), the port loops in Python over per-layer views, with
+``torch.utils.checkpoint`` in place of ``jax.checkpoint``.  The dense
+family is ported; the others raise and name the ROADMAP slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers
@@ -36,6 +40,74 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
     return cfg.sliding_window
 
 
+def _layer_views(stacked: dict) -> list[dict]:
+    """Per-layer views of stacked [L, ...] weights.  One ``unbind`` per
+    weight: its backward stacks the L layer gradients once, where L
+    separate ``w[i]`` selects would each add a zero-filled [L, ...]
+    gradient."""
+    cols = {k: torch.unbind(w, 0) for k, w in stacked.items()}
+    n = len(next(iter(cols.values()))) if cols else 0
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# SP-flow blocks (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def block_sp(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: MeshCtx, *,
+             causal: bool, window: int, collect_kv: bool,
+             engine: str = "auto") -> tuple:
+    """One decoder block.  Returns (x, (k, v) | None).  The dense family
+    has no aux loss and no SSM state (the reference returns both)."""
+    require_dense(cfg)
+    if cfg.attn_impl != "megatron":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} comes with ROADMAP Queue 1 "
+            "slice 6")
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    att = attention.attention_sp(h, p, cfg, ctx, causal=causal,
+                                 window=window, return_kv=collect_kv,
+                                 engine=engine)
+    kv = None
+    if collect_kv:
+        att, kv = att
+    x = x + att
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y = layers.mlp_block_sp(h2, p, cfg, ctx)
+    return x + y, kv
+
+
+def stack_sp(x: torch.Tensor, stacked: dict, cfg: ModelConfig,
+             ctx: MeshCtx, *, causal: bool = True, collect_kv: bool = False,
+             remat: bool | None = None, engine: str = "auto") -> tuple:
+    """Run the block over the stacked layers.  With ``remat`` (default
+    ``cfg.remat``) each block runs under a non-reentrant
+    ``torch.utils.checkpoint``: only its input is saved and the backward
+    recomputes it.  Returns (x, (k [L, B, S_loc, KV, hd], v) | None)."""
+    require_dense(cfg)
+    remat = cfg.remat if remat is None else remat
+    window = cfg.sliding_window   # uniform across stacked layers
+    ks, vs = [], []
+    for p in _layer_views(stacked):
+        kw = dict(causal=causal, window=window, collect_kv=collect_kv,
+                  engine=engine)
+        if remat:
+            x, kv = checkpoint(block_sp, x, p, cfg, ctx,
+                               use_reentrant=False, **kw)
+        else:
+            x, kv = block_sp(x, p, cfg, ctx, **kw)
+        if collect_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+# ---------------------------------------------------------------------------
+# Decode-flow blocks
+# ---------------------------------------------------------------------------
+
+
 def _ln_loc(scale: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
     """Replicated [D] norm scale -> this data-rank's [D_loc] slice (the
     whole scale at dp=1, the only data-axis size this slice runs)."""
@@ -43,6 +115,38 @@ def _ln_loc(scale: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
         raise NotImplementedError(
             "a data axis above 1 comes with ROADMAP Queue 1 slice 4")
     return scale
+
+
+def block_decode(x: torch.Tensor, p: dict, state: dict, pos: int,
+                 cfg: ModelConfig, ctx: MeshCtx, *,
+                 window: int) -> tuple[torch.Tensor, dict]:
+    """One-token decode block against the CONTIGUOUS cache.  ``state``
+    holds this layer's ("k", "v") slabs (written in place).  Returns (x,
+    new_state)."""
+    require_dense(cfg)
+    h = layers.rms_norm_sharded(x, _ln_loc(p["ln1"], ctx), cfg.norm_eps,
+                                "data", ctx)
+    att, (k_c, v_c) = attention.attention_decode(
+        h, (state["k"], state["v"]), pos, p, cfg, ctx, window=window)
+    x = x + att
+    h2 = layers.rms_norm_sharded(x, _ln_loc(p["ln2"], ctx), cfg.norm_eps,
+                                 "data", ctx)
+    y = layers.mlp_block_decode(h2, p, cfg, ctx)
+    return x + y, {"k": k_c, "v": v_c}
+
+
+def stack_decode(x: torch.Tensor, stacked: dict, cache: dict, pos: int,
+                 cfg: ModelConfig, ctx: MeshCtx) -> tuple[torch.Tensor, Any]:
+    """Contiguous-cache decode over layers: ``stacked`` and ``cache``
+    leaves carry a leading [L]; each layer works on views, so the cache is
+    updated in place and returned as is."""
+    require_dense(cfg)
+    window = cfg.sliding_window   # uniform across stacked layers
+    for i in range(cfg.n_layers):
+        p = {k: v[i] for k, v in stacked.items()}
+        state = {k: v[i] for k, v in cache.items()}
+        x, _ = block_decode(x, p, state, pos, cfg, ctx, window=window)
+    return x, cache
 
 
 def block_decode_paged(x: torch.Tensor, p: dict, state: dict,

@@ -1,0 +1,81 @@
+"""Generation driver (port of the ``Generator`` of
+``repro.train.serve_loop``).
+
+Two engines behind one facade, with the same greedy tokens:
+
+  * ``engine="contiguous"`` — a static-batch loop over
+    ``Model.decode_step`` and the contiguous [L, B, S, KV, hd] cache, the
+    numerical oracle of the serving runtime;
+  * ``engine="paged"`` — the serving runtime (``serve.ServeEngine``):
+    paged KV cache, per-slot positions, static waves so the contract is
+    the same.  Extra ``ServeEngine`` knobs ride through
+    ``engine_kwargs``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import ServeEngine
+
+
+class Generator:
+    def __init__(self, model: Model, shape: ShapeConfig,
+                 engine: str = "contiguous", **engine_kwargs: Any):
+        if engine not in ("contiguous", "paged"):
+            raise ValueError(f"unknown engine {engine!r}")
+        self.model = model
+        self.shape = shape
+        self.engine = engine
+        self.engine_kwargs = engine_kwargs
+
+    def empty_cache(self) -> dict:
+        """The zeroed contiguous decode cache on the model's device."""
+        if self.engine != "contiguous":
+            raise ValueError("empty_cache is the contiguous decode cache; "
+                             "the paged engine owns its pool")
+        return {k: torch.zeros(shape, dtype=dt, device=self.model.device)
+                for k, (shape, dt) in
+                self.model.decode_cache_specs(self.shape).items()}
+
+    def generate(self, prompt_tokens: np.ndarray,
+                 n_new: int) -> np.ndarray:
+        """Greedy generation: feeds the prompt [B, P] token by token through
+        the decode path (prompt prefill via decode — exercises the cache
+        writes), then returns the ``n_new`` sampled tokens [B, n_new]."""
+        if self.engine == "paged":
+            return self._generate_paged(prompt_tokens, n_new)
+        dev = self.model.device
+        cache = self.empty_cache()
+        b, p = prompt_tokens.shape
+        prompt = torch.from_numpy(prompt_tokens.astype(np.int32)).to(dev)
+        out = []
+        tok = prompt[:, 0]
+        pos = 0
+        for i in range(p + n_new - 1):
+            nxt, cache = self.model.decode_step(cache, tok, pos)
+            pos += 1
+            if i + 1 < p:
+                tok = prompt[:, i + 1]
+            else:
+                tok = nxt
+                out.append(nxt)
+        if not out:
+            return np.zeros((b, 0), np.int32)
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    def _generate_paged(self, prompt_tokens: np.ndarray,
+                        n_new: int) -> np.ndarray:
+        b = prompt_tokens.shape[0]
+        kwargs = dict(slots=b, max_seq=self.shape.seq_len,
+                      schedule="static")
+        kwargs.update(self.engine_kwargs)
+        eng = ServeEngine(self.model, **kwargs)
+        rids = [eng.submit(prompt_tokens[i], n_new) for i in range(b)]
+        results = eng.run()
+        return np.stack([results[r] for r in rids], axis=0)

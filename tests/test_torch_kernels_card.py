@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as paged
 
 
@@ -90,3 +91,102 @@ def test_paged_attention_kernel_rejects_noncontiguous(cuda):
     with pytest.raises(ValueError):
         paged.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                               kp, vp, table, lens)
+
+
+# ---------------------------------------------------------------------------
+# flash attention, forward and backward
+# ---------------------------------------------------------------------------
+
+#: (B, Sq, Skv, H, KV, hd, causal, window, q_offset): GQA 32/8 and MQA
+#: 48/1, causal and not, windows, q_offset > 0 with Sq < Skv, and ragged
+#: lengths that are not multiples of the kernels' 64-row tiles
+FLASH_CASES = [
+    (2, 256, 256, 32, 8, 128, True, 0, 0),
+    (1, 200, 200, 32, 8, 128, False, 0, 0),
+    (2, 130, 130, 32, 8, 128, True, 64, 0),
+    (1, 96, 300, 48, 1, 128, True, 0, 204),
+    (1, 77, 141, 8, 2, 64, False, 64, 0),
+    (2, 45, 190, 4, 4, 64, True, 64, 120),
+]
+
+
+def _flash_inputs(cuda, dtype, b, sq, skv, h, kvh, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((b, sq, h, hd), (b, skv, kvh, hd), (b, skv, kvh, hd),
+                      (b, sq, h, hd))]
+    return [torch.from_numpy(a).to(cuda).to(dtype) for a in arrs]
+
+
+def _close(got, want, tol, what):
+    """max|got - want| <= tol * max(1, max|want|), in f32."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= tol * scale, \
+        f"{what}: max|err| {err:.3e} > {tol} x {scale:.3g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_kernels_match_plain(cuda, dtype, tol, case):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against the
+    plain versions run in f32 on the same inputs: f32 within 1e-4 and
+    bf16 within 2e-2 of the largest magnitude (the kernels round only
+    their outputs to bf16); the lse within 1e-4 in both."""
+    b, sq, skv, h, kvh, hd, causal, window, q_offset = case
+    q, k, v, dout = _flash_inputs(cuda, dtype, b, sq, skv, h, kvh, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    f0, b0 = fa.FWD_LAUNCHES, fa.BWD_LAUNCHES
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_torch(q.float(), k.float(),
+                                                  v.float(), **kw)
+    _close(out, want_out, tol, "out")
+    _close(lse, want_lse, 1e-4, "lse")
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    wants = fa.flash_attention_bwd_torch(q.float(), k.float(), v.float(),
+                                         out.float(), lse, dout.float(),
+                                         **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), wants):
+        assert got.dtype == dtype
+        _close(got, want, tol, name)
+    assert (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernels_on_fully_masked_rows(cuda):
+    """Rows that see no key (the window lies past every key) give zero
+    output, the finite lse -1e30, and zero gradients — never NaN."""
+    q, k, v, dout = _flash_inputs(cuda, torch.float32, 1, 70, 16, 4, 2, 64)
+    kw = dict(causal=True, window=8, q_offset=10)   # rows 14.. see nothing
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_torch(q, k, v, **kw)
+    wants = fa.flash_attention_bwd_torch(q, k, v, want_out, want_lse, dout,
+                                         **kw)
+    for got in (out, lse, dq, dk, dv):
+        assert torch.isfinite(got).all()
+    assert torch.equal(out[:, 14:], torch.zeros_like(out[:, 14:]))
+    assert torch.equal(dq[:, 14:], torch.zeros_like(dq[:, 14:]))
+    assert (lse[:, 14:] == -1e30).all()
+    _close(out, want_out, 1e-4, "out")
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), wants):
+        _close(got, want, 1e-4, name)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, dout = _flash_inputs(cuda, torch.float32, 1, 64, 64, 4, 2, 128)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q, k.bfloat16(), v)
+    q32, k32, v32, _ = _flash_inputs(cuda, torch.float32, 1, 64, 64, 4, 2, 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q32, k32, v32)
