@@ -30,7 +30,17 @@ phase that fails:
                versions pinned: gradients, 3 steps' losses and updates,
                and greedy tokens agree; the contiguous Generator's tokens
                equal the paged engine's; TrainLoop recovers from an
-               injected failure through its checkpoints.
+               injected failure through its checkpoints;
+  7. jacobi  — the paper's Jacobi solve at 16386 x 16386 f32 on one rank
+               through halo.jacobi_solve: 256 sweeps each of bulk,
+               interleaved, and aggregated at the k that
+               managed.resolve_halo_aggregation picks and at k = 2, 4, 8,
+               with exact stencil launch counts; aggregated equals bulk,
+               and at 2050 x 2050 the kernel path equals the plain path
+               in every schedule.
+
+Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
+trip) to their plain versions and times them at the Jacobi shape.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -397,6 +407,167 @@ def phase_flash(torch):
               f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
               f"{tm['plain_ms']:.4f} ms, library yardstick {lib} "
               f"{tm['library_ms']:.4f} ms", flush=True)
+    return times, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the Jacobi stencil kernels, kernel vs plain, and their times
+# ---------------------------------------------------------------------------
+
+#: the Jacobi phase's grid (interior 16384^2, f32, 1.07 GB per array) and
+#: sweeps per schedule
+JACOBI_N = 16386
+JACOBI_ITERS = 256
+#: ragged, tiny, and the kernel-vs-plain solve's shape
+STENCIL_SHAPES = [(1000, 777), (3, 3), (5, 130), (2050, 2050)]
+STENCIL_TOL = (("float32", 1e-6), ("bfloat16", 2e-2))
+
+
+def stencil_bound(m, n, itemsize, sweeps, u_ghost=0, f_ghost=0):
+    """Least time for one call that leaves ``sweeps`` sweeps on an [m, n]
+    block: u with its ``u_ghost`` ghost rows and f with its ``f_ghost``
+    read once, u' written once, over HBM, against the 5 f32 operations of
+    each needed interior update over the f32 peak.  Returns
+    (ms, 'bytes'|'operations')."""
+    nbytes = ((m + u_ghost) + (m + f_ghost) + m) * n * itemsize
+    flops = 5.0 * m * max(n - 2, 0) * sweeps
+    t_bytes = nbytes / HBM_BW
+    t_ops = flops / PEAK["float32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def stencil_check(torch, got, want, tol, name):
+    """max|got - want| within tol of the largest magnitude; returns it."""
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: output not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    if err > tol * scale:
+        fail(f"{name}: kernel disagrees with the plain version: max|err| "
+             f"{err:.3e} > {tol} x {scale:.3g}")
+    return err
+
+
+def phase_stencil(torch):
+    from repro_torch.kernels import stencil as st
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    errs = {"step": 0.0, "ksweep": 0.0}
+    for dname, tol in STENCIL_TOL:
+        dtype = getattr(torch, dname)
+        for m, n in STENCIL_SHAPES:
+            u, f = rand((m, n), dtype), rand((m, n), dtype)
+            lo, hi = rand((1, n), dtype), rand((1, n), dtype)
+            line = []
+            for what, kw in (("dirichlet", {}),
+                             ("halo", {"lo": lo, "hi": hi}),
+                             ("interior", {"rows": ((1, m - 1),)}),
+                             ("edges", {"lo": lo, "hi": hi,
+                                        "rows": ((0, 1), (m - 1, m))})):
+                got = torch.full_like(u, 7.0)
+                want = torch.full_like(u, 7.0)
+                st.jacobi_step(u, f, out=got, **kw)
+                torch.cuda.synchronize()
+                st.jacobi_step(u, f, out=want, engine="torch", **kw)
+                err = stencil_check(torch, got, want, tol,
+                                    f"jacobi_step {dname} {m}x{n} {what}")
+                errs["step"] = max(errs["step"], err)
+                line.append(f"{what} {err:.1e}")
+            print(f"  jacobi_step vs plain {dname} {m}x{n}: max|err| "
+                  f"{', '.join(line)} (tolerance {tol} x max(1, max|want|))",
+                  flush=True)
+        for k in (1, 2, 3, 4, 8):
+            line = []
+            for m, n in ((64, 130), (1000, 777), (5, 130)):
+                big, fbig = rand((m + 2 * k, n), dtype), rand((m + 2 * k, n),
+                                                              dtype)
+                for ft, fb in ((0, 0), (k, k), (k + 1, k + 1)):
+                    got = st.jacobi_ksweep(big, fbig, k, ft, fb)
+                    torch.cuda.synchronize()
+                    want = st.jacobi_ksweep(big, fbig, k, ft, fb,
+                                            engine="torch")
+                    err = stencil_check(
+                        torch, got, want, tol, f"jacobi_ksweep {dname} "
+                        f"{m}x{n} k={k} frozen=({ft}, {fb})")
+                    errs["ksweep"] = max(errs["ksweep"], err)
+                    line.append(err)
+                if dtype == torch.float32:
+                    # the live apron: k sweeps of the larger grid in which
+                    # every row updates, restricted to the centre
+                    oracle = big.clone()
+                    z = torch.zeros((1, n), device="cuda")
+                    for _ in range(k):
+                        up = torch.cat([z, oracle, z])
+                        oracle[:, 1:-1] = 0.25 * (
+                            up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2]
+                            + up[1:-1, 2:] - fbig[:, 1:-1])
+                    got = st.jacobi_ksweep(big, fbig, k, 0, 0)
+                    line.append(stencil_check(
+                        torch, got, oracle[k:-k], tol,
+                        f"jacobi_ksweep slab interior {m}x{n} k={k}"))
+            print(f"  jacobi_ksweep vs plain {dname} k={k} (64x130, "
+                  f"1000x777, 5x130; frozen (0,0), (k,k), (k+1,k+1)"
+                  f"{'; live-apron oracle' if dtype == torch.float32 else ''}"
+                  f"): max|err| {max(line):.1e} (tolerance {tol} x max(1, "
+                  f"max|want|))", flush=True)
+
+    # times at the Jacobi phase's shape, one rank: the bulk sweep (zero
+    # halo rows) and the aggregated call at k = 8 (frozen zero ghost rows)
+    n, k = JACOBI_N, 8
+    u, f = rand((n, n), torch.float32), rand((n, n), torch.float32)
+    out = torch.empty_like(u)
+    z1 = torch.zeros((1, n), device="cuda")
+    zk = torch.zeros((k, n), device="cuda")
+    times = {
+        "step": dict(
+            ms=graph_ms(torch, [lambda: st.jacobi_step(
+                u, f, lo=z1, hi=z1, out=out)] * 4, 5),
+            plain_ms=graph_ms(torch, [lambda: st.jacobi_step(
+                u, f, lo=z1, hi=z1, out=out, engine="torch")], 3),
+            library_ms=None),
+        "ksweep": dict(
+            ms=graph_ms(torch, [lambda: st.jacobi_ksweep_parts(
+                zk, u, zk, zk, f, zk, k, k, k, out=out)] * 4, 5),
+            plain_ms=graph_ms(torch, [lambda: st.jacobi_ksweep_parts(
+                zk, u, zk, zk, f, zk, k, k, k, out=out,
+                engine="torch")], 2),
+            library_ms=None),
+    }
+    # the same calls, kernel against plain, at this shape
+    for name, call, tol in (
+            ("step", lambda **kw: st.jacobi_step(u, f, lo=z1, hi=z1, **kw),
+             STENCIL_TOL[0][1]),
+            ("ksweep", lambda **kw: st.jacobi_ksweep_parts(
+                zk, u, zk, zk, f, zk, k, k, k, **kw), STENCIL_TOL[0][1])):
+        got = call()
+        torch.cuda.synchronize()
+        want = call(engine="torch")
+        err = stencil_check(torch, got, want, tol,
+                            f"jacobi_{name} float32 {n}x{n}")
+        errs[name] = max(errs[name], err)
+        print(f"  jacobi_{name} vs plain float32 {n}x{n} (the main path's "
+              f"call): max|err| {err:.1e} (tolerance {tol} x max(1, "
+              f"max|want|))", flush=True)
+        del got, want
+    for name, (sweeps, ghosts) in (("step", (1, (2, 0))),
+                                   ("ksweep", (k, (2 * k, 2 * k)))):
+        tm = times[name]
+        tm["bound_ms"], tm["bound_by"] = stencil_bound(n, n, 4, sweeps,
+                                                       *ghosts)
+        print(f"  jacobi_{name} at {n}x{n} f32 ({sweeps} sweep"
+              f"{'s' if sweeps > 1 else ''} per call): kernel "
+              f"{tm['ms']:.4f} ms ({tm['ms'] / sweeps:.4f} ms per sweep), "
+              f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}; the kernel "
+              f"reaches {tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
+              f"{tm['plain_ms']:.4f} ms; no single library call computes it",
+              flush=True)
+    del u, f, out
+    torch.cuda.empty_cache()
     return times, errs
 
 
@@ -841,6 +1012,111 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paper's Jacobi solve
+# ---------------------------------------------------------------------------
+
+
+def jacobi_launches(mode, k, iters):
+    """(jacobi_step, jacobi_ksweep) launches of one solve on one rank."""
+    if mode == "bulk":
+        return iters, 0
+    if mode == "interleaved":
+        return 2 * iters, 0                   # interior pass + edge rows
+    return iters % k, iters // k
+
+
+def phase_jacobi(torch):
+    from repro_torch.core import halo, managed
+    from repro_torch.kernels import stencil as st
+
+    n, iters = JACOBI_N, JACOBI_ITERS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    u = torch.randn((n, n), generator=gen, device="cuda")
+    f = torch.randn((n, n), generator=gen, device="cuda")
+    with managed.capture_decisions() as cap:
+        decision = managed.resolve_halo_aggregation("x", 1, n, n)
+    rec = cap.records[-1]
+    print(f"  grid {n} x {n} f32 (interior {n - 2}^2, "
+          f"{u.numel() * 4 / 1e9:.2f} GB per array), one rank, {iters} "
+          f"sweeps per schedule; decision (H100 model, axis size 1): "
+          f"{rec}", flush=True)
+    print(f"  predicted per sweep: " + ", ".join(
+        f"k={k} {t * 1e3:.4f} ms" for k, t in decision.per_sweep_s.items()),
+        flush=True)
+    runs = [("bulk", 1), ("interleaved", 1), ("aggregated", decision.k)]
+    runs += [("aggregated", k) for k in (2, 4, 8)]
+    for mode, k in runs:                       # warm-up: libraries, opt-ins
+        halo.jacobi_solve(u[:258], f[:258], None, 2 * k, mode, k=k)
+    torch.cuda.synchronize()
+    st.STEP_LAUNCHES = st.KSWEEP_LAUNCHES = 0  # counts of this run only
+    bulk, peak_gb = None, 0.0
+    for mode, k in runs:
+        s0, k0 = st.STEP_LAUNCHES, st.KSWEEP_LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = halo.jacobi_solve(u, f, None, iters, mode, k=k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+        got = (st.STEP_LAUNCHES - s0, st.KSWEEP_LAUNCHES - k0)
+        want = jacobi_launches(mode, k, iters)
+        name = mode if mode != "aggregated" else f"aggregated k={k}"
+        if got != want:
+            fail(f"{name}: (jacobi_step, jacobi_ksweep) launches {got} != "
+                 f"{want}")
+        if not torch.isfinite(out).all():
+            fail(f"{name}: solution not finite")
+        sweeps_of_one = iters % k if mode == "aggregated" else iters
+        moved = (sweeps_of_one * (3 * n + 2)
+                 + got[1] * (3 * n + 4 * k)) * n * 4
+        line = (f"  {name}: {wall / iters * 1e3:.4f} ms per sweep "
+                f"({wall:.3f} s host wall for {iters}), {moved / wall / 1e9:.1f}"
+                f" GB/s effective HBM, launches {got[0]} jacobi_step + "
+                f"{got[1]} jacobi_ksweep")
+        if bulk is None:
+            bulk = out
+        else:
+            err = (out - bulk).abs().max().item()
+            try:
+                torch.testing.assert_close(out, bulk, rtol=1e-5, atol=1e-5)
+            except AssertionError as e:
+                fail(f"{name} disagrees with bulk: {e}")
+            line += f"; max|x - bulk| {err:.1e} (rtol = atol = 1e-5)"
+        print(line, flush=True)
+        del out
+    launches = {"step": st.STEP_LAUNCHES, "ksweep": st.KSWEEP_LAUNCHES}
+    print(f"  peak device memory of a solve {peak_gb:.2f} GB (u, f, two "
+          f"ping-pong buffers and the bulk result kept for the checks); "
+          f"max|u| after {iters} sweeps {bulk.abs().max().item():.4g}",
+          flush=True)
+    del bulk
+
+    # the kernel path against the plain path, every schedule, 64 sweeps
+    m2 = 2050
+    us, fs = u[:m2, :m2].contiguous(), f[:m2, :m2].contiguous()
+    del u, f
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for periodic in (False, True):
+        for mode, k in runs:
+            got = halo.jacobi_solve(us, fs, None, 64, mode, k=k,
+                                    periodic=periodic)
+            want = halo.jacobi_solve(us, fs, None, 64, mode, k=k,
+                                     periodic=periodic, engine="torch")
+            try:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            except AssertionError as e:
+                fail(f"{mode} k={k} periodic={periodic}: kernel path "
+                     f"disagrees with the plain path at {m2}^2: {e}")
+            worst = max(worst, (got - want).abs().max().item())
+    print(f"  kernel path vs plain path at {m2} x {m2}, 64 sweeps, every "
+          f"schedule above, periodic and not: max|err| {worst:.1e} "
+          f"(rtol = atol = 1e-5)", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -871,6 +1147,7 @@ def main() -> int:
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)
     flash_t, flash_err = phase_flash(torch)
+    stencil_t, stencil_err = phase_stencil(torch)
     print("phase 3: serve phi4-mini-3.8b at full size", flush=True)
     launches = phase_serve(torch)
     print("phase 4: kernel path vs plain path, end to end", flush=True)
@@ -880,6 +1157,9 @@ def main() -> int:
     print("phase 6: training, prefill and generation, kernels vs plain",
           flush=True)
     phase_parity(torch)
+    print("phase 7: the paper's Jacobi solve at 16386 x 16386 on one rank",
+          flush=True)
+    jacobi_launches_run = phase_jacobi(torch)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
@@ -898,7 +1178,18 @@ def main() -> int:
                     source=flash_src,
                     replaces="src/repro/kernels/ops.py:203",
                     launches=flash_launches["bwd"],
-                    max_abs_err=flash_err["bwd"], **flash_t["bwd"])]
+                    max_abs_err=flash_err["bwd"], **flash_t["bwd"]),
+               dict(name="jacobi_step", route="cuda",
+                    source="src/repro_torch/kernels/csrc/stencil.cu",
+                    replaces="src/repro/kernels/stencil.py:50",
+                    launches=jacobi_launches_run["step"],
+                    max_abs_err=stencil_err["step"], **stencil_t["step"]),
+               dict(name="jacobi_ksweep", route="cuda",
+                    source="src/repro_torch/kernels/csrc/stencil.cu",
+                    replaces="src/repro/kernels/stencil.py:129",
+                    launches=jacobi_launches_run["ksweep"],
+                    max_abs_err=stencil_err["ksweep"],
+                    **stencil_t["ksweep"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,11 @@
 The port prices with an NVIDIA H100 (``H100``, the ``DEFAULT_HW``).
 ``TPU_V5E`` is kept so tests can hold the port's decisions to the
 reference's on the same machine model.  The remaining sections of the
-reference (collective, halo, attention, pipeline, checkpoint and MoE
-decisions) come with the slices that use them.
+reference (collective, attention, pipeline, checkpoint and MoE
+decisions) come with the slices that use them.  The halo-aggregation
+decision keeps the reference's formulas; only its tile-fit test prices
+the tile that the machine's stencil kernel stages (``HardwareModel.
+tile_rows`` / ``tile_cols``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Sequence
+
+from repro_torch.kernels.stencil import KSWEEP_TILE
 
 # ---------------------------------------------------------------------------
 # Hardware models
@@ -30,6 +35,11 @@ class HardwareModel:
     vmem_bytes:     per-core fast-memory capacity (a TPU core's VMEM; on a
                     GPU the shared memory one thread block may use)
     hbm_bytes:      per-chip main memory capacity
+    tile_rows:      centre rows of the k-sweep stencil kernel's tile
+    tile_cols:      its centre columns, or None when the tile spans the
+                    whole row (the TPU kernel's ``(blk_m, N)`` block,
+                    staged in the array's type); a 2-D tile is staged in
+                    f32 with a k-wide apron on all four sides
     """
 
     name: str
@@ -42,6 +52,8 @@ class HardwareModel:
     issue_overhead_s: float = 1.0e-7
     overlap_eff: float = 1.0
     scalar_flops: float = 0.0
+    tile_rows: int = 256
+    tile_cols: int | None = None
 
 
 # TPU v5e — the reference's production target (kept for decision parity
@@ -58,7 +70,8 @@ TPU_V5E = HardwareModel(
 
 # NVIDIA H100 SXM, data-sheet values: 989 TFLOP/s dense bf16, 3.35 TB/s
 # HBM3, 80 GB, 227 KB of shared memory per thread block, NVLink 450 GB/s
-# each way.  alpha_s is a placeholder until the torch.distributed
+# each way; the stencil tile is the CUDA k-sweep kernel's
+# (kernels/stencil.py::KSWEEP_TILE).  alpha_s is a placeholder until the torch.distributed
 # collectives measure it; the one-card serving path never prices it
 # except in the swap term's per-chunk latency.
 H100 = HardwareModel(
@@ -69,6 +82,8 @@ H100 = HardwareModel(
     hbm_bw=3.35e12,
     vmem_bytes=227 * 1024,
     hbm_bytes=80 * 10 ** 9,
+    tile_rows=KSWEEP_TILE[0],
+    tile_cols=KSWEEP_TILE[1],
 )
 
 DEFAULT_HW = H100
@@ -325,3 +340,144 @@ def decide_preempt(victim_pages: int, page_bytes: int,
         swap_bytes=swap_bytes, chunk_bytes=chunk_bytes, pcie_bw=bw,
         replay_tokens=int(replay_tokens), times=times,
         recompute_s=recompute_s, chosen_s=chosen)
+
+
+# ---------------------------------------------------------------------------
+# Halo aggregation decision (the paper's message-AGGREGATION knob)
+# ---------------------------------------------------------------------------
+#
+# MDMP's manager may also COARSEN communication: when per-message latency
+# (alpha) dominates, ship one k-row halo slab per k iterations instead of a
+# 1-row slab per iteration, and redundantly compute the ghost trapezoid.
+# Per sweep, for a (rows x cols) local block:
+#
+#   comm(k)  = 2*alpha/k + 2*cols*B/link_bw        alpha amortised k x;
+#                                                  halo bytes/sweep constant
+#   mem(k)   = (3*rows + 4*k)*cols*B/(k*hbm_bw)    the temporally-blocked
+#                                                  kernel streams the tile
+#                                                  once per k sweeps
+#   flops(k) = (rows + 2*(k-1))*cols*c/peak        redundant ghost rows
+#
+#   t(k)     = max(mem, flops) + comm
+#
+# k=1 is exactly the bulk schedule.  The fast memory of the tile the
+# k-sweep kernel stages (3 resident arrays) caps k: on a TPU the tile is
+# (min(rows, 256) + 2k) x cols in the array's type; the CUDA kernel's is
+# (tile_rows + 2k) x (tile_cols + 2k) in f32 against a block's shared
+# memory.
+
+
+#: flops per grid point of the 5-point Jacobi update (4 adds + 1 mul + ...)
+JACOBI_FLOPS_PER_POINT = 6.0
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloAggregationDecision:
+    """Outcome of the aggregation decision for one halo call site."""
+    k: int                        # chosen sweeps per exchange (1 = bulk)
+    per_sweep_s: dict[int, float]  # candidate k -> predicted seconds/sweep
+    bulk_sweep_s: float           # t(1)
+    aggregated_sweep_s: float     # t(k chosen)
+    comm_sweep_s: float           # comm term at chosen k
+    mem_sweep_s: float            # memory term at chosen k
+    flop_sweep_s: float           # redundant-compute term at chosen k
+
+    @property
+    def mode(self) -> str:
+        return "aggregated" if self.k > 1 else "bulk"
+
+    @property
+    def predicted_speedup(self) -> float:
+        if self.aggregated_sweep_s <= 0:
+            return 1.0
+        return self.bulk_sweep_s / self.aggregated_sweep_s
+
+
+def halo_sweep_terms(k: int, rows_local: int, cols: int, *,
+                     dtype_bytes: int = 4, hw: HardwareModel = DEFAULT_HW,
+                     flops_per_point: float = JACOBI_FLOPS_PER_POINT,
+                     axis_size: int = 2) -> tuple[float, float, float]:
+    """(comm_s, mem_s, flops_s) per sweep of the k-aggregated schedule.
+    With ``axis_size <= 1`` no bytes cross a link, so the comm term drops
+    and only the temporal-blocking (HBM) saving remains."""
+    k = max(1, k)
+    halo_bytes = cols * dtype_bytes
+    comm = (0.0 if axis_size <= 1
+            else 2.0 * hw.alpha_s / k + 2.0 * halo_bytes / hw.link_bw)
+    mem = ((3.0 * rows_local + 4.0 * k) * cols * dtype_bytes
+           / (k * hw.hbm_bw))
+    flops = ((rows_local + 2.0 * (k - 1)) * cols * flops_per_point
+             / hw.peak_flops)
+    return comm, mem, flops
+
+
+def halo_sweep_time(k: int, rows_local: int, cols: int, *,
+                    dtype_bytes: int = 4, hw: HardwareModel = DEFAULT_HW,
+                    flops_per_point: float = JACOBI_FLOPS_PER_POINT,
+                    axis_size: int = 2) -> float:
+    comm, mem, flops = halo_sweep_terms(
+        k, rows_local, cols, dtype_bytes=dtype_bytes, hw=hw,
+        flops_per_point=flops_per_point, axis_size=axis_size)
+    return max(mem, flops) + comm
+
+
+def halo_tile_bytes(k: int, rows_local: int, cols: int, *,
+                    dtype_bytes: int = 4,
+                    hw: HardwareModel = DEFAULT_HW) -> int:
+    """Fast-memory bytes of the k-sweep kernel's resident tiles (u twice
+    or in and out, and f): the whole-row tile of the TPU kernel, or the
+    CUDA kernel's 2-D f32 tile with its apron."""
+    rows = min(rows_local, hw.tile_rows) + 2 * k
+    if hw.tile_cols is None:
+        return 3 * rows * cols * dtype_bytes
+    return 3 * rows * (min(cols, hw.tile_cols) + 2 * k) * 4
+
+
+def decide_halo_aggregation(rows_local: int, cols: int, axis_size: int, *,
+                            dtype_bytes: int = 4,
+                            hw: HardwareModel = DEFAULT_HW,
+                            candidate_k: Sequence[int] = (1, 2, 4, 8),
+                            flops_per_point: float = JACOBI_FLOPS_PER_POINT,
+                            force_k: int | None = None
+                            ) -> HaloAggregationDecision:
+    """Pick how many sweeps each halo exchange should carry.
+
+    Candidates are dropped when the k-deep apron tile no longer fits the
+    machine's fast memory (``halo_tile_bytes``) or when k exceeds the
+    local block (the ghost trapezoid would swallow the whole shard); k=1
+    is the plain bulk schedule and always survives.  ``axis_size=1``
+    still aggregates — the HBM-round-trip saving is local — but its comm
+    term is zero.  ``force_k`` is clamped to the same validity caps, so
+    the returned k is always safe to feed to ``halo.jacobi_solve``.
+    """
+    def sweep_time(k: int) -> float:
+        return halo_sweep_time(
+            k, rows_local, cols, dtype_bytes=dtype_bytes, hw=hw,
+            flops_per_point=flops_per_point, axis_size=axis_size)
+
+    def valid(k: int) -> bool:
+        if k > max(1, rows_local):
+            return False
+        if k > 1 and hw.vmem_bytes and halo_tile_bytes(
+                k, rows_local, cols, dtype_bytes=dtype_bytes,
+                hw=hw) > hw.vmem_bytes:
+            return False
+        return True
+
+    times = {k: sweep_time(k) for k in sorted({1, *candidate_k})
+             if k >= 1 and valid(k)}
+    if force_k is not None:
+        best_k = max(1, int(force_k))
+        while best_k > 1 and not valid(best_k):
+            best_k -= 1
+        times.setdefault(best_k, sweep_time(best_k))
+    else:
+        best_k = min(times, key=lambda k: (times[k], k))
+    comm, mem, flops = halo_sweep_terms(
+        best_k, rows_local, cols, dtype_bytes=dtype_bytes, hw=hw,
+        flops_per_point=flops_per_point, axis_size=axis_size)
+    return HaloAggregationDecision(
+        k=best_k, per_sweep_s=times,
+        bulk_sweep_s=times.get(1, sweep_time(1)),
+        aggregated_sweep_s=times[best_k],
+        comm_sweep_s=comm, mem_sweep_s=mem, flop_sweep_s=flops)

@@ -8,7 +8,8 @@ logs a ``DecisionRecord``.  In this slice every mesh axis has size 1, so
 reference's are at axis size 1) and raise above it; their
 ``torch.distributed`` form comes with the managed-collectives slice.
 The serving resolvers (``resolve_serve_schedule``, ``resolve_preempt``)
-are ported whole: they run on the host and price with ``DEFAULT_HW``.
+and the halo-aggregation resolver (``resolve_halo_aggregation``) are
+ported whole: they run on the host and price with ``DEFAULT_HW``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
@@ -332,4 +333,41 @@ def resolve_preempt(axis_name: str, victim_pages: int, page_bytes: int,
             mode=decision.policy, chunks=decision.victim_pages,
             predicted_bulk_s=decision.recompute_s,
             predicted_interleaved_s=decision.chosen_s))
+    return decision
+
+
+def resolve_halo_aggregation(axis_name: str, axis_size: int,
+                             rows_local: int, cols: int, *,
+                             dtype_bytes: int = 4,
+                             candidate_k: Sequence[int] = (1, 2, 4, 8),
+                             mode: str | None = None,
+                             k: int | None = None
+                             ) -> cost_model.HaloAggregationDecision:
+    """The managed-runtime entry for the aggregation knob: pick how many
+    stencil sweeps each halo exchange should carry (k=1 = bulk) and log the
+    decision.  Called at planning time — ``axis_size`` is the extent of
+    the process group the rows are split over — and the chosen k feeds
+    ``halo.jacobi_solve(mode="aggregated", k=...)``.
+
+    ``mode="bulk"`` (or a global MDMPConfig forcing bulk) pins k=1 — the
+    paper-faithful unmanaged baseline; ``k`` pins an explicit sweep count
+    (the tuner's measured override).  The DecisionRecord reuses ``chunks``
+    to carry k and the predicted fields to carry seconds-per-sweep.
+    """
+    cfg = get_config()
+    pk_plan = _plan_knob("halo_aggregation", axis_name)
+    if pk_plan is not None and mode in (None, "auto") and k is None:
+        k = pk_plan.get("chunks")
+    eff_mode = mode or cfg.mode
+    force_k = 1 if eff_mode == "bulk" else k
+    decision = cost_model.decide_halo_aggregation(
+        rows_local, cols, axis_size, dtype_bytes=dtype_bytes, hw=cfg.hw,
+        candidate_k=candidate_k, force_k=force_k)
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op="halo_aggregation", axis=axis_name,
+            nbytes=2 * decision.k * cols * dtype_bytes,
+            mode=decision.mode, chunks=decision.k,
+            predicted_bulk_s=decision.bulk_sweep_s,
+            predicted_interleaved_s=decision.aggregated_sweep_s))
     return decision

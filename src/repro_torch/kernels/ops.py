@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import (NEG_INF, _blk_mask,
                                                  flash_attention_bwd,
                                                  flash_attention_fwd,
                                                  flash_attention_torch)
+from repro_torch.kernels.stencil import jacobi_step  # noqa: F401 (re-export)
 
 #: sequences at or above this use a blockwise implementation
 DENSE_MAX_SEQ = 2048

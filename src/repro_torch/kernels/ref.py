@@ -30,3 +30,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def jacobi_step_ref(u: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """5-point Jacobi sweep on the interior of u ([M, N], Dirichlet
+    boundary rows/cols held fixed), in u's type."""
+    new = 0.25 * (u[:-2, 1:-1] + u[2:, 1:-1] + u[1:-1, :-2] + u[1:-1, 2:]
+                  - f[1:-1, 1:-1])
+    out = u.clone()
+    out[1:-1, 1:-1] = new.to(u.dtype)
+    return out
+
+
+def jacobi_multistep_ref(u: torch.Tensor, f: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """k unit Jacobi sweeps — the bulk oracle for the temporally-blocked
+    kernel (kernels/stencil.py::jacobi_multistep)."""
+    for _ in range(k):
+        u = jacobi_step_ref(u, f)
+    return u

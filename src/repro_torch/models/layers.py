@@ -165,6 +165,38 @@ def embed_sp(tokens: torch.Tensor, table_loc: torch.Tensor,
     return _lookup(table_loc, tokens)
 
 
+class _LogitsF32(torch.autograd.Function):
+    """[N, D] @ [D, V] -> [N, V] f32 with f32 accumulation of low-precision
+    operands.  On CUDA the forward is ``aten::mm.dtype`` (no f32 copy of the
+    [D, V] unembedding); torch has no derivative for it, so the backward
+    is written here and keeps bf16 products, as a bf16 matmul's would.  On
+    the CPU, which has no ``mm.dtype``, the forward upcasts the chunk's
+    operands."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        if x2.device.type == "cuda":
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        return x2.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w.t(), x2.t() @ g
+
+
+def logits_f32(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Logits [..., V] in f32 of ``xs`` [..., D] against ``w`` [D, V]: the
+    f32 accumulator of the operands' product, as the reference's
+    ``jnp.dot(..., preferred_element_type=jnp.float32)``."""
+    if xs.dtype == torch.float32 and w.dtype == torch.float32:
+        return xs @ w
+    out = _LogitsF32.apply(xs.reshape(-1, xs.shape[-1]), w)
+    return out.reshape(*xs.shape[:-1], w.shape[1])
+
+
 def lm_loss_sp(x: torch.Tensor, unembed_loc: torch.Tensor,
                tokens: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx, *,
                chunk: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
@@ -174,9 +206,9 @@ def lm_loss_sp(x: torch.Tensor, unembed_loc: torch.Tensor,
 
     x: [B, S_loc, D]; unembed_loc: [D, V]; tokens: [B, S] labels (< 0 are
     ignored).  Returns (sum_loss / tp, count / tp); the caller sums over
-    all axes.  The logits of a bf16 model are the bf16 product cast to
-    f32, where the reference keeps the f32 accumulator
-    (``preferred_element_type``); in f32 the two are the same."""
+    all axes.  Each chunk's logits keep the f32 accumulator of the bf16
+    operands, as the reference's ``preferred_element_type=f32``
+    (``logits_f32``)."""
     _require_tp1("lm_loss_sp", ctx)
     b = x.shape[0]
     w = fsdp_gather(unembed_loc, "data", ctx, mode=ctx.mdmp_mode)  # [D, V]
@@ -191,7 +223,7 @@ def lm_loss_sp(x: torch.Tensor, unembed_loc: torch.Tensor,
     for i in range(n_chunks):
         xs = x_full[:, i * chunk:(i + 1) * chunk]
         lbl = tokens[:, i * chunk:(i + 1) * chunk].long()
-        logits = (xs @ w).float()                           # [B, c, V]
+        logits = logits_f32(xs, w)                          # [B, c, V]
         # the max is a constant shift: detached, as the reference's
         # stop_gradient keeps it out of AD
         lmax = logits.amax(dim=-1, keepdim=True).detach()

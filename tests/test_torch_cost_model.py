@@ -1,7 +1,8 @@
 """The port's managed-runtime host logic held against the reference's:
-the serve-schedule and preemption decisions (priced on ``TPU_V5E`` on both
-sides), their decision-trail records, the drain meter, the fault-plan
-parser and the recalibration trigger."""
+the serve-schedule, preemption and halo-aggregation decisions (priced on
+``TPU_V5E`` on both sides), their decision-trail records, the drain meter,
+the fault-plan parser and the recalibration trigger; and the halo
+decision priced on the ``H100``, whose stencil kernel stages a 2-D tile."""
 
 import dataclasses
 import math
@@ -16,6 +17,7 @@ from repro.obs.calibrate import Recalibrator as RefRecalibrator
 from repro_torch.core import cost_model as cm
 from repro_torch.core import managed, overlap
 from repro_torch.core.faults import FaultPlan
+from repro_torch.kernels import stencil
 from repro_torch.obs.calibrate import Recalibrator
 
 SERVE_CASES = [
@@ -121,3 +123,83 @@ def test_recalibrator_fires_like_reference():
             got.rebase()
             want.rebase()
     assert got.retunes == want.retunes > 1
+
+
+HALO_CASES = [
+    # rows_local, cols, axis_size, kwargs (tests/test_cost_model.py's
+    # cases, then full-width, bf16, forced and one-rank variants)
+    (128, 514, 8, dict()),
+    (128, 514, 8, dict(force_k=1)),
+    (4, 514, 8, dict(candidate_k=(1, 2, 4, 8))),
+    (256, 514, 8, dict()),
+    (256, 256, 4, dict()),
+    (16384, 16386, 1, dict()),
+    (2048, 16386, 8, dict(dtype_bytes=2)),
+    (2048, 1 << 20, 8, dict()),
+    (64, 4096, 2, dict(force_k=16, candidate_k=(1, 2, 4, 8, 16))),
+    (3, 100, 4, dict(force_k=8)),
+    (512, 8192, 1, dict(candidate_k=(2, 3))),
+]
+
+
+@pytest.mark.parametrize("rows,cols,n,kw", HALO_CASES)
+def test_decide_halo_aggregation_equals_reference(rows, cols, n, kw):
+    got = cm.decide_halo_aggregation(rows, cols, n, hw=cm.TPU_V5E, **kw)
+    want = ref_cm.decide_halo_aggregation(rows, cols, n, hw=ref_cm.TPU_V5E,
+                                          **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.mode, got.predicted_speedup) == \
+        (want.mode, want.predicted_speedup)
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 32])
+@pytest.mark.parametrize("n", [1, 8])
+def test_halo_sweep_terms_equal_reference(k, n):
+    for fn in ("halo_sweep_terms", "halo_sweep_time"):
+        got = getattr(cm, fn)(k, 256, 514, hw=cm.TPU_V5E, axis_size=n)
+        want = getattr(ref_cm, fn)(k, 256, 514, hw=ref_cm.TPU_V5E,
+                                   axis_size=n)
+        assert got == want, fn
+    assert cm.JACOBI_FLOPS_PER_POINT == ref_cm.JACOBI_FLOPS_PER_POINT
+
+
+@pytest.mark.parametrize("mode", [None, "bulk", "interleaved"])
+def test_resolve_halo_aggregation_logs_the_reference_records(mode):
+    def trail(mod, hw):
+        with mod.use_config(mod.MDMPConfig(hw=hw)):
+            with mod.capture_decisions() as cap:
+                mod.resolve_halo_aggregation("x", 4, 256, 256, mode=mode)
+                mod.resolve_halo_aggregation("x", 8, 128, 514, mode=mode)
+                mod.resolve_halo_aggregation("x", 8, 128, 514, mode=mode,
+                                             k=2)
+                mod.resolve_halo_aggregation("y", 1, 4096, 4098,
+                                             dtype_bytes=2, mode=mode)
+        return cap.records
+
+    got = trail(managed, cm.TPU_V5E)
+    want = trail(ref_managed, ref_cm.TPU_V5E)
+    assert [dataclasses.asdict(r) | {"t": None} for r in got] == \
+        [dataclasses.asdict(r) | {"t": None} for r in want]
+
+
+def test_h100_prices_the_tile_its_kernel_stages():
+    """At the card shape (16386 columns) the reference's whole-row tile
+    never fits 227 KB of shared memory, so every k > 1 would fall back to
+    bulk; the H100 model prices the CUDA kernel's 2-D tile plus its k-wide
+    apron in f32 (the bytes the kernel opts into), and aggregation is
+    reachable."""
+    assert (cm.H100.tile_rows, cm.H100.tile_cols) == stencil.KSWEEP_TILE
+    for k in (1, 2, 4, 8):
+        assert cm.halo_tile_bytes(k, 16384, 16386, hw=cm.H100) == \
+            stencil.ksweep_smem_bytes(k)
+    d = cm.decide_halo_aggregation(16384, 16386, 1, hw=cm.H100)
+    assert d.k == 8 and d.mode == "aggregated"
+    assert d.comm_sweep_s == 0.0 and d.predicted_speedup > 7.0
+    whole_row = dataclasses.replace(cm.H100, tile_rows=256, tile_cols=None)
+    assert cm.decide_halo_aggregation(16384, 16386, 1,
+                                      hw=whole_row).k == 1
+    # a k whose tile does not fit shared memory is never chosen
+    d = cm.decide_halo_aggregation(16384, 16386, 1, hw=cm.H100,
+                                   candidate_k=(1, 8, 32))
+    assert d.k == 8 and 32 not in d.per_sweep_s
+    assert stencil.ksweep_smem_bytes(32) > cm.H100.vmem_bytes

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import halo
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as paged
+from repro_torch.kernels import stencil
 
 
 @pytest.fixture
@@ -190,3 +192,182 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda):
     q32, k32, v32, _ = _flash_inputs(cuda, torch.float32, 1, 64, 64, 4, 2, 32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q32, k32, v32)
+
+
+# ---------------------------------------------------------------------------
+# Jacobi stencil: one sweep and k sweeps per round trip
+# ---------------------------------------------------------------------------
+
+#: ragged (not multiples of the kernels' tiles or row strips),
+#: tiny, and the reference tests' shapes
+STENCIL_SHAPES = [(1000, 777), (3, 3), (5, 130), (66, 130), (258, 514)]
+STENCIL_TOL = [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)]
+
+
+def _grid(cuda, dtype, shape, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(cuda).to(dtype) for _ in range(2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", STENCIL_TOL)
+@pytest.mark.parametrize("shape", STENCIL_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jacobi_step_kernel_matches_plain(cuda, dtype, tol, shape):
+    """One sweep with Dirichlet rows, with halo rows, and the interleaved
+    schedule's interior and edge-row passes into a prefilled ``out``
+    (rows outside ``rows`` untouched), against the plain version; f32
+    within 1e-6 and bf16 within 2e-2 of the largest magnitude."""
+    u, f = _grid(cuda, dtype, shape, 3)
+    lo, hi = _grid(cuda, dtype, (1, shape[1]), 4)
+    m = shape[0]
+    for kw in ({}, {"lo": lo, "hi": hi}):
+        before = stencil.STEP_LAUNCHES
+        got = stencil.jacobi_step(u, f, **kw)
+        torch.cuda.synchronize()
+        assert stencil.STEP_LAUNCHES == before + 1
+        want = stencil.jacobi_step(u, f, engine="torch", **kw)
+        assert got.dtype == dtype
+        _close(got, want, tol, f"jacobi_step {sorted(kw)}")
+    for rows, kw in ((((1, m - 1),), {}),
+                     (((0, 1), (m - 1, m)), {"lo": lo, "hi": hi})):
+        out = torch.full_like(u, 7.0)
+        stencil.jacobi_step(u, f, rows=rows, out=out, **kw)
+        torch.cuda.synchronize()
+        want = torch.full_like(u, 7.0)
+        stencil.jacobi_step(u, f, rows=rows, out=want, engine="torch", **kw)
+        _close(out, want, tol, f"jacobi_step rows={rows}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", STENCIL_TOL)
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("shape", [(64, 130), (1000, 777), (5, 130)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jacobi_ksweep_kernel_matches_plain(cuda, dtype, tol, k, shape):
+    """k sweeps on a slab with a live k-row apron, frozen depths (0, 0),
+    (k, k) and (k+1, k+1), against the plain trapezoid; in f32 with
+    (0, 0) also against k sweeps of the larger grid in which every row
+    updates (tests/test_kernels.py::test_jacobi_ksweep_slab_interior)."""
+    m, n = shape
+    big, fbig = _grid(cuda, dtype, (m + 2 * k, n), 9)
+    for ft, fb in ((0, 0), (k, k), (k + 1, k + 1)):
+        before = stencil.KSWEEP_LAUNCHES
+        got = stencil.jacobi_ksweep(big, fbig, k, ft, fb)
+        torch.cuda.synchronize()
+        assert stencil.KSWEEP_LAUNCHES == before + 1
+        want = stencil.jacobi_ksweep(big, fbig, k, ft, fb, engine="torch")
+        assert got.shape == (m, n) and got.dtype == dtype
+        _close(got, want, tol, f"frozen ({ft}, {fb})")
+    if dtype == torch.float32:
+        want = big.clone()
+        z = torch.zeros((1, n), device=cuda)
+        for _ in range(k):
+            up = torch.cat([z, want, z])
+            want[:, 1:-1] = 0.25 * (up[:-2, 1:-1] + up[2:, 1:-1]
+                                    + up[1:-1, :-2] + up[1:-1, 2:]
+                                    - fbig[:, 1:-1])
+        _close(stencil.jacobi_ksweep(big, fbig, k, 0, 0), want[k:-k], tol,
+               "slab interior")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_jacobi_multistep_kernel_equals_k_unit_sweeps(cuda, k):
+    """The temporally-blocked kernel against k launches of the one-sweep
+    kernel (bit for bit: the same f32 operations in the same order)."""
+    u, f = _grid(cuda, torch.float32, (258, 514), 7)
+    got = stencil.jacobi_multistep(u, f, k=k)
+    want = u
+    for _ in range(k):
+        want = stencil.jacobi_step(want, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("periodic", [False, True])
+def test_jacobi_solve_kernel_path_matches_plain_path(cuda, periodic):
+    """Every schedule through the kernels against the plain versions pinned
+    (rtol = atol = 1e-5, as tests/dist_suite/test_halo.py), with exact
+    launch counts: a row-4 launch per bulk sweep, two per interleaved
+    sweep, and 19 // k row-5 launches plus 19 % k row-4 launches."""
+    u, f = _grid(cuda, torch.float32, (130, 258), 11)
+    iters = 19
+    want = halo.jacobi_solve(u, f, None, iters, "bulk", periodic=periodic,
+                             engine="torch")
+    for mode, k, launches in (("bulk", 1, (iters, 0)),
+                              ("interleaved", 1, (2 * iters, 0)),
+                              ("aggregated", 2, (1, 9)),
+                              ("aggregated", 4, (3, 4)),
+                              ("aggregated", 8, (3, 2))):
+        s0, k0 = stencil.STEP_LAUNCHES, stencil.KSWEEP_LAUNCHES
+        got = halo.jacobi_solve(u, f, None, iters, mode, k=k,
+                                periodic=periodic)
+        torch.cuda.synchronize()
+        assert (stencil.STEP_LAUNCHES - s0,
+                stencil.KSWEEP_LAUNCHES - k0) == launches, (mode, k)
+        plain = halo.jacobi_solve(u, f, None, iters, mode, k=k,
+                                  periodic=periodic, engine="torch")
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_jacobi_kernels_reject_what_they_do_not_take(cuda):
+    u, f = _grid(cuda, torch.float32, (66, 130), 0)
+    with pytest.raises(TypeError):
+        stencil.jacobi_step(u.half(), f.half())
+    with pytest.raises(TypeError):
+        stencil.jacobi_step(u, f.bfloat16())
+    with pytest.raises(ValueError):
+        stencil.jacobi_step(u.t().contiguous().t(), f.t().contiguous().t())
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil.jacobi_ksweep(u, f, 32, 0, 0)
+
+
+@pytest.mark.gpu
+def test_bf16_loss_cuda_branch_keeps_the_f32_accumulator(cuda):
+    """The CUDA branch of the loss's logits (``aten::mm.dtype`` forward,
+    bf16 backward): the logits within 1e-4 of the f32 product of the same
+    bf16 operands, which the bf16-rounded product (about 2^-9 of each
+    logit) misses; the loss within 1e-5 (relative) and its gradients
+    within 2e-2 of their largest magnitude of the CPU branch, which
+    tests/test_torch_train.py holds to the reference."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers
+    from repro_torch.parallel.sharding import MeshCtx
+
+    cfg = get_reduced("phi4-mini-3.8b")
+    b, s, d, v = 2, 64, 3072, 1024
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(b, s, d))).to(torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(d, v)) * 3.0 / np.sqrt(d)) \
+        .to(torch.bfloat16)
+    tokens = rng.integers(0, v, size=(b, s)).astype(np.int32)
+    tokens[:, -3:] = -1                                  # ignored labels
+    tokens = torch.from_numpy(tokens)
+
+    want_logits = x.double() @ w.double()                # exact products
+    got_logits = layers.logits_f32(x.to(cuda), w.to(cuda))
+    assert got_logits.dtype == torch.float32
+    torch.testing.assert_close(got_logits.cpu().double(), want_logits,
+                               rtol=0, atol=1e-4)
+
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        tx = x.to(dev).requires_grad_()
+        tw = w.to(dev).requires_grad_()
+        loss, count = layers.lm_loss_sp(tx, tw, tokens.to(dev), cfg,
+                                        MeshCtx(), chunk=16)
+        assert loss.dtype == torch.float32 and count.item() == b * (s - 3)
+        dx, dw = torch.autograd.grad(loss, (tx, tw))
+        assert dx.dtype == dw.dtype == torch.bfloat16
+        results.append((loss.item(), dx.float().cpu(), dw.float().cpu()))
+    (loss, dx, dw), (want_loss, want_dx, want_dw) = results
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for got, want, name in ((dx, want_dx, "dx"), (dw, want_dw, "dw")):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2e-2 * want.abs().max().item(),
+                                   msg=name)

@@ -206,6 +206,57 @@ def test_adamw_update_in_pieces_matches_reference(monkeypatch, clip):
             _close(flatten_specs(got)[name].numpy(), w, 1e-6, name)
 
 
+def test_bf16_loss_keeps_the_f32_accumulator():
+    """In a bf16 model the loss's logits are the f32 accumulator of the
+    bf16 operands (the reference's ``preferred_element_type=f32``), not
+    the bf16 product cast to f32, whose rounding (about 2^-9 of each
+    logit, 0.02 at these magnitudes) the tolerances below reject.  The
+    loss within 1e-5 (relative), each logit within 1e-4, the gradients
+    within 2e-2 of their largest magnitude (bf16 backward products)."""
+    from repro.models import layers as ref_layers
+    from repro_torch.models import layers
+    from repro_torch.parallel.sharding import MeshCtx
+
+    cfg = ref_configs.get_reduced("phi4-mini-3.8b")
+    b, s, d, v = 2, 64, 64, 384
+    rng = np.random.default_rng(5)
+    bf16 = lambda a: np.asarray(jax.numpy.asarray(a, jax.numpy.bfloat16))
+    x = bf16(rng.normal(size=(b, s, d)))
+    w = bf16(rng.normal(size=(d, v)) * 3.0 / np.sqrt(d))
+    tokens = rng.integers(0, v, size=(b, s)).astype(np.int32)
+    tokens[:, -3:] = -1                                  # ignored labels
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    ctx = RefMeshCtx.from_mesh(mesh, mdmp_mode="bulk")
+
+    def ref_loss(xx, ww, tt):
+        return ref_layers.lm_loss_sp(xx, ww, tt, cfg, ctx, chunk=16)[0]
+
+    fn = jax.jit(smap(jax.value_and_grad(ref_loss, argnums=(0, 1)), mesh,
+                      in_specs=(P(), P(), P()), out_specs=(P(), (P(), P()))))
+    want_loss, (want_dx, want_dw) = fn(x, w, tokens)
+    want_logits = jax.numpy.dot(x, w, preferred_element_type=np.float32)
+
+    tx = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    tw = torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16)
+    tx.requires_grad_()
+    tw.requires_grad_()
+    loss, count = layers.lm_loss_sp(tx, tw, torch.from_numpy(tokens), cfg,
+                                    MeshCtx(), chunk=16)
+    assert loss.dtype == torch.float32 and count.item() == b * (s - 3)
+    _close(loss.item(), float(want_loss), 1e-5, "loss")
+    got_logits = layers.logits_f32(tx, tw)
+    assert got_logits.dtype == torch.float32
+    np.testing.assert_allclose(got_logits.detach().numpy(),
+                               np.asarray(want_logits), rtol=0, atol=1e-4)
+    dx, dw = torch.autograd.grad(loss, (tx, tw))
+    for got, want, name in ((dx, want_dx, "dx"), (dw, want_dw, "dw")):
+        assert got.dtype == torch.bfloat16, name
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=2e-2 * np.abs(want).max(),
+                                   err_msg=name)
+
+
 def _loop(tmp_path, name, fault_hook=None, total=12):
     cfg = configs.get_reduced("granite-34b")
     model = Model(cfg, device="cpu")
