@@ -37,10 +37,20 @@ phase that fails:
                managed.resolve_halo_aggregation picks and at k = 2, 4, 8,
                with exact stencil launch counts; aggregated equals bulk,
                and at 2050 x 2050 the kernel path equals the plain path
-               in every schedule.
+               in every schedule;
+  8. moe     — moonshot-v1-16b-a3b (MoE, 64 experts top-6) uncut (48
+               layers, bf16, 56 GB of seeded random weights): prefill_sp
+               of 4 x 1024 tokens with exactly 48 grouped-expert and 48
+               flash launches; 8 requests served through ServeEngine
+               (paged launches = 48 x decode steps); 3 training steps at
+               full width and 4 layers with exactly 8 grouped launches per
+               step; and at 2 layers in f32 the kernel path against the
+               plain path (loss, gradients, prefill logits) and the
+               contiguous Generator against the paged engine.
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
-trip) to their plain versions and times them at the Jacobi shape.
+trip) and the grouped-expert FFN to their plain versions and times them
+at the Jacobi shape and at moonshot's prefill call.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -572,6 +582,157 @@ def phase_stencil(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the grouped-expert FFN, kernel vs plain, and its times
+# ---------------------------------------------------------------------------
+
+#: (G, C, D, F, E): one group per expert, gpe = 2 and 4, sizes that are no
+#: multiple of the kernel's tiles
+GROUPED_SHAPES = [(4, 16, 8, 12, 4), (8, 32, 8, 16, 4), (8, 32, 8, 16, 2),
+                  (3, 257, 130, 70, 3), (6, 100, 200, 77, 3)]
+GROUPED_TOL = (("float32", 1e-5), ("bfloat16", 2e-2))
+#: moonshot-v1-16b-a3b's prefill call: B=4 x S=1024 tokens, top-6 of 64
+#: experts, capacity ceil(4096 * 6 * 1.25 / 64) = 480
+MOE_PREFILL = dict(b=4, s=1024, e=64, k=6, c=480, d=2048, f=1408)
+
+
+def grouped_inputs(torch, gen, shape, dtype, valid):
+    """h with 1e3-scale garbage past each group's valid count; weights
+    ~ 0.1 N(0, 1)."""
+    g, c, d, f, e = shape
+    h = torch.randn((g, c, d), generator=gen, device="cuda")
+    rows = torch.arange(c, device="cuda")[None, :, None]
+    junk = 1e3 * torch.randn((g, c, d), generator=gen, device="cuda")
+    h = torch.where(rows < valid[:, None, None], h, junk)
+    ws = [0.1 * torch.randn(s, generator=gen, device="cuda")
+          for s in ((e, d, f), (e, d, f), (e, f, d))]
+    return [t.to(dtype) for t in (h, *ws)]
+
+
+def routed_counts(torch, rng):
+    """Kept rows per expert of one prefill call: each token's top-6
+    distinct experts drawn uniformly, loads clamped at the capacity."""
+    p = MOE_PREFILL
+    picks = np.argsort(rng.random((p["b"] * p["s"], p["e"])), axis=1)
+    load = np.bincount(picks[:, :p["k"]].ravel(), minlength=p["e"])
+    return torch.tensor(np.minimum(load, p["c"]).astype(np.int32),
+                        device="cuda")
+
+
+def grouped_bound(kept, c, d, f, e, itemsize, gated=True):
+    """Least time for one call that keeps ``kept`` rows: the first
+    products in the inputs' type on the tensor cores, the second in f32
+    outside them, against the kept rows of h, the expert weights and the
+    whole output over HBM.  Returns (ms, 'bytes'|'operations')."""
+    mults = 2 if gated else 1
+    t_ops = (2.0 * mults * d * f * kept / PEAK["bfloat16"]
+             + 2.0 * f * d * kept / PEAK["float32"])
+    nbytes = ((kept * d + (mults + 1) * e * d * f) * itemsize
+              + e * c * d * itemsize + 4 * e)
+    t_bytes = nbytes / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def grouped_check(torch, got, want, valid, tol, name):
+    """Within tol x max(1, max|want|), padded rows exactly zero; returns
+    max|err|."""
+    err = stencil_check(torch, got, want, tol, name)
+    pad = (torch.arange(got.shape[1], device="cuda")[None, :, None]
+           >= valid[:, None, None]).expand_as(got)
+    if not torch.equal(got[pad].float(), torch.zeros_like(got[pad].float())):
+        fail(f"{name}: padded rows are not exactly zero")
+    return err
+
+
+def phase_grouped(torch):
+    from repro_torch.kernels import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    err_bf16 = 0.0
+    for dname, tol in GROUPED_TOL:
+        dtype = getattr(torch, dname)
+        for mlp in ("swiglu", "geglu", "relu2", "gelu"):
+            line = []
+            for shape in GROUPED_SHAPES:
+                g, c = shape[:2]
+                valid = torch.tensor(rng.integers(0, c + 1, size=g),
+                                     dtype=torch.int32, device="cuda")
+                valid[0], valid[-1] = 0, c
+                h, w1, w1g, w2 = grouped_inputs(torch, gen, shape, dtype,
+                                                valid)
+                w1g = w1g if gm.gated(mlp) else None
+                got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp=mlp)
+                torch.cuda.synchronize()
+                want = gm.grouped_expert_ffn_torch(
+                    h.float(), w1.float(),
+                    None if w1g is None else w1g.float(), w2.float(),
+                    valid, mlp)
+                err = grouped_check(torch, got, want, valid, tol,
+                                    f"grouped_expert_ffn {dname} {mlp} "
+                                    f"{shape}")
+                line.append(err)
+                if dtype == torch.bfloat16:
+                    err_bf16 = max(err_bf16, err)
+            print(f"  grouped_expert_ffn vs plain {dname} {mlp} (G, C, D, "
+                  f"F, E) in {GROUPED_SHAPES}, valid 0, C and between: "
+                  f"max|err| {max(line):.2e} (tolerance {tol} x max(1, "
+                  f"max|want|)); padded rows exactly 0", flush=True)
+
+    # the prefill's own call, kernel against plain, then its times; two
+    # input sets so consecutive calls do not find the weights in L2
+    p = MOE_PREFILL
+    shape = (p["e"], p["c"], p["d"], p["f"], p["e"])
+    sets = []
+    for _ in range(2):
+        valid = routed_counts(torch, rng)
+        sets.append((*grouped_inputs(torch, gen, shape, torch.bfloat16,
+                                     valid), valid))
+    h, w1, w1g, w2, valid = sets[0]
+    got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp="swiglu")
+    torch.cuda.synchronize()
+    want = gm.grouped_expert_ffn_torch(h, w1, w1g, w2, valid, "swiglu")
+    err = grouped_check(torch, got, want, valid, GROUPED_TOL[1][1],
+                        f"grouped_expert_ffn bf16 prefill call {shape}")
+    err_bf16 = max(err_bf16, err)
+    kept = int(valid.sum())
+    print(f"  grouped_expert_ffn vs plain bf16 at the moonshot prefill call "
+          f"(G = E = 64, C = 480, D = 2048, F = 1408, swiglu, {kept} kept "
+          f"rows): max|err| {err:.2e} (tolerance {GROUPED_TOL[1][1]} x "
+          f"max(1, max|want|)); padded rows exactly 0", flush=True)
+    del got, want
+
+    def bmm3(s):
+        hh, a, b, c2, _ = s
+        return torch.bmm(torch.bmm(hh, a) * torch.bmm(hh, b), c2)
+
+    kernel = [lambda s=s: gm.grouped_expert_ffn(*s[:4], s[4], mlp="swiglu")
+              for s in sets]
+    plain = [lambda s=s: gm.grouped_expert_ffn_torch(*s[:4], s[4],
+                                                     "swiglu")
+             for s in sets]
+    yard = [lambda s=s: bmm3(s) for s in sets]
+    tm = dict(ms=graph_ms(torch, kernel * 2, 5),
+              plain_ms=graph_ms(torch, plain, 3), library_ms=None)
+    yard_ms = graph_ms(torch, yard * 2, 5)
+    kept_mean = sum(int(s[4].sum()) for s in sets) / len(sets)
+    tm["bound_ms"], tm["bound_by"] = grouped_bound(
+        kept_mean, p["c"], p["d"], p["f"], p["e"], 2)
+    print(f"  grouped_expert_ffn at the moonshot prefill call (bf16, "
+          f"{kept_mean:.0f} kept rows of {p['e'] * p['c']}): kernel "
+          f"{tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+          f"({tm['bound_by']}; the kernel reaches "
+          f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
+          f"{tm['plain_ms']:.4f} ms; no single library call computes it; "
+          f"yardstick: three torch.bmm on the padded buffers in bf16 "
+          f"(cuBLAS, padding included, one elementwise product in place of "
+          f"the activation) {yard_ms:.4f} ms", flush=True)
+    del sets, h, w1, w1g, w2, kernel, plain, yard
+    torch.cuda.empty_cache()
+    return tm, err_bf16
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -633,25 +794,14 @@ def profile_decode_step(torch, model, slots: int = 8, page: int = 16,
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    per_kernel = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and e.device_type.name == "CUDA":
-            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / n
+    per_kernel = device_ms_by_kernel(torch, prof, n)
     dev_ms = sum(per_kernel.values())
     print(f"  one decode step (8 slots at position {pos}): {wall_ms:.2f} ms "
           f"host wall, {dev_ms:.2f} ms device time by torch.profiler "
           f"(busy share {dev_ms / wall_ms * 100:.1f}%; weights-streaming "
           f"bound {model.cfg.param_count() * 2 / HBM_BW * 1e3:.2f} ms)",
           flush=True)
-    if not per_kernel:
-        print("  torch.profiler recorded no device time", flush=True)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    for name, ms in top:
-        print(f"    {ms:.3f} ms/step ({ms / max(dev_ms, 1e-9) * 100:.1f}%) "
-              f"{name[:90]}", flush=True)
+    print_by_kind(per_kernel, "decode step")
 
 
 def phase_serve(torch):
@@ -754,6 +904,35 @@ def device_ms_by_kernel(torch, prof, n: int) -> dict[str, float]:
     return per_kernel
 
 
+def kind_of(name: str) -> str:
+    """The kind of a profiled kernel, by its name."""
+    return ("grouped expert FFN" if "ffn_up" in name or "ffn_down" in name
+            else "flash attention" if "flash_" in name
+            else "paged attention" if "paged" in name
+            else "GEMM" if any(t in name for t in ("nvjet", "gemm", "xmma",
+                                                   "cutlass", "Kernel2"))
+            else "copies" if "copy" in name or "Memcpy" in name
+            else "other elementwise, sorts and reductions")
+
+
+def print_by_kind(per_kernel: dict[str, float], what: str) -> None:
+    """Device time of a profile by kind of kernel, then the top six."""
+    if not per_kernel:
+        print("  torch.profiler recorded no device time", flush=True)
+        return
+    dev_ms = sum(per_kernel.values())
+    groups: dict[str, float] = {}
+    for name, ms in per_kernel.items():
+        groups[kind_of(name)] = groups.get(kind_of(name), 0.0) + ms
+    print(f"  {what} device time by kind: " + "; ".join(
+        f"{g} {ms:.2f} ms ({ms / max(dev_ms, 1e-9) * 100:.1f}%)"
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {ms:.3f} ms ({ms / max(dev_ms, 1e-9) * 100:.1f}%) "
+              f"{name[:90]}", flush=True)
+
+
 def train_batch(torch, data, step):
     return {k: torch.from_numpy(v).to("cuda")
             for k, v in data.global_batch_at(step).items()}
@@ -830,23 +1009,7 @@ def phase_train(torch):
           f"{dev_ms / (prof_wall * 1e3) * 100:.1f}%), flash kernels "
           f"{flash_ms:.1f} ms ({flash_ms / max(dev_ms, 1e-9) * 100:.1f}%)",
           flush=True)
-    if not per_kernel:
-        print("  torch.profiler recorded no device time", flush=True)
-    groups: dict[str, float] = {}
-    for name, ms in per_kernel.items():
-        group = ("flash attention" if "flash_" in name else
-                 "GEMM" if any(t in name for t in ("nvjet", "gemm", "xmma",
-                                                   "cutlass")) else
-                 "copies" if "copy" in name or "Memcpy" in name else
-                 "other elementwise and reductions")
-        groups[group] = groups.get(group, 0.0) + ms
-    print("  device time per step by kind: " + "; ".join(
-        f"{g} {ms:.1f} ms ({ms / max(dev_ms, 1e-9) * 100:.1f}%)"
-        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
-        flush=True)
-    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"    {ms:.2f} ms/step ({ms / max(dev_ms, 1e-9) * 100:.1f}%) "
-              f"{name[:90]}", flush=True)
+    print_by_kind(per_kernel, "training step")
 
     # prefill of 2 prompts of 1024 tokens through the same weights
     del opt, step, batch, metrics
@@ -871,6 +1034,21 @@ def phase_train(torch):
     del model, logits, cache
     torch.cuda.empty_cache()
     return launches
+
+
+def check_loss_and_grads(a: dict, b: dict, what: str) -> tuple:
+    """The kernel path's loss within rtol 1e-5 of the plain path's and
+    every gradient within 1e-4 of its largest magnitude; returns the worst
+    (relative error, name)."""
+    if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]):
+        fail(f"{what}: loss {a['loss']} (kernels) != {b['loss']} (plain)")
+    worst = max(((g - b["grads"][k]).abs().max().item()
+                 / max(b["grads"][k].abs().max().item(), 1e-30), k)
+                for k, g in a["grads"].items())
+    if worst[0] > 1e-4:
+        fail(f"{what}: gradient {worst[1]} differs by {worst[0]:.2e} of "
+             "its largest magnitude between kernels and plain")
+    return worst
 
 
 def phase_parity(torch):
@@ -934,14 +1112,7 @@ def phase_parity(torch):
         del opt, step, p0
         torch.cuda.empty_cache()
     a, b = runs["auto"], runs["torch"]
-    if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]):
-        fail(f"loss {a['loss']} (kernels) != {b['loss']} (plain)")
-    worst = max(((g - b["grads"][k]).abs().max().item()
-                 / max(b["grads"][k].abs().max().item(), 1e-30), k)
-                for k, g in a["grads"].items())
-    if worst[0] > 1e-4:
-        fail(f"gradient {worst[1]} differs by {worst[0]:.2e} of its "
-             "largest magnitude between kernels and plain")
+    worst = check_loss_and_grads(a, b, "phi4-mini-3.8b")
     if not np.allclose(a["losses"], b["losses"], rtol=1e-5, atol=0):
         fail(f"3-step losses {a['losses']} != {b['losses']}")
     upd_err = max(((u - b["upd"][k]).norm() / max(b["upd"][k].norm(),
@@ -1117,6 +1288,277 @@ def phase_jacobi(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: moonshot-v1-16b-a3b (MoE): prefill, serving, training, parity
+# ---------------------------------------------------------------------------
+
+
+def moe_prompts(vocab: int) -> list[np.ndarray]:
+    rng = np.random.default_rng(SEED + 2)
+    plens = rng.integers(32, 65, size=8)
+    return [rng.integers(0, vocab - 1, size=int(p)).astype(np.int32)
+            for p in plens]
+
+
+def phase_moe_serve(torch):
+    """Steps 1-3: moonshot uncut, prefill with the grouped kernel, then
+    served through the paged engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.core import managed
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models.model import Model
+
+    cfg = configs.get_config("moonshot-v1-16b-a3b")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(gen)
+    torch.cuda.synchronize()
+    e = cfg.moe
+    print(f"  moonshot-v1-16b-a3b: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {e.n_experts} experts top-"
+          f"{e.top_k} (d_ff {e.d_ff_expert}, {cfg.mlp}), vocab "
+          f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params, bf16, "
+          f"init {time.perf_counter() - t0:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    p = MOE_PREFILL
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size - 1, size=(p["b"], p["s"])).astype(np.int32)).cuda()
+    with managed.capture_decisions() as cap:
+        model.prefill_sp({"tokens": tokens})                 # warm-up
+    torch.cuda.synchronize()
+    gm.GROUPED_LAUNCHES = 0                      # counts of this run only
+    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"grouped": gm.GROUPED_LAUNCHES, "fwd": fa.FWD_LAUNCHES}
+    if launches != {"grouped": cfg.n_layers, "fwd": cfg.n_layers}:
+        fail(f"prefill launched {launches}, not {cfg.n_layers} of each")
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (
+            p["b"], cfg.padded_vocab):
+        fail(f"prefill logits {tuple(logits.shape)} not finite")
+    for rec in cap.records:
+        print(f"  decision moe_dispatch({rec.mode} g={rec.chunks}, capacity "
+              f"buffers {rec.nbytes / 1e6:.1f} MB, H100 model "
+              f"{rec.predicted_interleaved_s * 1e3:.3f} ms per layer)",
+              flush=True)
+    print(f"  prefill_sp of {p['b']} prompts x {p['s']} tokens: "
+          f"{pre_ms:.1f} ms ({p['b'] * p['s'] / pre_ms * 1e3:.0f} tokens/s)"
+          f", {launches['grouped']} grouped_expert_ffn and "
+          f"{launches['fwd']} flash forward launches, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del logits, cache
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = model.prefill_sp({"tokens": tokens})
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    per_kernel = device_ms_by_kernel(torch, prof, 1)
+    dev_ms = sum(per_kernel.values())
+    print(f"  one prefill under torch.profiler: {prof_ms:.1f} ms host wall, "
+          f"{dev_ms:.1f} ms device time (busy share "
+          f"{dev_ms / prof_ms * 100:.1f}%)", flush=True)
+    print_by_kind(per_kernel, "prefill")
+    torch.cuda.empty_cache()
+
+    prompts = moe_prompts(cfg.vocab_size)
+    gm.GROUPED_LAUNCHES = 0
+    with managed.capture_decisions() as cap:
+        got, eng, wall, paged_launches = serve(torch, model, prompts, 16,
+                                               schedule="auto")
+    for i, toks in enumerate(got):
+        if len(toks) != 16 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            fail(f"request {i} returned {len(toks)} tokens "
+                 f"in [{toks.min()}, {toks.max()}]")
+    if paged_launches != cfg.n_layers * eng.decode_steps:
+        fail(f"paged-attention launches {paged_launches} != n_layers x "
+             f"decode steps = {cfg.n_layers} x {eng.decode_steps}")
+    if gm.GROUPED_LAUNCHES:
+        fail(f"the decode flow launched the grouped kernel "
+             f"{gm.GROUPED_LAUNCHES} times")
+    sm = eng.metrics.summary()
+    n_tok = sum(len(q) for q in prompts) + sum(len(t) for t in got)
+    print(f"  served 8 requests (prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))}, 16 new each): {n_tok} tokens in "
+          f"{wall:.2f} s = {n_tok / wall:.1f} tok/s end to end, "
+          f"{sm['useful_tok_s']:.1f} useful tok/s; mean TTFT "
+          f"{sm['mean_ttft_s'] * 1e3:.1f} ms, mean TPOT "
+          f"{sm['mean_tpot_s'] * 1e3:.2f} ms, {eng.decode_steps} decode "
+          f"steps ({wall / eng.decode_steps * 1e3:.2f} ms host wall each), "
+          f"paged_attention launches {paged_launches} = {cfg.n_layers} x "
+          f"{eng.decode_steps}", flush=True)
+    for rec in cap.records:
+        if rec.op == "serve_schedule":
+            print(f"  decision serve_schedule({rec.mode}, C={rec.chunks})",
+                  flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    profile_decode_step(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    return launches["grouped"], paged_launches
+
+
+def phase_moe_train(torch):
+    """Step 4: moonshot at full width, 4 of its 48 layers, 3 steps."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import build_train_step
+
+    cfg = dataclasses.replace(configs.get_config("moonshot-v1-16b-a3b"),
+                              n_layers=4)
+    b, s = TRAIN_ATTN["b"], TRAIN_ATTN["s"]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = Model(cfg, device="cuda").init(gen)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100,
+                          moment_dtype=cfg.moment_dtype)
+    opt = adamw_init(model.params(), opt_cfg)
+    step = build_train_step(model, opt_cfg)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b, seed=SEED))
+    n_params = sum(t.numel() for t in model.parameters())
+    losses, walls, counts = [], [], []
+    gm.GROUPED_LAUNCHES = 0
+    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    for i in range(3):
+        batch = train_batch(torch, data, i)
+        c0 = (gm.GROUPED_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append((gm.GROUPED_LAUNCHES - c0[0], fa.FWD_LAUNCHES - c0[1],
+                       fa.BWD_LAUNCHES - c0[2]))
+    want = (2 * cfg.n_layers, 2 * cfg.n_layers, cfg.n_layers)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite MoE training loss: {losses}")
+    if any(c != want for c in counts):
+        fail(f"(grouped, flash forward, flash backward) launches per step "
+             f"{counts} != {want}")
+    print(f"  moonshot-v1-16b-a3b full width, {cfg.n_layers} layers "
+          f"({n_params / 1e9:.2f} B params, bf16, f32 AdamW moments, "
+          f"remat), B={b}, S={s}: losses {[round(x, 4) for x in losses]}, "
+          f"host wall per step {[round(w * 1e3, 1) for w in walls]} ms, "
+          f"launches per step (grouped, flash forward, flash backward) "
+          f"{counts[0]}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del model, opt, step, batch, metrics
+    torch.cuda.empty_cache()
+    return gm.GROUPED_LAUNCHES
+
+
+def phase_moe_parity(torch):
+    """Step 5: full width, 2 layers, f32, TF32 off: the kernel path
+    against the plain path pinned."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, flatten_specs
+    from repro_torch.train.serve_loop import Generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config("moonshot-v1-16b-a3b"),
+                              n_layers=2, dtype="float32")
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_ATTN["s"],
+                                      global_batch=TRAIN_ATTN["b"],
+                                      seed=SEED))
+    # the smallest gap between the k-th and (k+1)-th router probability
+    # of any token: a routing flip between the paths needs a near-tie
+    gaps = []
+    router = moe._router
+
+    def watched(x, w, n, k):
+        out = router(x, w, n, k)
+        pr = torch.softmax(x.float() @ w.float(), dim=-1)
+        top = torch.topk(pr, k + 1, dim=-1).values
+        gaps.append((top[:, k - 1] - top[:, k]).min().item())
+        return out
+
+    moe._router = watched
+    runs = {}
+    try:
+        for engine in ("auto", "torch"):
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            model = Model(cfg, device="cuda", attn_engine=engine,
+                          moe_engine=engine).init(gen)
+            gm.GROUPED_LAUNCHES = 0
+            gaps.clear()
+            loss, _ = model.loss_sp(train_batch(torch, data, 0))
+            leaves = flatten_specs(model.params())
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            want = 2 * cfg.n_layers if engine == "auto" else 0
+            if gm.GROUPED_LAUNCHES != want:
+                fail(f"{engine}: {gm.GROUPED_LAUNCHES} grouped launches for "
+                     f"one loss and gradient, not {want}")
+            prompts = data.global_batch_at(9)["tokens"]
+            logits, _ = model.prefill_sp({"tokens": torch.from_numpy(
+                prompts).cuda()})
+            runs[engine] = dict(loss=loss.item(), grads=grads,
+                                logits=logits, gap=min(gaps))
+            if engine == "auto":
+                kernel_model = model
+            else:
+                del model
+            del loss, leaves
+            torch.cuda.empty_cache()
+    finally:
+        moe._router = router
+    a, b = runs["auto"], runs["torch"]
+    k = cfg.moe.top_k
+    print(f"  smallest router gap between a token's {k}th and {k + 1}th "
+          f"expert over both layers: {a['gap']:.3e} (kernels), "
+          f"{b['gap']:.3e} (plain)", flush=True)
+    worst = check_loss_and_grads(a, b, "moonshot-v1-16b-a3b")
+    lg_err = (a["logits"] - b["logits"]).abs().max().item()
+    lg_scale = b["logits"].abs().max().item()
+    if lg_err > 1e-4 * max(1.0, lg_scale):
+        fail(f"prefill logits differ by {lg_err:.2e} (scale {lg_scale:.3g})")
+    if not torch.equal(a["logits"].argmax(-1), b["logits"].argmax(-1)):
+        fail("prefill greedy tokens differ between kernels and plain")
+    print(f"  moonshot-v1-16b-a3b full width, 2 layers, f32 (TF32 off), "
+          f"B={TRAIN_ATTN['b']}, S={TRAIN_ATTN['s']}: loss {a['loss']:.6f} "
+          f"vs {b['loss']:.6f} (rtol 1e-5); every gradient within "
+          f"{worst[0]:.2e} of its largest magnitude (tolerance 1e-4); "
+          f"prefill logits within {lg_err:.2e} (tolerance 1e-4 x max(1, "
+          f"{lg_scale:.3g})), greedy tokens equal", flush=True)
+    del runs, a, b
+    torch.cuda.empty_cache()
+
+    prompts = data.global_batch_at(10)["tokens"][:, :48]
+    shape = ShapeConfig("smoke", 128, prompts.shape[0], "decode")
+    contiguous = Generator(kernel_model, shape).generate(prompts, 16)
+    paged = Generator(kernel_model, shape, engine="paged",
+                      page_size=16).generate(prompts, 16)
+    if not np.array_equal(contiguous, paged):
+        fail(f"MoE contiguous Generator {contiguous.tolist()} != paged "
+             f"engine {paged.tolist()}")
+    print(f"  Generator: contiguous cache and paged ServeEngine give the "
+          f"same {paged.shape[1]} greedy tokens for {paged.shape[0]} "
+          f"prompts of {prompts.shape[1]}", flush=True)
+    del kernel_model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1148,6 +1590,7 @@ def main() -> int:
     main_t, err = phase_kernel(torch)
     flash_t, flash_err = phase_flash(torch)
     stencil_t, stencil_err = phase_stencil(torch)
+    grouped_t, grouped_err = phase_grouped(torch)
     print("phase 3: serve phi4-mini-3.8b at full size", flush=True)
     launches = phase_serve(torch)
     print("phase 4: kernel path vs plain path, end to end", flush=True)
@@ -1160,6 +1603,13 @@ def main() -> int:
     print("phase 7: the paper's Jacobi solve at 16386 x 16386 on one rank",
           flush=True)
     jacobi_launches_run = phase_jacobi(torch)
+    print("phase 8: moonshot-v1-16b-a3b (MoE): prefill, serving, training "
+          "and parity", flush=True)
+    t8 = time.perf_counter()
+    grouped_launches, _ = phase_moe_serve(torch)
+    phase_moe_train(torch)
+    phase_moe_parity(torch)
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
@@ -1189,7 +1639,12 @@ def main() -> int:
                     replaces="src/repro/kernels/stencil.py:129",
                     launches=jacobi_launches_run["ksweep"],
                     max_abs_err=stencil_err["ksweep"],
-                    **stencil_t["ksweep"])]
+                    **stencil_t["ksweep"]),
+               dict(name="grouped_expert_ffn", route="cuda",
+                    source="src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                    replaces="src/repro/kernels/grouped_matmul.py:142",
+                    launches=grouped_launches, max_abs_err=grouped_err,
+                    **grouped_t)]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
 The port prices with an NVIDIA H100 (``H100``, the ``DEFAULT_HW``).
 ``TPU_V5E`` is kept so tests can hold the port's decisions to the
 reference's on the same machine model.  The remaining sections of the
-reference (collective, attention, pipeline, checkpoint and MoE
-decisions) come with the slices that use them.  The halo-aggregation
+reference (the collective, attention, pipeline and checkpoint
+decisions) come with the slices that use them; the MoE dispatch decision
+and the collective times it prices with are here.  The halo-aggregation
 decision keeps the reference's formulas; only its tile-fit test prices
 the tile that the machine's stencil kernel stages (``HardwareModel.
 tile_rows`` / ``tile_cols``).
@@ -87,6 +88,55 @@ H100 = HardwareModel(
 )
 
 DEFAULT_HW = H100
+
+
+# ---------------------------------------------------------------------------
+# Collective cost primitives (ring algorithms, as the reference's managed
+# collectives emit them)
+# ---------------------------------------------------------------------------
+
+
+def ring_all_gather_time(nbytes_shard: float, n: int, hw: HardwareModel,
+                         chunks: int = 1) -> float:
+    """Ring all-gather of an ``nbytes_shard`` shard across ``n`` ranks."""
+    if n <= 1:
+        return 0.0
+    steps = (n - 1) * max(1, chunks)
+    return steps * hw.alpha_s + (n - 1) * nbytes_shard / hw.link_bw
+
+
+def ring_reduce_scatter_time(nbytes_full: float, n: int, hw: HardwareModel,
+                             chunks: int = 1) -> float:
+    """Ring reduce-scatter of an ``nbytes_full`` operand across ``n``
+    ranks."""
+    if n <= 1:
+        return 0.0
+    shard = nbytes_full / n
+    steps = (n - 1) * max(1, chunks)
+    return steps * hw.alpha_s + (n - 1) * shard / hw.link_bw
+
+
+def all_to_all_time(nbytes_local: float, n: int, hw: HardwareModel,
+                    chunks: int = 1) -> float:
+    """Ring-style all-to-all: each rank exchanges 1/n of its local operand
+    with every peer ((n-1) permute steps of nbytes_local/n each)."""
+    if n <= 1:
+        return 0.0
+    steps = (n - 1) * max(1, chunks)
+    return steps * hw.alpha_s + (n - 1) * (nbytes_local / n) / hw.link_bw
+
+
+def _pipeline_time(comm_total: float, compute_total: float, stages: int,
+                   alpha: float, per_stage_msgs: int = 1) -> float:
+    """Pipelined schedule over ``stages`` equal stages: comm of stage i
+    overlaps compute of stage i-1 (the classic software-pipeline bound
+    ``c + k + (stages-1) * max(c, k)`` plus every message's latency)."""
+    if stages <= 1:
+        return comm_total + compute_total + alpha * per_stage_msgs
+    c = comm_total / stages
+    k = compute_total / stages
+    latency = alpha * per_stage_msgs * stages
+    return c + k + (stages - 1) * max(c, k) + latency
 
 
 # ---------------------------------------------------------------------------
@@ -481,3 +531,243 @@ def decide_halo_aggregation(rows_local: int, cols: int, axis_size: int, *,
         bulk_sweep_s=times.get(1, sweep_time(1)),
         aggregated_sweep_s=times[best_k],
         comm_sweep_s=comm, mem_sweep_s=mem, flop_sweep_s=flops)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch decision (bulk a2a vs chunked-stream vs dense-fallback,
+# plus the capacity factor itself)
+# ---------------------------------------------------------------------------
+#
+# Three schedules share the knob:
+#
+#   bulk    one all_to_all of the [E, C, D] capacity buffers each way
+#           around the expert FFN (the unmanaged baseline); the grouped
+#           GEMM computes the kept rows only.
+#   stream  the capacity buffers split into g chunks per ring block and
+#           sent around the EP axis, each chunk's transfer issued before
+#           the previous chunk's expert FFN: same bytes, wire hidden under
+#           compute, (n-1)*g pipeline stages of 2 messages.
+#   dense   no dispatch: all-gather the t*D tokens, every rank runs its
+#           LOCAL experts on the full token set gate-masked,
+#           reduce-scatter the outputs.  Capacity-free: never drops a
+#           token.
+#
+# With no routing measurement the declared capacity factor stands; a
+# measured imbalance re-picks the smallest candidate that covers it.
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEDispatchDecision:
+    """Outcome of the three-way MoE dispatch decision for one call site."""
+    schedule: str                  # "bulk" | "stream" | "dense"
+    g: int                         # stream chunks per ring block (1 else)
+    capacity_factor: float         # chosen cf (declared or re-resolved)
+    capacity: int                  # C = ceil(t * K * cf / E)
+    times_s: dict[str, float]      # "schedule:g" -> predicted seconds/layer
+    bulk_s: float
+    chosen_s: float
+    comm_s: float                  # comm term of the chosen schedule
+    compute_s: float               # expert-FFN term of the chosen schedule
+    drop_frac: float               # modeled residual drop rate at chosen cf
+    a2a_bytes: int                 # per-direction capacity-buffer bytes
+    dense_bytes: int               # per-rank token bytes of the fallback
+
+    @property
+    def predicted_speedup(self) -> float:
+        if self.chosen_s <= 0:
+            return 1.0
+        return self.bulk_s / self.chosen_s
+
+
+def moe_capacity(tokens_local: int, top_k: int, n_experts: int,
+                 capacity_factor: float) -> int:
+    """ceil-rounded per-expert capacity (moe.dispatch.capacity_for)."""
+    return max(1, math.ceil(tokens_local * top_k * capacity_factor
+                            / n_experts))
+
+
+def _moe_terms(tokens_local: int, d_model: int, n_experts: int,
+               top_k: int, d_ff_expert: int, n: int, mults: int,
+               dtype_bytes: int, capacity_factor: float, layout: str,
+               hw: HardwareModel) -> tuple[int, float, float, float]:
+    """(capacity C, per-row FFN flops, capacity-path comm seconds, dense
+    FFN seconds) of one layout.
+
+    ep_a2a     experts sharded by id: dispatch = 2 x a2a of the [E, C, D]
+               capacity buffers (C from LOCAL tokens); each kept row
+               costs the full-F expert FFN; dense = AG(t*D) + every rank
+               runs its E/n experts on all n*t tokens + RS(t*D).
+    expert_tp  every expert ff-sharded: the wire is the sequence AG/RS
+               (identical for every schedule; C from the FULL token set);
+               each row costs F/n; dense runs all E experts at F/n on all
+               rows.
+    """
+    if layout == "expert_tp":
+        cap = moe_capacity(tokens_local * n, top_k, n_experts,
+                           capacity_factor)
+        flops_row = 2.0 * mults * d_model * d_ff_expert / n
+        x_bytes = tokens_local * d_model * dtype_bytes
+        comm = (ring_all_gather_time(x_bytes, n, hw)
+                + ring_reduce_scatter_time(n * x_bytes, n, hw))
+        dense_ffn = (n_experts * tokens_local * n * flops_row
+                     / hw.peak_flops)
+    else:  # ep_a2a
+        cap = moe_capacity(tokens_local, top_k, n_experts,
+                           capacity_factor)
+        flops_row = 2.0 * mults * d_model * d_ff_expert
+        a2a_bytes = n_experts * cap * d_model * dtype_bytes
+        comm = 2.0 * all_to_all_time(a2a_bytes, n, hw)
+        dense_ffn = n_experts * tokens_local * flops_row / hw.peak_flops
+    return cap, flops_row, comm, dense_ffn
+
+
+def moe_dispatch_times(tokens_local: int, d_model: int, n_experts: int,
+                       top_k: int, d_ff_expert: int, axis_size: int, *,
+                       mults: int = 3, dtype_bytes: int = 2,
+                       capacity_factor: float = 1.25,
+                       occupancy: float | None = None,
+                       hw: HardwareModel = DEFAULT_HW,
+                       candidate_g: Sequence[int] = (2, 4, 8),
+                       layout: str = "ep_a2a") -> dict[str, float]:
+    """Predicted seconds per MoE layer for every "schedule:g" candidate
+    (dispatch comm on the critical path + expert-FFN flops).  Stream
+    candidates are restricted to g dividing the layout's chunk unit (the
+    capacity C for ep_a2a, the per-rank sequence rows for expert_tp),
+    since the executors degrade a non-dividing g to 1."""
+    n = max(1, axis_size)
+    cap, flops_row, comm, dense_ffn = _moe_terms(
+        tokens_local, d_model, n_experts, top_k, d_ff_expert, n, mults,
+        dtype_bytes, capacity_factor, layout, hw)
+    unit = tokens_local if layout == "expert_tp" else cap
+    occ = (min(1.0, 1.0 / max(capacity_factor, 1e-6))
+           if occupancy is None else max(0.0, min(1.0, occupancy)))
+    ffn_s = n_experts * cap * occ * flops_row / hw.peak_flops
+
+    times: dict[str, float] = {}
+    times["bulk:1"] = comm + ffn_s
+    if n > 1:
+        # the wire the stream can hide: everything but the per-hop alphas
+        wire = max(0.0, comm - 2.0 * (n - 1) * hw.alpha_s)
+        for g in sorted({int(g) for g in candidate_g
+                         if g >= 1 and unit % g == 0}):
+            stages = (n - 1) * g
+            times[f"stream:{g}"] = _pipeline_time(
+                wire, ffn_s, stages, hw.alpha_s, per_stage_msgs=2)
+    if layout == "expert_tp":
+        times["dense:1"] = comm + dense_ffn
+    else:
+        dense_bytes = tokens_local * d_model * dtype_bytes
+        dense_comm = (ring_all_gather_time(dense_bytes, n, hw)
+                      + ring_reduce_scatter_time(n * dense_bytes, n, hw))
+        times["dense:1"] = dense_comm + dense_ffn
+    return times
+
+
+def decide_moe_dispatch(tokens_local: int, d_model: int, n_experts: int,
+                        top_k: int, d_ff_expert: int, axis_size: int, *,
+                        mults: int = 3, dtype_bytes: int = 2,
+                        capacity_factor: float = 1.25,
+                        candidate_cf: Sequence[float] = (1.0, 1.25, 1.5,
+                                                         2.0, 4.0, 8.0),
+                        candidate_g: Sequence[int] = (2, 4, 8),
+                        measured_imbalance: float | None = None,
+                        measured_drop_rate: float | None = None,
+                        measured_occupancy: float | None = None,
+                        hw: HardwareModel = DEFAULT_HW,
+                        layout: str = "ep_a2a",
+                        force_schedule: str | None = None,
+                        force_g: int | None = None,
+                        force_capacity_factor: float | None = None
+                        ) -> MoEDispatchDecision:
+    """Pick (schedule, g, capacity_factor) for one MoE dispatch call site.
+
+    With no routing measurement the DECLARED capacity factor stands.  A
+    ``measured_imbalance`` re-picks the smallest candidate cf covering
+    the hottest expert; a bare ``measured_drop_rate`` > 0 escalates to
+    the next candidate above the declared cf.  The dense schedule is
+    capacity-free and ignores cf.  ``force_*`` pin choices while still
+    reporting the modeled table."""
+    cands = sorted({float(c) for c in candidate_cf if c > 0}
+                   | {float(capacity_factor)})
+    if force_capacity_factor is not None:
+        cf = float(force_capacity_factor)
+    elif measured_imbalance is not None:
+        need = max(1.0, float(measured_imbalance))
+        covering = [c for c in cands if c >= need]
+        cf = covering[0] if covering else cands[-1]
+    elif measured_drop_rate is not None and measured_drop_rate > 0:
+        above = [c for c in cands if c > float(capacity_factor)]
+        cf = above[0] if above else cands[-1]
+    else:
+        cf = float(capacity_factor)
+    if measured_imbalance is not None:
+        # the hottest expert holds imbalance x the mean load; capacity
+        # covers cf x the mean: the overhang is the modeled residual drop
+        drop = max(0.0, 1.0 - cf / max(1.0, float(measured_imbalance)))
+    elif measured_drop_rate and cf == float(capacity_factor):
+        drop = float(measured_drop_rate)
+    else:
+        drop = 0.0
+    occ = measured_occupancy
+    if occ is None:
+        occ = min(1.0, (1.0 - drop) / max(cf, 1e-6))
+
+    times = moe_dispatch_times(
+        tokens_local, d_model, n_experts, top_k, d_ff_expert, axis_size,
+        mults=mults, dtype_bytes=dtype_bytes, capacity_factor=cf,
+        occupancy=occ, hw=hw, candidate_g=candidate_g, layout=layout)
+    n = max(1, axis_size)
+    cap, flops_row, _, dense_ffn = _moe_terms(
+        tokens_local, d_model, n_experts, top_k, d_ff_expert, n, mults,
+        dtype_bytes, cf, layout, hw)
+
+    unit = tokens_local if layout == "expert_tp" else cap
+
+    def clamp_g(gg: int) -> int:
+        # the executors degrade a non-dividing g to 1: clamp to the
+        # nearest divisor of the chunk unit so the logged g is executed
+        gg = max(1, int(gg))
+        while gg > 1 and unit % gg:
+            gg -= 1
+        return gg
+
+    def best_stream_g() -> int:
+        cands_g = [(t, int(k.split(":")[1])) for k, t in times.items()
+                   if k.startswith("stream:")]
+        return min(cands_g)[1] if cands_g else clamp_g(2)
+
+    if force_schedule is not None:
+        if force_schedule not in ("bulk", "stream", "dense"):
+            raise ValueError(f"unknown MoE schedule {force_schedule!r}")
+        if force_schedule == "stream":
+            gg = clamp_g(force_g) if force_g else best_stream_g()
+        else:
+            gg = 1
+        key = f"{force_schedule}:{gg}"
+        if key not in times:
+            times[key] = moe_dispatch_times(
+                tokens_local, d_model, n_experts, top_k, d_ff_expert,
+                axis_size, mults=mults, dtype_bytes=dtype_bytes,
+                capacity_factor=cf, occupancy=occ, hw=hw,
+                candidate_g=(gg,), layout=layout).get(key,
+                                                      times["bulk:1"])
+        chosen = key
+    elif force_g is not None and f"stream:{clamp_g(force_g)}" in times:
+        chosen = f"stream:{clamp_g(force_g)}"
+    else:
+        chosen = min(times, key=lambda k: (times[k], k))
+    sched, g_str = chosen.split(":")
+    g = int(g_str)
+
+    if sched == "dense":
+        compute_s = dense_ffn
+        drop = 0.0                      # capacity-free: nothing to drop
+    else:
+        compute_s = n_experts * cap * occ * flops_row / hw.peak_flops
+    return MoEDispatchDecision(
+        schedule=sched, g=g, capacity_factor=cf, capacity=cap,
+        times_s=times, bulk_s=times["bulk:1"], chosen_s=times[chosen],
+        comm_s=max(0.0, times[chosen] - compute_s), compute_s=compute_s,
+        drop_frac=drop,
+        a2a_bytes=n_experts * cap * d_model * dtype_bytes,
+        dense_bytes=tokens_local * d_model * dtype_bytes)

@@ -4,12 +4,14 @@ resolvers (port of ``repro.core.managed``).
 The reference expresses every collective through a ``managed_*`` entry
 point that picks bulk or interleaved execution from the cost model and
 logs a ``DecisionRecord``.  In this slice every mesh axis has size 1, so
-``managed_all_reduce`` / ``managed_all_gather`` are the identity (as the
-reference's are at axis size 1) and raise above it; their
-``torch.distributed`` form comes with the managed-collectives slice.
-The serving resolvers (``resolve_serve_schedule``, ``resolve_preempt``)
-and the halo-aggregation resolver (``resolve_halo_aggregation``) are
-ported whole: they run on the host and price with ``DEFAULT_HW``.
+``managed_all_reduce`` / ``managed_all_gather`` / ``managed_all_to_all``
+/ ``managed_reduce_scatter`` are the identity (as the reference's are at
+axis size 1) and raise above it; their ``torch.distributed`` form comes
+with the managed-collectives slice.  The serving resolvers
+(``resolve_serve_schedule``, ``resolve_preempt``), the halo-aggregation
+resolver (``resolve_halo_aggregation``) and the MoE dispatch resolver
+(``resolve_moe_dispatch``) are ported whole: they run on the host and
+price with ``DEFAULT_HW``.
 """
 
 from __future__ import annotations
@@ -204,13 +206,37 @@ def managed_all_reduce(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
 
 
 def managed_all_gather(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
-                       mode: str | None = None) -> torch.Tensor:
+                       mode: str | None = None,
+                       chunks: int | None = None) -> torch.Tensor:
     """All-gather ``x`` (tiled along axis 0) across ``axis_name`` — the
     identity at axis size 1."""
     n = _axis_size(axis_name, ctx)
     if n == 1:
         return x
     raise _multi_rank("managed_all_gather", axis_name, n)
+
+
+def managed_reduce_scatter(x: torch.Tensor, axis_name: str, ctx: MeshCtx,
+                           *, mode: str | None = None,
+                           chunks: int | None = None) -> torch.Tensor:
+    """Sum-reduce ``x`` across ``axis_name``, scattering blocks of axis 0
+    — the identity at axis size 1."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x
+    raise _multi_rank("managed_reduce_scatter", axis_name, n)
+
+
+def managed_all_to_all(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
+                       split_axis: int = 0, concat_axis: int = 0,
+                       mode: str | None = None) -> torch.Tensor:
+    """All-to-all: block j of ``x`` (along ``split_axis``) goes to rank j,
+    the received blocks concatenated along ``concat_axis`` — the identity
+    at axis size 1."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x
+    raise _multi_rank("managed_all_to_all", axis_name, n)
 
 
 def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name: str,
@@ -370,4 +396,54 @@ def resolve_halo_aggregation(axis_name: str, axis_size: int,
             mode=decision.mode, chunks=decision.k,
             predicted_bulk_s=decision.bulk_sweep_s,
             predicted_interleaved_s=decision.aggregated_sweep_s))
+    return decision
+
+
+def resolve_moe_dispatch(axis_name: str, axis_size: int, tokens_local: int,
+                         d_model: int, n_experts: int, top_k: int,
+                         d_ff_expert: int, *, mults: int = 3,
+                         dtype_bytes: int = 2,
+                         capacity_factor: float = 1.25,
+                         measured_imbalance: float | None = None,
+                         measured_drop_rate: float | None = None,
+                         measured_occupancy: float | None = None,
+                         layout: str = "ep_a2a",
+                         mode: str | None = None,
+                         schedule: str | None = None,
+                         g: int | None = None,
+                         capacity_factor_override: float | None = None
+                         ) -> cost_model.MoEDispatchDecision:
+    """The managed-runtime entry for the MoE dispatch knob (bulk a2a vs
+    chunked-stream vs dense-fallback, plus the capacity factor), logged as
+    a ``DecisionRecord(op="moe_dispatch")``.  ``mode='bulk'`` pins the
+    unmanaged baseline; ``mode='interleaved'`` pins the always-stream
+    schedule; an explicit ``schedule`` (a pinned ``cfg.moe.dispatch``)
+    wins over the ambient mode.  The DecisionRecord reuses ``chunks`` to
+    carry the stream chunk count g."""
+    cfg = get_config()
+    pk = _plan_knob("moe_dispatch", axis_name)
+    if pk is not None and schedule is None and g is None and \
+            mode in (None, "auto"):
+        schedule = pk.get("mode")
+        g = pk.get("chunks")
+        if capacity_factor_override is None:
+            capacity_factor_override = pk.get("capacity_factor")
+    eff_mode = mode or cfg.mode
+    force = schedule if schedule is not None else \
+        {"bulk": "bulk", "interleaved": "stream"}.get(eff_mode)
+    decision = cost_model.decide_moe_dispatch(
+        tokens_local, d_model, n_experts, top_k, d_ff_expert, axis_size,
+        mults=mults, dtype_bytes=dtype_bytes,
+        capacity_factor=capacity_factor,
+        measured_imbalance=measured_imbalance,
+        measured_drop_rate=measured_drop_rate,
+        measured_occupancy=measured_occupancy, hw=cfg.hw, layout=layout,
+        force_schedule=force, force_g=g,
+        force_capacity_factor=capacity_factor_override)
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op="moe_dispatch", axis=axis_name, nbytes=decision.a2a_bytes,
+            mode=decision.schedule, chunks=decision.g,
+            predicted_bulk_s=decision.bulk_s,
+            predicted_interleaved_s=decision.chosen_s))
     return decision

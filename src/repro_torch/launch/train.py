@@ -9,17 +9,20 @@ is there.  Weights are random, drawn from ``--seed``; the batches come
 from the synthetic, resumable data pipeline.  The port runs one card, so
 ``--mesh`` takes ``1x1`` only.  Flags of later slices are refused with
 the slice that brings them: ``--pipeline`` other than ``none`` (slice
-9), ``--moe-dispatch`` (slice 7), ``--fault-plan``, ``--ckpt-every auto``
-and ``--compress-pod`` (slices 10 and 9), and the whole-program planner,
-the static verifier and ``--trace`` (slice 11): ``--plan local`` and
-``--verify off`` only.
+9), ``--fault-plan``, ``--ckpt-every auto`` and ``--compress-pod``
+(slices 10 and 9), and the whole-program planner, the static verifier
+and ``--trace`` (slice 11): ``--plan local`` and ``--verify off`` only.
+``--moe-dispatch`` pins the MoE dispatch schedule of an MoE arch
+(``auto`` lets the managed cost model pick) and prints the decisions.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from repro_torch import configs
+from repro_torch.core import managed
 from repro_torch.data.pipeline import DataConfig, SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
@@ -29,8 +32,7 @@ from repro_torch.train.train_loop import (TrainLoop, TrainLoopConfig,
                                           build_train_step)
 
 #: flag -> the ROADMAP Queue 1 slice that brings it
-LATER = {"--moe-dispatch": 7, "--compress-pod": 9, "--fault-plan": 10,
-         "--trace": 11}
+LATER = {"--compress-pod": 9, "--fault-plan": 10, "--trace": 11}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -63,7 +65,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ckpt-every", default=None,
                     help="checkpoint interval in steps")
-    ap.add_argument("--moe-dispatch", default=None)
+    ap.add_argument("--moe-dispatch", default=None,
+                    choices=["bulk", "stream", "dense", "auto"],
+                    help="MoE expert-dispatch schedule (auto = managed "
+                         "cost-model decision)")
     ap.add_argument("--compress-pod", action="store_true")
     ap.add_argument("--fault-plan", default=None)
     ap.add_argument("--trace", default=None, metavar="PATH")
@@ -79,6 +84,12 @@ def main(argv: list[str] | None = None) -> None:
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
+    if args.moe_dispatch is not None:
+        if cfg.moe is None:
+            ap.error(f"--moe-dispatch set but {args.arch} has no MoE "
+                     "layers")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=args.moe_dispatch))
     ctx = MeshCtx(axis_sizes={"data": 1, "model": 1},
                   mdmp_mode=args.mdmp_mode)
     model = Model(cfg, ctx, device=device)
@@ -102,6 +113,16 @@ def main(argv: list[str] | None = None) -> None:
     opt, s0 = (loop.resume_or_init(args.seed) if args.resume
                else loop.init_state(args.seed))
     out = loop.run(opt, s0)
+    if args.moe_dispatch is not None:
+        seen = set()
+        for rec in managed.decision_log():
+            key = (rec.op, rec.mode, rec.chunks, rec.nbytes)
+            if rec.op == "moe_dispatch" and key not in seen:
+                seen.add(key)
+                print(f"decision moe_dispatch({rec.mode} g={rec.chunks} "
+                      f"axis={rec.axis} a2a={rec.nbytes / 1e3:.1f}kB "
+                      f"bulk={rec.predicted_bulk_s * 1e3:.3f}ms "
+                      f"chosen={rec.predicted_interleaved_s * 1e3:.3f}ms)")
     for h in out["history"][:: max(1, len(out["history"]) // 10)]:
         print(f"  step {h['step']:4d} loss {h['loss']:.4f} "
               f"{h['time_s']:.2f}s")

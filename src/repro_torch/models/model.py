@@ -1,5 +1,5 @@
 """Model: ModelConfig -> parameter specs, init, and the entry points (port
-of ``repro.models.model``, dense family):
+of ``repro.models.model``, dense and MoE families):
 
   * ``loss_sp(batch)``                    training loss (SP flow)
   * ``prefill_sp(batch)``                 prefill -> (last-token logits,
@@ -30,7 +30,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import managed
 from repro_torch.core.overlap import fsdp_gather
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, moe, transformer
 from repro_torch.parallel.sharding import MeshCtx, ParamSpec, pad_to_multiple
 
 PS = ParamSpec
@@ -70,18 +70,24 @@ def unflatten_specs(flat: dict[str, Any]) -> dict:
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: MeshCtx | None = None, *,
                  device: str | torch.device | None = None,
-                 paged_engine: str = "auto", attn_engine: str = "auto"):
-        """``paged_engine="torch"`` / ``attn_engine="torch"`` pin the plain
-        paged / flash attention on any device (tests hold the kernels
-        against them end to end)."""
+                 paged_engine: str = "auto", attn_engine: str = "auto",
+                 moe_engine: str = "auto"):
+        """``paged_engine="torch"`` / ``attn_engine="torch"`` /
+        ``moe_engine="torch"`` pin the plain paged attention / flash
+        attention / grouped-expert FFN on any device (tests hold the
+        kernels against them end to end)."""
         super().__init__()
-        transformer.require_dense(cfg)
+        transformer.require_ported(cfg)
         self.cfg = cfg
         self.ctx = ctx if ctx is not None else MeshCtx()
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.paged_engine = paged_engine
         self.attn_engine = attn_engine
+        self.moe_engine = moe_engine
+        #: resolved MoE dispatch per (token count, managed mode and
+        #: machine model, plan)
+        self._moe_dispatch: dict[tuple, moe.Dispatch] = {}
         specs = self.param_specs()
         self.top = nn.ParameterDict({
             k: self._empty(s) for k, s in specs.items() if k != "layers"})
@@ -121,11 +127,30 @@ class Model(nn.Module):
             specs["w_gate"] = PS((d, ff), ("embed", "ff"))
         return specs
 
+    def _moe_specs(self) -> dict:
+        cfg = self.cfg
+        e = cfg.moe
+        d, f = cfg.d_model, e.d_ff_expert
+        ep = moe.moe_layout(cfg, self.ctx) == "ep_a2a"
+        e_ax = "experts" if ep else "null"
+        f_ax = "expert_ff" if ep else "ff"
+        specs = {
+            "w_router": PS((d, e.n_experts), ("embed_nofsdp", "null")),
+            "w1": PS((e.n_experts, d, f), (e_ax, "embed", f_ax)),
+            "w2": PS((e.n_experts, f, d), (e_ax, f_ax, "embed")),
+        }
+        if _gated_mult(cfg) == 2:
+            specs["w1_gate"] = PS((e.n_experts, d, f),
+                                  (e_ax, "embed", f_ax))
+        return specs
+
     def _layer_specs(self) -> dict:
         d = self.cfg.d_model
+        ffn = (self._moe_specs() if self.cfg.family == "moe"
+               else self._mlp_specs())
         return {"ln1": PS((d,), ("embed_nofsdp",)),
                 "ln2": PS((d,), ("embed_nofsdp",)),
-                **self._attn_specs(), **self._mlp_specs()}
+                **self._attn_specs(), **ffn}
 
     def param_specs(self) -> dict:
         cfg = self.cfg
@@ -156,9 +181,12 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Random weights from ``generator`` (on the model's device), the
         reference's scheme: matrices ~ N(0, 1/fan_in) drawn in f32 and
-        cast, norm scales zero.  The numbers differ from the reference's
-        jax.random draw; tests carry the reference's weights across with
-        bridge.params_from_numpy instead."""
+        cast, norm scales zero.  A stacked [L, ...] leaf is drawn one layer
+        at a time, so the f32 temporary is one layer's (a whole stacked
+        expert weight of moonshot-v1-16b-a3b would be 35 GB in f32).  The
+        numbers differ from the reference's jax.random draw; tests carry
+        the reference's weights across with bridge.params_from_numpy
+        instead."""
         params = flatten_specs(self.params())
         for name, spec in flatten_specs(self.param_specs()).items():
             dst = params[name]
@@ -167,10 +195,12 @@ class Model(nn.Module):
                 dst.zero_()
                 continue
             scale = 1.0 / math.sqrt(max(spec.shape[-2], 1))
-            w = torch.randn(dst.shape, generator=generator,
-                            dtype=torch.float32, device=dst.device)
-            dst.copy_(w.mul_(scale))
-            del w
+            parts = dst.unbind(0) if spec.logical[0] == "layers" else [dst]
+            for part in parts:
+                w = torch.randn(part.shape, generator=generator,
+                                dtype=torch.float32, device=dst.device)
+                part.copy_(w.mul_(scale))
+                del w
         return self
 
     # ------------------------------------------------------------------
@@ -188,13 +218,34 @@ class Model(nn.Module):
             return self.top["embed"].T
         return self.top["unembed"]
 
+    def _stack_kw(self, x: torch.Tensor) -> dict:
+        """stack_sp's engine pins and, for the MoE family, the dispatch
+        decision of this token count.  The decision is resolved (and
+        logged) once per token count, managed mode, machine model and
+        plan, as the reference logs it once per traced call site; the
+        port runs eagerly and would otherwise log it per layer per
+        step."""
+        kw = dict(engine=self.attn_engine, moe_engine=self.moe_engine)
+        if self.cfg.family == "moe":
+            tokens = x.shape[0] * x.shape[1]
+            mdmp = managed.get_config()
+            key = (tokens, mdmp.mode, mdmp.hw, id(managed.active_plan()))
+            if key not in self._moe_dispatch:
+                self._moe_dispatch[key] = moe.resolve_dispatch(
+                    self.cfg, self.ctx, tokens,
+                    moe.moe_layout(self.cfg, self.ctx))
+            kw["moe_dispatch"] = self._moe_dispatch[key]
+        return kw
+
     def loss_sp(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Training loss.  batch: tokens [B, S], labels [B, S] (labels < 0
-        are ignored).  Returns (loss, metrics)."""
+        are ignored).  Returns (loss, metrics); the MoE family adds
+        ``0.01 * aux / n_layers`` of its load-balance loss."""
         cfg, ctx = self.cfg, self.ctx
         x = self._assemble_input_sp(batch)
-        x, _ = transformer.stack_sp(x, dict(self.layers.items()), cfg, ctx,
-                                    causal=True, engine=self.attn_engine)
+        x, aux, _ = transformer.stack_sp(x, dict(self.layers.items()), cfg,
+                                         ctx, causal=True,
+                                         **self._stack_kw(x))
         x = layers.rms_norm(x, self.top["final_ln"], cfg.norm_eps)
         loss_sum, count = layers.lm_loss_sp(x, self._unembed(),
                                             batch["labels"], cfg, ctx)
@@ -202,6 +253,13 @@ class Model(nn.Module):
             loss_sum = managed.managed_all_reduce(loss_sum, ax, ctx)
             count = managed.managed_all_reduce(count, ax, ctx)
         loss = loss_sum / torch.clamp(count, min=1.0)
+        if cfg.moe is not None:
+            # aux is a local-token mean: averaged across ranks
+            n_dev = 1
+            for ax in ctx.all_axes:
+                aux = managed.managed_all_reduce(aux, ax, ctx)
+                n_dev *= ctx.axis_sizes[ax]
+            loss = loss + 0.01 * (aux / n_dev) / cfg.n_layers
         return loss, {"loss": loss, "tokens": count}
 
     # ------------------------------------------------------------------
@@ -214,9 +272,9 @@ class Model(nn.Module):
         prefill layout {"kv": (k, v) each [L, B, S_loc, KV, hd]})."""
         cfg, ctx = self.cfg, self.ctx
         x = self._assemble_input_sp(batch)
-        x, kvs = transformer.stack_sp(
+        x, _, kvs = transformer.stack_sp(
             x, dict(self.layers.items()), cfg, ctx, causal=True,
-            collect_kv=True, remat=False, engine=self.attn_engine)
+            collect_kv=True, remat=False, **self._stack_kw(x))
         x = layers.rms_norm(x, self.top["final_ln"], cfg.norm_eps)
         # the final position lives on the last model rank's shard: the
         # masked all-reduce broadcasts it (rank 0 is that rank at tp=1)

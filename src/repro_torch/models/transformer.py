@@ -5,9 +5,9 @@ blocks [B, D_loc(data)].  Layer weights are stacked on a leading
 ``layers`` dim as in the reference; the reference scans over them with
 ``lax.scan`` (with ``jax.checkpoint`` around the block for training
 remat), the port loops in Python over per-layer views, with
-``torch.utils.checkpoint`` in place of ``jax.checkpoint``.  The dense
-family is ported; the others raise and name the ROADMAP slice that brings
-them.
+``torch.utils.checkpoint`` in place of ``jax.checkpoint``.  The dense and
+MoE families are ported; the others raise and name the ROADMAP slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -18,19 +18,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.parallel.sharding import MeshCtx
 
-#: family -> the ROADMAP Queue 1 slice that ports its decode blocks
-FAMILY_SLICE = {"moe": 7, "ssm": 8, "hybrid": 8, "audio": 8, "vlm": 8}
+#: family -> the ROADMAP Queue 1 slice that ports its blocks
+FAMILY_SLICE = {"ssm": 8, "hybrid": 8, "audio": 8, "vlm": 8}
+PORTED_FAMILIES = ("dense", "moe")
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family comes with ROADMAP "
-            f"Queue 1 slice {FAMILY_SLICE.get(cfg.family, '?')}; this "
-            "slice ports the dense family")
+            f"Queue 1 slice {FAMILY_SLICE.get(cfg.family, '?')}; the port "
+            "has the dense and MoE families")
 
 
 def layer_window(cfg: ModelConfig, i: int) -> int:
@@ -57,10 +58,12 @@ def _layer_views(stacked: dict) -> list[dict]:
 
 def block_sp(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: MeshCtx, *,
              causal: bool, window: int, collect_kv: bool,
-             engine: str = "auto") -> tuple:
-    """One decoder block.  Returns (x, (k, v) | None).  The dense family
-    has no aux loss and no SSM state (the reference returns both)."""
-    require_dense(cfg)
+             engine: str = "auto", moe_dispatch: moe.Dispatch | None = None,
+             moe_engine: str = "auto") -> tuple:
+    """One decoder block.  Returns (x, aux_loss, (k, v) | None); the aux
+    loss is the MoE load-balance term (0 for the dense family).  The SSM
+    state the reference also returns comes with slice 8."""
+    require_ported(cfg)
     if cfg.attn_impl != "megatron":
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} comes with ROADMAP Queue 1 "
@@ -74,33 +77,47 @@ def block_sp(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: MeshCtx, *,
         att, kv = att
     x = x + att
     h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    y = layers.mlp_block_sp(h2, p, cfg, ctx)
-    return x + y, kv
+    if cfg.family == "moe":
+        y, aux = moe.moe_block(h2, p, cfg, ctx, dispatch=moe_dispatch,
+                               engine=moe_engine)
+    else:
+        y = layers.mlp_block_sp(h2, p, cfg, ctx)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux, kv
 
 
 def stack_sp(x: torch.Tensor, stacked: dict, cfg: ModelConfig,
              ctx: MeshCtx, *, causal: bool = True, collect_kv: bool = False,
-             remat: bool | None = None, engine: str = "auto") -> tuple:
+             remat: bool | None = None, engine: str = "auto",
+             moe_dispatch: moe.Dispatch | None = None,
+             moe_engine: str = "auto") -> tuple:
     """Run the block over the stacked layers.  With ``remat`` (default
     ``cfg.remat``) each block runs under a non-reentrant
     ``torch.utils.checkpoint``: only its input is saved and the backward
-    recomputes it.  Returns (x, (k [L, B, S_loc, KV, hd], v) | None)."""
-    require_dense(cfg)
+    recomputes it.  ``moe_dispatch`` is the resolved MoE dispatch every
+    layer shares (each layer resolves its own when None).  Returns (x,
+    the aux loss summed over layers, (k [L, B, S_loc, KV, hd], v) |
+    None)."""
+    require_ported(cfg)
     remat = cfg.remat if remat is None else remat
     window = cfg.sliding_window   # uniform across stacked layers
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for p in _layer_views(stacked):
         kw = dict(causal=causal, window=window, collect_kv=collect_kv,
-                  engine=engine)
+                  engine=engine, moe_dispatch=moe_dispatch,
+                  moe_engine=moe_engine)
         if remat:
-            x, kv = checkpoint(block_sp, x, p, cfg, ctx,
-                               use_reentrant=False, **kw)
+            x, a, kv = checkpoint(block_sp, x, p, cfg, ctx,
+                                  use_reentrant=False, **kw)
         else:
-            x, kv = block_sp(x, p, cfg, ctx, **kw)
+            x, a, kv = block_sp(x, p, cfg, ctx, **kw)
+        aux = aux + a
         if collect_kv:
             ks.append(kv[0])
             vs.append(kv[1])
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv
+                    else None)
 
 
 # ---------------------------------------------------------------------------
@@ -117,13 +134,20 @@ def _ln_loc(scale: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
     return scale
 
 
+def _mlp_decode(h2: torch.Tensor, p: dict, cfg: ModelConfig,
+                ctx: MeshCtx) -> torch.Tensor:
+    if cfg.family == "moe":
+        return moe.moe_block_decode(h2, p, cfg, ctx)
+    return layers.mlp_block_decode(h2, p, cfg, ctx)
+
+
 def block_decode(x: torch.Tensor, p: dict, state: dict, pos: int,
                  cfg: ModelConfig, ctx: MeshCtx, *,
                  window: int) -> tuple[torch.Tensor, dict]:
     """One-token decode block against the CONTIGUOUS cache.  ``state``
     holds this layer's ("k", "v") slabs (written in place).  Returns (x,
     new_state)."""
-    require_dense(cfg)
+    require_ported(cfg)
     h = layers.rms_norm_sharded(x, _ln_loc(p["ln1"], ctx), cfg.norm_eps,
                                 "data", ctx)
     att, (k_c, v_c) = attention.attention_decode(
@@ -131,7 +155,7 @@ def block_decode(x: torch.Tensor, p: dict, state: dict, pos: int,
     x = x + att
     h2 = layers.rms_norm_sharded(x, _ln_loc(p["ln2"], ctx), cfg.norm_eps,
                                  "data", ctx)
-    y = layers.mlp_block_decode(h2, p, cfg, ctx)
+    y = _mlp_decode(h2, p, cfg, ctx)
     return x + y, {"k": k_c, "v": v_c}
 
 
@@ -140,7 +164,7 @@ def stack_decode(x: torch.Tensor, stacked: dict, cache: dict, pos: int,
     """Contiguous-cache decode over layers: ``stacked`` and ``cache``
     leaves carry a leading [L]; each layer works on views, so the cache is
     updated in place and returned as is."""
-    require_dense(cfg)
+    require_ported(cfg)
     window = cfg.sliding_window   # uniform across stacked layers
     for i in range(cfg.n_layers):
         p = {k: v[i] for k, v in stacked.items()}
@@ -157,7 +181,7 @@ def block_decode_paged(x: torch.Tensor, p: dict, state: dict,
     """One-token decode block against the PAGED cache.  ``state`` holds
     this layer's ("kp", "vp") page pools (written in place);
     ``pos``/``active`` are per-slot [B].  Returns (x, new_state)."""
-    require_dense(cfg)
+    require_ported(cfg)
     h = layers.rms_norm_sharded(x, _ln_loc(p["ln1"], ctx), cfg.norm_eps,
                                 "data", ctx)
     att, (kp, vp) = attention.attention_decode_paged(
@@ -166,7 +190,7 @@ def block_decode_paged(x: torch.Tensor, p: dict, state: dict,
     x = x + att
     h2 = layers.rms_norm_sharded(x, _ln_loc(p["ln2"], ctx), cfg.norm_eps,
                                  "data", ctx)
-    y = layers.mlp_block_decode(h2, p, cfg, ctx)
+    y = _mlp_decode(h2, p, cfg, ctx)
     return x + y, {"kp": kp, "vp": vp}
 
 
@@ -178,7 +202,7 @@ def stack_decode_paged(x: torch.Tensor, stacked: dict, cache: dict,
     """Paged-cache decode over layers: ``stacked`` and ``cache`` leaves
     carry a leading [L]; each layer works on views, so the cache is
     updated in place and returned as is."""
-    require_dense(cfg)
+    require_ported(cfg)
     window = cfg.sliding_window   # uniform across stacked layers
     for i in range(cfg.n_layers):
         p = {k: v[i] for k, v in stacked.items()}

@@ -14,7 +14,7 @@ measured step latencies.
 The cache is the paged pool of serve/kv_cache.py: per-layer page pools,
 one host-side page table, pages recycled through the free list as
 requests retire.  The pools are updated in place (the reference donates
-them).  This slice serves the dense decoder family.
+them).  The engine serves the dense and MoE decoder families.
 
 Overload is a managed condition, not a crash.  Admission is optimistic
 (watermark mode commits only the prompt's pages), and when the pool

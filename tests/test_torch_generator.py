@@ -1,12 +1,14 @@
 """The port's prefill and contiguous-cache generation held against the
 reference's, and against the port's own paged serving engine, on the CPU.
 
-Reduced dense configs in f32 on a (1, 1) mesh with the reference's
-weights (``bridge.params_from_numpy``):
+Reduced dense and MoE configs (moonshot's ep_a2a experts, grok's
+expert_tp experts) in f32 on a (1, 1) mesh with the reference's weights
+(``bridge.params_from_numpy``):
 
   * ``prefill_sp``: the last position's logits and the per-layer K/V
     cache against the reference's prefill step, with the default
-    dispatch and with the plain flash engine pinned (f32, within 1e-4);
+    dispatch and with the plain flash attention and grouped-expert FFN
+    pinned (f32, within 1e-4);
   * ``Generator(engine="contiguous")``: greedy tokens equal the
     reference's contiguous Generator's, and equal the port's paged
     ``ServeEngine`` (``Generator(engine="paged")``), with full attention
@@ -33,7 +35,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.model import Model
 from repro_torch.train.serve_loop import Generator
 
-ARCHS = ["phi4-mini-3.8b", "granite-34b", "starcoder2-7b"]
+ARCHS = ["phi4-mini-3.8b", "granite-34b", "starcoder2-7b",
+         "moonshot-v1-16b-a3b", "grok-1-314b"]
 TOL = 1e-4
 
 
@@ -53,7 +56,8 @@ def _pair(arch, window=0, engine="auto"):
         infer_shardings(ref.param_specs(), mesh))
     port = bridge.params_from_numpy(
         jax.tree.map(np.asarray, params),
-        Model(cfg_of(configs), device="cpu", attn_engine=engine))
+        Model(cfg_of(configs), device="cpu", attn_engine=engine,
+              moe_engine=engine))
     return (ref, mesh, params), port
 
 

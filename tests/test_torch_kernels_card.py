@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import halo
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import paged_attention as paged
 from repro_torch.kernels import stencil
 
@@ -371,3 +372,75 @@ def test_bf16_loss_cuda_branch_keeps_the_f32_accumulator(cuda):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=2e-2 * want.abs().max().item(),
                                    msg=name)
+
+
+# ---------------------------------------------------------------------------
+# Grouped-expert FFN
+# ---------------------------------------------------------------------------
+
+#: (G, C, D, F, E): one group per expert, gpe = 2 and 4, sizes that are no
+#: multiple of the kernel's tiles, and the moonshot prefill's call
+GROUPED_SHAPES = [(4, 16, 8, 12, 4), (8, 32, 8, 16, 2), (3, 257, 130, 70, 3),
+                  (6, 100, 200, 77, 3), (64, 480, 2048, 1408, 64)]
+GROUPED_TOL = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
+
+
+def _grouped_inputs(cuda, dtype, shape, seed):
+    """Valid counts of 0, C and between; 1e3-scale garbage past them."""
+    g, c, d, f, e = shape
+    rng = np.random.default_rng(seed)
+    valid = rng.integers(0, c + 1, size=g).astype(np.int32)
+    valid[0], valid[-1] = 0, c
+    h = rng.normal(size=(g, c, d)).astype(np.float32)
+    rows = np.arange(c)[None, :, None]
+    h = np.where(rows < valid[:, None, None], h,
+                 1e3 * rng.normal(size=h.shape).astype(np.float32))
+    ws = [(rng.normal(size=s) * 0.1).astype(np.float32)
+          for s in ((e, d, f), (e, d, f), (e, f, d))]
+    return ([torch.from_numpy(a).to(cuda).to(dtype) for a in (h, *ws)],
+            torch.from_numpy(valid).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", GROUPED_TOL)
+@pytest.mark.parametrize("mlp", ["swiglu", "geglu", "relu2", "gelu"])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES, ids=str)
+def test_grouped_ffn_kernel_matches_plain(cuda, dtype, tol, mlp, shape):
+    """The kernel against the plain version on the same inputs, in f32:
+    within tol x max(1, max|want|) (f32 1e-5, bf16 2e-2), padded rows
+    exactly zero, one launch counted."""
+    (h, w1, w1g, w2), valid = _grouped_inputs(cuda, dtype, shape,
+                                              sum(shape))
+    w1g = w1g if gm.gated(mlp) else None
+    before = gm.GROUPED_LAUNCHES
+    got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp=mlp)
+    torch.cuda.synchronize()
+    assert gm.GROUPED_LAUNCHES == before + 1
+    want = gm.grouped_expert_ffn_torch(
+        h.float(), w1.float(), None if w1g is None else w1g.float(),
+        w2.float(), valid, mlp)
+    _close(got, want, tol, f"{mlp} {shape}")
+    pad = (torch.arange(shape[1], device=cuda)[None, :, None]
+           >= valid[:, None, None]).expand_as(got)
+    assert torch.equal(got[pad].float(), torch.zeros_like(got[pad].float()))
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_kernel_rejects_what_it_does_not_take(cuda):
+    (h, w1, w1g, w2), valid = _grouped_inputs(cuda, torch.float32,
+                                              (4, 16, 8, 12, 2), 0)
+    with pytest.raises(TypeError):
+        gm.grouped_expert_ffn(h, w1.bfloat16(), w1g, w2, valid,
+                              mlp="swiglu")
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.grouped_expert_ffn(h.transpose(1, 2).contiguous().transpose(1, 2),
+                              w1, w1g, w2, valid, mlp="swiglu")
+    with pytest.raises(ValueError, match="devices"):
+        gm.grouped_expert_ffn(h, w1, w1g, w2, valid.cpu(), mlp="swiglu")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        # more groups than a grid's z dimension takes: the launch refuses
+        big = torch.zeros((65536, 1, 8), device=cuda)
+        gm.grouped_expert_ffn_cuda(
+            big, w1[:1].contiguous(), w1g[:1].contiguous(),
+            w2[:1].contiguous(),
+            torch.zeros(65536, dtype=torch.int32, device=cuda), "swiglu")

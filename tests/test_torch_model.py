@@ -1,10 +1,15 @@
 """The port's model held against the reference's, layer stack and all.
 
 Reduced dense configs (phi4-mini's GQA, granite's MQA with a 2-matrix
-GELU MLP, starcoder2's GQA) carry the reference's ``Model.init`` weights
-across through ``bridge.params_from_numpy``; then ``decode_step_paged``
-runs 8 steps on both sides against the same paged cache geometry, with
-slots at different positions and an inactive slot, in f32."""
+GELU MLP, starcoder2's GQA) and MoE configs (moonshot's ep_a2a SwiGLU
+experts, grok's expert_tp GeGLU experts) carry the reference's
+``Model.init`` weights across through ``bridge.params_from_numpy``; then
+``decode_step_paged`` runs 8 steps on both sides against the same paged
+cache geometry, with slots at different positions and an inactive slot,
+in f32.  For the MoE configs ``loss_sp`` (with its load-balance aux term)
+and every gradient are held to ``jax.grad`` of the reference's, with the
+grouped-expert FFN's autograd Function and with its plain version
+pinned (loss within 1e-5, gradients within 1e-4)."""
 
 import dataclasses
 
@@ -27,7 +32,8 @@ from repro_torch.models import layers
 from repro_torch.models.model import Model, flatten_specs
 from repro_torch.parallel.sharding import MeshCtx
 
-ARCHS = ["phi4-mini-3.8b", "granite-34b", "starcoder2-7b"]
+MOE = ["moonshot-v1-16b-a3b", "grok-1-314b"]
+ARCHS = ["phi4-mini-3.8b", "granite-34b", "starcoder2-7b"] + MOE
 DENSE = ["nemotron-4-340b", "granite-34b", "starcoder2-7b", "phi4-mini-3.8b"]
 TOL = 1e-4
 
@@ -108,7 +114,7 @@ def test_decode_step_paged_matches_reference(arch):
                                    rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_specs_equal_reference_at_published_size(arch):
     """The bridge is a plain copy because the layouts are identical:
     every parameter shape equals the reference's, at full size (meta
@@ -137,8 +143,7 @@ def test_init_is_seeded_and_scaled():
     assert p["embed"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch,slice_", [("mamba2-130m", 8),
-                                         ("moonshot-v1-16b-a3b", 7)])
+@pytest.mark.parametrize("arch,slice_", [("mamba2-130m", 8)])
 def test_other_families_name_their_slice(arch, slice_):
     with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
         Model(configs.get_reduced(arch), device="cpu")
@@ -162,3 +167,88 @@ def test_embed_decode_matches_reference_one_hot():
                               configs.get_reduced("phi4-mini-3.8b"),
                               MeshCtx())
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("engine", ["auto", "torch"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_loss_and_gradients_match_reference(arch, engine):
+    cfg_ref = dataclasses.replace(ref_configs.get_reduced(arch),
+                                  dtype="float32")
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+    ref, mesh = _ref_model(cfg_ref)
+    params = jax.tree.map(np.asarray, ref.init(jax.random.key(0)))
+    port = params_from_numpy(params, Model(cfg, device="cpu",
+                                           moe_engine=engine))
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size - 1, size=(2, 32)) \
+        .astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -1
+    batch = {"tokens": tokens, "labels": labels}
+
+    def body(p, b):
+        (loss, _), g = jax.value_and_grad(ref.loss_sp, has_aux=True)(p, b)
+        return loss, g
+
+    pspecs = spec_pspecs(ref.param_specs())
+    bspec = {"tokens": P("data", None), "labels": P("data", None)}
+    want_loss, want_grads = jax.jit(smap(
+        body, mesh, in_specs=(pspecs, bspec), out_specs=(P(), pspecs)))(
+        params, batch)
+    loss, _ = port.loss_sp({k: torch.from_numpy(v)
+                            for k, v in batch.items()})
+    names = list(flatten_specs(port.params()))
+    grads = torch.autograd.grad(loss, list(flatten_specs(
+        port.params()).values()))
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5,
+                               atol=1e-5)
+    want = flatten_specs(jax.tree.map(np.asarray, want_grads))
+    assert set(names) >= {"layers/w_router", "layers/w1", "layers/w2"}
+    for name, g in zip(names, grads):
+        np.testing.assert_allclose(g.numpy(), want[name], rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+def test_moe_dispatch_is_resolved_once_per_token_count():
+    """The eager port logs one moe_dispatch record per token count (the
+    reference logs one per traced call site), not one per layer per
+    call."""
+    from repro_torch.core import managed
+
+    model = Model(configs.get_reduced("moonshot-v1-16b-a3b"),
+                  device="cpu").init(torch.Generator().manual_seed(0))
+    tok = torch.zeros((2, 16), dtype=torch.int32)
+    with managed.capture_decisions() as cap:
+        for _ in range(3):
+            model.prefill_sp({"tokens": tok})
+        model.loss_sp({"tokens": tok, "labels": tok})
+        model.prefill_sp({"tokens": tok[:, :8]})
+    recs = [r for r in cap.records if r.op == "moe_dispatch"]
+    assert [r.mode for r in recs] == ["bulk", "bulk"]
+    assert recs[0].nbytes != recs[1].nbytes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE)
+def test_bridge_carries_moe_leaves_unchanged(arch, dtype):
+    """The reference's router and expert weights go into the port and back
+    bit for bit (bf16 too), each in its reference shape."""
+    from repro_torch.bridge import params_to_numpy
+
+    cfg_ref = dataclasses.replace(ref_configs.get_reduced(arch), dtype=dtype)
+    ref, _ = _ref_model(cfg_ref)
+    params = jax.tree.map(np.asarray, ref.init(jax.random.key(1)))
+    port = params_from_numpy(params, Model(dataclasses.replace(
+        configs.get_reduced(arch), dtype=dtype), device="cpu"))
+    back = flatten_specs(params_to_numpy(port))
+    want = flatten_specs(params)
+    leaves = ["layers/w_router", "layers/w1", "layers/w2"]
+    if cfg_ref.mlp in ("swiglu", "geglu"):
+        leaves.append("layers/w1_gate")
+    for name in leaves:
+        assert back[name].shape == want[name].shape, name
+        np.testing.assert_array_equal(back[name],
+                                      want[name].astype(np.float32),
+                                      err_msg=name)
+        assert flatten_specs(port.params())[name].dtype == getattr(
+            torch, str(want[name].dtype)), name
