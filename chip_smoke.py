@@ -46,11 +46,23 @@ phase that fails:
                full width and 4 layers with exactly 8 grouped launches per
                step; and at 2 layers in f32 the kernel path against the
                plain path (loss, gradients, prefill logits) and the
-               contiguous Generator against the paged engine.
+               contiguous Generator against the paged engine;
+  9. ring    — ring attention (context parallelism) on phi4-mini-3.8b
+               uncut with attn_impl="ring" at one rank: prefill_sp of
+               1 x 8192 tokens with exactly 32 carry-kernel launches and
+               no flash launch, its logits against the megatron prefill
+               of the same tokens, 16 greedy tokens from its cache; 3
+               training steps (B=2, S=1024) with exactly 64 carry launches
+               per step (32 layers + 32 recomputed); and at 2 layers in
+               f32 the ring with the kernel, the ring with the plain step
+               and megatron with the flash kernels agree in loss,
+               gradients, prefill logits and greedy tokens.
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
-trip) and the grouped-expert FFN to their plain versions and times them
-at the Jacobi shape and at moonshot's prefill call.
+trip), the grouped-expert FFN and the ring-attention carry step (its
+variants, and a virtual 4-rank ring folded on one card against the flash
+forward) to their plain versions and times them at the Jacobi shape, at
+moonshot's prefill call and at ring attention's 8192-token prefill call.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -733,6 +745,211 @@ def phase_grouped(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the ring-attention carry step, kernel vs plain, and its times
+# ---------------------------------------------------------------------------
+
+#: ring attention's prefill call: phi4-mini at B=1, S=8192, causal, empty
+#: carry (one rank: one step over the whole sequence)
+RING_PREFILL = dict(b=1, s=8192, h=32, kvh=8, hd=128)
+#: (B, Sq, Skv, H, KV, hd, causal, window, q_offset, k_offset, carried):
+#: causal and not, a window of 1536, ragged Skv = 1000, hd 64, a block
+#: after the q rows (nothing visible), carried states
+CARRY_CASES = [
+    (1, 1024, 1024, 32, 8, 128, True, 0, 0, 0, False),
+    (1, 1024, 1024, 32, 8, 128, False, 0, 1024, 0, True),
+    (1, 2048, 2048, 32, 8, 128, True, 1536, 2048, 1024, True),
+    (2, 512, 1000, 32, 8, 128, True, 0, 1000, 0, True),
+    (1, 512, 512, 32, 8, 128, True, 0, 0, 512, True),
+    (1, 1024, 1024, 16, 4, 64, False, 1536, 1536, 0, True),
+]
+#: of the largest magnitude of m, l and acc: the kernel and the plain
+#: version do f32 math on the same upcast values
+CARRY_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
+#: the virtual ring: one card folds 4 ranks' blocks of 1024 in ring order
+VRING = dict(n=4, blk=1024, h=32, kvh=8, hd=128)
+
+
+def carry_bounds(b, s, h, kvh, hd, itemsize):
+    """Least time of one causal carry step over [B, S] with an S-long kv
+    block: QK^T and PV over the unmasked pairs at the bf16 tensor-core
+    rate, against q, k, v read once and the f32 carry (m, l, acc) read
+    and written once.  Returns (ms, 'bytes'|'operations')."""
+    pairs = b * h * s * (s + 1) // 2
+    nbytes = (b * s * h * hd * itemsize + 2 * b * s * kvh * hd * itemsize
+              + 2 * (b * s * h * hd * 4 + 2 * b * s * h * 4))
+    t_ops = 4.0 * pairs * hd / PEAK["bfloat16"]
+    t_bytes = nbytes / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def carry_inputs(torch, gen, b, sq, skv, h, kvh, hd, dtype, carried):
+    """q, k, v in ``dtype`` and an f32 carry: empty, or the plain step of
+    an earlier random block."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = flash_inputs(torch, gen, b, sq, skv, h, kvh, hd, dtype)
+    carry = fa.init_partials(b, sq, h, hd, device=q.device)
+    if carried:
+        _, k0, v0, _ = flash_inputs(torch, gen, b, sq, 256, h, kvh, hd,
+                                    torch.float32)
+        carry = fa.flash_attention_step_torch(q.float(), k0, v0, *carry,
+                                              causal=False)
+    return q, k, v, carry
+
+
+def carry_check(torch, got, want, tol, name):
+    """m, l, acc within ``tol`` of the largest magnitude of each; rows
+    that see nothing keep m = -1e30 exactly.  Returns the largest
+    absolute error of the three."""
+    dead = want[0] <= -1e29
+    if not torch.equal(got[0][dead], want[0][dead]):
+        fail(f"carry kernel changed the m of rows that see nothing ({name})")
+    worst = 0.0
+    for what, g, w in (("m", got[0][~dead], want[0][~dead]),
+                       ("l", got[1], want[1]), ("acc", got[2], want[2])):
+        if w.numel() == 0:
+            continue
+        if not torch.isfinite(g).all():
+            fail(f"carry {what} not finite ({name})")
+        err = (g - w).abs().max().item()
+        scale = max(w.abs().max().item(), 1e-30)
+        if err > tol * scale:
+            fail(f"carry kernel {what} disagrees with the plain version "
+                 f"({name}): max|err| {err:.3e} > {tol} x {scale:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_carry(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    err_bf16 = 0.0
+    for dname, tol in CARRY_TOL.items():
+        dtype = getattr(torch, dname)
+        line = []
+        for case in CARRY_CASES:
+            b, sq, skv, h, kvh, hd, causal, window, qo, ko, carried = case
+            q, k, v, carry = carry_inputs(torch, gen, b, sq, skv, h, kvh, hd,
+                                          dtype, carried)
+            kw = dict(causal=causal, window=window, q_offset=qo,
+                      k_offset=ko)
+            got = fa.flash_attention_carry(q, k, v, *carry, **kw)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_step_torch(q.float(), k.float(),
+                                                 v.float(), *carry, **kw)
+            err = carry_check(torch, got, want, tol, f"{dname} {case}")
+            if qo + sq <= ko and causal:          # nothing visible
+                if not all(torch.equal(g, c) for g, c in zip(got, carry)):
+                    fail(f"an invisible block changed the carry ({case})")
+            line.append(err)
+        if dtype == torch.bfloat16:
+            err_bf16 = max(err_bf16, max(line))
+        print(f"  flash_attention_carry vs plain {dname}, (B, Sq, Skv, H, "
+              f"KV, hd, causal, window, q_offset, k_offset, carried) in "
+              f"{CARRY_CASES}: max|err| {max(line):.2e} over m, l, acc "
+              f"(tolerance {tol} x the largest magnitude of each); an "
+              f"invisible block leaves the carry bit for bit", flush=True)
+
+        # the virtual ring: 4 ranks' blocks folded in ring order, each step
+        # against the plain step, finalized against the flash forward
+        r = VRING
+        n, blk = r["n"], r["blk"]
+        q, k, v, _ = flash_inputs(torch, gen, 1, n * blk, n * blk, r["h"],
+                                  r["kvh"], r["hd"], dtype)
+        want_out, want_lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        outs, lses, step_err, steps = [], [], 0.0, 0
+        for rank in range(n):
+            qb = q[:, rank * blk:(rank + 1) * blk].contiguous()
+            carry = fa.init_partials(1, blk, r["h"], r["hd"], device="cuda")
+            for s in range(n):
+                lo = ((rank - s) % n) * blk
+                if lo > rank * blk + blk - 1:     # after the q rows: skip
+                    continue
+                kb = k[:, lo:lo + blk].contiguous()
+                vb = v[:, lo:lo + blk].contiguous()
+                kw = dict(causal=True, q_offset=rank * blk, k_offset=lo)
+                nxt = fa.flash_attention_carry(qb, kb, vb, *carry, **kw)
+                want = fa.flash_attention_step_torch(
+                    qb.float(), kb.float(), vb.float(), *carry, **kw)
+                step_err = max(step_err, carry_check(
+                    torch, nxt, want, tol, f"virtual ring {dname} rank "
+                    f"{rank} step {s}"))
+                carry, steps = nxt, steps + 1
+            out, lse = fa.finalize_partials(*carry)
+            outs.append(out)
+            lses.append(lse)
+        torch.cuda.synchronize()
+        out, lse = torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+        out_tol = 2e-5 if dtype == torch.float32 else 2e-2
+        out_err = (out - want_out.float()).abs().max().item()
+        out_scale = want_out.float().abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        if out_err > out_tol * out_scale or lse_err > 1e-4 * max(
+                1.0, want_lse.abs().max().item()):
+            fail(f"virtual ring {dname}: finalized carry differs from "
+                 f"flash_attention_fwd by {out_err:.3e} (out) / "
+                 f"{lse_err:.3e} (lse)")
+        if dtype == torch.bfloat16:
+            err_bf16 = max(err_bf16, step_err)
+        print(f"  virtual 4-rank ring ({dname}, S = {n * blk} in blocks of "
+              f"{blk}, causal, {steps} visible steps of {n * n}): every "
+              f"step within {step_err:.2e} (absolute) of the plain step; "
+              f"finalized, "
+              f"out within {out_err:.2e} and lse within {lse_err:.2e} of "
+              f"flash_attention_fwd over the whole sequence (tolerances "
+              f"{out_tol} x {out_scale:.3g}, 1e-4)", flush=True)
+        del q, k, v, outs, lses, out, lse, want_out, want_lse
+
+    # the prefill call, kernel against plain, then times; two input sets
+    # so that consecutive calls do not find their inputs in the 50 MB L2
+    p = RING_PREFILL
+    sets = []
+    for _ in range(2):
+        q, k, v, carry = carry_inputs(torch, gen, p["b"], p["s"], p["s"],
+                                      p["h"], p["kvh"], p["hd"],
+                                      torch.bfloat16, False)
+        sets.append((q, k, v, *carry))
+    got = fa.flash_attention_carry(*sets[0])
+    torch.cuda.synchronize()
+    q, k, v = (x.float() for x in sets[0][:3])
+    want = fa.flash_attention_step_torch(q, k, v, *sets[0][3:])
+    err = carry_check(torch, got, want, CARRY_TOL["bfloat16"],
+                      "the prefill call")
+    err_bf16 = max(err_bf16, err)
+    del got, want, q, k, v
+    print(f"  flash_attention_carry vs plain bf16 at ring attention's "
+          f"prefill call (B=1, S=8192, 32/8 heads, hd 128, causal, empty "
+          f"carry): max|err| {err:.2e} over m, l, acc (tolerance "
+          f"{CARRY_TOL['bfloat16']} x the largest magnitude of each)",
+          flush=True)
+    kernel = [lambda s=s: fa.flash_attention_carry(*s) for s in sets]
+    plain = [lambda s=s: fa.flash_attention_step_torch(*s) for s in sets]
+    lib_in = [[x.transpose(1, 2).contiguous() for x in s[:3]] for s in sets]
+    lib = [lambda s=s: F.scaled_dot_product_attention(
+        *s, is_causal=True, enable_gqa=True) for s in lib_in]
+    tm = dict(ms=graph_ms(torch, kernel * 2, 3),
+              plain_ms=graph_ms(torch, plain, 2),
+              library_ms=graph_ms(torch, lib * 4, 5))
+    tm["bound_ms"], tm["bound_by"] = carry_bounds(p["b"], p["s"], p["h"],
+                                                  p["kvh"], p["hd"], 2)
+    print(f"  flash_attention_carry at ring attention's prefill call: "
+          f"kernel {tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+          f"({tm['bound_by']}; the kernel reaches "
+          f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
+          f"{tm['plain_ms']:.4f} ms, library yardstick "
+          f"F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+          f"on the same q, k, v (the step at an empty carry, finalized) "
+          f"{tm['library_ms']:.4f} ms", flush=True)
+    del sets, lib_in, kernel, plain, lib
+    torch.cuda.empty_cache()
+    return tm, err_bf16
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -907,6 +1124,8 @@ def device_ms_by_kernel(torch, prof, n: int) -> dict[str, float]:
 def kind_of(name: str) -> str:
     """The kind of a profiled kernel, by its name."""
     return ("grouped expert FFN" if "ffn_up" in name or "ffn_down" in name
+            else "flash carry step" if "flash_fwd_kernel" in name
+            and "true>" in name
             else "flash attention" if "flash_" in name
             else "paged attention" if "paged" in name
             else "GEMM" if any(t in name for t in ("nvjet", "gemm", "xmma",
@@ -1559,6 +1778,251 @@ def phase_moe_parity(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: ring attention (context parallelism) on phi4-mini-3.8b
+# ---------------------------------------------------------------------------
+
+#: greedy tokens generated from the ring prefill's cache
+RING_NEW = 16
+#: the bf16 prefill logits of the ring against megatron's: the two
+#: attention kernels round their outputs to bf16 after f32 sums taken in
+#: other orders, and 32 bf16 layers carry that on (of the largest logit)
+RING_LOGIT_TOL = 5e-2
+
+
+def set_attn_impl(model, impl):
+    """Point ``model`` at another SP attention schedule (same weights)."""
+    model.cfg = dataclasses.replace(model.cfg, attn_impl=impl)
+
+
+def phase_ring_prefill_and_train(torch):
+    """Steps 1 and 2: phi4-mini-3.8b uncut with attn_impl="ring": prefill
+    of 1 x 8192 against megatron's, 16 tokens from its cache, then 3
+    training steps.  Returns the carry launches of these runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import managed
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.serve_loop import Generator
+    from repro_torch.train.train_loop import build_train_step
+
+    cfg = dataclasses.replace(configs.get_config("phi4-mini-3.8b"),
+                              attn_impl="ring")
+    s = RING_PREFILL["s"]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = Model(cfg, device="cuda").init(gen)
+    rng = np.random.default_rng(SEED + 9)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size - 1, size=(1, s)).astype(np.int32)).cuda()
+    with managed.capture_decisions() as cap:
+        model.prefill_sp({"tokens": tokens})                  # warm-up
+    torch.cuda.synchronize()
+    fa.CARRY_LAUNCHES = fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    got = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+    if got != (cfg.n_layers, 0, 0):
+        fail(f"ring prefill launched (carry, flash forward, flash backward) "
+             f"{got}, not ({cfg.n_layers}, 0, 0)")
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (
+            1, cfg.padded_vocab):
+        fail(f"ring prefill logits {tuple(logits.shape)} not finite")
+    recs = [f"{r.op}({r.mode})" for r in cap.records]
+    print(f"  phi4-mini-3.8b uncut, attn_impl='ring', 1 rank: prefill_sp of "
+          f"1 x {s} tokens {pre_ms:.1f} ms ({s / pre_ms * 1e3:.0f} "
+          f"tokens/s), {got[0]} carry launches, 0 flash launches, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"decisions {recs}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = model.prefill_sp({"tokens": tokens})
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    per_kernel = device_ms_by_kernel(torch, prof, 1)
+    dev_ms = sum(per_kernel.values())
+    print(f"  one ring prefill under torch.profiler: {prof_ms:.1f} ms host "
+          f"wall, {dev_ms:.1f} ms device time (busy share "
+          f"{dev_ms / prof_ms * 100:.1f}%)", flush=True)
+    print_by_kind(per_kernel, "ring prefill")
+
+    # the megatron prefill of the same tokens on the same weights
+    set_attn_impl(model, "megatron")
+    f0 = fa.FWD_LAUNCHES
+    mega, mega_cache = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    set_attn_impl(model, "ring")
+    if fa.FWD_LAUNCHES - f0 != cfg.n_layers:
+        fail("the megatron prefill did not run the flash forward kernel")
+    err = (logits - mega).abs().max().item()
+    scale = mega.abs().max().item()
+    if err > RING_LOGIT_TOL * scale:
+        fail(f"ring prefill logits differ from megatron's by {err:.3e} > "
+             f"{RING_LOGIT_TOL} x {scale:.3g}")
+    kv_err = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(cache["kv"], mega_cache["kv"]))
+    del mega_cache
+    same = int(logits.argmax(-1).item() == mega.argmax(-1).item())
+    gen_tok = Generator(model, ShapeConfig("ring", s + RING_NEW, 1,
+                                           "decode"))
+    t0 = time.perf_counter()
+    new = gen_tok.generate_from_prefill(logits, cache, RING_NEW)
+    gen_s = time.perf_counter() - t0
+    if new.shape != (1, RING_NEW) or new.min() < 0 \
+            or new.max() >= cfg.vocab_size:
+        fail(f"generation from the ring prefill gave {new.tolist()}")
+    print(f"  against megatron's prefill (flash forward kernel) of the same "
+          f"tokens: last-token logits within {err:.3e} (tolerance "
+          f"{RING_LOGIT_TOL} x {scale:.3g}), cache K/V identical up to "
+          f"{kv_err:.1e}, same greedy token: {bool(same)}; {RING_NEW} greedy "
+          f"tokens from the ring prefill's cache through the contiguous "
+          f"Generator in {gen_s:.2f} s: {new[0].tolist()}", flush=True)
+    del logits, cache, mega, gen_tok
+    torch.cuda.empty_cache()
+
+    # 3 training steps at B=2 x S=1024, as phase 5
+    b, s_tr = TRAIN_ATTN["b"], TRAIN_ATTN["s"]
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100,
+                          moment_dtype=cfg.moment_dtype)
+    opt = adamw_init(model.params(), opt_cfg)
+    step = build_train_step(model, opt_cfg)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=s_tr, global_batch=b,
+                                      seed=SEED))
+    losses, walls, counts = [], [], []
+    for i in range(3):
+        batch = train_batch(torch, data, i)
+        c0 = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append((fa.CARRY_LAUNCHES - c0[0], fa.FWD_LAUNCHES - c0[1],
+                       fa.BWD_LAUNCHES - c0[2]))
+    # two prefills (timed and profiled) and three steps
+    launches = fa.CARRY_LAUNCHES
+    if launches != 2 * cfg.n_layers + 3 * 2 * cfg.n_layers:
+        fail(f"{launches} carry launches in the ring runs")
+    want = (2 * cfg.n_layers, 0, 0)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite ring training loss: {losses}")
+    if any(c != want for c in counts):
+        fail(f"(carry, flash forward, flash backward) launches per ring "
+             f"training step {counts} != {want}")
+    print(f"  3 training steps with attn_impl='ring' (B={b}, S={s_tr}, bf16,"
+          f" f32 AdamW moments, remat): losses "
+          f"{[round(x, 4) for x in losses]}, host wall per step "
+          f"{[round(w * 1e3, 1) for w in walls]} ms, launches per step "
+          f"(carry, flash forward, flash backward) {counts[0]}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {launches} "
+          f"carry launches in this phase's ring runs (2 prefills x "
+          f"{cfg.n_layers} + 3 steps x {2 * cfg.n_layers})", flush=True)
+    batch = train_batch(torch, data, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_ms_by_kernel(torch, prof, 1)
+    dev_ms = sum(per_kernel.values())
+    print(f"  one ring training step under torch.profiler: {prof_ms:.1f} ms "
+          f"host wall, {dev_ms:.1f} ms device time (busy share "
+          f"{dev_ms / prof_ms * 100:.1f}%)", flush=True)
+    print_by_kind(per_kernel, "ring training step")
+    del model, opt, step, batch, metrics
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ring_parity(torch):
+    """Step 3: full width, 2 layers, f32, TF32 off: ring with the carry
+    kernel, ring with the plain step pinned, megatron with the flash
+    kernels — loss, gradients, prefill logits and greedy tokens."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model, flatten_specs
+    from repro_torch.train.serve_loop import Generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dataclasses.replace(configs.get_config("phi4-mini-3.8b"),
+                               n_layers=2, dtype="float32")
+    data = SyntheticLMData(DataConfig(vocab_size=base.vocab_size,
+                                      seq_len=TRAIN_ATTN["s"],
+                                      global_batch=TRAIN_ATTN["b"],
+                                      seed=SEED))
+    prompts = torch.from_numpy(
+        data.global_batch_at(11)["tokens"][:, :256]).cuda()
+    runs = {}
+    for name, impl, engine, want in (
+            ("ring kernel", "ring", "auto", (4, 0, 0)),
+            ("ring plain", "ring", "torch", (0, 0, 0)),
+            ("megatron", "megatron", "auto", (0, 4, 2))):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        model = Model(cfg, device="cuda", attn_engine=engine).init(gen)
+        fa.CARRY_LAUNCHES = fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        loss, _ = model.loss_sp(train_batch(torch, data, 0))
+        leaves = flatten_specs(model.params())
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        got = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        if got != want:
+            fail(f"{name}: (carry, flash forward, flash backward) launches "
+                 f"{got} for one loss and gradient, not {want}")
+        logits, cache = model.prefill_sp({"tokens": prompts})
+        tokens = Generator(model, ShapeConfig("ring", 256 + 8, 2, "decode")) \
+            .generate_from_prefill(logits, cache, 8)
+        runs[name] = dict(loss=loss.item(), grads=grads, logits=logits,
+                          tokens=tokens)
+        del model, leaves, cache
+        torch.cuda.empty_cache()
+    ref = runs["ring plain"]
+    lines = []
+    for name in ("ring kernel", "megatron"):
+        run = runs[name]
+        if abs(run["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+            fail(f"{name}: loss {run['loss']} != {ref['loss']} (ring plain)")
+        worst = max(((g - ref["grads"][k]).abs().max().item()
+                     / max(ref["grads"][k].abs().max().item(), 1e-30), k)
+                    for k, g in run["grads"].items())
+        if worst[0] > 1e-5:
+            fail(f"{name}: gradient {worst[1]} differs by {worst[0]:.2e} of "
+                 "its largest magnitude from the ring's plain path")
+        lerr = (run["logits"] - ref["logits"]).abs().max().item()
+        lscale = ref["logits"].abs().max().item()
+        if lerr > 1e-5 * lscale:
+            fail(f"{name}: prefill logits differ by {lerr:.3e} (> 1e-5 x "
+                 f"{lscale:.3g})")
+        if not np.array_equal(run["tokens"], ref["tokens"]):
+            fail(f"{name}: greedy tokens {run['tokens'].tolist()} != "
+                 f"{ref['tokens'].tolist()} (ring plain)")
+        lines.append(f"{name}: loss {run['loss']:.6f}, gradients within "
+                     f"{worst[0]:.2e}, logits within {lerr:.2e}")
+    print(f"  phi4-mini-3.8b full width, 2 layers, f32 (TF32 off), "
+          f"B={TRAIN_ATTN['b']}, S={TRAIN_ATTN['s']}, against the ring with "
+          f"the plain step (loss {ref['loss']:.6f}): " + "; ".join(lines)
+          + " (tolerances: loss rtol 1e-5, gradients and logits 1e-5 of the"
+          " largest magnitude); prefill of 2 x 256 and 8 greedy tokens from"
+          f" its cache equal on all three paths: {ref['tokens'].tolist()}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1591,6 +2055,7 @@ def main() -> int:
     flash_t, flash_err = phase_flash(torch)
     stencil_t, stencil_err = phase_stencil(torch)
     grouped_t, grouped_err = phase_grouped(torch)
+    carry_t, carry_err = phase_carry(torch)
     print("phase 3: serve phi4-mini-3.8b at full size", flush=True)
     launches = phase_serve(torch)
     print("phase 4: kernel path vs plain path, end to end", flush=True)
@@ -1610,6 +2075,12 @@ def main() -> int:
     phase_moe_train(torch)
     phase_moe_parity(torch)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
+    print("phase 9: ring attention (context parallelism) on phi4-mini-3.8b",
+          flush=True)
+    t9 = time.perf_counter()
+    carry_launches = phase_ring_prefill_and_train(torch)
+    phase_ring_parity(torch)
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
@@ -1644,7 +2115,12 @@ def main() -> int:
                     source="src/repro_torch/kernels/csrc/grouped_matmul.cu",
                     replaces="src/repro/kernels/grouped_matmul.py:142",
                     launches=grouped_launches, max_abs_err=grouped_err,
-                    **grouped_t)]
+                    **grouped_t),
+               dict(name="flash_attention_carry", route="cuda",
+                    source=flash_src,
+                    replaces="src/repro/kernels/flash_attention.py:262",
+                    launches=carry_launches, max_abs_err=carry_err,
+                    **carry_t)]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,15 @@
 """Alpha-beta cost model for the managed decisions (port of
-``repro.core.cost_model``, the sections the serving path prices with).
+``repro.core.cost_model``).
 
 The port prices with an NVIDIA H100 (``H100``, the ``DEFAULT_HW``).
 ``TPU_V5E`` is kept so tests can hold the port's decisions to the
-reference's on the same machine model.  The remaining sections of the
-reference (the collective, attention, pipeline and checkpoint
-decisions) come with the slices that use them; the MoE dispatch decision
-and the collective times it prices with are here.  The halo-aggregation
-decision keeps the reference's formulas; only its tile-fit test prices
-the tile that the machine's stencil kernel stages (``HardwareModel.
-tile_rows`` / ``tile_cols``).
+reference's on the same machine model.  Ported: the collective times and
+the generic bulk-vs-interleaved decision (``decide``), and the serve,
+preemption, halo, MoE dispatch and attention-schedule decisions.  The
+pipeline and checkpoint decisions come with the slices that use them.
+The halo-aggregation decision keeps the reference's formulas; only its
+tile-fit test prices the tile that the machine's stencil kernel stages
+(``HardwareModel.tile_rows`` / ``tile_cols``).
 """
 
 from __future__ import annotations
@@ -116,6 +116,13 @@ def ring_reduce_scatter_time(nbytes_full: float, n: int, hw: HardwareModel,
     return steps * hw.alpha_s + (n - 1) * shard / hw.link_bw
 
 
+def ring_all_reduce_time(nbytes: float, n: int, hw: HardwareModel,
+                         chunks: int = 1) -> float:
+    """RS + AG ring all-reduce."""
+    return (ring_reduce_scatter_time(nbytes, n, hw, chunks)
+            + ring_all_gather_time(nbytes / max(n, 1), n, hw, chunks))
+
+
 def all_to_all_time(nbytes_local: float, n: int, hw: HardwareModel,
                     chunks: int = 1) -> float:
     """Ring-style all-to-all: each rank exchanges 1/n of its local operand
@@ -124,6 +131,13 @@ def all_to_all_time(nbytes_local: float, n: int, hw: HardwareModel,
         return 0.0
     steps = (n - 1) * max(1, chunks)
     return steps * hw.alpha_s + (n - 1) * (nbytes_local / n) / hw.link_bw
+
+
+def point_to_point_time(nbytes: float, hw: HardwareModel,
+                        messages: int = 1) -> float:
+    """The paper's PingPong primitive: ``messages`` sends carrying
+    ``nbytes`` total."""
+    return messages * hw.alpha_s + nbytes / hw.link_bw
 
 
 def _pipeline_time(comm_total: float, compute_total: float, stages: int,
@@ -137,6 +151,79 @@ def _pipeline_time(comm_total: float, compute_total: float, stages: int,
     k = compute_total / stages
     latency = alpha * per_stage_msgs * stages
     return c + k + (stages - 1) * max(c, k) + latency
+
+
+# ---------------------------------------------------------------------------
+# Bulk vs interleaved decision (the "managed" in MDMP)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleDecision:
+    mode: str                 # "bulk" | "interleaved"
+    chunks: int               # ring sub-chunks per step (1 = plain ring)
+    bulk_time_s: float        # predicted comm+compute, bulk schedule
+    interleaved_time_s: float  # predicted comm+compute, chosen interleave
+    comm_time_s: float        # raw transfer time of the collective
+    compute_time_s: float     # compute available for overlap
+
+    @property
+    def predicted_speedup(self) -> float:
+        if self.interleaved_time_s <= 0:
+            return 1.0
+        return self.bulk_time_s / self.interleaved_time_s
+
+
+def decide(nbytes: float, axis_size: int, *, compute_time_s: float = 0.0,
+           hw: HardwareModel = DEFAULT_HW,
+           collective: str = "all_gather",
+           candidate_chunks: Sequence[int] = (1, 2, 4),
+           force_mode: str | None = None) -> ScheduleDecision:
+    """Pick bulk vs interleaved (and a chunk count) for one managed call
+    site.
+
+    ``nbytes``          bytes of the *sharded* operand that each step moves
+                        (AG: shard bytes; RS/AR: full bytes; A2A: local
+                        bytes).
+    ``compute_time_s``  the compute adjacent to this collective that an
+                        interleaved schedule can hide.
+    """
+    n = max(1, axis_size)
+    timer = {
+        "all_gather": ring_all_gather_time,
+        "reduce_scatter": ring_reduce_scatter_time,
+        "all_reduce": ring_all_reduce_time,
+        "all_to_all": all_to_all_time,
+    }[collective]
+
+    comm_bulk = timer(nbytes, n, hw, 1)
+    bulk_total = comm_bulk + compute_time_s
+
+    best_mode, best_chunks, best_time = "bulk", 1, bulk_total
+    if n > 1:
+        ring_steps = n - 1
+        for c in candidate_chunks:
+            comm_c = timer(nbytes, n, hw, c)
+            stages = ring_steps * c
+            t = _pipeline_time(comm_c - stages * hw.alpha_s, compute_time_s,
+                               stages, hw.alpha_s)
+            if t < best_time * (1.0 - 1e-9):
+                best_mode, best_chunks, best_time = "interleaved", c, t
+
+    if force_mode == "bulk":
+        best_mode, best_chunks, best_time = "bulk", 1, bulk_total
+    elif force_mode == "interleaved" and best_mode == "bulk":
+        best_mode = "interleaved"
+        best_chunks = 1
+        comm_c = timer(nbytes, n, hw, 1)
+        stages = max(1, (n - 1))
+        best_time = _pipeline_time(comm_c - stages * hw.alpha_s,
+                                   compute_time_s, stages, hw.alpha_s)
+
+    return ScheduleDecision(
+        mode=best_mode, chunks=best_chunks,
+        bulk_time_s=bulk_total, interleaved_time_s=best_time,
+        comm_time_s=comm_bulk, compute_time_s=compute_time_s)
 
 
 # ---------------------------------------------------------------------------
@@ -771,3 +858,115 @@ def decide_moe_dispatch(tokens_local: int, d_model: int, n_experts: int,
         drop_frac=drop,
         a2a_bytes=n_experts * cap * d_model * dtype_bytes,
         dense_bytes=tokens_local * d_model * dtype_bytes)
+
+
+# ---------------------------------------------------------------------------
+# Attention schedule decision (bulk gather vs ulysses a2a vs ring streaming)
+# ---------------------------------------------------------------------------
+#
+# The SP-flow attention has three managed schedules (models/attention.py):
+#
+#   bulk (megatron)  — all-gather the SEQUENCE activations for the qkv
+#                      matmuls (bytes ∝ S·B·D) + matmul-reduce-scatter of
+#                      the output, then one full-sequence flash on local
+#                      heads.
+#   ulysses          — gather the q/o WEIGHTS over 'model' (bytes ∝ D·H·hd)
+#                      and switch seq<->head sharding with two all_to_alls
+#                      (bytes ∝ S·B·H·hd/tp) + a small KV seq-gather, then
+#                      the same full-sequence flash.
+#   ring             — q stays sequence-sharded; KV blocks stream around
+#                      the ring under the flash compute.  Per step the
+#                      cost is max(flash_flops, link_time) + alpha.
+#
+# qkv/o projection FLOPs are identical across schedules and excluded.  For
+# causal masks the ring skips fully-masked future blocks; the ring is
+# charged the same 0.5x causal factor per step as the bulk schedules.  At
+# one rank every communication term is zero and the three times tie; the
+# tie is broken by name, so ``bulk`` wins.
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionScheduleDecision:
+    """Outcome of the three-way attention-schedule decision."""
+    schedule: str                  # "bulk" | "ulysses" | "ring"
+    times_s: dict[str, float]      # schedule -> predicted seconds/layer
+    bulk_s: float
+    chosen_s: float
+    comm_s: float                  # comm on the chosen schedule's crit path
+    flash_s: float                 # attention compute (chosen schedule)
+
+    @property
+    def predicted_speedup(self) -> float:
+        if self.chosen_s <= 0:
+            return 1.0
+        return self.bulk_s / self.chosen_s
+
+
+def attention_flash_step_s(batch: int, s_local: int, heads: int,
+                           head_dim: int,
+                           hw: HardwareModel = DEFAULT_HW) -> float:
+    """Seconds for ONE q-block x kv-block flash step (all heads, local
+    sequence) — the unit every schedule's compute term is built from."""
+    return (4.0 * batch * float(s_local) ** 2 * heads * head_dim
+            / hw.peak_flops)
+
+
+def attention_schedule_times(batch: int, s_local: int, heads: int,
+                             kv_heads: int, head_dim: int, d_model: int,
+                             axis_size: int, *, dtype_bytes: int = 2,
+                             causal: bool = True,
+                             hw: HardwareModel = DEFAULT_HW
+                             ) -> dict[str, float]:
+    """Predicted seconds per attention call for each schedule (comm on the
+    critical path + attention flops; shared projection flops excluded)."""
+    n = max(1, axis_size)
+    cf = 0.5 if causal else 1.0
+    flash_step = attention_flash_step_s(batch, s_local, heads, head_dim, hw)
+    attn_full = cf * n * flash_step          # full-seq flash == n ring steps
+
+    x_shard = batch * s_local * d_model * dtype_bytes
+    t_bulk = (ring_all_gather_time(x_shard, n, hw)
+              + ring_reduce_scatter_time(x_shard * n, n, hw)
+              + attn_full)
+
+    wq_shard = d_model * (heads * head_dim // n) * dtype_bytes
+    w_gather = 2.0 * ring_all_gather_time(wq_shard, n, hw)   # wq and wo
+    qo_local = batch * s_local * heads * head_dim * dtype_bytes
+    kv_shard = 2.0 * batch * s_local * kv_heads * head_dim * dtype_bytes
+    t_ulysses = (w_gather + 2.0 * all_to_all_time(qo_local, n, hw)
+                 + ring_all_gather_time(kv_shard, n, hw) + attn_full)
+
+    link_step = hw.alpha_s + kv_shard / hw.link_bw
+    t_ring = (w_gather + cf * flash_step
+              + (n - 1) * max(cf * flash_step, link_step))
+    return {"bulk": t_bulk, "ulysses": t_ulysses, "ring": t_ring}
+
+
+def decide_attention_schedule(batch: int, s_local: int, heads: int,
+                              kv_heads: int, head_dim: int, d_model: int,
+                              axis_size: int, *, dtype_bytes: int = 2,
+                              causal: bool = True,
+                              hw: HardwareModel = DEFAULT_HW,
+                              force_schedule: str | None = None
+                              ) -> AttentionScheduleDecision:
+    """Pick the attention schedule for one call site.  ``force_schedule``
+    pins the choice (an MDMPConfig override, or a measured winner) while
+    still reporting the modeled times."""
+    times = attention_schedule_times(
+        batch, s_local, heads, kv_heads, head_dim, d_model, axis_size,
+        dtype_bytes=dtype_bytes, causal=causal, hw=hw)
+    if force_schedule is not None:
+        if force_schedule not in times:
+            raise ValueError(f"unknown attention schedule "
+                             f"{force_schedule!r}")
+        best = force_schedule
+    else:
+        best = min(times, key=lambda s: (times[s], s))
+    n = max(1, axis_size)
+    cf = 0.5 if causal else 1.0
+    flash_s = cf * n * attention_flash_step_s(batch, s_local, heads,
+                                              head_dim, hw)
+    comm_s = max(0.0, times[best] - flash_s)
+    return AttentionScheduleDecision(
+        schedule=best, times_s=times, bulk_s=times["bulk"],
+        chosen_s=times[best], comm_s=comm_s, flash_s=flash_s)

@@ -1,17 +1,24 @@
-"""Managed runtime — configuration, the decision log, and the serving
-resolvers (port of ``repro.core.managed``).
+"""Managed runtime — configuration, the decision log, the resolvers and
+ring attention (port of ``repro.core.managed``).
 
 The reference expresses every collective through a ``managed_*`` entry
 point that picks bulk or interleaved execution from the cost model and
-logs a ``DecisionRecord``.  In this slice every mesh axis has size 1, so
-``managed_all_reduce`` / ``managed_all_gather`` / ``managed_all_to_all``
-/ ``managed_reduce_scatter`` are the identity (as the reference's are at
-axis size 1) and raise above it; their ``torch.distributed`` form comes
-with the managed-collectives slice.  The serving resolvers
-(``resolve_serve_schedule``, ``resolve_preempt``), the halo-aggregation
-resolver (``resolve_halo_aggregation``) and the MoE dispatch resolver
-(``resolve_moe_dispatch``) are ported whole: they run on the host and
-price with ``DEFAULT_HW``.
+logs a ``DecisionRecord``.  ``managed_all_reduce`` /
+``managed_all_gather`` / ``managed_all_to_all`` /
+``managed_reduce_scatter`` and the fused matmuls are the identity at axis
+size 1 (as the reference's are) and raise above it; their
+``torch.distributed`` form comes with the managed-collectives slice.  The
+serving resolvers (``resolve_serve_schedule``, ``resolve_preempt``), the
+halo-aggregation resolver (``resolve_halo_aggregation``), the MoE
+dispatch resolver (``resolve_moe_dispatch``), the attention-schedule
+resolver (``resolve_attention_schedule``) and the generic call-site
+resolver ``_resolve`` are ported whole: they run on the host and price
+with ``DEFAULT_HW``.
+
+``managed_ring_attention`` (context parallelism) runs over a
+``torch.distributed`` process group: kv blocks travel around the ring by
+``batch_isend_irecv`` while the carry kernel folds the block that has
+arrived.
 """
 
 from __future__ import annotations
@@ -22,10 +29,17 @@ import time
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import cost_model
 from repro_torch.core.cost_model import DEFAULT_HW, HardwareModel
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.flash_attention import (finalize_partials,
+                                                 init_partials)
+from repro_torch.obs.tracer import dispatch_span
 from repro_torch.parallel.sharding import MeshCtx
+
+Group = dist.ProcessGroup | None
 
 # ---------------------------------------------------------------------------
 # Global MDMP configuration + decision log (the managed-runtime audit trail)
@@ -188,6 +202,40 @@ def _plan_knob(op: str, axis_name: str) -> dict | None:
 
 def _axis_size(axis_name: str, ctx: MeshCtx) -> int:
     return ctx.axis_sizes.get(axis_name, 1)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return int(x.numel() * x.element_size())
+
+
+def _resolve(op: str, axis_name: str, ctx: MeshCtx, nbytes: int,
+             mode: str | None, chunks: int | None, collective: str,
+             compute_time_s: float = 0.0) -> tuple[str, int]:
+    """Resolve mode/chunks for a call site moving ``nbytes`` and log the
+    decision (the reference passes the operand and takes its bytes)."""
+    cfg = get_config()
+    pk = _plan_knob(op, axis_name)
+    if pk is not None and mode in (None, "auto") and chunks is None:
+        # the program plan binds this call site; an explicit caller
+        # mode/chunks would have pinned the knob above it
+        mode = pk.get("mode") or mode
+        chunks = pk.get("chunks")
+    mode = mode or cfg.mode
+    n = _axis_size(axis_name, ctx)
+    decision = cost_model.decide(
+        nbytes, n, compute_time_s=compute_time_s, hw=cfg.hw,
+        collective=collective,
+        force_mode=None if mode == "auto" else mode)
+    eff_chunks = chunks if chunks is not None else (
+        cfg.chunks if cfg.chunks is not None else decision.chunks)
+    eff_mode = decision.mode if mode == "auto" else mode
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op=op, axis=axis_name, nbytes=nbytes, mode=eff_mode,
+            chunks=eff_chunks,
+            predicted_bulk_s=decision.bulk_time_s,
+            predicted_interleaved_s=decision.interleaved_time_s))
+    return eff_mode, max(1, int(eff_chunks))
 
 
 def _multi_rank(op: str, axis_name: str, n: int) -> NotImplementedError:
@@ -444,6 +492,274 @@ def resolve_moe_dispatch(axis_name: str, axis_size: int, tokens_local: int,
         log_decision(DecisionRecord(
             op="moe_dispatch", axis=axis_name, nbytes=decision.a2a_bytes,
             mode=decision.schedule, chunks=decision.g,
+            predicted_bulk_s=decision.bulk_s,
+            predicted_interleaved_s=decision.chosen_s))
+    return decision
+
+
+# ---------------------------------------------------------------------------
+# Managed ring attention (context parallelism)
+#
+# The paper's Figure-3 strategy mapped onto attention: q stays sequence-
+# sharded, kv blocks rotate around the ring while the carry kernel folds
+# the block that already arrived into the online-softmax (m, l, acc) carry.
+# The permute of the next block is posted BEFORE the current block is
+# folded and waited for only before it is used.  ``mode='bulk'`` is the
+# oracle: all-gather the kv and take ONE step (identical math, bulk
+# communication).  Blocks that the causal or window mask rules out are
+# skipped on the host; every rank still takes part in every permute.
+#
+# The backward re-streams the ring: dq accumulates locally as kv blocks
+# pass by again, while each block's f32 (dk, dv) accumulator travels WITH
+# it and arrives back home after a full cycle.  Residuals are only (q, k,
+# v, out, lse).
+# ---------------------------------------------------------------------------
+
+
+def _group_rank(group: Group, n: int) -> int:
+    """This rank's index along the ring axis of size ``n``."""
+    if n == 1:
+        return 0
+    if group is None:
+        raise ValueError(f"ring attention over {n} ranks needs their "
+                         "process group")
+    if dist.get_world_size(group) != n:
+        raise ValueError(f"the process group has "
+                         f"{dist.get_world_size(group)} ranks, the axis "
+                         f"{n}")
+    return dist.get_rank(group)
+
+
+def _ring_permute_start(tensors: list[torch.Tensor], group: Group, idx: int,
+                        n: int, tag0: int = 0
+                        ) -> tuple[list[torch.Tensor], list]:
+    """Post one ring step (the reference's ``_ring_perm``: rank i sends to
+    i + 1): every tensor goes to the next rank, and the previous rank's
+    arrive in fresh buffers once every returned work has been waited for.
+    Tags keep the tensors apart where next and previous are the same rank
+    (n = 2).  The caller keeps the (contiguous) sent tensors alive until
+    then."""
+    nxt = dist.get_global_rank(group, (idx + 1) % n)
+    prv = dist.get_global_rank(group, (idx - 1) % n)
+    recv = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for i, t in enumerate(tensors):
+        if not t.is_contiguous():
+            raise ValueError("ring messages are contiguous tensors")
+        ops.append(dist.P2POp(dist.isend, t, nxt, group, tag=tag0 + i))
+        ops.append(dist.P2POp(dist.irecv, recv[i], prv, group,
+                              tag=tag0 + i))
+    return recv, dist.batch_isend_irecv(ops)
+
+
+def _wait(works: list) -> None:
+    for w in works:
+        w.wait()
+
+
+def _block_visible(q_off: int, k_off: int, sq: int, skv: int, causal: bool,
+                   window: int) -> bool:
+    """Whether ANY (qpos, kpos) pair of the block survives the mask."""
+    vis = True
+    if causal:
+        vis = vis and k_off <= q_off + sq - 1
+    if window > 0:
+        vis = vis and (q_off - (k_off + skv - 1)) < window
+    return vis
+
+
+def resolve_ring_attention(axis_name: str, ctx: MeshCtx, batch: int,
+                           s_local: int, heads: int, head_dim: int,
+                           kv_nbytes: int, *, causal: bool = True,
+                           mode: str | None = None) -> str:
+    """The ring-attention call site's mode (bulk gather vs interleaved
+    ring), priced as an all-gather of the ``kv_nbytes`` of this rank's k
+    against the flash compute it can hide, and logged as a
+    ``DecisionRecord(op="ring_attention")``."""
+    n = _axis_size(axis_name, ctx)
+    compute_s = ((0.5 if causal else 1.0) * n
+                 * cost_model.attention_flash_step_s(
+                     batch, s_local, heads, head_dim, get_config().hw))
+    eff_mode, _ = _resolve("ring_attention", axis_name, ctx, kv_nbytes,
+                           mode, None, "all_gather",
+                           compute_time_s=compute_s)
+    return eff_mode
+
+
+def managed_ring_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, axis_name: str, ctx: MeshCtx,
+                           causal: bool = True, window: int = 0,
+                           mode: str | None = None, *, group: Group = None,
+                           engine: str = "auto",
+                           decided: str | None = None) -> torch.Tensor:
+    """Sequence-sharded attention with kv streamed around ``axis_name``.
+
+    q: [B, S_loc, H, hd]; k, v: [B, S_loc, KV, hd] — every rank holds its
+    own sequence block of q AND kv.  Global positions are rank-derived:
+    q[0] sits at ``rank * S_loc``.  The axis size comes from ``ctx``;
+    above 1 ``group`` is that axis's process group.  Returns [B, S_loc,
+    H, hd] in q's type, differentiable in q, k and v.
+
+    ``mode`` pins the schedule as in the reference (resolved and logged
+    per call); ``decided`` is a mode the caller has already resolved and
+    logged (``resolve_ring_attention``), so the model resolves once per
+    shape, not per layer per step.  ``engine="torch"`` pins the plain
+    carry step (tests)."""
+    n = _axis_size(axis_name, ctx)
+    idx = _group_rank(group, n)
+    with dispatch_span("attention.ring", q, op="ring_attention",
+                       axis=axis_name, nbytes=2 * _nbytes(k),
+                       buffer="kv_blocks"):
+        if decided is None:
+            b, s_loc, h, hd = q.shape
+            decided = resolve_ring_attention(
+                axis_name, ctx, b, s_loc, h, hd, _nbytes(k), causal=causal,
+                mode=mode)
+        return _RingAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, window, decided,
+                                    n, idx, group, engine)
+
+
+class _RingAttention(torch.autograd.Function):
+    """The reference's custom VJP: the forward saves (q, k, v, out, lse)
+    and the backward re-streams the ring."""
+
+    @staticmethod
+    def forward(fctx, q, k, v, causal, window, mode, n, idx, group, engine):
+        out, lse = _ring_fwd(q, k, v, causal, window, mode, n, idx, group,
+                             engine)
+        fctx.save_for_backward(q, k, v, out, lse)
+        fctx.args = (causal, window, mode, n, idx, group)
+        return out
+
+    @staticmethod
+    def backward(fctx, dy):
+        q, k, v, out, lse = fctx.saved_tensors
+        dq, dk, dv = _ring_bwd(q, k, v, out, lse, dy, *fctx.args)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _q_offset(idx: int, s_loc: int, causal: bool, window: int) -> int:
+    # positions matter only under a mask
+    return idx * s_loc if (causal or window > 0) else 0
+
+
+def _ring_fwd(q, k, v, causal, window, mode, n, idx, group, engine):
+    b, s_loc, h, hd = q.shape
+
+    def step(kb, vb, carry, q_off, k_off):
+        return kernel_ops.flash_attention_step(
+            q, kb, vb, carry, causal=causal, window=window, q_offset=q_off,
+            k_offset=k_off, engine=engine)
+
+    if n == 1:
+        return finalize_partials(*step(k, v, None, 0, 0), out_dtype=q.dtype)
+    q_off = _q_offset(idx, s_loc, causal, window)
+    if mode == "bulk":
+        kg, vg = _all_gather_seq(k, group, n), _all_gather_seq(v, group, n)
+        return finalize_partials(*step(kg, vg, None, q_off, 0),
+                                 out_dtype=q.dtype)
+    carry = init_partials(b, s_loc, h, hd, device=q.device)
+    kb, vb = k, v
+    for s in range(n):
+        if s < n - 1:
+            # post block s+1's transfer before folding block s
+            nxt, works = _ring_permute_start([kb, vb], group, idx, n)
+        k_off = ((idx - s) % n) * s_loc
+        if _block_visible(q_off, k_off, s_loc, s_loc, causal, window):
+            carry = step(kb, vb, carry, q_off, k_off)
+        if s < n - 1:
+            _wait(works)
+            kb, vb = nxt
+    return finalize_partials(*carry, out_dtype=q.dtype)
+
+
+def _all_gather_seq(x: torch.Tensor, group: Group, n: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def _ring_bwd(q, k, v, out, lse, dy, causal, window, mode, n, idx, group):
+    b, s_loc, h, hd = q.shape
+    dsum = (dy.float() * out.float()).sum(dim=-1)
+
+    def step_bwd(kb, vb, q_off, k_off):
+        return kernel_ops.flash_attention_bwd_block(
+            q, kb, vb, dy, lse, dsum, causal=causal, window=window,
+            q_offset=q_off, k_offset=k_off)
+
+    def cast(dq, dk, dv):
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+    if n == 1:
+        return cast(*step_bwd(k, v, 0, 0))
+    q_off = _q_offset(idx, s_loc, causal, window)
+    if mode == "bulk":
+        kg, vg = _all_gather_seq(k, group, n), _all_gather_seq(v, group, n)
+        dq, dk_full, dv_full = step_bwd(kg, vg, q_off, 0)
+        # each rank computed its q rows' share of EVERY kv position: the
+        # transpose of the gather sums them and keeps this rank's slice
+        # (an all-reduce: gloo has no reduce-scatter)
+        dist.all_reduce(dk_full, group=group)
+        dist.all_reduce(dv_full, group=group)
+        rows = slice(idx * s_loc, (idx + 1) * s_loc)
+        return cast(dq, dk_full[:, rows], dv_full[:, rows])
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dkb = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dvb = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    kb, vb = k, v
+    for s in range(n):
+        if s < n - 1:
+            nxt, works = _ring_permute_start([kb, vb], group, idx, n)
+        k_off = ((idx - s) % n) * s_loc
+        if _block_visible(q_off, k_off, s_loc, s_loc, causal, window):
+            dq_i, dk_i, dv_i = step_bwd(kb, vb, q_off, k_off)
+            dq += dq_i
+            dkb += dk_i
+            dvb += dv_i
+        # the (dk, dv) accumulators travel WITH their block: after the
+        # full cycle every rank has contributed and the sums are home
+        home, acc_works = _ring_permute_start([dkb, dvb], group, idx, n,
+                                              tag0=2)
+        _wait(acc_works)
+        dkb, dvb = home
+        if s < n - 1:
+            _wait(works)
+            kb, vb = nxt
+    return cast(dq, dkb, dvb)
+
+
+def resolve_attention_schedule(axis_name: str, axis_size: int, batch: int,
+                               s_local: int, heads: int, kv_heads: int,
+                               head_dim: int, d_model: int, *,
+                               dtype_bytes: int = 2, causal: bool = True,
+                               mode: str | None = None,
+                               schedule: str | None = None
+                               ) -> cost_model.AttentionScheduleDecision:
+    """The managed-runtime entry for the three-way attention schedule
+    (bulk sequence-gather vs ulysses a2a vs ring streaming).  Called with
+    static shapes; the chosen schedule feeds ``models/attention.py``
+    dispatch and lands in the decision log.
+
+    ``mode='bulk'`` pins the unmanaged baseline; ``mode='interleaved'``
+    pins the always-stream schedule (ring); ``schedule`` pins an explicit
+    choice (the tuner's measured winner)."""
+    cfg = get_config()
+    pk = _plan_knob("attention_schedule", axis_name)
+    if pk is not None and schedule is None and mode in (None, "auto"):
+        schedule = pk.get("mode")
+    eff_mode = mode or cfg.mode
+    force = {"bulk": "bulk", "interleaved": "ring"}.get(eff_mode, schedule)
+    decision = cost_model.decide_attention_schedule(
+        batch, s_local, heads, kv_heads, head_dim, d_model, axis_size,
+        dtype_bytes=dtype_bytes, causal=causal, hw=cfg.hw,
+        force_schedule=force)
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op="attention_schedule", axis=axis_name,
+            nbytes=2 * batch * s_local * kv_heads * head_dim * dtype_bytes,
+            mode=decision.schedule, chunks=max(1, axis_size),
             predicted_bulk_s=decision.bulk_s,
             predicted_interleaved_s=decision.chosen_s))
     return decision

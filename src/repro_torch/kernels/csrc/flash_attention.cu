@@ -1,10 +1,11 @@
-// Flash attention forward and backward for Hopper (sm_90a), with a plain
-// C interface.
+// Flash attention forward, backward and the ring-attention carry step for
+// Hopper (sm_90a), with a plain C interface.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention_pallas (_flash_kernel) and the reference's jnp flash
-// backward src/repro/kernels/ops.py::_flash_bwd_blockwise, which the
-// custom VJP at ops.py:59-105 wires in.
+// Replaces the TPU kernels src/repro/kernels/flash_attention.py::
+// flash_attention_pallas (_flash_kernel) and flash_attention_carry_pallas
+// (_flash_kernel_carry), and the reference's jnp flash backward
+// src/repro/kernels/ops.py::_flash_bwd_blockwise, which the custom VJP at
+// ops.py:59-105 wires in.
 //
 //   q      [B, Sq, H, hd]     (f32 or bf16)
 //   k, v   [B, Skv, KV, hd]   (q's type); query head h reads kv head h / G,
@@ -50,6 +51,26 @@
 //     looping over the kv tiles it sees.
 // The bound is far: these are f32 FMAs at best 67 TFLOP/s where the
 // tensor cores give 989.  Later: mma/wgmma tiles in bf16 with TMA loads.
+//
+// The carry step (ring attention, managed.managed_ring_attention) is the
+// forward kernel with the online-softmax state carried in and out instead
+// of initialised and normalised:
+//   m, l   [B, Sq, H]       f32 running max and sum (unnormalised)
+//   acc    [B, Sq, H, hd]   f32 running sum of p v
+//   mask   as above with qpos = q_offset + i, kpos = k_offset + j; only
+//          d = q_offset - k_offset enters it, so the kernel takes d as its
+//          q offset against local kv rows.  d < 0 (the block lies after
+//          the q rows) gives an empty kv range under causality.
+// Each CTA loads its 64 rows of the carry before its kv loop and stores
+// them after it, so a CTA that visits no kv tile copies its rows through
+// unchanged.  A wholly masked tile leaves the state bit for bit as it was
+// (alpha = exp(0) = 1, p = 0), which is why skipping it is exact; a fully
+// masked row keeps m = -1e30, l = 0, acc = 0.  The carry may be updated in
+// place (in == out): a CTA reads only the rows it writes.  At ring
+// attention's prefill call (B=1, S=8192, 32/8 heads, hd 128, causal) the
+// step does 5.5e11 flop over the unmasked pairs and moves 0.37 GB (acc in
+// and out dominate), so it is bound by operations (0.56 ms at the bf16
+// tensor-core rate); this SIMT version is far from that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -174,12 +195,25 @@ __device__ __forceinline__ void kv_range(int qlo, int qhi, int skv,
 // Forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+// The online-softmax state of a carry step: read before the kv loop,
+// written after it (null for the self-contained forward).
+struct Carry {
+  const float* m_in;
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;
+  float* l_out;
+  float* acc_out;
+};
+
+// kCarry = false: the forward (state initialised, out and lse written).
+// kCarry = true: one carry step (state from `carry`, stored back there).
+template <typename T, int HD, bool kCarry>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int sq, int skv, int n_heads,
-                 int n_kv, int q_offset, int window, int causal,
+                 float* __restrict__ lse, Carry carry, int sq, int skv,
+                 int n_heads, int n_kv, int q_offset, int window, int causal,
                  float scale) {
   constexpr int NC = HD / 16;
   constexpr int kLdHd = HD + 4;
@@ -209,6 +243,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[r] = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+    const int i = q0 + 4 * ty + r;
+    if (kCarry && i < sq) {
+      const int64_t row = ((int64_t)b * sq + i) * n_heads + h;
+      m[r] = carry.m_in[row];
+      l[r] = carry.l_in[row];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        acc[r][c] = carry.acc_in[row * HD + col_of(c, tx)];
+    }
   }
 
   int lo, hi;
@@ -264,6 +307,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + 4 * ty + r;
     if (i >= sq) continue;
+    if (kCarry) {
+      const int64_t row = ((int64_t)b * sq + i) * n_heads + h;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        carry.acc_out[row * HD + col_of(c, tx)] = acc[r][c];
+      if (tx == 0) {
+        carry.m_out[row] = m[r];
+        carry.l_out[row] = l[r];
+      }
+      continue;
+    }
     const float l_safe = fmaxf(l[r], 1e-30f);
     T* ob = out + (((int64_t)b * sq + i) * n_heads + h) * HD;
 #pragma unroll
@@ -538,20 +592,37 @@ constexpr size_t dq_smem() {
                           kTile * kLd64 + 2 * kTile);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCarry>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-        const Shape& s, cudaStream_t stream) {
+        const Carry& carry, const Shape& s, cudaStream_t stream) {
   static int granted = 0;
   const size_t smem = fwd_smem<HD>();
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, HD>, smem, &granted);
+  cudaError_t e =
+      allow_smem(flash_fwd_kernel<T, HD, kCarry>, smem, &granted);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((s.sq + kTile - 1) / kTile, s.n_heads, s.batch);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, HD, kCarry><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset,
-      s.window, s.causal, s.scale);
+      static_cast<float*>(lse), carry, s.sq, s.skv, s.n_heads, s.n_kv,
+      s.q_offset, s.window, s.causal, s.scale);
   return (int)cudaGetLastError();
+}
+
+template <bool kCarry>
+int fwd_dispatch(int dtype, int hd, const void* q, const void* k,
+                 const void* v, void* out, void* lse, const Carry& carry,
+                 const Shape& s, cudaStream_t st) {
+  if (dtype == 0)
+    return hd == 128
+               ? fwd<float, 128, kCarry>(q, k, v, out, lse, carry, s, st)
+               : fwd<float, 64, kCarry>(q, k, v, out, lse, carry, s, st);
+  if (dtype == 1)
+    return hd == 128 ? fwd<__nv_bfloat16, 128, kCarry>(q, k, v, out, lse,
+                                                        carry, s, st)
+                     : fwd<__nv_bfloat16, 64, kCarry>(q, k, v, out, lse,
+                                                       carry, s, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int HD>
@@ -615,14 +686,31 @@ extern "C" int flash_attention_fwd_launch(int dtype, const void* q,
                 scale};
   if (!valid(s, hd)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0 || n_heads == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return hd == 128 ? fwd<float, 128>(q, k, v, out, lse, s, st)
-                     : fwd<float, 64>(q, k, v, out, lse, s, st);
-  if (dtype == 1)
-    return hd == 128 ? fwd<__nv_bfloat16, 128>(q, k, v, out, lse, s, st)
-                     : fwd<__nv_bfloat16, 64>(q, k, v, out, lse, s, st);
-  return (int)cudaErrorInvalidValue;
+  return fwd_dispatch<false>(dtype, hd, q, k, v, out, lse, Carry{}, s,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// One ring-attention carry step: fold k, v [B, Skv, KV, hd] into (m, l,
+// acc) for q [B, Sq, H, hd].  q_offset and k_offset are the global
+// positions of q[0] and k[0].  The *_out pointers may equal the *_in ones.
+extern "C" int flash_attention_carry_launch(
+    int dtype, const void* q, const void* k, const void* v, const void* m_in,
+    const void* l_in, const void* acc_in, void* m_out, void* l_out,
+    void* acc_out, int batch, int sq, int skv, int n_heads, int n_kv,
+    int hd, int q_offset, int k_offset, int window, int causal, float scale,
+    void* stream) {
+  const Shape s{batch, sq,           skv,    n_heads, n_kv,
+                q_offset - k_offset, window, causal,  scale};
+  if (!valid(s, hd)) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || sq == 0 || n_heads == 0) return 0;
+  const Carry carry{static_cast<const float*>(m_in),
+                    static_cast<const float*>(l_in),
+                    static_cast<const float*>(acc_in),
+                    static_cast<float*>(m_out),
+                    static_cast<float*>(l_out),
+                    static_cast<float*>(acc_out)};
+  return fwd_dispatch<true>(dtype, hd, q, k, v, nullptr, nullptr, carry, s,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // dsum is f32 scratch [B, Sq, H].  Three launches (dsum, dK/dV, dQ).

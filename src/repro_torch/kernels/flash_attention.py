@@ -1,6 +1,6 @@
 """Flash attention — hand-written CUDA kernels + plain PyTorch versions
 (port of ``repro.kernels.flash_attention`` and of the blockwise engines
-of ``repro.kernels.ops``).
+of ``repro.kernels.ops``, the ring-attention carry step included).
 
 Causal / sliding-window GQA attention with an online softmax that never
 materialises the [Sq, Skv] logits.  q: [B, Sq, H, hd]; k, v: [B, Skv, KV,
@@ -18,11 +18,21 @@ Two engines with identical math, forward and backward:
     blockwise loops of ``ops._blockwise_fwd`` / ``_flash_bwd_blockwise``
     over kv blocks, with ragged kv zero-padded and masked (``_pad_kv``).
 
-``flash_attention_fwd`` / ``flash_attention_bwd`` dispatch on the
-tensor's device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor takes the plain version.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``
-count wrapper calls that launched a kernel, so a run can show that its
-main path went through them.
+The ring-attention carry step folds one kv block into an unnormalised
+online-softmax carry ``(m, l, acc)``, with q and k at global offsets:
+
+  * the CUDA kernel (the forward's tiles with the carry loaded before the
+    kv loop and stored after it), in place of the reference's Pallas
+    kernel ``flash_attention_carry_pallas``;
+  * ``flash_attention_step_torch`` — the reference's ``ops._flash_step_jnp``
+    loop over kv blocks.
+
+``flash_attention_fwd`` / ``flash_attention_bwd`` /
+``flash_attention_carry`` dispatch on the tensor's device: a CUDA tensor
+launches the kernel (or raises), a CPU tensor takes the plain version.
+``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` / ``CARRY_LAUNCHES`` count wrapper
+calls that launched a kernel, so a run can show that its main path went
+through them.
 
 Also here: the online-softmax partials combinators.  Public carry layout
 (matches q): m, l: [B, Sq, H] f32; acc: [B, Sq, H, hd] f32.  ``out = acc /
@@ -44,19 +54,22 @@ NEG_INF = -1e30
 
 Partials = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-#: forward / backward wrapper calls that launched their kernels since the
-#: counts were last set to 0
+#: forward / backward / carry-step wrapper calls that launched their
+#: kernels since the counts were last set to 0
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+CARRY_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128)
 
 
-def init_partials(b: int, sq: int, h: int, hd: int,
-                  device: torch.device | str = "cpu") -> Partials:
-    """Empty carry: max = -inf (finite sentinel), sum = 0, acc = 0."""
+def init_partials(b: int, sq: int, h: int, hd: int, *,
+                  device: torch.device | str) -> Partials:
+    """Empty carry: max = -inf (finite sentinel), sum = 0, acc = 0, on
+    ``device`` (q's device: a carry on another device than q, k and v is
+    refused by the carry step)."""
     m = torch.full((b, sq, h), NEG_INF, dtype=torch.float32, device=device)
     l = torch.zeros((b, sq, h), dtype=torch.float32, device=device)
     acc = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=device)
@@ -167,6 +180,57 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _step_mask(sq: int, blk: int, ki: int, qpos: torch.Tensor, k_offset: int,
+               skv_valid: int, causal: bool, window: int) -> torch.Tensor:
+    """The mask of kv sub-block ``ki`` when q and k both sit at global
+    offsets (the reference's ``ops._step_mask``); ``skv_valid`` masks the
+    zero padding of ragged kv."""
+    kloc = ki * blk + torch.arange(blk, device=qpos.device)
+    kpos = k_offset + kloc
+    mask = (kloc < skv_valid)[None, :].expand(sq, blk)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window > 0:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return mask
+
+
+def flash_attention_step_torch(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, m: torch.Tensor,
+                               l: torch.Tensor, acc: torch.Tensor, *,
+                               causal: bool = True, window: int = 0,
+                               q_offset: int = 0, k_offset: int = 0,
+                               blk_kv: int = 512) -> Partials:
+    """One carry step in plain torch (port of ``ops._flash_step_jnp``):
+    fold k, v [B, Skv, KV, hd] into the carry (m, l [B, Sq, H], acc [B,
+    Sq, H, hd], f32) over kv blocks of ``blk_kv``, ragged kv zero-padded
+    and masked.  Returns the new carry; the inputs are not modified."""
+    b, sq, h, hd = q.shape
+    k, v, skv_valid = _pad_kv(k, v, max(1, min(blk_kv, k.shape[1])))
+    skv = k.shape[1]
+    blk = max(1, min(blk_kv, skv))
+    kvh = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qf = _grouped(q, kvh) * scale                    # [b,kvh,g,sq,hd]
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    mc, lc, ac = _grouped(m, kvh), _grouped(l, kvh), _grouped(acc, kvh)
+    for ki in range(skv // blk):
+        ks = k[:, ki * blk:(ki + 1) * blk].float()
+        vs = v[:, ki * blk:(ki + 1) * blk].float()
+        logits = torch.einsum("bkgqd,bskd->bkgqs", qf, ks)
+        mask = _step_mask(sq, blk, ki, qpos, k_offset, skv_valid, causal,
+                          window)
+        logits = torch.where(mask, logits, NEG_INF)
+        m_new = torch.maximum(mc, logits.amax(dim=-1))
+        alpha = torch.exp(mc - m_new)
+        p = torch.where(mask, torch.exp(logits - m_new[..., None]), 0.0)
+        lc = alpha * lc + p.sum(dim=-1)
+        ac = ac * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                  vs)
+        mc = m_new
+    return _ungrouped(mc), _ungrouped(lc), _ungrouped(ac)
+
+
 def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor, *,
@@ -224,6 +288,10 @@ def _lib() -> ctypes.CDLL:
             i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
             p]
         lib.flash_attention_bwd_launch.restype = i
+        lib.flash_attention_carry_launch.argtypes = [
+            i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
+            p]
+        lib.flash_attention_carry_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -350,3 +418,53 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(lib, err, "backward")
     BWD_LAUNCHES += 1
     return dq, dk, dv
+
+
+def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          m: torch.Tensor, l: torch.Tensor,
+                          acc: torch.Tensor, *, causal: bool = True,
+                          window: int = 0, q_offset: int = 0,
+                          k_offset: int = 0) -> Partials:
+    """One ring-attention step: fold k, v [B, Skv, KV, hd] into the carry
+    (m, l [B, Sq, H], acc [B, Sq, H, hd], f32) for q [B, Sq, H, hd].
+    ``q_offset`` / ``k_offset`` are the global positions of q[0] and k[0]
+    (host integers).  Returns a new carry; the inputs are not modified.
+
+    A CUDA tensor launches the carry kernel (any Sq and Skv, head_dim in
+    ``KERNEL_HEAD_DIMS``) or raises; a CPU tensor takes
+    ``flash_attention_step_torch``.  The step has no gradient: ring
+    attention's autograd Function owns the backward."""
+    global CARRY_LAUNCHES
+    _check(q, k, v, m, l, acc)
+    b, sq, h, hd = q.shape
+    if tuple(m.shape) != (b, sq, h) or tuple(l.shape) != (b, sq, h) \
+            or tuple(acc.shape) != (b, sq, h, hd):
+        raise ValueError(f"carry m {tuple(m.shape)}, l {tuple(l.shape)}, "
+                         f"acc {tuple(acc.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if any(t.dtype != torch.float32 for t in (m, l, acc)):
+        raise TypeError("the carry (m, l, acc) is f32")
+    if q.device.type == "cpu":
+        return flash_attention_step_torch(
+            q, k, v, m, l, acc, causal=causal, window=window,
+            q_offset=q_offset, k_offset=k_offset)
+    _check_kernel_inputs(q, k, v)
+    if not all(t.is_contiguous() for t in (m, l, acc)):
+        raise ValueError("the kernels take contiguous tensors")
+    skv, kvh = k.shape[1], k.shape[2]
+    m_out, l_out, acc_out = (torch.empty_like(m), torch.empty_like(l),
+                             torch.empty_like(acc))
+    if acc.numel() == 0:
+        return m_out, l_out, acc_out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_carry_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
+            l_out.data_ptr(), acc_out.data_ptr(), b, sq, skv, h, kvh, hd,
+            int(q_offset), int(k_offset), int(window), int(bool(causal)),
+            1.0 / math.sqrt(hd), stream)
+    _raise_on(lib, err, "carry")
+    CARRY_LAUNCHES += 1
+    return m_out, l_out, acc_out

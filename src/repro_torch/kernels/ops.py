@@ -16,8 +16,15 @@ reference follows ``REPRO_PALLAS`` / the backend:
   * ``engine="torch"`` pins the plain blockwise forward and backward on
     any device (tests hold the kernels against it end to end).
 
-``flash_attention_step`` and ``flash_attention_bwd_block`` (ring
-attention) come with ROADMAP Queue 1 slice 6.
+Ring attention's two per-block work items:
+
+  * ``flash_attention_step`` folds one kv block into an online-softmax
+    carry; a CUDA tensor launches the carry kernel
+    (``flash_attention.flash_attention_carry``), a CPU tensor takes the
+    plain step, ``engine="torch"`` pins the plain step on any device;
+  * ``flash_attention_bwd_block`` is the backward of one step.  It is
+    plain torch on every device, as the reference's is jnp: it reaches no
+    TPU kernel.
 """
 
 from __future__ import annotations
@@ -27,11 +34,16 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (NEG_INF, _blk_mask,
-                                                 _grouped, _ungrouped,
+from repro_torch.kernels.flash_attention import (NEG_INF, Partials,
+                                                 _blk_mask, _grouped,
+                                                 _pad_kv, _step_mask,
+                                                 _ungrouped,
                                                  flash_attention_bwd,
+                                                 flash_attention_carry,
                                                  flash_attention_fwd,
-                                                 flash_attention_torch)
+                                                 flash_attention_step_torch,
+                                                 flash_attention_torch,
+                                                 init_partials)
 from repro_torch.kernels.stencil import jacobi_step  # noqa: F401 (re-export)
 
 #: sequences at or above this use a blockwise implementation
@@ -125,3 +137,84 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
     out, _ = flash_attention_torch(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, blk_kv=blk_kv)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Streamed flash steps (ring attention) — carry in and out, global offsets
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         carry: Partials | None = None, *,
+                         causal: bool = True, window: int = 0,
+                         q_offset: int = 0, k_offset: int = 0,
+                         engine: str = "auto") -> Partials:
+    """Fold one kv block into an online-softmax carry (m, l, acc — the
+    public [B, Sq, H(, hd)] layout of kernels/flash_attention.py); an
+    empty carry on q's device when ``carry`` is None.
+
+    The per-arrival work item of ring attention: each ring step calls it
+    on the kv block that just landed while the next block is in flight.
+    ``q_offset`` / ``k_offset`` are the global positions of q[0] and k[0].
+    The plain step takes kv blocks of 512, as the reference's jnp engine;
+    the kernel tiles by 64 and takes any shape."""
+    b, sq, h, hd = q.shape
+    if carry is None:
+        carry = init_partials(b, sq, h, hd, device=q.device)
+    if engine not in ("auto", "torch"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "torch":
+        return flash_attention_step_torch(
+            q, k, v, *carry, causal=causal, window=window,
+            q_offset=q_offset, k_offset=k_offset)
+    return flash_attention_carry(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), *carry, causal=causal,
+                                 window=window, q_offset=q_offset,
+                                 k_offset=k_offset)
+
+
+def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              lse: torch.Tensor, dsum: torch.Tensor, *,
+                              causal: bool, window: int = 0,
+                              q_offset: int = 0, k_offset: int = 0,
+                              blk_kv: int = 512
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Backward of one streamed flash step, recomputing p from (q, k, lse)
+    (port of ``ops.flash_attention_bwd_block``).
+
+    q, dout: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd]; lse, dsum: [B, Sq, H]
+    (dsum = sum(dout * out, -1), computed once by the caller).  Returns
+    f32 (dq contribution, dk, dv), so ring ranks accumulate across steps
+    without dtype round trips.  Memory stays O(Sq * blk_kv)."""
+    b, sq, h, hd = q.shape
+    k, v, skv_valid = _pad_kv(k, v, max(1, min(blk_kv, k.shape[1])))
+    skv = k.shape[1]
+    blk = max(1, min(blk_kv, skv))
+    kvh = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qf = _grouped(q, kvh)                            # [b,kvh,g,sq,hd]
+    do = _grouped(dout, kvh)
+    lse_g = _grouped(lse, kvh)
+    dsum_g = _grouped(dsum, kvh)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for ki in range(skv // blk):
+        ks = k[:, ki * blk:(ki + 1) * blk].float()
+        vs = v[:, ki * blk:(ki + 1) * blk].float()
+        logits = torch.einsum("bkgqd,bskd->bkgqs", qf * scale, ks)
+        mask = _step_mask(sq, blk, ki, qpos, k_offset, skv_valid, causal,
+                          window)
+        p = torch.where(mask, torch.exp(logits - lse_g[..., None]), 0.0)
+        dvs.append(torch.einsum("bkgqs,bkgqd->bskd", p, do))
+        dp = torch.einsum("bkgqd,bskd->bkgqs", do, vs)
+        ds = p * (dp - dsum_g[..., None]) * scale
+        dq = dq + torch.einsum("bkgqs,bskd->bkgqd", ds, ks)
+        dks.append(torch.einsum("bkgqs,bkgqd->bskd", ds, qf))
+    dk = (torch.cat(dks, dim=1) if dks
+          else k.new_zeros(k.shape, dtype=torch.float32))
+    dv = (torch.cat(dvs, dim=1) if dvs
+          else v.new_zeros(v.shape, dtype=torch.float32))
+    return _ungrouped(dq), dk[:, :skv_valid], dv[:, :skv_valid]

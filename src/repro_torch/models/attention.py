@@ -8,7 +8,13 @@ SP flow (x sequence-sharded over ``model``):
   * flash attention over the full sequence for the local heads — the
     CUDA kernels on a card (kernels/ops.py);
   * output projection as matmul-reduce-scatter back to sequence shards.
-The Ulysses and ring schedules come with ROADMAP Queue 1 slice 6.
+Two more SP schedules share the layer: Ulysses (gather the q/o weights,
+switch sequence and head sharding with all-to-alls) and ring attention
+(q stays sequence-sharded, kv blocks stream around ``model`` through
+``managed.managed_ring_attention`` and its carry kernel).
+``attention_sp_auto`` picks one of the three from the cost model.  At
+tp = 1, the only model-axis size this port runs, every gather and
+all-to-all over ``model`` is the identity.
 
 Contiguous decode flow (batch replicated; KV cache [B, S, KV, hd] sharded
 over the cache axes on the sequence dim): the oracle of the paged flow.
@@ -27,6 +33,7 @@ until the managed collectives are ported.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -140,6 +147,155 @@ def attention_sp(x: torch.Tensor, params: dict, cfg: ModelConfig,
         # at tp=1
         return y, (k[:, :s_loc], v[:, :s_loc])
     return y
+
+
+def _full_head_qkv(x: torch.Tensor, params: dict, cfg: ModelConfig,
+                   ctx: MeshCtx) -> tuple[torch.Tensor, ...]:
+    """The Ulysses and ring projections: the q/o weights gathered whole
+    (FSDP over 'data', columns / rows over 'model'), then q [B, S_loc, H,
+    hd] with FULL heads and k, v [B, S_loc, KV, hd] of this rank's
+    sequence block, roped.  Returns (q, k, v, w_o)."""
+    b, s_loc, _ = x.shape
+    kvh, hd = padded_kv_heads(cfg), cfg.head_dim
+    mode = ctx.mdmp_mode
+    wq = fsdp_gather(params["w_q"], "data", ctx, mode=mode)
+    wq = fsdp_gather(wq, "model", ctx, axis=1, mode=mode)     # [D, H*hd]
+    wkv = fsdp_gather(params["w_kv"], "data", ctx, mode=mode)
+    wo = fsdp_gather(params["w_o"], "data", ctx, axis=1, mode=mode)
+    wo = fsdp_gather(wo, "model", ctx, axis=0, mode=mode)     # [H*hd, D]
+    q = (x @ wq).reshape(b, s_loc, cfg.padded_heads, hd)
+    k, v = (x @ wkv).chunk(2, dim=-1)
+    k = k.reshape(b, s_loc, kvh, hd)
+    v = v.reshape(b, s_loc, kvh, hd)
+    if cfg.rope_theta > 0:
+        # rank * s_loc + arange(s_loc): the model rank is 0 at tp = 1
+        pos = torch.arange(s_loc, device=x.device)
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v, wo
+
+
+def attention_sp_ulysses(x: torch.Tensor, params: dict, cfg: ModelConfig,
+                         ctx: MeshCtx, *, causal: bool = True,
+                         window: int = 0, return_kv: bool = False,
+                         engine: str = "auto") -> Any:
+    """Ulysses-style attention: gather the q/o WEIGHTS over 'model' (bytes
+    ∝ D·H·hd) and switch seq-sharding <-> head-sharding with a managed
+    all_to_all (bytes ∝ S·B·D / tp), in place of all-gathering the
+    SEQUENCE for the qkv matmuls.  Numerically identical to
+    attention_sp."""
+    b, s_loc, _ = x.shape
+    kvh, hd = padded_kv_heads(cfg), cfg.head_dim
+    mode = ctx.mdmp_mode
+    q, k, v, wo = _full_head_qkv(x, params, cfg, ctx)
+
+    # head<->seq switch: [B, S_loc, H, hd] -> [B, S, H_loc, hd]
+    qt = managed.managed_all_to_all(q.transpose(0, 1), "model", ctx,
+                                    split_axis=2, concat_axis=0, mode=mode)
+    qt = qt.transpose(0, 1)
+    # kv heads are few: plain seq all-gather (tiny)
+    tp = ctx.tp
+    kg = layers.from_ring(managed.managed_all_gather(
+        layers.to_ring(k.reshape(b, s_loc, kvh * hd)), "model", ctx,
+        mode=mode), b).reshape(b, s_loc * tp, kvh, hd)
+    vg = layers.from_ring(managed.managed_all_gather(
+        layers.to_ring(v.reshape(b, s_loc, kvh * hd)), "model", ctx,
+        mode=mode), b).reshape(b, s_loc * tp, kvh, hd)
+
+    k_att, v_att, _ = _local_kv_slice(kg, vg, cfg, ctx)
+    o = attend(qt, k_att, v_att, causal=causal, window=window, engine=engine)
+
+    # switch back: [B, S, H_loc, hd] -> [B, S_loc, H, hd]
+    ot = managed.managed_all_to_all(o.transpose(0, 1), "model", ctx,
+                                    split_axis=0, concat_axis=2, mode=mode)
+    ot = ot.transpose(0, 1).reshape(b, s_loc, cfg.padded_heads * hd)
+    y = (ot @ wo).to(x.dtype)                            # no psum needed
+    if return_kv:
+        return y, (k, v)   # this rank's seq slice, all kv heads
+    return y
+
+
+def attention_sp_ring(x: torch.Tensor, params: dict, cfg: ModelConfig,
+                      ctx: MeshCtx, *, causal: bool = True, window: int = 0,
+                      return_kv: bool = False, engine: str = "auto",
+                      ring_mode: str | None = None) -> Any:
+    """Ring attention / context parallelism: q stays sequence-sharded with
+    FULL heads, kv blocks stream around 'model' through the managed ring
+    while the carry kernel folds the block that already arrived — O(S_loc)
+    activation memory.  Projections mirror Ulysses, with no head<->seq
+    switch and no kv slicing.  ``ring_mode`` is the ring's mode when the
+    caller has already resolved it (``resolve_sp_plan``); otherwise the
+    ring resolves and logs it per call.  Numerically identical to
+    attention_sp."""
+    b, s_loc, _ = x.shape
+    q, k, v, wo = _full_head_qkv(x, params, cfg, ctx)
+    o = managed.managed_ring_attention(q, k, v, "model", ctx, causal, window,
+                                       ctx.mdmp_mode, engine=engine,
+                                       decided=ring_mode)
+    y = (o.reshape(b, s_loc, -1) @ wo).to(x.dtype)
+    if return_kv:
+        return y, (k, v)   # this rank's seq slice, all kv heads
+    return y
+
+
+#: schedule name (cost model / tuner / plan) -> SP attention implementation
+SP_SCHEDULES = {
+    "bulk": attention_sp,          # megatron AG-matmul rings
+    "ulysses": attention_sp_ulysses,
+    "ring": attention_sp_ring,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SPPlan:
+    """The SP attention of one call site, resolved (and logged) once:
+    the schedule and, for the ring, its mode."""
+    schedule: str                  # "bulk" | "ulysses" | "ring"
+    ring_mode: str | None = None   # "bulk" | "interleaved" for the ring
+
+
+def resolve_sp_plan(cfg: ModelConfig, ctx: MeshCtx, batch: int,
+                    s_loc: int, *, causal: bool = True,
+                    impl: str | None = None) -> SPPlan:
+    """The decisions attention ``impl`` (default ``cfg.attn_impl``) needs
+    at [batch, s_loc]: the attention_schedule record for "auto" and the
+    ring_attention record when the schedule is the ring.  The reference
+    logs them once per traced call site; the eager port's ``Model``
+    resolves them once per shape and passes the plan to every layer."""
+    impl = cfg.attn_impl if impl is None else impl
+    hd, hp = cfg.head_dim, cfg.padded_heads
+    kvh = padded_kv_heads(cfg)
+    itemsize = getattr(torch, cfg.dtype).itemsize
+    if impl == "auto":
+        schedule = managed.resolve_attention_schedule(
+            "model", ctx.tp, batch, s_loc, hp, kvh, hd, cfg.d_model,
+            dtype_bytes=itemsize, causal=causal,
+            mode=ctx.mdmp_mode).schedule
+    else:
+        schedule = {"ulysses": "ulysses", "ring": "ring"}.get(impl, "bulk")
+    if schedule != "ring":
+        return SPPlan(schedule)
+    return SPPlan(schedule, managed.resolve_ring_attention(
+        "model", ctx, batch, s_loc, hp, hd, batch * s_loc * kvh * hd *
+        itemsize, causal=causal, mode=ctx.mdmp_mode))
+
+
+def attention_sp_auto(x: torch.Tensor, params: dict, cfg: ModelConfig,
+                      ctx: MeshCtx, *, causal: bool = True, window: int = 0,
+                      return_kv: bool = False, engine: str = "auto",
+                      plan: SPPlan | None = None) -> Any:
+    """The managed dispatcher (cfg.attn_impl='auto'): pick bulk gather vs
+    ulysses a2a vs ring streaming from the cost model, log the
+    DecisionRecord, and run the winner.  ``plan`` is a plan resolved
+    earlier (``resolve_sp_plan``), which is then run as it stands."""
+    if plan is None:
+        b, s_loc, _ = x.shape
+        plan = resolve_sp_plan(cfg, ctx, b, s_loc, causal=causal,
+                               impl="auto")
+    kw = {"ring_mode": plan.ring_mode} if plan.schedule == "ring" else {}
+    return SP_SCHEDULES[plan.schedule](x, params, cfg, ctx, causal=causal,
+                                       window=window, return_kv=return_kv,
+                                       engine=engine, **kw)
 
 
 def cache_axes(ctx: MeshCtx) -> tuple[str, ...]:

@@ -88,6 +88,9 @@ class Model(nn.Module):
         #: resolved MoE dispatch per (token count, managed mode and
         #: machine model, plan)
         self._moe_dispatch: dict[tuple, moe.Dispatch] = {}
+        #: resolved SP attention per (attn_impl, B, S_loc, managed mode
+        #: and machine model, plan)
+        self._sp_plan: dict[tuple, attention.SPPlan] = {}
         specs = self.param_specs()
         self.top = nn.ParameterDict({
             k: self._empty(s) for k, s in specs.items() if k != "layers"})
@@ -219,17 +222,27 @@ class Model(nn.Module):
         return self.top["unembed"]
 
     def _stack_kw(self, x: torch.Tensor) -> dict:
-        """stack_sp's engine pins and, for the MoE family, the dispatch
-        decision of this token count.  The decision is resolved (and
-        logged) once per token count, managed mode, machine model and
-        plan, as the reference logs it once per traced call site; the
+        """stack_sp's engine pins and the decisions of this shape: the SP
+        attention of ``attn_impl`` "ring" and "auto" (the ring's mode and
+        the auto schedule) and, for the MoE family, the dispatch.  Each is
+        resolved (and logged) once per shape, managed mode, machine model
+        and plan, as the reference logs it once per traced call site; the
         port runs eagerly and would otherwise log it per layer per
         step."""
         kw = dict(engine=self.attn_engine, moe_engine=self.moe_engine)
+        mdmp = managed.get_config()
+        plan_id = id(managed.active_plan())
+        if self.cfg.attn_impl in ("ring", "auto"):
+            b, s_loc = x.shape[:2]
+            key = (self.cfg.attn_impl, b, s_loc, mdmp.mode, mdmp.hw,
+                   plan_id)
+            if key not in self._sp_plan:
+                self._sp_plan[key] = attention.resolve_sp_plan(
+                    self.cfg, self.ctx, b, s_loc)
+            kw["sp_plan"] = self._sp_plan[key]
         if self.cfg.family == "moe":
             tokens = x.shape[0] * x.shape[1]
-            mdmp = managed.get_config()
-            key = (tokens, mdmp.mode, mdmp.hw, id(managed.active_plan()))
+            key = (tokens, mdmp.mode, mdmp.hw, plan_id)
             if key not in self._moe_dispatch:
                 self._moe_dispatch[key] = moe.resolve_dispatch(
                     self.cfg, self.ctx, tokens,

@@ -12,6 +12,7 @@ brings them.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -56,22 +57,33 @@ def _layer_views(stacked: dict) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+#: cfg.attn_impl -> SP attention (anything else is megatron's)
+ATTN_IMPLS = {
+    "ulysses": attention.attention_sp_ulysses,
+    "ring": attention.attention_sp_ring,
+    "auto": attention.attention_sp_auto,   # cost-model-chosen schedule
+}
+
+
 def block_sp(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: MeshCtx, *,
              causal: bool, window: int, collect_kv: bool,
              engine: str = "auto", moe_dispatch: moe.Dispatch | None = None,
-             moe_engine: str = "auto") -> tuple:
+             moe_engine: str = "auto",
+             sp_plan: attention.SPPlan | None = None) -> tuple:
     """One decoder block.  Returns (x, aux_loss, (k, v) | None); the aux
     loss is the MoE load-balance term (0 for the dense family).  The SSM
-    state the reference also returns comes with slice 8."""
+    state the reference also returns comes with slice 8.  ``sp_plan`` is
+    the attention decision every layer shares (``cfg.attn_impl`` resolves
+    its own when None)."""
     require_ported(cfg)
-    if cfg.attn_impl != "megatron":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} comes with ROADMAP Queue 1 "
-            "slice 6")
+    if sp_plan is not None:
+        attn_fn = functools.partial(attention.attention_sp_auto,
+                                    plan=sp_plan)
+    else:
+        attn_fn = ATTN_IMPLS.get(cfg.attn_impl, attention.attention_sp)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    att = attention.attention_sp(h, p, cfg, ctx, causal=causal,
-                                 window=window, return_kv=collect_kv,
-                                 engine=engine)
+    att = attn_fn(h, p, cfg, ctx, causal=causal, window=window,
+                  return_kv=collect_kv, engine=engine)
     kv = None
     if collect_kv:
         att, kv = att
@@ -90,14 +102,15 @@ def stack_sp(x: torch.Tensor, stacked: dict, cfg: ModelConfig,
              ctx: MeshCtx, *, causal: bool = True, collect_kv: bool = False,
              remat: bool | None = None, engine: str = "auto",
              moe_dispatch: moe.Dispatch | None = None,
-             moe_engine: str = "auto") -> tuple:
+             moe_engine: str = "auto",
+             sp_plan: attention.SPPlan | None = None) -> tuple:
     """Run the block over the stacked layers.  With ``remat`` (default
     ``cfg.remat``) each block runs under a non-reentrant
     ``torch.utils.checkpoint``: only its input is saved and the backward
-    recomputes it.  ``moe_dispatch`` is the resolved MoE dispatch every
-    layer shares (each layer resolves its own when None).  Returns (x,
-    the aux loss summed over layers, (k [L, B, S_loc, KV, hd], v) |
-    None)."""
+    recomputes it.  ``moe_dispatch`` / ``sp_plan`` are the resolved MoE
+    dispatch and SP attention every layer shares (each layer resolves its
+    own when None).  Returns (x, the aux loss summed over layers, (k [L,
+    B, S_loc, KV, hd], v) | None)."""
     require_ported(cfg)
     remat = cfg.remat if remat is None else remat
     window = cfg.sliding_window   # uniform across stacked layers
@@ -106,7 +119,7 @@ def stack_sp(x: torch.Tensor, stacked: dict, cfg: ModelConfig,
     for p in _layer_views(stacked):
         kw = dict(causal=causal, window=window, collect_kv=collect_kv,
                   engine=engine, moe_dispatch=moe_dispatch,
-                  moe_engine=moe_engine)
+                  moe_engine=moe_engine, sp_plan=sp_plan)
         if remat:
             x, a, kv = checkpoint(block_sp, x, p, cfg, ctx,
                                   use_reentrant=False, **kw)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import layers, transformer
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
 
@@ -67,6 +68,40 @@ class Generator:
                 out.append(nxt)
         if not out:
             return np.zeros((b, 0), np.int32)
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    @torch.no_grad()
+    def generate_from_prefill(self, logits: torch.Tensor, prefill: dict,
+                              n_new: int) -> np.ndarray:
+        """Greedy generation that continues ``Model.prefill_sp``: its K/V
+        ([L, B, P, KV, hd] each) fill the contiguous cache, the first new
+        token is the greedy pick of its last-position ``logits``, and
+        ``n_new - 1`` decode steps follow.  Returns the ``n_new`` tokens
+        [B, n_new] — the tokens ``generate`` gives for the same prompt,
+        without feeding the prompt through the decode path."""
+        if self.engine != "contiguous":
+            raise ValueError("generate_from_prefill continues into the "
+                             "contiguous cache")
+        cache = self.empty_cache()
+        k_pre, v_pre = prefill["kv"]
+        p = k_pre.shape[2]
+        s_cache = cache["k"].shape[2]
+        if transformer.layer_window(self.model.cfg, 0):
+            keep = torch.arange(max(0, p - s_cache), p)   # the ring buffer
+        elif p + n_new - 1 > s_cache:
+            raise ValueError(f"{p} prompt and {n_new} new tokens exceed the "
+                             f"{s_cache}-position cache")
+        else:
+            keep = torch.arange(p)
+        slots = (keep % s_cache).to(k_pre.device)
+        keep = keep.to(k_pre.device)
+        cache["k"][:, :, slots] = k_pre[:, :, keep].to(cache["k"].dtype)
+        cache["v"][:, :, slots] = v_pre[:, :, keep].to(cache["v"].dtype)
+        tok = layers.greedy_sample(logits, self.model.ctx)
+        out = [tok]
+        for i in range(n_new - 1):
+            tok, cache = self.model.decode_step(cache, tok, p + i)
+            out.append(tok)
         return torch.stack(out, dim=1).cpu().numpy()
 
     def _generate_paged(self, prompt_tokens: np.ndarray,

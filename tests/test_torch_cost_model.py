@@ -203,3 +203,144 @@ def test_h100_prices_the_tile_its_kernel_stages():
                                    candidate_k=(1, 8, 32))
     assert d.k == 8 and 32 not in d.per_sweep_s
     assert stencil.ksweep_smem_bytes(32) > cm.H100.vmem_bytes
+
+
+# -- the generic call-site decision and the attention schedule --------------
+
+#: (nbytes, axis size, compute s, collective, force)
+DECIDE_CASES = [
+    (1 << 20, 1, 0.0, "all_gather", None),
+    (1 << 20, 8, 0.0, "all_gather", None),
+    (1 << 24, 8, 1e-3, "all_gather", None),
+    (1 << 16, 4, 1e-6, "reduce_scatter", None),
+    (1 << 22, 8, 5e-4, "all_reduce", None),
+    (1 << 22, 16, 5e-4, "all_to_all", None),
+    (1 << 20, 8, 1e-3, "all_gather", "bulk"),
+    (1 << 10, 8, 0.0, "all_gather", "interleaved"),
+]
+
+#: (B, S_loc, H, KV, hd, D, axis size, dtype bytes, causal)
+ATTN_CASES = [
+    (1, 4096, 32, 8, 128, 4096, 8, 2, True),
+    (1, 4096, 32, 8, 128, 4096, 1, 2, True),
+    (2, 128, 8, 2, 16, 64, 8, 4, False),
+    (4, 512, 48, 1, 128, 6144, 4, 2, True),
+    (1, 16384, 24, 8, 128, 3072, 16, 2, False),
+    (8, 64, 16, 16, 64, 1024, 2, 2, True),
+]
+
+
+@pytest.mark.parametrize("nbytes,n,compute,coll,force", DECIDE_CASES)
+def test_decide_equals_reference(nbytes, n, compute, coll, force):
+    kw = dict(compute_time_s=compute, collective=coll, force_mode=force)
+    got = cm.decide(nbytes, n, hw=cm.TPU_V5E, **kw)
+    want = ref_cm.decide(nbytes, n, hw=ref_cm.TPU_V5E, **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.predicted_speedup == want.predicted_speedup
+    assert cm.point_to_point_time(nbytes, cm.TPU_V5E, messages=n) == \
+        ref_cm.point_to_point_time(nbytes, ref_cm.TPU_V5E, messages=n)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+@pytest.mark.parametrize("force", [None, "bulk", "ulysses", "ring"])
+def test_attention_schedule_equals_reference(case, force):
+    b, s, h, kvh, hd, d, n, nb, causal = case
+    args = (b, s, h, kvh, hd, d, n)
+    kw = dict(dtype_bytes=nb, causal=causal)
+    assert cm.attention_schedule_times(*args, hw=cm.TPU_V5E, **kw) == \
+        ref_cm.attention_schedule_times(*args, hw=ref_cm.TPU_V5E, **kw)
+    assert cm.attention_flash_step_s(b, s, h, hd, cm.TPU_V5E) == \
+        ref_cm.attention_flash_step_s(b, s, h, hd, ref_cm.TPU_V5E)
+    got = cm.decide_attention_schedule(*args, hw=cm.TPU_V5E,
+                                       force_schedule=force, **kw)
+    want = ref_cm.decide_attention_schedule(*args, hw=ref_cm.TPU_V5E,
+                                            force_schedule=force, **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.predicted_speedup == want.predicted_speedup
+
+
+def test_attention_schedule_ties_to_bulk_at_one_rank_on_the_h100():
+    d = cm.decide_attention_schedule(1, 8192, 32, 8, 128, 3072, 1)
+    assert len(set(d.times_s.values())) == 1 and d.schedule == "bulk"
+
+
+@pytest.mark.parametrize("mode", [None, "auto", "bulk", "interleaved"])
+def test_resolve_attention_schedule_logs_the_reference_records(mode):
+    def trail(mod, hw):
+        with mod.use_config(mod.MDMPConfig(hw=hw)):
+            with mod.capture_decisions() as cap:
+                mod.resolve_attention_schedule(
+                    "model", 8, 1, 4096, 32, 8, 128, 4096, mode=mode)
+                mod.resolve_attention_schedule(
+                    "model", 1, 2, 128, 8, 2, 16, 64, dtype_bytes=4,
+                    causal=False, mode=mode)
+                mod.resolve_attention_schedule(
+                    "model", 4, 1, 1024, 16, 4, 64, 1024, mode=mode,
+                    schedule="ulysses")
+        return cap.records
+
+    got = trail(managed, cm.TPU_V5E)
+    want = trail(ref_managed, ref_cm.TPU_V5E)
+    assert [dataclasses.asdict(r) | {"t": None} for r in got] == \
+        [dataclasses.asdict(r) | {"t": None} for r in want]
+
+
+def test_forced_interleaved_resolves_to_ring():
+    """The paper's always-intermingle mode pins the streaming schedule
+    (tests/dist_suite/test_ring_attention.py's case, on the port's
+    default machine)."""
+    d = managed.resolve_attention_schedule(
+        "model", 8, 1, 4096, 32, 8, 128, 4096, mode="interleaved")
+    assert d.schedule == "ring"
+    d = managed.resolve_attention_schedule(
+        "model", 8, 1, 4096, 32, 8, 128, 4096, mode="bulk")
+    assert d.schedule == "bulk"
+
+
+@pytest.mark.parametrize("mode", [None, "bulk", "interleaved"])
+def test_ring_attention_resolution_logs_the_reference_record(mode):
+    """The ring's call-site record (the reference's ``_ring_attn_resolve``
+    through ``_resolve``) on an 8-rank axis, priced on the same machine:
+    the port takes the shapes, the reference the traced operands."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.parallel.sharding import smap
+    from repro_torch.parallel.sharding import MeshCtx
+
+    b, s_loc, h, kvh, hd = 2, 512, 8, 2, 64
+    with ref_managed.use_config(ref_managed.MDMPConfig(hw=ref_cm.TPU_V5E)):
+        with ref_managed.capture_decisions() as cap:
+            mesh = jax.make_mesh((1,), ("x",))
+            q = jnp.zeros((b, s_loc, h, hd), jnp.bfloat16)
+            k = jnp.zeros((b, s_loc, kvh, hd), jnp.bfloat16)
+            # the reference takes the axis size from the mesh: one rank
+            jax.jit(smap(lambda q_, k_: ref_managed._ring_attn_resolve(
+                q_, k_, "x", True, mode)[1] * jnp.ones(()), mesh,
+                in_specs=(P(None, "x"),) * 2, out_specs=P()))(q, k)
+        want = cap.records
+    with managed.use_config(managed.MDMPConfig(hw=cm.TPU_V5E)):
+        with managed.capture_decisions() as cap:
+            got_mode = managed.resolve_ring_attention(
+                "x", MeshCtx({"x": 1}), b, s_loc, h, hd,
+                b * s_loc * kvh * hd * 2, causal=True, mode=mode)
+    assert [dataclasses.asdict(r) | {"t": None} for r in cap.records] == \
+        [dataclasses.asdict(r) | {"t": None} for r in want]
+    assert got_mode == want[0].mode
+    # at 8 ranks the port's record carries the reference's decide
+    n = 8
+    compute = 0.5 * n * cm.attention_flash_step_s(b, s_loc, h, hd,
+                                                  cm.TPU_V5E)
+    with managed.use_config(managed.MDMPConfig(hw=cm.TPU_V5E)):
+        with managed.capture_decisions() as cap:
+            managed.resolve_ring_attention(
+                "model", MeshCtx({"data": 1, "model": n}), b, s_loc, h, hd,
+                b * s_loc * kvh * hd * 2, causal=True, mode=mode)
+    d = ref_cm.decide(b * s_loc * kvh * hd * 2, n, compute_time_s=compute,
+                      hw=ref_cm.TPU_V5E, collective="all_gather",
+                      force_mode=None if mode in (None, "auto") else mode)
+    rec = cap.records[0]
+    assert (rec.mode, rec.predicted_bulk_s, rec.predicted_interleaved_s) \
+        == (d.mode if mode is None else mode, d.bulk_time_s,
+            d.interleaved_time_s)

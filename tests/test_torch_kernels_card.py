@@ -196,6 +196,155 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# flash attention carry step (ring attention)
+# ---------------------------------------------------------------------------
+
+#: (B, Sq, Skv, H, KV, hd, causal, window, q_offset, k_offset, carried):
+#: an empty and a carried state, offsets with the block before, at and
+#: after the q rows (d < 0: nothing visible), a window, ragged Skv, hd 64
+#: and MQA
+CARRY_CASES = [
+    (1, 256, 256, 32, 8, 128, True, 0, 0, 0, False),
+    (1, 128, 128, 32, 8, 128, True, 0, 256, 128, True),
+    (1, 128, 128, 32, 8, 128, True, 0, 128, 256, True),
+    (2, 130, 1000, 8, 2, 64, False, 0, 64, 32, True),
+    (1, 200, 200, 8, 2, 64, True, 70, 300, 100, True),
+    (1, 96, 160, 48, 1, 128, False, 100, 0, 40, True),
+]
+CARRY_TOL = [(torch.float32, 2e-5), (torch.bfloat16, 1e-4)]
+
+
+def _carry_inputs(cuda, dtype, b, sq, skv, h, kvh, hd, carried, seed=0):
+    """q, k, v in ``dtype`` and an f32 carry: empty, or the plain step of
+    an earlier random block (so m, l and acc are not trivial)."""
+    q, k, v, _ = _flash_inputs(cuda, dtype, b, sq, skv, h, kvh, hd, seed)
+    carry = fa.init_partials(b, sq, h, hd, device=cuda)
+    if carried:
+        _, k0, v0, _ = _flash_inputs(cuda, torch.float32, b, sq, 64, h, kvh,
+                                     hd, seed + 1)
+        carry = fa.flash_attention_step_torch(q.float(), k0, v0, *carry,
+                                              causal=False)
+    return q, k, v, carry
+
+
+def _carry_close(got, want, tol, what):
+    """m, l, acc within ``tol`` of the largest magnitude of each; rows
+    that see nothing keep the sentinel m = -1e30 exactly."""
+    m, want_m = got[0], want[0]
+    dead = want_m <= -1e29
+    assert torch.equal(m[dead], want_m[dead]), f"{what}: m of masked rows"
+    for name, g, w in (("m", m[~dead], want_m[~dead]), ("l", got[1], want[1]),
+                       ("acc", got[2], want[2])):
+        if w.numel() == 0:
+            continue
+        err = (g - w).abs().max().item()
+        scale = max(w.abs().max().item(), 1e-30)
+        assert err <= tol * scale, \
+            f"{what} {name}: max|err| {err:.3e} > {tol} x {scale:.3g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", CARRY_TOL)
+@pytest.mark.parametrize("case", CARRY_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_carry_kernel_matches_plain(cuda, dtype, tol, case):
+    """The carry kernel against ``flash_attention_step_torch`` on the same
+    (upcast) inputs: m, l and acc within 2e-5 (f32 inputs) / 1e-4 (bf16)
+    of their largest magnitudes; the inputs are left as they were."""
+    b, sq, skv, h, kvh, hd, causal, window, q_off, k_off, carried = case
+    q, k, v, carry = _carry_inputs(cuda, dtype, b, sq, skv, h, kvh, hd,
+                                   carried)
+    before = [t.clone() for t in carry]
+    kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
+    c0 = fa.CARRY_LAUNCHES
+    got = fa.flash_attention_carry(q, k, v, *carry, **kw)
+    torch.cuda.synchronize()
+    assert fa.CARRY_LAUNCHES == c0 + 1
+    want = fa.flash_attention_step_torch(q.float(), k.float(), v.float(),
+                                         *carry, **kw)
+    _carry_close(got, want, tol, str(case))
+    for t, t0 in zip(carry, before):
+        assert torch.equal(t, t0)
+
+
+@pytest.mark.gpu
+def test_flash_carry_kernel_leaves_invisible_blocks_bit_for_bit(cuda):
+    """A block wholly after the q rows (causal) or wholly outside the
+    window leaves the carry exactly as it came in; an empty carry over a
+    fully masked row stays (-1e30, 0, 0)."""
+    q, k, v, carry = _carry_inputs(cuda, torch.float32, 1, 130, 70, 8, 2,
+                                   64, True)
+    for kw in (dict(causal=True, q_offset=0, k_offset=130),
+               dict(causal=False, window=16, q_offset=500, k_offset=0)):
+        got = fa.flash_attention_carry(q, k, v, *carry, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, carry):
+            assert torch.equal(g, w), kw
+    empty = fa.init_partials(1, 130, 8, 64, device=cuda)
+    m, l, acc = fa.flash_attention_carry(q, k, v, *empty, causal=True,
+                                         window=4, q_offset=100,
+                                         k_offset=0)
+    torch.cuda.synchronize()
+    assert (m == -1e30).all() and (l == 0).all() and (acc == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 150)])
+def test_flash_carry_virtual_ring_equals_flash_forward(cuda, dtype, causal,
+                                                       window):
+    """One card folds the kv blocks of 4 virtual ranks in ring order
+    (k_offset = src * 128, invisible blocks skipped, later steps carried)
+    and, finalized, equals the flash forward over the whole sequence:
+    out within 2e-5 (f32) / 2e-2 (bf16, whose forward output is rounded)
+    of its largest magnitude, lse within 1e-4."""
+    n, blk = 4, 128
+    q, k, v, _ = _flash_inputs(cuda, dtype, 1, n * blk, n * blk, 8, 2, 128)
+    want_out, want_lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                window=window)
+    outs, lses = [], []
+    for rank in range(n):
+        qb = q[:, rank * blk:(rank + 1) * blk].contiguous()
+        carry = fa.init_partials(1, blk, 8, 128, device=cuda)
+        for s in range(n):
+            src = (rank - s) % n
+            lo = src * blk
+            if causal and lo > rank * blk + blk - 1:
+                continue
+            if window and rank * blk - (lo + blk - 1) >= window:
+                continue
+            carry = fa.flash_attention_carry(
+                qb, k[:, lo:lo + blk].contiguous(),
+                v[:, lo:lo + blk].contiguous(), *carry, causal=causal,
+                window=window, q_offset=rank * blk, k_offset=lo)
+        out, lse = fa.finalize_partials(*carry)
+        outs.append(out)
+        lses.append(lse)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    _close(torch.cat(outs, dim=1), want_out, tol, "out")
+    _close(torch.cat(lses, dim=1), want_lse, 1e-4, "lse")
+
+
+@pytest.mark.gpu
+def test_flash_carry_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, carry = _carry_inputs(cuda, torch.float32, 1, 64, 64, 4, 2,
+                                   128, False)
+    with pytest.raises(TypeError):
+        fa.flash_attention_carry(q, k, v, carry[0].double(), *carry[1:])
+    with pytest.raises(ValueError):
+        fa.flash_attention_carry(q, k, v, *fa.init_partials(
+            1, 64, 4, 128, device="cpu"))
+    with pytest.raises(ValueError):
+        fa.flash_attention_carry(q, k, v, carry[0][:, :32], *carry[1:])
+    q32, k32, v32, c32 = _carry_inputs(cuda, torch.float32, 1, 64, 64, 4,
+                                       2, 32, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_carry(q32, k32, v32, *c32)
+
+
+# ---------------------------------------------------------------------------
 # Jacobi stencil: one sweep and k sweeps per round trip
 # ---------------------------------------------------------------------------
 
