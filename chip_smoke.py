@@ -9,7 +9,10 @@ in phases, one line each, and stops with a non-zero exit at the first
 phase that fails:
 
   1. build   — compile every kernel under src/repro_torch/kernels/csrc
-               with nvcc (one process per source, all at once);
+               with nvcc (one process per source, all at once), print
+               ptxas's registers and spills, and count the tensor-core
+               (HGMMA) instructions of each flash kernel in its SASS: the
+               bf16 forward and carry kernels must have some;
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
                the card at the stated tolerances (paged attention; flash
                attention forward and backward), then timed beside its
@@ -101,6 +104,35 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def hgmma_counts(build) -> dict[str, int]:
+    """HGMMA instructions in each flash kernel of the built library, from
+    ``cuobjdump -sass``, by kernel (template arguments spelled out)."""
+    import re
+    from pathlib import Path
+
+    lib = build._target("flash_attention")
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"(flash_[a-z_]+_kernel)I(.*?)E(?:Ev|EE)", line)
+            name = None
+            if found:
+                args = re.sub(r"Li(\d+)E", r"\1, ", found.group(2) + "E")
+                args = re.sub(r"Lb([01])E", lambda b: ("false", "true")[
+                    int(b.group(1))] + ", ", args)
+                args = args.replace("13__nv_bfloat16", "bf16, ")
+                args = re.sub(r"^f", "float, ", args)
+                name = f"{found.group(1)}<{args.rstrip(', ')}>"
+                counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def eager_ms(torch, fns, reps: int) -> float:
@@ -293,7 +325,9 @@ def phase_kernel(torch):
 
 #: (B, Sq, Skv, H, KV, causal, window, q_offset), head_dim 128: GQA 32/8
 #: and MQA 48/1 (granite-34b's heads), causal and not, windows 0 and 64,
-#: q_offset > 0 with Sq < Skv, and Sq, Skv that are not multiples of 64
+#: q_offset > 0 with Sq < Skv, and Sq, Skv that are not multiples of 64;
+#: then the edges of the bf16 kernel's 128-row tiles (127, 129, 257, a
+#: window of 100, the diagonal mid-tile)
 FLASH_CASES = [
     (2, 256, 256, 32, 8, True, 0, 0),
     (1, 200, 200, 32, 8, False, 0, 0),
@@ -302,6 +336,9 @@ FLASH_CASES = [
     (1, 96, 300, 48, 1, True, 0, 204),
     (1, 45, 190, 48, 1, True, 64, 120),
     (1, 100, 100, 48, 1, False, 0, 0),
+    (1, 127, 129, 32, 8, True, 0, 2),
+    (1, 257, 257, 32, 8, True, 100, 0),
+    (1, 129, 257, 32, 8, True, 0, 60),
 ]
 #: the training phase's attention: phi4-mini at B=2, S=1024, causal
 TRAIN_ATTN = dict(b=2, s=1024, h=32, kvh=8, hd=128)
@@ -416,15 +453,19 @@ def phase_flash(torch):
                     library_ms=eager_ms(torch, lib_bwd, 10)),
     }
     bounds = flash_bounds(t["b"], t["s"], t["h"], t["kvh"], t["hd"], 2)
-    for name, what in (("fwd", "forward"), ("bwd", "backward")):
+    pairs = t["b"] * t["h"] * t["s"] * (t["s"] + 1) // 2
+    for name, what, per_pair in (("fwd", "forward", 4), ("bwd", "backward",
+                                                         10)):
         tm = times[name]
         tm["bound_ms"], tm["bound_by"] = bounds[name]
+        tflops = per_pair * pairs * t["hd"] / (tm["ms"] * 1e-3) / 1e12
         lib = ("F.scaled_dot_product_attention(is_causal=True, "
                "enable_gqa=True)" if name == "fwd" else
                "the backward of that call (autograd, from Python)")
         print(f"  flash_attention {what} at the training shape (B=2, "
               f"S=1024, 32/8 heads, hd 128, causal, bf16): kernel "
-              f"{tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+              f"{tm['ms']:.4f} ms ({tflops:.1f} TFLOP/s over the unmasked "
+              f"pairs), bound {tm['bound_ms']:.4f} ms "
               f"({tm['bound_by']}; the kernel reaches "
               f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
               f"{tm['plain_ms']:.4f} ms, library yardstick {lib} "
@@ -753,7 +794,8 @@ def phase_grouped(torch):
 RING_PREFILL = dict(b=1, s=8192, h=32, kvh=8, hd=128)
 #: (B, Sq, Skv, H, KV, hd, causal, window, q_offset, k_offset, carried):
 #: causal and not, a window of 1536, ragged Skv = 1000, hd 64, a block
-#: after the q rows (nothing visible), carried states
+#: after the q rows (nothing visible), carried states; the diagonal
+#: mid-tile (d = 50) and MQA 48/1 at hd 64 with a window of 100
 CARRY_CASES = [
     (1, 1024, 1024, 32, 8, 128, True, 0, 0, 0, False),
     (1, 1024, 1024, 32, 8, 128, False, 0, 1024, 0, True),
@@ -761,6 +803,8 @@ CARRY_CASES = [
     (2, 512, 1000, 32, 8, 128, True, 0, 1000, 0, True),
     (1, 512, 512, 32, 8, 128, True, 0, 0, 512, True),
     (1, 1024, 1024, 16, 4, 64, False, 1536, 1536, 0, True),
+    (1, 129, 257, 32, 8, 128, True, 0, 300, 250, True),
+    (1, 257, 257, 48, 1, 64, True, 100, 0, 0, False),
 ]
 #: of the largest magnitude of m, l and acc: the kernel and the plain
 #: version do f32 math on the same upcast values
@@ -914,7 +958,16 @@ def phase_carry(torch):
                                       torch.bfloat16, False)
         sets.append((q, k, v, *carry))
     got = fa.flash_attention_carry(*sets[0])
+    # in bf16 the forward and the carry step are one kernel: at an empty
+    # carry, finalized, the carry must give the forward bit for bit (the
+    # one-rank ring prefill equals megatron's because of it)
+    fwd_out, fwd_lse = fa.flash_attention_fwd(*sets[0][:3], causal=True)
+    fin_out, fin_lse = fa.finalize_partials(*got, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    if not (torch.equal(fwd_out, fin_out) and torch.equal(fwd_lse, fin_lse)):
+        fail("at ring attention's prefill call the finalized empty-carry "
+             "step differs from flash_attention_fwd")
+    del fwd_out, fwd_lse, fin_out, fin_lse
     q, k, v = (x.float() for x in sets[0][:3])
     want = fa.flash_attention_step_torch(q, k, v, *sets[0][3:])
     err = carry_check(torch, got, want, CARRY_TOL["bfloat16"],
@@ -924,7 +977,8 @@ def phase_carry(torch):
     print(f"  flash_attention_carry vs plain bf16 at ring attention's "
           f"prefill call (B=1, S=8192, 32/8 heads, hd 128, causal, empty "
           f"carry): max|err| {err:.2e} over m, l, acc (tolerance "
-          f"{CARRY_TOL['bfloat16']} x the largest magnitude of each)",
+          f"{CARRY_TOL['bfloat16']} x the largest magnitude of each); "
+          f"finalized, it equals flash_attention_fwd bit for bit",
           flush=True)
     kernel = [lambda s=s: fa.flash_attention_carry(*s) for s in sets]
     plain = [lambda s=s: fa.flash_attention_step_torch(*s) for s in sets]
@@ -936,8 +990,11 @@ def phase_carry(torch):
               library_ms=graph_ms(torch, lib * 4, 5))
     tm["bound_ms"], tm["bound_by"] = carry_bounds(p["b"], p["s"], p["h"],
                                                   p["kvh"], p["hd"], 2)
+    pairs = p["b"] * p["h"] * p["s"] * (p["s"] + 1) // 2
+    tflops = 4 * pairs * p["hd"] / (tm["ms"] * 1e-3) / 1e12
     print(f"  flash_attention_carry at ring attention's prefill call: "
-          f"kernel {tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+          f"kernel {tm['ms']:.4f} ms ({tflops:.1f} TFLOP/s over the "
+          f"unmasked pairs), bound {tm['bound_ms']:.4f} ms "
           f"({tm['bound_by']}; the kernel reaches "
           f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
           f"{tm['plain_ms']:.4f} ms, library yardstick "
@@ -2047,8 +2104,15 @@ def main() -> int:
     for name, s in secs.items():
         print(f"  built {name}.cu for sm_90a in {s:.1f} s", flush=True)
         for line in build.BUILD_LOG.get(name, (0, ""))[1].splitlines():
-            if "Used" in line or "spill" in line:
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}", flush=True)
+    counts = hgmma_counts(build)
+    for kernel, n in sorted(counts.items()):
+        print(f"  {kernel}: {n} HGMMA instructions", flush=True)
+    wgmma = [k for k in counts if k.startswith("flash_fwd_wgmma_kernel")]
+    if len(wgmma) < 4 or any(counts[k] == 0 for k in wgmma):
+        fail(f"the bf16 forward and carry kernels (hd 64 and 128) must run "
+             f"on the tensor cores; HGMMA counts {counts}")
 
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)

@@ -26,16 +26,74 @@
 // f32, the finite NEG_INF = -1e30, and l clamped at 1e-30 at finalize, so
 // a fully masked row gives zeros, not NaN.
 //
-// Bound on this card: at the training shape (B=2, S=1024, H=32, KV=8,
-// hd=128, causal, bf16) the forward does 17.2 GFLOP of unmasked QK^T and
-// PV and moves 42 MB, so it is bound by operations (0.017 ms at the bf16
-// tensor-core rate); the backward does about 2.5x the operations.
+// The carry step (ring attention, managed.managed_ring_attention) is the
+// forward with the online-softmax state carried in and out instead of
+// initialised and normalised:
+//   m, l   [B, Sq, H]       f32 running max (natural log) and sum
+//   acc    [B, Sq, H, hd]   f32 running sum of p v
+//   mask   as above with qpos = q_offset + i, kpos = k_offset + j; only
+//          d = q_offset - k_offset enters it, so the kernel takes d as its
+//          q offset against local kv rows.  d < 0 (the block lies after
+//          the q rows) gives an empty kv range under causality.
+// A CTA loads its rows of the carry before its kv loop and stores them
+// after it, so a CTA that visits no kv tile copies its rows through
+// unchanged.  A wholly masked tile leaves the state bit for bit (alpha =
+// exp(0) = 1, p = 0), which is why skipping it is exact; a fully masked
+// row keeps m = -1e30, l = 0, acc = 0.  The carry may be updated in place
+// (in == out): a CTA reads only the rows it writes.
 //
-// Design (simple and correct first: SIMT f32 FMAs, no tensor cores):
+// The bf16 forward and carry step: one kernel on the tensor cores
+// (flash_fwd_wgmma_kernel<HD, kCarry>, FlashAttention-3's shape).  Bound on
+// this card, by operations: the forward at the training shape (B=2,
+// S=1024, H=32, KV=8, hd=128, causal) does 17.2 GFLOP of unmasked QK^T and
+// PV and moves 42 MB (0.017 ms at 989 TFLOP/s); the carry step at ring
+// attention's prefill call (B=1, S=8192, same heads, causal) does 5.5e11
+// flop and moves 0.37 GB, the f32 carry in and out (0.56 ms).
+//   * one CTA of 384 threads per (b, h, 128 query rows), heaviest query
+//     tiles first under causality; warpgroup 0 is the producer (one
+//     thread issues every load, setmaxnreg lowers its registers), and
+//     consumer warpgroups 1 and 2 own 64 query rows each;
+//   * loads by TMA from 4-D tensor maps over [B, S, heads, hd], built on
+//     the host at each launch (cuTensorMapEncodeTiled through the runtime,
+//     no -lcuda): boxes of 128 rows x 64 hd columns, 128-byte swizzled,
+//     rows past S read as zeros (and are masked).  Q is loaded once; K and
+//     V go through a ring of 2 stages with full and empty mbarriers.  At
+//     hd 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB of shared memory.
+//     TMA needs 16-byte aligned bases: the launcher refuses others;
+//   * S = Q K^T by wgmma m64n128k16, both operands in shared memory
+//     (K-major, the descriptors' 128-byte swizzle matching TMA's);
+//     acc += P V by wgmma with P in registers (the f32 accumulator layout
+//     of S is the register A layout of P) and V MN-major in shared memory;
+//   * P V runs as two bf16 products, acc += P_hi V + P_lo V, P_hi = bf16(p),
+//     P_lo = bf16(p - P_hi).  The reference computes P V in f32
+//     (src/repro/kernels/flash_attention.py:64, :88-90).  Modelled on one
+//     causal carry step (bf16 q, k, v, hd 128): p rounded to bf16 puts acc
+//     off by 1.6e-3 of its largest magnitude, 16x the carry's tolerance
+//     (1e-4); the split puts it off by 2.5e-6.  It costs 1.5x the tensor
+//     work of the algorithm; the bounds count the algorithm's;
+//   * the online softmax in registers, row statistics over the 4 threads
+//     of a row (shuffles), exp2 of log2e-scaled logits with m kept in
+//     natural-log units; the mask runs only on tiles that reach Skv or
+//     cross the diagonal or the window's edge, and tiles that causality
+//     or the window masks entirely are never visited;
+//   * the two consumers take turns on the tensor cores (named barriers):
+//     a turn is P V of the previous tile, then S of this one, and one
+//     consumer's softmax overlaps the other's turn.  ptxas holds every
+//     thread of a 384-thread CTA to 168 registers, so P V completes
+//     before S starts: acc (64) with S (64) or with P (64) fits, all three
+//     would spill;
+//   * the forward's epilogue divides, acc / max(l, 1e-30), and writes
+//     lse = m + log(l): at an empty carry the carry step, finalized in
+//     torch (finalize_partials), gives the forward's output bit for bit,
+//     which makes the one-rank ring prefill equal the megatron one.
+//
+// The f32 forward and carry step, and the backward in both types, are
+// SIMT kernels (simple and correct first; f32 FMAs, no tensor cores: TF32
+// would round the reference's f32 products).  The f32 forward is kept as
+// the f32 oracle path of the parity runs:
 //   * the Pallas grid's sequential kv dimension (scratch carried across
-//     ki) becomes a loop inside the CTA; kv tiles that causality or the
-//     window mask entirely are never visited (the Pallas grid runs them
-//     for zero); ragged Sq and Skv are masked in the kernel;
+//     ki) becomes a loop inside the CTA; fully masked kv tiles are never
+//     visited; ragged Sq and Skv are masked in the kernel;
 //   * every tile product is a 64-row block product in shared memory:
 //     256 threads as 16 x 16, each owning 4 rows x (N/16) columns of the
 //     result in registers, with float4 reads (A row-major along the
@@ -48,30 +106,11 @@
 //     dsum; one launch for dK/dV with one CTA per (b, kv head, 64 kv
 //     rows) looping over its G query heads and the query tiles that see
 //     it; one launch for dQ with one CTA per (b, h, 64 query rows)
-//     looping over the kv tiles it sees.
-// The bound is far: these are f32 FMAs at best 67 TFLOP/s where the
-// tensor cores give 989.  Later: mma/wgmma tiles in bf16 with TMA loads.
-//
-// The carry step (ring attention, managed.managed_ring_attention) is the
-// forward kernel with the online-softmax state carried in and out instead
-// of initialised and normalised:
-//   m, l   [B, Sq, H]       f32 running max and sum (unnormalised)
-//   acc    [B, Sq, H, hd]   f32 running sum of p v
-//   mask   as above with qpos = q_offset + i, kpos = k_offset + j; only
-//          d = q_offset - k_offset enters it, so the kernel takes d as its
-//          q offset against local kv rows.  d < 0 (the block lies after
-//          the q rows) gives an empty kv range under causality.
-// Each CTA loads its 64 rows of the carry before its kv loop and stores
-// them after it, so a CTA that visits no kv tile copies its rows through
-// unchanged.  A wholly masked tile leaves the state bit for bit as it was
-// (alpha = exp(0) = 1, p = 0), which is why skipping it is exact; a fully
-// masked row keeps m = -1e30, l = 0, acc = 0.  The carry may be updated in
-// place (in == out): a CTA reads only the rows it writes.  At ring
-// attention's prefill call (B=1, S=8192, 32/8 heads, hd 128, causal) the
-// step does 5.5e11 flop over the unmasked pairs and moves 0.37 GB (acc in
-// and out dominate), so it is bound by operations (0.56 ms at the bf16
-// tensor-core rate); this SIMT version is far from that.
+//     looping over the kv tiles it sees.  The backward does about 2.5x
+//     the forward's operations; at 67 TFLOP/s of f32 FMAs it is far from
+//     its bound.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -192,7 +231,8 @@ __device__ __forceinline__ void kv_range(int qlo, int qhi, int skv,
 }
 
 // ---------------------------------------------------------------------------
-// Forward
+// Forward and carry step: the online-softmax state, and the f32 (SIMT)
+// kernel
 // ---------------------------------------------------------------------------
 
 // The online-softmax state of a carry step: read before the kv loop,
@@ -327,6 +367,561 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lse[((int64_t)b * sq + i) * n_heads + h] = m[r] + logf(l_safe);
   }
 }
+
+// ---------------------------------------------------------------------------
+// Forward and carry step in bf16 on the tensor cores (TMA, wgmma, warp
+// specialisation); see the note at the head of the file
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kThreads = 384;         // producer + 2 consumer warpgroups
+constexpr int kM = 128;               // query rows of a CTA, 64 per consumer
+constexpr int kN = 128;               // kv rows of a stage
+constexpr int kStages = 2;
+constexpr int kBox = 128 * 128;       // bytes of one TMA box: 128 rows x 64
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr uint32_t kMinusInfBits = 0xff800000u;   // -inf in f32
+constexpr int kEmptyArrivals = 8;     // one lane of each consumer warp
+
+// Byte offsets in the 1024-aligned dynamic shared memory.
+template <int HD>
+struct Smem {
+  static constexpr int kTileBytes = HD / 64 * kBox;   // a Q, K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  // q_full, then k_full, v_full, k_empty, v_empty of each stage
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+// A pipeline that has waited some 10 s is wedged: trap, so the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// Named barriers 1 and 2 order the two consumers' turns on the tensor
+// cores: one consumer waits on its own (bar.sync), the other arrives.
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// One box of a [B, S, heads, hd] tensor map: hd columns [c0, c0 + 64) of
+// rows [row, row + 128) of head `head` of batch `b`; rows past S read 0.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int head,
+                                         int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(head),
+      "r"(row), "r"(b)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading byte offset (K-major: unused; MN-major: the stride
+// between 64-column boxes), stride byte offset (between 8-row groups).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence, commit and wait above.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += A B, m64n128k16, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d = A B, m64n128k16 (d written, not read), operands as wgmma_ss_n128.
+__device__ __forceinline__ void wgmma_ss_n128_init(float (&d)[64], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d += A B, m64n128k16, A from registers, B from shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d += A B, m64n64k16, A from registers, B from shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+
+// P V over one kv tile: acc += A V for the 8 k-steps of 16 kv rows, A in
+// the register fragments `a` (4 per k-step), V MN-major at `v` (row r of
+// a box at v + 128 r; hd columns 64..127 one box further on).
+template <int HD>
+__device__ __forceinline__ void pv_mma(float (&acc)[HD / 2],
+                                       const uint32_t (&a)[32], uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    const uint64_t d = desc(v + kk * 16 * 128, kBox, 1024);
+    if constexpr (HD == 128)
+      wgmma_rs_n128(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                    a[4 * kk + 3], d);
+    else
+      wgmma_rs_n64(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                   a[4 * kk + 3], d);
+  }
+}
+
+// The online-softmax update of one consumer thread's two rows (qpos and
+// qpos + 8) over a tile of scores s in the m64n128 accumulator layout:
+// s[4 j + 2 r + e] is row r, kv column kpos + 8 j + e.  Masked scores
+// become -inf, so their p is exactly 0 and they never raise the max; m
+// stays in natural-log units; lp is this thread's share of l (its 32
+// columns), summed over the quad only at the end.  p leaves as the A
+// fragments of P V, P = P_hi + P_lo in bf16 (p to about 2^-17): the
+// accumulator layout of S is the register A layout of P, so the pair
+// (s[2 x], s[2 x + 1]) becomes p_hi[x], p_lo[x].  acc is rescaled by
+// exp(m_old - m_new).  Row by row, so S and P of a row hold registers
+// together, never of the whole tile.
+template <bool kMask, int HD>
+__device__ __forceinline__ void online_softmax(
+    const float (&s)[64], float (&m)[2], float (&lp)[2], float (&acc)[HD / 2],
+    uint32_t (&p_hi)[32], uint32_t (&p_lo)[32], int qpos, int kpos, int skv,
+    int causal, int window, float scale) {
+  const float sl = scale * kLog2e;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x[32];
+    float mx = __uint_as_float(kMinusInfBits);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        x[2 * j + e] = s[4 * j + 2 * r + e];
+        if (kMask && !visible(qpos + 8 * r, kpos + 8 * j + e, skv, causal,
+                              window))
+          x[2 * j + e] = __uint_as_float(kMinusInfBits);
+        mx = fmaxf(mx, x[2 * j + e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // max(s) * scale == max(s * scale): rounding is monotonic, scale > 0
+    const float m_new = fmaxf(m[r], mx * scale);
+    const float alpha = exp2_approx((m[r] - m_new) * kLog2e);
+    const float ms = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p0 = exp2_approx(fmaf(x[2 * j], sl, -ms));
+      const float p1 = exp2_approx(fmaf(x[2 * j + 1], sl, -ms));
+      sum += p0 + p1;
+      const uint32_t hi = bf16x2(p0, p1);
+      p_hi[2 * j + r] = hi;
+      p_lo[2 * j + r] = bf16x2(p0 - __uint_as_float(hi << 16),
+                               p1 - __uint_as_float(hi & 0xffff0000u));
+    }
+    lp[r] = alpha * lp[r] + sum;
+    m[r] = m_new;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      acc[4 * j + 2 * r] *= alpha;
+      acc[4 * j + 2 * r + 1] *= alpha;
+    }
+  }
+}
+
+// kCarry = false: the forward (state initialised, out and lse written).
+// kCarry = true: one carry step (state from `carry`, stored back there).
+// One CTA per (b, h, 128 query rows), heaviest first under causality.
+template <int HD, bool kCarry>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, Carry carry, int batch,
+                       int sq, int skv, int n_heads, int n_kv, int q_offset,
+                       int window, int causal, float scale) {
+  using L = Smem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // 128B swizzle atoms
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;             // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+
+  const int n_qt = (sq + kM - 1) / kM;
+  int idx = blockIdx.x;
+  const int h = idx % n_heads;
+  idx /= n_heads;
+  const int b = idx % batch;
+  idx /= batch;
+  const int q0 = (causal ? n_qt - 1 - idx : idx) * kM;
+  const int kvh = h / (n_heads / n_kv);
+
+  int lo, hi;
+  kv_range(q_offset + q0, q_offset + min(q0 + kM, sq) - 1, skv, causal,
+           window, &lo, &hi);
+  const int t0 = lo / kN;
+  const int n_tiles = hi > lo ? (hi + kN - 1) / kN - t0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kEmptyArrivals);
+      mbar_init(v_empty + 8 * s, kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 0 || n_tiles == 0) return;
+    mbar_expect_tx(q_full, L::kTileBytes);
+#pragma unroll
+    for (int x = 0; x < HD / 64; ++x)
+      tma_load(base + L::kQ + x * kBox, &tm_q, q_full, 64 * x, h, q0, b);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const int par = (i / kStages) & 1;
+      const int row = (t0 + i) * kN;
+      mbar_wait(k_empty + 8 * st, par ^ 1);
+      mbar_expect_tx(k_full + 8 * st, L::kTileBytes);
+#pragma unroll
+      for (int x = 0; x < HD / 64; ++x)
+        tma_load(base + L::kK + st * L::kTileBytes + x * kBox, &tm_k,
+                 k_full + 8 * st, 64 * x, kvh, row, b);
+      mbar_wait(v_empty + 8 * st, par ^ 1);
+      mbar_expect_tx(v_full + 8 * st, L::kTileBytes);
+#pragma unroll
+      for (int x = 0; x < HD / 64; ++x)
+        tma_load(base + L::kV + st * L::kTileBytes + x * kBox, &tm_v,
+                 v_full + 8 * st, 64 * x, kvh, row, b);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows [q0 + 64 c, q0 + 64 c + 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = q0 + 64 * c + 16 * (tw >> 5) + g;   // and row0 + 8
+  const bool elected = lane == 0;
+
+  // acc[4 j + 2 r + e]: row row0 + 8 r, hd column 8 j + 2 tq + e
+  float m[2] = {kNegInf, kNegInf}, lp[2] = {0.f, 0.f}, acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  if (kCarry) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + 8 * r;
+      if (i >= sq) continue;
+      const int64_t row = ((int64_t)b * sq + i) * n_heads + h;
+      m[r] = carry.m_in[row];
+      lp[r] = tq == 0 ? carry.l_in[row] : 0.f;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const float2 a = *reinterpret_cast<const float2*>(
+            carry.acc_in + row * HD + 8 * j + 2 * tq);
+        acc[4 * j + 2 * r] = a.x;
+        acc[4 * j + 2 * r + 1] = a.y;
+      }
+    }
+  }
+
+  if (n_tiles > 0) {
+    // A consumer's turn on the tensor cores is P V of the previous tile,
+    // then S = Q K^T of this one; its softmax then overlaps the other
+    // consumer's turn.  P V completes before S starts, so P and S never
+    // hold registers together: acc + S or acc + P fit the 168 registers
+    // a thread of a 384-thread CTA may have.
+    const int mine = 1 + c, other = 2 - c;
+    const uint32_t q_rows = base + L::kQ + c * 64 * 128;
+    const uint32_t k_tiles = base + L::kK, v_tiles = base + L::kV;
+    float s[64];
+    uint32_t p_hi[32], p_lo[32];
+    const int qpos = q_offset + row0;
+    // a tile needs the mask where it reaches Skv, crosses the diagonal or
+    // the window's edge for any of the CTA's 128 rows
+    const int qmin = q_offset + q0, qmax = q_offset + q0 + kM - 1;
+    mbar_wait(q_full, 0);
+    if (c == 1) turn_pass(1);            // consumer 0 takes the first turn
+    for (int i = 0; i <= n_tiles; ++i) {
+      const int st = i % kStages;
+      const int pst = (i + kStages - 1) % kStages;
+      if (i < n_tiles) mbar_wait(k_full + 8 * st, (i / kStages) & 1);
+      turn_wait(mine);
+      if (i > 0) {                       // acc += P V of the previous tile
+        mbar_wait(v_full + 8 * pst, ((i - 1) / kStages) & 1);
+        pin(acc);
+        pin(p_hi);
+        pin(p_lo);
+        wgmma_fence();
+        pv_mma<HD>(acc, p_hi, v_tiles + pst * L::kTileBytes);
+        pv_mma<HD>(acc, p_lo, v_tiles + pst * L::kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc);
+        __syncwarp();
+        if (elected) mbar_arrive(v_empty + 8 * pst);
+      }
+      if (i == n_tiles) {                // the last turn: no S to compute
+        if (c == 0) turn_pass(other);
+        break;
+      }
+      wgmma_fence();                     // S = Q K^T of this tile
+      const uint32_t kt = k_tiles + st * L::kTileBytes;
+      wgmma_ss_n128_init(s, desc(q_rows, 16, 1024), desc(kt, 16, 1024));
+#pragma unroll
+      for (int kk = 1; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_n128(s, desc(q_rows + off, 16, 1024),
+                      desc(kt + off, 16, 1024));
+      }
+      wgmma_commit();
+      turn_pass(other);
+      wgmma_wait<0>();
+      pin(s);
+      __syncwarp();
+      if (elected) mbar_arrive(k_empty + 8 * st);
+
+      const int k0 = (t0 + i) * kN;
+      if (k0 + kN > skv || (causal && k0 + kN - 1 > qmin) ||
+          (window > 0 && qmax - k0 >= window))
+        online_softmax<true, HD>(s, m, lp, acc, p_hi, p_lo, qpos,
+                                 k0 + 2 * tq, skv, causal, window, scale);
+      else
+        online_softmax<false, HD>(s, m, lp, acc, p_hi, p_lo, qpos,
+                                  k0 + 2 * tq, skv, causal, window, scale);
+    }
+  }
+
+  // ---- epilogue: l over the quad, then the rows below Sq ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = lp[r] + __shfl_xor_sync(0xffffffffu, lp[r], 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int i = row0 + 8 * r;
+    if (i >= sq) continue;
+    const int64_t row = ((int64_t)b * sq + i) * n_heads + h;
+    if (kCarry) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(carry.acc_out + row * HD + 8 * j +
+                                   2 * tq) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      if (tq == 0) {
+        carry.m_out[row] = m[r];
+        carry.l_out[row] = l;
+      }
+      continue;
+    }
+    const float l_safe = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + row * HD + 8 * j + 2 * tq) =
+          bf16x2(acc[4 * j + 2 * r] / l_safe, acc[4 * j + 2 * r + 1] / l_safe);
+    if (tq == 0) lse[row] = m[r] + logf(l_safe);
+  }
+}
+
+}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // Backward
@@ -609,6 +1204,87 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a bf16 [B, S, heads, hd] tensor: boxes of 128 rows x
+// 64 hd columns of one head, 128-byte swizzled, rows past S read as 0.
+bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int rows,
+                int heads, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t row_bytes = (cuuint64_t)heads * hd * 2;
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row_bytes,
+                                 row_bytes * rows};
+  const cuuint32_t box[4] = {64, 1, tc::kN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 forward and carry step: TMA needs 16-byte aligned bases (the
+// strides of contiguous [.., hd] rows are multiples of 128 bytes).
+template <int HD, bool kCarry>
+int fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+              void* lse, const Carry& carry, const Shape& s,
+              cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  // with Skv = 0 no CTA loads k or v: a map over q stands in
+  const bool empty = s.skv == 0;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD) ||
+      !tensor_map(&tm_k, empty ? q : k, s.batch, empty ? 1 : s.skv,
+                  empty ? s.n_heads : s.n_kv, HD) ||
+      !tensor_map(&tm_v, empty ? q : v, s.batch, empty ? 1 : s.skv,
+                  empty ? s.n_heads : s.n_kv, HD))
+    return (int)cudaErrorInvalidValue;
+  static int granted = 0;
+  const size_t smem = tc::Smem<HD>::kBytes;
+  const cudaError_t e =
+      allow_smem(tc::flash_fwd_wgmma_kernel<HD, kCarry>, smem, &granted);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t ctas = (int64_t)((s.sq + tc::kM - 1) / tc::kM) * s.batch *
+                       s.n_heads;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  tc::flash_fwd_wgmma_kernel<HD, kCarry>
+      <<<(unsigned)ctas, tc::kThreads, smem, stream>>>(
+          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out),
+          static_cast<float*>(lse), carry, s.batch, s.sq, s.skv, s.n_heads,
+          s.n_kv, s.q_offset, s.window, s.causal, s.scale);
+  return (int)cudaGetLastError();
+}
+
 template <bool kCarry>
 int fwd_dispatch(int dtype, int hd, const void* q, const void* k,
                  const void* v, void* out, void* lse, const Carry& carry,
@@ -618,10 +1294,9 @@ int fwd_dispatch(int dtype, int hd, const void* q, const void* k,
                ? fwd<float, 128, kCarry>(q, k, v, out, lse, carry, s, st)
                : fwd<float, 64, kCarry>(q, k, v, out, lse, carry, s, st);
   if (dtype == 1)
-    return hd == 128 ? fwd<__nv_bfloat16, 128, kCarry>(q, k, v, out, lse,
-                                                        carry, s, st)
-                     : fwd<__nv_bfloat16, 64, kCarry>(q, k, v, out, lse,
-                                                       carry, s, st);
+    return hd == 128
+               ? fwd_wgmma<128, kCarry>(q, k, v, out, lse, carry, s, st)
+               : fwd_wgmma<64, kCarry>(q, k, v, out, lse, carry, s, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,6 +7,8 @@ reference, so it runs where only the port is installed:
         tests/test_torch_kernels_card.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -102,7 +104,10 @@ def test_paged_attention_kernel_rejects_noncontiguous(cuda):
 
 #: (B, Sq, Skv, H, KV, hd, causal, window, q_offset): GQA 32/8 and MQA
 #: 48/1, causal and not, windows, q_offset > 0 with Sq < Skv, and ragged
-#: lengths that are not multiples of the kernels' 64-row tiles
+#: lengths that are not multiples of the kernels' 64-row tiles; then the
+#: edges of the bf16 kernel's 128-row tiles: Sq and Skv of 127, 129 and
+#: 257, a window of 100 (less than a tile), a causal q_offset that puts
+#: the diagonal mid-tile, and MQA 48/1 at hd 64
 FLASH_CASES = [
     (2, 256, 256, 32, 8, 128, True, 0, 0),
     (1, 200, 200, 32, 8, 128, False, 0, 0),
@@ -110,6 +115,13 @@ FLASH_CASES = [
     (1, 96, 300, 48, 1, 128, True, 0, 204),
     (1, 77, 141, 8, 2, 64, False, 64, 0),
     (2, 45, 190, 4, 4, 64, True, 64, 120),
+    (1, 127, 127, 32, 8, 128, True, 0, 0),
+    (2, 129, 129, 32, 8, 128, True, 0, 0),
+    (1, 257, 257, 32, 8, 128, False, 0, 0),
+    (1, 127, 257, 8, 2, 64, False, 0, 0),
+    (1, 257, 257, 32, 8, 128, True, 100, 0),
+    (1, 129, 257, 32, 8, 128, True, 0, 60),
+    (1, 200, 200, 48, 1, 64, True, 0, 0),
 ]
 
 
@@ -182,6 +194,16 @@ def test_flash_attention_kernels_on_fully_masked_rows(cuda):
         _close(got, want, 1e-4, name)
 
 
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose base lies one element past a
+    16-byte boundary (TMA, which feeds the bf16 kernel, needs 16)."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    return y
+
+
 @pytest.mark.gpu
 def test_flash_attention_kernels_reject_what_they_do_not_take(cuda):
     q, k, v, dout = _flash_inputs(cuda, torch.float32, 1, 64, 64, 4, 2, 128)
@@ -193,6 +215,31 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda):
     q32, k32, v32, _ = _flash_inputs(cuda, torch.float32, 1, 64, 64, 4, 2, 32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q32, k32, v32)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    f0 = fa.FWD_LAUNCHES
+    for args in ((_misaligned(qb), kb, vb), (qb, kb, _misaligned(vb))):
+        with pytest.raises(RuntimeError, match="misaligned"):
+            fa.flash_attention_fwd(*args)
+    assert fa.FWD_LAUNCHES == f0
+
+
+@pytest.mark.gpu
+def test_flash_forward_equals_finalized_empty_carry_bit_for_bit(cuda):
+    """In bf16 the forward and the carry step are one kernel: at an empty
+    carry, finalized as ring attention finalizes it, the carry gives the
+    forward's output and lse bit for bit (phi4-mini's heads, 1 x 1024,
+    causal), which is what makes the one-rank ring prefill equal
+    megatron's."""
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 1024, 1024, 32, 8,
+                               128)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    carry = fa.flash_attention_carry(
+        q, k, v, *fa.init_partials(1, 1024, 32, 128, device=cuda),
+        causal=True)
+    out_c, lse_c = fa.finalize_partials(*carry, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_c)
+    assert torch.equal(lse, lse_c)
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +249,8 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda):
 #: (B, Sq, Skv, H, KV, hd, causal, window, q_offset, k_offset, carried):
 #: an empty and a carried state, offsets with the block before, at and
 #: after the q rows (d < 0: nothing visible), a window, ragged Skv, hd 64
-#: and MQA
+#: and MQA; then the bf16 kernel's edges: Sq and Skv of 127, 129 and 257,
+#: a window of 100, d = 50 (the diagonal mid-tile), MQA 48/1 at hd 64
 CARRY_CASES = [
     (1, 256, 256, 32, 8, 128, True, 0, 0, 0, False),
     (1, 128, 128, 32, 8, 128, True, 0, 256, 128, True),
@@ -210,6 +258,11 @@ CARRY_CASES = [
     (2, 130, 1000, 8, 2, 64, False, 0, 64, 32, True),
     (1, 200, 200, 8, 2, 64, True, 70, 300, 100, True),
     (1, 96, 160, 48, 1, 128, False, 100, 0, 40, True),
+    (1, 127, 129, 32, 8, 128, True, 0, 128, 0, True),
+    (1, 257, 257, 32, 8, 128, True, 100, 0, 0, False),
+    (1, 129, 257, 32, 8, 128, True, 0, 300, 250, True),
+    (1, 257, 127, 8, 2, 128, False, 0, 0, 0, True),
+    (1, 200, 129, 48, 1, 64, True, 0, 128, 0, True),
 ]
 CARRY_TOL = [(torch.float32, 2e-5), (torch.bfloat16, 1e-4)]
 
@@ -265,6 +318,31 @@ def test_flash_carry_kernel_matches_plain(cuda, dtype, tol, case):
     _carry_close(got, want, tol, str(case))
     for t, t0 in zip(carry, before):
         assert torch.equal(t, t0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", CARRY_TOL)
+def test_flash_carry_kernel_in_place(cuda, dtype, tol):
+    """The launch with the *_out pointers equal to the *_in ones (each CTA
+    reads only the rows it writes) against the plain step, at the
+    tolerances of the out-of-place test."""
+    b, sq, skv, h, kvh, hd = 1, 257, 300, 8, 2, 128
+    q, k, v, carry = _carry_inputs(cuda, dtype, b, sq, skv, h, kvh, hd,
+                                   True)
+    kw = dict(causal=True, window=0, q_offset=200, k_offset=0)
+    want = fa.flash_attention_step_torch(q.float(), k.float(), v.float(),
+                                         *carry, **kw)
+    m, l, acc = (t.clone() for t in carry)
+    lib = fa._lib()
+    err = lib.flash_attention_carry_launch(
+        1 if dtype == torch.bfloat16 else 0, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, sq, skv, h, kvh, hd,
+        kw["q_offset"], kw["k_offset"], kw["window"], 1, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    _carry_close((m, l, acc), want, tol, "in place")
 
 
 @pytest.mark.gpu
@@ -342,6 +420,11 @@ def test_flash_carry_kernel_rejects_what_it_does_not_take(cuda):
                                        2, 32, False)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_carry(q32, k32, v32, *c32)
+    c0 = fa.CARRY_LAUNCHES
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_attention_carry(q.bfloat16(), _misaligned(k.bfloat16()),
+                                 v.bfloat16(), *carry)
+    assert fa.CARRY_LAUNCHES == c0
 
 
 # ---------------------------------------------------------------------------
