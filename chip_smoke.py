@@ -10,9 +10,10 @@ phase that fails:
 
   1. build   — compile every kernel under src/repro_torch/kernels/csrc
                with nvcc (one process per source, all at once), print
-               ptxas's registers and spills, and count the tensor-core
-               (HGMMA) instructions of each flash kernel in its SASS: the
-               bf16 forward and carry kernels must have some;
+               ptxas's registers, spills and stack, and count the
+               tensor-core (HGMMA) instructions of each flash kernel in its
+               SASS: the bf16 forward, carry, backward and block-backward
+               kernels must have some;
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
                the card at the stated tolerances (paged attention; flash
                attention forward and backward), then timed beside its
@@ -56,16 +57,19 @@ phase that fails:
                no flash launch, its logits against the megatron prefill
                of the same tokens, 16 greedy tokens from its cache; 3
                training steps (B=2, S=1024) with exactly 64 carry launches
-               per step (32 layers + 32 recomputed); and at 2 layers in
-               f32 the ring with the kernel, the ring with the plain step
-               and megatron with the flash kernels agree in loss,
-               gradients, prefill logits and greedy tokens.
+               (32 layers + 32 recomputed) and 32 block-backward launches
+               per step; and at 2 layers in f32 the ring with the kernels,
+               the ring with the plain step and its plain backward, and
+               megatron with the flash kernels agree in loss, gradients,
+               prefill logits and greedy tokens.
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
-trip), the grouped-expert FFN and the ring-attention carry step (its
-variants, and a virtual 4-rank ring folded on one card against the flash
-forward) to their plain versions and times them at the Jacobi shape, at
-moonshot's prefill call and at ring attention's 8192-token prefill call.
+trip), the grouped-expert FFN, the ring's block backward (bf16 in, f32
+out, at the ring training step's shape) and the ring-attention carry step
+(its variants, and a virtual 4-rank ring folded on one card against the
+flash forward) to their plain versions and times them at the Jacobi
+shape, at moonshot's prefill call, at the training shape and at ring
+attention's 8192-token prefill call.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -342,6 +346,9 @@ FLASH_CASES = [
 ]
 #: the training phase's attention: phi4-mini at B=2, S=1024, causal
 TRAIN_ATTN = dict(b=2, s=1024, h=32, kvh=8, hd=128)
+#: the block backward's f32 outputs against the plain version in f32, of
+#: the largest magnitude of each: P and dS are kept as bf16 hi/lo pairs
+BLOCK_TOL = 1e-4
 
 
 def flash_bounds(b, s, h, kvh, hd, itemsize):
@@ -363,6 +370,20 @@ def flash_bounds(b, s, h, kvh, hd, itemsize):
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes")
     return out
+
+
+def block_bwd_bound(b, s, h, kvh, hd, itemsize):
+    """Least time of ring attention's block backward over [B, S] with an
+    S-long causal block: the backward's 10 flop per (pair, hd) at the bf16
+    tensor-core rate, against q, dout, k, v, lse and dsum read once and
+    the f32 dq, dk, dv written once.  Returns (ms, 'bytes'|'operations')."""
+    pairs = b * h * s * (s + 1) // 2
+    nbytes = (2 * b * s * h * hd * itemsize + 2 * b * s * kvh * hd * itemsize
+              + 2 * b * s * h * 4 + (b * s * h * hd + 2 * b * s * kvh * hd) * 4)
+    t_ops = 10.0 * pairs * hd / PEAK["bfloat16"]
+    t_bytes = nbytes / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def flash_inputs(torch, gen, b, sq, skv, h, kvh, hd, dtype):
@@ -435,22 +456,23 @@ def phase_flash(torch):
     lib_in = [[x.transpose(1, 2).contiguous() for x in s] for s in sets]
     lib_fwd = [lambda s=s: F.scaled_dot_product_attention(
         *s[:3], is_causal=True, enable_gqa=True) for s in lib_in]
-    lib_graph = []
-    for s in lib_in:
-        leaves = [x.detach().requires_grad_() for x in s[:3]]
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=True)
-        lib_graph.append((out, leaves, s[3]))
-    lib_bwd = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2],
-                                               retain_graph=True)
-               for g in lib_graph]
+    # the library backward in a CUDA graph: autograd runs a backward op on
+    # its forward's stream, so the captured call is SDPA's forward and
+    # backward together, and the backward's time is that graph's time less
+    # the forward's graph time
+    leaves = [[x.detach().requires_grad_() for x in s[:3]] for s in lib_in]
+    lib_fwd_bwd = [lambda s=s, lv=lv: torch.autograd.grad(
+        F.scaled_dot_product_attention(*lv, is_causal=True, enable_gqa=True),
+        lv, s[3]) for s, lv in zip(lib_in, leaves)]
+    lib_fwd_ms = graph_ms(torch, lib_fwd * 4, 5)
     times = {
         "fwd": dict(ms=graph_ms(torch, kernel_fwd * 4, 5),
                     plain_ms=graph_ms(torch, plain_fwd, 3),
-                    library_ms=graph_ms(torch, lib_fwd * 4, 5)),
+                    library_ms=lib_fwd_ms),
         "bwd": dict(ms=graph_ms(torch, kernel_bwd * 2, 5),
                     plain_ms=graph_ms(torch, plain_bwd, 3),
-                    library_ms=eager_ms(torch, lib_bwd, 10)),
+                    library_ms=graph_ms(torch, lib_fwd_bwd * 2, 5)
+                    - lib_fwd_ms),
     }
     bounds = flash_bounds(t["b"], t["s"], t["h"], t["kvh"], t["hd"], 2)
     pairs = t["b"] * t["h"] * t["s"] * (t["s"] + 1) // 2
@@ -461,7 +483,8 @@ def phase_flash(torch):
         tflops = per_pair * pairs * t["hd"] / (tm["ms"] * 1e-3) / 1e12
         lib = ("F.scaled_dot_product_attention(is_causal=True, "
                "enable_gqa=True)" if name == "fwd" else
-               "the backward of that call (autograd, from Python)")
+               "the backward of that call (autograd.grad of the call, in a "
+               "CUDA graph, less the call's own graph time)")
         print(f"  flash_attention {what} at the training shape (B=2, "
               f"S=1024, 32/8 heads, hd 128, causal, bf16): kernel "
               f"{tm['ms']:.4f} ms ({tflops:.1f} TFLOP/s over the unmasked "
@@ -470,6 +493,50 @@ def phase_flash(torch):
               f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
               f"{tm['plain_ms']:.4f} ms, library yardstick {lib} "
               f"{tm['library_ms']:.4f} ms", flush=True)
+
+    # ring attention's block backward at the ring training step's shape
+    # (one rank: one block over the whole sequence, offsets 0), bf16 in,
+    # f32 out, against the plain version in f32, then timed
+    blk_in = [(*s[:3], s[3], r[1], (s[3].float() * r[0].float()).sum(-1))
+              for s, r in zip(sets, fwd_res)]
+    got = fa.flash_attention_bwd_block(*blk_in[0], causal=True)
+    torch.cuda.synchronize()
+    q, k, v, dout, lse, dsum = blk_in[0]
+    want = fa.flash_attention_bwd_block_torch(
+        q.float(), k.float(), v.float(), dout.float(), lse, dsum,
+        causal=True)
+    line = []
+    for what, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != torch.float32 or not torch.isfinite(g).all():
+            fail(f"block backward {what} is not finite f32")
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        if err > BLOCK_TOL * scale:
+            fail(f"block backward {what} disagrees with the plain version: "
+                 f"max|err| {err:.3e} > {BLOCK_TOL} x {scale:.3g}")
+        errs["bwd_block"] = max(errs.get("bwd_block", 0.0), err)
+        line.append(f"{what} {err:.2e} (of {scale:.3g})")
+    del got, want
+    kernel_blk = [lambda a=a: fa.flash_attention_bwd_block(*a, causal=True)
+                  for a in blk_in]
+    plain_blk = [lambda a=a: fa.flash_attention_bwd_block_torch(
+        *a, causal=True) for a in blk_in]
+    tm = dict(ms=graph_ms(torch, kernel_blk * 2, 5),
+              plain_ms=graph_ms(torch, plain_blk, 3),
+              library_ms=times["bwd"]["library_ms"])
+    tm["bound_ms"], tm["bound_by"] = block_bwd_bound(
+        t["b"], t["s"], t["h"], t["kvh"], t["hd"], 2)
+    times["bwd_block"] = tm
+    tflops = 10 * pairs * t["hd"] / (tm["ms"] * 1e-3) / 1e12
+    print(f"  flash_attention_bwd_block vs plain at the ring training "
+          f"step's shape (B=2, S=1024, 32/8 heads, hd 128, causal, offsets "
+          f"0, bf16 in, f32 out): max|err| {', '.join(line)} (tolerance "
+          f"{BLOCK_TOL} of the largest magnitude); kernel {tm['ms']:.4f} ms "
+          f"({tflops:.1f} TFLOP/s over the unmasked pairs), bound "
+          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}; the kernel reaches "
+          f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
+          f"{tm['plain_ms']:.4f} ms, library yardstick the SDPA backward "
+          f"above {tm['library_ms']:.4f} ms", flush=True)
     return times, errs
 
 
@@ -1181,9 +1248,13 @@ def device_ms_by_kernel(torch, prof, n: int) -> dict[str, float]:
 def kind_of(name: str) -> str:
     """The kind of a profiled kernel, by its name."""
     return ("grouped expert FFN" if "ffn_up" in name or "ffn_down" in name
-            else "flash carry step" if "flash_fwd_kernel" in name
+            else "flash carry step" if "flash_fwd" in name
             and "true>" in name
-            else "flash attention" if "flash_" in name
+            else "flash block backward" if "flash_bwd_wgmma" in name
+            and "true>" in name
+            else "flash backward" if "flash_bwd" in name
+            or "flash_dsum" in name or "to_bf16_kernel" in name
+            else "flash forward" if "flash_" in name
             else "paged attention" if "paged" in name
             else "GEMM" if any(t in name for t in ("nvjet", "gemm", "xmma",
                                                    "cutlass", "Kernel2"))
@@ -1881,14 +1952,16 @@ def phase_ring_prefill_and_train(torch):
         model.prefill_sp({"tokens": tokens})                  # warm-up
     torch.cuda.synchronize()
     fa.CARRY_LAUNCHES = fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    fa.BWD_BLOCK_LAUNCHES = 0
     t0 = time.perf_counter()
     logits, cache = model.prefill_sp({"tokens": tokens})
     torch.cuda.synchronize()
     pre_ms = (time.perf_counter() - t0) * 1e3
-    got = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
-    if got != (cfg.n_layers, 0, 0):
-        fail(f"ring prefill launched (carry, flash forward, flash backward) "
-             f"{got}, not ({cfg.n_layers}, 0, 0)")
+    got = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES,
+           fa.BWD_BLOCK_LAUNCHES)
+    if got != (cfg.n_layers, 0, 0, 0):
+        fail(f"ring prefill launched (carry, flash forward, flash backward, "
+             f"block backward) {got}, not ({cfg.n_layers}, 0, 0, 0)")
     if not torch.isfinite(logits).all() or tuple(logits.shape) != (
             1, cfg.padded_vocab):
         fail(f"ring prefill logits {tuple(logits.shape)} not finite")
@@ -1959,32 +2032,39 @@ def phase_ring_prefill_and_train(torch):
     losses, walls, counts = [], [], []
     for i in range(3):
         batch = train_batch(torch, data, i)
-        c0 = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        c0 = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES,
+              fa.BWD_BLOCK_LAUNCHES)
         t0 = time.perf_counter()
         opt, metrics = step(opt, batch)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counts.append((fa.CARRY_LAUNCHES - c0[0], fa.FWD_LAUNCHES - c0[1],
-                       fa.BWD_LAUNCHES - c0[2]))
+                       fa.BWD_LAUNCHES - c0[2],
+                       fa.BWD_BLOCK_LAUNCHES - c0[3]))
     # two prefills (timed and profiled) and three steps
-    launches = fa.CARRY_LAUNCHES
-    if launches != 2 * cfg.n_layers + 3 * 2 * cfg.n_layers:
-        fail(f"{launches} carry launches in the ring runs")
-    want = (2 * cfg.n_layers, 0, 0)
+    launches = {"carry": fa.CARRY_LAUNCHES, "block": fa.BWD_BLOCK_LAUNCHES}
+    if launches["carry"] != 2 * cfg.n_layers + 3 * 2 * cfg.n_layers:
+        fail(f"{launches['carry']} carry launches in the ring runs")
+    if launches["block"] != 3 * cfg.n_layers:
+        fail(f"{launches['block']} block-backward launches in the ring runs")
+    want = (2 * cfg.n_layers, 0, 0, cfg.n_layers)
     if not all(np.isfinite(losses)):
         fail(f"non-finite ring training loss: {losses}")
     if any(c != want for c in counts):
-        fail(f"(carry, flash forward, flash backward) launches per ring "
-             f"training step {counts} != {want}")
+        fail(f"(carry, flash forward, flash backward, block backward) "
+             f"launches per ring training step {counts} != {want}")
     print(f"  3 training steps with attn_impl='ring' (B={b}, S={s_tr}, bf16,"
           f" f32 AdamW moments, remat): losses "
           f"{[round(x, 4) for x in losses]}, host wall per step "
           f"{[round(w * 1e3, 1) for w in walls]} ms, launches per step "
-          f"(carry, flash forward, flash backward) {counts[0]}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {launches} "
-          f"carry launches in this phase's ring runs (2 prefills x "
-          f"{cfg.n_layers} + 3 steps x {2 * cfg.n_layers})", flush=True)
+          f"(carry, flash forward, flash backward, block backward) "
+          f"{counts[0]}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"{launches['carry']} carry launches in this phase's ring runs (2 "
+          f"prefills x {cfg.n_layers} + 3 steps x {2 * cfg.n_layers}), "
+          f"{launches['block']} block-backward launches (3 steps x "
+          f"{cfg.n_layers})", flush=True)
     batch = train_batch(torch, data, 3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2027,21 +2107,24 @@ def phase_ring_parity(torch):
         data.global_batch_at(11)["tokens"][:, :256]).cuda()
     runs = {}
     for name, impl, engine, want in (
-            ("ring kernel", "ring", "auto", (4, 0, 0)),
-            ("ring plain", "ring", "torch", (0, 0, 0)),
-            ("megatron", "megatron", "auto", (0, 4, 2))):
+            ("ring kernel", "ring", "auto", (4, 0, 0, 2)),
+            ("ring plain", "ring", "torch", (0, 0, 0, 0)),
+            ("megatron", "megatron", "auto", (0, 4, 2, 0))):
         cfg = dataclasses.replace(base, attn_impl=impl)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         model = Model(cfg, device="cuda", attn_engine=engine).init(gen)
         fa.CARRY_LAUNCHES = fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        fa.BWD_BLOCK_LAUNCHES = 0
         loss, _ = model.loss_sp(train_batch(torch, data, 0))
         leaves = flatten_specs(model.params())
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
-        got = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        got = (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES,
+               fa.BWD_BLOCK_LAUNCHES)
         if got != want:
-            fail(f"{name}: (carry, flash forward, flash backward) launches "
-                 f"{got} for one loss and gradient, not {want}")
+            fail(f"{name}: (carry, flash forward, flash backward, block "
+                 f"backward) launches {got} for one loss and gradient, not "
+                 f"{want}")
         logits, cache = model.prefill_sp({"tokens": prompts})
         tokens = Generator(model, ShapeConfig("ring", 256 + 8, 2, "decode")) \
             .generate_from_prefill(logits, cache, 8)
@@ -2109,10 +2192,12 @@ def main() -> int:
     counts = hgmma_counts(build)
     for kernel, n in sorted(counts.items()):
         print(f"  {kernel}: {n} HGMMA instructions", flush=True)
-    wgmma = [k for k in counts if k.startswith("flash_fwd_wgmma_kernel")]
-    if len(wgmma) < 4 or any(counts[k] == 0 for k in wgmma):
-        fail(f"the bf16 forward and carry kernels (hd 64 and 128) must run "
-             f"on the tensor cores; HGMMA counts {counts}")
+    for kind in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel"):
+        wgmma = [k for k in counts if k.startswith(kind)]
+        if len(wgmma) < 4 or any(counts[k] == 0 for k in wgmma):
+            fail(f"the bf16 forward, carry, backward and block backward "
+                 f"kernels (hd 64 and 128) must run on the tensor cores; "
+                 f"HGMMA counts {counts}")
 
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)
@@ -2142,7 +2227,7 @@ def main() -> int:
     print("phase 9: ring attention (context parallelism) on phi4-mini-3.8b",
           flush=True)
     t9 = time.perf_counter()
-    carry_launches = phase_ring_prefill_and_train(torch)
+    ring_launches = phase_ring_prefill_and_train(torch)
     phase_ring_parity(torch)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.synchronize()
@@ -2183,8 +2268,14 @@ def main() -> int:
                dict(name="flash_attention_carry", route="cuda",
                     source=flash_src,
                     replaces="src/repro/kernels/flash_attention.py:262",
-                    launches=carry_launches, max_abs_err=carry_err,
-                    **carry_t)]
+                    launches=ring_launches["carry"], max_abs_err=carry_err,
+                    **carry_t),
+               dict(name="flash_attention_bwd_block", route="cuda",
+                    source=flash_src,
+                    replaces="src/repro/kernels/ops.py:357",
+                    launches=ring_launches["block"],
+                    max_abs_err=flash_err["bwd_block"],
+                    **flash_t["bwd_block"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -604,7 +604,7 @@ def managed_ring_attention(q: torch.Tensor, k: torch.Tensor,
     per call); ``decided`` is a mode the caller has already resolved and
     logged (``resolve_ring_attention``), so the model resolves once per
     shape, not per layer per step.  ``engine="torch"`` pins the plain
-    carry step (tests)."""
+    carry step and its plain backward (tests)."""
     n = _axis_size(axis_name, ctx)
     idx = _group_rank(group, n)
     with dispatch_span("attention.ring", q, op="ring_attention",
@@ -629,7 +629,7 @@ class _RingAttention(torch.autograd.Function):
         out, lse = _ring_fwd(q, k, v, causal, window, mode, n, idx, group,
                              engine)
         fctx.save_for_backward(q, k, v, out, lse)
-        fctx.args = (causal, window, mode, n, idx, group)
+        fctx.args = (causal, window, mode, n, idx, group, engine)
         return out
 
     @staticmethod
@@ -680,14 +680,16 @@ def _all_gather_seq(x: torch.Tensor, group: Group, n: int) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def _ring_bwd(q, k, v, out, lse, dy, causal, window, mode, n, idx, group):
+def _ring_bwd(q, k, v, out, lse, dy, causal, window, mode, n, idx, group,
+              engine):
     b, s_loc, h, hd = q.shape
+    dy = dy.contiguous()
     dsum = (dy.float() * out.float()).sum(dim=-1)
 
     def step_bwd(kb, vb, q_off, k_off):
         return kernel_ops.flash_attention_bwd_block(
             q, kb, vb, dy, lse, dsum, causal=causal, window=window,
-            q_offset=q_off, k_offset=k_off)
+            q_offset=q_off, k_offset=k_off, engine=engine)
 
     def cast(dq, dk, dv):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -5,7 +5,9 @@
 // flash_attention_pallas (_flash_kernel) and flash_attention_carry_pallas
 // (_flash_kernel_carry), and the reference's jnp flash backward
 // src/repro/kernels/ops.py::_flash_bwd_blockwise, which the custom VJP at
-// ops.py:59-105 wires in.
+// ops.py:59-105 wires in, and its twin for ring attention,
+// ops.py::flash_attention_bwd_block (the backward of one carry step: the
+// caller's dsum, q and k at global offsets, f32 outputs).
 //
 //   q      [B, Sq, H, hd]     (f32 or bf16)
 //   k, v   [B, Skv, KV, hd]   (q's type); query head h reads kv head h / G,
@@ -87,10 +89,57 @@
 //     torch (finalize_partials), gives the forward's output bit for bit,
 //     which makes the one-rank ring prefill equal the megatron one.
 //
-// The f32 forward and carry step, and the backward in both types, are
-// SIMT kernels (simple and correct first; f32 FMAs, no tensor cores: TF32
-// would round the reference's f32 products).  The f32 forward is kept as
-// the f32 oracle path of the parity runs:
+// The bf16 backward and block backward: one kernel on the tensor cores
+// (flash_bwd_wgmma_kernel<HD, kBlock>).  Bound on this card, by
+// operations: at the training shape the backward does 10 flop per
+// unmasked (pair, hd), 43 GFLOP (0.0435 ms at 989 TFLOP/s).
+//   * one CTA of 256 threads per (b, h, 128 kv rows), lowest kv tile (the
+//     most query rows under causality) first; warpgroup c owns kv rows
+//     64 c.. and loops over the 64-row query tiles that see the CTA's kv
+//     rows.  No producer warp: ptxas held the first version's 288
+//     threads to 168 registers, as it holds 384 (9 warps put 3 on one
+//     quarter of the SM's register file: 65,536 / 4 / 3 / 32 = 170), and
+//     it spilled 2.4 KB; at 8 warps a thread may have 255, which dK and
+//     dV (128 registers at hd 128) beside S^T and dP^T (64) need;
+//   * thread 0 issues every TMA load: K and V once; then, through 2
+//     stages of full and empty mbarriers, Q and dO of each query tile and
+//     that tile's lse (times log2 e) and dsum by 1-D bulk copies from a
+//     [B, H, 2, Sq padded to 64] f32 statistics array that a short pass
+//     (flash_bwd_stats_kernel) writes first, computing dsum = sum(dout *
+//     out) for the flash backward and taking the caller's for the block
+//     backward (read from [B, Sq, H] in the loop, the statistics cost
+//     more than the tensor cores' S^T and dP^T);
+//   * S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 from shared memory
+//     (exact in f32: bf16 products); P = exp(S scale - lse) and dS = P (dP
+//     - dsum) scale in f32 registers, masked pairs exactly 0 (tiles that
+//     reach Sq or Skv, cross the diagonal or the window's edge only);
+//   * dV += P^T dO and dK += dS^T Q by wgmma with P^T and dS^T as the
+//     register A operand (the accumulator layout of S^T is the A layout),
+//     dO and Q MN-major; dQ += dS K by wgmma from dS written to shared
+//     memory in the swizzled K-major layout, K MN-major: at hd 128
+//     warpgroup c takes hd columns 64 c.. over both warpgroups' dS (a
+//     barrier of both), at hd 64 each its own kv rows;
+//   * the reference multiplies P and dS in f32, so every product with
+//     one of them as an operand runs as two bf16 products, x_hi = bf16(x)
+//     and x_lo = bf16(x - x_hi) (x to about 2^-17; one rounding would put
+//     the outputs some 1e-3 of their magnitude off): 16 tensor flop per
+//     (pair, hd) against the algorithm's 10; the bounds count the
+//     algorithm's;
+//   * dQ is added into an f32 workspace, dK and dV too when G > 1 (G CTAs
+//     share a kv head), each staged in shared memory (rows padded to keep
+//     the stores free of bank conflicts) and added by 1-D bulk reduce-adds
+//     (cp.reduce.async.bulk .add.f32), one per row, which timed faster on
+//     the card than float2 or float4 atomics from registers.  At G = 1 dK
+//     and dV are written directly.  The flash backward then turns the
+//     workspaces into bf16 (to_bf16_kernel); the block backward's outputs
+//     are the f32 workspaces.  The reduce-adds sum in an order that
+//     changes from run to run, so the backward is not bit for bit
+//     repeatable.
+//
+// The f32 forward and carry step and the f32 backward are SIMT kernels
+// (simple and correct first; f32 FMAs, no tensor cores: TF32 would round
+// the reference's f32 products).  They are kept as the f32 oracle path of
+// the parity runs:
 //   * the Pallas grid's sequential kv dimension (scratch carried across
 //     ki) becomes a loop inside the CTA; fully masked kv tiles are never
 //     visited; ragged Sq and Skv are masked in the kernel;
@@ -103,17 +152,18 @@
 //     (m, l) and the output accumulator in registers, row statistics
 //     reduced across the 16 threads of a row with warp shuffles;
 //   * backward, deterministic and without atomics: a pre-pass computes
-//     dsum; one launch for dK/dV with one CTA per (b, kv head, 64 kv
-//     rows) looping over its G query heads and the query tiles that see
-//     it; one launch for dQ with one CTA per (b, h, 64 query rows)
-//     looping over the kv tiles it sees.  The backward does about 2.5x
-//     the forward's operations; at 67 TFLOP/s of f32 FMAs it is far from
-//     its bound.
+//     dsum (the block backward takes the caller's); one launch for dK/dV
+//     with one CTA per (b, kv head, 64 kv rows) looping over its G query
+//     heads and the query tiles that see it; one launch for dQ with one
+//     CTA per (b, h, 64 query rows) looping over the kv tiles it sees.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -131,10 +181,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Sum / max over the 16 threads of one row (lanes that share lane / 16).
 __device__ __forceinline__ float row_sum(float v) {
@@ -638,6 +684,44 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define FA_D8(C, i)                                                        \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
+      C(d[i + 6]), C(d[i + 7])
+#define FA_RW(x) "+f"(x)
+#define FA_WO(x) "=f"(x)
+#define FA_N64_REGS                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}, "
+
+// d (+)= A B, m64n64k16, A K-major and B K-major (TB = 0) or MN-major
+// (TB = 1), both from shared memory.  kInit writes d without reading it.
+template <int TB, bool kInit>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (kInit)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_N64_REGS
+        "%32, %33, p, 1, 1, 0, %34;\n}\n"
+        : FA_D8(FA_WO, 0), FA_D8(FA_WO, 8), FA_D8(FA_WO, 16),
+          FA_D8(FA_WO, 24)
+        : "l"(da), "l"(db), "n"(TB), "r"(0));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_N64_REGS
+        "%32, %33, p, 1, 1, 0, %34;\n}\n"
+        : FA_D8(FA_RW, 0), FA_D8(FA_RW, 8), FA_D8(FA_RW, 16),
+          FA_D8(FA_RW, 24)
+        : "l"(da), "l"(db), "n"(TB), "r"(1));
+}
+
+#undef FA_N64_REGS
+#undef FA_WO
+#undef FA_RW
+#undef FA_D8
+
 
 // P V over one kv tile: acc += A V for the 8 k-steps of 16 kv rows, A in
 // the register fragments `a` (4 per k-step), V MN-major at `v` (row r of
@@ -921,6 +1005,492 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward in bf16 on the tensor cores; see the note at the head of the file
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;      // 2 warpgroups, no producer warp
+constexpr int kBN = 128;              // kv rows of a CTA, 64 per warpgroup
+constexpr int kBM = 64;               // query rows of a streamed tile
+constexpr int kQBox = kBM * 128;      // bytes of one 64-row TMA box
+constexpr int kBwdStages = 2;         // Q and dO tiles in flight
+constexpr int kDqRow = 288;           // bytes of a staged dQ row: 256 + 32
+constexpr int kBwdEmptyArrivals = 8;  // one lane of each warp
+
+template <int HD>
+struct BwdSmem {
+  static constexpr int kKV = HD / 64 * kBox;    // a K or V tile (128 rows)
+  static constexpr int kQT = HD / 64 * kQBox;   // a Q or dO tile (64 rows)
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKV;
+  static constexpr int kQ = kV + kKV;
+  static constexpr int kDO = kQ + kBwdStages * kQT;
+  // dS of each warpgroup, hi then lo: [64 q][64 kv] bf16, K-major, swizzled
+  static constexpr int kDS = kDO + kBwdStages * kQT;
+  // lse (times log2 e) then dsum of each stage's 64 rows, f32
+  static constexpr int kStat = kDS + 4 * kQBox;
+  // dQ of each warpgroup, 64 rows x 64 hd columns f32 (rows kDqRow apart)
+  static constexpr int kDQ = kStat + kBwdStages * 2 * kBM * 4;
+  static constexpr int kBar = kDQ + 2 * kBM * kDqRow;
+  // kv_full, then full and empty of each stage
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kBwdStages) + 1024;
+};
+
+// 1-D bulk copies (TMA without a tensor map): a load that completes on an
+// mbarrier, and a reduce-add of f32 from shared into global memory that
+// completes in the issuing thread's bulk group.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
+                                                int bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The bulk group's reads of shared memory (read = true) or all of it done.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Named barrier of both warpgroups (id 3).
+__device__ __forceinline__ void cta_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+// Named barrier of one warpgroup (ids 1 and 2).
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// P^T and dS^T of one thread from S^T = K Q^T and dP^T = V dO^T
+// in the m64n64 accumulator layout: x[4 j + 2 r + e] is kv row kv_row +
+// 8 r, query column 8 j + 2 tq + e of the tile at q0.  P = exp(S scale -
+// lse), masked pairs exactly 0; dS = P (dP - dsum) scale.  Both leave as
+// bf16 hi/lo pairs (x to about 2^-17) in the register A layout of the
+// next products: pair (x[2 n], x[2 n + 1]) becomes hi[n], lo[n].
+template <bool kMask>
+__device__ __forceinline__ void bwd_probs(
+    float (&s)[32], float (&dp)[32], const float (&lse_r)[16],
+    const float (&dsum_r)[16], uint32_t (&p_hi)[16], uint32_t (&p_lo)[16],
+    uint32_t (&ds_hi)[16], uint32_t (&ds_lo)[16], int q0, int kv_row, int tq,
+    int sq, int skv, int q_offset, int window, int causal, float scale) {
+  const float sl = scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 4 * j + 2 * r + e;
+        const float l = lse_r[2 * j + e];   // already times log2(e)
+        const float dd = dsum_r[2 * j + e];
+        float p = exp2_approx(fmaf(s[n], sl, -l));
+        if (kMask) {
+          const int qi = q0 + 8 * j + 2 * tq + e;
+          if (qi >= sq ||
+              !visible(q_offset + qi, kv_row + 8 * r, skv, causal, window))
+            p = 0.f;
+        }
+        s[n] = p;
+        dp[n] = p * (dp[n] - dd) * scale;
+      }
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    uint32_t hi = bf16x2(s[2 * n], s[2 * n + 1]);
+    p_hi[n] = hi;
+    p_lo[n] = bf16x2(s[2 * n] - __uint_as_float(hi << 16),
+                     s[2 * n + 1] - __uint_as_float(hi & 0xffff0000u));
+    hi = bf16x2(dp[2 * n], dp[2 * n + 1]);
+    ds_hi[n] = hi;
+    ds_lo[n] = bf16x2(dp[2 * n] - __uint_as_float(hi << 16),
+                      dp[2 * n + 1] - __uint_as_float(hi & 0xffff0000u));
+  }
+}
+
+// acc += A B over a 64-row q tile (4 k-steps), A = the register fragments
+// `a`, B MN-major at `bt` (a Q or dO tile: row r of a box at bt + 128 r,
+// hd columns 64.. one 64-row box further on).
+template <int HD>
+__device__ __forceinline__ void bwd_rs(float (&acc)[HD / 2],
+                                       const uint32_t (&a)[16], uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < kBM / 16; ++kk) {
+    const uint64_t d = desc(bt + kk * 16 * 128, kQBox, 1024);
+    if constexpr (HD == 128)
+      wgmma_rs_n128(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                    a[4 * kk + 3], d);
+    else
+      wgmma_rs_n64(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                   a[4 * kk + 3], d);
+  }
+}
+
+// x = A B^T over hd (HD / 16 k-steps), A = 64 rows of a K or V tile at
+// `a` (128-row boxes), B = a Q or dO tile at `bt` (64-row boxes), both
+// K-major: S^T = K Q^T and dP^T = V dO^T.
+template <int HD>
+__device__ __forceinline__ void bwd_ss_t(float (&x)[32], uint32_t a,
+                                         uint32_t bt) {
+  wgmma_ss_n64<0, true>(x, desc(a, 16, 1024), desc(bt, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < HD / 16; ++kk)
+    wgmma_ss_n64<0, false>(
+        x, desc(a + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024),
+        desc(bt + (kk / 4) * kQBox + (kk % 4) * 32, 16, 1024));
+}
+
+// Write one warpgroup's dS (its 64 kv columns of the tile, hi or lo) into
+// shared memory as the K-major A operand [64 q][64 kv] of dQ = dS K, in
+// TMA's 128-byte swizzle: element (i, jj) at i * 128 + ((jj / 8) ^ (i %
+// 8)) * 16 + (jj % 8) * 2.  x holds dS^T (kv row 16 w + g + 8 r, q column
+// 8 j + 2 tq + e) as bf16 pairs over e.
+__device__ __forceinline__ void store_ds(uint8_t* dst,
+                                         const uint32_t (&x)[16], int w,
+                                         int g, int tq) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const int j = n / 2, r = n % 2;
+    const int jj = 16 * w + g + 8 * r;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 8 * j + 2 * tq + e;
+      const uint16_t v = e ? static_cast<uint16_t>(x[n] >> 16)
+                           : static_cast<uint16_t>(x[n] & 0xffffu);
+      *reinterpret_cast<uint16_t*>(dst + i * 128 +
+                                   (((jj >> 3) ^ (i & 7)) << 4) +
+                                   ((jj & 7) << 1)) = v;
+    }
+  }
+}
+
+// kBlock = false: the flash backward (dK, dV at G = 1 written in bf16).
+// kBlock = true: ring attention's block backward (every output f32).
+// dq is an f32 workspace that the CTAs add into; dk and dv are added into
+// as f32 workspaces when G > 1, and written directly at G = 1.  stats is
+// the statistics pass's [B, H, 2, sq_pad].  One CTA per (b, h, 128 kv
+// rows), heaviest (lowest kv) first under causality.
+template <int HD, bool kBlock>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ stats, int sq_pad,
+                       float* __restrict__ dq, void* __restrict__ dk,
+                       void* __restrict__ dv, int batch, int sq, int skv,
+                       int n_heads, int n_kv, int q_offset, int window,
+                       int causal, float scale) {
+  using L = BwdSmem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // 128B swizzle atoms
+  uint8_t* const basep = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t full = kv_full + 8;              // + 8 * stage
+  const uint32_t empty = full + 8 * kBwdStages;
+
+  int idx = blockIdx.x;
+  const int h = idx % n_heads;
+  idx /= n_heads;
+  const int b = idx % batch;
+  idx /= batch;
+  const int k0 = idx * kBN;
+  const int groups = n_heads / n_kv;
+  const int kvh = h / groups;
+
+  // query rows that see kv rows [k0, kmax]
+  const int kmax = min(k0 + kBN, skv) - 1;
+  const int i_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int i_hi = window > 0 ? min(sq, kmax + window - q_offset) : sq;
+  const int t0 = i_lo / kBM;
+  const int n_qt = i_hi > i_lo ? (i_hi + kBM - 1) / kBM - t0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBwdEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0 issues every TMA load: K and V once, then the Q and dO tile
+  // and the lse and dsum rows of query tile i into stage i % kBwdStages
+  // once both warpgroups have released the tile that used the stage.
+  const float* stat_bh = stats + ((int64_t)b * n_heads + h) * 2 * sq_pad;
+  auto issue = [&](int i) {
+    const int st = i % kBwdStages;
+    mbar_wait(empty + 8 * st, ((i / kBwdStages) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * st, 2 * L::kQT + 2 * kBM * 4);
+    const int q0 = (t0 + i) * kBM;
+    const uint32_t stat = base + L::kStat + st * 2 * kBM * 4;
+    bulk_load(stat, stat_bh + q0, kBM * 4, full + 8 * st);
+    bulk_load(stat + kBM * 4, stat_bh + sq_pad + q0, kBM * 4, full + 8 * st);
+#pragma unroll
+    for (int x = 0; x < HD / 64; ++x) {
+      tma_load(base + L::kQ + st * L::kQT + x * kQBox, &tm_q, full + 8 * st,
+               64 * x, h, q0, b);
+      tma_load(base + L::kDO + st * L::kQT + x * kQBox, &tm_do,
+               full + 8 * st, 64 * x, h, q0, b);
+    }
+  };
+  if (threadIdx.x == 0 && n_qt > 0) {
+    mbar_expect_tx(kv_full, 2 * L::kKV);
+#pragma unroll
+    for (int x = 0; x < HD / 64; ++x) {
+      tma_load(base + L::kK + x * kBox, &tm_k, kv_full, 64 * x, kvh, k0, b);
+      tma_load(base + L::kV + x * kBox, &tm_v, kv_full, 64 * x, kvh, k0, b);
+    }
+    for (int i = 0; i < min(n_qt, kBwdStages - 1); ++i) issue(i);
+  }
+
+  // ---- warpgroup c owns kv rows [k0 + 64 c, k0 + 64 c + 64) ----
+  constexpr bool kShare = HD == 128;
+  const int c = threadIdx.x >> 7;
+  const int tw = threadIdx.x & 127;
+  const int w = tw >> 5;
+  const int lane = tw & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int kc0 = k0 + 64 * c;
+  const int kv_row = kc0 + 16 * w + g;              // and kv_row + 8
+  const bool elected = lane == 0;
+
+  // acc[4 j + 2 r + e]: kv row kv_row + 8 r, hd column 8 j + 2 tq + e
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  if (n_qt > 0) {
+    const uint32_t k_rows = base + L::kK + c * 64 * 128;
+    const uint32_t v_rows = base + L::kV + c * 64 * 128;
+    const uint32_t ds_hi = base + L::kDS + c * 2 * kQBox;
+    const uint32_t ds_lo = ds_hi + kQBox;
+    uint8_t* const ds_hi_p = basep + L::kDS + c * 2 * kQBox;
+    uint8_t* const ds_lo_p = ds_hi_p + kQBox;
+    const uint32_t dq_st = base + L::kDQ + c * kBM * kDqRow;
+    uint8_t* const dq_st_p = basep + L::kDQ + c * kBM * kDqRow;
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_qt; ++i) {
+      const int st = i % kBwdStages;
+      const int q0 = (t0 + i) * kBM;
+      const uint32_t qt = base + L::kQ + st * L::kQT;
+      const uint32_t dot = base + L::kDO + st * L::kQT;
+      if (threadIdx.x == 0 && i + kBwdStages - 1 < n_qt)
+        issue(i + kBwdStages - 1);
+      __syncwarp();
+      mbar_wait(full + 8 * st, (i / kBwdStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T, exact in f32 (bf16 products)
+      float s[32], dp[32];
+      wgmma_fence();
+      bwd_ss_t<HD>(s, k_rows, qt);
+      bwd_ss_t<HD>(dp, v_rows, dot);
+      wgmma_commit();
+      // this thread's query columns' lse (times log2 e) and dsum
+      float lse_r[16], dsum_r[16];
+      const float* stat = reinterpret_cast<const float*>(
+          basep + L::kStat + st * 2 * kBM * 4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(stat + 8 * j + 2 * tq);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(stat + kBM + 8 * j + 2 * tq);
+        lse_r[2 * j] = l2.x;
+        lse_r[2 * j + 1] = l2.y;
+        dsum_r[2 * j] = d2.x;
+        dsum_r[2 * j + 1] = d2.y;
+      }
+      wgmma_wait<0>();
+      pin(s);
+      pin(dp);
+
+      uint32_t p_hi[16], p_lo[16], d_hi[16], d_lo[16];
+      if (q0 + kBM > sq || kc0 + 64 > skv ||
+          (causal && q_offset + q0 < kc0 + 63) ||
+          (window > 0 && q_offset + q0 + kBM - 1 - kc0 >= window))
+        bwd_probs<true>(s, dp, lse_r, dsum_r, p_hi, p_lo, d_hi, d_lo, q0,
+                        kv_row, tq, sq, skv, q_offset, window, causal, scale);
+      else
+        bwd_probs<false>(s, dp, lse_r, dsum_r, p_hi, p_lo, d_hi, d_lo, q0,
+                         kv_row, tq, sq, skv, q_offset, window, causal,
+                         scale);
+
+      // dS into shared memory for dQ, once the last tile's dQ has read it
+      // (at hd 128 both warpgroups read both halves)
+      kShare ? cta_sync() : wg_sync(1 + c);
+      store_ds(ds_hi_p, d_hi, w, g, tq);
+      store_ds(ds_lo_p, d_lo, w, g, tq);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      kShare ? cta_sync() : wg_sync(1 + c);
+
+      // dV += P^T dO and dK += dS^T Q, each as hi + lo
+      pin(dk_acc);
+      pin(dv_acc);
+      pin(p_hi);
+      pin(p_lo);
+      pin(d_hi);
+      pin(d_lo);
+      wgmma_fence();
+      bwd_rs<HD>(dv_acc, p_hi, dot);
+      bwd_rs<HD>(dv_acc, p_lo, dot);
+      bwd_rs<HD>(dk_acc, d_hi, qt);
+      bwd_rs<HD>(dk_acc, d_lo, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dk_acc);
+      pin(dv_acc);
+      __syncwarp();
+      if (elected) mbar_arrive(empty + 8 * st);
+
+      // dQ += dS K, 64 hd columns at a time: A = dS (K-major), B = K
+      // (MN-major).  At hd 128 warpgroup c takes hd columns 64 c.. over
+      // all 128 kv rows; at hd 64 each takes its own 64 kv rows.
+      for (int n = kShare ? c : 0; n < (kShare ? c + 1 : HD / 64); ++n) {
+        float x[32];
+        wgmma_fence();
+        if constexpr (kShare) {
+          const uint32_t kb = base + L::kK + n * kBox;
+          const uint32_t ds = base + L::kDS;      // box i: kv rows 64 i..
+          wgmma_ss_n64<1, true>(x, desc(ds, 16, 1024), desc(kb, kBox, 1024));
+#pragma unroll
+          for (int kk = 1; kk < 16; ++kk) {
+            const int t = kk % 8;                  // k-step; kk / 8: lo
+            const uint32_t a =
+                ds + (t / 4) * 2 * kQBox + (kk / 8) * kQBox + (t % 4) * 32;
+            wgmma_ss_n64<1, false>(x, desc(a, 16, 1024),
+                                   desc(kb + t * 16 * 128, kBox, 1024));
+          }
+        } else {
+          const uint32_t kb = k_rows + n * kBox;
+          wgmma_ss_n64<1, true>(x, desc(ds_hi, 16, 1024),
+                                desc(kb, kBox, 1024));
+#pragma unroll
+          for (int kk = 1; kk < 4; ++kk)
+            wgmma_ss_n64<1, false>(x, desc(ds_hi + kk * 32, 16, 1024),
+                                   desc(kb + kk * 16 * 128, kBox, 1024));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64<1, false>(x, desc(ds_lo + kk * 32, 16, 1024),
+                                   desc(kb + kk * 16 * 128, kBox, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(x);
+        // x[4 j + 2 r + e]: q row 16 w + g + 8 r of the tile, hd column
+        // 64 n + 8 j + 2 tq + e.  Staged in shared memory once the last
+        // bulk reduce has read it, then one bulk reduce-add per row.
+        if (tw < kBM) bulk_wait<true>();
+        wg_sync(1 + c);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float2*>(dq_st_p +
+                                       (16 * w + g + 8 * r) * kDqRow +
+                                       (8 * j + 2 * tq) * 4) =
+                make_float2(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg_sync(1 + c);
+        if (tw < kBM && q0 + tw < sq) {
+          bulk_reduce_add(
+              dq + (((int64_t)b * sq + q0 + tw) * n_heads + h) * HD + 64 * n,
+              dq_st + tw * kDqRow, 64 * 4);
+          bulk_commit();
+        }
+      }
+    }
+  }
+
+  // ---- epilogue: this warpgroup's kv rows of dK and dV ----
+  if (tw < kBM) bulk_wait<false>();
+  if (groups > 1) {
+    // G CTAs share the kv head: stage dK and dV in the shared memory the
+    // loop is done with (below the barriers, rows kKvRow bytes apart),
+    // then one bulk reduce-add per row of each
+    if (n_qt == 0) return;
+    constexpr int kKvRow = HD * 4 + 32;
+    static_assert(4 * kBM * kKvRow <= L::kBar, "dK, dV staging too large");
+    cta_sync();
+    uint8_t* const st_k = basep + c * 2 * kBM * kKvRow;
+    uint8_t* const st_v = st_k + kBM * kKvRow;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int at = (16 * w + g + 8 * r) * kKvRow + (8 * j + 2 * tq) * 4;
+        *reinterpret_cast<float2*>(st_k + at) =
+            make_float2(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(st_v + at) =
+            make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(1 + c);
+    if (tw < kBM && kc0 + tw < skv) {
+      const int64_t off = (((int64_t)b * skv + kc0 + tw) * n_kv + kvh) * HD;
+      const uint32_t src = base + c * 2 * kBM * kKvRow + tw * kKvRow;
+      bulk_reduce_add(static_cast<float*>(dk) + off, src, HD * 4);
+      bulk_reduce_add(static_cast<float*>(dv) + off, src + kBM * kKvRow,
+                      HD * 4);
+      bulk_commit();
+      bulk_wait<false>();
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kv_row + 8 * r;
+    if (row >= skv) continue;
+    const int64_t off = (((int64_t)b * skv + row) * n_kv + kvh) * HD + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const float k_0 = dk_acc[4 * j + 2 * r], k_1 = dk_acc[4 * j + 2 * r + 1];
+      const float v_0 = dv_acc[4 * j + 2 * r], v_1 = dv_acc[4 * j + 2 * r + 1];
+      if (kBlock) {
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + off + 8 * j) =
+            make_float2(k_0, k_1);
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + off + 8 * j) =
+            make_float2(v_0, v_1);
+      } else {
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dk) + off +
+                                     8 * j) = bf16x2(k_0, k_1);
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dv) + off +
+                                     8 * j) = bf16x2(v_0, v_1);
+      }
+    }
+  }
+}
+
+// The finishing pass: an f32 workspace into bf16, four values a thread
+// (n4 = n / 4: every workspace holds rows of hd 64 or 128).
+__global__ void to_bf16_kernel(const float* __restrict__ src,
+                               __nv_bfloat16* __restrict__ dst, int64_t n4) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float4 x = reinterpret_cast<const float4*>(src)[i];
+    reinterpret_cast<uint2*>(dst)[i] =
+        make_uint2(bf16x2(x.x, x.y), bf16x2(x.z, x.w));
+  }
+}
+
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
@@ -942,6 +1512,52 @@ flash_dsum_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   for (int d = lane; d < HD; d += 32) s += to_f32(g[d]) * to_f32(o[d]);
   for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
   if (lane == 0) dsum[row] = s;
+}
+
+// The bf16 backward's per-row statistics in the layout its bulk loads
+// read, [B, H, 2, sq_pad] f32: lse times log2(e), then dsum, zeros past
+// Sq.  dsum = sum_d dout * out where out is given (the flash backward),
+// else the caller's (the block backward).  A row is one warp (kDsum, each
+// lane reading HD / 32 neighbouring values of out and dout) or one thread.
+template <int HD, bool kDsum>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ out,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dsum,
+                       float* __restrict__ stats, int batch, int sq,
+                       int sq_pad, int n_heads) {
+  constexpr int kPer = kDsum ? 32 : 1;      // threads of a row
+  const int64_t row = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kPer;
+  if (row >= (int64_t)batch * sq_pad * n_heads) return;
+  const int h = (int)(row % n_heads);
+  const int i = (int)((row / n_heads) % sq_pad);
+  const int b = (int)(row / ((int64_t)n_heads * sq_pad));
+  const int lane = threadIdx.x % kPer;
+  float l = 0.f, s = 0.f;
+  if (i < sq) {
+    const int64_t src = ((int64_t)b * sq + i) * n_heads + h;
+    if constexpr (kDsum) {
+      constexpr int kN = HD / 32;           // 4 or 2 bf16: 8 or 4 bytes
+      using Vec = typename std::conditional<kN == 4, uint2, uint32_t>::type;
+      const Vec o = reinterpret_cast<const Vec*>(out + src * HD)[lane];
+      const Vec g = reinterpret_cast<const Vec*>(dout + src * HD)[lane];
+      const __nv_bfloat16* ob = reinterpret_cast<const __nv_bfloat16*>(&o);
+      const __nv_bfloat16* gb = reinterpret_cast<const __nv_bfloat16*>(&g);
+#pragma unroll
+      for (int x = 0; x < kN; ++x) s += to_f32(gb[x]) * to_f32(ob[x]);
+      for (int w = 16; w > 0; w >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, w);
+    } else {
+      s = dsum[src];
+    }
+    l = lse[src] * tc::kLog2e;
+  }
+  if (lane == 0) {
+    float* o = stats + ((int64_t)b * n_heads + h) * 2 * sq_pad;
+    o[i] = l;
+    o[sq_pad + i] = s;
+  }
 }
 
 // Stage 64 per-row statistics (lse or dsum) of query rows [q0, q0 + 64).
@@ -1231,10 +1847,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 [B, S, heads, hd] tensor: boxes of 128 rows x
-// 64 hd columns of one head, 128-byte swizzled, rows past S read as 0.
+// The tensor map of a bf16 [B, S, heads, hd] tensor: boxes of `box_rows`
+// rows x 64 hd columns of one head, 128-byte swizzled, rows past S read
+// as 0.
 bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int rows,
-                int heads, int hd) {
+                int heads, int hd, int box_rows = tc::kN) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
@@ -1242,7 +1859,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int rows,
   const cuuint64_t row_bytes = (cuuint64_t)heads * hd * 2;
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, row_bytes,
                                  row_bytes * rows};
-  const cuuint32_t box[4] = {64, 1, tc::kN, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
@@ -1300,24 +1917,30 @@ int fwd_dispatch(int dtype, int hd, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+// dsum[b, i, h] = sum_d dout * out (the pre-pass of the flash backward).
 template <typename T, int HD>
-int bwd(const void* q, const void* k, const void* v, const void* out,
-        const void* dout, const void* lse, void* dsum, void* dq, void* dk,
-        void* dv, const Shape& s, cudaStream_t stream) {
-  static int granted_dkdv = 0, granted_dq = 0;
-  cudaError_t e =
-      allow_smem(flash_bwd_dkdv_kernel<T, HD>, dkdv_smem<HD>(), &granted_dkdv);
-  if (e != cudaSuccess) return (int)e;
-  e = allow_smem(flash_bwd_dq_kernel<T, HD>, dq_smem<HD>(), &granted_dq);
-  if (e != cudaSuccess) return (int)e;
-
+int dsum_pass(const void* out, const void* dout, void* dsum, const Shape& s,
+              cudaStream_t stream) {
   const int64_t rows = (int64_t)s.batch * s.sq * s.n_heads;
   const int64_t per_block = kThreads / 32;
   flash_dsum_kernel<T, HD>
       <<<(unsigned)((rows + per_block - 1) / per_block), kThreads, 0,
          stream>>>(static_cast<const T*>(out), static_cast<const T*>(dout),
                    static_cast<float*>(dsum), rows);
-  e = cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+// The SIMT backward (f32, and the block backward in f32): dK/dV, then dQ,
+// from a dsum already computed.
+template <typename T, int HD>
+int bwd(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* dsum, void* dq, void* dk, void* dv,
+        const Shape& s, cudaStream_t stream) {
+  static int granted_dkdv = 0, granted_dq = 0;
+  cudaError_t e =
+      allow_smem(flash_bwd_dkdv_kernel<T, HD>, dkdv_smem<HD>(), &granted_dkdv);
+  if (e != cudaSuccess) return (int)e;
+  e = allow_smem(flash_bwd_dq_kernel<T, HD>, dq_smem<HD>(), &granted_dq);
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_kv((s.skv + kTile - 1) / kTile, s.n_kv, s.batch);
@@ -1339,6 +1962,87 @@ int bwd(const void* q, const void* k, const void* v, const void* out,
       static_cast<T*>(dq), s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset,
       s.window, s.causal, s.scale);
   return (int)cudaGetLastError();
+}
+
+// The bf16 backward on the tensor cores: dq is a zeroed f32 workspace;
+// dk, dv are zeroed f32 workspaces when G > 1, else the outputs (bf16, or
+// f32 for the block backward).  TMA needs 16-byte aligned bases.
+template <int HD, bool kBlock>
+int bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, const void* lse, const void* dsum,
+              void* stats, void* dq, void* dk, void* dv, const Shape& s,
+              cudaStream_t stream) {
+  // (the statistics pass reads out with 8-byte loads)
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(out)) %
+          16 !=
+      0)
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD, tc::kBM) ||
+      !tensor_map(&tm_do, dout, s.batch, s.sq, s.n_heads, HD, tc::kBM) ||
+      !tensor_map(&tm_k, k, s.batch, s.skv, s.n_kv, HD, tc::kBN) ||
+      !tensor_map(&tm_v, v, s.batch, s.skv, s.n_kv, HD, tc::kBN))
+    return (int)cudaErrorInvalidValue;
+  static int granted = 0;
+  const size_t smem = tc::BwdSmem<HD>::kBytes;
+  cudaError_t e =
+      allow_smem(tc::flash_bwd_wgmma_kernel<HD, kBlock>, smem, &granted);
+  if (e != cudaSuccess) return (int)e;
+  const int sq_pad = (s.sq + tc::kBM - 1) / tc::kBM * tc::kBM;
+  const int64_t rows = (int64_t)s.batch * sq_pad * s.n_heads;
+  const auto stats_kernel = out != nullptr ? flash_bwd_stats_kernel<HD, true>
+                                           : flash_bwd_stats_kernel<HD, false>;
+  const int64_t per_block = out != nullptr ? kThreads / 32 : kThreads;
+  stats_kernel<<<(unsigned)((rows + per_block - 1) / per_block), kThreads, 0,
+                 stream>>>(static_cast<const __nv_bfloat16*>(out),
+                           static_cast<const __nv_bfloat16*>(dout),
+                           static_cast<const float*>(lse),
+                           static_cast<const float*>(dsum),
+                           static_cast<float*>(stats), s.batch, s.sq, sq_pad,
+                           s.n_heads);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int64_t ctas = (int64_t)((s.skv + tc::kBN - 1) / tc::kBN) * s.batch *
+                       s.n_heads;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  tc::flash_bwd_wgmma_kernel<HD, kBlock>
+      <<<(unsigned)ctas, tc::kBwdThreads, smem, stream>>>(
+          tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(stats), sq_pad,
+          static_cast<float*>(dq), dk, dv,
+          s.batch, s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset, s.window,
+          s.causal, s.scale);
+  return (int)cudaGetLastError();
+}
+
+int to_bf16(const void* src, void* dst, int64_t n, cudaStream_t stream) {
+  const int64_t n4 = n / 4;
+  const int64_t blocks = std::min<int64_t>((n4 + 255) / 256, 132 * 16);
+  tc::to_bf16_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const float*>(src), static_cast<__nv_bfloat16*>(dst), n4);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 flash backward: the statistics pass (dsum from out and dout),
+// the tensor-core kernel into the f32 workspaces, and the finishing pass
+// into the bf16 outputs.
+template <int HD>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
+             const void* dout, const void* lse, void* stats, void* dq,
+             void* dk, void* dv, void* ws_dq, void* ws_dk, void* ws_dv,
+             const Shape& s, cudaStream_t st) {
+  const bool grouped = s.n_heads > s.n_kv;
+  int e = bwd_wgmma<HD, false>(q, k, v, out, dout, lse, nullptr, stats,
+                               ws_dq, grouped ? ws_dk : dk,
+                               grouped ? ws_dv : dv, s, st);
+  if (e != 0) return e;
+  e = to_bf16(ws_dq, dq, (int64_t)s.batch * s.sq * s.n_heads * HD, st);
+  if (e != 0 || !grouped) return e;
+  const int64_t n_kv = (int64_t)s.batch * s.skv * s.n_kv * HD;
+  e = to_bf16(ws_dk, dk, n_kv, st);
+  if (e != 0) return e;
+  return to_bf16(ws_dv, dv, n_kv, st);
 }
 
 bool valid(const Shape& s, int hd) {
@@ -1388,28 +2092,67 @@ extern "C" int flash_attention_carry_launch(
                             static_cast<cudaStream_t>(stream));
 }
 
-// dsum is f32 scratch [B, Sq, H].  Three launches (dsum, dK/dV, dQ).
+// f32: three launches (dsum into `scratch`, f32 [B, Sq, H]; dK/dV; dQ),
+// the workspaces unused.  bf16: the statistics pass into `scratch`, f32
+// [B, H, 2, ceil(Sq / 64) * 64], the tensor-core kernel and the finishing
+// pass; ws_dq is a zeroed f32 [B, Sq, H, hd], ws_dk and ws_dv zeroed f32
+// [B, Skv, KV, hd] when H > KV (else unused).
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* dsum, void* dq, void* dk,
-    void* dv, int batch, int sq, int skv, int n_heads, int n_kv, int hd,
-    int q_offset, int window, int causal, float scale, void* stream) {
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+    void* dv, void* ws_dq, void* ws_dk, void* ws_dv, int batch, int sq,
+    int skv, int n_heads, int n_kv, int hd, int q_offset, int window,
+    int causal, float scale, void* stream) {
   const Shape s{batch, sq, skv, n_heads, n_kv, q_offset, window, causal,
                 scale};
   if (!valid(s, hd)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0 || skv == 0 || n_heads == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const int e = hd == 128
+                      ? dsum_pass<float, 128>(out, dout, scratch, s, st)
+                      : dsum_pass<float, 64>(out, dout, scratch, s, st);
+    if (e != 0) return e;
+    return hd == 128 ? bwd<float, 128>(q, k, v, dout, lse, scratch, dq, dk,
+                                       dv, s, st)
+                     : bwd<float, 64>(q, k, v, dout, lse, scratch, dq, dk, dv,
+                                      s, st);
+  }
+  if (dtype == 1)
+    return hd == 128 ? bwd_bf16<128>(q, k, v, out, dout, lse, scratch, dq,
+                                     dk, dv, ws_dq, ws_dk, ws_dv, s, st)
+                     : bwd_bf16<64>(q, k, v, out, dout, lse, scratch, dq, dk,
+                                    dv, ws_dq, ws_dk, ws_dv, s, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Ring attention's block backward: the backward of one carry step, with
+// dsum from the caller and q, k at global offsets (only their difference
+// enters the mask).  dq, dk, dv are f32 [B, Sq, H, hd] / [B, Skv, KV,
+// hd].  bf16 adds into them (the caller zeroes dq, and dk, dv when H > KV;
+// at H = KV dk and dv are written), with `scratch` the statistics, f32 [B,
+// H, 2, ceil(Sq / 64) * 64]; f32 writes them (SIMT kernels, no scratch).
+extern "C" int flash_attention_bwd_block_launch(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* dsum, void* scratch, void* dq, void* dk,
+    void* dv, int batch, int sq, int skv, int n_heads, int n_kv, int hd,
+    int q_offset, int k_offset, int window, int causal, float scale,
+    void* stream) {
+  const Shape s{batch, sq,           skv,    n_heads, n_kv,
+                q_offset - k_offset, window, causal,  scale};
+  if (!valid(s, hd)) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || sq == 0 || skv == 0 || n_heads == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return hd == 128
-               ? bwd<float, 128>(q, k, v, out, dout, lse, dsum, dq, dk, dv, s,
-                                 st)
-               : bwd<float, 64>(q, k, v, out, dout, lse, dsum, dq, dk, dv, s,
-                                st);
+               ? bwd<float, 128>(q, k, v, dout, lse, dsum, dq, dk, dv, s, st)
+               : bwd<float, 64>(q, k, v, dout, lse, dsum, dq, dk, dv, s, st);
   if (dtype == 1)
-    return hd == 128 ? bwd<__nv_bfloat16, 128>(q, k, v, out, dout, lse, dsum,
-                                               dq, dk, dv, s, st)
-                     : bwd<__nv_bfloat16, 64>(q, k, v, out, dout, lse, dsum,
-                                              dq, dk, dv, s, st);
+    return hd == 128
+               ? bwd_wgmma<128, true>(q, k, v, nullptr, dout, lse, dsum,
+                                      scratch, dq, dk, dv, s, st)
+               : bwd_wgmma<64, true>(q, k, v, nullptr, dout, lse, dsum,
+                                     scratch, dq, dk, dv, s, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -27,12 +27,22 @@ online-softmax carry ``(m, l, acc)``, with q and k at global offsets:
   * ``flash_attention_step_torch`` — the reference's ``ops._flash_step_jnp``
     loop over kv blocks.
 
+The ring's block backward (the backward of one carry step, with the
+caller's dsum and f32 outputs):
+
+  * the CUDA kernels: in bf16 the flash backward's tensor-core kernel with
+    the offset difference q_offset - k_offset, in f32 its SIMT kernels,
+    in place of the reference's jnp ``ops.flash_attention_bwd_block``;
+  * ``flash_attention_bwd_block_torch`` — that function's loop over kv
+    blocks.
+
 ``flash_attention_fwd`` / ``flash_attention_bwd`` /
-``flash_attention_carry`` dispatch on the tensor's device: a CUDA tensor
-launches the kernel (or raises), a CPU tensor takes the plain version.
-``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` / ``CARRY_LAUNCHES`` count wrapper
-calls that launched a kernel, so a run can show that its main path went
-through them.
+``flash_attention_carry`` / ``flash_attention_bwd_block`` dispatch on the
+tensor's device: a CUDA tensor launches the kernel (or raises), a CPU
+tensor takes the plain version.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` /
+``CARRY_LAUNCHES`` / ``BWD_BLOCK_LAUNCHES`` count wrapper calls that
+launched a kernel, so a run can show that its main path went through
+them.
 
 Also here: the online-softmax partials combinators.  Public carry layout
 (matches q): m, l: [B, Sq, H] f32; acc: [B, Sq, H, hd] f32.  ``out = acc /
@@ -54,11 +64,12 @@ NEG_INF = -1e30
 
 Partials = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-#: forward / backward / carry-step wrapper calls that launched their
-#: kernels since the counts were last set to 0
+#: forward / backward / carry-step / block-backward wrapper calls that
+#: launched their kernels since the counts were last set to 0
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 CARRY_LAUNCHES = 0
+BWD_BLOCK_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are compiled for
@@ -239,10 +250,30 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Flash backward: recompute p per kv block from (q, k, lse) (port of
-    ``ops._flash_bwd_blockwise``).  Returns (dq in q's type, dk, dv in
-    k's and v's types)."""
+    ``ops._flash_bwd_blockwise``, which is the block backward below with
+    k at offset 0 and dsum = sum(dout * out)).  Returns (dq in q's type,
+    dk, dv in k's and v's types)."""
+    dsum = (dout.float() * out.float()).sum(dim=-1)
+    dq, dk, dv = flash_attention_bwd_block_torch(
+        q, k, v, dout, lse, dsum, causal=causal, window=window,
+        q_offset=q_offset, blk_kv=blk_kv)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_block_torch(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, dout: torch.Tensor,
+                                    lse: torch.Tensor, dsum: torch.Tensor, *,
+                                    causal: bool, window: int = 0,
+                                    q_offset: int = 0, k_offset: int = 0,
+                                    blk_kv: int = 512
+                                    ) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """Backward of one carry step in plain torch (port of the reference's
+    ``ops.flash_attention_bwd_block``), recomputing p from (q, k, lse)
+    over kv blocks of ``blk_kv``.  q, dout: [B, Sq, H, hd]; k, v: [B, Skv,
+    KV, hd]; lse, dsum: [B, Sq, H] (dsum = sum(dout * out, -1), computed
+    once by the caller).  Returns f32 (dq contribution, dk, dv)."""
     b, sq, h, hd = q.shape
-    k_dtype, v_dtype = k.dtype, v.dtype
     k, v, skv_valid = _pad_kv(k, v, max(1, min(blk_kv, k.shape[1])))
     skv = k.shape[1]
     blk = max(1, min(blk_kv, skv))
@@ -250,8 +281,8 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(hd)
     qf = _grouped(q, kvh)                            # [b,kvh,g,sq,hd]
     do = _grouped(dout, kvh)
-    dsum = (do * _grouped(out, kvh)).sum(dim=-1)     # [b,kvh,g,sq]
     lse_g = _grouped(lse, kvh)
+    dsum_g = _grouped(dsum, kvh)
     qpos = q_offset + torch.arange(sq, device=q.device)
     dq = torch.zeros_like(qf)
     dks, dvs = [], []
@@ -259,17 +290,19 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
         ks = k[:, ki * blk:(ki + 1) * blk].float()
         vs = v[:, ki * blk:(ki + 1) * blk].float()
         logits = torch.einsum("bkgqd,bskd->bkgqs", qf * scale, ks)
-        mask = _blk_mask(sq, blk, ki, qpos, skv_valid, causal, window)
+        mask = _step_mask(sq, blk, ki, qpos, k_offset, skv_valid, causal,
+                          window)
         p = torch.where(mask, torch.exp(logits - lse_g[..., None]), 0.0)
         dvs.append(torch.einsum("bkgqs,bkgqd->bskd", p, do))
         dp = torch.einsum("bkgqd,bskd->bkgqs", do, vs)
-        ds = p * (dp - dsum[..., None]) * scale
+        ds = p * (dp - dsum_g[..., None]) * scale
         dq = dq + torch.einsum("bkgqs,bskd->bkgqd", ds, ks)
         dks.append(torch.einsum("bkgqs,bkgqd->bskd", ds, qf))
-    dq = _ungrouped(dq).to(q.dtype)
-    dk = torch.cat(dks, dim=1)[:, :skv_valid].to(k_dtype)
-    dv = torch.cat(dvs, dim=1)[:, :skv_valid].to(v_dtype)
-    return dq, dk, dv
+    dk = (torch.cat(dks, dim=1) if dks
+          else k.new_zeros(k.shape, dtype=torch.float32))
+    dv = (torch.cat(dvs, dim=1) if dvs
+          else v.new_zeros(v.shape, dtype=torch.float32))
+    return _ungrouped(dq), dk[:, :skv_valid], dv[:, :skv_valid]
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +318,13 @@ def _lib() -> ctypes.CDLL:
             i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
         lib.flash_attention_fwd_launch.restype = i
         lib.flash_attention_bwd_launch.argtypes = [
-            i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
-            p]
+            i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+            i, i, f, p]
         lib.flash_attention_bwd_launch.restype = i
+        lib.flash_attention_bwd_block_launch.argtypes = [
+            i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+            f, p]
+        lib.flash_attention_bwd_block_launch.restype = i
         lib.flash_attention_carry_launch.argtypes = [
             i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
             p]
@@ -327,6 +364,20 @@ def _check_kernel_inputs(q: torch.Tensor, *tensors: torch.Tensor) -> None:
                          f"{KERNEL_HEAD_DIMS}; got {q.shape[3]}")
     if not all(t.is_contiguous() for t in (q, *tensors)):
         raise ValueError("the kernels take contiguous tensors")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_scratch(q: torch.Tensor) -> torch.Tensor:
+    """The backward launchers' f32 scratch: dsum [B, Sq, H] for the f32
+    kernels; lse and dsum per head, [B, H, 2, Sq padded to 64], for the
+    bf16 kernel's bulk loads."""
+    b, sq, h = q.shape[:3]
+    shape = (b, sq, h) if q.dtype == torch.float32 else (
+        b, h, 2, -(-sq // 64) * 64)
+    return torch.empty(shape, dtype=torch.float32, device=q.device)
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, which: str) -> None:
@@ -380,8 +431,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq in q's type, dk, dv in k's type) from the forward's (out, lse)
     and the output gradient ``dout``.  Dispatch as ``flash_attention_fwd``:
-    a CUDA tensor launches the backward kernels (dsum pre-pass, dK/dV,
-    dQ) and counts once."""
+    a CUDA tensor launches the backward kernels and counts once (f32: the
+    dsum pre-pass, dK/dV, dQ; bf16: the statistics pass, the tensor-core
+    kernel adding into f32 workspaces allocated here, the pass into
+    bf16)."""
     global BWD_LAUNCHES
     _check(q, k, v, out, lse, dout)
     if out.shape != q.shape or dout.shape != q.shape \
@@ -405,16 +458,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    scratch = _bwd_scratch(q)
+    ws_dq = ws_dk = ws_dv = None
+    if q.dtype == torch.bfloat16:
+        ws_dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        if h > kvh:
+            ws_dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+            ws_dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh,
-            hd, int(q_offset), int(window), int(bool(causal)),
-            1.0 / math.sqrt(hd), stream)
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(ws_dq),
+            _ptr(ws_dk), _ptr(ws_dv), b, sq, skv, h, kvh, hd, int(q_offset),
+            int(window), int(bool(causal)), 1.0 / math.sqrt(hd), stream)
     _raise_on(lib, err, "backward")
     BWD_LAUNCHES += 1
     return dq, dk, dv
@@ -468,3 +528,64 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(lib, err, "carry")
     CARRY_LAUNCHES += 1
     return m_out, l_out, acc_out
+
+
+def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              lse: torch.Tensor, dsum: torch.Tensor, *,
+                              causal: bool, window: int = 0,
+                              q_offset: int = 0, k_offset: int = 0,
+                              blk_kv: int = 512
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Backward of one ring-attention carry step: f32 (dq contribution, dk,
+    dv) of q [B, Sq, H, hd] against k, v [B, Skv, KV, hd] at global
+    offsets ``q_offset`` / ``k_offset``, from the full forward's lse and
+    the caller's dsum (both [B, Sq, H] f32).
+
+    A bf16 CUDA tensor launches the tensor-core backward kernel, an f32
+    one the SIMT backward kernels (any Sq and Skv, head_dim in
+    ``KERNEL_HEAD_DIMS``), or raises; a CPU tensor takes
+    ``flash_attention_bwd_block_torch`` (kv blocks of ``blk_kv``)."""
+    global BWD_BLOCK_LAUNCHES
+    _check(q, k, v, dout, lse, dsum)
+    b, sq, h, hd = q.shape
+    if dout.shape != q.shape or tuple(lse.shape) != (b, sq, h) \
+            or tuple(dsum.shape) != (b, sq, h):
+        raise ValueError(f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
+                         f"and dsum {tuple(dsum.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if lse.dtype != torch.float32 or dsum.dtype != torch.float32:
+        raise TypeError(f"lse and dsum are f32; got {lse.dtype}, "
+                        f"{dsum.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_block_torch(
+            q, k, v, dout, lse, dsum, causal=causal, window=window,
+            q_offset=q_offset, k_offset=k_offset, blk_kv=blk_kv)
+    _check_kernel_inputs(q, k, v, dout)
+    if not (lse.is_contiguous() and dsum.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
+    skv, kvh = k.shape[1], k.shape[2]
+    adds = q.dtype == torch.bfloat16       # the tensor-core kernel adds
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device) \
+        if adds else torch.empty(q.shape, dtype=torch.float32,
+                                 device=q.device)
+    kv_alloc = torch.zeros if adds and h > kvh else torch.empty
+    dk = kv_alloc(k.shape, dtype=torch.float32, device=q.device)
+    dv = kv_alloc(v.shape, dtype=torch.float32, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    scratch = _bwd_scratch(q) if adds else None
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_block_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), _ptr(scratch),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh,
+            hd,
+            int(q_offset), int(k_offset), int(window), int(bool(causal)),
+            1.0 / math.sqrt(hd), stream)
+    _raise_on(lib, err, "block backward")
+    BWD_BLOCK_LAUNCHES += 1
+    return dq, dk, dv

@@ -22,9 +22,13 @@ Ring attention's two per-block work items:
     carry; a CUDA tensor launches the carry kernel
     (``flash_attention.flash_attention_carry``), a CPU tensor takes the
     plain step, ``engine="torch"`` pins the plain step on any device;
-  * ``flash_attention_bwd_block`` is the backward of one step.  It is
-    plain torch on every device, as the reference's is jnp: it reaches no
-    TPU kernel.
+  * ``flash_attention_bwd_block`` is the backward of one step, dispatched
+    the same way: a CUDA tensor launches the block backward kernel (in
+    bf16 the flash backward's tensor-core kernel with the offset
+    difference and the caller's dsum; in f32 its SIMT kernels), a CPU
+    tensor or ``engine="torch"`` takes the plain version.  The reference's
+    is jnp (it reaches no TPU kernel); both compute
+    ``_flash_bwd_blockwise``'s math.
 """
 
 from __future__ import annotations
@@ -34,16 +38,13 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (NEG_INF, Partials,
-                                                 _blk_mask, _grouped,
-                                                 _pad_kv, _step_mask,
-                                                 _ungrouped,
-                                                 flash_attention_bwd,
-                                                 flash_attention_carry,
-                                                 flash_attention_fwd,
-                                                 flash_attention_step_torch,
-                                                 flash_attention_torch,
-                                                 init_partials)
+from repro_torch.kernels.flash_attention import (
+    NEG_INF, Partials, _blk_mask, _grouped, _ungrouped, flash_attention_bwd,
+    flash_attention_bwd_block_torch, flash_attention_carry,
+    flash_attention_fwd, flash_attention_step_torch, flash_attention_torch,
+    init_partials)
+from repro_torch.kernels.flash_attention import \
+    flash_attention_bwd_block as fa_bwd_block
 from repro_torch.kernels.stencil import jacobi_step  # noqa: F401 (re-export)
 
 #: sequences at or above this use a blockwise implementation
@@ -178,7 +179,7 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
                               lse: torch.Tensor, dsum: torch.Tensor, *,
                               causal: bool, window: int = 0,
                               q_offset: int = 0, k_offset: int = 0,
-                              blk_kv: int = 512
+                              blk_kv: int = 512, engine: str = "auto"
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Backward of one streamed flash step, recomputing p from (q, k, lse)
@@ -187,34 +188,17 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
     q, dout: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd]; lse, dsum: [B, Sq, H]
     (dsum = sum(dout * out, -1), computed once by the caller).  Returns
     f32 (dq contribution, dk, dv), so ring ranks accumulate across steps
-    without dtype round trips.  Memory stays O(Sq * blk_kv)."""
-    b, sq, h, hd = q.shape
-    k, v, skv_valid = _pad_kv(k, v, max(1, min(blk_kv, k.shape[1])))
-    skv = k.shape[1]
-    blk = max(1, min(blk_kv, skv))
-    kvh = k.shape[2]
-    scale = 1.0 / math.sqrt(hd)
-    qf = _grouped(q, kvh)                            # [b,kvh,g,sq,hd]
-    do = _grouped(dout, kvh)
-    lse_g = _grouped(lse, kvh)
-    dsum_g = _grouped(dsum, kvh)
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    dq = torch.zeros_like(qf)
-    dks, dvs = [], []
-    for ki in range(skv // blk):
-        ks = k[:, ki * blk:(ki + 1) * blk].float()
-        vs = v[:, ki * blk:(ki + 1) * blk].float()
-        logits = torch.einsum("bkgqd,bskd->bkgqs", qf * scale, ks)
-        mask = _step_mask(sq, blk, ki, qpos, k_offset, skv_valid, causal,
-                          window)
-        p = torch.where(mask, torch.exp(logits - lse_g[..., None]), 0.0)
-        dvs.append(torch.einsum("bkgqs,bkgqd->bskd", p, do))
-        dp = torch.einsum("bkgqd,bskd->bkgqs", do, vs)
-        ds = p * (dp - dsum_g[..., None]) * scale
-        dq = dq + torch.einsum("bkgqs,bskd->bkgqd", ds, ks)
-        dks.append(torch.einsum("bkgqs,bkgqd->bskd", ds, qf))
-    dk = (torch.cat(dks, dim=1) if dks
-          else k.new_zeros(k.shape, dtype=torch.float32))
-    dv = (torch.cat(dvs, dim=1) if dvs
-          else v.new_zeros(v.shape, dtype=torch.float32))
-    return _ungrouped(dq), dk[:, :skv_valid], dv[:, :skv_valid]
+    without dtype round trips.  A CUDA tensor launches the block backward
+    kernel (``flash_attention.flash_attention_bwd_block``), a CPU tensor
+    takes the plain version over kv blocks of ``blk_kv`` (memory O(Sq *
+    blk_kv)); ``engine="torch"`` pins the plain version on any device."""
+    if engine not in ("auto", "torch"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "torch":
+        return flash_attention_bwd_block_torch(
+            q, k, v, dout, lse, dsum, causal=causal, window=window,
+            q_offset=q_offset, k_offset=k_offset, blk_kv=blk_kv)
+    return fa_bwd_block(q.contiguous(), k.contiguous(), v.contiguous(),
+                        dout.contiguous(), lse.contiguous(),
+                        dsum.contiguous(), causal=causal, window=window,
+                        q_offset=q_offset, k_offset=k_offset, blk_kv=blk_kv)

@@ -190,3 +190,175 @@ def test_dispatch_follows_the_device_and_the_reference_off_rule():
     assert not ops.flash_attention_applicable(small, small, small)
     big_q = torch.zeros(1, ops.DENSE_MAX_SEQ, 1, 8)
     assert ops.flash_attention_applicable(big_q, big_q, big_q)
+
+
+# ---------------------------------------------------------------------------
+# ring attention's block backward (the backward of one carry step)
+# ---------------------------------------------------------------------------
+
+#: (B, Sq, Skv, H, KV, hd, causal, window, q_offset, k_offset): nonzero
+#: k_offset, negative q_offset - k_offset (causal with part visible, and
+#: not causal), ragged Skv that is not a multiple of 512, windows, MQA 48/1
+BLOCK_CASES = [
+    (1, 32, 48, 4, 2, 16, True, 0, 64, 32),
+    (1, 32, 40, 4, 2, 16, True, 0, 16, 40),
+    (1, 32, 40, 4, 2, 16, False, 0, 0, 100),
+    (2, 24, 600, 4, 1, 16, True, 0, 600, 0),
+    (1, 32, 64, 4, 2, 16, True, 20, 64, 16),
+    (1, 16, 24, 48, 1, 8, True, 0, 8, 0),
+    (1, 32, 32, 4, 2, 16, False, 12, 10, 30),
+]
+BLOCK_TOL = 2e-5
+
+
+def _block_inputs(case, seed=0):
+    """q, k, v, dout, lse, dsum as numpy f32; lse is the plain forward's
+    over this block (so p <= 1) and dsum = sum(dout * out)."""
+    b, sq, skv, h, kvh, hd, causal, window, qo, ko = case
+    q, k, v, dout = _inputs((b, sq, skv, h, kvh, hd), seed)
+    out, lse = fa.flash_attention_torch(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window, q_offset=qo - ko)
+    dsum = (torch.from_numpy(dout) * out).sum(-1)
+    return q, k, v, dout, lse.contiguous().numpy(), dsum.numpy()
+
+
+def _block_kw(case):
+    return dict(causal=case[6], window=case[7], q_offset=case[8],
+                k_offset=case[9])
+
+
+def _port_block(route, args, kw):
+    if route == "plain":
+        return fa.flash_attention_bwd_block_torch(*args, **kw)
+    return ops.flash_attention_bwd_block(*args, engine=route, **kw)
+
+
+@pytest.mark.parametrize("route", ["plain", "auto", "torch"])
+@pytest.mark.parametrize("case", BLOCK_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_block_backward_matches_reference(case, route):
+    """The plain block backward, and ``ops.flash_attention_bwd_block`` on
+    CPU tensors (engine auto and torch), against the reference's
+    ``ops.flash_attention_bwd_block``: f32 outputs within 2e-5."""
+    arrs = _block_inputs(case)
+    got = _port_block(route, [torch.from_numpy(a) for a in arrs],
+                      _block_kw(case))
+    want = ref_ops.flash_attention_bwd_block(
+        *(jnp.asarray(a) for a in arrs), **_block_kw(case))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=BLOCK_TOL,
+                                   atol=BLOCK_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_block_backward_on_bf16_inputs_matches_reference(case):
+    """bf16 q, k, v and dout (f32 lse and dsum): the port upcasts as the
+    reference does and returns f32 within 2e-5 of it."""
+    q, k, v, dout, lse, dsum = _block_inputs(case)
+    bf = [torch.from_numpy(a).bfloat16() for a in (q, k, v, dout)]
+    got = ops.flash_attention_bwd_block(*bf, torch.from_numpy(lse),
+                                        torch.from_numpy(dsum),
+                                        **_block_kw(case))
+    want = ref_ops.flash_attention_bwd_block(
+        *(jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16) for t in bf),
+        jnp.asarray(lse), jnp.asarray(dsum), **_block_kw(case))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=BLOCK_TOL,
+                                   atol=BLOCK_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shift", [-64, 100, 1000])
+def test_block_backward_depends_only_on_offset_difference(shift):
+    """Shifting q_offset and k_offset together leaves every output bit for
+    bit: the mask sees only q_offset - k_offset, which is why the kernel
+    takes that one number."""
+    case = BLOCK_CASES[4]
+    args = [torch.from_numpy(a) for a in _block_inputs(case)]
+    kw = _block_kw(case)
+    want = ops.flash_attention_bwd_block(*args, **kw)
+    kw["q_offset"] += shift
+    kw["k_offset"] += shift
+    got = ops.flash_attention_bwd_block(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_block_backward_on_cpu_launches_nothing():
+    args = [torch.from_numpy(a) for a in _block_inputs(BLOCK_CASES[0])]
+    before = fa.BWD_BLOCK_LAUNCHES
+    got = fa.flash_attention_bwd_block(*args, **_block_kw(BLOCK_CASES[0]))
+    want = fa.flash_attention_bwd_block_torch(*args,
+                                              **_block_kw(BLOCK_CASES[0]))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert fa.BWD_BLOCK_LAUNCHES == before
+
+
+def test_block_backward_rejects_bad_inputs():
+    q, k, v, dout, lse, dsum = (torch.from_numpy(a) for a in
+                                _block_inputs(BLOCK_CASES[0]))
+    kw = _block_kw(BLOCK_CASES[0])
+    with pytest.raises(ValueError, match="fit"):
+        fa.flash_attention_bwd_block(q, k, v, dout, lse, dsum[:, 1:], **kw)
+    with pytest.raises(ValueError, match="fit"):
+        fa.flash_attention_bwd_block(q, k, v, dout, lse[..., :1], dsum, **kw)
+    with pytest.raises(ValueError, match="fit"):
+        fa.flash_attention_bwd_block(q, k, v, dout[:, :5], lse, dsum, **kw)
+    with pytest.raises(TypeError, match="f32"):
+        fa.flash_attention_bwd_block(q, k, v, dout, lse, dsum.double(), **kw)
+    with pytest.raises(TypeError, match="f32"):
+        fa.flash_attention_bwd_block(q, k, v, dout, lse.bfloat16(), dsum,
+                                     **kw)
+    with pytest.raises(ValueError, match="engine"):
+        ops.flash_attention_bwd_block(q, k, v, dout, lse, dsum,
+                                      engine="pallas", **kw)
+
+
+def _ref_ring_grads(q, k, v, dout, causal, window):
+    """jax.grad of the reference's managed_ring_attention at one rank
+    (a one-device mesh)."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import managed as ref_managed
+    from repro.parallel.sharding import smap
+
+    spec = P(None, "x")
+
+    def loss(q_, k_, v_, d_):
+        return jnp.sum(ref_managed.managed_ring_attention(
+            q_, k_, v_, "x", causal, window, None) * d_)
+
+    grads = jax.jit(smap(jax.grad(loss, argnums=(0, 1, 2)),
+                         jax.make_mesh((1,), ("x",)), in_specs=(spec,) * 4,
+                         out_specs=(spec,) * 3))
+    return grads(*(jnp.asarray(a) for a in (q, k, v, dout)))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 20)])
+def test_one_rank_ring_with_plain_engine_matches_reference(monkeypatch,
+                                                           causal, window):
+    """``managed_ring_attention(..., engine="torch")`` at one rank: its
+    backward takes the plain block backward (the kernel's wrapper is never
+    reached) and its gradients equal the reference's (3e-4 / 3e-5, as the
+    ring tests hold them)."""
+    from repro_torch.core import managed
+    from repro_torch.parallel.sharding import MeshCtx
+
+    q, k, v, dout = _inputs((1, 64, 64, 4, 2, 16))
+    want = _ref_ring_grads(q, k, v, dout, causal, window)
+
+    def refuse(*a, **kw):
+        raise AssertionError("engine='torch' reached the block kernel")
+
+    monkeypatch.setattr(ops, "fa_bwd_block", refuse)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = managed.managed_ring_attention(*leaves, "x", MeshCtx({"x": 1}),
+                                         causal, window, engine="torch")
+    (out * torch.from_numpy(dout)).sum().backward()
+    for t, w, nm in zip(leaves, want, "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=3e-4,
+                                   atol=3e-5, err_msg=f"d{nm}")

@@ -107,7 +107,10 @@ def test_paged_attention_kernel_rejects_noncontiguous(cuda):
 #: lengths that are not multiples of the kernels' 64-row tiles; then the
 #: edges of the bf16 kernel's 128-row tiles: Sq and Skv of 127, 129 and
 #: 257, a window of 100 (less than a tile), a causal q_offset that puts
-#: the diagonal mid-tile, and MQA 48/1 at hd 64
+#: the diagonal mid-tile, and MQA 48/1 at hd 64; then the edges of the
+#: bf16 backward's 128-row kv tiles and 64-row query tiles: Skv of 127,
+#: 129 and 257, Sq that is not a multiple of 64, at G = 1, 4 and 48 and
+#: hd 64 and 128
 FLASH_CASES = [
     (2, 256, 256, 32, 8, 128, True, 0, 0),
     (1, 200, 200, 32, 8, 128, False, 0, 0),
@@ -122,6 +125,12 @@ FLASH_CASES = [
     (1, 257, 257, 32, 8, 128, True, 100, 0),
     (1, 129, 257, 32, 8, 128, True, 0, 60),
     (1, 200, 200, 48, 1, 64, True, 0, 0),
+    (1, 100, 127, 8, 8, 64, True, 0, 27),
+    (1, 129, 129, 8, 8, 128, True, 0, 0),
+    (1, 70, 129, 16, 4, 128, False, 0, 0),
+    (1, 190, 257, 16, 4, 64, True, 30, 67),
+    (2, 150, 257, 48, 1, 128, True, 0, 107),
+    (1, 65, 127, 48, 1, 64, False, 0, 0),
 ]
 
 
@@ -425,6 +434,139 @@ def test_flash_carry_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_carry(q.bfloat16(), _misaligned(k.bfloat16()),
                                  v.bfloat16(), *carry)
     assert fa.CARRY_LAUNCHES == c0
+
+
+@pytest.mark.gpu
+def test_flash_backward_twice_agrees(cuda):
+    """The bf16 backward run twice on the same inputs.  Its f32 workspaces
+    sum the CTAs' contributions with atomics, in an order that changes
+    from run to run, so the two runs may differ in the last bits of the
+    f32 sums: within 1e-6 of the largest magnitude before the bf16
+    rounding, and so within one bf16 rounding (2e-2, as against the plain
+    version) after it."""
+    q, k, v, dout = _flash_inputs(cuda, torch.bfloat16, 2, 256, 256, 32, 8,
+                                  128)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    dsum = (dout.float() * out.float()).sum(-1)
+    blocks = [fa.flash_attention_bwd_block(q, k, v, dout, lse, dsum,
+                                           causal=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        _close(a, b, 2e-2, name)
+    for name, a, b in zip(("dq", "dk", "dv"), *blocks):
+        _close(a, b, 1e-6, f"block {name}")
+
+
+@pytest.mark.gpu
+def test_flash_backward_rejects_misaligned_bases(cuda):
+    """TMA, which feeds the bf16 backward, needs 16-byte aligned bases:
+    the launcher refuses others and the wrappers raise without counting."""
+    q, k, v, dout = _flash_inputs(cuda, torch.bfloat16, 1, 64, 64, 4, 2, 128)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dsum = (dout.float() * out.float()).sum(-1)
+    b0, k0 = fa.BWD_LAUNCHES, fa.BWD_BLOCK_LAUNCHES
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_attention_bwd(q, k, v, out, lse, _misaligned(dout))
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_attention_bwd_block(q, _misaligned(k), v, dout, lse, dsum,
+                                     causal=True)
+    assert (fa.BWD_LAUNCHES, fa.BWD_BLOCK_LAUNCHES) == (b0, k0)
+
+
+# ---------------------------------------------------------------------------
+# ring attention's block backward
+# ---------------------------------------------------------------------------
+
+#: (B, Sq, Skv, H, KV, hd, causal, window, q_offset, k_offset): the block
+#: before the q rows, on the diagonal, a window, a negative offset
+#: difference (not causal, and causal with part visible), G = 1, 4, 48,
+#: ragged Sq and Skv, and a block that nothing sees
+BLOCK_CASES = [
+    (1, 256, 256, 32, 8, 128, True, 0, 256, 0),
+    (1, 256, 256, 32, 8, 128, True, 0, 256, 256),
+    (1, 200, 300, 8, 2, 64, True, 100, 300, 150),
+    (2, 130, 129, 48, 1, 128, False, 0, 0, 500),
+    (1, 127, 257, 8, 8, 128, True, 0, 100, 0),
+    (1, 96, 160, 16, 4, 64, True, 0, 0, 64),
+    (1, 64, 64, 8, 2, 128, True, 0, 0, 128),
+]
+
+
+def _block_inputs(cuda, dtype, b, sq, skv, h, kvh, hd, causal, window,
+                  q_offset, k_offset, seed=0):
+    """q, k, v, dout in ``dtype``; lse of the plain forward over this
+    block and dsum = sum(dout * out), both f32 (so p <= 1)."""
+    q, k, v, dout = _flash_inputs(cuda, dtype, b, sq, skv, h, kvh, hd, seed)
+    out, lse = fa.flash_attention_torch(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        q_offset=q_offset - k_offset)
+    return q, k, v, dout, lse.contiguous(), (dout.float() * out).sum(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BLOCK_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_block_backward_matches_plain(cuda, dtype, case):
+    """The block backward's f32 outputs against
+    ``flash_attention_bwd_block_torch`` run in f32 on the same (upcast)
+    inputs, within 1e-4 of the largest magnitude of each, in both types:
+    the bf16 kernel keeps P and dS as bf16 hi/lo pairs (to about 2^-17);
+    one bf16 rounding of either would miss this tolerance."""
+    b, sq, skv, h, kvh, hd, causal, window, qo, ko = case
+    q, k, v, dout, lse, dsum = _block_inputs(cuda, dtype, *case)
+    kw = dict(causal=causal, window=window, q_offset=qo, k_offset=ko)
+    c0 = fa.BWD_BLOCK_LAUNCHES
+    got = fa.flash_attention_bwd_block(q, k, v, dout, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_BLOCK_LAUNCHES == c0 + 1
+    want = fa.flash_attention_bwd_block_torch(
+        q.float(), k.float(), v.float(), dout.float(), lse, dsum, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        scale = max(w.abs().max().item(), 1e-30)
+        assert err <= 1e-4 * scale or err == 0.0, \
+            f"{name}: max|err| {err:.3e} > 1e-4 x {scale:.3g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_block_backward_virtual_ring_equals_one_rank(cuda, dtype):
+    """One card plays a causal 4-rank ring: each rank's q block against
+    every kv block it sees (k_offset = src * 128), dq summed per q block
+    and dk, dv per kv block, equals the block backward over the whole
+    sequence at one rank, within 1e-4 of the largest magnitude (f32 sums
+    taken in another order)."""
+    n, blk, h, kvh, hd = 4, 128, 8, 2, 128
+    q, k, v, dout, lse, dsum = _block_inputs(cuda, dtype, 1, n * blk,
+                                             n * blk, h, kvh, hd, True, 0,
+                                             0, 0)
+    want = fa.flash_attention_bwd_block(q, k, v, dout, lse, dsum,
+                                        causal=True)
+    dq = torch.zeros_like(want[0])
+    dk = torch.zeros_like(want[1])
+    dv = torch.zeros_like(want[2])
+    rows = [slice(r * blk, (r + 1) * blk) for r in range(n)]
+    for rank in range(n):
+        for src in range(rank + 1):
+            gq, gk, gv = fa.flash_attention_bwd_block(
+                q[:, rows[rank]].contiguous(), k[:, rows[src]].contiguous(),
+                v[:, rows[src]].contiguous(),
+                dout[:, rows[rank]].contiguous(),
+                lse[:, rows[rank]].contiguous(),
+                dsum[:, rows[rank]].contiguous(), causal=True,
+                q_offset=rank * blk, k_offset=src * blk)
+            dq[:, rows[rank]] += gq
+            dk[:, rows[src]] += gk
+            dv[:, rows[src]] += gv
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), f"{name}: {err:.3e}"
 
 
 # ---------------------------------------------------------------------------
