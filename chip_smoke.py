@@ -13,11 +13,17 @@ phase that fails:
                ptxas's registers, spills and stack, and count the
                tensor-core (HGMMA) instructions of each flash kernel in its
                SASS: the bf16 forward, carry, backward and block-backward
-               kernels must have some;
+               kernels must have some, and the paged kernel's bf16 fast
+               path must not spill (no stack or local memory in
+               ``cuobjdump -res-usage`` of the built library);
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
-               the card at the stated tolerances (paged attention; flash
-               attention forward and backward), then timed beside its
-               bound, the plain version and a library yardstick;
+               the card at the stated tolerances (paged attention, with
+               its split plan, and its bf16 fast path's f32 split
+               partials within 1e-4 of their size; flash attention
+               forward and backward), then timed beside its bound, the
+               plain version and a library yardstick: paged attention at
+               the serve, long-context, granite MQA (48/1) and moonshot
+               G=1 (16/16) shapes;
   3. serve   — phi4-mini-3.8b at its published size (32 layers, bf16,
                seeded random weights) through ServeEngine; the kernel's
                launch count must equal n_layers x decode steps;
@@ -139,6 +145,39 @@ def hgmma_counts(build) -> dict[str, int]:
     return counts
 
 
+def paged_resources(build) -> dict[str, dict[str, int]]:
+    """Registers, stack and local memory (bytes per thread) of each kernel
+    of the paged bf16 fast path, read with ``cuobjdump -res-usage`` from
+    the built library (a spill would show as stack or local memory)."""
+    import re
+    from pathlib import Path
+
+    lib = build._target("paged_attention")
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    report = subprocess.run([str(tool), "-res-usage", str(lib)],
+                            capture_output=True, text=True, timeout=300,
+                            check=True).stdout
+    usage: dict[str, dict[str, int]] = {}
+    name = None
+    for line in report.splitlines():
+        found = re.search(r"Function (\S+?):", line)
+        if found:
+            kernel = re.search(r"paged_(mma|merge)_kernel(?:ILi(\d+)E)?",
+                               found.group(1))
+            name = kernel and f"paged_{kernel.group(1)}_kernel" + (
+                f"<{kernel.group(2)}>" if kernel.group(2) else "")
+        if name and "REG:" in line:
+            usage[name] = {key.lower(): int(n) for key, n in re.findall(
+                r"\b(REG|STACK|LOCAL):(\d+)", line)}
+            name = None
+    want = [f"paged_mma_kernel<{hd}>" for hd in (32, 64, 128, 192)] + [
+        "paged_merge_kernel"]
+    if sorted(usage) != sorted(want):
+        fail(f"cuobjdump -res-usage shows the paged fast path's kernels "
+             f"{sorted(usage)}, not {want}:\n{report[:3000]}")
+    return usage
+
+
 def eager_ms(torch, fns, reps: int) -> float:
     """Milliseconds per call of the calls in ``fns``, each issued from
     Python ``reps`` times (CUDA events around the loop): the device time
@@ -213,6 +252,11 @@ def paged_inputs(torch, rng, *, b, h, kvh, hd, page, lens, n_pages, dtype):
             torch.tensor(np.asarray(lens, np.int32), device=dev))
 
 
+#: bytes of K/V chains the timed paged calls cycle through: twice the
+#: H100's 50 MB L2, so each call reads from HBM
+COLD_BYTES = 100_000_000
+
+
 def paged_bound(lens, window, h, kvh, hd, page, dtype_name, itemsize):
     """Least time for one call: K/V bytes the call needs (each input read
     once, the output written once) over HBM, against the flops over the
@@ -230,6 +274,25 @@ def paged_bound(lens, window, h, kvh, hd, page, dtype_name, itemsize):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_split_err(torch, paged, q, kp, vp, table, lens, window):
+    """The fast path's f32 split partials (m, l, acc from the card's
+    workspace) against the plain ones in f32 on the same bf16 inputs: the
+    worst error relative to their size (acc: to the largest |acc| of its
+    split).  It shows that P stays f32 in P.V, which the bf16 output
+    cannot: P in bf16 moves acc by about 1e-3 of its size."""
+    plan, (m, l, acc) = paged.split_partials(q, kp, vp, table, lens,
+                                             window=window)
+    m_r, l_r, acc_r = paged.split_partials_torch(
+        q.float(), kp.float(), vp.float(), table, lens,
+        plan.pages_per_split, window=window)
+    if not torch.equal(l > 0, l_r > 0):
+        return float("inf")
+    size = acc_r.abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-30)
+    return max(((l - l_r).abs() / l_r.clamp_min(1e-30)).max().item(),
+               ((m - m_r).abs() / m_r.abs().clamp_min(1.0)).max().item(),
+               ((acc - acc_r).abs() / size).max().item())
+
+
 def phase_kernel(torch):
     import torch.nn.functional as F
 
@@ -239,13 +302,15 @@ def phase_kernel(torch):
     page, hd = 16, 128
     ragged = [0, 1, 16, 17, 32, 100, 255, 288]        # 0, 1, page edges
     errs = {}
-    cases = [(32, 8, 0), (32, 8, 64), (48, 1, 0)]     # (H, KV, window)
+    # (H, KV, window): phi4-mini's GQA, a window, granite's MQA, moonshot
+    cases = [(32, 8, 0), (32, 8, 64), (48, 1, 0), (16, 16, 0)]
     for dtype, tol in ((torch.float32, dict(atol=1e-4, rtol=0.0)),
                        (torch.bfloat16, dict(atol=2e-2, rtol=2e-2))):
         for h, kvh, window in cases:
             q, kp, vp, table, lens = paged_inputs(
                 torch, rng, b=8, h=h, kvh=kvh, hd=hd, page=page,
                 lens=ragged, n_pages=160, dtype=dtype)
+            plan = paged.launch_plan(q, kp, table)
             got = paged.paged_attention(q, kp, vp, table, lens,
                                         window=window)
             torch.cuda.synchronize()
@@ -264,12 +329,28 @@ def phase_kernel(torch):
                 torch.testing.assert_close(got.float(), want, **tol)
             except AssertionError as e:
                 fail(f"kernel disagrees with the plain version ({name}): {e}")
-            print(f"  kernel vs plain {name}: max|err| {err:.3e} "
-                  f"(atol {tol['atol']}, rtol {tol['rtol']})", flush=True)
+            print(f"  kernel vs plain {name} ({plan.engine}, "
+                  f"{plan.n_splits} splits of {plan.pages_per_split} "
+                  f"pages): max|err| {err:.3e} (atol {tol['atol']}, rtol "
+                  f"{tol['rtol']})", flush=True)
+            if plan.engine == "mma" and plan.n_splits > 1:
+                split_err = paged_split_err(torch, paged, q, kp, vp, table,
+                                            lens, window)
+                if not split_err <= 1e-4:
+                    fail(f"the fast path's f32 split partials are off by "
+                         f"{split_err:.3e} of their size ({name}): P is "
+                         f"not f32 in P.V")
+                print(f"    f32 split partials vs plain in f32: "
+                      f"{split_err:.3e} of their size (limit 1e-4)",
+                      flush=True)
 
-    def measure(label, *, b, lens, n_pages, copies, calls, reps,
-                plain_reps):
-        h, kvh = 32, 8
+    def measure(label, *, h, kvh, b, lens, reps, plain_reps):
+        # copies of the pools whose chains together exceed twice the 50 MB
+        # L2, so that each call reads its K/V from HBM as consecutive
+        # layers do; each pool holds the chains and one spare page
+        touched = sum(lens) * kvh * hd * 2 * 2
+        copies = max(1, -(-COLD_BYTES // touched))
+        n_pages = sum(-(-n // page) for n in lens) + 1
         sets = [paged_inputs(torch, rng, b=b, h=h, kvh=kvh, hd=hd,
                              page=page, lens=lens, n_pages=n_pages,
                              dtype=torch.bfloat16) for _ in range(copies)]
@@ -291,17 +372,22 @@ def phase_kernel(torch):
                                                   enable_gqa=True)
 
         kernel = [lambda s=s: paged.paged_attention(*s) for s in sets]
-        plain = [lambda s=s: paged.paged_attention_torch(*s) for s in sets]
+        plain = [lambda s=s: paged.paged_attention_torch(*s)
+                 for s in sets[:2]]
         lib = [lambda i=i: sdpa(i) for i in range(copies)]
-        ms = graph_ms(torch, kernel * calls, reps)
-        call_ms = eager_ms(torch, kernel, reps * calls)
+        plan = paged.launch_plan(*sets[0][:2], sets[0][3])
+        ms = graph_ms(torch, kernel, reps)
+        call_ms = eager_ms(torch, kernel, reps)
         plain_ms = graph_ms(torch, plain, plain_reps)
-        lib_ms = graph_ms(torch, lib * calls, reps)
+        lib_ms = graph_ms(torch, lib, reps)
         bound_ms, bound_by = paged_bound(lens, 0, h, kvh, hd, page,
                                          "bfloat16", 2)
         print(f"  paged_attention {label}: kernel {ms:.4f} ms on the "
-              f"device ({call_ms:.4f} ms per call issued from Python), "
-              f"bound {bound_ms:.4f} ms ({bound_by}; the kernel reaches "
+              f"device ({plan.engine} engine, {plan.n_splits} splits of "
+              f"{plan.pages_per_split} pages, {plan.ctas} CTAs, {copies} "
+              f"pool copies; "
+              f"{call_ms:.4f} ms per call issued from Python), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; the kernel reaches "
               f"{bound_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, "
               f"library yardstick F.scaled_dot_product_attention on "
               f"pre-gathered K/V {lib_ms:.4f} ms", flush=True)
@@ -309,16 +395,18 @@ def phase_kernel(torch):
                     bound_by=bound_by, library_ms=lib_ms)
 
     # the serving phase's shape: 8 slots, phi4-mini's heads, 16-token
-    # pages, 256 + 1 pool pages, chains of 64..288 positions; enough pool
-    # copies to exceed the 50 MB L2, as consecutive layers do
+    # pages, chains of 64..288 positions
     serve_lens = [int(x) for x in rng.integers(64, 289, size=8)]
-    main = measure("serve shape (B=8, bf16, lens 64-288)", b=8,
-                   lens=serve_lens, n_pages=257, copies=4, calls=8,
-                   reps=10, plain_reps=5)
+    main = measure("serve shape (B=8, 32/8 heads, bf16, lens 64-288)",
+                   h=32, kvh=8, b=8, lens=serve_lens, reps=10, plain_reps=5)
     long_lens = [int(x) for x in rng.integers(2048, 8193, size=32)]
-    measure("long context (B=32, bf16, lens 2048-8192)", b=32,
-            lens=long_lens, n_pages=sum(-(-n // page) for n in long_lens),
-            copies=1, calls=4, reps=5, plain_reps=2)
+    measure("long context (B=32, 32/8 heads, bf16, lens 2048-8192)", h=32,
+            kvh=8, b=32, lens=long_lens, reps=20, plain_reps=2)
+    # granite-34b's MQA and moonshot's G=1 at the serving lens
+    measure("granite MQA (B=8, 48/1 heads, bf16, lens 64-288)", h=48,
+            kvh=1, b=8, lens=serve_lens, reps=10, plain_reps=5)
+    measure("moonshot G=1 (B=8, 16/16 heads, bf16, lens 64-288)", h=16,
+            kvh=16, b=8, lens=serve_lens, reps=10, plain_reps=5)
     bf16_err = max(v for k, v in errs.items() if k.startswith("bfloat16"))
     return main, bf16_err
 
@@ -2199,6 +2287,13 @@ def main() -> int:
                  f"kernels (hd 64 and 128) must run on the tensor cores; "
                  f"HGMMA counts {counts}")
 
+    usage = paged_resources(build)
+    for kernel, u in sorted(usage.items()):
+        print(f"  {kernel}: {u.get('reg')} registers, stack {u.get('stack')}"
+              f" B, local {u.get('local')} B (cuobjdump -res-usage)",
+              flush=True)
+    if any(u.get("stack", 1) or u.get("local", 1) for u in usage.values()):
+        fail(f"the paged bf16 fast path spills registers: {usage}")
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)
     flash_t, flash_err = phase_flash(torch)

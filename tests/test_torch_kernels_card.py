@@ -98,6 +98,150 @@ def test_paged_attention_kernel_rejects_noncontiguous(cuda):
                               kp, vp, table, lens)
 
 
+def _split_inputs(cuda, dtype, kvh, groups, hd, page, seed):
+    """Chains that the card's split plan cuts several times: lens just
+    below, at and above a split boundary, lens == 0, lens = pmax * page and
+    past it, a long chain with a page id outside the pool in its middle,
+    and garbage ids (in and out of the pool) past every chain.  Returns
+    the tensors and the split boundary in positions."""
+    b, pmax = 8, 40
+    npool = b * pmax + 10
+    rng = np.random.default_rng(seed)
+    q, kp, vp, table, _ = _paged_inputs(rng, b, kvh * groups, kvh, hd, page,
+                                        pmax, npool)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, table)]
+    plan = paged.launch_plan(args[0].to(torch.bfloat16), args[1],
+                             args[3])
+    bnd = plan.pages_per_split * page
+    lens = np.array([bnd - 1, bnd, bnd + 1, 0, pmax * page,
+                     pmax * page + 7, 2 * bnd + 5, 1], np.int32)
+    for i in range(b):
+        used = min(pmax, -(-int(lens[i]) // page))
+        table[i, used:] = rng.integers(-npool, 3 * npool, size=pmax - used)
+    table[6, plan.pages_per_split + 1] = npool + 5     # mid-chain, no page
+    args[3] = torch.from_numpy(table).to(cuda)
+    args.append(torch.from_numpy(lens).to(cuda))
+    for i in range(3):
+        args[i] = args[i].to(dtype)
+    return args, bnd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 192])
+@pytest.mark.parametrize("kvh,groups", [(4, 1), (2, 4), (2, 6), (1, 12),
+                                        (1, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", ["none", "mid", "short"])
+def test_paged_attention_split_kv_edges(cuda, dtype, kvh, groups, hd, page,
+                                        window):
+    """The kernel against the plain version in f32 (f32 atol 1e-4; bf16
+    atol/rtol 2e-2) where split-KV can go wrong: lens around a split
+    boundary, a window that starts mid-split ("mid") or empties all but
+    the last split of the long chains ("short"), an out-of-pool page
+    mid-chain, lens at and past pmax * page; lens == 0 gives exact
+    zeros.  bf16 runs the split-KV fast path (hd 192 is nemotron's), f32
+    the SIMT kernel."""
+    args, bnd = _split_inputs(cuda, dtype, kvh, groups, hd, page,
+                              seed=kvh * groups + hd + page)
+    win = {"none": 0, "mid": bnd // 2 + 3, "short": 5}[window]
+    plan = paged.launch_plan(args[0], args[1], args[3])
+    if dtype == torch.bfloat16:
+        assert plan.engine == "mma" and plan.n_splits > 3
+    else:
+        assert plan.engine == "simt"
+    before = paged.LAUNCHES
+    got = paged.paged_attention(*args, window=win)
+    torch.cuda.synchronize()
+    assert paged.LAUNCHES == before + 1
+    want = paged.paged_attention_torch(
+        *[a.float() if i < 3 else a for i, a in enumerate(args)],
+        window=win)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    rtol = 0.0 if dtype == torch.float32 else tol
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=tol)
+    assert torch.equal(got[3].float(), torch.zeros_like(got[3].float()))
+
+
+def assert_split_partials_close(got, want, rel=1e-4):
+    """Each split's f32 partials (m, l, acc) from the card against the
+    plain ones on the same inputs in f32: m and l within ``rel`` of their
+    size, acc within ``rel`` of the largest |acc| of its split.  P in bf16
+    instead of the kernel's hi + lo pair moves acc by about 1e-3 of it."""
+    (m, l, acc), (m_ref, l_ref, acc_ref) = got, want
+    torch.testing.assert_close(l, l_ref, rtol=rel, atol=0.0)
+    live = l_ref > 0
+    torch.testing.assert_close(m[live], m_ref[live], rtol=rel, atol=rel)
+    assert bool((m[~live] == m_ref[~live]).all())
+    size = acc_ref.abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-30)
+    worst = ((acc - acc_ref).abs() / size).max().item()
+    assert worst <= rel, f"acc off by {worst:.3e} of its size (> {rel})"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64, 128, 192])
+@pytest.mark.parametrize("kvh,groups", [(4, 1), (2, 4), (2, 6), (1, 12),
+                                        (1, 48)])
+@pytest.mark.parametrize("window", ["none", "mid"])
+def test_paged_attention_split_partials_keep_p_in_f32(cuda, kvh, groups, hd,
+                                                      window):
+    """P stays f32 in P.V on the fast path (the TPU kernel's f32 product):
+    the f32 partials of every split, read from the card's workspace, equal
+    the plain version's in f32 on the same bf16 inputs within 1e-4 of
+    their size, which the bf16 output cannot show."""
+    args, bnd = _split_inputs(cuda, torch.bfloat16, kvh, groups, hd, 16,
+                              seed=7 * groups + hd)
+    win = {"none": 0, "mid": bnd // 2 + 3}[window]
+    plan, got = paged.split_partials(*args, window=win)
+    torch.cuda.synchronize()
+    want = paged.split_partials_torch(
+        *[a.float() if i < 3 else a for i, a in enumerate(args)],
+        plan.pages_per_split, window=win)
+    assert got[2].shape == want[2].shape == (plan.n_splits, *args[0].shape)
+    assert_split_partials_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [4, 48])
+def test_paged_attention_split_kv_is_deterministic_and_graph_safe(cuda,
+                                                                  groups):
+    """Two calls give the same bits (the splits merge in a fixed order),
+    and the wrapper captured in a CUDA graph and replayed gives the eager
+    call's bits: it reads nothing back from the card."""
+    kvh = 8 if groups == 4 else 1
+    args, _ = _split_inputs(cuda, torch.bfloat16, kvh, groups, 128, 16,
+                            seed=groups)
+    first = paged.paged_attention(*args)
+    second = paged.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged.paged_attention(*args)          # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = paged.paged_attention(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.gpu
+def test_paged_attention_rejects_unaligned_pool(cuda):
+    """The fast path's 16-byte copies need 16-byte aligned bases: a pool
+    that starts 2 bytes into its buffer is refused, not read."""
+    args, _ = _split_inputs(cuda, torch.bfloat16, 2, 4, 64, 16, seed=3)
+    kp = args[1]
+    buf = torch.empty(kp.numel() + 1, dtype=kp.dtype, device=cuda)
+    shifted = buf[1:].view(kp.shape)
+    shifted.copy_(kp)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte"):
+        paged.paged_attention(args[0], shifted, args[2], args[3], args[4])
+
+
 # ---------------------------------------------------------------------------
 # flash attention, forward and backward
 # ---------------------------------------------------------------------------

@@ -157,3 +157,102 @@ def test_wrapper_rejects_malformed_inputs():
     with pytest.raises(ValueError):
         paged.paged_attention(_t(q), _t(kp), _t(vp), _t(table), _t(lens),
                               engine="pallas")
+
+
+# ---------------------------------------------------------------------------
+# The card's split-KV plan: a pure function of the shapes, and the merge of
+# its splits' partials in split order
+# ---------------------------------------------------------------------------
+
+#: (pmax, page, B, KV, row tiles): the serve shape (phi4-mini, B=8,
+#: chains to 288), granite's MQA (48 heads over 1: 3 row tiles), moonshot
+#: (G=1), the long-context shape, the decode step's 512-position table,
+#: a one-slot 128K chain, a huge batch and a tiny table
+PLAN_SHAPES = [(18, 16, 8, 8, 1), (18, 16, 8, 1, 3), (18, 16, 8, 16, 1),
+               (512, 16, 32, 8, 1), (32, 16, 8, 8, 1), (8192, 16, 1, 1, 1),
+               (64, 8, 512, 8, 1), (3, 8, 1, 1, 1), (1, 16, 4, 2, 3)]
+N_SM = 132      # an H100 SXM's SMs
+
+
+def _splits(pmax, pps, n):
+    return [(s * pps, min((s + 1) * pps, pmax)) for s in range(n)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_split_plan_covers_every_column_once(shape):
+    pmax, page, b, kvh, rt = shape
+    pps, n = paged.split_plan(pmax, page, b, kvh, rt, N_SM)
+    assert 1 <= pps <= paged.MAX_SPLIT_PAGES
+    assert n == -(-pmax // pps)
+    cols = [c for lo, hi in _splits(pmax, pps, n) for c in range(lo, hi)]
+    assert cols == list(range(pmax))          # each column once, in order
+    assert all(hi > lo for lo, hi in _splits(pmax, pps, n))
+    assert paged.split_plan(pmax, page, b, kvh, rt, N_SM) == (pps, n)
+
+
+@pytest.mark.parametrize("shape", [(18, 16, 8, 8, 1), (18, 16, 8, 1, 3),
+                                   (18, 16, 8, 16, 1), (512, 16, 32, 8, 1)])
+def test_split_plan_fills_the_card(shape):
+    """The serve, MQA, G=1 and long-context shapes get at least the fill
+    target of CTAs (FILL_CTAS_PER_SM per SM)."""
+    pmax, page, b, kvh, rt = shape
+    pps, n = paged.split_plan(pmax, page, b, kvh, rt, N_SM)
+    assert n * b * kvh * rt >= paged.FILL_CTAS_PER_SM * N_SM
+
+
+def test_split_plan_rejects_empty_sizes():
+    with pytest.raises(ValueError):
+        paged.split_plan(0, 16, 8, 8, 1, N_SM)
+
+
+def split_cases():
+    """Chains cut by the plan at a small SM count, so they have several
+    splits: lens just below, at and above a split boundary, a window that
+    starts mid-split and empties whole splits, an out-of-pool page in the
+    middle of a chain, lens == 0, lens = pmax * page and lens past it, and
+    garbage table entries past every chain."""
+    b, h, kvh, hd, page, pmax, npool = 8, 8, 2, 16, 4, 12, 120
+    pps, n = paged.split_plan(pmax, page, b, kvh, 1, 80)
+    bnd = pps * page
+    lens = np.array([bnd - 1, bnd, bnd + 1, 0, pmax * page,
+                     pmax * page + 9, 2 * bnd + 3, 1], np.int32)
+    rng = np.random.default_rng(21)
+    q, kp, vp, table, _ = _inputs(rng, b, h, kvh, hd, page, pmax, npool)
+    for i in range(b):
+        used = min(pmax, -(-int(lens[i]) // page))
+        table[i, used:] = rng.integers(-npool, 2 * npool, size=pmax - used)
+    table[6, pps + 1] = npool + 7            # out of the pool, mid-chain
+    return q, kp, vp, table, lens, pps, n, bnd
+
+
+@pytest.mark.parametrize("window", ["none", "mid", "short"])
+def test_split_partials_merge_to_reference(window):
+    """Each split's partials (split_partials_torch: the table with the
+    other columns set to -1, which is outside the pool and contributes
+    nothing), merged in split order with merge_partials, equal the
+    reference's paged attention."""
+    q, kp, vp, table, lens, pps, n, bnd = split_cases()
+    assert n > 3
+    win = {"none": 0, "mid": bnd // 2 + 3, "short": 3}[window]
+    m, l, acc = paged.split_partials_torch(_t(q), _t(kp), _t(vp), _t(table),
+                                           _t(lens), pps, window=win)
+    assert m.shape == l.shape == (n, 8, 8) and acc.shape == (n, 8, 8, 16)
+    carry = (m[0][:, None], l[0][:, None], acc[0][:, None])
+    for s in range(1, n):
+        carry = fa.merge_partials(
+            carry, (m[s][:, None], l[s][:, None], acc[s][:, None]))
+    out, _ = fa.finalize_partials(*carry, out_dtype=torch.float32)
+    want = ref_paged.paged_attention_jnp(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table), jnp.asarray(lens), window=win)
+    np.testing.assert_allclose(out[:, 0].numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(out[3, 0].numpy(), 0.0)     # lens == 0
+
+
+def test_split_partials_needs_the_card():
+    """The kernel's split partials exist only in the card's workspace: a
+    CPU tensor is refused, not served by the plain version."""
+    q, kp, vp, table, lens, *_ = split_cases()
+    with pytest.raises(RuntimeError, match="no paged-attention kernel"):
+        paged.split_partials(_t(q), _t(kp), _t(vp), _t(table), _t(lens))
