@@ -11,11 +11,13 @@ phase that fails:
   1. build   — compile every kernel under src/repro_torch/kernels/csrc
                with nvcc (one process per source, all at once), print
                ptxas's registers, spills and stack, and count the
-               tensor-core (HGMMA) instructions of each flash kernel in its
-               SASS: the bf16 forward, carry, backward and block-backward
+               tensor-core (HGMMA) instructions of each flash kernel and
+               each grouped-expert tensor-core kernel in its SASS: the
+               bf16 forward, carry, backward, block-backward and grouped
                kernels must have some, and the paged kernel's bf16 fast
-               path must not spill (no stack or local memory in
-               ``cuobjdump -res-usage`` of the built library);
+               path and the grouped tensor-core kernels must not spill
+               (no stack or local memory in ``cuobjdump -res-usage`` of
+               the built library);
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
                the card at the stated tolerances (paged attention, with
                its split plan, and its bf16 fast path's f32 split
@@ -50,11 +52,14 @@ phase that fails:
                in every schedule;
   8. moe     — moonshot-v1-16b-a3b (MoE, 64 experts top-6) uncut (48
                layers, bf16, 56 GB of seeded random weights): prefill_sp
-               of 4 x 1024 tokens with exactly 48 grouped-expert and 48
-               flash launches; 8 requests served through ServeEngine
-               (paged launches = 48 x decode steps); 3 training steps at
-               full width and 4 layers with exactly 8 grouped launches per
-               step; and at 2 layers in f32 the kernel path against the
+               of 4 x 1024 tokens with exactly 48 grouped-expert launches,
+               all on the tensor-core engine, and 48 flash launches; 8
+               requests served through ServeEngine (paged launches = 48 x
+               decode steps, no grouped launch); 3 training steps at full
+               width and 4 layers with exactly 8 grouped launches per
+               step, all on the tensor cores, and a fourth under
+               torch.profiler; and at 2 layers in f32 (the
+               grouped kernel's SIMT engine) the kernel path against the
                plain path (loss, gradients, prefill logits) and the
                contiguous Generator against the paged engine;
   9. ring    — ring attention (context parallelism) on phi4-mini-3.8b
@@ -75,7 +80,16 @@ out, at the ring training step's shape) and the ring-attention carry step
 (its variants, and a virtual 4-rank ring folded on one card against the
 flash forward) to their plain versions and times them at the Jacobi
 shape, at moonshot's prefill call, at the training shape and at ring
-attention's 8192-token prefill call.
+attention's 8192-token prefill call.  The stencil kernels are timed
+beside one cuDNN conv2d that computes a sweep, and k chained ones (TF32
+off, cudnn.benchmark on, graph-replayed).  The grouped FFN is held on
+both engines (SIMT in f32 at 1e-5 and bf16 at 2e-2 where D or F is no
+multiple of 64; the tensor cores in bf16 at 2e-2, with their f32 result
+before rounding within 1e-4 of the plain f32 product and their bf16
+output equal to it rounded on 99% of the elements); at moonshot's
+prefill call it prints the plan (engine, tiles, CTAs, live tiles) and
+times the kernel in turns with a three-bmm yardstick while nvidia-smi
+reads the clocks.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -116,65 +130,67 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hgmma_counts(build) -> dict[str, int]:
-    """HGMMA instructions in each flash kernel of the built library, from
-    ``cuobjdump -sass``, by kernel (template arguments spelled out)."""
+def kernel_name(mangled: str, kernel: str) -> str | None:
+    """``kernel<template arguments>`` of a mangled name whose kernel
+    matches the regex ``kernel``, or None."""
     import re
+
+    found = re.search(rf"({kernel})I(.*?)E(?:Ev|EE)", mangled)
+    if not found:
+        return None
+    args = re.sub(r"Li(\d+)E", r"\1, ", found.group(2) + "E")
+    args = re.sub(r"Lb([01])E", lambda b: ("false", "true")[
+        int(b.group(1))] + ", ", args)
+    args = args.replace("13__nv_bfloat16", "bf16, ")
+    args = re.sub(r"^f", "float, ", args)
+    return f"{found.group(1)}<{args.rstrip(', E')}>"
+
+
+def cuobjdump(build, source: str, flag: str) -> str:
+    """``cuobjdump <flag>`` of the built library of csrc/<source>.cu."""
     from pathlib import Path
 
-    lib = build._target("flash_attention")
     tool = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    return subprocess.run([str(tool), flag, str(build._target(source))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
+def hgmma_counts(build, source: str, kernel: str) -> dict[str, int]:
+    """HGMMA instructions in each kernel of csrc/<source>.cu whose name
+    matches ``kernel``, from ``cuobjdump -sass``, by kernel (template
+    arguments spelled out)."""
     counts: dict[str, int] = {}
     name = None
-    for line in sass.splitlines():
+    for line in cuobjdump(build, source, "-sass").splitlines():
         if "Function :" in line:
-            found = re.search(r"(flash_[a-z_]+_kernel)I(.*?)E(?:Ev|EE)", line)
-            name = None
-            if found:
-                args = re.sub(r"Li(\d+)E", r"\1, ", found.group(2) + "E")
-                args = re.sub(r"Lb([01])E", lambda b: ("false", "true")[
-                    int(b.group(1))] + ", ", args)
-                args = args.replace("13__nv_bfloat16", "bf16, ")
-                args = re.sub(r"^f", "float, ", args)
-                name = f"{found.group(1)}<{args.rstrip(', ')}>"
+            name = kernel_name(line, kernel)
+            if name:
                 counts[name] = 0
         elif name and "HGMMA" in line:
             counts[name] += 1
     return counts
 
 
-def paged_resources(build) -> dict[str, dict[str, int]]:
+def res_usage(build, source: str, kernel: str) -> dict[str, dict[str, int]]:
     """Registers, stack and local memory (bytes per thread) of each kernel
-    of the paged bf16 fast path, read with ``cuobjdump -res-usage`` from
-    the built library (a spill would show as stack or local memory)."""
+    of csrc/<source>.cu whose name matches ``kernel``, read with
+    ``cuobjdump -res-usage`` from the built library (a spill would show as
+    stack or local memory)."""
     import re
-    from pathlib import Path
 
-    lib = build._target("paged_attention")
-    tool = Path(build._nvcc()).parent / "cuobjdump"
-    report = subprocess.run([str(tool), "-res-usage", str(lib)],
-                            capture_output=True, text=True, timeout=300,
-                            check=True).stdout
     usage: dict[str, dict[str, int]] = {}
     name = None
-    for line in report.splitlines():
+    for line in cuobjdump(build, source, "-res-usage").splitlines():
         found = re.search(r"Function (\S+?):", line)
         if found:
-            kernel = re.search(r"paged_(mma|merge)_kernel(?:ILi(\d+)E)?",
-                               found.group(1))
-            name = kernel and f"paged_{kernel.group(1)}_kernel" + (
-                f"<{kernel.group(2)}>" if kernel.group(2) else "")
+            plain = re.search(kernel, found.group(1))
+            name = kernel_name(found.group(1), kernel) or (
+                plain.group(0) if plain else None)
         if name and "REG:" in line:
             usage[name] = {key.lower(): int(n) for key, n in re.findall(
                 r"\b(REG|STACK|LOCAL):(\d+)", line)}
             name = None
-    want = [f"paged_mma_kernel<{hd}>" for hd in (32, 64, 128, 192)] + [
-        "paged_merge_kernel"]
-    if sorted(usage) != sorted(want):
-        fail(f"cuobjdump -res-usage shows the paged fast path's kernels "
-             f"{sorted(usage)}, not {want}:\n{report[:3000]}")
     return usage
 
 
@@ -200,6 +216,13 @@ def graph_ms(torch, fns, reps: int) -> float:
     """Device milliseconds per call: the calls in ``fns`` captured once in
     a CUDA graph and replayed ``reps`` times between CUDA events, so no
     host launch cost enters the time."""
+    return graph_timer(torch, fns)(reps)
+
+
+def graph_timer(torch, fns):
+    """The calls in ``fns`` captured once in a CUDA graph; returns a
+    function that replays it ``reps`` times between CUDA events and gives
+    the device milliseconds per call (graph_ms's protocol, repeatable)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -212,14 +235,52 @@ def graph_ms(torch, fns, reps: int) -> float:
             f()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * len(fns))
+
+    def replay_ms(reps: int) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * len(fns))
+    return replay_ms
+
+
+def with_clocks(run):
+    """``run()`` while another thread reads the card's SM clock (MHz),
+    power draw (W) and temperature (C) with nvidia-smi, one call at a time
+    until ``run`` returns; returns (its result, [(time.perf_counter() at
+    the read, MHz, W, C), ...])."""
+    import threading
+
+    samples, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                     "temperature.gpu", "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True, timeout=60)
+            except (OSError, subprocess.SubprocessError):
+                return
+            try:
+                samples.append((time.perf_counter(), *(
+                    float(x) for x in out.stdout.splitlines()[0].split(","))))
+            except (IndexError, ValueError):
+                pass
+            done.wait(0.05)
+
+    reader = threading.Thread(target=sample)
+    reader.start()
+    try:
+        result = run()
+    finally:
+        done.set()
+        reader.join()
+    return result, samples
 
 
 # ---------------------------------------------------------------------------
@@ -639,6 +700,9 @@ JACOBI_ITERS = 256
 #: ragged, tiny, and the kernel-vs-plain solve's shape
 STENCIL_SHAPES = [(1000, 777), (3, 3), (5, 130), (2050, 2050)]
 STENCIL_TOL = (("float32", 1e-6), ("bfloat16", 2e-2))
+#: the conv2d yardstick against the plain sweep: cuDNN sums the five terms
+#: in its own order (or by a transform)
+CONV_TOL = 1e-5
 
 
 def stencil_bound(m, n, itemsize, sweeps, u_ghost=0, f_ghost=0):
@@ -756,6 +820,63 @@ def phase_stencil(torch):
                 engine="torch")], 2),
             library_ms=None),
     }
+    # the library call: one cuDNN conv2d over the stacked (u, f) with a
+    # 2-channel 3x3 kernel (0.25 on u's cross, -0.25 on f's centre) and
+    # zero rows padded above and below is one sweep's interior columns
+    # with zero halo rows.  TF32 off, so it runs in f32; cudnn.benchmark
+    # on, so cuDNN times its algorithms at the first call of each shape
+    # (outside the graph) and keeps the fastest.  k sweeps take k chained calls, each
+    # also passing f's centre through (a second output channel): a
+    # yardstick for jacobi_ksweep, not one call, so its library_ms stays
+    # null.
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    uf = torch.stack([u, f])[None]
+    wk = torch.zeros((2, 2, 3, 3), device="cuda")
+    wk[0, 0, 0, 1] = wk[0, 0, 2, 1] = wk[0, 0, 1, 0] = wk[0, 0, 1, 2] = 0.25
+    wk[0, 1, 1, 1] = -0.25
+    wk[1, 1, 1, 1] = 1.0
+    w1k = wk[:1].contiguous()
+
+    def conv():
+        return torch.nn.functional.conv2d(uf, w1k, padding=(1, 0))
+
+    def conv_chain():
+        x = uf
+        for _ in range(k):
+            x = torch.nn.functional.conv2d(x, wk, padding=(1, 0))
+        return x
+
+    got = conv()[0, 0]
+    torch.cuda.synchronize()
+    want = st.jacobi_step(u, f, lo=z1, hi=z1, engine="torch")[:, 1:-1]
+    conv_err = stencil_check(torch, got, want, CONV_TOL,
+                             f"conv2d sweep float32 {n}x{n}")
+    del got, want
+    got = conv_chain()[0, 0]
+    torch.cuda.synchronize()
+    want = st.jacobi_ksweep_parts(zk, u, zk, zk, f, zk, k, k, k,
+                                  engine="torch")[:, k:n - k]
+    chain_err = stencil_check(torch, got, want, CONV_TOL,
+                              f"{k} chained conv2d sweeps float32 {n}x{n}")
+    del got, want
+    times["step"]["library_ms"] = graph_ms(torch, [conv] * 2, 5)
+    chain_ms = graph_ms(torch, [conv_chain], 3)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = saved
+    del uf
+    print(f"  library call for jacobi_step: one conv2d (cuDNN; "
+          f"torch.backends.cudnn.allow_tf32 = False, "
+          f"torch.backends.cudnn.benchmark = True; CUDA-graph replayed) "
+          f"over the stacked (u, f), 2 channels in, 1 out, 3x3: one "
+          f"sweep's interior at {n}x{n} f32 in "
+          f"{times['step']['library_ms']:.4f} ms, max|err| against the "
+          f"plain sweep {conv_err:.1e}; yardstick for jacobi_ksweep "
+          f"(k = {k} chained conv2d calls, 2 channels out, f passed "
+          f"through; not one call): {chain_ms:.4f} ms, max|err| against "
+          f"the plain k sweeps {chain_err:.1e} (tolerance {CONV_TOL} x "
+          f"max(1, max|want|): cuDNN sums in another order)", flush=True)
+
     # the same calls, kernel against plain, at this shape
     for name, call, tol in (
             ("step", lambda **kw: st.jacobi_step(u, f, lo=z1, hi=z1, **kw),
@@ -777,13 +898,14 @@ def phase_stencil(torch):
         tm = times[name]
         tm["bound_ms"], tm["bound_by"] = stencil_bound(n, n, 4, sweeps,
                                                        *ghosts)
+        lib = ("none (one call does not sweep k times)"
+               if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms")
         print(f"  jacobi_{name} at {n}x{n} f32 ({sweeps} sweep"
               f"{'s' if sweeps > 1 else ''} per call): kernel "
               f"{tm['ms']:.4f} ms ({tm['ms'] / sweeps:.4f} ms per sweep), "
               f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}; the kernel "
               f"reaches {tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
-              f"{tm['plain_ms']:.4f} ms; no single library call computes it",
-              flush=True)
+              f"{tm['plain_ms']:.4f} ms, library (conv2d) {lib}", flush=True)
     del u, f, out
     torch.cuda.empty_cache()
     return times, errs
@@ -793,11 +915,31 @@ def phase_stencil(torch):
 # phase 2: the grouped-expert FFN, kernel vs plain, and its times
 # ---------------------------------------------------------------------------
 
-#: (G, C, D, F, E): one group per expert, gpe = 2 and 4, sizes that are no
-#: multiple of the kernel's tiles
+#: (G, C, D, F, E) of the SIMT engine (f32, and bf16 with D or F no
+#: multiple of 64): one group per expert, gpe = 2 and 4, sizes that are no
+#: multiple of its tiles
 GROUPED_SHAPES = [(4, 16, 8, 12, 4), (8, 32, 8, 16, 4), (8, 32, 8, 16, 2),
                   (3, 257, 130, 70, 3), (6, 100, 200, 77, 3)]
+#: (G, C, D, F, E) of the tensor-core engine (bf16): C = 480, 129 and 1,
+#: gpe 1, 2 and 4, an F and a D that end on a half tile of 128
+GROUPED_TC_SHAPES = [(6, 480, 128, 192, 6), (8, 129, 192, 128, 4),
+                     (8, 1, 128, 64, 2)]
+#: valid counts of the tensor-core shapes, clamped to C: a tile's edges
+GROUPED_TC_VALID = (0, 1, 127, 128, 129, 10**9)
 GROUPED_TOL = (("float32", 1e-5), ("bfloat16", 2e-2))
+#: the tensor-core engine's f32 result before rounding, against the plain
+#: f32 product, within this of its largest magnitude (act_hi w2 alone is
+#: off by about 1e-3)
+GROUPED_F32_TOL = 1e-4
+#: the tensor-core engine's bf16 output (the binary the models run; the
+#: f32 readout is another instantiation) equals the plain f32 product
+#: rounded to bf16 on at least this share of the live elements (act_hi w2
+#: alone: about 0.58)
+GROUPED_BF16_SHARE = 0.99
+#: alternating timings of the kernel and the yardstick at the prefill call,
+#: and graph replays of each per turn
+GROUPED_TURNS = 7
+GROUPED_TURN_REPS = 40
 #: moonshot-v1-16b-a3b's prefill call: B=4 x S=1024 tokens, top-6 of 64
 #: experts, capacity ceil(4096 * 6 * 1.25 / 64) = 480
 MOE_PREFILL = dict(b=4, s=1024, e=64, k=6, c=480, d=2048, f=1408)
@@ -827,13 +969,12 @@ def routed_counts(torch, rng):
 
 
 def grouped_bound(kept, c, d, f, e, itemsize, gated=True):
-    """Least time for one call that keeps ``kept`` rows: the first
-    products in the inputs' type on the tensor cores, the second in f32
-    outside them, against the kept rows of h, the expert weights and the
-    whole output over HBM.  Returns (ms, 'bytes'|'operations')."""
+    """Least time for one call that keeps ``kept`` rows: the function's
+    products (three for a gated FFN) at the bf16 tensor-core rate, however
+    a kernel runs them, against the kept rows of h, the expert weights and
+    the whole output over HBM.  Returns (ms, 'bytes'|'operations')."""
     mults = 2 if gated else 1
-    t_ops = (2.0 * mults * d * f * kept / PEAK["bfloat16"]
-             + 2.0 * f * d * kept / PEAK["float32"])
+    t_ops = 2.0 * (mults + 1) * d * f * kept / PEAK["bfloat16"]
     nbytes = ((kept * d + (mults + 1) * e * d * f) * itemsize
               + e * c * d * itemsize + 4 * e)
     t_bytes = nbytes / HBM_BW
@@ -852,40 +993,87 @@ def grouped_check(torch, got, want, valid, tol, name):
     return err
 
 
+def grouped_call(torch, gm, h, w1, w1g, w2, valid, mlp, tol, name):
+    """One wrapper call against the plain version in f32 (see
+    grouped_check); the engine must be the plan's, and for the tensor-core
+    engine the f32 result before rounding must be within GROUPED_F32_TOL
+    of the plain f32 product and the bf16 output equal to that product
+    rounded on GROUPED_BF16_SHARE of the live elements.  Returns (max|err|,
+    f32 readout's relative error, bf16 output's equal share), the last
+    two None for SIMT."""
+    engine = gm.grouped_plan(h, w1, w2, mlp).engine
+    before = dict(gm.ENGINE_LAUNCHES)
+    got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp=mlp)
+    torch.cuda.synchronize()
+    if gm.ENGINE_LAUNCHES[engine] != before[engine] + 1:
+        fail(f"{name}: the {engine} engine did not launch once")
+    want = gm.grouped_expert_ffn_torch(
+        h.float(), w1.float(), None if w1g is None else w1g.float(),
+        w2.float(), valid, mlp)
+    err = grouped_check(torch, got, want, valid, tol, name)
+    if engine != "wgmma":
+        return err, None, None
+    live = (torch.arange(got.shape[1], device="cuda")[None, :, None]
+            < valid[:, None, None]).expand_as(got)
+    share = (got[live] == want[live].to(got.dtype)).float().mean().item()
+    if not share >= GROUPED_BF16_SHARE:
+        fail(f"{name}: the bf16 output equals the plain f32 product "
+             f"rounded on {share:.4f} of the live elements (at least "
+             f"{GROUPED_BF16_SHARE})")
+    f32 = gm.down_product_f32(h, w1, w1g, w2, valid, mlp)
+    rel = ((f32 - want).abs().max() / want.abs().max()).item()
+    if not rel <= GROUPED_F32_TOL:
+        fail(f"{name}: the f32 down product is off by {rel:.2e} of its "
+             f"size (tolerance {GROUPED_F32_TOL})")
+    return err, rel, share
+
+
 def phase_grouped(torch):
     from repro_torch.kernels import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     err_bf16 = 0.0
-    for dname, tol in GROUPED_TOL:
+    cases = [(dname, tol, shape, None) for dname, tol in GROUPED_TOL
+             for shape in GROUPED_SHAPES]
+    cases += [("bfloat16", GROUPED_TOL[1][1], shape, "wgmma")
+              for shape in GROUPED_TC_SHAPES]
+    for dname, tol, shape, tc_engine in cases:
         dtype = getattr(torch, dname)
+        g, c = shape[:2]
+        if tc_engine:
+            valid = torch.tensor([min(GROUPED_TC_VALID[i % 6], c)
+                                  for i in range(g)], dtype=torch.int32,
+                                 device="cuda")
+        else:
+            valid = torch.tensor(rng.integers(0, c + 1, size=g),
+                                 dtype=torch.int32, device="cuda")
+            valid[0], valid[-1] = 0, c
+        h, w1, w1g, w2 = grouped_inputs(torch, gen, shape, dtype, valid)
+        engine = gm.grouped_plan(h, w1, w2, "swiglu").engine
+        if engine != (tc_engine or "simt"):
+            fail(f"grouped_plan picks {engine} for {dname} {shape}")
+        errs, rels, shares = [], [], []
         for mlp in ("swiglu", "geglu", "relu2", "gelu"):
-            line = []
-            for shape in GROUPED_SHAPES:
-                g, c = shape[:2]
-                valid = torch.tensor(rng.integers(0, c + 1, size=g),
-                                     dtype=torch.int32, device="cuda")
-                valid[0], valid[-1] = 0, c
-                h, w1, w1g, w2 = grouped_inputs(torch, gen, shape, dtype,
-                                                valid)
-                w1g = w1g if gm.gated(mlp) else None
-                got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp=mlp)
-                torch.cuda.synchronize()
-                want = gm.grouped_expert_ffn_torch(
-                    h.float(), w1.float(),
-                    None if w1g is None else w1g.float(), w2.float(),
-                    valid, mlp)
-                err = grouped_check(torch, got, want, valid, tol,
-                                    f"grouped_expert_ffn {dname} {mlp} "
-                                    f"{shape}")
-                line.append(err)
-                if dtype == torch.bfloat16:
-                    err_bf16 = max(err_bf16, err)
-            print(f"  grouped_expert_ffn vs plain {dname} {mlp} (G, C, D, "
-                  f"F, E) in {GROUPED_SHAPES}, valid 0, C and between: "
-                  f"max|err| {max(line):.2e} (tolerance {tol} x max(1, "
-                  f"max|want|)); padded rows exactly 0", flush=True)
+            err, rel, share = grouped_call(
+                torch, gm, h, w1, w1g if gm.gated(mlp) else None, w2, valid,
+                mlp, tol, f"grouped_expert_ffn {dname} {mlp} {shape}")
+            errs.append(err)
+            if rel is not None:
+                rels.append(rel)
+                shares.append(share)
+        if dtype == torch.bfloat16:
+            err_bf16 = max(err_bf16, max(errs))
+        print(f"  grouped_expert_ffn vs plain {dname} (G, C, D, F, E) = "
+              f"{shape} on the {engine} engine, valid "
+              f"{valid.tolist() if g <= 8 else 'random'}, swiglu, geglu, "
+              f"relu2, gelu: max|err| {max(errs):.2e} (tolerance {tol} x "
+              f"max(1, max|want|)); padded rows exactly 0"
+              + (f"; f32 result before rounding within {max(rels):.2e} of "
+                 f"its size (tolerance {GROUPED_F32_TOL}); bf16 output "
+                 f"equal to the plain f32 product rounded on "
+                 f"{min(shares):.4f} of the live elements (at least "
+                 f"{GROUPED_BF16_SHARE})" if rels else ""), flush=True)
 
     # the prefill's own call, kernel against plain, then its times; two
     # input sets so consecutive calls do not find the weights in L2
@@ -897,18 +1085,33 @@ def phase_grouped(torch):
         sets.append((*grouped_inputs(torch, gen, shape, torch.bfloat16,
                                      valid), valid))
     h, w1, w1g, w2, valid = sets[0]
-    got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp="swiglu")
-    torch.cuda.synchronize()
-    want = gm.grouped_expert_ffn_torch(h, w1, w1g, w2, valid, "swiglu")
-    err = grouped_check(torch, got, want, valid, GROUPED_TOL[1][1],
-                        f"grouped_expert_ffn bf16 prefill call {shape}")
+    plan = gm.grouped_plan(h, w1, w2, "swiglu")
+    if plan.engine != "wgmma":
+        fail(f"the moonshot prefill call plans {plan}")
+    rows, up_cols, down_cols = gm.tile_shape(plan.engine, "swiglu")
+    n_row = -(-p["c"] // rows)
+    live_rows = sum(-(-v // rows) for v in valid.tolist())
+    up_n, down_n = -(-p["f"] // up_cols), -(-p["d"] // down_cols)
+    up_tiles, down_tiles = p["e"] * n_row * up_n, p["e"] * n_row * down_n
+    print(f"  plan at the moonshot prefill call: engine {plan.engine}, "
+          f"tiles {rows} x {up_cols} (up) and {rows} x {down_cols} (down), "
+          f"{min(plan.ctas, up_tiles)} and {min(plan.ctas, down_tiles)} "
+          f"persistent CTAs, live tiles {live_rows * up_n} of {up_tiles} "
+          f"(up) and {live_rows * down_n} of {down_tiles} (down)",
+          flush=True)
+    err, rel, share = grouped_call(
+        torch, gm, h, w1, w1g, w2, valid, "swiglu", GROUPED_TOL[1][1],
+        f"grouped_expert_ffn bf16 prefill call {shape}")
     err_bf16 = max(err_bf16, err)
     kept = int(valid.sum())
     print(f"  grouped_expert_ffn vs plain bf16 at the moonshot prefill call "
           f"(G = E = 64, C = 480, D = 2048, F = 1408, swiglu, {kept} kept "
           f"rows): max|err| {err:.2e} (tolerance {GROUPED_TOL[1][1]} x "
-          f"max(1, max|want|)); padded rows exactly 0", flush=True)
-    del got, want
+          f"max(1, max|want|)); padded rows exactly 0; f32 result before "
+          f"rounding within {rel:.2e} of its size (tolerance "
+          f"{GROUPED_F32_TOL}); bf16 output equal to the plain f32 product "
+          f"rounded on {share:.4f} of the live elements (at least "
+          f"{GROUPED_BF16_SHARE})", flush=True)
 
     def bmm3(s):
         hh, a, b, c2, _ = s
@@ -920,22 +1123,58 @@ def phase_grouped(torch):
                                                      "swiglu")
              for s in sets]
     yard = [lambda s=s: bmm3(s) for s in sets]
-    tm = dict(ms=graph_ms(torch, kernel * 2, 5),
-              plain_ms=graph_ms(torch, plain, 3), library_ms=None)
-    yard_ms = graph_ms(torch, yard * 2, 5)
+    tm = dict(plain_ms=graph_ms(torch, plain, 3), library_ms=None)
+    # the kernel and the yardstick in turns, while nvidia-smi reads the
+    # clocks: the kernel's time is the median of its turns
+    timers = graph_timer(torch, kernel * 2), graph_timer(torch, yard * 2)
+
+    def take_turns():
+        out = []
+        for _ in range(GROUPED_TURNS):
+            t0 = time.perf_counter()
+            out.append((timers[0](GROUPED_TURN_REPS),
+                        timers[1](GROUPED_TURN_REPS), t0,
+                        time.perf_counter()))
+        return out
+
+    turns, clocks = with_clocks(take_turns)
+    kernel_ms = sorted(t[0] for t in turns)
+    yard_ms = sorted(t[1] for t in turns)
+    tm["ms"] = kernel_ms[len(turns) // 2]
     kept_mean = sum(int(s[4].sum()) for s in sets) / len(sets)
     tm["bound_ms"], tm["bound_by"] = grouped_bound(
         kept_mean, p["c"], p["d"], p["f"], p["e"], 2)
     print(f"  grouped_expert_ffn at the moonshot prefill call (bf16, "
           f"{kept_mean:.0f} kept rows of {p['e'] * p['c']}): kernel "
-          f"{tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
-          f"({tm['bound_by']}; the kernel reaches "
+          f"{tm['ms']:.4f} ms (the median of {GROUPED_TURNS} turns, "
+          f"{kernel_ms[0]:.4f}-{kernel_ms[-1]:.4f} ms), bound "
+          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: the three products "
+          f"at the bf16 rate; the kernel reaches "
           f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
           f"{tm['plain_ms']:.4f} ms; no single library call computes it; "
-          f"yardstick: three torch.bmm on the padded buffers in bf16 "
-          f"(cuBLAS, padding included, one elementwise product in place of "
-          f"the activation) {yard_ms:.4f} ms", flush=True)
-    del sets, h, w1, w1g, w2, kernel, plain, yard
+          f"yardstick, in turns with the kernel: three torch.bmm on the "
+          f"padded buffers in bf16 (cuBLAS, padding included, one "
+          f"elementwise product in place of the activation, a bf16 second "
+          f"product) {yard_ms[len(turns) // 2]:.4f} ms "
+          f"({yard_ms[0]:.4f}-{yard_ms[-1]:.4f} ms)", flush=True)
+    line = []
+    for k_ms, y_ms, t0, t1 in turns:
+        mhz = [c[1] for c in clocks if t0 <= c[0] <= t1]
+        line.append(f"{k_ms:.4f} / {y_ms:.4f} ms at "
+                    + (f"{min(mhz):.0f}-{max(mhz):.0f} MHz" if mhz
+                       else "no read"))
+    print(f"  turns of {GROUPED_TURN_REPS} replays each, kernel / "
+          f"yardstick, SM clock read meanwhile: {'; '.join(line)}",
+          flush=True)
+    if clocks:
+        _, mhz, watts, temp = zip(*clocks)
+        print(f"  nvidia-smi during the turns ({len(clocks)} reads): SM "
+              f"clock {min(mhz):.0f}-{max(mhz):.0f} MHz, power "
+              f"{min(watts):.1f}-{max(watts):.1f} W, "
+              f"{min(temp):.0f}-{max(temp):.0f} C", flush=True)
+    else:
+        print("  nvidia-smi during the turns: no read", flush=True)
+    del sets, h, w1, w1g, w2, kernel, plain, yard, timers
     torch.cuda.empty_cache()
     return tm, err_bf16
 
@@ -1768,6 +2007,7 @@ def phase_moe_serve(torch):
         model.prefill_sp({"tokens": tokens})                 # warm-up
     torch.cuda.synchronize()
     gm.GROUPED_LAUNCHES = 0                      # counts of this run only
+    gm.ENGINE_LAUNCHES.update(wgmma=0, simt=0)
     fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     logits, cache = model.prefill_sp({"tokens": tokens})
@@ -1776,6 +2016,9 @@ def phase_moe_serve(torch):
     launches = {"grouped": gm.GROUPED_LAUNCHES, "fwd": fa.FWD_LAUNCHES}
     if launches != {"grouped": cfg.n_layers, "fwd": cfg.n_layers}:
         fail(f"prefill launched {launches}, not {cfg.n_layers} of each")
+    if gm.ENGINE_LAUNCHES != {"wgmma": cfg.n_layers, "simt": 0}:
+        fail(f"the prefill's grouped launches by engine are "
+             f"{gm.ENGINE_LAUNCHES}, not {cfg.n_layers} on the tensor cores")
     if not torch.isfinite(logits).all() or tuple(logits.shape) != (
             p["b"], cfg.padded_vocab):
         fail(f"prefill logits {tuple(logits.shape)} not finite")
@@ -1786,7 +2029,8 @@ def phase_moe_serve(torch):
               flush=True)
     print(f"  prefill_sp of {p['b']} prompts x {p['s']} tokens: "
           f"{pre_ms:.1f} ms ({p['b'] * p['s'] / pre_ms * 1e3:.0f} tokens/s)"
-          f", {launches['grouped']} grouped_expert_ffn and "
+          f", {launches['grouped']} grouped_expert_ffn (all on the "
+          f"tensor-core engine) and "
           f"{launches['fwd']} flash forward launches, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     del logits, cache
@@ -1844,7 +2088,10 @@ def phase_moe_serve(torch):
 
 
 def phase_moe_train(torch):
-    """Step 4: moonshot at full width, 4 of its 48 layers, 3 steps."""
+    """Step 4: moonshot at full width, 4 of its 48 layers, 3 steps and a
+    fourth under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLMData
     from repro_torch.kernels import flash_attention as fa
@@ -1871,30 +2118,50 @@ def phase_moe_train(torch):
     fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
     for i in range(3):
         batch = train_batch(torch, data, i)
-        c0 = (gm.GROUPED_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        c0 = (gm.ENGINE_LAUNCHES["wgmma"], fa.FWD_LAUNCHES, fa.BWD_LAUNCHES,
+              gm.GROUPED_LAUNCHES)
         t0 = time.perf_counter()
         opt, metrics = step(opt, batch)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts.append((gm.GROUPED_LAUNCHES - c0[0], fa.FWD_LAUNCHES - c0[1],
-                       fa.BWD_LAUNCHES - c0[2]))
-    want = (2 * cfg.n_layers, 2 * cfg.n_layers, cfg.n_layers)
+        counts.append((gm.ENGINE_LAUNCHES["wgmma"] - c0[0],
+                       fa.FWD_LAUNCHES - c0[1], fa.BWD_LAUNCHES - c0[2],
+                       gm.GROUPED_LAUNCHES - c0[3]))
+    # grouped launches on the tensor-core engine, flash forward, flash
+    # backward, and grouped launches of either engine
+    want = (2 * cfg.n_layers, 2 * cfg.n_layers, cfg.n_layers,
+            2 * cfg.n_layers)
     if not all(np.isfinite(losses)):
         fail(f"non-finite MoE training loss: {losses}")
     if any(c != want for c in counts):
-        fail(f"(grouped, flash forward, flash backward) launches per step "
-             f"{counts} != {want}")
+        fail(f"(grouped on the tensor cores, flash forward, flash "
+             f"backward, grouped) launches per step {counts} != {want}")
     print(f"  moonshot-v1-16b-a3b full width, {cfg.n_layers} layers "
           f"({n_params / 1e9:.2f} B params, bf16, f32 AdamW moments, "
           f"remat), B={b}, S={s}: losses {[round(x, 4) for x in losses]}, "
           f"host wall per step {[round(w * 1e3, 1) for w in walls]} ms, "
-          f"launches per step (grouped, flash forward, flash backward) "
-          f"{counts[0]}, peak memory "
+          f"launches per step (grouped on the tensor cores, flash "
+          f"forward, flash backward, grouped) {counts[0]}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    # where one step's device time goes (a fourth step, outside the counts)
+    batch = train_batch(torch, data, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, metrics = step(opt, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    per_kernel = device_ms_by_kernel(torch, prof, 1)
+    dev_ms = sum(per_kernel.values())
+    print(f"  one MoE training step under torch.profiler: "
+          f"{prof_wall * 1e3:.1f} ms host wall, {dev_ms:.1f} ms device time "
+          f"(busy share {dev_ms / (prof_wall * 1e3) * 100:.1f}%)", flush=True)
+    print_by_kind(per_kernel, "MoE training step")
     del model, opt, step, batch, metrics
     torch.cuda.empty_cache()
-    return gm.GROUPED_LAUNCHES
 
 
 def phase_moe_parity(torch):
@@ -2277,7 +2544,7 @@ def main() -> int:
         for line in build.BUILD_LOG.get(name, (0, ""))[1].splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}", flush=True)
-    counts = hgmma_counts(build)
+    counts = hgmma_counts(build, "flash_attention", r"flash_[a-z_]+_kernel")
     for kernel, n in sorted(counts.items()):
         print(f"  {kernel}: {n} HGMMA instructions", flush=True)
     for kind in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel"):
@@ -2287,13 +2554,35 @@ def main() -> int:
                  f"kernels (hd 64 and 128) must run on the tensor cores; "
                  f"HGMMA counts {counts}")
 
-    usage = paged_resources(build)
-    for kernel, u in sorted(usage.items()):
-        print(f"  {kernel}: {u.get('reg')} registers, stack {u.get('stack')}"
-              f" B, local {u.get('local')} B (cuobjdump -res-usage)",
-              flush=True)
-    if any(u.get("stack", 1) or u.get("local", 1) for u in usage.values()):
-        fail(f"the paged bf16 fast path spills registers: {usage}")
+    # the paged bf16 fast path and the grouped tensor-core kernels: read
+    # from the built library, so a cached build is checked too
+    checks = (("paged_attention", r"paged_(?:mma|merge)_kernel",
+               [f"paged_mma_kernel<{hd}>" for hd in (32, 64, 128, 192)]
+               + ["paged_merge_kernel"]),
+              ("grouped_matmul", r"ffn_(?:up|down)_wgmma_kernel",
+               [f"ffn_up_wgmma_kernel<{a}, {g}>" for a, g in (
+                   (0, "true"), (1, "true"), (2, "false"), (3, "false"))]
+               + ["ffn_down_wgmma_kernel<bf16>",
+                  "ffn_down_wgmma_kernel<float>"]))
+    for source, kernel, want in checks:
+        usage = res_usage(build, source, kernel)
+        if sorted(usage) != sorted(want):
+            fail(f"cuobjdump -res-usage shows the kernels {sorted(usage)} "
+                 f"of {source}.cu, not {want}")
+        for name, u in sorted(usage.items()):
+            print(f"  {name}: {u.get('reg')} registers, stack "
+                  f"{u.get('stack')} B, local {u.get('local')} B "
+                  f"(cuobjdump -res-usage)", flush=True)
+        if any(u.get("stack", 1) or u.get("local", 1)
+               for u in usage.values()):
+            fail(f"{source}.cu's fast path spills registers: {usage}")
+    grouped = hgmma_counts(build, "grouped_matmul",
+                           r"ffn_(?:up|down)_wgmma_kernel")
+    print(f"  grouped tensor-core kernels' HGMMA instructions: {grouped}",
+          flush=True)
+    if len(grouped) != 6 or not all(grouped.values()):
+        fail(f"the grouped bf16 kernels must run on the tensor cores; "
+             f"HGMMA counts {grouped}")
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)
     flash_t, flash_err = phase_flash(torch)

@@ -1,16 +1,16 @@
 // Grouped-expert FFN for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces the TPU kernel src/repro/kernels/grouped_matmul.py::
-// grouped_expert_ffn_pallas (_gemm_kernel).  The MoE capacity buffers are
-// G groups of C padded rows; group g uses expert e = g / gpe (gpe = G/E)
-// and keeps its first valid[g] rows:
+// grouped_expert_ffn_pallas (_gemm_kernel); its oracle is
+// grouped_expert_ffn_jnp.  The MoE capacity buffers are G groups of C
+// padded rows; group g uses expert e = g / gpe (gpe = G/E) and keeps its
+// first valid[g] rows:
 //
 //   h        [G, C, D]        (f32 or bf16)
 //   w1, w1g  [E, D, F]        (same type; w1g only for the gated swiglu /
 //                              geglu)
 //   w2       [E, F, D]
 //   valid    [G] int32        rows kept per group (clamped to [0, C])
-//   act_ws   [G, C, F] f32    workspace the wrapper allocates
 //   out      [G, C, D]        in h's type
 //
 //   out[g, r] = act(h[g, r] @ w1[e] [, h[g, r] @ w1g[e]]) @ f32(w2[e])
@@ -20,36 +20,95 @@
 // f32) operands in f32 (a product of two bf16 values is exact in f32);
 // the activation is f32 (silu(u) * g, tanh-approximate GELU, relu(u)^2);
 // the second product is f32 x f32 with w2 widened to f32 and act never
-// rounded to bf16 (no TF32); the output is rounded to h's type once.  Rows
-// at or past valid[g] are SELECTED to zero before any product (garbage
-// there cannot leak), and those output rows are written as exact zeros.
+// rounded to bf16 (no TF32); the output is rounded to h's type once.
 //
-// Bound on this card: at the prefill shape of moonshot-v1-16b-a3b (G = E =
-// 64, C = 480, D = 2048, F = 1408, swiglu, bf16, at most T*K = 24576 kept
-// rows) the first products are 283 GFLOP of bf16 (0.29 ms at 989
-// TFLOP/s), the second 142 GFLOP of f32 (2.12 ms at 67 TFLOP/s outside
-// the tensor cores), the weights 1.1 GB (0.33 ms at 3.35 TB/s): the f32
-// second product bounds the call, about 2.4 ms.
+// Bound on this card, counted as the work whatever runs it: at the
+// prefill shape of moonshot-v1-16b-a3b (G = E = 64, C = 480, D = 2048,
+// F = 1408, swiglu, bf16, 24576 kept rows) the three products are
+// 425 GFLOP, 0.430 ms at the bf16 rate of 989 TFLOP/s; the weights, the
+// kept rows of h and the output are 1.33 GB, 0.398 ms at 3.35 TB/s.  (The
+// first port's figure, 2.40 ms, charged the second product at the f32
+// rate outside the tensor cores, which a tensor-core kernel need not pay.)
 //
-// Design (simple and correct first).  The Pallas kernel loads a whole
-// expert's [D, F] weights per grid step into VMEM, which 227 KB of shared
-// memory cannot hold, so both products are tiled in D and F, in two
-// launches:
-//   * launch A over (F tile, row tile, g): the u (and gate) tiles of
-//     kRows x kColsA accumulate over D from shared-memory tiles of h
-//     (rows past valid[g] staged as zeros) and of w1 / w1g, each thread
-//     holding a 4 x 4 block of u and of g in registers; then the
-//     activation in f32, written to the f32 workspace;
-//   * launch B over (D tile, row tile, g): act (rows past valid[g] staged
-//     as zeros) times f32(w2) over F, each thread a 4 x 8 block; rows past
-//     valid[g] are written as zeros;
-//   * a row tile that lies wholly past valid[g] does no arithmetic:
-//     launch A skips it and launch B writes its zeros;
-//   * every edge is masked, so any C, D, F >= 1 and valid in [0, C] work.
-// The products run on the f32 SIMT units, not the tensor cores.  Later:
-// bf16 mma.sync / wgmma for the first product, TMA-fed tiles, a
-// persistent walk over only the live row tiles, and A and B fused.
+// Two engines, chosen by the wrapper's plan from shapes alone
+// (grouped_matmul.py::grouped_plan), never by catching an error:
+//
+// * The tensor cores (tc::, bf16 with D and F multiples of 64 and 16-byte
+//   aligned bases; moonshot's MoE layers).  Two persistent launches of
+//   384-thread CTAs, one per SM: warpgroup 0's one thread issues every
+//   TMA load into a ring of 192 KB of stages (full and empty mbarriers),
+//   and two consumer warpgroups own 64 rows each of a 128 x 256 tile and
+//   run wgmma m64n256k16 from shared memory with 128 f32 accumulators a
+//   thread.
+//   - Each CTA walks a linear tile index (stride: the grid) over
+//     (group, column tile, row tile) and skips a row tile with row0 >=
+//     valid[g] after one read of valid; the wrapper never reads valid on
+//     the host, so a call can be captured in a CUDA graph.  The walk puts
+//     the row tiles of one expert's column block next to each other, so
+//     the CTAs that run at once read that block of weights from L2.  Timed
+//     at moonshot's prefill call against the walk that puts the column
+//     tiles of one row tile together (sharing its rows of h or act
+//     instead), in turns: this walk won by 3-7% in two runs and lost by
+//     1-2% in a third, inside the spread of one order's own readings
+//     (PERF.md), so the other walk was taken out.
+//   - Operands come by TMA through 3-D tensor maps over [G, C, D],
+//     [E, D, F], [G, C, F] and [E, F, D] in boxes of 64 columns (128-byte
+//     swizzled): a box never crosses a group, and rows past C read as
+//     zeros.  w1, w1g and w2 lie with their N columns contiguous, so they
+//     are MN-major B operands (as V in the flash kernel's P.V).
+//   - Launch A (up): a tile is 128 columns of F and the wgmma's 256
+//     columns are u (two boxes of w1) beside the gate (two of w1g), so
+//     one accumulator holds both (ungated: 256 columns of u); 4 stages of
+//     48 KB.  The epilogue applies the activation in f32 and writes act
+//     as two bf16 planes, act_hi = bf16(act) and act_lo = bf16(act -
+//     act_hi), for rows below valid[g] (the bytes of an f32 workspace).
+//   - Launch B (down): out = act_hi w2 + act_lo w2 in one f32 accumulator
+//     per 128 x 256 tile, rounded once; 3 stages of 64 KB.  w2 is bf16,
+//     so its widening is exact, and act - act_hi - act_lo is at most
+//     2^-18 |act|: the two bf16 products give the reference's f32 product
+//     to about 1e-5 of its size (the trick of the flash kernels' P.V);
+//     act_hi alone is off by about 2e-3.  Rows past valid[g] are written
+//     as zeros by a select, and a tile wholly past valid[g] writes its
+//     zeros with no load.  Launch B starts under programmatic dependent
+//     launch: its CTAs take the SMs that launch A's last tiles free.
+//     The f32 readout of the tests (out_f32) is ffn_down_wgmma_kernel<
+//     float>, another instantiation of the same template: it proves the
+//     template's mainloop keeps the f32 product, not the bf16 binary the
+//     models run, so the tests also hold that binary's output to the
+//     plain f32 product rounded to bf16: equal on at least 99% of the
+//     elements (act_hi alone on about 58%).
+//   - Each consumer waits for its own wgmmas at the end of a stage and
+//     gives the stage back at once; the other warpgroup's products keep
+//     the tensor cores busy meanwhile.  A branch inside the wgmma loop
+//     (a release guarded by `kb > 0`) made ptxas serialize the wgmmas
+//     (C7518), which was slower.
+//   - Row independence replaces masking: garbage, NaN or Inf in h past
+//     valid[g] reaches only its own rows of u and act (each row of a
+//     product depends on its own row of A only), and those output rows
+//     are selected to zero, so h's padded rows are never zeroed.
+//   - No split-K and no atomics: each output tile is written by one CTA,
+//     so two calls give the same bits.
+//   - Not fused: one 128-row tile of act over F = 1408 is 720 KB in f32,
+//     against 227 KB of shared memory, and a row tile's [128, 2048] f32
+//     output does not fit in registers; the workspace round trip is about
+//     277 MB (about 0.08 ms at 3.35 TB/s).
+//   - Registers: ptxas holds a 384-thread CTA to 168 a thread; the 128
+//     accumulators fit with no spill (cuobjdump -res-usage: no stack, no
+//     local memory).  128 x 128 tiles (m64n128) were slower: they load
+//     25-33% more bytes from L2 for the same products.
+// * SIMT (f32, and bf16 shapes the tensor-core path cannot map: D or F
+//   not a multiple of 64).  Two launches tiled in D and F on the f32
+//   units: 64-row tiles over (F or D tile, row tile, g), rows past
+//   valid[g] staged as zeros before any product, row tiles wholly past
+//   valid[g] do no arithmetic, every edge masked.
+//
+// Measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W): at
+// moonshot's prefill call the tensor-core engine takes 1.12-1.24 ms over
+// every reading of three runs, drifting within a run (35-38% of the
+// bound; the first port's SIMT kernel 18.24 ms, the plain version
+// 13.3 ms, three cuBLAS bf16 bmm on the padded buffers 0.87 ms; PERF.md).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -308,23 +367,672 @@ int launch_ffn(int act_code, const void* h, const void* w1, const void* w1g,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 engine on the tensor cores (TMA, wgmma, warp specialisation,
+// persistent over live tiles); see the note at the head of the file
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kThreads = 384;        // producer + 2 consumer warpgroups
+constexpr int kRows = 128;           // rows of a tile, 64 per consumer
+constexpr int kDepth = 64;           // contraction depth of a stage
+constexpr int kABox = kRows * 128;   // 16 KB: 128 rows x 64 bf16 columns
+constexpr int kBBox = kDepth * 128;  // 8 KB: 64 rows x 64 bf16 columns
+constexpr int kBoxes = 4;            // 64-column boxes of B in a tile
+constexpr int kN = 64 * kBoxes;      // the wgmma's N, 256
+constexpr int kAcc = kN / 2;         // f32 accumulators a thread
+constexpr int kUpStage = kABox + kBoxes * kBBox;       // h | w1 [| w1g]
+constexpr int kDownStage = 2 * kABox + kBoxes * kBBox;  // hi | lo | w2
+constexpr int kRingBytes = 192 * 1024;   // of the 227 KB a CTA may have
+constexpr int kUpStages = kRingBytes / kUpStage;
+constexpr int kDownStages = kRingBytes / kDownStage;
+constexpr int kEmptyArrivals = 8;    // one lane of each consumer warp
+
+// Dynamic shared memory of a kernel with `stages` stages of `stage` bytes:
+// the stages (1024-aligned for the 128-byte swizzle), then a full and an
+// empty mbarrier per stage, and room to align the base.
+constexpr int smem_bytes(int stage, int stages) {
+  return stage * stages + 16 * stages + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+// A pipeline that has waited some 10 s is wedged: trap, so the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// One box of a 3-D tensor map at coordinates (x innermost, y, z); parts
+// of the box outside the tensor read as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading byte offset (K-major: unused; MN-major: the stride
+// between 64-column boxes), stride byte offset (between 8-row groups).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence, commit and wait above.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define GM_D8(i)                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d += A B, m64n256k16 in bf16 with f32 accumulators; A K-major and B
+// MN-major (its N columns contiguous, as w1, w1g and w2 lie in memory),
+// both from shared memory.
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : GM_D8(0), GM_D8(8), GM_D8(16), GM_D8(24), GM_D8(32), GM_D8(40),
+        GM_D8(48), GM_D8(56), GM_D8(64), GM_D8(72), GM_D8(80), GM_D8(88),
+        GM_D8(96), GM_D8(104), GM_D8(112), GM_D8(120)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef GM_D8
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The linear tile index t -> (group, column tile, row tile): the row tiles
+// of one expert's column block are adjacent (all groups of the expert),
+// so the CTAs that run at once share that block of weights in L2.
+struct Walk {
+  int n_row, n_col, n_group, gpe;
+  __device__ __forceinline__ int tiles() const {
+    return n_row * n_col * n_group;
+  }
+  __device__ __forceinline__ void tile(int t, int* g, int* col,
+                                       int* rt) const {
+    *rt = t % n_row;
+    t /= n_row;
+    const int gi = t % gpe;
+    t /= gpe;
+    *col = t % n_col;
+    *g = (t / n_col) * gpe + gi;
+  }
+};
+
+// The ring of stages, counted by a running index `it`: the producer
+// acquires a stage once the consumers gave it back and announces its
+// bytes; the consumers wait for its loads and, after their products have
+// completed, give it back.
+struct Ring {
+  uint32_t full, empty;   // barrier of stage 0; stage s at + 8 s
+  int stages;
+  __device__ __forceinline__ void wait_full(int it) const {
+    mbar_wait(full + 8 * (it % stages), (it / stages) & 1);
+  }
+  __device__ __forceinline__ void release(int it, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (it % stages));
+  }
+  // the producer: wait until stage `it` is free, then announce its bytes
+  __device__ __forceinline__ uint32_t acquire(int it, int bytes) const {
+    const int st = it % stages;
+    mbar_wait(empty + 8 * st, ((it / stages) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * st, bytes);
+    return full + 8 * st;
+  }
+};
+
+// Barriers after the stages; thread 0 initialises them.
+__device__ __forceinline__ Ring ring_init(uint32_t base, int stage,
+                                          int stages) {
+  const Ring r{base + stage * stages, base + stage * stages + 8 * stages,
+               stages};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(r.full + 8 * s, 1);
+      mbar_init(r.empty + 8 * s, kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// One k-block (64 deep) of a consumer's products from stage `s`:
+// acc += A B for each of the NA A boxes (the warpgroup's 64 rows of each
+// 128-row box) and B the kBoxes 64-column boxes after them, 4 wgmma
+// k-steps each.
+template <int NA>
+__device__ __forceinline__ void stage_mma(float (&acc)[kAcc], uint32_t s,
+                                          int c) {
+#pragma unroll
+  for (int kk = 0; kk < kDepth / 16; ++kk) {
+    const uint64_t db = desc(s + NA * kABox + kk * 16 * 128, kBBox, 1024);
+#pragma unroll
+    for (int x = 0; x < NA; ++x)
+      wgmma_n256(acc,
+                 desc(s + x * kABox + c * 64 * 128 + kk * 32, 16, 1024), db);
+  }
+}
+
+// The products of one tile over `nk` k-blocks.  A warpgroup with no live
+// row (live = false) takes each stage and gives it back untouched.
+template <int NA>
+__device__ __forceinline__ void tile_mma(float (&acc)[kAcc], const Ring& ring,
+                                         uint32_t base, int stage, int* it,
+                                         int nk, int c, int lane, bool live) {
+  if (!live) {
+    for (int kb = 0; kb < nk; ++kb, ++*it) {
+      ring.wait_full(*it);
+      ring.release(*it, lane);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  // Each warpgroup waits for its own products before it gives a stage
+  // back, so only one stage is held while the other warpgroup's products
+  // keep the tensor cores busy.  (One batch left in flight behind the
+  // next, as GEMMs often do, held a second stage and timed the same.)
+  for (int kb = 0; kb < nk; ++kb, ++*it) {
+    ring.wait_full(*it);
+    pin(acc);
+    wgmma_fence();
+    stage_mma<NA>(acc, base + (*it % ring.stages) * stage, c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    ring.release(*it, lane);
+  }
+}
+
+// The first column of box `b` of a tile that starts at column c0: c0 +
+// 64 b, or c0 again where the tensor (n columns) has ended (the epilogue
+// drops those columns), so no box lies wholly outside the tensor.
+__device__ __forceinline__ int box_col(int c0, int b, int n) {
+  return c0 + 64 * b < n ? c0 + 64 * b : c0;
+}
+
+// Launch A: act = act(h w1 [, h w1g]) of each live 128-row tile, written
+// as bf16 planes act_hi = bf16(act) and act_lo = bf16(act - act_hi) for
+// rows below valid[g].  Gated: a tile is kN / 2 columns of F, and the
+// wgmma's kN columns are u (w1's boxes) beside the gate (w1g's boxes).
+// Ungated: a tile is kN columns of F, every box from w1.
+template <int ACT, bool GATED>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
+                    const __grid_constant__ CUtensorMap tm_w1,
+                    const __grid_constant__ CUtensorMap tm_w1g,
+                    const int* __restrict__ valid,
+                    __nv_bfloat16* __restrict__ act_hi,
+                    __nv_bfloat16* __restrict__ act_lo, int c, int d, int f,
+                    Walk walk) {
+  // the down launch may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const Ring ring = ring_init(base, kUpStage, kUpStages);
+  constexpr int kCols = GATED ? kN / 2 : kN;   // F columns of a tile
+  constexpr int kUBoxes = kCols / 64;          // boxes of w1 (of u)
+  const int n_tiles = walk.tiles();
+  const int nk = d / kDepth;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int g, col, rt;
+      walk.tile(t, &g, &col, &rt);
+      const int row0 = rt * kRows;
+      if (row0 >= clamp_valid(valid, g, c)) continue;
+      const int e = g / walk.gpe;
+      const int f0 = col * kCols;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const uint32_t full = ring.acquire(it, kUpStage);
+        const uint32_t s = base + (it % kUpStages) * kUpStage;
+        tma_load(s, &tm_h, full, kb * kDepth, row0, g);
+#pragma unroll
+        for (int b = 0; b < kBoxes; ++b)
+          tma_load(s + kABox + b * kBBox, b < kUBoxes ? &tm_w1 : &tm_w1g,
+                   full, box_col(f0, b % kUBoxes, f), kb * kDepth, e);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns rows row0 + 64 cw .. + 64 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int tq = lane & 3;
+  // acc[4 j + 2 r + e]: row 64 cw + 16 warp + lane / 4 + 8 r of the tile,
+  // wgmma column 8 j + 2 tq + e (the gate of u's column n is column
+  // n + kN / 2)
+  const int trow = 64 * cw + 16 * (tw >> 5) + (lane >> 2);
+  float acc[kAcc];
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int g, col, rt;
+    walk.tile(t, &g, &col, &rt);
+    const int row0 = rt * kRows;
+    const int v = clamp_valid(valid, g, c);
+    if (row0 >= v) continue;
+    const bool live = row0 + 64 * cw < v;
+    tile_mma<1>(acc, ring, base, kUpStage, &it, nk, cw, lane, live);
+    if (!live) continue;
+    const int f0 = col * kCols;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + trow + 8 * r;
+      if (row >= v) continue;   // never read: launch B zeroes its output
+      const int64_t at = ((int64_t)g * c + row) * f + f0 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j) {
+        if (j % 8 == 0 && j > 0 && f0 + 8 * j >= f) break;
+        const int u = 4 * j + 2 * r, gate = u + kAcc / 2;
+        const float x0 = activate<ACT>(acc[u], GATED ? acc[gate] : 0.f);
+        const float x1 =
+            activate<ACT>(acc[u + 1], GATED ? acc[gate + 1] : 0.f);
+        const uint32_t hi = bf16x2(x0, x1);
+        *reinterpret_cast<uint32_t*>(act_hi + at + 8 * j) = hi;
+        *reinterpret_cast<uint32_t*>(act_lo + at + 8 * j) =
+            bf16x2(x0 - __uint_as_float(hi << 16),
+                   x1 - __uint_as_float(hi & 0xffff0000u));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = bf16x2(a, b);
+}
+
+// Launch B: out = act_hi w2 + act_lo w2 in one f32 accumulator per
+// 128 x kN tile of out, rounded once to OutT (bf16; f32 for the test
+// readout); rows at or past valid[g] are written as exact zeros, and a
+// tile that lies wholly past valid[g] writes its zeros without a load.
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hi,
+                      const __grid_constant__ CUtensorMap tm_lo,
+                      const __grid_constant__ CUtensorMap tm_w2,
+                      const int* __restrict__ valid, OutT* __restrict__ out,
+                      int c, int d, int f, Walk walk) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const Ring ring = ring_init(base, kDownStage, kDownStages);
+  // launch A's act planes are complete (and visible) past this point
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int n_tiles = walk.tiles();
+  const int nk = f / kDepth;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int g, col, rt;
+      walk.tile(t, &g, &col, &rt);
+      const int row0 = rt * kRows;
+      if (row0 >= clamp_valid(valid, g, c)) continue;
+      const int e = g / walk.gpe;
+      const int d0 = col * kN;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const uint32_t full = ring.acquire(it, kDownStage);
+        const uint32_t s = base + (it % kDownStages) * kDownStage;
+        tma_load(s, &tm_hi, full, kb * kDepth, row0, g);
+        tma_load(s + kABox, &tm_lo, full, kb * kDepth, row0, g);
+#pragma unroll
+        for (int b = 0; b < kBoxes; ++b)
+          tma_load(s + 2 * kABox + b * kBBox, &tm_w2, full,
+                   box_col(d0, b, d), kb * kDepth, e);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int tq = lane & 3;
+  const int trow = 64 * cw + 16 * (tw >> 5) + (lane >> 2);
+  float acc[kAcc];
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int g, col, rt;
+    walk.tile(t, &g, &col, &rt);
+    const int row0 = rt * kRows;
+    const int v = clamp_valid(valid, g, c);
+    const int d0 = col * kN;
+    const int cols = min(kN, d - d0);
+    OutT* og = out + (int64_t)g * c * d + d0;
+    if (row0 >= v) {
+      // wholly past valid: 16-byte zero stores by both warpgroups
+      constexpr int kPer = 16 / sizeof(OutT);
+      const int chunks = cols / kPer;
+      const int rows = min(kRows, c - row0);
+      for (int i = threadIdx.x - 128; i < rows * chunks; i += 256)
+        *reinterpret_cast<uint4*>(og + (int64_t)(row0 + i / chunks) * d +
+                                  (i % chunks) * kPer) =
+            make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    tile_mma<2>(acc, ring, base, kDownStage, &it, nk, cw, lane,
+                row0 + 64 * cw < v);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + trow + 8 * r;
+      if (row >= c) continue;
+      const bool keep = row < v;   // a select: NaN past valid stays out
+      OutT* dst = og + (int64_t)row * d + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        if (8 * j >= cols) break;
+        store2(dst + 8 * j, keep ? acc[4 * j + 2 * r] : 0.f,
+               keep ? acc[4 * j + 2 * r + 1] : 0.f);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Launchers of the tensor-core engine
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a bf16 [outer, mid, inner] tensor: boxes of 64 inner
+// elements (128 bytes) x `box_mid` rows of one outer index, 128-byte
+// swizzled; what lies outside the tensor reads as zeros, so a box never
+// crosses into the next group or expert.
+bool map3(CUtensorMap* map, const void* ptr, int inner, int mid, int outer,
+          int box_mid) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)mid,
+                              (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)inner * mid * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_mid, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Opt a kernel into its dynamic shared memory (above 48 KB) once.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  *done = e == cudaSuccess;
+  return e;
+}
+
+struct Maps {
+  CUtensorMap h, w1, w1g, hi, lo, w2;
+};
+
+template <int ACT, bool GATED>
+int launch_up_tc(const Maps& m, const int* valid, __nv_bfloat16* hi,
+              __nv_bfloat16* lo, int c, int d, int f, tc::Walk walk,
+              int ctas, cudaStream_t stream) {
+  static bool done = false;
+  constexpr int smem = tc::smem_bytes(tc::kUpStage, tc::kUpStages);
+  const cudaError_t e =
+      allow_smem(tc::ffn_up_wgmma_kernel<ACT, GATED>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  tc::ffn_up_wgmma_kernel<ACT, GATED><<<ctas, tc::kThreads, smem, stream>>>(
+      m.h, m.w1, m.w1g, valid, hi, lo, c, d, f, walk);
+  return (int)cudaGetLastError();
+}
+
+// Launch B under programmatic dependent launch: its CTAs may be scheduled
+// while launch A's last CTAs run, and wait for A in griddepcontrol.wait.
+template <typename OutT>
+int launch_down_tc(const Maps& m, const int* valid, void* out, int c, int d,
+                int f, tc::Walk walk, int ctas, cudaStream_t stream) {
+  static bool done = false;
+  constexpr int smem = tc::smem_bytes(tc::kDownStage, tc::kDownStages);
+  cudaError_t e = allow_smem(tc::ffn_down_wgmma_kernel<OutT>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(tc::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, tc::ffn_down_wgmma_kernel<OutT>, m.hi, m.lo,
+                         m.w2, valid, static_cast<OutT*>(out), c, d, f,
+                         walk);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core engine: bf16 operands, D and F multiples of 64, every
+// base on a 16-byte boundary (TMA); act_ws holds the two bf16 planes
+// [2, G, C, F].
+int launch_wgmma(int act_code, const void* h, const void* w1,
+                 const void* w1g, const void* w2, const int* valid,
+                 void* act_ws, void* out, int g, int c, int d, int f, int e,
+                 int ctas, int out_f32, cudaStream_t stream) {
+  if (d % tc::kDepth != 0 || f % tc::kDepth != 0 || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool gated = act_code == kSwiglu || act_code == kGeglu;
+  if (((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w1) |
+        reinterpret_cast<uintptr_t>(gated ? w1g : w1) |
+        reinterpret_cast<uintptr_t>(w2) |
+        reinterpret_cast<uintptr_t>(act_ws) |
+        reinterpret_cast<uintptr_t>(out)) %
+       16) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int n_row = (c + tc::kRows - 1) / tc::kRows;
+  const int up_width = gated ? tc::kN / 2 : tc::kN;
+  const int up_cols = (f + up_width - 1) / up_width;
+  const int down_cols = (d + tc::kN - 1) / tc::kN;
+  if ((int64_t)n_row * (up_cols > down_cols ? up_cols : down_cols) * g >
+      0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  auto* hi = static_cast<__nv_bfloat16*>(act_ws);
+  auto* lo = hi + (int64_t)g * c * f;
+  Maps m;
+  if (!map3(&m.h, h, d, c, g, tc::kRows) ||
+      !map3(&m.w1, w1, f, d, e, tc::kDepth) ||
+      !map3(&m.w1g, gated ? w1g : w1, f, d, e, tc::kDepth) ||
+      !map3(&m.hi, hi, f, c, g, tc::kRows) ||
+      !map3(&m.lo, lo, f, c, g, tc::kRows) ||
+      !map3(&m.w2, w2, d, f, e, tc::kDepth))
+    return (int)cudaErrorInvalidValue;
+  const int gpe = g / e;
+  const tc::Walk up{n_row, up_cols, g, gpe};
+  const tc::Walk down{n_row, down_cols, g, gpe};
+  // persistent: at most `ctas` CTAs, and none without a tile
+  const int ctas_up = ctas < n_row * up_cols * g ? ctas : n_row * up_cols * g;
+  const int ctas_down =
+      ctas < n_row * down_cols * g ? ctas : n_row * down_cols * g;
+  int err;
+  switch (act_code) {
+    case kSwiglu:
+      err = launch_up_tc<kSwiglu, true>(m, valid, hi, lo, c, d, f, up,
+                                        ctas_up, stream);
+      break;
+    case kGeglu:
+      err = launch_up_tc<kGeglu, true>(m, valid, hi, lo, c, d, f, up,
+                                       ctas_up, stream);
+      break;
+    case kRelu2:
+      err = launch_up_tc<kRelu2, false>(m, valid, hi, lo, c, d, f, up,
+                                        ctas_up, stream);
+      break;
+    case kGelu:
+      err = launch_up_tc<kGelu, false>(m, valid, hi, lo, c, d, f, up,
+                                       ctas_up, stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  return out_f32 ? launch_down_tc<float>(m, valid, out, c, d, f, down,
+                                         ctas_down, stream)
+                 : launch_down_tc<__nv_bfloat16>(m, valid, out, c, d, f,
+                                                 down, ctas_down, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; act: 0 swiglu, 1 geglu, 2 relu2,
-// 3 gelu (w1g is read only for the gated 0 and 1).  Returns a cudaError_t
-// (0 = both launches made).
-extern "C" int grouped_ffn_launch(int dtype, int act_code, const void* h,
-                                  const void* w1, const void* w1g,
-                                  const void* w2, const int* valid,
-                                  void* act_ws, void* out, int g, int c,
-                                  int d, int f, int e, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; engine: 0 = SIMT (either type, any
+// shape; act_ws is f32 [G, C, F]), 1 = the tensor cores (bf16, D and F
+// multiples of 64, 16-byte aligned bases; act_ws is bf16 [2, G, C, F];
+// at most `ctas` persistent CTAs a launch; out_f32 = 1 writes the f32
+// result before rounding into an f32 out, for tests).  act: 0 swiglu, 1 geglu, 2 relu2, 3 gelu (w1g is read only for
+// the gated 0 and 1).  Returns a cudaError_t (0 = both launches made).
+extern "C" int grouped_ffn_launch(int dtype, int engine, int act_code,
+                                  const void* h, const void* w1,
+                                  const void* w1g, const void* w2,
+                                  const int* valid, void* act_ws, void* out,
+                                  int g, int c, int d, int f, int e,
+                                  int ctas, int out_f32, void* stream) {
   if (g < 1 || c < 1 || d < 1 || f < 1 || e < 1 || g % e != 0)
     return (int)cudaErrorInvalidValue;
   if ((act_code == kSwiglu || act_code == kGeglu) && w1g == nullptr)
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (engine == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_wgmma(act_code, h, w1, w1g, w2, valid, act_ws, out, g, c,
+                        d, f, e, ctas, out_f32, s);
+  }
+  if (engine != 0 || out_f32) return (int)cudaErrorInvalidValue;
   if (g > 65535 || (c + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(act_ws);
   const int gpe = g / e;
   if (dtype == 0)
@@ -334,6 +1042,26 @@ extern "C" int grouped_ffn_launch(int dtype, int act_code, const void* h,
     return launch_ffn<__nv_bfloat16>(act_code, h, w1, w1g, w2, valid, ws,
                                      out, g, c, d, f, gpe, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tile of each launch of an engine (0 SIMT, 1 the tensor cores) for
+// a gated (swiglu, geglu) or ungated activation: rows, F columns of the
+// up launch, D columns of the down launch.  Returns 0, or
+// cudaErrorInvalidValue for an unknown engine.
+extern "C" int grouped_tile_shape(int engine, int gated, int* rows,
+                                  int* up_cols, int* down_cols) {
+  if (engine == 0) {
+    *rows = kRows;
+    *up_cols = kColsA;
+    *down_cols = kColsB;
+  } else if (engine == 1) {
+    *rows = tc::kRows;
+    *up_cols = gated ? tc::kN / 2 : tc::kN;
+    *down_cols = tc::kN;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 extern "C" const char* grouped_error_string(int err) {

@@ -1,4 +1,4 @@
-"""Grouped-expert FFN — hand-written CUDA kernel + plain PyTorch version
+"""Grouped-expert FFN — hand-written CUDA kernels + plain PyTorch version
 (port of ``repro.kernels.grouped_matmul``).
 
 The MoE capacity buffers are [G, C, D] groups of padded rows (G = E
@@ -7,30 +7,51 @@ all_to_all); only the first ``valid[g]`` rows of each group hold real
 tokens, the rest are padding sized by the capacity factor.  Group g uses
 expert ``g // (G / E)``.
 
-Two engines with the same arithmetic:
+The CUDA kernels ``csrc/grouped_matmul.cu`` (Hopper, ``sm_90a``) replace
+the reference's Pallas TPU kernel ``grouped_expert_ffn_pallas``.  Two
+launches (the first products and the activation into a workspace, then
+the down-projection), in one of two engines that ``grouped_plan`` picks
+from the shapes alone:
 
-  * the CUDA kernel ``csrc/grouped_matmul.cu`` (Hopper, ``sm_90a``), in
-    place of the reference's Pallas TPU kernel
-    ``grouped_expert_ffn_pallas``: two launches tiled in D and F (the
-    first products and the activation into an f32 workspace, then the
-    f32 down-projection); row tiles wholly past ``valid[g]`` do no
-    arithmetic.  The valid counts stay a device tensor the kernel reads,
-    so a call never syncs with the host;
-  * ``grouped_expert_ffn_torch`` — rows masked by the same predicate,
-    then batched products in f32 (the reference's
-    ``grouped_expert_ffn_jnp``).
+  * ``wgmma`` — bf16 with D and F multiples of 64 (moonshot's MoE layers):
+    persistent tensor-core GEMMs over the live 128-row tiles only, fed by
+    TMA.  The activation is stored as two bf16 planes, act_hi and act_lo
+    = act - act_hi, and the f32 down-projection of the reference runs as
+    act_hi w2 + act_lo w2 in one f32 accumulator (w2 is bf16, so this is
+    the f32 product within about 1e-5 of its size).  Its operands must start
+    on 16-byte boundaries; the wrapper raises otherwise;
+  * ``simt`` — f32, and bf16 shapes the tensor-core path cannot map: f32
+    FMA tiles on the SIMT units, with an f32 workspace.
 
-``grouped_expert_ffn`` is a ``torch.autograd.Function``: a CUDA tensor
-launches the kernel (or raises), a CPU tensor takes the plain version,
-and ``engine="torch"`` pins the plain version on any device.  Its
-backward recomputes through the plain version (the reference's custom VJP,
-whose backward is jnp, not a kernel).  ``GROUPED_LAUNCHES`` counts kernel
-calls.
+Both read the valid counts on the card, so a call never waits for the
+host and can be captured in a CUDA graph.  The two launches stay apart:
+a 128-row tile of act over F = 1408 is 720 KB in f32, beyond the 227 KB
+of shared memory, and the workspace's round trip costs about 0.08 ms.
+The bound counts the function's work whatever runs it: the three
+products at the bf16 tensor-core rate against the weights, kept rows and
+output over HBM, 0.430 ms at moonshot's prefill call (G = E = 64, C =
+480, D 2048, F 1408, 24576 kept rows).  There the tensor-core engine
+takes 1.12-1.24 ms over three runs on an NVIDIA H100 80GB HBM3 at
+700 W, against 18.24 ms for the first port's SIMT kernel and 13.3 ms for
+the plain version (chip_smoke.py phase 2; PERF.md; the design is in the
+source's note).
+
+``grouped_expert_ffn_torch`` is the plain version: rows masked by the
+same predicate, then batched products in f32 (the reference's
+``grouped_expert_ffn_jnp``).  ``grouped_expert_ffn`` is a
+``torch.autograd.Function``: a CUDA tensor launches the kernels (or
+raises), a CPU tensor takes the plain version, and ``engine="torch"``
+pins the plain version on any device.  Its backward recomputes through
+the plain version (the reference's custom VJP, whose backward is jnp, not
+a kernel).  ``GROUPED_LAUNCHES`` counts kernel calls, ``ENGINE_LAUNCHES``
+the calls of each engine.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,9 +60,14 @@ from repro_torch.kernels import build
 
 #: kernel calls since the count was last set to 0
 GROUPED_LAUNCHES = 0
+#: kernel calls of each engine since the counts were last set to 0
+ENGINE_LAUNCHES = {"wgmma": 0, "simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"swiglu": 0, "geglu": 1, "relu2": 2, "gelu": 3}
+_ENGINE_CODE = {"simt": 0, "wgmma": 1}
+#: the tensor-core engine's D and F granularity: one 128-byte TMA box
+TC_DEPTH = 64
 
 
 def gated(mlp: str) -> bool:
@@ -97,13 +123,47 @@ def grouped_expert_ffn_torch(h: torch.Tensor, w1: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+class Plan(NamedTuple):
+    """How one call runs on the card."""
+    engine: str          # "wgmma" (bf16 on the tensor cores) or "simt"
+    ctas: int            # wgmma: persistent CTAs a launch, at most (the
+                         # kernel takes no more than its tiles); simt: 0,
+                         # a grid over every tile
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def grouped_plan(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                 mlp: str, *, n_sm: int | None = None) -> Plan:
+    """The plan the wrapper launches for these shapes and types: the
+    tensor cores for bf16 with D and F multiples of ``TC_DEPTH``, SIMT
+    otherwise.  Reads shapes and types only, never a value (nor ``valid``),
+    so a call never waits for the card.  The tensor-core launches are
+    persistent, one CTA per SM (``n_sm``, default h's card's count)."""
+    d, f = h.shape[2], w1.shape[2]
+    bf16 = torch.bfloat16
+    if (h.dtype == w1.dtype == w2.dtype == bf16 and d % TC_DEPTH == 0
+            and f % TC_DEPTH == 0):
+        if n_sm is None:
+            n_sm = _sm_count(h.device.index if h.device.index is not None
+                             else torch.cuda.current_device())
+        return Plan("wgmma", n_sm)
+    return Plan("simt", 0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("grouped_matmul")
     if lib.grouped_ffn_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_ffn_launch.argtypes = [i, i, p, p, p, p, p, p, p, i, i,
-                                           i, i, i, p]
+        lib.grouped_ffn_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, i,
+                                           i, i, i, i, i, i, p]
         lib.grouped_ffn_launch.restype = i
+        out = ctypes.POINTER(ctypes.c_int)
+        lib.grouped_tile_shape.argtypes = [i, i, out, out, out]
+        lib.grouped_tile_shape.restype = i
         lib.grouped_error_string.argtypes = [i]
         lib.grouped_error_string.restype = ctypes.c_char_p
     return lib
@@ -131,12 +191,8 @@ def _check_shapes(h, w1, w1_gate, w2, valid, mlp) -> None:
         raise ValueError(f"valid must be [{n_g}]; got {tuple(valid.shape)}")
 
 
-def grouped_expert_ffn_cuda(h: torch.Tensor, w1: torch.Tensor,
-                            w1_gate: torch.Tensor | None, w2: torch.Tensor,
-                            valid: torch.Tensor, mlp: str) -> torch.Tensor:
-    """One call of the kernel (both launches) on CUDA tensors; raises on
-    anything it does not take."""
-    global GROUPED_LAUNCHES
+def _check_card(h, w1, w1_gate, w2, valid, mlp) -> None:
+    """What the kernels need beyond ``_check_shapes``."""
     _check_shapes(h, w1, w1_gate, w2, valid, mlp)
     weights = [w1, w2] + ([w1_gate] if w1_gate is not None else [])
     if h.device.type != "cuda":
@@ -151,23 +207,84 @@ def grouped_expert_ffn_cuda(h: torch.Tensor, w1: torch.Tensor,
     if not all(t.is_contiguous() for t in (h, *weights)):
         raise ValueError("the grouped-expert kernel takes contiguous "
                          "tensors")
+
+
+def _launch(h, w1, w1_gate, w2, valid, mlp, plan: Plan,
+            out: torch.Tensor) -> None:
+    """Both launches of ``plan``, writing ``out`` (h's type, or f32 for
+    the tensor-core engine's readout before rounding)."""
+    global GROUPED_LAUNCHES
     n_g, c, d = h.shape
     e, _, f = w1.shape
-    out = torch.empty_like(h)
+    if plan.engine == "wgmma":
+        bad = [name for name, t in (("h", h), ("w1", w1), ("w1_gate", w1_gate),
+                                    ("w2", w2))
+               if t is not None and t.data_ptr() % 16]
+        if bad:
+            raise ValueError(f"the tensor-core grouped kernel loads by TMA: "
+                             f"{', '.join(bad)} must start on a 16-byte "
+                             f"boundary")
+        # the activation as two bf16 planes, act_hi and act_lo
+        ws = torch.empty((2, n_g, c, f), dtype=torch.bfloat16,
+                         device=h.device)
+    else:
+        ws = torch.empty((n_g, c, f), dtype=torch.float32, device=h.device)
     counts = valid.to(torch.int32).contiguous()
-    ws = torch.empty((n_g, c, f), dtype=torch.float32, device=h.device)
     lib = _lib()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.grouped_ffn_launch(
-            _DTYPE_CODE[h.dtype], _ACT_CODE[mlp], h.data_ptr(),
-            w1.data_ptr(), None if w1_gate is None else w1_gate.data_ptr(),
-            w2.data_ptr(), counts.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            n_g, c, d, f, e, stream)
+            _DTYPE_CODE[h.dtype], _ENGINE_CODE[plan.engine], _ACT_CODE[mlp],
+            h.data_ptr(), w1.data_ptr(),
+            None if w1_gate is None else w1_gate.data_ptr(), w2.data_ptr(),
+            counts.data_ptr(), ws.data_ptr(), out.data_ptr(), n_g, c, d, f,
+            e, plan.ctas, int(out.dtype != h.dtype), stream)
     if err != 0:
         raise RuntimeError(f"grouped_expert_ffn kernel launch failed: "
                            f"{lib.grouped_error_string(err).decode()}")
     GROUPED_LAUNCHES += 1
+    ENGINE_LAUNCHES[plan.engine] += 1
+
+
+def grouped_expert_ffn_cuda(h: torch.Tensor, w1: torch.Tensor,
+                            w1_gate: torch.Tensor | None, w2: torch.Tensor,
+                            valid: torch.Tensor, mlp: str) -> torch.Tensor:
+    """One call of the kernels (both launches) on CUDA tensors, by
+    ``grouped_plan``; raises on anything they do not take."""
+    _check_card(h, w1, w1_gate, w2, valid, mlp)
+    out = torch.empty_like(h)
+    _launch(h, w1, w1_gate, w2, valid, mlp, grouped_plan(h, w1, w2, mlp),
+            out)
+    return out
+
+
+def tile_shape(engine: str, mlp: str) -> tuple[int, int, int]:
+    """(rows, F columns of the up launch, D columns of the down launch) of
+    one tile of ``engine`` for ``mlp``, as the built kernels define them."""
+    rows, up, down = (ctypes.c_int() for _ in range(3))
+    err = _lib().grouped_tile_shape(_ENGINE_CODE[engine], int(gated(mlp)),
+                                    ctypes.byref(rows), ctypes.byref(up),
+                                    ctypes.byref(down))
+    if err != 0:
+        raise ValueError(f"no tile shape for engine {engine!r}")
+    return rows.value, up.value, down.value
+
+
+def down_product_f32(h: torch.Tensor, w1: torch.Tensor,
+                     w1_gate: torch.Tensor | None, w2: torch.Tensor,
+                     valid: torch.Tensor, mlp: str) -> torch.Tensor:
+    """The tensor-core engine's f32 result before it is rounded to bf16
+    (act_hi w2 + act_lo w2 as accumulated; rows past valid exactly 0), for
+    checks that hold its second product to the reference's f32 product at
+    f32 tolerances, which the bf16 output cannot show.  bf16 on a CUDA
+    card, at shapes the tensor-core engine takes."""
+    _check_card(h, w1, w1_gate, w2, valid, mlp)
+    plan = grouped_plan(h, w1, w2, mlp)
+    if plan.engine != "wgmma":
+        raise ValueError(f"down_product_f32 needs the tensor-core engine; "
+                         f"got {plan}")
+    out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    _launch(h, w1, w1_gate, w2, valid, mlp, plan, out)
     return out
 
 

@@ -962,3 +962,166 @@ def test_grouped_ffn_kernel_rejects_what_it_does_not_take(cuda):
             big, w1[:1].contiguous(), w1g[:1].contiguous(),
             w2[:1].contiguous(),
             torch.zeros(65536, dtype=torch.int32, device=cuda), "swiglu")
+
+
+# The tensor-core engine (bf16, D and F multiples of 64)
+
+#: (G, C, D, F, E): C = 480, 129 and 1; gpe 1, 2 and 4; an F and a D that
+#: end on a half tile of 128
+GROUPED_TC_SHAPES = [(6, 480, 128, 192, 6), (8, 129, 192, 128, 4),
+                     (8, 1, 128, 64, 2)]
+#: valid counts, clamped to C: the edges of a 128-row tile
+GROUPED_TC_VALID = (0, 1, 127, 128, 129, 10**9)
+ACTIVATIONS = ["swiglu", "geglu", "relu2", "gelu"]
+
+
+def _tc_inputs(cuda, shape, seed, junk="big"):
+    """bf16 operands; past each group's valid count h holds 1e3-scale
+    garbage (``junk="big"``) or NaN, +Inf and -Inf (``junk="nonfinite"``)."""
+    g, c, d, f, e = shape
+    rng = np.random.default_rng(seed)
+    valid = np.array([min(GROUPED_TC_VALID[i % 6], c) for i in range(g)],
+                     np.int32)
+    h = rng.normal(size=(g, c, d)).astype(np.float32)
+    rows = np.arange(c)[None, :, None]
+    bad = (1e3 * rng.normal(size=h.shape) if junk == "big" else
+           np.array([np.nan, np.inf, -np.inf])[rng.integers(0, 3, h.shape)])
+    h = np.where(rows < valid[:, None, None], h, bad).astype(np.float32)
+    ws = [(rng.normal(size=s) * 0.1).astype(np.float32)
+          for s in ((e, d, f), (e, d, f), (e, f, d))]
+    return ([torch.from_numpy(a).to(cuda).bfloat16() for a in (h, *ws)],
+            torch.from_numpy(valid).to(cuda))
+
+
+def _plain_f32(h, w1, w1g, w2, valid, mlp):
+    return gm.grouped_expert_ffn_torch(
+        h.float(), w1.float(), None if w1g is None else w1g.float(),
+        w2.float(), valid, mlp)
+
+
+def _padded(got, valid):
+    return (torch.arange(got.shape[1], device=got.device)[None, :, None]
+            >= valid[:, None, None]).expand_as(got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ACTIVATIONS)
+@pytest.mark.parametrize("shape", GROUPED_TC_SHAPES, ids=str)
+def test_grouped_ffn_tensor_cores_match_plain(cuda, mlp, shape):
+    """The tensor-core engine against the plain version in f32 on the same
+    bf16 inputs: within 2e-2 x max(1, max|want|), padded rows exactly
+    zero, one launch counted on the wgmma engine."""
+    (h, w1, w1g, w2), valid = _tc_inputs(cuda, shape, sum(shape))
+    w1g = w1g if gm.gated(mlp) else None
+    assert gm.grouped_plan(h, w1, w2, mlp).engine == "wgmma"
+    before, tc = gm.GROUPED_LAUNCHES, gm.ENGINE_LAUNCHES["wgmma"]
+    got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp=mlp)
+    torch.cuda.synchronize()
+    assert gm.GROUPED_LAUNCHES == before + 1
+    assert gm.ENGINE_LAUNCHES["wgmma"] == tc + 1
+    _close(got, _plain_f32(h, w1, w1g, w2, valid, mlp), 2e-2,
+           f"{mlp} {shape}")
+    pad = _padded(got, valid)
+    assert torch.equal(got[pad].float(), torch.zeros_like(got[pad].float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ACTIVATIONS)
+def test_grouped_ffn_tensor_cores_keep_nonfinite_garbage_out(cuda, mlp):
+    """NaN and Inf in h past valid reach only their own rows, which come
+    out exactly zero; the live rows are finite and match the plain
+    version (which selects the padded rows away) at 2e-2."""
+    shape = GROUPED_TC_SHAPES[0]
+    (h, w1, w1g, w2), valid = _tc_inputs(cuda, shape, 5, junk="nonfinite")
+    w1g = w1g if gm.gated(mlp) else None
+    assert not torch.isfinite(h.float()).all()
+    got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp=mlp)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    pad = _padded(got, valid)
+    assert torch.equal(got[pad].float(), torch.zeros_like(got[pad].float()))
+    _close(got, _plain_f32(h, w1, w1g, w2, valid, mlp), 2e-2, mlp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ACTIVATIONS)
+@pytest.mark.parametrize("shape", GROUPED_TC_SHAPES
+                         + [(8, 480, 256, 1408, 8)], ids=str)
+def test_grouped_ffn_f32_down_product_keeps_f32(cuda, mlp, shape):
+    """The down launch's f32 result before rounding is within 1e-4 of its
+    largest magnitude of the plain f32 product: act runs as act_hi w2 +
+    act_lo w2; act_hi w2 alone is off by about 1e-3, which the bf16
+    output at 2e-2 cannot show."""
+    (h, w1, w1g, w2), valid = _tc_inputs(cuda, shape, 7 + sum(shape))
+    w1g = w1g if gm.gated(mlp) else None
+    got = gm.down_product_f32(h, w1, w1g, w2, valid, mlp)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    want = _plain_f32(h, w1, w1g, w2, valid, mlp)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), \
+        f"{mlp} {shape}: {err:.3e} of {want.abs().max().item():.3g}"
+    pad = _padded(got, valid)
+    assert torch.equal(got[pad], torch.zeros_like(got[pad]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ACTIVATIONS)
+@pytest.mark.parametrize("shape", GROUPED_TC_SHAPES[:2]
+                         + [(8, 480, 256, 1408, 8)], ids=str)
+def test_grouped_ffn_bf16_output_rounds_the_f32_product(cuda, mlp, shape):
+    """The bf16 binary the models run (the f32 readout is another
+    instantiation of its template): its output equals the plain f32
+    product rounded to bf16 on at least 99% of the live elements, which
+    act_hi w2 alone meets on about 58% only."""
+    (h, w1, w1g, w2), valid = _tc_inputs(cuda, shape, 11 + sum(shape))
+    w1g = w1g if gm.gated(mlp) else None
+    got = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp=mlp)
+    torch.cuda.synchronize()
+    want = _plain_f32(h, w1, w1g, w2, valid, mlp).bfloat16()
+    live = ~_padded(got, valid)
+    share = (got[live] == want[live]).float().mean().item()
+    assert share >= 0.99, f"{mlp} {shape}: {share:.4f} equal"
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_tensor_cores_twice_give_equal_bits(cuda):
+    """No split-K and no atomics: two calls write the same bits."""
+    (h, w1, w1g, w2), valid = _tc_inputs(cuda, (8, 480, 256, 1408, 8), 3)
+    a = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp="swiglu")
+    b = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp="swiglu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_counts_each_engine(cuda):
+    """The plan's engine is the one that launches and counts: f32 and bf16
+    with D or F no multiple of 64 on SIMT, bf16 at 64-multiples on the
+    tensor cores."""
+    cases = [(torch.float32, (4, 16, 128, 64, 2), "simt"),
+             (torch.bfloat16, (3, 257, 130, 70, 3), "simt"),
+             (torch.bfloat16, (4, 16, 128, 64, 2), "wgmma")]
+    for dtype, shape, engine in cases:
+        (h, w1, w1g, w2), valid = _grouped_inputs(cuda, dtype, shape, 0)
+        assert gm.grouped_plan(h, w1, w2, "swiglu").engine == engine
+        before = dict(gm.ENGINE_LAUNCHES)
+        gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp="swiglu")
+        torch.cuda.synchronize()
+        want = dict(before)
+        want[engine] += 1
+        assert gm.ENGINE_LAUNCHES == want, (dtype, shape)
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_tensor_cores_reject_misaligned_bases(cuda):
+    """TMA needs 16-byte bases: an aligned shape on a misaligned base
+    raises before any launch, for each operand."""
+    (h, w1, w1g, w2), valid = _tc_inputs(cuda, (4, 16, 128, 64, 2), 0)
+    before = gm.GROUPED_LAUNCHES
+    for i in range(4):
+        args = [h, w1, w1g, w2]
+        args[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            gm.grouped_expert_ffn(*args, valid, mlp="swiglu")
+    assert gm.GROUPED_LAUNCHES == before
