@@ -703,6 +703,16 @@ STENCIL_TOL = (("float32", 1e-6), ("bfloat16", 2e-2))
 #: the conv2d yardstick against the plain sweep: cuDNN sums the five terms
 #: in its own order (or by a transform)
 CONV_TOL = 1e-5
+#: the k-sweep kernel's checks: the main path's width, an odd width over
+#: three bands, rows over several strips with a ragged last one, m < k
+KSWEEP_SHAPES = [(64, 130), (1000, 777), (5, 130), (40, 16386), (700, 2101),
+                 (3001, 130)]
+#: k of the k-sweep timings at the Jacobi shape (the kernels line takes the
+#: last), turns of them while nvidia-smi reads the card, and graph replays
+#: (of 4 launches) of each k per turn
+KSWEEP_KS = (2, 4, 8)
+KSWEEP_TURNS = 5
+KSWEEP_TURN_REPS = 5
 
 
 def stencil_bound(m, n, itemsize, sweeps, u_ghost=0, f_ghost=0):
@@ -765,7 +775,7 @@ def phase_stencil(torch):
                   flush=True)
         for k in (1, 2, 3, 4, 8):
             line = []
-            for m, n in ((64, 130), (1000, 777), (5, 130)):
+            for m, n in KSWEEP_SHAPES:
                 big, fbig = rand((m + 2 * k, n), dtype), rand((m + 2 * k, n),
                                                               dtype)
                 for ft, fb in ((0, 0), (k, k), (k + 1, k + 1)):
@@ -776,6 +786,11 @@ def phase_stencil(torch):
                     err = stencil_check(
                         torch, got, want, tol, f"jacobi_ksweep {dname} "
                         f"{m}x{n} k={k} frozen=({ft}, {fb})")
+                    if dtype == torch.float32 and err != 0.0:
+                        fail(f"jacobi_ksweep float32 {m}x{n} k={k} frozen="
+                             f"({ft}, {fb}): max|err| {err:.3e}, not 0 (the "
+                             f"kernel does the plain version's f32 "
+                             f"operations in its order)")
                     errs["ksweep"] = max(errs["ksweep"], err)
                     line.append(err)
                 if dtype == torch.float32:
@@ -792,19 +807,36 @@ def phase_stencil(torch):
                     line.append(stencil_check(
                         torch, got, oracle[k:-k], tol,
                         f"jacobi_ksweep slab interior {m}x{n} k={k}"))
-            print(f"  jacobi_ksweep vs plain {dname} k={k} (64x130, "
-                  f"1000x777, 5x130; frozen (0,0), (k,k), (k+1,k+1)"
+            shapes = ", ".join(f"{m}x{n}" for m, n in KSWEEP_SHAPES)
+            print(f"  jacobi_ksweep vs plain {dname} k={k} ({shapes}; "
+                  f"frozen (0,0), (k,k), (k+1,k+1)"
                   f"{'; live-apron oracle' if dtype == torch.float32 else ''}"
-                  f"): max|err| {max(line):.1e} (tolerance {tol} x max(1, "
-                  f"max|want|))", flush=True)
+                  f"): max|err| {max(line):.1e} (tolerance "
+                  f"{'0 against the plain version, ' if dtype == torch.float32 else ''}"
+                  f"{tol} x max(1, max|want|))", flush=True)
 
     # times at the Jacobi phase's shape, one rank: the bulk sweep (zero
-    # halo rows) and the aggregated call at k = 8 (frozen zero ghost rows)
-    n, k = JACOBI_N, 8
+    # halo rows) and the aggregated call at k = 2, 4, 8 (frozen zero ghost
+    # rows); the kernels line takes k = 8
+    n, k = JACOBI_N, KSWEEP_KS[-1]
     u, f = rand((n, n), torch.float32), rand((n, n), torch.float32)
     out = torch.empty_like(u)
     z1 = torch.zeros((1, n), device="cuda")
-    zk = torch.zeros((k, n), device="cuda")
+    zks = {kk: torch.zeros((kk, n), device="cuda") for kk in KSWEEP_KS}
+    zk = zks[k]
+    for kk in KSWEEP_KS:
+        plan = st.ksweep_plan(n, n, kk, torch.float32)
+        band, smem, resident = st.ksweep_built(kk)
+        print(f"  jacobi_ksweep plan at {n}x{n} f32, k={kk}: band {plan.band}"
+              f" columns (writes {plan.band - 2 * kk}) x {plan.bands} bands,"
+              f" strips of {plan.strip} rows x {plan.strips}, {plan.ctas} "
+              f"CTAs, {st.KSWEEP_CTAS} per SM; built: band {band}, {smem} bytes "
+              f"of shared memory, {resident} CTAs resident per SM "
+              f"(occupancy API)", flush=True)
+        if (band, smem) != (plan.band, st.ksweep_smem_bytes(kk)) or \
+                resident < st.KSWEEP_CTAS:
+            fail(f"the built k-sweep kernel at k={kk} is not its plan's: "
+                 f"{(band, smem, resident)} against {plan}")
     times = {
         "step": dict(
             ms=graph_ms(torch, [lambda: st.jacobi_step(
@@ -812,14 +844,46 @@ def phase_stencil(torch):
             plain_ms=graph_ms(torch, [lambda: st.jacobi_step(
                 u, f, lo=z1, hi=z1, out=out, engine="torch")], 3),
             library_ms=None),
-        "ksweep": dict(
-            ms=graph_ms(torch, [lambda: st.jacobi_ksweep_parts(
-                zk, u, zk, zk, f, zk, k, k, k, out=out)] * 4, 5),
-            plain_ms=graph_ms(torch, [lambda: st.jacobi_ksweep_parts(
-                zk, u, zk, zk, f, zk, k, k, k, out=out,
-                engine="torch")], 2),
-            library_ms=None),
     }
+    timers = {kk: graph_timer(torch, [lambda kk=kk: st.jacobi_ksweep_parts(
+        zks[kk], u, zks[kk], zks[kk], f, zks[kk], kk, kk, kk, out=out)] * 4)
+        for kk in KSWEEP_KS}
+
+    def take_turns():
+        return [{kk: timers[kk](KSWEEP_TURN_REPS) for kk in KSWEEP_KS}
+                for _ in range(KSWEEP_TURNS)]
+
+    turns, clocks = with_clocks(take_turns)
+    del timers
+    ksweep = {}
+    for kk in KSWEEP_KS:
+        got = sorted(turn[kk] for turn in turns)
+        ksweep[kk] = dict(
+            ms=got[len(got) // 2], spread=(got[0], got[-1]),
+            plain_ms=graph_ms(torch, [lambda kk=kk: st.jacobi_ksweep_parts(
+                zks[kk], u, zks[kk], zks[kk], f, zks[kk], kk, kk, kk,
+                out=out, engine="torch")], 2),
+            bound=stencil_bound(n, n, 4, kk, 2 * kk, 2 * kk))
+        torch.cuda.empty_cache()
+    times["ksweep"] = dict(ms=ksweep[k]["ms"], plain_ms=ksweep[k]["plain_ms"],
+                           library_ms=None)
+    mhz = [c[1] for c in clocks] or [float("nan")]
+    watts = [c[2] for c in clocks] or [float("nan")]
+    print(f"  jacobi_ksweep at {n}x{n} f32, frozen zero ghost rows, "
+          f"{KSWEEP_TURNS} turns of k = {', '.join(map(str, KSWEEP_KS))} "
+          f"({KSWEEP_TURN_REPS} graph replays of 4 calls each per turn), "
+          f"{len(clocks)} nvidia-smi reads: SM clock {min(mhz):.0f}-"
+          f"{max(mhz):.0f} MHz, power {min(watts):.1f}-{max(watts):.1f} W",
+          flush=True)
+    for kk in KSWEEP_KS:
+        tk = ksweep[kk]
+        b_ms, b_by = tk["bound"]
+        print(f"    k={kk}: kernel {tk['ms']:.4f} ms per call (median turn; "
+              f"{tk['spread'][0]:.4f}-{tk['spread'][1]:.4f}), "
+              f"{tk['ms'] / kk:.4f} ms per sweep; bound {b_ms:.4f} ms "
+              f"({b_by}, with the 2k ghost rows of u and f; the kernel "
+              f"reaches {b_ms / tk['ms'] * 100:.1f}% of it); plain "
+              f"{tk['plain_ms']:.4f} ms", flush=True)
     # the library call: one cuDNN conv2d over the stacked (u, f) with a
     # 2-channel 3x3 kernel (0.25 on u's cross, -0.25 on f's centre) and
     # zero rows padded above and below is one sweep's interior columns
@@ -877,21 +941,30 @@ def phase_stencil(torch):
           f"the plain k sweeps {chain_err:.1e} (tolerance {CONV_TOL} x "
           f"max(1, max|want|): cuDNN sums in another order)", flush=True)
 
-    # the same calls, kernel against plain, at this shape
-    for name, call, tol in (
-            ("step", lambda **kw: st.jacobi_step(u, f, lo=z1, hi=z1, **kw),
-             STENCIL_TOL[0][1]),
-            ("ksweep", lambda **kw: st.jacobi_ksweep_parts(
-                zk, u, zk, zk, f, zk, k, k, k, **kw), STENCIL_TOL[0][1])):
+    # the same calls, kernel against plain, at this shape: the sweep, and
+    # the k-sweep at every k timed (f32: exactly 0)
+    tol = STENCIL_TOL[0][1]
+    calls = [("step", "jacobi_step", lambda **kw: st.jacobi_step(
+        u, f, lo=z1, hi=z1, **kw))]
+    calls += [("ksweep", f"jacobi_ksweep k={kk}",
+               lambda kk=kk, **kw: st.jacobi_ksweep_parts(
+                   zks[kk], u, zks[kk], zks[kk], f, zks[kk], kk, kk, kk,
+                   **kw)) for kk in KSWEEP_KS]
+    for name, label, call in calls:
         got = call()
         torch.cuda.synchronize()
         want = call(engine="torch")
         err = stencil_check(torch, got, want, tol,
-                            f"jacobi_{name} float32 {n}x{n}")
+                            f"{label} float32 {n}x{n}")
+        if name == "ksweep" and err != 0.0:
+            fail(f"{label} float32 {n}x{n} (the main path's call): max|err| "
+                 f"{err:.3e}, not 0 (the kernel does the plain version's "
+                 f"f32 operations in its order)")
         errs[name] = max(errs[name], err)
-        print(f"  jacobi_{name} vs plain float32 {n}x{n} (the main path's "
-              f"call): max|err| {err:.1e} (tolerance {tol} x max(1, "
-              f"max|want|))", flush=True)
+        print(f"  {label} vs plain float32 {n}x{n} (the main path's call): "
+              f"max|err| {err:.1e} (tolerance {tol} x max(1, max|want|)"
+              f"{'; the k-sweep must be 0' if name == 'ksweep' else ''})",
+              flush=True)
         del got, want
     for name, (sweeps, ghosts) in (("step", (1, (2, 0))),
                                    ("ksweep", (k, (2 * k, 2 * k)))):
@@ -1915,8 +1988,10 @@ def phase_jacobi(torch):
         sweeps_of_one = iters % k if mode == "aggregated" else iters
         moved = (sweeps_of_one * (3 * n + 2)
                  + got[1] * (3 * n + 4 * k)) * n * 4
+        model = decision.per_sweep_s.get(k if mode == "aggregated" else 1)
         line = (f"  {name}: {wall / iters * 1e3:.4f} ms per sweep "
-                f"({wall:.3f} s host wall for {iters}), {moved / wall / 1e9:.1f}"
+                f"({wall:.3f} s host wall for {iters}; the H100 model "
+                f"predicts {model * 1e3:.4f}), {moved / wall / 1e9:.1f}"
                 f" GB/s effective HBM, launches {got[0]} jacobi_step + "
                 f"{got[1]} jacobi_ksweep")
         if bulk is None:
@@ -2554,8 +2629,10 @@ def main() -> int:
                  f"kernels (hd 64 and 128) must run on the tensor cores; "
                  f"HGMMA counts {counts}")
 
-    # the paged bf16 fast path and the grouped tensor-core kernels: read
-    # from the built library, so a cached build is checked too
+    # the paged bf16 fast path, the grouped tensor-core kernels and the
+    # k-sweep kernel's instantiations (their sweeps' windows live in
+    # registers): read from the built library, so a cached build is
+    # checked too
     checks = (("paged_attention", r"paged_(?:mma|merge)_kernel",
                [f"paged_mma_kernel<{hd}>" for hd in (32, 64, 128, 192)]
                + ["paged_merge_kernel"]),
@@ -2563,7 +2640,10 @@ def main() -> int:
                [f"ffn_up_wgmma_kernel<{a}, {g}>" for a, g in (
                    (0, "true"), (1, "true"), (2, "false"), (3, "false"))]
                + ["ffn_down_wgmma_kernel<bf16>",
-                  "ffn_down_wgmma_kernel<float>"]))
+                  "ffn_down_wgmma_kernel<float>"]),
+              ("stencil", r"jacobi_ksweep_kernel",
+               [f"jacobi_ksweep_kernel<{t}, {k}>" for t in ("float", "bf16")
+                for k in range(1, 9)]))
     for source, kernel, want in checks:
         usage = res_usage(build, source, kernel)
         if sorted(usage) != sorted(want):

@@ -8,8 +8,9 @@ the generic bulk-vs-interleaved decision (``decide``), and the serve,
 preemption, halo, MoE dispatch and attention-schedule decisions.  The
 pipeline and checkpoint decisions come with the slices that use them.
 The halo-aggregation decision keeps the reference's formulas; only its
-tile-fit test prices the tile that the machine's stencil kernel stages
-(``HardwareModel.tile_rows`` / ``tile_cols``).
+fit test prices what the machine's k-sweep kernel holds on chip (the
+TPU's whole-row tile, or the CUDA kernel's shared-memory ring and the
+deepest k its registers hold: the ``ksweep_*`` fields).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import dataclasses
 import math
 from typing import Sequence
 
-from repro_torch.kernels.stencil import KSWEEP_TILE
+from repro_torch.kernels import stencil
 
 # ---------------------------------------------------------------------------
 # Hardware models
@@ -36,11 +37,11 @@ class HardwareModel:
     vmem_bytes:     per-core fast-memory capacity (a TPU core's VMEM; on a
                     GPU the shared memory one thread block may use)
     hbm_bytes:      per-chip main memory capacity
-    tile_rows:      centre rows of the k-sweep stencil kernel's tile
-    tile_cols:      its centre columns, or None when the tile spans the
-                    whole row (the TPU kernel's ``(blk_m, N)`` block,
-                    staged in the array's type); a 2-D tile is staged in
-                    f32 with a k-wide apron on all four sides
+    tile_rows:      centre rows of the TPU k-sweep kernel's whole-row
+                    tile (its ``(blk_m, N)`` block, in the array's type)
+    ksweep_max_k:   the deepest k the CUDA k-sweep kernel takes, whose
+                    shared memory (kernels/stencil.py::ksweep_smem_bytes)
+                    the fit then prices (0: the TPU kernel, any k)
     """
 
     name: str
@@ -54,7 +55,7 @@ class HardwareModel:
     overlap_eff: float = 1.0
     scalar_flops: float = 0.0
     tile_rows: int = 256
-    tile_cols: int | None = None
+    ksweep_max_k: int = 0
 
 
 # TPU v5e — the reference's production target (kept for decision parity
@@ -71,10 +72,11 @@ TPU_V5E = HardwareModel(
 
 # NVIDIA H100 SXM, data-sheet values: 989 TFLOP/s dense bf16, 3.35 TB/s
 # HBM3, 80 GB, 227 KB of shared memory per thread block, NVLink 450 GB/s
-# each way; the stencil tile is the CUDA k-sweep kernel's
-# (kernels/stencil.py::KSWEEP_TILE).  alpha_s is a placeholder until the torch.distributed
-# collectives measure it; the one-card serving path never prices it
-# except in the swap term's per-chunk latency.
+# each way; the k-sweep fit is the CUDA kernel's
+# (kernels/stencil.py::ksweep_smem_bytes).  alpha_s is a placeholder
+# until the torch.distributed collectives measure it; the one-card
+# serving path never prices it except in the swap term's per-chunk
+# latency.
 H100 = HardwareModel(
     name="h100_sxm",
     alpha_s=1.0e-6,
@@ -83,8 +85,7 @@ H100 = HardwareModel(
     hbm_bw=3.35e12,
     vmem_bytes=227 * 1024,
     hbm_bytes=80 * 10 ** 9,
-    tile_rows=KSWEEP_TILE[0],
-    tile_cols=KSWEEP_TILE[1],
+    ksweep_max_k=stencil.KSWEEP_MAX_K,
 )
 
 DEFAULT_HW = H100
@@ -497,11 +498,11 @@ def decide_preempt(victim_pages: int, page_bytes: int,
 #
 #   t(k)     = max(mem, flops) + comm
 #
-# k=1 is exactly the bulk schedule.  The fast memory of the tile the
-# k-sweep kernel stages (3 resident arrays) caps k: on a TPU the tile is
-# (min(rows, 256) + 2k) x cols in the array's type; the CUDA kernel's is
-# (tile_rows + 2k) x (tile_cols + 2k) in f32 against a block's shared
-# memory.
+# k=1 is exactly the bulk schedule.  What the k-sweep kernel holds on
+# chip caps k: on a TPU its tile of 3 resident arrays, (min(rows, 256) +
+# 2k) x cols in the array's type, against VMEM; on the card the CUDA
+# kernel's shared-memory ring against a block's shared memory, and the
+# deepest k whose sweeps' windows its registers hold.
 
 
 #: flops per grid point of the 5-point Jacobi update (4 adds + 1 mul + ...)
@@ -561,13 +562,13 @@ def halo_sweep_time(k: int, rows_local: int, cols: int, *,
 def halo_tile_bytes(k: int, rows_local: int, cols: int, *,
                     dtype_bytes: int = 4,
                     hw: HardwareModel = DEFAULT_HW) -> int:
-    """Fast-memory bytes of the k-sweep kernel's resident tiles (u twice
-    or in and out, and f): the whole-row tile of the TPU kernel, or the
-    CUDA kernel's 2-D f32 tile with its apron."""
+    """Fast-memory bytes the k-sweep kernel holds: the TPU kernel's three
+    whole-row tiles (u in and out, and f), or the shared memory a CTA of
+    the CUDA kernel opts into (kernels/stencil.py::ksweep_smem_bytes)."""
+    if hw.ksweep_max_k:
+        return stencil.ksweep_smem_bytes(k, dtype_bytes)
     rows = min(rows_local, hw.tile_rows) + 2 * k
-    if hw.tile_cols is None:
-        return 3 * rows * cols * dtype_bytes
-    return 3 * rows * (min(cols, hw.tile_cols) + 2 * k) * 4
+    return 3 * rows * cols * dtype_bytes
 
 
 def decide_halo_aggregation(rows_local: int, cols: int, axis_size: int, *,
@@ -579,8 +580,9 @@ def decide_halo_aggregation(rows_local: int, cols: int, axis_size: int, *,
                             ) -> HaloAggregationDecision:
     """Pick how many sweeps each halo exchange should carry.
 
-    Candidates are dropped when the k-deep apron tile no longer fits the
-    machine's fast memory (``halo_tile_bytes``) or when k exceeds the
+    Candidates are dropped when what the k-sweep kernel holds no longer
+    fits the machine's fast memory (``halo_tile_bytes``), when k is
+    deeper than the machine's kernel takes, or when k exceeds the
     local block (the ghost trapezoid would swallow the whole shard); k=1
     is the plain bulk schedule and always survives.  ``axis_size=1``
     still aggregates — the HBM-round-trip saving is local — but its comm
@@ -594,6 +596,8 @@ def decide_halo_aggregation(rows_local: int, cols: int, axis_size: int, *,
 
     def valid(k: int) -> bool:
         if k > max(1, rows_local):
+            return False
+        if hw.ksweep_max_k and k > hw.ksweep_max_k:
             return False
         if k > 1 and hw.vmem_bytes and halo_tile_bytes(
                 k, rows_local, cols, dtype_bytes=dtype_bytes,

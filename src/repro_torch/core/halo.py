@@ -165,7 +165,12 @@ def jacobi_solve(u0: torch.Tensor, f: torch.Tensor, group: Group,
                          ``managed.resolve_halo_aggregation`` (k=1 is
                          bulk).  Message count drops from 2*iters to
                          2*ceil(iters/k) + 2 (the +2 is the one-time
-                         f-ghost exchange).
+                         f-ghost exchange).  On the card the k-sweep
+                         kernel takes k <= 8 (``stencil.KSWEEP_MAX_K``:
+                         one instantiation per k) and a deeper k raises;
+                         the plain path on the CPU takes any k.  The
+                         managed decision never picks a deeper k and
+                         clamps a forced one to at most 8.
 
     ``u0`` is not written; the result is a new tensor (``u0`` itself when
     ``iters`` is 0).  The trace span names the rows' axis ``x``, the axis

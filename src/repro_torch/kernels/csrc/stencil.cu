@@ -28,13 +28,14 @@
 // Bound on this card: both are memory-bound.  One sweep of row 4 reads u
 // and f and writes u' once: 12 bytes per f32 point against 6 flops, far
 // below the f32 SIMT rate.  Row 5 moves the same three arrays (plus the
-// apron) once per k sweeps, so its device-memory bound is 1/k of row 4's
-// per sweep; its k sweeps inside the tile then read about 20-24 bytes of
-// shared memory per point per sweep, which at k = 8 is more than the HBM
-// traffic saved relative to shared memory's ~10x higher rate: shared
-// memory, not HBM, bounds row 5 at k = 8 (PERF.md).
+// ghost rows) once per k sweeps, so its device-memory bound is 1/k of row
+// 4's per sweep; at k = 8 its 2.1e9 updates, at about 18 issued
+// instructions each (5 of them the update's f32 operations), take longer
+// than that bound: instruction issue, not HBM, bounds it there, so the
+// design keeps every update in registers and overlaps the loads with the
+// sweeps (PERF.md).
 //
-// Design (simple and correct first):
+// Design:
 //   * row 4: one thread per column covers a strip of kRows rows, the
 //     strip's loads unrolled and independent so that many are in flight;
 //     the up / down / left / right neighbours a thread reads again were
@@ -42,34 +43,49 @@
 //     element about once.  The rows to update are given as two ranges, so
 //     one launch does the whole block, the interior, or only the two edge
 //     rows (the interleaved schedule's split).
-//   * row 5: the Pallas tile spans whole rows (blk_m x N in VMEM), which
-//     does not fit in 227 KB of shared memory.  Here a block stages a 2-D
-//     tile, (blk_m + 2k) x (blk_n + 2k) in f32: the centre plus a k-wide
-//     apron on all four sides (a 2-D trapezoid), with the source term
-//     beside it and a second u tile to ping-pong between sweeps, one
-//     block of 1024 threads per tile.  A flat 16 x 256 centre keeps the
-//     three tiles at 102 KB for k = 8, so two blocks share an SM and one
-//     loads while the other sweeps.  Sweep s updates the tile points
-//     [s+1, T-1-s) in both directions, so after k sweeps the centre is
-//     exact; points outside the array are zeros that no updated point
-//     reads.  The frozen depths are runtime arguments
-//     applied by global padded row, not by tile.  Ragged edges are masked,
-//     so any m, N >= 1 is taken (the TPU kernel's blk_m fallback is a
-//     BlockSpec artefact).  The tile sizes come from the caller
-//     (kernels/stencil.py::KSWEEP_TILE, which core/cost_model.py prices).
-// Later: vectorised 16-byte loads and register blocking in row 4;
-// cp.async / TMA tile loads double-buffered against the sweeps in row 5.
+//   * row 5: a pipeline streamed down a strip of rows (temporal blocking).
+//     A CTA owns a band of kBand = 192 x kCols loaded columns (kCentre =
+//     kBand - 2k written, a k-column apron each side) and a strip of
+//     `strip` output rows, and walks down the strip's m_s + 2k padded rows
+//     one row per step.  The k sweeps are k stages: at the step that loads
+//     padded row p, sweep s produces row p - s from sweep s - 1's rows
+//     p - s - 1 .. p - s + 1, so only a three-row window per stage lives on
+//     chip.  Each thread owns kCols consecutive columns and keeps its
+//     windows in registers (stage s's row of step t in slot t % 3; the
+//     step loop is unrolled by 3 so no window is copied); neighbours inside
+//     a thread come free, across lanes by one __shfl_up / __shfl_down of a
+//     stage's middle row, across warps through a small edge buffer in
+//     shared memory written one step earlier.  Sweep 1 reads u from the
+//     ring, the last sweep's row is staged in shared memory and written
+//     coalesced one step later.  Rows of u and f arrive kKsAhead steps
+//     ahead through 4-byte cp.async copies into a ring in shared memory (f
+//     kept k + 1 rows longer for the stages in flight).  One barrier per
+//     step serves all stages: the ring, the edge buffer and the staged row
+//     are read one step after they are written.  Rows a stage computes
+//     above its strip's valid trapezoid (its first s rows) and the
+//     apron's outer columns are redundant: 2k rows per strip and 2k
+//     columns per band.  Frozen depths are runtime arguments applied by
+//     global padded row; points outside the array load as zeros that no
+//     updated point reads; any m, N >= 1 is taken.  The f32 arithmetic is
+//     row 4's, so both agree with the plain versions bit for bit.
+//     TMA is not used: a 16386-column f32 row is 65,544 bytes, no multiple
+//     of 16, and the slab's parts may be views with element-aligned bases;
+//     bf16 rows are copied as 4-byte pairs from the row's first aligned
+//     column (the slot's shift), the pair that straddles an array edge by
+//     plain loads.  The band width, the strip length and the CTA count come
+//     from kernels/stencil.py::ksweep_plan, which mirrors the constants
+//     below; core/cost_model.py prices the shared memory (kSmem) it holds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kStepThreads = 128;   // row 4: columns per block
 constexpr int kRows = 8;            // row 4: rows per thread strip
-constexpr int kSweepTx = 32;        // row 5: block is kSweepTx x kSweepTy,
-constexpr int kSweepTy = 32;        // 32 warps to hide shared-memory latency
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -134,86 +150,362 @@ jacobi_step_kernel(const T* __restrict__ u, const T* __restrict__ f,
 }
 
 // ---------------------------------------------------------------------------
-// Row 5: k sweeps on a 2-D apron tile
+// Row 5: k sweeps as a k-stage pipeline streamed down a row strip
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ float padded_at(const T* lo, const T* mid,
-                                           const T* hi, int k, int m, int n,
-                                           int p, int c) {
-  if (p < k) return to_f32(lo[(int64_t)p * n + c]);
-  if (p < k + m) return to_f32(mid[(int64_t)(p - k) * n + c]);
-  return to_f32(hi[(int64_t)(p - k - m) * n + c]);
+// The geometry (kernels/stencil.py::KSWEEP_* mirror it): threads a CTA,
+// columns a thread owns, CTAs the launch bounds keep resident on an SM,
+// and rows loaded ahead of sweep 1.  The launch bounds cap the registers
+// at 170 a thread, which the k - 1 sweeps' windows of 3 x kKsCols floats
+// must fit without a spill.  Timed at 16386^2 f32 on an H100 as edits of
+// these four (PERF.md section 6): 256 threads (capped at 128 registers)
+// and 224 spilled at k = 8 and were slower, 160 threads slower at k = 4
+// and 8, 8 columns or 1 CTA an SM 1.5-1.6x slower at every k, 6 rows
+// ahead or 128 threads at 3 CTAs equal at k = 2 and slower at k = 4, 8.
+constexpr int kKsThreads = 192;
+constexpr int kKsWarps = kKsThreads / 32;
+constexpr int kKsCols = 4;
+constexpr int kKsCtas = 2;
+constexpr int kKsAhead = 4;
+constexpr int kKsMaxK = 8;                   // one instantiation per k
+
+template <typename T, int K>
+struct KsGeom {
+  static constexpr int kCols = kKsCols;
+  static constexpr int kBand = kKsThreads * kCols;      // loaded columns
+  static constexpr int kCentre = kBand - 2 * K;          // written columns
+  static constexpr int kRingU = kKsAhead + 3;   // rows p - 2 .. p + ahead
+  static constexpr int kRingF = kKsAhead + K + 1;  // rows p - k .. p + ahead
+  static constexpr int kSlot = kBand * (int)sizeof(T) + 16;  // bytes a row
+  static constexpr int kEdgeRow = (kKsWarps + 2) * 2;   // floats
+  static constexpr int kEdges = 2 * (K - 1) * kEdgeRow;
+  static constexpr int kSmem =
+      (kRingU + kRingF) * kSlot + 2 * kBand * 4 + kEdges * 4;
+  static_assert(kCols % 4 == 0 && kCentre > 0, "band");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 4-byte asynchronous copy; with ok == false the destination is
+// zero-filled and nothing is read
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Padded row q of the slab [lo; mid; hi] (k + m + k rows of n)
 template <typename T>
-__global__ void __launch_bounds__(kSweepTx * kSweepTy)
+__device__ __forceinline__ const T* slab_row(const T* lo, const T* mid,
+                                             const T* hi, int k, int m,
+                                             int n, int q) {
+  if (q < k) return lo + (int64_t)q * n;
+  if (q < k + m) return mid + (int64_t)(q - k) * n;
+  return hi + (int64_t)(q - k - m) * n;
+}
+
+// Elements a row's ring slot starts before band column 0 (column cb): 0 in
+// f32; in bf16 1 where column cb is not 4-byte aligned, so that every
+// 4-byte copy of a pair is
+template <typename T>
+__device__ __forceinline__ int slot_shift(const T* row, int cb) {
+  if constexpr (sizeof(T) == 4) {
+    return 0;
+  } else {
+    return (int)((reinterpret_cast<uintptr_t>(row) / sizeof(T) +
+                  (uintptr_t)(intptr_t)cb) & 1);
+  }
+}
+
+// Issue the copies of one row's band (columns cb .. cb + kBand - 1, zeros
+// outside [0, n)) into a ring slot: 4-byte cp.async where the unit lies in
+// the row, zero-filled (f32) or a plain store of zeros (bf16) where it
+// lies outside, and in bf16 plain loads for the pair that straddles column
+// 0 or n - 1
+template <typename T, int K>
+__device__ __forceinline__ void issue_row(unsigned char* slot, const T* row,
+                                          int cb, int n, int tid) {
+  using G = KsGeom<T, K>;
+  constexpr int kPer = 4 / (int)sizeof(T);           // elements a unit
+  constexpr int kUnits = (G::kBand + 2 * (kPer - 1)) / kPer;
+  constexpr int kEach = (kUnits + kKsThreads - 1) / kKsThreads;
+  const int g0 = cb - slot_shift(row, cb);           // column of unit 0
+  uint32_t* units = reinterpret_cast<uint32_t*>(slot);
+#pragma unroll
+  for (int q = 0; q < kEach; ++q) {
+    const int i = tid + q * kKsThreads;
+    if (kUnits % kKsThreads != 0 && i >= kUnits) break;
+    const int c = g0 + i * kPer;
+    if constexpr (kPer == 1) {        // f32: no branch, no straddling pair
+      const bool in = c >= 0 && c < n;
+      cp_async4(units + i, row + (in ? c : 0), in);
+    } else if (c >= 0 && c + kPer <= n) {
+      cp_async4(units + i, row + c, true);
+    } else if (c + kPer <= 0 || c >= n) {
+      units[i] = 0u;
+    } else {                                         // bf16 only
+      const uint16_t* r16 = reinterpret_cast<const uint16_t*>(row);
+      const uint32_t lo = c >= 0 ? r16[c] : 0u;
+      const uint32_t hi = c + 1 < n ? r16[c + 1] : 0u;
+      units[i] = lo | (hi << 16);
+    }
+  }
+}
+
+// Band column j of a ring slot, as f32
+template <typename T>
+__device__ __forceinline__ float slot_at(const unsigned char* slot, int sh,
+                                         int j) {
+  return to_f32(reinterpret_cast<const T*>(slot)[j + sh]);
+}
+
+// The C band columns j0 .. j0 + C - 1 of a ring slot, as f32
+template <typename T, int C>
+__device__ __forceinline__ void slot_cols(const unsigned char* slot, int sh,
+                                          int j0, float (&v)[C]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4* p = reinterpret_cast<const float4*>(slot) + j0 / 4;
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const float4 x = p[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = slot_at<T>(slot, sh, j0 + j);
+  }
+}
+
+// What one CTA works on, fixed for its walk down the strip
+template <typename T, int K>
+struct KsCta {
+  using G = KsGeom<T, K>;
+  const T *u_lo, *u, *u_hi, *f_lo, *f, *f_hi;
+  T* out;
+  int m, n;
+  int cb;          // band column 0 (the apron's first column)
+  int r0;          // first padded row loaded = first output row
+  int rows;        // output rows of this strip
+  int r_end;       // one past the last padded row loaded
+  int p_lo, p_hi;  // updatable padded rows [p_lo, p_hi)
+  int tid, lane, warp, j0;
+  int dmask;       // bit j: the thread's column j is column 0 or n - 1
+  unsigned char* ring_u;
+  unsigned char* ring_f;
+  float* staged;   // [2][kBand]: the last sweep's row of steps t and t - 1
+  float* edges;    // [2][K - 1][kKsWarps + 2][2]: stage rows' warp edges
+
+  __device__ __forceinline__ const T* u_row(int q) const {
+    return slab_row(u_lo, u, u_hi, K, m, n, q);
+  }
+  __device__ __forceinline__ const T* f_row(int q) const {
+    return slab_row(f_lo, f, f_hi, K, m, n, q);
+  }
+  // ring slot i (row q lives in slot q mod the ring's rows)
+  __device__ __forceinline__ unsigned char* u_slot(int i) const {
+    return ring_u + i * G::kSlot;
+  }
+  __device__ __forceinline__ unsigned char* f_slot(int i) const {
+    return ring_f + i * G::kSlot;
+  }
+  // a row's slot shift; rows outside the slab (read before they could be
+  // loaded, by stages that compute outside the trapezoid) take row 0's
+  __device__ __forceinline__ int u_shift(int q) const {
+    return slot_shift(u_row(q < 0 || q >= r_end ? 0 : q), cb);
+  }
+  __device__ __forceinline__ int f_shift(int q) const {
+    return slot_shift(f_row(q < 0 || q >= r_end ? 0 : q), cb);
+  }
+
+  // start the copies of padded row q into slots iu, i_f (one commit
+  // group, empty past the strip)
+  __device__ __forceinline__ void issue(int q, int iu, int i_f) const {
+    if (q < r_end) {
+      issue_row<T, K>(u_slot(iu), u_row(q), cb, n, tid);
+      issue_row<T, K>(f_slot(i_f), f_row(q), cb, n, tid);
+    }
+    cp_async_commit();
+  }
+
+  // write the output row the last sweep staged at step t, coalesced
+  __device__ __forceinline__ void store(int t) const {
+    const int o = r0 + t - 2 * K;
+    if (o < r0 || o >= r0 + rows) return;
+    const float* src = staged + (t & 1) * G::kBand;
+    T* dst = out + (int64_t)o * n;
+#pragma unroll
+    for (int q = 0; q < G::kCols; ++q) {
+      const int j = tid + q * kKsThreads;
+      if (j >= K && j < G::kBand - K && cb + j < n) {
+        dst[cb + j] = from_f32<T>(src[j]);
+      }
+    }
+  }
+};
+
+// i - d wrapped into a ring of r slots (0 <= i < r, 0 <= d < r)
+__device__ __forceinline__ int ring_back(int i, int d, int r) {
+  return i >= d ? i - d : i - d + r;
+}
+
+// One step of the walk: padded row p = r0 + t enters; sweep s produces row
+// p - s.  PH = t % 3 names the window slots statically; us / fs are row
+// p's ring slots, advanced here for the next step.
+template <typename T, int K, int PH>
+__device__ __forceinline__ void ks_step(
+    const KsCta<T, K>& c,
+    float (&w)[K > 1 ? K - 1 : 1][3][KsGeom<T, K>::kCols], int t, int& us,
+    int& fs) {
+  using G = KsGeom<T, K>;
+  constexpr int C = G::kCols;
+  const int p = c.r0 + t;
+  cp_async_wait<kKsAhead - 1>();   // row p has landed (this thread's part)
+  __syncthreads();                 // ... and every thread's; step t - 1 done
+  c.store(t - 1);
+  c.issue(p + kKsAhead, ring_back(us, G::kRingU - kKsAhead, G::kRingU),
+          ring_back(fs, G::kRingF - kKsAhead, G::kRingF));
+  const float* e_in = c.edges + ((t & 1) ^ 1) * (K - 1) * G::kEdgeRow;
+  float* e_out = c.edges + (t & 1) * (K - 1) * G::kEdgeRow;
+#pragma unroll
+  for (int s = 1; s <= K; ++s) {
+    const int row = p - s;
+    const bool row_ok = row >= c.p_lo && row < c.p_hi;
+    float up[C], mid[C], down[C], fv[C], l, r;
+    if (s == 1) {                    // sweep 0's rows are u's, in the ring
+      const int sm = c.u_shift(p - 1);
+      const unsigned char* ms = c.u_slot(ring_back(us, 1, G::kRingU));
+      slot_cols<T, C>(c.u_slot(ring_back(us, 2, G::kRingU)),
+                      c.u_shift(p - 2), c.j0, up);
+      slot_cols<T, C>(ms, sm, c.j0, mid);
+      slot_cols<T, C>(c.u_slot(us), c.u_shift(p), c.j0, down);
+      l = slot_at<T>(ms, sm, c.j0 > 0 ? c.j0 - 1 : 0);
+      r = slot_at<T>(ms, sm, c.j0 + C);
+    } else {                         // sweep s - 1's window, in registers
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        up[j] = w[s - 2][(PH + 1) % 3][j];
+        mid[j] = w[s - 2][(PH + 2) % 3][j];
+        down[j] = w[s - 2][PH][j];
+      }
+      l = __shfl_up_sync(0xffffffffu, mid[C - 1], 1);
+      r = __shfl_down_sync(0xffffffffu, mid[0], 1);
+      const float* e = e_in + (s - 2) * G::kEdgeRow;
+      if (c.lane == 0) l = e[c.warp * 2 + 1];          // warp - 1's right
+      if (c.lane == 31) r = e[(c.warp + 2) * 2];       // warp + 1's left
+    }
+    slot_cols<T, C>(c.f_slot(ring_back(fs, s, G::kRingF)), c.f_shift(row),
+                    c.j0, fv);
+    // the points that keep their value: every one of a row outside
+    // [p_lo, p_hi) (uniform across the CTA), else the thread's Dirichlet
+    // columns (columns outside the array are computed: no valid point
+    // reads them)
+    const int keep = row_ok ? c.dmask : (1 << C) - 1;
+    float nw[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      nw[j] = five_point(up[j], down[j], j > 0 ? mid[j - 1] : l,
+                         j < C - 1 ? mid[j + 1] : r, fv[j]);
+      if (keep >> j & 1) nw[j] = mid[j];
+    }
+    if (s < K) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) w[s - 1][PH][j] = nw[j];
+      float* e = e_out + (s - 1) * G::kEdgeRow + (c.warp + 1) * 2;
+      if (c.lane == 0) e[0] = nw[0];
+      if (c.lane == 31) e[1] = nw[C - 1];
+    } else {
+      float4* dst = reinterpret_cast<float4*>(
+          c.staged + (t & 1) * G::kBand + c.j0);
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q) {
+        dst[q] = make_float4(nw[4 * q], nw[4 * q + 1], nw[4 * q + 2],
+                             nw[4 * q + 3]);
+      }
+    }
+  }
+  us = us + 1 == G::kRingU ? 0 : us + 1;
+  fs = fs + 1 == G::kRingF ? 0 : fs + 1;
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kKsThreads, kKsCtas)
 jacobi_ksweep_kernel(const T* __restrict__ u_lo, const T* __restrict__ u,
                      const T* __restrict__ u_hi, const T* __restrict__ f_lo,
                      const T* __restrict__ f, const T* __restrict__ f_hi,
-                     T* __restrict__ out, int m, int n, int k, int frozen_top,
-                     int frozen_bot, int blk_m, int blk_n) {
-  extern __shared__ float smem[];
-  const int tm = blk_m + 2 * k;
-  const int tn = blk_n + 2 * k;
-  float* ta = smem;                 // u, even sweeps read it
-  float* tb = ta + tm * tn;         // u, odd sweeps read it
-  float* tf = tb + tm * tn;         // f
-  const int mp = m + 2 * k;
-  const int o0 = blockIdx.y * blk_m;  // first centre row (output row)
-  const int c0 = blockIdx.x * blk_n;  // first centre column
-  const int tx = threadIdx.x, ty = threadIdx.y;
+                     T* __restrict__ out, int m, int n, int frozen_top,
+                     int frozen_bot, int strip) {
+  using G = KsGeom<T, K>;
+  constexpr int C = G::kCols;
+  extern __shared__ __align__(16) unsigned char smem[];
+  KsCta<T, K> c;
+  c.u_lo = u_lo; c.u = u; c.u_hi = u_hi;
+  c.f_lo = f_lo; c.f = f; c.f_hi = f_hi;
+  c.out = out;
+  c.m = m;
+  c.n = n;
+  c.cb = blockIdx.x * G::kCentre - K;
+  c.r0 = blockIdx.y * strip;
+  c.rows = min(strip, m - c.r0);
+  c.r_end = c.r0 + c.rows + 2 * K;
+  const int mp = m + 2 * K;
+  c.p_lo = max(frozen_top, 1);
+  c.p_hi = min(mp - frozen_bot, mp - 1);
+  c.tid = threadIdx.x;
+  c.lane = c.tid & 31;
+  c.warp = c.tid >> 5;
+  c.j0 = c.tid * C;
+  c.dmask = 0;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const int col = c.cb + c.j0 + j;
+    if (col == 0 || col == n - 1) c.dmask |= 1 << j;
+  }
+  c.ring_u = smem;
+  c.ring_f = smem + G::kRingU * G::kSlot;
+  c.staged = reinterpret_cast<float*>(c.ring_f + G::kRingF * G::kSlot);
+  c.edges = c.staged + 2 * G::kBand;
+  // the edge buffer's outer entries (beyond the first and last warp) are
+  // read and never written
+  for (int i = c.tid; i < G::kEdges; i += kKsThreads) c.edges[i] = 0.f;
+  int us = c.r0 % G::kRingU, fs = c.r0 % G::kRingF;   // row r0's slots
+#pragma unroll
+  for (int d = 0; d < kKsAhead; ++d) {
+    c.issue(c.r0 + d, (us + d) % G::kRingU, (fs + d) % G::kRingF);
+  }
 
-  // tile row i <-> padded row o0 + i; tile column j <-> column c0 - k + j
-  for (int i = ty; i < tm; i += kSweepTy) {
-    const int p = o0 + i;
-    for (int j = tx; j < tn; j += kSweepTx) {
-      const int c = c0 - k + j;
-      float uv = 0.f, fv = 0.f;
-      if (p < mp && c >= 0 && c < n) {
-        uv = padded_at(u_lo, u, u_hi, k, m, n, p, c);
-        fv = padded_at(f_lo, f, f_hi, k, m, n, p, c);
-      }
-      ta[i * tn + j] = uv;
-      tb[i * tn + j] = uv;
-      tf[i * tn + j] = fv;
-    }
+  float w[K > 1 ? K - 1 : 1][3][C];
+#pragma unroll
+  for (int s = 0; s < (K > 1 ? K - 1 : 1); ++s)
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) w[s][i][j] = 0.f;
+  // steps past the strip's last (at most two, to finish a round of three)
+  // load nothing and store nothing
+  const int steps = c.rows + 2 * K;
+  for (int t = 0; t < steps; t += 3) {
+    ks_step<T, K, 0>(c, w, t, us, fs);
+    ks_step<T, K, 1>(c, w, t + 1, us, fs);
+    ks_step<T, K, 2>(c, w, t + 2, us, fs);
   }
   __syncthreads();
-
-  // Sweep s updates the tile points [s+1, T-1-s) in both directions that
-  // are updatable globally: padded rows [p_lo, p_hi), columns [1, n-1).
-  // The bounds are clipped once per sweep, so the inner loops carry no
-  // per-point test.
-  const int p_lo = max(frozen_top, 1);
-  const int p_hi = min(mp - frozen_bot, mp - 1);
-  for (int s = 0; s < k; ++s) {
-    const float* src = (s & 1) ? tb : ta;
-    float* dst = (s & 1) ? ta : tb;
-    const int i_lo = max(s + 1, p_lo - o0);
-    const int i_hi = min(tm - 1 - s, p_hi - o0);
-    const int j_lo = max(s + 1, 1 - (c0 - k));
-    const int j_hi = min(tn - 1 - s, n - 1 - (c0 - k));
-    for (int i = i_lo + ty; i < i_hi; i += kSweepTy) {
-      for (int j = j_lo + tx; j < j_hi; j += kSweepTx) {
-        const int at = i * tn + j;
-        dst[at] = five_point(src[at - tn], src[at + tn], src[at - 1],
-                             src[at + 1], tf[at]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const float* res = (k & 1) ? tb : ta;
-  for (int i = k + ty; i < k + blk_m; i += kSweepTy) {
-    const int o = o0 + i - k;
-    if (o >= m) break;
-    for (int j = k + tx; j < k + blk_n; j += kSweepTx) {
-      const int c = c0 + j - k;
-      if (c >= n) break;
-      out[(int64_t)o * n + c] = from_f32<T>(res[i * tn + j]);
-    }
-  }
+  c.store((steps + 2) / 3 * 3 - 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -238,31 +530,63 @@ int launch_step(const void* u, const void* f, const void* lo, const void* hi,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int K>
+int launch_ksweep_k(const void* u_lo, const void* u, const void* u_hi,
+                    const void* f_lo, const void* f, const void* f_hi,
+                    void* out, int m, int n, int frozen_top, int frozen_bot,
+                    int strip, cudaStream_t stream) {
+  using G = KsGeom<T, K>;
+  static uint32_t opted_in = 0;       // devices granted kSmem
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 32 || !(opted_in >> dev & 1u)) {
+    e = cudaFuncSetAttribute(jacobi_ksweep_kernel<T, K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32) opted_in |= 1u << dev;
+  }
+  const int bands = (n + G::kCentre - 1) / G::kCentre;
+  const int strips = (m + strip - 1) / strip;
+  if (strips > 65535) return (int)cudaErrorInvalidConfiguration;
+  jacobi_ksweep_kernel<T, K><<<dim3(bands, strips), kKsThreads, G::kSmem,
+                               stream>>>(
+      static_cast<const T*>(u_lo), static_cast<const T*>(u),
+      static_cast<const T*>(u_hi), static_cast<const T*>(f_lo),
+      static_cast<const T*>(f), static_cast<const T*>(f_hi),
+      static_cast<T*>(out), m, n, frozen_top, frozen_bot, strip);
+  return (int)cudaGetLastError();
+}
+
+// fn(std::integral_constant<int, K>) for k = K in 1 .. kKsMaxK, else -1
+template <typename F>
+int with_k(int k, F fn) {
+  switch (k) {
+    case 1: return fn(std::integral_constant<int, 1>());
+    case 2: return fn(std::integral_constant<int, 2>());
+    case 3: return fn(std::integral_constant<int, 3>());
+    case 4: return fn(std::integral_constant<int, 4>());
+    case 5: return fn(std::integral_constant<int, 5>());
+    case 6: return fn(std::integral_constant<int, 6>());
+    case 7: return fn(std::integral_constant<int, 7>());
+    case 8: return fn(std::integral_constant<int, 8>());
+    default: return -1;
+  }
+}
+static_assert(kKsMaxK == 8, "with_k lists k = 1 .. kKsMaxK");
+
 template <typename T>
 int launch_ksweep(const void* u_lo, const void* u, const void* u_hi,
                   const void* f_lo, const void* f, const void* f_hi,
                   void* out, int m, int n, int k, int frozen_top,
-                  int frozen_bot, int blk_m, int blk_n,
-                  cudaStream_t stream) {
-  static int smem_opted_in = 0;       // bytes already granted above 48 KB
-  const size_t smem =
-      3 * sizeof(float) * (size_t)(blk_m + 2 * k) * (size_t)(blk_n + 2 * k);
-  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024 && (int)smem > smem_opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        jacobi_ksweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_opted_in = (int)smem;
-  }
-  const dim3 grid((n + blk_n - 1) / blk_n, (m + blk_m - 1) / blk_m);
-  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  jacobi_ksweep_kernel<T><<<grid, dim3(kSweepTx, kSweepTy), smem, stream>>>(
-      static_cast<const T*>(u_lo), static_cast<const T*>(u),
-      static_cast<const T*>(u_hi), static_cast<const T*>(f_lo),
-      static_cast<const T*>(f), static_cast<const T*>(f_hi),
-      static_cast<T*>(out), m, n, k, frozen_top, frozen_bot, blk_m, blk_n);
-  return (int)cudaGetLastError();
+                  int frozen_bot, int strip, cudaStream_t stream) {
+  const int err = with_k(k, [&](auto kc) {
+    return launch_ksweep_k<T, decltype(kc)::value>(
+        u_lo, u, u_hi, f_lo, f, f_hi, out, m, n, frozen_top, frozen_bot,
+        strip, stream);
+  });
+  return err < 0 ? (int)cudaErrorInvalidValue : err;
 }
 
 }  // namespace
@@ -285,25 +609,58 @@ extern "C" int jacobi_step_launch(int dtype, const void* u, const void* f,
   return (int)cudaErrorInvalidValue;
 }
 
+// k = 1 .. 8 sweeps of the slab [u_lo; u; u_hi] (k + m + k rows of n),
+// source [f_lo; f; f_hi]; writes the m centre rows after k sweeps to out.
+// `strip` is the output rows one CTA walks (kernels/stencil.py::
+// ksweep_plan); any m, n >= 1 and element-aligned bases are taken.
 extern "C" int jacobi_ksweep_launch(int dtype, const void* u_lo,
                                     const void* u, const void* u_hi,
                                     const void* f_lo, const void* f,
                                     const void* f_hi, void* out, int m,
                                     int n, int k, int frozen_top,
-                                    int frozen_bot, int blk_m, int blk_n,
+                                    int frozen_bot, int strip,
                                     void* stream) {
-  if (m <= 0 || n <= 0 || k < 1 || blk_m < 1 || blk_n < 1 ||
+  if (m <= 0 || n <= 0 || k < 1 || k > kKsMaxK || strip < 1 ||
       frozen_top < 0 || frozen_bot < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_ksweep<float>(u_lo, u, u_hi, f_lo, f, f_hi, out, m, n, k,
-                                frozen_top, frozen_bot, blk_m, blk_n, s);
+                                frozen_top, frozen_bot, strip, s);
   if (dtype == 1)
     return launch_ksweep<__nv_bfloat16>(u_lo, u, u_hi, f_lo, f, f_hi, out, m,
-                                        n, k, frozen_top, frozen_bot, blk_m,
-                                        blk_n, s);
+                                        n, k, frozen_top, frozen_bot, strip,
+                                        s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The k-sweep kernel's geometry at k sweeps (dtype 0 = f32, 1 = bf16):
+// what = 0 loaded columns of a band, 1 shared memory a CTA opts into
+// (bytes), 2 CTAs the card keeps resident on one SM (the occupancy API on
+// the built kernel; sets the shared-memory attribute first).  -1 for a k
+// or dtype the kernel does not take, or a CUDA error.
+extern "C" int jacobi_ksweep_geometry(int dtype, int k, int what) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return with_k(k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    auto of = [&](auto one) -> int {
+      using T = decltype(one);
+      using G = KsGeom<T, K>;
+      if (what == 0) return G::kBand;
+      if (what == 1) return G::kSmem;
+      if (cudaFuncSetAttribute(jacobi_ksweep_kernel<T, K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::kSmem) != cudaSuccess)
+        return -1;
+      int ctas = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &ctas, jacobi_ksweep_kernel<T, K>, kKsThreads, G::kSmem) !=
+          cudaSuccess)
+        return -1;
+      return ctas;
+    };
+    return dtype == 0 ? of(0.f) : of(__nv_bfloat16());
+  });
 }
 
 extern "C" const char* stencil_error_string(int err) {

@@ -15,12 +15,15 @@ stencil.  Two kernels, in ``csrc/stencil.cu`` (Hopper, ``sm_90a``):
   * ``jacobi_ksweep`` — k sweeps per device-memory round trip of a
     k-halo-padded slab, the trapezoid of ``ksweep_trapezoid`` (replaces
     ``jacobi_ksweep_pallas``).  The Pallas tile spans whole rows; the
-    CUDA kernel stages a 2-D tile of ``KSWEEP_TILE`` centre points plus a
-    k-wide apron on every side in shared memory (``core/cost_model.py``
-    prices the same tile).  ``jacobi_ksweep_parts`` takes the slab as its
-    three parts (ghost rows above, the block, ghost rows below), which is
-    how the aggregated solve calls it; ``jacobi_multistep`` is the
-    reference's Dirichlet wrapper.
+    CUDA kernel is a k-stage pipeline that a CTA streams down a strip of
+    rows of a column band, each sweep's three-row window in registers
+    and the rows of u and f loaded ahead into a ring in shared memory.
+    ``ksweep_plan`` gives the band, the strip and the CTAs from shapes
+    alone; ``ksweep_smem_bytes`` is the ring the kernel holds, which
+    ``core/cost_model.py`` prices.  ``jacobi_ksweep_parts`` takes the
+    slab as its three parts (ghost rows above, the block, ghost rows
+    below), which is how the aggregated solve calls it;
+    ``jacobi_multistep`` is the reference's Dirichlet wrapper.
 
 Beside each kernel is its plain version (``jacobi_step_torch``,
 ``ksweep_trapezoid`` / ``jacobi_ksweep_torch``) with the same arithmetic:
@@ -34,6 +37,8 @@ version on any device (a test switch).  ``STEP_LAUNCHES`` and
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,21 +48,85 @@ from repro_torch.kernels import build
 STEP_LAUNCHES = 0
 KSWEEP_LAUNCHES = 0
 
-#: the k-sweep kernel's tile: centre rows x centre columns, staged in f32
-#: with a k-wide apron on every side (three such tiles: u twice, f once);
-#: at k = 8 two blocks fit on an SM
-KSWEEP_TILE = (16, 256)
-#: shared memory one thread block may use on Hopper, bytes
+#: the k-sweep kernel's geometry (csrc/stencil.cu): threads a CTA, columns
+#: a thread owns (a band loads the product), CTAs the launch bounds keep
+#: resident on an SM, rows of u and f loaded ahead of the first sweep, and
+#: the deepest k (one instantiation per k: each sweep's window lives in
+#: registers)
+KSWEEP_THREADS = 192
+KSWEEP_COLS = 4
+KSWEEP_CTAS = 2
+KSWEEP_AHEAD = 4
+KSWEEP_MAX_K = 8
+#: the plan cuts no strip shorter than this many rows per sweep, so the 2k
+#: rows a strip computes twice stay under 1 / 20 of its rows
+KSWEEP_MIN_STRIP = 40
+#: shared memory one thread block may use on Hopper, and one SM's (each
+#: resident CTA also takes 1 KB of it), bytes
 SMEM_LIMIT = 232448
+SM_SMEM = 233472
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 Rows = tuple[tuple[int, int], ...]
 
 
-def ksweep_smem_bytes(k: int, tile: tuple[int, int] = KSWEEP_TILE) -> int:
-    """Shared memory the k-sweep kernel stages for one tile."""
-    return 3 * 4 * (tile[0] + 2 * k) * (tile[1] + 2 * k)
+def _check_k(k: int) -> None:
+    if not 1 <= k <= KSWEEP_MAX_K:
+        raise ValueError(f"k={k}: the k-sweep kernel takes 1 <= k <= "
+                         f"{KSWEEP_MAX_K} (one instantiation per k; its "
+                         f"sweeps' windows live in registers)")
+
+
+def ksweep_band(k: int) -> int:
+    """Columns one CTA of the k-sweep kernel loads: its 2k apron columns
+    and the band - 2k it writes."""
+    _check_k(k)
+    return KSWEEP_THREADS * KSWEEP_COLS
+
+
+def ksweep_smem_bytes(k: int, itemsize: int = 4) -> int:
+    """Shared memory a CTA of the k-sweep kernel opts into (``kSmem``):
+    a ring of ``KSWEEP_AHEAD + 3`` rows of u and ``KSWEEP_AHEAD + k + 1``
+    of f in the array's type (16 bytes of slack a row), the last sweep's
+    row staged twice in f32, and each inner sweep's warp edges twice."""
+    band = ksweep_band(k)
+    rows = (KSWEEP_AHEAD + 3) + (KSWEEP_AHEAD + k + 1)
+    edges = 2 * (k - 1) * (KSWEEP_THREADS // 32 + 2) * 2
+    return rows * (band * itemsize + 16) + 2 * band * 4 + 4 * edges
+
+
+class KsweepPlan(NamedTuple):
+    """How one k-sweep call runs on the card: a grid of bands x strips."""
+    band: int        # columns a CTA loads (it writes band - 2k)
+    bands: int
+    strip: int       # output rows a CTA walks (it loads strip + 2k)
+    strips: int
+    ctas: int        # bands x strips
+
+
+def ksweep_plan(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
+                n_sm: int = 132) -> KsweepPlan:
+    """The k-sweep kernel's plan for an [m, n] block: bands of
+    ``ksweep_band(k)`` columns, then as many strips of rows as fill the
+    SMs once (``KSWEEP_CTAS`` CTAs each), down to strips of
+    ``KSWEEP_MIN_STRIP * k`` rows.  Reads shapes and the SM count only,
+    never a value; ``dtype`` leaves it unchanged, since the ring of
+    either type fits an SM ``KSWEEP_CTAS`` times at every k."""
+    if min(m, n, n_sm) < 1:
+        raise ValueError("ksweep_plan takes positive sizes")
+    band = ksweep_band(k)
+    bands = -(-n // (band - 2 * k))
+    strips = max(1, min((KSWEEP_CTAS * n_sm) // bands,
+                        m // (KSWEEP_MIN_STRIP * k)))
+    strip = -(-m // strips)
+    strips = -(-m // strip)
+    return KsweepPlan(band, bands, strip, strips, bands * strips)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -139,11 +208,27 @@ def _lib() -> ctypes.CDLL:
                                            i, p]
         lib.jacobi_step_launch.restype = i
         lib.jacobi_ksweep_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
-                                             i, i, i, i, p]
+                                             i, i, i, p]
         lib.jacobi_ksweep_launch.restype = i
+        lib.jacobi_ksweep_geometry.argtypes = [i, i, i]
+        lib.jacobi_ksweep_geometry.restype = i
         lib.stencil_error_string.argtypes = [i]
         lib.stencil_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ksweep_built(k: int, dtype: torch.dtype = torch.float32
+                 ) -> tuple[int, int, int]:
+    """(band, shared memory bytes, CTAs resident on an SM) of the built
+    k-sweep kernel at k sweeps, read from the library: its constants, and
+    the card's occupancy API on the compiled kernel (needs a card)."""
+    _check_k(k)
+    lib = _lib()
+    got = tuple(lib.jacobi_ksweep_geometry(_DTYPE_CODE[dtype], k, what)
+                for what in range(3))
+    if min(got) < 0:
+        raise RuntimeError(f"jacobi_ksweep_geometry({dtype}, {k}): {got}")
+    return got
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, which: str) -> None:
@@ -255,7 +340,8 @@ def jacobi_ksweep_parts(u_lo: torch.Tensor, u: torch.Tensor,
     that no padded copy is made.  Returns the [m, N] centre after k sweeps
     (into ``out`` when given).  ``frozen_top`` / ``frozen_bot`` pin that
     many leading / trailing padded rows (k at a non-periodic physical
-    edge, 0 elsewhere).  Dispatch as ``jacobi_step``."""
+    edge, 0 elsewhere).  Dispatch as ``jacobi_step``; the kernel takes
+    k <= ``KSWEEP_MAX_K`` and runs ``ksweep_plan``."""
     global KSWEEP_LAUNCHES
     _check_engine(engine)
     k = int(k)
@@ -278,24 +364,22 @@ def jacobi_ksweep_parts(u_lo: torch.Tensor, u: torch.Tensor,
         return new if out is None else out.copy_(new)
     parts = (u_lo, u_hi, f_lo, f, f_hi)
     _check_kernel_inputs(u, *parts, *([] if out is None else [out]))
-    if ksweep_smem_bytes(k) > SMEM_LIMIT:
-        raise ValueError(f"k={k}: the {KSWEEP_TILE} tile and its apron "
-                         f"need {ksweep_smem_bytes(k)} bytes of shared "
-                         f"memory, more than {SMEM_LIMIT}")
+    _check_k(k)
     if out is None:
         out = torch.empty_like(u)
     elif any(out.data_ptr() == t.data_ptr() for t in (u_lo, u, u_hi)):
         raise ValueError("out must not be an input: the sweeps read them")
     if u.numel() == 0:
         return out
+    plan = ksweep_plan(m, n, k, u.dtype, _sm_count(u.device.index))
     lib = _lib()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.jacobi_ksweep_launch(
             _DTYPE_CODE[u.dtype], u_lo.data_ptr(), u.data_ptr(),
             u_hi.data_ptr(), f_lo.data_ptr(), f.data_ptr(), f_hi.data_ptr(),
-            out.data_ptr(), m, n, k, frozen_top, frozen_bot, KSWEEP_TILE[0],
-            KSWEEP_TILE[1], stream)
+            out.data_ptr(), m, n, k, frozen_top, frozen_bot, plan.strip,
+            stream)
     _raise_on(lib, err, "jacobi_ksweep")
     KSWEEP_LAUNCHES += 1
     return out

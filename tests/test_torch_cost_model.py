@@ -185,24 +185,31 @@ def test_resolve_halo_aggregation_logs_the_reference_records(mode):
 def test_h100_prices_the_tile_its_kernel_stages():
     """At the card shape (16386 columns) the reference's whole-row tile
     never fits 227 KB of shared memory, so every k > 1 would fall back to
-    bulk; the H100 model prices the CUDA kernel's 2-D tile plus its k-wide
-    apron in f32 (the bytes the kernel opts into), and aggregation is
-    reachable."""
-    assert (cm.H100.tile_rows, cm.H100.tile_cols) == stencil.KSWEEP_TILE
-    for k in (1, 2, 4, 8):
-        assert cm.halo_tile_bytes(k, 16384, 16386, hw=cm.H100) == \
-            stencil.ksweep_smem_bytes(k)
+    bulk; the H100 model prices what the CUDA k-sweep kernel holds (its
+    shared-memory ring, the bytes the launcher opts into, in the array's
+    type) and drops exactly the k the kernel does not take, so
+    aggregation is reachable."""
+    assert cm.H100.ksweep_max_k == stencil.KSWEEP_MAX_K
+    for k in range(1, stencil.KSWEEP_MAX_K + 1):
+        for itemsize in (4, 2):
+            assert cm.halo_tile_bytes(k, 16384, 16386, dtype_bytes=itemsize,
+                                      hw=cm.H100) == \
+                stencil.ksweep_smem_bytes(k, itemsize) <= cm.H100.vmem_bytes
     d = cm.decide_halo_aggregation(16384, 16386, 1, hw=cm.H100)
     assert d.k == 8 and d.mode == "aggregated"
     assert d.comm_sweep_s == 0.0 and d.predicted_speedup > 7.0
-    whole_row = dataclasses.replace(cm.H100, tile_rows=256, tile_cols=None)
+    whole_row = dataclasses.replace(cm.H100, ksweep_max_k=0)
     assert cm.decide_halo_aggregation(16384, 16386, 1,
                                       hw=whole_row).k == 1
-    # a k whose tile does not fit shared memory is never chosen
+    # a k the kernel does not take is never chosen, nor forced
+    k_over = stencil.KSWEEP_MAX_K + 1
     d = cm.decide_halo_aggregation(16384, 16386, 1, hw=cm.H100,
-                                   candidate_k=(1, 8, 32))
-    assert d.k == 8 and 32 not in d.per_sweep_s
-    assert stencil.ksweep_smem_bytes(32) > cm.H100.vmem_bytes
+                                   candidate_k=(1, 8, k_over))
+    assert d.k == 8 and k_over not in d.per_sweep_s
+    assert cm.decide_halo_aggregation(16384, 16386, 1, hw=cm.H100,
+                                      force_k=k_over).k == 8
+    with pytest.raises(ValueError, match="k <= 8"):
+        stencil.ksweep_smem_bytes(k_over)
 
 
 # -- the generic call-site decision and the attention schedule --------------

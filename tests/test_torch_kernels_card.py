@@ -791,6 +791,113 @@ def test_jacobi_ksweep_kernel_matches_plain(cuda, dtype, tol, k, shape):
                "slab interior")
 
 
+#: the main path's width, an odd width over three bands, rows over several
+#: strips with a ragged last one, and m < k
+KSWEEP_SHAPES = [(40, 16386), (700, 2101), (3001, 130), (5, 130)]
+
+
+def _ksweep_parts(cuda, dtype, m, n, k, seed, offset=0):
+    """The slab's six parts, each a view ``offset`` elements into a buffer
+    of its own (offset 1: bases that are only element-aligned)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for rows in (k, m, k) * 2:
+        a = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+        buf = torch.zeros(rows * n + offset, device=cuda, dtype=dtype)
+        buf[offset:] = a.to(cuda).to(dtype).flatten()
+        parts.append(buf[offset:].view(rows, n))
+    return parts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype,tol", STENCIL_TOL)
+@pytest.mark.parametrize("k", range(1, stencil.KSWEEP_MAX_K + 1))
+@pytest.mark.parametrize("shape", KSWEEP_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jacobi_ksweep_kernel_equals_plain_across_bands_and_strips(
+        cuda, shape, k, dtype, tol, offset):
+    """The streamed kernel on the plan's bands and strips, frozen depths
+    (0, 0), (k, k), (k+1, k+1), parts at aligned and one-element-offset
+    bases: f32 equal to the plain version bit for bit, bf16 within 2e-2 of
+    the largest magnitude."""
+    m, n = shape
+    parts = _ksweep_parts(cuda, dtype, m, n, k, 17, offset)
+    for ft, fb in ((0, 0), (k, k), (k + 1, k + 1)):
+        got = stencil.jacobi_ksweep_parts(*parts, k, ft, fb)
+        torch.cuda.synchronize()
+        want = stencil.jacobi_ksweep_parts(*parts, k, ft, fb,
+                                           engine="torch")
+        if dtype == torch.float32:
+            assert torch.equal(got, want), (ft, fb)
+        else:
+            _close(got, want, tol, f"frozen ({ft}, {fb})")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_jacobi_ksweep_frozen_rows_across_strip_boundaries(cuda, k, dtype):
+    """Strips of 1, 3 and k rows launched through the C entry (the plan
+    never cuts so short), so that strip boundaries fall inside the frozen
+    rows at both ends: equal to the plain version (f32 bit for bit)."""
+    m, n = 23, 777
+    parts = _ksweep_parts(cuda, dtype, m, n, k, 19)
+    lib = stencil._lib()
+    for strip in (1, 3, k):
+        for ft, fb in ((k + 1, k + 1), (k, 0), (0, k + 1)):
+            out = torch.full((m, n), 7.0, device=cuda, dtype=dtype)
+            err = lib.jacobi_ksweep_launch(
+                stencil._DTYPE_CODE[dtype], *(t.data_ptr() for t in parts),
+                out.data_ptr(), m, n, k, ft, fb, strip,
+                torch.cuda.current_stream().cuda_stream)
+            assert err == 0
+            torch.cuda.synchronize()
+            want = stencil.jacobi_ksweep_parts(*parts, k, ft, fb,
+                                               engine="torch")
+            if dtype == torch.float32:
+                assert torch.equal(out, want), (strip, ft, fb)
+            else:
+                _close(out, want, 2e-2, f"strip {strip} ({ft}, {fb})")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 8])
+def test_jacobi_ksweep_twice_and_graph_replayed_give_equal_bits(cuda, k):
+    """Two calls, and a CUDA-graph capture replayed, equal bit for bit at
+    the main path's width."""
+    parts = _ksweep_parts(cuda, torch.float32, 700, 16386, k, 23)
+    first = stencil.jacobi_ksweep_parts(*parts, k, k, k)
+    second = stencil.jacobi_ksweep_parts(*parts, k, k, k)
+    out = torch.empty_like(first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        stencil.jacobi_ksweep_parts(*parts, k, k, k, out=out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stencil.jacobi_ksweep_parts(*parts, k, k, k, out=out)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jacobi_ksweep_built_kernel_matches_its_plan(cuda, dtype):
+    """The built kernel's band and shared memory are the plan's and the
+    cost model's (``ksweep_smem_bytes``), and the card keeps at least the
+    CTAs the plan counts on (``KSWEEP_CTAS``) resident on an SM."""
+    for k in range(1, stencil.KSWEEP_MAX_K + 1):
+        band, smem, resident = stencil.ksweep_built(k, dtype)
+        plan = stencil.ksweep_plan(16386, 16386, k, dtype)
+        assert band == plan.band == stencil.ksweep_band(k)
+        assert smem == stencil.ksweep_smem_bytes(k, dtype.itemsize)
+        assert resident >= stencil.KSWEEP_CTAS, (k, resident)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 def test_jacobi_multistep_kernel_equals_k_unit_sweeps(cuda, k):
@@ -842,8 +949,8 @@ def test_jacobi_kernels_reject_what_they_do_not_take(cuda):
         stencil.jacobi_step(u, f.bfloat16())
     with pytest.raises(ValueError):
         stencil.jacobi_step(u.t().contiguous().t(), f.t().contiguous().t())
-    with pytest.raises(ValueError, match="shared memory"):
-        stencil.jacobi_ksweep(u, f, 32, 0, 0)
+    with pytest.raises(ValueError, match="k <= 8"):
+        stencil.jacobi_ksweep(u, f, stencil.KSWEEP_MAX_K + 1, 0, 0)
 
 
 @pytest.mark.gpu

@@ -184,5 +184,113 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError):
         stencil.jacobi_step(u, u, engine="pallas")
     assert ops.jacobi_step is stencil.jacobi_step
-    rows, cols = stencil.KSWEEP_TILE
-    assert stencil.ksweep_smem_bytes(8) == 3 * 4 * (rows + 16) * (cols + 16)
+    # the k-sweep kernel's ring at k = 8 in f32: 7 rows of u and 13 of f
+    # of a 768-column band (16 bytes of slack a row), the staged output
+    # row twice, 7 inner sweeps' edges of 6 warps (+ 2) twice
+    assert stencil.ksweep_band(8) == 768
+    assert stencil.ksweep_smem_bytes(8) == \
+        20 * (768 * 4 + 16) + 2 * 768 * 4 + 4 * 2 * 7 * 8 * 2
+    with pytest.raises(ValueError, match="k <= 8"):
+        stencil.ksweep_smem_bytes(stencil.KSWEEP_MAX_K + 1)
+
+
+# -- the k-sweep kernel's plan: pieces, aprons, strips --------------------
+
+#: (m, n) of the main path (one rank of the 16386^2 solve, and its 8-rank
+#: block), ragged, tiny, and one row
+PLAN_SHAPES = [(16386, 16386), (2048, 16386), (1000, 777), (5, 130),
+               (3, 3), (1, 1), (3001, 130), (700, 2101)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, stencil.KSWEEP_MAX_K + 1))
+@pytest.mark.parametrize("m,n", PLAN_SHAPES)
+def test_ksweep_plan_covers_every_point_once(m, n, k, dtype):
+    """The plan's (band, strip) pieces cover every output point exactly
+    once, each loading its k-column and k-row apron; it fills the SMs once
+    where the rows allow and never cuts a strip below KSWEEP_MIN_STRIP * k
+    rows; its CTAs fit an SM's shared memory as often as it counts."""
+    plan = stencil.ksweep_plan(m, n, k, dtype, 132)
+    assert plan.band == stencil.ksweep_band(k)
+    assert plan.ctas == plan.bands * plan.strips
+    centre = plan.band - 2 * k                           # written columns
+    covered_cols = np.zeros(n, np.int64)
+    for bx in range(plan.bands):
+        c0 = bx * centre
+        assert c0 < n                                    # no empty band
+        covered_cols[c0:min(c0 + centre, n)] += 1
+        cb = c0 - k                                      # loaded: apron k
+        assert cb + plan.band == c0 + centre + k
+    covered_rows = np.zeros(m, np.int64)
+    for by in range(plan.strips):
+        r0 = by * plan.strip
+        assert r0 < m                                    # no empty strip
+        covered_rows[r0:min(r0 + plan.strip, m)] += 1
+    assert (covered_cols == 1).all() and (covered_rows == 1).all()
+    smem = stencil.ksweep_smem_bytes(k, dtype.itemsize)
+    assert smem <= stencil.SMEM_LIMIT
+    assert stencil.KSWEEP_CTAS * (smem + 1024) <= stencil.SM_SMEM
+    if plan.strips > 1:
+        assert plan.strip >= stencil.KSWEEP_MIN_STRIP * k
+        assert plan.ctas <= stencil.KSWEEP_CTAS * 132
+
+
+def test_ksweep_plan_on_the_main_path():
+    """16386^2 f32 at k = 2, 4, 8: 22 bands of 768 columns, and 12 strips
+    of 1366 rows that fill the 132 SMs once (2 CTAs each), so the 2k rows
+    computed twice are 0.3-1.2% of a strip."""
+    for k in (2, 4, 8):
+        assert stencil.ksweep_plan(16386, 16386, k, torch.float32, 132) == \
+            stencil.KsweepPlan(768, 22, 1366, 12, 264)
+
+
+def _stitched(u_pad, f_pad, k, frozen_top, frozen_bot, plan):
+    """The kernel's decomposition in plain torch: each (band, strip) piece
+    through ``ksweep_trapezoid`` on its own apron tile (clipped to the
+    array), frozen rows by global padded row, its centre kept."""
+    mp, n = u_pad.shape
+    m = mp - 2 * k
+    out = torch.full((m, n), float("nan"))
+    for by in range(plan.strips):
+        r0 = by * plan.strip
+        rows = min(plan.strip, m - r0)
+        r1 = r0 + rows + 2 * k                           # padded rows loaded
+        centre = plan.band - 2 * k
+        for bx in range(plan.bands):
+            c0, cb = bx * centre, bx * centre - k
+            c1 = min(c0 + centre, n)
+            lo, hi = max(cb, 0), min(cb + plan.band, n)
+            tile = stencil.ksweep_trapezoid(
+                u_pad[r0:r1, lo:hi], f_pad[r0:r1, lo:hi], k,
+                max(0, frozen_top - r0), max(0, frozen_bot - (mp - r1)))
+            out[r0:r0 + rows, c0:c1] = tile[k:k + rows, c0 - lo:c1 - lo]
+    return out
+
+
+#: (m, n, plan override): the plan at 4 SMs (m = None: three strips of at
+#: least KSWEEP_MIN_STRIP * k rows, the last ragged, and two bands at n =
+#: 1100); strips of 3 rows, so that a strip boundary falls inside the
+#: frozen rows; m < k
+STITCH_CASES = [(None, 1100, None), (40, 130, 3), (5, 130, None)]
+
+
+@pytest.mark.parametrize("frozen", ["none", "k", "k+1"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m,n,strip", STITCH_CASES,
+                         ids=lambda c: str(c))
+def test_ksweep_plan_stitched_equals_pallas(m, n, strip, k, frozen):
+    """The plan's pieces, each swept on its own apron tile, equal the
+    reference's Pallas slab kernel (interpret mode) bit for bit in f32."""
+    depth = {"none": 0, "k": k, "k+1": k + 1}[frozen]
+    m = 3 * stencil.KSWEEP_MIN_STRIP * k + 1 if m is None else m
+    rng = np.random.default_rng(13)
+    u_pad, f_pad = _rand(rng, (m + 2 * k, n)), _rand(rng, (m + 2 * k, n))
+    plan = stencil.ksweep_plan(m, n, k, torch.float32, 4)
+    if strip is not None:
+        plan = plan._replace(strip=strip, strips=-(-m // strip))
+    if m >= 3 * stencil.KSWEEP_MIN_STRIP * k:
+        assert plan.strips >= 3 and m % plan.strip != 0
+    want = ref_stencil.jacobi_ksweep_pallas(_j(u_pad), _j(f_pad), k, depth,
+                                            depth, interpret=True)
+    got = _stitched(_t(u_pad), _t(f_pad), k, depth, depth, plan)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
