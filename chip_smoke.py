@@ -72,7 +72,29 @@ phase that fails:
                per step; and at 2 layers in f32 the ring with the kernels,
                the ring with the plain step and its plain backward, and
                megatron with the flash kernels agree in loss, gradients,
-               prefill logits and greedy tokens.
+               prefill logits and greedy tokens;
+ 10. examples — ``repro_torch.examples.quickstart`` (30 steps of reduced
+               granite-34b, falling finite losses, 8 greedy tokens,
+               exactly 4 forward and 2 backward flash launches a step on
+               the head_dim 16 kernels, which are held to their plain
+               versions at its shape, and its model in f32 with the
+               kernels against the plain path) and
+               ``train_100m --steps 50`` (110 M
+               parameters, S 256, B 8, 1x1, async checkpoints; exactly
+               24 forward and 12 backward flash launches a step): host
+               wall per step and tokens/s beside the card;
+ 11. mesh    — two processes on the one card over gloo (``--mesh-rank``,
+               file:// init): phi4-mini-3.8b at full width, 2 layers, f32,
+               TF32 off; one ``build_train_step`` step (B 2, S 1024) on
+               the 1x2 and 2x1 meshes against rank 0's 1x1 step on the
+               same weights (loss rtol 2e-4; gradient norm rtol 1e-5;
+               every parameter, gathered, rtol 2e-3 / atol 3e-4; flash
+               launches per rank exact), the
+               1x2 ``ServeEngine``'s greedy tokens against 1x1's, the
+               bytes between the card and host memory per step (gloo on
+               one card, not NCCL: staged messages and gloo's own copies
+               of all-reduces), and ``jacobi_mdmp --ranks 2`` (every
+               schedule equal, and equal to one rank).
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
 trip), the grouped-expert FFN, the ring's block backward (bf16 in, f32
@@ -80,7 +102,9 @@ out, at the ring training step's shape) and the ring-attention carry step
 (its variants, and a virtual 4-rank ring folded on one card against the
 flash forward) to their plain versions and times them at the Jacobi
 shape, at moonshot's prefill call, at the training shape and at ring
-attention's 8192-token prefill call.  The stencil kernels are timed
+attention's 8192-token prefill call; it runs k = 16 at the Jacobi
+shape as two chained k-sweep launches (f32 error 0) and times it per
+sweep beside k = 8.  The stencil kernels are timed
 beside one cuDNN conv2d that computes a sweep, and k chained ones (TF32
 off, cudnn.benchmark on, graph-replayed).  The grouped FFN is held on
 both engines (SIMT in f32 at 1e-5 and bf16 at 2e-2 where D or F is no
@@ -966,6 +990,30 @@ def phase_stencil(torch):
               f"{'; the k-sweep must be 0' if name == 'ksweep' else ''})",
               flush=True)
         del got, want
+    # k > 8: chained launches of depth <= 8 over the one k-deep slab, at
+    # the main path's width (f32: exactly 0), timed beside k = 8 per sweep
+    kc = 2 * st.KSWEEP_MAX_K
+    zc = torch.zeros((kc, n), device="cuda")
+    before = st.KSWEEP_LAUNCHES
+    got = st.jacobi_ksweep_parts(zc, u, zc, zc, f, zc, kc, kc, kc)
+    torch.cuda.synchronize()
+    links = st.KSWEEP_LAUNCHES - before
+    want = st.jacobi_ksweep_parts(zc, u, zc, zc, f, zc, kc, kc, kc,
+                                  engine="torch")
+    err = stencil_check(torch, got, want, tol, f"chained k={kc} {n}x{n}")
+    if err != 0.0 or links != len(st.ksweep_chain(kc)):
+        fail(f"the chained k-sweep at k={kc}: max|err| {err:.3e} (not 0) "
+             f"or {links} launches (not {len(st.ksweep_chain(kc))})")
+    del got, want
+    chain_ms = eager_ms(torch, [lambda: st.jacobi_ksweep_parts(
+        zc, u, zc, zc, f, zc, kc, kc, kc, out=out)], 3)
+    print(f"  jacobi_ksweep k={kc} as {links} chained launches "
+          f"{st.ksweep_chain(kc)} over one slab at {n}x{n} f32: max|err| "
+          f"against plain 0; {chain_ms:.4f} ms per call = "
+          f"{chain_ms / kc:.4f} ms per sweep (the slab's copy included; "
+          f"k={k} in one launch: {times['ksweep']['ms'] / k:.4f} ms per "
+          f"sweep)", flush=True)
+    del zc
     for name, (sweeps, ghosts) in (("step", (1, (2, 0))),
                                    ("ksweep", (k, (2 * k, 2 * k)))):
         tm = times[name]
@@ -2593,6 +2641,381 @@ def phase_ring_parity(torch):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the main-path examples
+# ---------------------------------------------------------------------------
+
+#: train_100m's run: steps, and the steps before its times are read
+EXAMPLE_STEPS, EXAMPLE_WARMUP = 50, 5
+#: the quickstart's run, and its attention: reduced granite-34b (4 query
+#: heads, 1 kv head, head_dim 16) at B 8, S 128
+QUICKSTART_STEPS = 30
+QUICKSTART_ATTN = dict(b=8, s=128, h=4, kvh=1, hd=16)
+
+
+def quickstart_kernels_vs_plain(torch):
+    """The flash forward and backward kernels at the quickstart's
+    attention (head_dim 16: the SIMT kernels in both types) against the
+    plain versions in f32 on the same inputs: f32 within 1e-4 and bf16
+    within 2e-2 of the largest magnitude, the lse within 1e-4.  Returns
+    the worst error over both types."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    a = QUICKSTART_ATTN
+    worst = 0.0
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q, k, v, dout = flash_inputs(torch, gen, a["b"], a["s"], a["s"],
+                                     a["h"], a["kvh"], a["hd"], dtype)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        want_out, want_lse = fa.flash_attention_torch(q.float(), k.float(),
+                                                      v.float())
+        wants = fa.flash_attention_bwd_torch(q.float(), k.float(), v.float(),
+                                             out.float(), lse, dout.float())
+        for what, got, want, t in (
+                ("out", out, want_out, tol), ("lse", lse, want_lse, 1e-4),
+                ("dq", grads[0], wants[0], tol),
+                ("dk", grads[1], wants[1], tol),
+                ("dv", grads[2], wants[2], tol)):
+            err = (got.float() - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            if not torch.isfinite(got.float()).all() or err > t * scale:
+                fail(f"flash {what} at the quickstart's shape "
+                     f"({str(dtype)[6:]}): max|err| {err:.3e} > {t} x "
+                     f"{scale:.3g}")
+            worst = max(worst, err / scale)
+    return worst
+
+
+def quickstart_parity(torch):
+    """The quickstart's model (reduced granite-34b) in f32, TF32 off, at
+    its batch (B 8, S 128): one loss and gradient with the flash kernels
+    and with the plain versions pinned agree (``check_loss_and_grads``),
+    with exactly 2 x n_layers forward (remat) and n_layers backward
+    launches on the kernel path.  Returns the worst gradient error."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model, flatten_specs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_reduced("granite-34b"),
+                              dtype="float32")
+    a = QUICKSTART_ATTN
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=a["s"], global_batch=a["b"],
+                                      seed=SEED))
+    batch = train_batch(torch, data, 0)
+    runs = {}
+    for engine in ("auto", "torch"):
+        model = Model(cfg, device="cuda", attn_engine=engine).init(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        loss, _ = model.loss_sp(batch)
+        params = flatten_specs(model.params())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        want = (2 * cfg.n_layers, cfg.n_layers) if engine == "auto" \
+            else (0, 0)
+        if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
+            fail(f"quickstart model ({engine}): flash launches "
+                 f"{fa.FWD_LAUNCHES} / {fa.BWD_LAUNCHES}, not {want}")
+        runs[engine] = dict(loss=loss.item(), grads=dict(zip(params, grads)))
+    return check_loss_and_grads(runs["auto"], runs["torch"],
+                                "quickstart model")[0]
+
+
+def phase_examples(torch, card):
+    """quickstart (30 steps of reduced granite, 8 greedy tokens) and
+    train_100m (110 M parameters, S 256, B 8, async checkpoints) on the
+    card; each run's flash launches counted from 0 and held exact, and
+    the quickstart's kernels and model held to the plain versions."""
+    from repro_torch import configs
+    from repro_torch.examples import quickstart, train_100m
+    from repro_torch.kernels import flash_attention as fa
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    launches = {}
+    try:
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = quickstart.run(QUICKSTART_STEPS, device="cuda",
+                             ckpt_dir=os.path.join(tmp, "quickstart"))
+        qs_s = time.perf_counter() - t0
+        losses = [h["loss"] for h in out["history"]]
+        got = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        n_layers = configs.get_reduced("granite-34b").n_layers
+        # training runs each layer's forward twice (remat) and its
+        # backward once; the greedy decode's contiguous cache runs no
+        # flash kernel, as the reference's decode reaches no Pallas one
+        want = (QUICKSTART_STEPS * 2 * n_layers, QUICKSTART_STEPS * n_layers)
+        if (len(losses) != QUICKSTART_STEPS or not all(np.isfinite(losses))
+                or losses[-1] >= losses[0] or out["restarts"]):
+            fail(f"quickstart losses {losses}, {out['restarts']} restarts: "
+                 f"not {QUICKSTART_STEPS} finite, falling, unbroken")
+        if len(out["continuation"]) != 8 or got != want:
+            fail(f"quickstart: continuation {out['continuation']}, flash "
+                 f"launches {got} (want {want})")
+        worst_k = quickstart_kernels_vs_plain(torch)
+        worst_p = quickstart_parity(torch)
+        print(f"  quickstart (reduced granite-34b, bf16, head_dim 16): loss "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f} over {QUICKSTART_STEPS} "
+              f"steps (0 restarts), greedy continuation "
+              f"{out['continuation']}, flash launches {got[0]} forward / "
+              f"{got[1]} backward, {qs_s:.1f} s; its flash kernels against "
+              f"the plain versions (f32 and bf16) worst {worst_k:.2e} of "
+              f"the largest magnitude; its model in f32, kernels against "
+              f"plain: loss within 1e-5, gradients within {worst_p:.2e}",
+              flush=True)
+        launches["quickstart"] = got
+
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        ckpt = os.path.join(tmp, "train_100m")
+        out = train_100m.main(["--steps", str(EXAMPLE_STEPS), "--ckpt",
+                               ckpt])
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        n_layers = train_100m.CONFIG_100M.n_layers
+        want = (EXAMPLE_STEPS * 2 * n_layers, EXAMPLE_STEPS * n_layers)
+        got = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+        if len(losses) != EXAMPLE_STEPS or not all(np.isfinite(losses)):
+            fail(f"train_100m losses {losses}")
+        if got != want or not os.listdir(ckpt):
+            fail(f"train_100m: flash launches {got} (want {want}), "
+                 f"checkpoints {os.listdir(ckpt)}")
+        walls = sorted(h["time_s"] for h in hist[EXAMPLE_WARMUP:])
+        med = walls[len(walls) // 2]
+        tokens = 8 * 256
+        print(f"  train_100m ({train_100m.CONFIG_100M.param_count() / 1e6:.0f}"
+              f" M params, bf16, S 256, B 8, 1x1, async checkpoints every "
+              f"50 steps): host wall per step median {med * 1e3:.2f} ms "
+              f"(min {walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f}) over "
+              f"steps {EXAMPLE_WARMUP}-{EXAMPLE_STEPS - 1} = "
+              f"{tokens / med:.0f} tokens/s; loss {losses[0]:.3f} -> "
+              f"{losses[-1]:.3f}; flash launches {got[0]} forward / {got[1]} "
+              f"backward; on {card}", flush=True)
+        launches["train_100m"] = got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: phi4-mini at full width, this many layers, f32; one train step's batch
+MESH_LAYERS, MESH_B, MESH_S = 2, 2, 1024
+MESH_SPECS = ("1x2", "2x1")
+MESH_SERVE = dict(slots=2, max_seq=64, page_size=16, schedule="static")
+MESH_NEW = 8
+MESH_LOSS_RTOL, MESH_RTOL, MESH_ATOL = 2e-4, 2e-3, 3e-4
+#: the gradient norm against 1x1's: the first AdamW update hardly depends
+#: on the gradients' scale, so the norm holds their sums over the mesh
+MESH_NORM_RTOL = 1e-5
+
+
+def mesh_prompts(vocab: int) -> list[np.ndarray]:
+    rng = np.random.default_rng(SEED + 11)
+    return [rng.integers(0, vocab - 1, size=p).astype(np.int32)
+            for p in (5, 9, 3)]
+
+
+def mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
+    """One of phase 11's two processes.  Rank 0 first runs the 1x1
+    reference (a train step and the engine's greedy tokens) on the full
+    weights; then both ranks run each mesh on their shards of the same
+    weights and rank 0 holds the gathered parameters, the loss and the
+    tokens to the 1x1 run.  Results go to rank{r}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import bridge, configs
+    from repro_torch.core import transport
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models.model import Model, flatten_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import MeshCtx, shard_of
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.train_loop import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch_mesh.init_distributed("cuda", init_method=init, rank=rank,
+                                 world_size=2)
+    cfg = dataclasses.replace(configs.get_config("phi4-mini-3.8b"),
+                              n_layers=MESH_LAYERS, dtype="float32")
+    full = Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=MESH_S, global_batch=MESH_B,
+                                      seed=SEED))
+    batch = train_batch(torch, data, 0)
+    opt_cfg = AdamWConfig(lr=1e-2)
+    prompts = mesh_prompts(cfg.vocab_size)
+    res = {"rank": rank}
+
+    def serve(model):
+        eng = ServeEngine(model, **MESH_SERVE)
+        rids = [eng.submit(p, MESH_NEW) for p in prompts]
+        got = eng.run()
+        return [got[r].tolist() for r in rids]
+
+    def step(model):
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        transport.reset_staged_bytes()
+        fn = build_train_step(model, opt_cfg)
+        opt = adamw_init(model.params(), opt_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = fn(opt, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        return dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
+                    staged=transport.staged_bytes())
+
+    one = None
+    if rank == 0:
+        paged.LAUNCHES = 0
+        res["one_tokens"] = serve(full)
+        res["one_paged"] = paged.LAUNCHES
+        one = Model(cfg, device="cuda")
+        with torch.no_grad():
+            for name, t in flatten_specs(one.params()).items():
+                t.copy_(flatten_specs(full.params())[name])
+        res["one"] = step(one)
+    dist.barrier()
+    specs = flatten_specs(full.param_specs())
+    for spec in MESH_SPECS:
+        shape, axes = launch_mesh.parse_mesh(spec)
+        ctx = MeshCtx.from_mesh(launch_mesh.make_mesh(shape, axes, "cuda"),
+                                "auto")
+        model = Model(cfg, ctx, device="cuda")
+        with torch.no_grad():
+            for name, t in flatten_specs(model.params()).items():
+                t.copy_(shard_of(flatten_specs(full.params())[name],
+                                 specs[name], ctx))
+        if spec == "1x2":
+            paged.LAUNCHES = 0
+            res[f"{spec}_tokens"] = serve(model)
+            res[f"{spec}_paged"] = paged.LAUNCHES
+        res[spec] = step(model)
+        worst = (0.0, "")
+        for name in flatten_specs(model.params()):
+            got = bridge.param_full(model, name)
+            if rank == 0:
+                want = flatten_specs(one.params())[name]
+                bad = (got - want).abs() - MESH_RTOL * want.abs()
+                worst = max(worst, (float(bad.max()), name))
+        res[f"{spec}_worst"] = worst
+        del model, ctx
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh(torch, root, card):
+    """Phase 11: the two rank processes, then jacobi_mdmp --ranks 2,
+    each on the one card over gloo.  A failure in either process fails
+    the phase."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        init = "file://" + os.path.join(tmp, "init")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), init, tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"phase 11 rank {r} exited {p.returncode}: "
+                     f"{err[-3000:]}")
+        res = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one = res[0]["one"]
+    want = (2 * MESH_LAYERS, MESH_LAYERS)
+    print(f"  phi4-mini-3.8b at full width, {MESH_LAYERS} layers, f32, TF32 "
+          f"off, B={MESH_B}, S={MESH_S}; two processes on {card}, gloo "
+          f"(file:// init); 1x1 on rank 0: loss {one['loss']:.6f}, step "
+          f"{one['ms']:.1f} ms, flash launches {one['fwd']} / {one['bwd']}",
+          flush=True)
+    if (one["fwd"], one["bwd"]) != want or res[0]["one_paged"] == 0:
+        fail(f"the 1x1 run's launches: flash {one['fwd']} / {one['bwd']} "
+             f"(want {want}), paged {res[0]['one_paged']}")
+    launches = {"fwd": 0, "bwd": 0}
+    for spec in MESH_SPECS:
+        for r in range(2):
+            got = res[r][spec]
+            if (got["fwd"], got["bwd"]) != want:
+                fail(f"{spec} rank {r}: flash launches {got['fwd']} / "
+                     f"{got['bwd']}, not {want}")
+            if abs(got["loss"] - one["loss"]) > MESH_LOSS_RTOL * abs(
+                    one["loss"]):
+                fail(f"{spec} rank {r}: loss {got['loss']} != 1x1 "
+                     f"{one['loss']} (rtol {MESH_LOSS_RTOL})")
+            norm_err = abs(got["grad_norm"] - one["grad_norm"]) / abs(
+                one["grad_norm"])
+            if norm_err > MESH_NORM_RTOL:
+                fail(f"{spec} rank {r}: grad_norm {got['grad_norm']} != 1x1 "
+                     f"{one['grad_norm']} (rtol {MESH_NORM_RTOL})")
+            launches["fwd"] += got["fwd"]
+            launches["bwd"] += got["bwd"]
+        bad, name = res[0][f"{spec}_worst"]
+        if bad > MESH_ATOL:
+            fail(f"{spec}: updated parameter {name} off the 1x1 step by "
+                 f"{bad:.3e} beyond rtol {MESH_RTOL} (atol {MESH_ATOL})")
+        print(f"  {spec} mesh: loss {res[0][spec]['loss']:.6f} on both "
+              f"ranks (1x1 {one['loss']:.6f}); grad_norm "
+              f"{res[0][spec]['grad_norm']!r} (1x1 {one['grad_norm']!r}, "
+              f"within rtol {MESH_NORM_RTOL}); every updated parameter, "
+              f"gathered, within rtol {MESH_RTOL} / atol {MESH_ATOL} of "
+              f"1x1 (worst excess {bad:.2e} at {name}); flash launches per "
+              f"rank {want[0]} / {want[1]}; step host wall "
+              f"{res[0][spec]['ms']:.1f} / {res[1][spec]['ms']:.1f} ms; "
+              f"bytes between the card and host memory per step (gloo on "
+              f"one card, not NCCL: staged messages and gloo's own copies "
+              f"of all-reduces) {res[0][spec]['staged']} / "
+              f"{res[1][spec]['staged']}", flush=True)
+    for r in range(2):
+        if res[r]["1x2_tokens"] != res[0]["one_tokens"]:
+            fail(f"1x2 rank {r} greedy tokens {res[r]['1x2_tokens']} != "
+                 f"1x1 {res[0]['one_tokens']}")
+    print(f"  ServeEngine on 1x2 (the page pool over 2 cache shards, plain "
+          f"partials LSE-merged; paged kernel launches {res[0]['1x2_paged']}"
+          f"): greedy tokens equal 1x1's (paged kernel, "
+          f"{res[0]['one_paged']} launches): {res[0]['one_tokens']}",
+          flush=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    jac = subprocess.run([sys.executable, "-m",
+                          "repro_torch.examples.jacobi_mdmp", "--ranks", "2"],
+                         env=env, capture_output=True, text=True, timeout=600)
+    if jac.returncode != 0 or "== one rank" not in jac.stdout:
+        fail(f"jacobi_mdmp --ranks 2 on the card: {jac.stdout[-2000:]} "
+             f"{jac.stderr[-2000:]}")
+    for line in jac.stdout.splitlines():
+        print(f"  jacobi_mdmp --ranks 2: {line}", flush=True)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2694,6 +3117,13 @@ def main() -> int:
     ring_launches = phase_ring_prefill_and_train(torch)
     phase_ring_parity(torch)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
+    print("phase 10: the examples (quickstart, train_100m)", flush=True)
+    t10 = time.perf_counter()
+    phase_examples(torch, card)
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
+    print("phase 11: two ranks on one card (1x2 and 2x1 meshes, serving, "
+          "Jacobi)", flush=True)
+    phase_mesh(torch, root, card)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
@@ -2749,4 +3179,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.path.insert(0, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "src"))
+        mesh_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -10,6 +10,11 @@ function.  The layouts are identical by construction (the port's
 The way back (``params_to_numpy``, ``adamw_state_to_numpy``) gives numpy
 trees in the reference's nesting, bf16 widened to f32 (numpy has no
 bf16), so a test can compare updated weights and moments.
+
+Over a mesh each rank holds its shards: ``params_from_numpy`` cuts the
+reference's full arrays to this rank's blocks by ``ParamSpec`` and the
+rank's coordinates (the reference's ``infer_shardings`` +
+``device_put``), and ``params_to_numpy_full`` gathers them back.
 """
 
 from __future__ import annotations
@@ -19,8 +24,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import transport
 from repro_torch.models.model import (Model, flatten_specs,
                                       unflatten_specs)
+from repro_torch.parallel.sharding import LOGICAL_RULES, shard_of
 
 
 def _to_torch(arr: Any) -> torch.Tensor:
@@ -33,16 +40,18 @@ def _to_torch(arr: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def params_from_numpy(tree: dict, model: Model) -> Model:
-    """Copy the reference parameter tree (numpy leaves, the reference's
-    nesting) into ``model``'s parameters; returns ``model``."""
+    """Copy the reference parameter tree (numpy leaves of the GLOBAL
+    shapes, the reference's nesting) into ``model``'s parameters, each
+    cut to this rank's block; returns ``model``."""
     got = flatten_specs(tree)
     dst = flatten_specs(model.params())
+    specs = flatten_specs(model.param_specs())
     if set(got) != set(dst):
         raise ValueError(f"parameter names differ: missing "
                          f"{sorted(set(dst) - set(got))}, unexpected "
                          f"{sorted(set(got) - set(dst))}")
     for name, arr in got.items():
-        src = _to_torch(arr)
+        src = _to_torch(shard_of(arr, specs[name], model.ctx))
         if tuple(src.shape) != tuple(dst[name].shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                              f"{tuple(dst[name].shape)}")
@@ -67,6 +76,28 @@ def params_to_numpy(model: Model) -> dict:
     return _tree_to_numpy(model.params())
 
 
+def param_full(model: Model, name: str) -> torch.Tensor:
+    """Parameter ``name`` ("a/b") at its GLOBAL shape on the model's
+    device, gathered over every mesh axis a dim is sharded on (a
+    collective: every rank calls it)."""
+    spec = flatten_specs(model.param_specs())[name]
+    t = flatten_specs(model.params())[name].detach()
+    for dim, logical in enumerate(spec.logical):
+        ax = LOGICAL_RULES[logical]
+        if ax and model.ctx.axis_sizes.get(ax, 1) > 1:
+            t = torch.cat(transport.all_gather(
+                t.movedim(dim, 0).contiguous(), model.ctx.group(ax)))
+            t = t.movedim(0, dim)
+    return t
+
+
+def params_to_numpy_full(model: Model) -> dict:
+    """The model's parameters at their GLOBAL shapes (``param_full``), on
+    every rank, as a numpy tree."""
+    return unflatten_specs({name: _to_numpy(param_full(model, name))
+                            for name in flatten_specs(model.params())})
+
+
 def adamw_state_to_numpy(state: dict) -> dict:
     """AdamW state {"mu", "nu", "step"} (optim/adamw.py) as numpy."""
     return {"mu": _tree_to_numpy(state["mu"]),
@@ -86,8 +117,9 @@ def adamw_state_from_numpy(tree: dict, model: Model,
         if set(got) != set(params):
             raise ValueError(f"{which}: parameter names differ")
         leaves = {}
+        specs = flatten_specs(model.param_specs())
         for name, arr in got.items():
-            t = _to_torch(arr).to(dt)
+            t = _to_torch(shard_of(arr, specs[name], model.ctx)).to(dt)
             if tuple(t.shape) != tuple(params[name].shape):
                 raise ValueError(f"{which}/{name}: shape {tuple(t.shape)} "
                                  f"!= {tuple(params[name].shape)}")

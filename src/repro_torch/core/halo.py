@@ -17,10 +17,11 @@ makes.
 
 Rows are split over one ``torch.distributed`` process group (the
 reference's mesh axis ``axis_name``; ``None`` is one rank).  Messages go
-through ``batch_isend_irecv``: non-periodic edge ranks receive zero slabs
-(MPI_PROC_NULL), periodic is a ring, and one rank gets zeros or, when
-periodic, its own wrapped rows.  On a CUDA tensor every sweep runs the
-stencil kernels; the halo-padded update of the reference's
+through ``core/transport.py``'s batched point-to-point ops (through host
+buffers where a gloo group meets CUDA tensors): non-periodic edge ranks
+receive zero slabs (MPI_PROC_NULL), periodic is a ring, and one rank gets
+zeros or, when periodic, its own wrapped rows.  On a CUDA tensor every
+sweep runs the stencil kernels; the halo-padded update of the reference's
 ``_five_point`` on ``[lo; u; hi]`` is ``stencil.jacobi_step`` with the
 halos passed as ``lo`` / ``hi``, so no padded copy of the block is made,
 and a solve ping-pongs between two buffers.
@@ -31,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import transport
 from repro_torch.kernels.stencil import jacobi_ksweep_parts, jacobi_step
 from repro_torch.obs.tracer import dispatch_span
 
@@ -47,41 +49,38 @@ def _ring(group: Group) -> tuple[int, int]:
 
 def halo_exchange_start(x: torch.Tensor, group: Group = None, *,
                         halo: int = 1, periodic: bool = False
-                        ) -> tuple[torch.Tensor, torch.Tensor, list]:
+                        ) -> tuple[torch.Tensor, torch.Tensor,
+                                   transport.Pending]:
     """Post the exchange of ``halo`` rows with the ring neighbours.
 
-    Returns ``(lo, hi, works)``: the slabs that will hold the rows from
-    the previous / next rank once every work in ``works`` has been waited
-    for.  A slab that no message fills (a non-periodic edge) stays
-    zero."""
+    Returns ``(lo, hi, pending)``: the slabs that will hold the rows from
+    the previous / next rank once ``pending.wait()`` has returned.  A slab
+    that no message fills (a non-periodic edge) stays zero."""
     if halo > x.shape[0]:
         raise ValueError(f"a {halo}-row halo from a {x.shape[0]}-row block")
     idx, n = _ring(group)
     if n == 1 and periodic:
-        return x[x.shape[0] - halo:], x[:halo], []
+        return x[x.shape[0] - halo:], x[:halo], transport.Pending([], [], [])
     shape = (halo,) + tuple(x.shape[1:])
     lo, hi = x.new_zeros(shape), x.new_zeros(shape)
     if n == 1:
-        return lo, hi, []
+        return lo, hi, transport.Pending([], [], [])
     nxt, prv = idx + 1, idx - 1
     if periodic:
         nxt, prv = nxt % n, prv % n
-    peer = lambda i: dist.get_global_rank(group, i)
-    ops = []
+    sends, recvs = [], []
     # tag 0: my last rows -> the next rank's lo; tag 1: my first rows ->
     # the previous rank's hi.  With two ranks on a ring both messages
     # join the same pair; the tags (gloo) and the common order of the ops
     # on every rank (NCCL) keep them apart.
     if nxt < n:
-        ops.append(dist.P2POp(dist.isend, x[x.shape[0] - halo:], peer(nxt),
-                              group, tag=0))
+        sends.append((x[x.shape[0] - halo:], nxt, 0))
     if prv >= 0:
-        ops.append(dist.P2POp(dist.isend, x[:halo], peer(prv), group,
-                              tag=1))
-        ops.append(dist.P2POp(dist.irecv, lo, peer(prv), group, tag=0))
+        sends.append((x[:halo], prv, 1))
+        recvs.append((lo, prv, 0))
     if nxt < n:
-        ops.append(dist.P2POp(dist.irecv, hi, peer(nxt), group, tag=1))
-    return lo, hi, dist.batch_isend_irecv(ops)
+        recvs.append((hi, nxt, 1))
+    return lo, hi, transport.p2p_start(sends, recvs, group)
 
 
 def halo_exchange(x: torch.Tensor, group: Group = None, *, halo: int = 1,
@@ -91,10 +90,9 @@ def halo_exchange(x: torch.Tensor, group: Group = None, *, halo: int = 1,
     Returns ``(lo_halo, hi_halo)`` — the rows received from the previous /
     next rank (zeros at the boundary when non-periodic, matching
     MPI_PROC_NULL semantics in the paper's code)."""
-    lo, hi, works = halo_exchange_start(x, group, halo=halo,
-                                        periodic=periodic)
-    for w in works:
-        w.wait()
+    lo, hi, pending = halo_exchange_start(x, group, halo=halo,
+                                          periodic=periodic)
+    pending.wait()
     return lo, hi
 
 
@@ -115,12 +113,11 @@ def jacobi_step_overlapped(u: torch.Tensor, f: torch.Tensor,
     """Paper Figure 3: post the halo messages, update the interior rows
     (local data only) while they are in flight, wait, then update the two
     boundary rows that need the halos.  Identical result."""
-    lo, hi, works = halo_exchange_start(u, group, periodic=periodic)
+    lo, hi, pending = halo_exchange_start(u, group, periodic=periodic)
     m = u.shape[0]
     out = torch.empty_like(u) if out is None else out
     jacobi_step(u, f, rows=((1, m - 1),), out=out, engine=engine)
-    for w in works:
-        w.wait()
+    pending.wait()
     return jacobi_step(u, f, lo=lo, hi=hi, rows=((0, 1), (m - 1, m)),
                        out=out, engine=engine)
 
@@ -165,12 +162,14 @@ def jacobi_solve(u0: torch.Tensor, f: torch.Tensor, group: Group,
                          ``managed.resolve_halo_aggregation`` (k=1 is
                          bulk).  Message count drops from 2*iters to
                          2*ceil(iters/k) + 2 (the +2 is the one-time
-                         f-ghost exchange).  On the card the k-sweep
-                         kernel takes k <= 8 (``stencil.KSWEEP_MAX_K``:
-                         one instantiation per k) and a deeper k raises;
-                         the plain path on the CPU takes any k.  The
-                         managed decision never picks a deeper k and
-                         clamps a forced one to at most 8.
+                         f-ghost exchange).  On the card a launch of
+                         the k-sweep kernel takes k <= 8
+                         (``stencil.KSWEEP_MAX_K``: one instantiation per
+                         k), and a deeper k runs as chained launches over
+                         the same slab; the plain path takes any k.  The
+                         managed decision never picks a k above 8, whose
+                         chained launches save no sweep time on one card,
+                         and clamps a forced one to at most 8.
 
     ``u0`` is not written; the result is a new tensor (``u0`` itself when
     ``iters`` is 0).  The trace span names the rows' axis ``x``, the axis

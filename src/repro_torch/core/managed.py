@@ -1,24 +1,27 @@
-"""Managed runtime — configuration, the decision log, the resolvers and
-ring attention (port of ``repro.core.managed``).
+"""Managed runtime — configuration, the decision log, the managed
+collectives, the resolvers and ring attention (port of
+``repro.core.managed``).
 
-The reference expresses every collective through a ``managed_*`` entry
-point that picks bulk or interleaved execution from the cost model and
-logs a ``DecisionRecord``.  ``managed_all_reduce`` /
-``managed_all_gather`` / ``managed_all_to_all`` /
-``managed_reduce_scatter`` and the fused matmuls are the identity at axis
-size 1 (as the reference's are) and raise above it; their
-``torch.distributed`` form comes with the managed-collectives slice.  The
-serving resolvers (``resolve_serve_schedule``, ``resolve_preempt``), the
-halo-aggregation resolver (``resolve_halo_aggregation``), the MoE
-dispatch resolver (``resolve_moe_dispatch``), the attention-schedule
-resolver (``resolve_attention_schedule``) and the generic call-site
-resolver ``_resolve`` are ported whole: they run on the host and price
-with ``DEFAULT_HW``.
+Every collective goes through a ``managed_*`` entry point that picks bulk
+or interleaved (ring) execution from the cost model and logs a
+``DecisionRecord``: ``managed_all_gather`` / ``managed_reduce_scatter`` /
+``managed_all_reduce`` / ``managed_all_to_all`` and the fused
+``all_gather_matmul[_multi]`` / ``matmul_reduce_scatter``.  They are
+per-rank code over the ``torch.distributed`` process group of each mesh
+axis (``MeshCtx.groups``), moved by core/transport.py, and each is a
+``torch.autograd.Function`` whose backward is the reference's custom VJP.
+At axis size 1 each is the identity.  The serving resolvers
+(``resolve_serve_schedule``, ``resolve_preempt``), the halo-aggregation
+resolver (``resolve_halo_aggregation``), the MoE dispatch resolver
+(``resolve_moe_dispatch``), the attention-schedule resolver
+(``resolve_attention_schedule``) and the generic call-site resolver
+``_resolve`` run on the host and price with ``DEFAULT_HW``.  MoE across
+ranks (``managed_expert_stream``, ``managed_psum_scatter_gather``) is
+ROADMAP Queue 1 item 3.
 
-``managed_ring_attention`` (context parallelism) runs over a
-``torch.distributed`` process group: kv blocks travel around the ring by
-``batch_isend_irecv`` while the carry kernel folds the block that has
-arrived.
+``managed_ring_attention`` (context parallelism) runs over a process
+group too: kv blocks travel around the ring by batched point-to-point
+ops while the carry kernel folds the block that has arrived.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Any, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import cost_model
+from repro_torch.core import cost_model, transport
 from repro_torch.core.cost_model import DEFAULT_HW, HardwareModel
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_attention import (finalize_partials,
@@ -55,6 +58,9 @@ class MDMPConfig:
     chunks: int | None = None         # override ring sub-chunking
     hw: HardwareModel = DEFAULT_HW
     log_decisions: bool = True
+    # quantized FSDP weight gathering (fp8 payload, the master weights in
+    # their own type, an exact-type gradient reduce-scatter)
+    fsdp_gather_dtype: str | None = None
 
 
 _STATE = threading.local()
@@ -196,7 +202,18 @@ def _plan_knob(op: str, axis_name: str) -> dict | None:
 
 
 # ---------------------------------------------------------------------------
-# Collectives at axis size 1
+# Managed collectives
+#
+# Per-rank code over one process group per mesh axis (``MeshCtx.groups``).
+# Every collective is a ``torch.autograd.Function`` whose backward is its
+# exact dual as another managed collective (AG <-> RS, AR <-> AR, A2A <->
+# reverse A2A, AG-matmul <-> matmul-RS + gram ring), resolved and logged
+# again, as the reference's custom VJPs are.  ``mode="bulk"`` is one
+# backend collective; ``"interleaved"`` is the ring: ``chunks`` messages a
+# step over batched point-to-point ops, the next block's permute posted
+# before the block that arrived is consumed.  Messages go through
+# core/transport.py.  At axis size 1 each is the identity (or the plain
+# product).
 # ---------------------------------------------------------------------------
 
 
@@ -238,86 +255,410 @@ def _resolve(op: str, axis_name: str, ctx: MeshCtx, nbytes: int,
     return eff_mode, max(1, int(eff_chunks))
 
 
-def _multi_rank(op: str, axis_name: str, n: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{op} over axis {axis_name!r} of size {n}: the torch.distributed "
-        "collectives come with ROADMAP Queue 1 slice 4")
+def _split(x: torch.Tensor, chunks: int) -> list[torch.Tensor]:
+    if chunks <= 1 or x.shape[0] % chunks:
+        return [x]
+    return list(x.chunk(chunks))
 
 
-def managed_all_reduce(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
-                       mode: str | None = None) -> torch.Tensor:
-    """Sum ``x`` across ``axis_name`` — the identity at axis size 1."""
+def _permute_start(tensors: list[torch.Tensor], group: Group, idx: int,
+                   n: int, tag0: int = 0
+                   ) -> tuple[list[torch.Tensor], transport.Pending]:
+    """Post one ring step (the reference's ``_ring_perm``: rank i sends to
+    i + 1): every tensor goes to the next rank, and the previous rank's
+    arrive in fresh buffers once the returned ``Pending`` has been waited
+    for.  Tags keep the messages apart where next and previous are the
+    same rank (n = 2).  The sent tensors must stay unchanged until
+    then."""
+    recv = [torch.empty_like(t) for t in tensors]
+    pending = transport.p2p_start(
+        [(t, (idx + 1) % n, tag0 + i) for i, t in enumerate(tensors)],
+        [(r, (idx - 1) % n, tag0 + i) for i, r in enumerate(recv)], group)
+    return recv, pending
+
+
+def _join(pieces: list[torch.Tensor]) -> torch.Tensor:
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def _ring_pass(x: torch.Tensor, group: Group, idx: int, n: int,
+               chunks: int):
+    """Yield ``(src, block)``: this rank's ``x`` first, then each other
+    rank's block as it travels by, the permute of the next block in
+    flight while the caller consumes this one."""
+    buf = x.contiguous()
+    for s in range(n):
+        if s < n - 1:
+            # the step as ``chunks`` messages (``_ppermute_chunked``)
+            nxt, pending = _permute_start(_split(buf, chunks), group, idx,
+                                          n)
+        yield (idx - s) % n, buf
+        if s < n - 1:
+            pending.wait()
+            buf = _join(nxt)
+
+
+def _ring_reduce(block_of, group: Group, idx: int, n: int,
+                 chunks: int) -> torch.Tensor:
+    """The reduce-scatter ring: block b starts at rank b + 1 and gathers
+    each rank's share on its way to rank b.  ``block_of(b)`` is this
+    rank's share of block b, computed while the partial is in flight."""
+    send = block_of((idx - 1) % n)
+    for s in range(1, n):
+        recv, pending = _permute_start(_split(send.contiguous(), chunks),
+                                       group, idx, n)
+        mine = block_of((idx - 1 - s) % n)
+        pending.wait()
+        send = _join(recv) + mine
+    return send
+
+
+def _rows(n: int, x: torch.Tensor, what: str) -> int:
+    if x.shape[0] % n:
+        raise ValueError(f"{what}: axis 0 ({x.shape[0]}) not divisible by "
+                         f"the axis size {n}")
+    return x.shape[0] // n
+
+
+def _all_gather_impl(x, axis_name, ctx, mode, chunks):
     n = _axis_size(axis_name, ctx)
     if n == 1:
         return x
-    raise _multi_rank("managed_all_reduce", axis_name, n)
+    eff_mode, c = _resolve("all_gather", axis_name, ctx, _nbytes(x), mode,
+                           chunks, "all_gather")
+    group = ctx.group(axis_name)
+    if eff_mode == "bulk":
+        return torch.cat(transport.all_gather(x, group))
+    m = x.shape[0]
+    out = x.new_empty((n * m,) + tuple(x.shape[1:]))
+    for src, blk in _ring_pass(x, group, ctx.axis_index(axis_name), n, c):
+        out[src * m:(src + 1) * m] = blk
+    return out
+
+
+def _reduce_scatter_impl(x, axis_name, ctx, mode, chunks):
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x
+    eff_mode, c = _resolve("reduce_scatter", axis_name, ctx, _nbytes(x),
+                           mode, chunks, "reduce_scatter")
+    group = ctx.group(axis_name)
+    m = _rows(n, x, "reduce_scatter")
+    if eff_mode == "bulk":
+        return transport.reduce_scatter(x, group)
+    x = x.contiguous()
+    return _ring_reduce(lambda b: x[b * m:(b + 1) * m], group,
+                        ctx.axis_index(axis_name), n, c)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, axis_name, ctx, mode, chunks):
+        fctx.args = (axis_name, ctx, mode, chunks)
+        return _all_gather_impl(x, axis_name, ctx, mode, chunks)
+
+    @staticmethod
+    def backward(fctx, dy):
+        return (_reduce_scatter_impl(dy, *fctx.args), None, None, None,
+                None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, axis_name, ctx, mode, chunks):
+        fctx.args = (axis_name, ctx, mode, chunks)
+        return _reduce_scatter_impl(x, axis_name, ctx, mode, chunks)
+
+    @staticmethod
+    def backward(fctx, dy):
+        return _all_gather_impl(dy, *fctx.args), None, None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """The bulk all-reduce; its transpose is the all-reduce itself."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return transport.all_reduce(x, group)
+
+    @staticmethod
+    def backward(fctx, dy):
+        return transport.all_reduce(dy, fctx.group), None
 
 
 def managed_all_gather(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
                        mode: str | None = None,
                        chunks: int | None = None) -> torch.Tensor:
-    """All-gather ``x`` (tiled along axis 0) across ``axis_name`` — the
-    identity at axis size 1."""
-    n = _axis_size(axis_name, ctx)
-    if n == 1:
+    """All-gather ``x`` (tiled along axis 0) across ``axis_name``; its
+    gradient is the reduce-scatter."""
+    if _axis_size(axis_name, ctx) == 1:
         return x
-    raise _multi_rank("managed_all_gather", axis_name, n)
+    return _AllGather.apply(x, axis_name, ctx, mode, chunks)
 
 
 def managed_reduce_scatter(x: torch.Tensor, axis_name: str, ctx: MeshCtx,
                            *, mode: str | None = None,
                            chunks: int | None = None) -> torch.Tensor:
     """Sum-reduce ``x`` across ``axis_name``, scattering blocks of axis 0
-    — the identity at axis size 1."""
+    (tiled): rank i receives ``sum_r x_r[i*m:(i+1)*m]``; its gradient is
+    the all-gather."""
+    if _axis_size(axis_name, ctx) == 1:
+        return x
+    return _ReduceScatter.apply(x, axis_name, ctx, mode, chunks)
+
+
+def managed_all_reduce(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
+                       mode: str | None = None,
+                       chunks: int | None = None) -> torch.Tensor:
+    """Sum ``x`` across ``axis_name`` (every rank receives the sum).  The
+    ring composes the managed reduce-scatter and all-gather, zero-padding
+    a leading axis that the axis size does not divide; a 0-d operand takes
+    the bulk all-reduce and its DecisionRecord says so (mode='bulk')."""
     n = _axis_size(axis_name, ctx)
     if n == 1:
         return x
-    raise _multi_rank("managed_reduce_scatter", axis_name, n)
+    scalar = x.dim() == 0
+    eff_mode, c = _resolve("all_reduce", axis_name, ctx, _nbytes(x),
+                           "bulk" if scalar else mode, chunks, "all_reduce")
+    if eff_mode == "bulk" or scalar:
+        return _Sum.apply(x, ctx.group(axis_name))
+    rows = x.shape[0]
+    if rows % n:
+        x = torch.cat([x, x.new_zeros((n - rows % n,) + tuple(x.shape[1:]))])
+    scattered = managed_reduce_scatter(x, axis_name, ctx, mode=eff_mode,
+                                       chunks=c)
+    full = managed_all_gather(scattered, axis_name, ctx, mode=eff_mode,
+                              chunks=c)
+    return full[:rows] if rows != full.shape[0] else full
+
+
+def all_reduce_max(x: torch.Tensor, axes: Sequence[str],
+                   ctx: MeshCtx) -> torch.Tensor:
+    """The maximum over ``axes`` (the reference's ``lax.pmax``; no
+    gradient, no decision)."""
+    for ax in axes:
+        if _axis_size(ax, ctx) > 1:
+            x = transport.all_reduce(x, ctx.group(ax), dist.ReduceOp.MAX)
+    return x
+
+
+def all_reduce_min(x: torch.Tensor, axes: Sequence[str],
+                   ctx: MeshCtx) -> torch.Tensor:
+    """The minimum over ``axes`` (the reference's ``lax.pmin``)."""
+    for ax in axes:
+        if _axis_size(ax, ctx) > 1:
+            x = transport.all_reduce(x, ctx.group(ax), dist.ReduceOp.MIN)
+    return x
+
+
+def _all_to_all_impl(x, axis_name, ctx, split_axis, concat_axis, mode,
+                     chunks):
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return x
+    eff_mode, _ = _resolve("all_to_all", axis_name, ctx, _nbytes(x), mode,
+                           chunks, "all_to_all")
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} ({x.shape[split_axis]}"
+                         f") not divisible by the axis size {n}")
+    group, idx = ctx.group(axis_name), ctx.axis_index(axis_name)
+    blocks = [b.contiguous() for b in x.chunk(n, split_axis)]
+    if eff_mode == "bulk":
+        got = transport.all_to_all(blocks, group)
+    else:
+        # every shifted permute sources from x: all n - 1 messages are in
+        # flight at once; block (idx + s) goes to rank idx + s
+        got = [None] * n
+        got[idx] = blocks[idx]
+        recv = [torch.empty_like(blocks[0]) for _ in range(1, n)]
+        transport.p2p_start(
+            [(blocks[(idx + s) % n], (idx + s) % n, s) for s in range(1, n)],
+            [(recv[s - 1], (idx - s) % n, s) for s in range(1, n)],
+            group).wait()
+        for s in range(1, n):
+            got[(idx - s) % n] = recv[s - 1]
+    return torch.cat(got, dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, axis_name, ctx, split_axis, concat_axis, mode,
+                chunks):
+        fctx.args = (axis_name, ctx, split_axis, concat_axis, mode, chunks)
+        return _all_to_all_impl(x, axis_name, ctx, split_axis, concat_axis,
+                                mode, chunks)
+
+    @staticmethod
+    def backward(fctx, dy):
+        # the transpose of an all-to-all is the reverse all-to-all
+        axis_name, ctx, split_axis, concat_axis, mode, chunks = fctx.args
+        return (_all_to_all_impl(dy, axis_name, ctx, concat_axis, split_axis,
+                                 mode, chunks),
+                None, None, None, None, None, None)
 
 
 def managed_all_to_all(x: torch.Tensor, axis_name: str, ctx: MeshCtx, *,
                        split_axis: int = 0, concat_axis: int = 0,
-                       mode: str | None = None) -> torch.Tensor:
+                       mode: str | None = None,
+                       chunks: int | None = None) -> torch.Tensor:
     """All-to-all: block j of ``x`` (along ``split_axis``) goes to rank j,
-    the received blocks concatenated along ``concat_axis`` — the identity
-    at axis size 1."""
+    the received blocks concatenated along ``concat_axis`` in source-rank
+    order; its gradient is the reverse all-to-all."""
+    if _axis_size(axis_name, ctx) == 1:
+        return x
+    return _AllToAll.apply(x, axis_name, ctx, split_axis, concat_axis, mode,
+                           chunks)
+
+
+# -- fused ring collectives: the paper's Figure 3, tile-granular ------------
+
+
+def _matmul_compute_s(flops: float) -> float:
+    return flops / get_config().hw.peak_flops
+
+
+def _ag_matmul_impl(x, ws, axis_name, ctx, mode, chunks, op):
+    """``[all_gather(x) @ w for w in ws]``: one gather ring, each arriving
+    block multiplied by every w while the next block is in flight."""
     n = _axis_size(axis_name, ctx)
     if n == 1:
-        return x
-    raise _multi_rank("managed_all_to_all", axis_name, n)
+        return [x @ w for w in ws]
+    cols = sum(w.shape[1] for w in ws)
+    compute_s = _matmul_compute_s(2.0 * x.shape[0] * n * x.shape[1] * cols)
+    eff_mode, c = _resolve(op, axis_name, ctx, _nbytes(x), mode, chunks,
+                           "all_gather", compute_time_s=compute_s)
+    group = ctx.group(axis_name)
+    if eff_mode == "bulk":
+        xg = torch.cat(transport.all_gather(x, group))
+        return [xg @ w for w in ws]
+    m = x.shape[0]
+    outs = [x.new_empty((n * m, w.shape[1])) for w in ws]
+    for src, blk in _ring_pass(x, group, ctx.axis_index(axis_name), n, c):
+        for o, w in zip(outs, ws):
+            o[src * m:(src + 1) * m] = blk @ w
+    return outs
 
 
-def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name: str,
-                      ctx: MeshCtx, *, mode: str | None = None
-                      ) -> torch.Tensor:
-    """``all_gather(x, axis) @ w`` — a plain product at axis size 1, whose
-    autograd gradient is the reference's custom VJP at that size."""
+def _gram_ag_ring(a, b, axis_name, ctx, mode, chunks):
+    """``all_gather(a)^T @ b`` with the gather interleaved into the
+    accumulation (the dw of the ring VJPs).  a: [m_loc, p] sharded on axis
+    0; b: [n*m_loc, q] full rows.  Returns this rank's [p, q]."""
+    n = _axis_size(axis_name, ctx)
+    if n == 1:
+        return a.t() @ b
+    eff_mode, c = _resolve("gram_ag_ring", axis_name, ctx, _nbytes(a), mode,
+                           chunks, "all_gather")
+    group = ctx.group(axis_name)
+    if eff_mode == "bulk":
+        return torch.cat(transport.all_gather(a, group)).t() @ b
+    m = a.shape[0]
+    acc = None
+    for src, blk in _ring_pass(a, group, ctx.axis_index(axis_name), n, c):
+        part = (blk.t() @ b[src * m:(src + 1) * m]).float()
+        acc = part if acc is None else acc + part
+    return acc.to(torch.promote_types(a.dtype, b.dtype))
+
+
+def _mmrs_impl(x, w, axis_name, ctx, mode, chunks):
+    """``reduce_scatter(x @ w)`` with the matmul interleaved into the
+    reduction ring: each step computes only the output block about to be
+    sent."""
     n = _axis_size(axis_name, ctx)
     if n == 1:
         return x @ w
-    raise _multi_rank("all_gather_matmul", axis_name, n)
+    compute_s = _matmul_compute_s(2.0 * x.shape[0] * x.shape[1]
+                                  * w.shape[1])
+    eff_mode, c = _resolve("matmul_reduce_scatter", axis_name, ctx,
+                           _nbytes(x), mode, chunks, "reduce_scatter",
+                           compute_time_s=compute_s)
+    group = ctx.group(axis_name)
+    m = _rows(n, x, "matmul_reduce_scatter")
+    if eff_mode == "bulk":
+        return transport.reduce_scatter(x @ w, group)
+    return _ring_reduce(lambda b: x[b * m:(b + 1) * m] @ w, group,
+                        ctx.axis_index(axis_name), n, c)
+
+
+class _AllGatherMatmul(torch.autograd.Function):
+    """The reference's custom VJP: dx = matmul_reduce_scatter(dy, w^T)
+    and dw = the gram ring, for each w."""
+
+    @staticmethod
+    def forward(fctx, x, axis_name, ctx, mode, chunks, op, *ws):
+        fctx.save_for_backward(x, *ws)
+        fctx.args = (axis_name, ctx, mode, chunks)
+        return tuple(_ag_matmul_impl(x, list(ws), axis_name, ctx, mode,
+                                     chunks, op))
+
+    @staticmethod
+    def backward(fctx, *dys):
+        x, *ws = fctx.saved_tensors
+        dx, dws = None, []
+        for w, dy in zip(ws, dys):
+            d = _mmrs_impl(dy, w.t(), *fctx.args)
+            dx = d if dx is None else dx + d
+            dws.append(_gram_ag_ring(x, dy, *fctx.args).to(w.dtype))
+        return (dx.to(x.dtype), None, None, None, None, None, *dws)
+
+
+class _MatmulReduceScatter(torch.autograd.Function):
+    """The reference's custom VJP: dx = all_gather_matmul(dy, w^T) and
+    dw = x^T @ AG(dy) by the gram ring over dy."""
+
+    @staticmethod
+    def forward(fctx, x, w, axis_name, ctx, mode, chunks):
+        fctx.save_for_backward(x, w)
+        fctx.args = (axis_name, ctx, mode, chunks)
+        return _mmrs_impl(x, w, axis_name, ctx, mode, chunks)
+
+    @staticmethod
+    def backward(fctx, dy):
+        x, w = fctx.saved_tensors
+        axis_name, ctx, mode, chunks = fctx.args
+        (dx,) = _ag_matmul_impl(dy, [w.t()], axis_name, ctx, mode, chunks,
+                                "all_gather_matmul")
+        dw = _gram_ag_ring(dy, x, *fctx.args).t()
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None
+
+
+def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, axis_name: str,
+                      ctx: MeshCtx, *, mode: str | None = None,
+                      chunks: int | None = None) -> torch.Tensor:
+    """``all_gather(x, axis) @ w`` with the gather interleaved into the
+    matmul: each ring step multiplies the block that arrived while the
+    next is in flight.  x: [m_local, k] sharded on axis 0, w: [k, f].
+    Returns [m_local * n, f]."""
+    if _axis_size(axis_name, ctx) == 1:
+        return x @ w
+    (y,) = _AllGatherMatmul.apply(x, axis_name, ctx, mode, chunks,
+                                  "all_gather_matmul", w)
+    return y
 
 
 def all_gather_matmul_multi(x: torch.Tensor, ws: list[torch.Tensor],
                             axis_name: str, ctx: MeshCtx, *,
-                            mode: str | None = None) -> list[torch.Tensor]:
-    """``[all_gather(x) @ w for w in ws]`` with one ring for all — plain
-    products at axis size 1."""
-    n = _axis_size(axis_name, ctx)
-    if n == 1:
+                            mode: str | None = None,
+                            chunks: int | None = None
+                            ) -> list[torch.Tensor]:
+    """``[all_gather(x) @ w for w in ws]`` with ONE ring for all (fused
+    QKV / up+gate projections whose outputs shard differently)."""
+    if _axis_size(axis_name, ctx) == 1:
         return [x @ w for w in ws]
-    raise _multi_rank("all_gather_matmul_multi", axis_name, n)
+    return list(_AllGatherMatmul.apply(x, axis_name, ctx, mode, chunks,
+                                       "all_gather_matmul_multi", *ws))
 
 
 def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis_name: str,
-                          ctx: MeshCtx, *, mode: str | None = None
-                          ) -> torch.Tensor:
-    """``reduce_scatter(x @ w)`` over rows — a plain product at axis size
-    1."""
-    n = _axis_size(axis_name, ctx)
-    if n == 1:
+                          ctx: MeshCtx, *, mode: str | None = None,
+                          chunks: int | None = None) -> torch.Tensor:
+    """``reduce_scatter(x @ w)`` over rows, the matmul interleaved into the
+    reduction ring (the paper's "send data as soon as it has been
+    computed").  x: [M, k_local], w: [k_local, d] (both sharded on the
+    contracting dim).  Returns [M // n, d] (rank i holds row block i)."""
+    if _axis_size(axis_name, ctx) == 1:
         return x @ w
-    raise _multi_rank("matmul_reduce_scatter", axis_name, n)
+    return _MatmulReduceScatter.apply(x, w, axis_name, ctx, mode, chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -530,33 +871,6 @@ def _group_rank(group: Group, n: int) -> int:
     return dist.get_rank(group)
 
 
-def _ring_permute_start(tensors: list[torch.Tensor], group: Group, idx: int,
-                        n: int, tag0: int = 0
-                        ) -> tuple[list[torch.Tensor], list]:
-    """Post one ring step (the reference's ``_ring_perm``: rank i sends to
-    i + 1): every tensor goes to the next rank, and the previous rank's
-    arrive in fresh buffers once every returned work has been waited for.
-    Tags keep the tensors apart where next and previous are the same rank
-    (n = 2).  The caller keeps the (contiguous) sent tensors alive until
-    then."""
-    nxt = dist.get_global_rank(group, (idx + 1) % n)
-    prv = dist.get_global_rank(group, (idx - 1) % n)
-    recv = [torch.empty_like(t) for t in tensors]
-    ops = []
-    for i, t in enumerate(tensors):
-        if not t.is_contiguous():
-            raise ValueError("ring messages are contiguous tensors")
-        ops.append(dist.P2POp(dist.isend, t, nxt, group, tag=tag0 + i))
-        ops.append(dist.P2POp(dist.irecv, recv[i], prv, group,
-                              tag=tag0 + i))
-    return recv, dist.batch_isend_irecv(ops)
-
-
-def _wait(works: list) -> None:
-    for w in works:
-        w.wait()
-
-
 def _block_visible(q_off: int, k_off: int, sq: int, skv: int, causal: bool,
                    window: int) -> bool:
     """Whether ANY (qpos, kpos) pair of the block survives the mask."""
@@ -664,20 +978,18 @@ def _ring_fwd(q, k, v, causal, window, mode, n, idx, group, engine):
     for s in range(n):
         if s < n - 1:
             # post block s+1's transfer before folding block s
-            nxt, works = _ring_permute_start([kb, vb], group, idx, n)
+            nxt, pending = _permute_start([kb, vb], group, idx, n)
         k_off = ((idx - s) % n) * s_loc
         if _block_visible(q_off, k_off, s_loc, s_loc, causal, window):
             carry = step(kb, vb, carry, q_off, k_off)
         if s < n - 1:
-            _wait(works)
+            pending.wait()
             kb, vb = nxt
     return finalize_partials(*carry, out_dtype=q.dtype)
 
 
 def _all_gather_seq(x: torch.Tensor, group: Group, n: int) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=1)
+    return torch.cat(transport.all_gather(x, group), dim=1)
 
 
 def _ring_bwd(q, k, v, out, lse, dy, causal, window, mode, n, idx, group,
@@ -702,18 +1014,17 @@ def _ring_bwd(q, k, v, out, lse, dy, causal, window, mode, n, idx, group,
         dq, dk_full, dv_full = step_bwd(kg, vg, q_off, 0)
         # each rank computed its q rows' share of EVERY kv position: the
         # transpose of the gather sums them and keeps this rank's slice
-        # (an all-reduce: gloo has no reduce-scatter)
-        dist.all_reduce(dk_full, group=group)
-        dist.all_reduce(dv_full, group=group)
         rows = slice(idx * s_loc, (idx + 1) * s_loc)
-        return cast(dq, dk_full[:, rows], dv_full[:, rows])
+        dk = transport.all_reduce(dk_full, group)[:, rows]
+        dv = transport.all_reduce(dv_full, group)[:, rows]
+        return cast(dq, dk, dv)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dkb = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dvb = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     kb, vb = k, v
     for s in range(n):
         if s < n - 1:
-            nxt, works = _ring_permute_start([kb, vb], group, idx, n)
+            nxt, pending = _permute_start([kb, vb], group, idx, n)
         k_off = ((idx - s) % n) * s_loc
         if _block_visible(q_off, k_off, s_loc, s_loc, causal, window):
             dq_i, dk_i, dv_i = step_bwd(kb, vb, q_off, k_off)
@@ -722,12 +1033,12 @@ def _ring_bwd(q, k, v, out, lse, dy, causal, window, mode, n, idx, group,
             dvb += dv_i
         # the (dk, dv) accumulators travel WITH their block: after the
         # full cycle every rank has contributed and the sums are home
-        home, acc_works = _ring_permute_start([dkb, dvb], group, idx, n,
-                                              tag0=2)
-        _wait(acc_works)
+        home, acc_pending = _permute_start([dkb, dvb], group, idx, n,
+                                           tag0=2)
+        acc_pending.wait()
         dkb, dvb = home
         if s < n - 1:
-            _wait(works)
+            pending.wait()
             kb, vb = nxt
     return cast(dq, dkb, dvb)
 

@@ -1,0 +1,164 @@
+"""Message transport over ``torch.distributed`` process groups — the one
+place the port's collectives, ring permutes and halo exchange hand
+tensors to a backend.
+
+NCCL takes CUDA tensors directly.  Gloo takes CPU tensors for every op,
+but CUDA tensors only for all-reduce and broadcast (``GLOO_CUDA_OPS``).
+Where a gloo group meets a CUDA tensor in any other op — the multi-rank
+path of processes that share one card — the message is copied to a host
+buffer, moved, and copied back; the compute stays on the card.  The
+choice reads ``dist.get_backend(group)`` and the tensor's device, never a
+failure.  ``REGISTRY`` counts under ``STAGED_BYTES`` every byte that
+crosses between the card and host memory, each way: the copies made
+here, and those gloo makes itself when it all-reduces a CUDA tensor (the
+message to host memory and the sum back).  Gloo has no reduce-scatter: a
+gloo group reduces the whole message and keeps its block.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.obs.registry import MetricsRegistry
+
+Group = dist.ProcessGroup | None
+
+#: the ops gloo runs on CUDA tensors itself
+GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast"})
+
+#: counters of this module (bytes copied between the card and host memory)
+REGISTRY = MetricsRegistry()
+STAGED_BYTES = "transport.staged_bytes"
+
+
+def staged_bytes() -> int:
+    return int(REGISTRY.counter(STAGED_BYTES).value)
+
+
+def reset_staged_bytes() -> None:
+    REGISTRY.counter(STAGED_BYTES).value = 0
+
+
+def stages(op: str, group: Group, t: torch.Tensor) -> bool:
+    """Whether ``op`` on ``t`` over ``group`` goes through host buffers."""
+    return (t.device.type == "cuda" and op not in GLOO_CUDA_OPS
+            and dist.get_backend(group) == "gloo")
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    REGISTRY.counter(STAGED_BYTES).add(t.numel() * t.element_size())
+    return t.detach().to("cpu")
+
+
+def _to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    REGISTRY.counter(STAGED_BYTES).add(host.numel() * host.element_size())
+    return host.to(like.device)
+
+
+def all_reduce(x: torch.Tensor, group: Group,
+               op: dist.ReduceOp.RedOpType = dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """The reduction of ``x`` over ``group`` as a new tensor."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    if stages("all_reduce", group, out):
+        host = _to_host(out)
+        dist.all_reduce(host, op=op, group=group)
+        return _to_device(host, out)
+    if out.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        # gloo copies the message to host memory and the sum back itself
+        REGISTRY.counter(STAGED_BYTES).add(
+            2 * out.numel() * out.element_size())
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, group: Group) -> list[torch.Tensor]:
+    """Every rank's ``x`` in group-rank order."""
+    n = dist.get_world_size(group)
+    src = x.detach().contiguous()
+    if stages("all_gather", group, src):
+        host = _to_host(src)
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        return [_to_device(p, src) for p in parts]
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return parts
+
+
+def reduce_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Block ``rank`` of axis 0 of the sum of every rank's ``x`` (axis 0
+    divisible by the group's size)."""
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    m = x.shape[0] // n
+    if dist.get_backend(group) == "gloo":
+        return all_reduce(x, group)[idx * m:(idx + 1) * m].contiguous()
+    out = x.new_empty((m,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.detach().contiguous(), group=group)
+    return out
+
+
+def all_to_all(blocks: Sequence[torch.Tensor],
+               group: Group) -> list[torch.Tensor]:
+    """``blocks[j]`` goes to rank j; returns the blocks received, in
+    source-rank order (blocks of one shape)."""
+    src = [b.detach().contiguous() for b in blocks]
+    if stages("all_to_all", group, src[0]):
+        host = [_to_host(b) for b in src]
+        got = [torch.empty_like(h) for h in host]
+        dist.all_to_all(got, host, group=group)
+        return [_to_device(g, src[0]) for g in got]
+    got = [torch.empty_like(b) for b in src]
+    dist.all_to_all(got, src, group=group)
+    return got
+
+
+class Pending:
+    """Posted point-to-point messages: ``wait()`` blocks until every one
+    has arrived (and a staged one is back on its device)."""
+
+    def __init__(self, works: list, copies: list, keep: list):
+        self._works = works
+        self._copies = copies      # (host buffer, device tensor) pairs
+        self._keep = keep          # sent buffers, alive until the wait
+
+    def wait(self) -> None:
+        for w in self._works:
+            w.wait()
+        for host, dst in self._copies:
+            dst.copy_(_to_device(host, dst))
+        self._works, self._copies, self._keep = [], [], []
+
+
+def p2p_start(sends: Sequence[tuple[torch.Tensor, int, int]],
+              recvs: Sequence[tuple[torch.Tensor, int, int]],
+              group: Group) -> Pending:
+    """Post ``(tensor, peer, tag)`` sends and receives in one batch; peers
+    are group ranks.  A receive fills its tensor once the returned
+    ``Pending`` is waited for; a sent tensor must stay unchanged until
+    then.  Every rank posts its ops in the same order (NCCL pairs them by
+    order, gloo by tag)."""
+    ops, copies, keep = [], [], []
+    for t, peer, tag in sends:
+        if not t.is_contiguous():
+            raise ValueError("messages are contiguous tensors")
+        buf = _to_host(t) if stages("p2p", group, t) else t
+        keep.append(buf)
+        ops.append(dist.P2POp(dist.isend, buf, dist.get_global_rank(group,
+                                                                    peer),
+                              group, tag=tag))
+    for t, peer, tag in recvs:
+        if not t.is_contiguous():
+            raise ValueError("messages are contiguous tensors")
+        buf = t
+        if stages("p2p", group, t):
+            buf = torch.empty(t.shape, dtype=t.dtype)
+            copies.append((buf, t))
+        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group,
+                                                                    peer),
+                              group, tag=tag))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Pending(works, copies, keep)

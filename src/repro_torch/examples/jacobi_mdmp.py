@@ -5,17 +5,19 @@ MDMP-managed halo exchange (port of ``examples/jacobi_mdmp.py``).
     PYTHONPATH=src python -m repro_torch.examples.jacobi_mdmp --device cpu \\
         --ranks 8
 
-Runs on ``cuda`` (one card, one rank) unless ``--device cpu`` is given;
-on the CPU ``--ranks N`` starts N processes joined by a gloo process
-group, the rows of the global grid split over them.  With ``--device cpu
---ranks 8`` it is the reference example: a 1024 x 514 grid, 48 sweeps.
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--ranks N`` starts
+N processes joined by a process group (gloo: on the CPU, or ranks that
+share one card, whose halo messages then pass through host buffers), the
+rows of the global grid split over them.  With ``--device cpu --ranks
+8`` it is the reference example: a 1024 x 514 grid, 48 sweeps.
 
   1. plan the AGGREGATION knob: ``managed.resolve_halo_aggregation``
      prices how many sweeps one k-row halo slab should carry (the call
      the reference's ``CommRegion.plan`` makes; the CommRegion facade
      needs the tracing of a later slice) and logs its DecisionRecord;
   2. run all three schedules — bulk (paper Fig 2), intermingled (Fig 3)
-     and aggregated (k sweeps per exchange) — and check they agree;
+     and aggregated (k sweeps per exchange) — and check they agree, and
+     that they equal one rank's solve of the whole grid;
   3. run the stencil kernels on a single shard (on the CPU, their plain
      versions).
 """
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import halo, managed
+from repro_torch.core import halo, managed, transport
 from repro_torch.device import resolve_device
 from repro_torch.kernels import stencil
 
@@ -51,6 +53,7 @@ def run(rank: int, ranks: int, args: argparse.Namespace,
     group = None
     if ranks > 1:
         torch.set_num_threads(1)
+        # gloo: NCCL refuses two ranks on one card
         dist.init_process_group("gloo", init_method=init, rank=rank,
                                 world_size=ranks)
         group = dist.group.WORLD
@@ -95,14 +98,8 @@ def _run(rank, ranks, args, dev, group):
         dt = time.perf_counter() - t0
         name = f"aggregated_k{kk}" if mode == "aggregated" else mode
         say(f"{name:16s} {iters} sweeps in {dt:.3f}s")
-        if ranks > 1:
-            parts = ([torch.empty_like(out) for _ in range(ranks)]
-                     if rank == 0 else None)
-            dist.gather(out, parts, dst=0, group=group)
-            if rank == 0:
-                outs[name] = torch.cat(parts).cpu().numpy()
-        else:
-            outs[name] = out.cpu().numpy()
+        outs[name] = torch.cat(transport.all_gather(out, group)
+                               if ranks > 1 else [out]).cpu().numpy()
     if rank != 0:
         return None
     for name, out in outs.items():
@@ -110,6 +107,15 @@ def _run(rank, ranks, args, dev, group):
                                    err_msg=name)
     say("bulk (Fig 2) == intermingled (Fig 3) == aggregated: max diff",
         max(float(np.abs(outs["bulk"] - o).max()) for o in outs.values()))
+    if ranks > 1:
+        one = halo.jacobi_solve(torch.from_numpy(u0).to(dev),
+                                torch.from_numpy(f).to(dev), None, iters,
+                                "bulk").cpu().numpy()
+        np.testing.assert_allclose(outs["bulk"], one, rtol=1e-5, atol=1e-5)
+        say(f"{ranks} ranks == one rank over the whole grid: max diff "
+            f"{float(np.abs(outs['bulk'] - one).max())}; bytes copied "
+            f"between the card and host memory by this rank (gloo): "
+            f"{transport.staged_bytes()}")
 
     # 3. the stencil kernels on a single shard (+2 Dirichlet rows)
     u_sh = torch.from_numpy(u0[:rows + 2]).to(dev)
@@ -148,9 +154,6 @@ def main(argv: list[str] | None = None) -> None:
     if args.ranks == 1:
         run(0, 1, args)
         return
-    if args.device != "cpu":
-        ap.error("--ranks > 1 runs gloo processes on the CPU (--device "
-                 "cpu); halo messages between cards come with slice 4")
     tmp = tempfile.mkdtemp(prefix="jacobi_mdmp_")
     try:
         torch.multiprocessing.spawn(

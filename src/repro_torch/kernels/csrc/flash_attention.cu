@@ -156,6 +156,15 @@
 //     with one CTA per (b, kv head, 64 kv rows) looping over its G query
 //     heads and the query tiles that see it; one launch for dQ with one
 //     CTA per (b, h, 64 query rows) looping over the kv tiles it sees.
+//
+// Head dims: the tensor-core kernels take hd 64 and 128 (their TMA boxes
+// are 64 hd columns wide); the SIMT kernels take 16, 64 and 128.  At hd 16
+// (the reduced configs) both types run the SIMT kernels: bf16 inputs are
+// staged as f32 and the outputs rounded once, as the tensor-core path
+// rounds its f32 accumulators.  A product whose output columns span hd
+// runs over a 64-column tile (HP = max(hd, 64)): the row-major tiles are
+// zero-padded to 64 columns and columns past hd are never stored; the
+// products over hd (Q K^T, dO V^T) read hd columns only.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -181,6 +190,14 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Width of a tile whose output columns span hd: 64-column tiles at hd 16.
+template <int HD>
+__host__ __device__ constexpr int padded_hd() { return HD < 64 ? 64 : HD; }
 
 // Sum / max over the 16 threads of one row (lanes that share lane / 16).
 __device__ __forceinline__ float row_sum(float v) {
@@ -241,20 +258,22 @@ __device__ __forceinline__ void block_mma(const float* __restrict__ A,
 }
 
 // Stage rows [row0, row0 + 64) of a [rows, heads, HD] slab (row stride
-// heads * HD, head `head`) into shared memory as f32; rows past `rows` are
-// zeros.  Row-major: dst[r * ld + d].  Transposed: dst[d * ld + r].
-template <typename T, int HD, bool kTransposed>
+// heads * HD, head `head`) into shared memory as f32; rows past `rows`
+// and columns [HD, W) are zeros.  Row-major: dst[r * ld + d].
+// Transposed: dst[d * ld + r].
+template <typename T, int HD, bool kTransposed, int W = HD>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
                                           const T* __restrict__ src,
                                           int row0, int rows, int heads,
                                           int head) {
   const int64_t stride = (int64_t)heads * HD;
-  for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
-    const int r = i / HD;
-    const int d = i - r * HD;
+  for (int i = threadIdx.x; i < kTile * W; i += kThreads) {
+    const int r = i / W;
+    const int d = i - r * W;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < rows) x = to_f32(src[(int64_t)row * stride + head * HD + d]);
+    if (row < rows && d < HD)
+      x = to_f32(src[(int64_t)row * stride + head * HD + d]);
     if (kTransposed)
       dst[d * ld + r] = x;
     else
@@ -301,8 +320,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, Carry carry, int sq, int skv,
                  int n_heads, int n_kv, int q_offset, int window, int causal,
                  float scale) {
-  constexpr int NC = HD / 16;
-  constexpr int kLdHd = HD + 4;
+  constexpr int HP = padded_hd<HD>();
+  constexpr int NC = HP / 16;
+  constexpr int kLdHd = HP + 4;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -312,9 +332,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15;
 
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [64][HD+4]
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][HP+4]
   float* kt = qs + kTile * kLdHd;               // [HD][64+4]  K transposed
-  float* vs = kt + HD * kLd64;                  // [64][HD+4]
+  float* vs = kt + HD * kLd64;                  // [64][HP+4]
   float* ps = vs + kTile * kLdHd;               // [64][64+4]  probabilities
 
   const T* qb = q + (int64_t)b * sq * n_heads * HD;
@@ -336,7 +356,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[r] = carry.l_in[row];
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        acc[r][c] = carry.acc_in[row * HD + col_of(c, tx)];
+        if (HP == HD || col_of(c, tx) < HD)
+          acc[r][c] = carry.acc_in[row * HD + col_of(c, tx)];
     }
   }
 
@@ -346,7 +367,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = (lo / kTile) * kTile; k0 < hi; k0 += kTile) {
     __syncthreads();  // the previous tile's kt, vs, ps are consumed
     load_tile<T, HD, true>(kt, kLd64, kb, k0, skv, n_kv, kvh);
-    load_tile<T, HD, false>(vs, kLdHd, vb, k0, skv, n_kv, kvh);
+    load_tile<T, HD, false, HP>(vs, kLdHd, vb, k0, skv, n_kv, kvh);
     __syncthreads();
 
     float s[4][4];
@@ -397,7 +418,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int64_t row = ((int64_t)b * sq + i) * n_heads + h;
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        carry.acc_out[row * HD + col_of(c, tx)] = acc[r][c];
+        if (HP == HD || col_of(c, tx) < HD)
+          carry.acc_out[row * HD + col_of(c, tx)] = acc[r][c];
       if (tx == 0) {
         carry.m_out[row] = m[r];
         carry.l_out[row] = l[r];
@@ -408,7 +430,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = out + (((int64_t)b * sq + i) * n_heads + h) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      ob[col_of(c, tx)] = from_f32<T>(acc[r][c] / l_safe);
+      if (HP == HD || col_of(c, tx) < HD)
+        ob[col_of(c, tx)] = from_f32<T>(acc[r][c] / l_safe);
     if (tx == 0)
       lse[((int64_t)b * sq + i) * n_heads + h] = m[r] + logf(l_safe);
   }
@@ -1592,18 +1615,20 @@ __device__ __forceinline__ void probs_and_dscores(
 }
 
 // dK, dV of kv rows [k0, k0 + 64) of kv head kvh: loop over the G query
-// heads of the group and the query tiles that see these rows.
-template <typename T, int HD>
+// heads of the group and the query tiles that see these rows.  Inputs T,
+// outputs O (T, or f32 for the block backward).
+template <typename T, typename O, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ dsum, T* __restrict__ dk,
-                      T* __restrict__ dv, int sq, int skv, int n_heads,
+                      const float* __restrict__ dsum, O* __restrict__ dk,
+                      O* __restrict__ dv, int sq, int skv, int n_heads,
                       int n_kv, int q_offset, int window, int causal,
                       float scale) {
-  constexpr int NC = HD / 16;
-  constexpr int kLdHd = HD + 4;
+  constexpr int HP = padded_hd<HD>();
+  constexpr int NC = HP / 16;
+  constexpr int kLdHd = HP + 4;
   const int k0 = blockIdx.x * kTile;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -1615,8 +1640,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);  // [HD][64+4]  K transposed
   float* vt = kt + HD * kLd64;                  // [HD][64+4]  V transposed
-  float* qs = vt + HD * kLd64;                  // [64][HD+4]
-  float* dos = qs + kTile * kLdHd;              // [64][HD+4]
+  float* qs = vt + HD * kLd64;                  // [64][HP+4]
+  float* dos = qs + kTile * kLdHd;              // [64][HP+4]
   float* pt = dos + kTile * kLdHd;              // [64][64+4]  P^T
   float* dst = pt + kTile * kLd64;              // [64][64+4]  dS^T
   float* lse_s = dst + kTile * kLd64;           // [64]
@@ -1646,8 +1671,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * groups + g;
     for (int q0 = (i_lo / kTile) * kTile; q0 < i_hi; q0 += kTile) {
       __syncthreads();  // the previous tile's qs, dos, pt, dst are consumed
-      load_tile<T, HD, false>(qs, kLdHd, qb, q0, sq, n_heads, h);
-      load_tile<T, HD, false>(dos, kLdHd, gb, q0, sq, n_heads, h);
+      load_tile<T, HD, false, HP>(qs, kLdHd, qb, q0, sq, n_heads, h);
+      load_tile<T, HD, false, HP>(dos, kLdHd, gb, q0, sq, n_heads, h);
       load_stats(lse_s, lb, q0, sq, n_heads, h);
       load_stats(dsum_s, sb, q0, sq, n_heads, h);
       __syncthreads();
@@ -1681,23 +1706,25 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t off = (((int64_t)b * skv + j) * n_kv + kvh) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[off + col_of(c, tx)] = from_f32<T>(dk_acc[r][c]);
-      dv[off + col_of(c, tx)] = from_f32<T>(dv_acc[r][c]);
+      if (HP != HD && col_of(c, tx) >= HD) continue;
+      dk[off + col_of(c, tx)] = from_f32<O>(dk_acc[r][c]);
+      dv[off + col_of(c, tx)] = from_f32<O>(dv_acc[r][c]);
     }
   }
 }
 
 // dQ of query rows [q0, q0 + 64) of head h: loop over the kv tiles they see.
-template <typename T, int HD>
+template <typename T, typename O, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dsum, T* __restrict__ dq,
+                    const float* __restrict__ dsum, O* __restrict__ dq,
                     int sq, int skv, int n_heads, int n_kv, int q_offset,
                     int window, int causal, float scale) {
-  constexpr int NC = HD / 16;
-  constexpr int kLdHd = HD + 4;
+  constexpr int HP = padded_hd<HD>();
+  constexpr int NC = HP / 16;
+  constexpr int kLdHd = HP + 4;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -1707,9 +1734,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15;
 
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [64][HD+4]
-  float* dos = qs + kTile * kLdHd;              // [64][HD+4]
-  float* ks = dos + kTile * kLdHd;              // [64][HD+4]
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][HP+4]
+  float* dos = qs + kTile * kLdHd;              // [64][HP+4]
+  float* ks = dos + kTile * kLdHd;              // [64][HP+4]
   float* kt = ks + kTile * kLdHd;               // [HD][64+4]  K transposed
   float* vt = kt + HD * kLd64;                  // [HD][64+4]  V transposed
   float* dss = vt + HD * kLd64;                 // [64][64+4]  dS
@@ -1736,7 +1763,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
            window, &lo, &hi);
   for (int k0 = (lo / kTile) * kTile; k0 < hi; k0 += kTile) {
     __syncthreads();  // the previous tile's ks, kt, vt, dss are consumed
-    load_tile<T, HD, false>(ks, kLdHd, kb, k0, skv, n_kv, kvh);
+    load_tile<T, HD, false, HP>(ks, kLdHd, kb, k0, skv, n_kv, kvh);
     load_tile<T, HD, true>(kt, kLd64, kb, k0, skv, n_kv, kvh);
     load_tile<T, HD, true>(vt, kLd64, vb, k0, skv, n_kv, kvh);
     __syncthreads();
@@ -1762,9 +1789,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + 4 * ty + r;
     if (i >= sq) continue;
-    T* ob = dq + (((int64_t)b * sq + i) * n_heads + h) * HD;
+    O* ob = dq + (((int64_t)b * sq + i) * n_heads + h) * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) ob[col_of(c, tx)] = from_f32<T>(dq_acc[r][c]);
+    for (int c = 0; c < NC; ++c)
+      if (HP == HD || col_of(c, tx) < HD)
+        ob[col_of(c, tx)] = from_f32<O>(dq_acc[r][c]);
   }
 }
 
@@ -1789,18 +1818,19 @@ struct Shape {
 
 template <int HD>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * kTile * (HD + 4) + HD * kLd64 + kTile * kLd64);
+  return sizeof(float) * (2 * kTile * (padded_hd<HD>() + 4) + HD * kLd64 +
+                          kTile * kLd64);
 }
 template <int HD>
 constexpr size_t dkdv_smem() {
   return sizeof(float) *
-         (2 * HD * kLd64 + 2 * kTile * (HD + 4) + 2 * kTile * kLd64 +
-          2 * kTile);
+         (2 * HD * kLd64 + 2 * kTile * (padded_hd<HD>() + 4) +
+          2 * kTile * kLd64 + 2 * kTile);
 }
 template <int HD>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (3 * kTile * (HD + 4) + 2 * HD * kLd64 +
-                          kTile * kLd64 + 2 * kTile);
+  return sizeof(float) * (3 * kTile * (padded_hd<HD>() + 4) +
+                          2 * HD * kLd64 + kTile * kLd64 + 2 * kTile);
 }
 
 template <typename T, int HD, bool kCarry>
@@ -1906,14 +1936,19 @@ template <bool kCarry>
 int fwd_dispatch(int dtype, int hd, const void* q, const void* k,
                  const void* v, void* out, void* lse, const Carry& carry,
                  const Shape& s, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
   if (dtype == 0)
     return hd == 128
                ? fwd<float, 128, kCarry>(q, k, v, out, lse, carry, s, st)
-               : fwd<float, 64, kCarry>(q, k, v, out, lse, carry, s, st);
+           : hd == 64
+               ? fwd<float, 64, kCarry>(q, k, v, out, lse, carry, s, st)
+               : fwd<float, 16, kCarry>(q, k, v, out, lse, carry, s, st);
   if (dtype == 1)
     return hd == 128
                ? fwd_wgmma<128, kCarry>(q, k, v, out, lse, carry, s, st)
-               : fwd_wgmma<64, kCarry>(q, k, v, out, lse, carry, s, st);
+           : hd == 64
+               ? fwd_wgmma<64, kCarry>(q, k, v, out, lse, carry, s, st)
+               : fwd<bf16, 16, kCarry>(q, k, v, out, lse, carry, s, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1930,38 +1965,49 @@ int dsum_pass(const void* out, const void* dout, void* dsum, const Shape& s,
   return (int)cudaGetLastError();
 }
 
-// The SIMT backward (f32, and the block backward in f32): dK/dV, then dQ,
-// from a dsum already computed.
-template <typename T, int HD>
+// The SIMT backward (f32, the block backward in f32, and both types at hd
+// 16): dK/dV, then dQ, from a dsum already computed; inputs T, outputs O.
+template <typename T, typename O, int HD>
 int bwd(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* dsum, void* dq, void* dk, void* dv,
         const Shape& s, cudaStream_t stream) {
   static int granted_dkdv = 0, granted_dq = 0;
-  cudaError_t e =
-      allow_smem(flash_bwd_dkdv_kernel<T, HD>, dkdv_smem<HD>(), &granted_dkdv);
+  cudaError_t e = allow_smem(flash_bwd_dkdv_kernel<T, O, HD>,
+                             dkdv_smem<HD>(), &granted_dkdv);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(flash_bwd_dq_kernel<T, HD>, dq_smem<HD>(), &granted_dq);
+  e = allow_smem(flash_bwd_dq_kernel<T, O, HD>, dq_smem<HD>(), &granted_dq);
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_kv((s.skv + kTile - 1) / kTile, s.n_kv, s.batch);
-  flash_bwd_dkdv_kernel<T, HD><<<grid_kv, kThreads, dkdv_smem<HD>(),
-                                 stream>>>(
+  flash_bwd_dkdv_kernel<T, O, HD><<<grid_kv, kThreads, dkdv_smem<HD>(),
+                                    stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<T*>(dk), static_cast<T*>(dv), s.sq, s.skv, s.n_heads,
+      static_cast<O*>(dk), static_cast<O*>(dv), s.sq, s.skv, s.n_heads,
       s.n_kv, s.q_offset, s.window, s.causal, s.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_q((s.sq + kTile - 1) / kTile, s.n_heads, s.batch);
-  flash_bwd_dq_kernel<T, HD><<<grid_q, kThreads, dq_smem<HD>(), stream>>>(
+  flash_bwd_dq_kernel<T, O, HD><<<grid_q, kThreads, dq_smem<HD>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<T*>(dq), s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset,
+      static_cast<O*>(dq), s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset,
       s.window, s.causal, s.scale);
   return (int)cudaGetLastError();
+}
+
+// The flash backward on the SIMT kernels: the dsum pre-pass into
+// `scratch`, then dK/dV and dQ in T.
+template <typename T, int HD>
+int bwd_simt(const void* q, const void* k, const void* v, const void* out,
+             const void* dout, const void* lse, void* scratch, void* dq,
+             void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  const int e = dsum_pass<T, HD>(out, dout, scratch, s, st);
+  if (e != 0) return e;
+  return bwd<T, T, HD>(q, k, v, dout, lse, scratch, dq, dk, dv, s, st);
 }
 
 // The bf16 backward on the tensor cores: dq is a zeroed f32 workspace;
@@ -2047,7 +2093,7 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
 
 bool valid(const Shape& s, int hd) {
   return s.batch >= 0 && s.sq >= 0 && s.skv >= 0 && s.n_kv > 0 &&
-         s.n_heads % s.n_kv == 0 && (hd == 64 || hd == 128) &&
+         s.n_heads % s.n_kv == 0 && (hd == 16 || hd == 64 || hd == 128) &&
          s.n_heads <= 65535 && s.batch <= 65535 && s.n_kv <= 65535;
 }
 
@@ -2092,11 +2138,12 @@ extern "C" int flash_attention_carry_launch(
                             static_cast<cudaStream_t>(stream));
 }
 
-// f32: three launches (dsum into `scratch`, f32 [B, Sq, H]; dK/dV; dQ),
-// the workspaces unused.  bf16: the statistics pass into `scratch`, f32
-// [B, H, 2, ceil(Sq / 64) * 64], the tensor-core kernel and the finishing
-// pass; ws_dq is a zeroed f32 [B, Sq, H, hd], ws_dk and ws_dv zeroed f32
-// [B, Skv, KV, hd] when H > KV (else unused).
+// f32, and bf16 at hd 16: three launches (dsum into `scratch`, f32 [B,
+// Sq, H]; dK/dV; dQ), the workspaces unused.  bf16 at hd 64 and 128: the
+// statistics pass into `scratch`, f32 [B, H, 2, ceil(Sq / 64) * 64], the
+// tensor-core kernel and the finishing pass; ws_dq is a zeroed f32 [B, Sq,
+// H, hd], ws_dk and ws_dv zeroed f32 [B, Skv, KV, hd] when H > KV (else
+// unused).
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* scratch, void* dq, void* dk,
@@ -2108,30 +2155,31 @@ extern "C" int flash_attention_bwd_launch(
   if (!valid(s, hd)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0 || skv == 0 || n_heads == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const int e = hd == 128
-                      ? dsum_pass<float, 128>(out, dout, scratch, s, st)
-                      : dsum_pass<float, 64>(out, dout, scratch, s, st);
-    if (e != 0) return e;
-    return hd == 128 ? bwd<float, 128>(q, k, v, dout, lse, scratch, dq, dk,
-                                       dv, s, st)
-                     : bwd<float, 64>(q, k, v, dout, lse, scratch, dq, dk, dv,
-                                      s, st);
-  }
+  if (dtype == 0)
+    return hd == 128 ? bwd_simt<float, 128>(q, k, v, out, dout, lse, scratch,
+                                            dq, dk, dv, s, st)
+           : hd == 64 ? bwd_simt<float, 64>(q, k, v, out, dout, lse, scratch,
+                                            dq, dk, dv, s, st)
+                      : bwd_simt<float, 16>(q, k, v, out, dout, lse, scratch,
+                                            dq, dk, dv, s, st);
   if (dtype == 1)
     return hd == 128 ? bwd_bf16<128>(q, k, v, out, dout, lse, scratch, dq,
                                      dk, dv, ws_dq, ws_dk, ws_dv, s, st)
-                     : bwd_bf16<64>(q, k, v, out, dout, lse, scratch, dq, dk,
-                                    dv, ws_dq, ws_dk, ws_dv, s, st);
+           : hd == 64 ? bwd_bf16<64>(q, k, v, out, dout, lse, scratch, dq, dk,
+                                     dv, ws_dq, ws_dk, ws_dv, s, st)
+                      : bwd_simt<__nv_bfloat16, 16>(q, k, v, out, dout, lse,
+                                                    scratch, dq, dk, dv, s,
+                                                    st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Ring attention's block backward: the backward of one carry step, with
 // dsum from the caller and q, k at global offsets (only their difference
 // enters the mask).  dq, dk, dv are f32 [B, Sq, H, hd] / [B, Skv, KV,
-// hd].  bf16 adds into them (the caller zeroes dq, and dk, dv when H > KV;
-// at H = KV dk and dv are written), with `scratch` the statistics, f32 [B,
-// H, 2, ceil(Sq / 64) * 64]; f32 writes them (SIMT kernels, no scratch).
+// hd].  bf16 at hd 64 and 128 adds into them (the caller zeroes dq, and
+// dk, dv when H > KV; at H = KV dk and dv are written), with `scratch` the
+// statistics, f32 [B, H, 2, ceil(Sq / 64) * 64]; f32, and bf16 at hd 16,
+// write them (SIMT kernels, no scratch).
 extern "C" int flash_attention_bwd_block_launch(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dsum, void* scratch, void* dq, void* dk,
@@ -2144,15 +2192,20 @@ extern "C" int flash_attention_bwd_block_launch(
   if (batch == 0 || sq == 0 || skv == 0 || n_heads == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return hd == 128
-               ? bwd<float, 128>(q, k, v, dout, lse, dsum, dq, dk, dv, s, st)
-               : bwd<float, 64>(q, k, v, dout, lse, dsum, dq, dk, dv, s, st);
+    return hd == 128 ? bwd<float, float, 128>(q, k, v, dout, lse, dsum, dq,
+                                              dk, dv, s, st)
+           : hd == 64 ? bwd<float, float, 64>(q, k, v, dout, lse, dsum, dq,
+                                              dk, dv, s, st)
+                      : bwd<float, float, 16>(q, k, v, dout, lse, dsum, dq,
+                                              dk, dv, s, st);
   if (dtype == 1)
-    return hd == 128
-               ? bwd_wgmma<128, true>(q, k, v, nullptr, dout, lse, dsum,
-                                      scratch, dq, dk, dv, s, st)
-               : bwd_wgmma<64, true>(q, k, v, nullptr, dout, lse, dsum,
-                                     scratch, dq, dk, dv, s, st);
+    return hd == 128 ? bwd_wgmma<128, true>(q, k, v, nullptr, dout, lse, dsum,
+                                            scratch, dq, dk, dv, s, st)
+           : hd == 64 ? bwd_wgmma<64, true>(q, k, v, nullptr, dout, lse, dsum,
+                                            scratch, dq, dk, dv, s, st)
+                      : bwd<__nv_bfloat16, float, 16>(q, k, v, dout, lse,
+                                                      dsum, dq, dk, dv, s,
+                                                      st);
   return (int)cudaErrorInvalidValue;
 }
 

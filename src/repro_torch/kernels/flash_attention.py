@@ -72,8 +72,11 @@ CARRY_LAUNCHES = 0
 BWD_BLOCK_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernels are compiled for
-KERNEL_HEAD_DIMS = (64, 128)
+#: head dims the kernels are compiled for: the tensor-core kernels (bf16)
+#: take ``TC_HEAD_DIMS``; the SIMT kernels take every one, and run bf16 at
+#: the others (16: the reduced configs)
+KERNEL_HEAD_DIMS = (16, 64, 128)
+TC_HEAD_DIMS = (64, 128)
 
 
 def init_partials(b: int, sq: int, h: int, hd: int, *,
@@ -370,13 +373,18 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _tensor_cores(q: torch.Tensor) -> bool:
+    """True where the backward takes the bf16 tensor-core kernel, False
+    where it takes the SIMT kernels."""
+    return q.dtype == torch.bfloat16 and q.shape[3] in TC_HEAD_DIMS
+
+
 def _bwd_scratch(q: torch.Tensor) -> torch.Tensor:
-    """The backward launchers' f32 scratch: dsum [B, Sq, H] for the f32
+    """The backward launchers' f32 scratch: dsum [B, Sq, H] for the SIMT
     kernels; lse and dsum per head, [B, H, 2, Sq padded to 64], for the
-    bf16 kernel's bulk loads."""
+    tensor-core kernel's bulk loads."""
     b, sq, h = q.shape[:3]
-    shape = (b, sq, h) if q.dtype == torch.float32 else (
-        b, h, 2, -(-sq // 64) * 64)
+    shape = (b, h, 2, -(-sq // 64) * 64) if _tensor_cores(q) else (b, sq, h)
     return torch.empty(shape, dtype=torch.float32, device=q.device)
 
 
@@ -431,10 +439,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq in q's type, dk, dv in k's type) from the forward's (out, lse)
     and the output gradient ``dout``.  Dispatch as ``flash_attention_fwd``:
-    a CUDA tensor launches the backward kernels and counts once (f32: the
-    dsum pre-pass, dK/dV, dQ; bf16: the statistics pass, the tensor-core
-    kernel adding into f32 workspaces allocated here, the pass into
-    bf16)."""
+    a CUDA tensor launches the backward kernels and counts once (f32, and
+    bf16 at head_dim 16: the dsum pre-pass, dK/dV, dQ; bf16 at 64 and 128:
+    the statistics pass, the tensor-core kernel adding into f32 workspaces
+    allocated here, the pass into bf16)."""
     global BWD_LAUNCHES
     _check(q, k, v, out, lse, dout)
     if out.shape != q.shape or dout.shape != q.shape \
@@ -460,7 +468,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     scratch = _bwd_scratch(q)
     ws_dq = ws_dk = ws_dv = None
-    if q.dtype == torch.bfloat16:
+    if _tensor_cores(q):
         ws_dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         if h > kvh:
             ws_dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
@@ -543,9 +551,10 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
     offsets ``q_offset`` / ``k_offset``, from the full forward's lse and
     the caller's dsum (both [B, Sq, H] f32).
 
-    A bf16 CUDA tensor launches the tensor-core backward kernel, an f32
-    one the SIMT backward kernels (any Sq and Skv, head_dim in
-    ``KERNEL_HEAD_DIMS``), or raises; a CPU tensor takes
+    A bf16 CUDA tensor launches the tensor-core backward kernel (head_dim
+    in ``TC_HEAD_DIMS``), an f32 one or one at another head_dim in
+    ``KERNEL_HEAD_DIMS`` the SIMT backward kernels (any Sq and Skv), or
+    raises; a CPU tensor takes
     ``flash_attention_bwd_block_torch`` (kv blocks of ``blk_kv``)."""
     global BWD_BLOCK_LAUNCHES
     _check(q, k, v, dout, lse, dsum)
@@ -566,7 +575,7 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
     if not (lse.is_contiguous() and dsum.is_contiguous()):
         raise ValueError("the kernels take contiguous tensors")
     skv, kvh = k.shape[1], k.shape[2]
-    adds = q.dtype == torch.bfloat16       # the tensor-core kernel adds
+    adds = _tensor_cores(q)                # the tensor-core kernel adds
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device) \
         if adds else torch.empty(q.shape, dtype=torch.float32,
                                  device=q.device)

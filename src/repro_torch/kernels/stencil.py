@@ -23,7 +23,10 @@ stencil.  Two kernels, in ``csrc/stencil.cu`` (Hopper, ``sm_90a``):
     ``core/cost_model.py`` prices.  ``jacobi_ksweep_parts`` takes the
     slab as its three parts (ghost rows above, the block, ghost rows
     below), which is how the aggregated solve calls it;
-    ``jacobi_multistep`` is the reference's Dirichlet wrapper.
+    ``jacobi_multistep`` is the reference's Dirichlet wrapper.  The
+    kernel holds each sweep's window in registers, one instantiation per
+    k up to ``KSWEEP_MAX_K``; a deeper k runs as chained launches over
+    the same slab (``ksweep_chain``, ``ksweep_chained``).
 
 Beside each kernel is its plain version (``jacobi_step_torch``,
 ``ksweep_trapezoid`` / ``jacobi_ksweep_torch``) with the same arithmetic:
@@ -73,9 +76,18 @@ Rows = tuple[tuple[int, int], ...]
 
 def _check_k(k: int) -> None:
     if not 1 <= k <= KSWEEP_MAX_K:
-        raise ValueError(f"k={k}: the k-sweep kernel takes 1 <= k <= "
-                         f"{KSWEEP_MAX_K} (one instantiation per k; its "
-                         f"sweeps' windows live in registers)")
+        raise ValueError(f"k={k}: one launch of the k-sweep kernel takes "
+                         f"1 <= k <= {KSWEEP_MAX_K} (one instantiation per "
+                         f"k; its sweeps' windows live in registers)")
+
+
+def ksweep_chain(k: int) -> tuple[int, ...]:
+    """The depths of the launches that run ``k`` sweeps on the card:
+    ``KSWEEP_MAX_K`` each, the remainder last (one launch for k <= 8)."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1; got {k}")
+    whole, rest = divmod(int(k), KSWEEP_MAX_K)
+    return (KSWEEP_MAX_K,) * whole + ((rest,) if rest else ())
 
 
 def ksweep_band(k: int) -> int:
@@ -340,9 +352,9 @@ def jacobi_ksweep_parts(u_lo: torch.Tensor, u: torch.Tensor,
     that no padded copy is made.  Returns the [m, N] centre after k sweeps
     (into ``out`` when given).  ``frozen_top`` / ``frozen_bot`` pin that
     many leading / trailing padded rows (k at a non-periodic physical
-    edge, 0 elsewhere).  Dispatch as ``jacobi_step``; the kernel takes
-    k <= ``KSWEEP_MAX_K`` and runs ``ksweep_plan``."""
-    global KSWEEP_LAUNCHES
+    edge, 0 elsewhere).  Dispatch as ``jacobi_step``; a launch of the
+    kernel runs ``ksweep_plan`` at k <= ``KSWEEP_MAX_K``, and a deeper k
+    runs as the launches of ``ksweep_chained``."""
     _check_engine(engine)
     k = int(k)
     if k < 1:
@@ -364,13 +376,63 @@ def jacobi_ksweep_parts(u_lo: torch.Tensor, u: torch.Tensor,
         return new if out is None else out.copy_(new)
     parts = (u_lo, u_hi, f_lo, f, f_hi)
     _check_kernel_inputs(u, *parts, *([] if out is None else [out]))
-    _check_k(k)
     if out is None:
         out = torch.empty_like(u)
     elif any(out.data_ptr() == t.data_ptr() for t in (u_lo, u, u_hi)):
         raise ValueError("out must not be an input: the sweeps read them")
     if u.numel() == 0:
         return out
+    if k > KSWEEP_MAX_K:
+        return ksweep_chained(torch.cat([u_lo, u, u_hi]),
+                              torch.cat([f_lo, f, f_hi]), k, frozen_top,
+                              frozen_bot, _ksweep_launch, out=out)
+    return _ksweep_launch(u_lo, u, u_hi, f_lo, f, f_hi, k, frozen_top,
+                          frozen_bot, out)
+
+
+def ksweep_chained(u_pad: torch.Tensor, f_pad: torch.Tensor, k: int,
+                   frozen_top: int, frozen_bot: int, sweep, *,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """k sweeps of the k-halo-padded slab ``u_pad`` ([m + 2k, N]) as the
+    launches of ``ksweep_chain(k)`` over that one slab: a launch of depth
+    d on padded rows [o, Mp - o) returns rows [o + d, Mp - o - d) after d
+    more sweeps (the trapezoid's centre shrinks by twice its depth), so
+    the last returns the [m, N] centre after k.  Frozen depths are mapped
+    by global padded row: padded rows [0, frozen_top) of the slab are
+    rows [0, frozen_top - o) of a launch that starts at row o.
+
+    ``sweep(u_lo, u, u_hi, f_lo, f, f_hi, d, frozen_top, frozen_bot,
+    out)`` runs one launch on the parts of its slab (the kernel's
+    launcher on the card; a test passes the plain decomposition)."""
+    mp = u_pad.shape[0]
+    chain = ksweep_chain(k)
+    bufs = [torch.empty((mp - 2 * chain[0],) + tuple(u_pad.shape[1:]),
+                        dtype=u_pad.dtype, device=u_pad.device)
+            for _ in range(min(2, len(chain) - 1))]
+    cur, o = u_pad, 0
+    for i, d in enumerate(chain):
+        t = mp - 2 * o                      # rows of this launch's slab
+        fs = f_pad[o:mp - o]
+        last = i == len(chain) - 1
+        dst = out if last else bufs[i % 2][:t - 2 * d]
+        cur = sweep(cur[:d], cur[d:t - d], cur[t - d:], fs[:d], fs[d:t - d],
+                    fs[t - d:], d, max(0, frozen_top - o),
+                    max(0, frozen_bot - o), dst)
+        o += d
+    return cur
+
+
+def _ksweep_launch(u_lo: torch.Tensor, u: torch.Tensor, u_hi: torch.Tensor,
+                   f_lo: torch.Tensor, f: torch.Tensor, f_hi: torch.Tensor,
+                   k: int, frozen_top: int, frozen_bot: int,
+                   out: torch.Tensor | None) -> torch.Tensor:
+    """One launch of the k-sweep kernel (k <= ``KSWEEP_MAX_K``) on checked
+    CUDA inputs; ``out`` None allocates the centre."""
+    global KSWEEP_LAUNCHES
+    _check_k(k)
+    m, n = u.shape
+    if out is None:
+        out = torch.empty_like(u)
     plan = ksweep_plan(m, n, k, u.dtype, _sm_count(u.device.index))
     lib = _lib()
     with torch.cuda.device(u.device):

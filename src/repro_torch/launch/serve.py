@@ -6,7 +6,10 @@
         --reduced --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no card
-is there.  Weights are random, drawn from ``--seed``.  ``--schedule
+is there.  Weights are random, drawn from ``--seed`` (over a mesh each
+rank draws its shards).  ``--mesh DxM`` above 1x1 runs one process per
+rank under torchrun (the page pool sharded over the cache axes;
+launch/mesh.py).  ``--schedule
 static`` reproduces the unmanaged baseline (padded waves); ``continuous``
 pins continuous batching; ``auto`` lets the managed runtime pick mode +
 scheduling quantum from the serve cost model and correct it online.
@@ -35,7 +38,7 @@ from repro_torch.core import managed
 from repro_torch.core.faults import FaultPlan
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.parallel.sharding import MeshCtx
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import RequestRejected
 
@@ -75,6 +78,9 @@ def main(argv: list[str] | None = None) -> None:
                     help="communication planning scope (the program "
                          "planner comes with a later slice)")
     ap.add_argument("--mdmp-mode", default="auto")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM or PxDxM; above 1x1 under torchrun with a "
+                         "matching WORLD_SIZE")
     ap.add_argument("--verify", default="off", choices=("off",),
                     help="static-verifier preflight (comes with a later "
                          "slice)")
@@ -83,8 +89,8 @@ def main(argv: list[str] | None = None) -> None:
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    ctx = MeshCtx(axis_sizes={"data": 1, "model": 1},
-                  mdmp_mode=args.mdmp_mode)
+    ctx = launch_mesh.mesh_ctx(args.mesh, device, args.mdmp_mode)
+    say = print if launch_mesh.is_main() else (lambda *a, **k: None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = Model(cfg, ctx, device=device).init(gen)
 
@@ -107,7 +113,7 @@ def main(argv: list[str] | None = None) -> None:
         try:
             rids.append(engine.submit(prompt, args.new_tokens))
         except RequestRejected as e:          # shed at the door
-            print(f"shed: {e}")
+            say(f"shed: {e}")
             rids.append(None)
 
     t0 = time.perf_counter()
@@ -117,34 +123,34 @@ def main(argv: list[str] | None = None) -> None:
     total = int(sum(int(plens[i]) for i, r in enumerate(rids)
                     if r is not None)) + served
     s = engine.metrics.summary()
-    print(f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s end-to-end; "
+    say(f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s end-to-end; "
           f"{s['useful_tok_s']:.1f} useful tok/s, occupancy "
           f"{s['occupancy']:.2f}, batch {args.slots} slots)")
-    print(f"TTFT {s['mean_ttft_s'] * 1e3:.1f}ms  TPOT "
+    say(f"TTFT {s['mean_ttft_s'] * 1e3:.1f}ms  TPOT "
           f"{s['mean_tpot_s'] * 1e3:.2f}ms  quanta {s['quanta']}  "
           f"pages high-water {engine.pt.high_water}/"
           f"{engine.cache_cfg.n_pages}")
-    print(f"overload: sheds {s['sheds']}  preempts {s['preempts']}  "
+    say(f"overload: sheds {s['sheds']}  preempts {s['preempts']}  "
           f"swap {s['swap_bytes']} B  p99 TTFT "
           f"{s['p99_ttft_s'] * 1e3:.1f}ms")
     if args.slo_ttft is not None:
         met = engine.metrics.slo_met_tokens(args.slo_ttft)
-        print(f"SLO-goodput: {met} tokens within "
+        say(f"SLO-goodput: {met} tokens within "
               f"{args.slo_ttft * 1e3:.0f}ms TTFT "
               f"({met / dt:.1f} tok/s)")
     for rec in managed.decision_log():
         if rec.op == "serve_schedule":
-            print(f"decision serve_schedule({rec.mode}, C={rec.chunks}) "
+            say(f"decision serve_schedule({rec.mode}, C={rec.chunks}) "
                   f"pred static={rec.predicted_bulk_s * 1e6:.1f}us/tok "
                   f"chosen={rec.predicted_interleaved_s * 1e6:.1f}us/tok")
         elif rec.op == "preempt_policy":
-            print(f"decision preempt_policy({rec.mode}, "
+            say(f"decision preempt_policy({rec.mode}, "
                   f"pages={rec.chunks}, {rec.nbytes} B) "
                   f"pred recompute={rec.predicted_bulk_s * 1e3:.2f}ms "
                   f"chosen={rec.predicted_interleaved_s * 1e3:.2f}ms")
     for i, r in enumerate(rids[:4]):
         if r is not None and r in out:
-            print(f"  req{i} (P={int(plens[i])}): {out[r].tolist()}")
+            say(f"  req{i} (P={int(plens[i])}): {out[r].tolist()}")
 
 
 if __name__ == "__main__":

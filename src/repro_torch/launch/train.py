@@ -5,9 +5,16 @@
         --reduced --device cpu --steps 5
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no card
-is there.  Weights are random, drawn from ``--seed``; the batches come
-from the synthetic, resumable data pipeline.  The port runs one card, so
-``--mesh`` takes ``1x1`` only.  Flags of later slices are refused with
+is there.  Weights are random, drawn from ``--seed`` (over a mesh each
+rank draws its shards); the batches come from the synthetic, resumable
+data pipeline.  ``--mesh DxM`` (or ``PxDxM``) above 1x1 runs one process
+per rank under torchrun, e.g.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch granite-34b --reduced --device cpu --mesh 2x2
+
+(gloo on the CPU or where ranks share a card, NCCL with a card per
+rank; launch/mesh.py).  Flags of later slices are refused with
 the slice that brings them: ``--pipeline`` other than ``none`` (slice
 9), ``--fault-plan``, ``--ckpt-every auto`` and ``--compress-pod``
 (slices 10 and 9), and the whole-program planner, the static verifier
@@ -20,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from repro_torch import configs
 from repro_torch.core import managed
@@ -27,7 +35,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.parallel.sharding import MeshCtx
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.train.train_loop import (TrainLoop, TrainLoopConfig,
                                           build_train_step)
 
@@ -57,8 +65,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--verify", default="off", choices=["off"],
                     help="static-verifier preflight (comes with a later "
                          "slice)")
-    ap.add_argument("--mesh", default="1x1", choices=["1x1"],
-                    help="data x model; one card")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM or PxDxM; above 1x1 under torchrun with a "
+                         "matching WORLD_SIZE")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory (default: under the "
                          "system's temporary directory)")
@@ -90,11 +99,12 @@ def main(argv: list[str] | None = None) -> None:
                      "layers")
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch=args.moe_dispatch))
-    ctx = MeshCtx(axis_sizes={"data": 1, "model": 1},
-                  mdmp_mode=args.mdmp_mode)
+    ctx = launch_mesh.mesh_ctx(args.mesh, device, args.mdmp_mode)
+    say = print if launch_mesh.is_main() else (lambda *a, **k: None)
     model = Model(cfg, ctx, device=device)
-    print(f"arch={args.arch} params={cfg.param_count() / 1e6:.1f}M "
-          f"mesh=(1, 1) device={device} mdmp={args.mdmp_mode}")
+    say(f"arch={args.arch} params={cfg.param_count() / 1e6:.1f}M "
+        f"mesh={tuple(ctx.axis_sizes.values())} device={device} "
+        f"mdmp={args.mdmp_mode}")
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                           total_steps=args.steps,
@@ -109,6 +119,10 @@ def main(argv: list[str] | None = None) -> None:
                                ckpt_every=ckpt_every)
     if args.ckpt is not None:
         loop_cfg.ckpt_dir = args.ckpt
+    if launch_mesh.dist.is_initialized():
+        # every rank checkpoints its own shards
+        loop_cfg.ckpt_dir = os.path.join(
+            loop_cfg.ckpt_dir, f"rank{launch_mesh.dist.get_rank()}")
     loop = TrainLoop(step_fn, model, opt_cfg, data, loop_cfg)
     opt, s0 = (loop.resume_or_init(args.seed) if args.resume
                else loop.init_state(args.seed))
@@ -119,14 +133,14 @@ def main(argv: list[str] | None = None) -> None:
             key = (rec.op, rec.mode, rec.chunks, rec.nbytes)
             if rec.op == "moe_dispatch" and key not in seen:
                 seen.add(key)
-                print(f"decision moe_dispatch({rec.mode} g={rec.chunks} "
+                say(f"decision moe_dispatch({rec.mode} g={rec.chunks} "
                       f"axis={rec.axis} a2a={rec.nbytes / 1e3:.1f}kB "
                       f"bulk={rec.predicted_bulk_s * 1e3:.3f}ms "
                       f"chosen={rec.predicted_interleaved_s * 1e3:.3f}ms)")
     for h in out["history"][:: max(1, len(out["history"]) // 10)]:
-        print(f"  step {h['step']:4d} loss {h['loss']:.4f} "
+        say(f"  step {h['step']:4d} loss {h['loss']:.4f} "
               f"{h['time_s']:.2f}s")
-    print(f"done at step {out['step']}, final loss "
+    say(f"done at step {out['step']}, final loss "
           f"{out['history'][-1]['loss']:.4f}")
 
 

@@ -4,31 +4,32 @@ flow and the paged decode flow of the serving runtime (port of
 
 SP flow (x sequence-sharded over ``model``):
   * one all-gather-matmul ring computes Q (this rank's heads) and K/V
-    (replicated kv weights);
+    (replicated kv weights); each rank attends the kv heads its q heads
+    use;
   * flash attention over the full sequence for the local heads — the
     CUDA kernels on a card (kernels/ops.py);
   * output projection as matmul-reduce-scatter back to sequence shards.
 Two more SP schedules share the layer: Ulysses (gather the q/o weights,
 switch sequence and head sharding with all-to-alls) and ring attention
 (q stays sequence-sharded, kv blocks stream around ``model`` through
-``managed.managed_ring_attention`` and its carry kernel).
-``attention_sp_auto`` picks one of the three from the cost model.  At
-tp = 1, the only model-axis size this port runs, every gather and
-all-to-all over ``model`` is the identity.
+``managed.managed_ring_attention`` and its carry kernel, over the model
+axis's process group).  ``attention_sp_auto`` picks one of the three
+from the cost model.
 
 Contiguous decode flow (batch replicated; KV cache [B, S, KV, hd] sharded
 over the cache axes on the sequence dim): the oracle of the paged flow.
 
-Paged decode flow (batch replicated; KV pool sharded over data x model on
-the page dim):
+Paged decode flow (batch replicated; KV pool sharded over data x model
+(x pod) on the page dim, rank r owning global page ids [r*Np_loc,
+(r+1)*Np_loc)):
   * q/k/v via weight-stationary contractions closed over 'data';
-  * the new K/V row is written into the slot's page in place;
-  * all q heads are gathered over 'model' (tiny), paged attention runs
-    on the local pool, and the partials LSE-merge over the cache axes;
+  * the new K/V row is written into the slot's page by the rank that
+    owns it;
+  * all q heads are gathered over 'model' (tiny); with one cache shard
+    the paged kernel runs on the pool, with more each rank takes the
+    plain partials of its pages (as the reference) and they LSE-merge
+    over the cache axes (distributed flash-decoding);
   * o-projection row-parallel, closed over 'model'.
-At axis size 1 the collectives are the identity and the pool is one shard,
-which is the only case this slice runs: the multi-shard merge raises
-until the managed collectives are ported.
 """
 
 from __future__ import annotations
@@ -89,17 +90,22 @@ def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _local_kv_slice(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
                     ctx: MeshCtx) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """The kv heads this rank's q heads use: all of them at tp=1."""
+    """The replicated kv heads sliced to the range this rank's q heads
+    use: q heads are contiguous per rank ([r*h_loc, (r+1)*h_loc)); with
+    group size g = Hp / KVp the kv range is [(r*h_loc)//g, ...) of uniform
+    size (KVp | tp or tp | KVp — guaranteed by padded_kv_heads and tp a
+    power of two)."""
     hp = cfg.padded_heads
     kvp = padded_kv_heads(cfg)
     h_loc = hp // ctx.tp
     g = hp // kvp                       # q heads per kv head
     kv_count = max(1, h_loc // g)
+    if h_loc % max(min(g, h_loc), 1):
+        raise ValueError(f"{h_loc} q heads a rank with groups of {g}")
     if kv_count == kvp:
         return k, v, kvp
-    raise NotImplementedError(
-        f"slicing {kvp} kv heads over tp={ctx.tp} comes with ROADMAP "
-        "Queue 1 slice 4")
+    lo = (ctx.axis_index("model") * h_loc) // g
+    return (k[:, :, lo:lo + kv_count], v[:, :, lo:lo + kv_count], kv_count)
 
 
 # ---------------------------------------------------------------------------
@@ -143,9 +149,10 @@ def attention_sp(x: torch.Tensor, params: dict, cfg: ModelConfig,
                                        mode=ctx.mdmp_mode)
     y = layers.from_ring(y2.to(x.dtype), b)
     if return_kv:
-        # this rank's own sequence slice of the (replicated) kv: all of it
-        # at tp=1
-        return y, (k[:, :s_loc], v[:, :s_loc])
+        # this rank's own sequence slice of the (replicated) kv
+        rows = slice(ctx.axis_index("model") * s_loc,
+                     (ctx.axis_index("model") + 1) * s_loc)
+        return y, (k[:, rows], v[:, rows])
     return y
 
 
@@ -168,8 +175,8 @@ def _full_head_qkv(x: torch.Tensor, params: dict, cfg: ModelConfig,
     k = k.reshape(b, s_loc, kvh, hd)
     v = v.reshape(b, s_loc, kvh, hd)
     if cfg.rope_theta > 0:
-        # rank * s_loc + arange(s_loc): the model rank is 0 at tp = 1
-        pos = torch.arange(s_loc, device=x.device)
+        pos = ctx.axis_index("model") * s_loc + torch.arange(
+            s_loc, device=x.device)
         q = layers.apply_rope(q, pos, cfg.rope_theta)
         k = layers.apply_rope(k, pos, cfg.rope_theta)
     return q, k, v, wo
@@ -230,8 +237,9 @@ def attention_sp_ring(x: torch.Tensor, params: dict, cfg: ModelConfig,
     b, s_loc, _ = x.shape
     q, k, v, wo = _full_head_qkv(x, params, cfg, ctx)
     o = managed.managed_ring_attention(q, k, v, "model", ctx, causal, window,
-                                       ctx.mdmp_mode, engine=engine,
-                                       decided=ring_mode)
+                                       ctx.mdmp_mode,
+                                       group=ctx.groups.get("model"),
+                                       engine=engine, decided=ring_mode)
     y = (o.reshape(b, s_loc, -1) @ wo).to(x.dtype)
     if return_kv:
         return y, (k, v)   # this rank's seq slice, all kv heads
@@ -299,7 +307,7 @@ def attention_sp_auto(x: torch.Tensor, params: dict, cfg: ModelConfig,
 
 
 def cache_axes(ctx: MeshCtx) -> tuple[str, ...]:
-    """Mesh axes the KV-cache page dim is sharded over."""
+    """Mesh axes the KV-cache page (or sequence) dim is sharded over."""
     return (("pod", "data", "model") if ctx.has_pod else ("data", "model"))
 
 
@@ -310,35 +318,22 @@ def cache_shards(ctx: MeshCtx) -> int:
     return n
 
 
-def attention_decode(x: torch.Tensor,
-                     kv_cache: tuple[torch.Tensor, torch.Tensor], pos: int,
-                     params: dict, cfg: ModelConfig, ctx: MeshCtx, *,
-                     window: int = 0
-                     ) -> tuple[torch.Tensor,
-                                tuple[torch.Tensor, torch.Tensor]]:
-    """One-token decode attention against the CONTIGUOUS cache.
+def cache_rank(ctx: MeshCtx) -> int:
+    """Linear rank of this process along the cache sharding axes."""
+    r = 0
+    for ax in cache_axes(ctx):
+        r = r * ctx.axis_sizes.get(ax, 1) + ctx.axis_index(ax)
+    return r
 
-    x:        [B, D] (batch replicated over the mesh)
-    kv_cache: (k, v) each [B, S_shard, KV, hd] — for SWA layers S_shard
-              covers the window as a ring buffer.  Updated IN PLACE (the
-              reference returns an updated copy of a donated buffer); a
-              position past the cache is not written, as the reference's
-              owner test drops it.
-    pos:      the global position being written / attended.
-    Returns (y [B, D], cache)."""
-    n_sh = cache_shards(ctx)
-    if n_sh != 1:
-        raise NotImplementedError(
-            f"contiguous decode over {n_sh} cache shards comes with "
-            "ROADMAP Queue 1 slice 4")
+
+def _decode_qkv(x: torch.Tensor, params: dict, pos: torch.Tensor,
+                cfg: ModelConfig, ctx: MeshCtx) -> tuple[torch.Tensor, ...]:
+    """q [B, h_loc, hd], k, v [B, KV, hd] of one decode step, roped at
+    ``pos`` (one position per batch row): weight-stationary contractions
+    closed over 'data'."""
     b = x.shape[0]
-    h = cfg.padded_heads
-    h_loc = h // ctx.tp
-    kvh = padded_kv_heads(cfg)
-    hd = cfg.head_dim
-    k_cache, v_cache = kv_cache
-    s_shard = k_cache.shape[1]
-
+    h_loc = cfg.padded_heads // ctx.tp
+    kvh, hd = padded_kv_heads(cfg), cfg.head_dim
     qkv = managed.managed_all_reduce(
         torch.cat([x @ params["w_q"], x @ params["w_kv"]], dim=-1),
         "data", ctx, mode=ctx.mdmp_mode)
@@ -347,23 +342,83 @@ def attention_decode(x: torch.Tensor,
     knew = knew.reshape(b, kvh, hd)
     vnew = vnew.reshape(b, kvh, hd)
     if cfg.rope_theta > 0:
-        posv = torch.tensor([pos], device=x.device)
-        q = layers.apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
-        knew = layers.apply_rope(knew[:, None], posv, cfg.rope_theta)[:, 0]
+        q = layers.apply_rope_slots(q, pos, cfg.rope_theta)
+        knew = layers.apply_rope_slots(knew, pos, cfg.rope_theta)
+    return q, knew, vnew
+
+
+def _all_heads(q: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """[B, h_loc, hd] -> every head [B, H, hd], gathered over 'model'."""
+    q_all = managed.managed_all_gather(
+        q.transpose(0, 1).contiguous(), "model", ctx, mode=ctx.mdmp_mode)
+    return q_all.transpose(0, 1).contiguous()
+
+
+def _o_proj(o: torch.Tensor, params: dict, cfg: ModelConfig, ctx: MeshCtx,
+            dtype: torch.dtype) -> torch.Tensor:
+    """This model rank's head block of o [B, H, hd] through the
+    row-parallel o-projection, closed over 'model'."""
+    b, hd = o.shape[0], cfg.head_dim
+    h_loc = cfg.padded_heads // ctx.tp
+    r_m = ctx.axis_index("model")
+    o_my = o.to(dtype)[:, r_m * h_loc:(r_m + 1) * h_loc]
+    y = managed.managed_all_reduce(
+        o_my.reshape(b, h_loc * hd) @ params["w_o"], "model", ctx,
+        mode=ctx.mdmp_mode)
+    return y.to(dtype)
+
+
+def _merge_over_cache(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                      ctx: MeshCtx) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distributed flash-decoding LSE merge of per-shard partials:
+    rescale to the global max, then sum l and acc over the cache axes."""
+    axes = cache_axes(ctx)
+    m_glob = managed.all_reduce_max(m, axes, ctx)
+    w = torch.exp(m - m_glob)
+    l, acc = l * w, acc * w[..., None]
+    for ax in axes:
+        l = managed.managed_all_reduce(l, ax, ctx)
+        acc = managed.managed_all_reduce(acc, ax, ctx)
+    return l, acc
+
+
+def attention_decode(x: torch.Tensor,
+                     kv_cache: tuple[torch.Tensor, torch.Tensor], pos: int,
+                     params: dict, cfg: ModelConfig, ctx: MeshCtx, *,
+                     window: int = 0
+                     ) -> tuple[torch.Tensor,
+                                tuple[torch.Tensor, torch.Tensor]]:
+    """One-token decode attention against the CONTIGUOUS cache.
+
+    x:        [B, D_loc(data)] (batch replicated over the mesh)
+    kv_cache: (k, v) each [B, S_shard, KV, hd], sequence sharded over
+              cache_axes(ctx) — for SWA layers the shards cover the
+              window as a ring buffer.  Updated IN PLACE by the shard that
+              owns ``pos`` (the reference returns an updated copy of a
+              donated buffer); a position past the cache is not written,
+              as the reference's owner test drops it.
+    pos:      the global position being written / attended.
+    Returns (y [B, D_loc(data)], cache)."""
+    b = x.shape[0]
+    h, kvh, hd = cfg.padded_heads, padded_kv_heads(cfg), cfg.head_dim
+    k_cache, v_cache = kv_cache
+    s_shard = k_cache.shape[1]
+    n_sh = cache_shards(ctx)
+    me = cache_rank(ctx)
+    posv = torch.full((b,), pos, device=x.device)
+    q, knew, vnew = _decode_qkv(x, params, posv, cfg, ctx)
 
     slot_global = pos if window <= 0 else pos % (s_shard * n_sh)
-    if slot_global // s_shard == 0:          # this (only) shard owns pos
+    if slot_global // s_shard == me:         # this shard owns pos
         k_cache[:, slot_global % s_shard] = knew.to(k_cache.dtype)
         v_cache[:, slot_global % s_shard] = vnew.to(v_cache.dtype)
 
-    q_all = managed.managed_all_gather(
-        q.transpose(0, 1), "model", ctx, mode=ctx.mdmp_mode)  # [H, B, hd]
-    qg = q_all.transpose(0, 1).reshape(b, kvh, h // kvh, hd)
+    qg = _all_heads(q, ctx).reshape(b, kvh, h // kvh, hd)
     # products of the cache's type accumulated in f32 (the reference's
     # preferred_element_type=f32)
     logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                           k_cache.float()) * (1.0 / math.sqrt(hd))
-    slot_ids = torch.arange(s_shard, device=x.device)
+    slot_ids = me * s_shard + torch.arange(s_shard, device=x.device)
     if window > 0:
         # ring buffer: slot holds position p iff p % ring == slot
         ring = s_shard * n_sh
@@ -374,17 +429,16 @@ def attention_decode(x: torch.Tensor,
     else:
         valid = slot_ids <= pos
     logits = torch.where(valid, logits, -math.inf)
-    m = logits.amax(dim=-1)
+    m = managed.all_reduce_max(logits.amax(dim=-1), cache_axes(ctx), ctx)
     p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
-    l = p.sum(dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
-                     v_cache.float())
+    l, o = p.sum(dim=-1), torch.einsum("bkgs,bskd->bkgd",
+                                       p.to(v_cache.dtype).float(),
+                                       v_cache.float())
+    for ax in cache_axes(ctx):
+        l = managed.managed_all_reduce(l, ax, ctx)
+        o = managed.managed_all_reduce(o, ax, ctx)
     o = (o / torch.clamp(l[..., None], min=1e-30)).reshape(b, h, hd)
-    o_my = o.to(x.dtype)[:, :h_loc]            # this model rank's heads
-    y = managed.managed_all_reduce(
-        o_my.reshape(b, h_loc * hd) @ params["w_o"], "model", ctx,
-        mode=ctx.mdmp_mode)
-    return y.to(x.dtype), (k_cache, v_cache)
+    return _o_proj(o, params, cfg, ctx, x.dtype), (k_cache, v_cache)
 
 
 def attention_decode_paged(x: torch.Tensor,
@@ -397,66 +451,54 @@ def attention_decode_paged(x: torch.Tensor,
                                       tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode attention against a PAGED KV cache.
 
-    x:      [B, D] — every slot decodes its own token.
-    pool:   (k_pages, v_pages), each [Np + 1, page, KV, hd]: pages
-            0..Np-1 are the table's, the last one takes the writes of
-            inactive slots (models/model.py::paged_cache_specs).  Updated
-            IN PLACE (the reference donates the pool buffers).
-    table:  [B, n_pages_max] int32 page ids per slot.
+    x:      [B, D_loc(data)] — every slot decodes its own token.
+    pool:   (k_pages, v_pages), each [Np_loc + 1, page, KV, hd]: this
+            cache shard's pages (global ids [r*Np_loc, (r+1)*Np_loc) at
+            cache rank r), then one that takes the writes this rank must
+            not make (inactive slots, other shards' pages;
+            models/model.py::paged_cache_specs).  Updated IN PLACE (the
+            reference donates the pool buffers).
+    table:  [B, n_pages_max] int32 GLOBAL page ids per slot (replicated).
     pos:    [B] int32 per-slot positions being written/attended.
     active: [B] bool — inactive slots neither write the cache nor count;
             their outputs are zeros the engine discards.
     ``engine`` pins the paged-attention implementation (tests only).
-    Returns (y [B, D], pool).
+    With one cache shard the paged kernel runs; with more, the plain
+    partials of this shard's pages LSE-merge over the cache axes, as the
+    reference's ``paged_attention_partials_jnp`` branch.
+    Returns (y [B, D_loc(data)], pool).
     """
-    n_sh = cache_shards(ctx)
-    if n_sh != 1:
-        raise NotImplementedError(
-            f"paged attention over {n_sh} cache shards: the distributed "
-            "LSE merge comes with ROADMAP Queue 1 slice 4")
     b = x.shape[0]
-    h = cfg.padded_heads
-    h_loc = h // ctx.tp
-    kvh = padded_kv_heads(cfg)
-    hd = cfg.head_dim
+    h, hd = cfg.padded_heads, cfg.head_dim
     k_pages, v_pages = pool
     np_loc, page = k_pages.shape[0] - 1, k_pages.shape[1]
-
-    qkv = managed.managed_all_reduce(
-        torch.cat([x @ params["w_q"], x @ params["w_kv"]], dim=-1),
-        "data", ctx, mode=ctx.mdmp_mode)
-    q, knew, vnew = qkv.split([h_loc * hd, kvh * hd, kvh * hd], dim=-1)
-    q = q.reshape(b, h_loc, hd)
-    knew = knew.reshape(b, kvh, hd)
-    vnew = vnew.reshape(b, kvh, hd)
-
-    if cfg.rope_theta > 0:
-        q = layers.apply_rope_slots(q, pos, cfg.rope_theta)
-        knew = layers.apply_rope_slots(knew, pos, cfg.rope_theta)
+    q, knew, vnew = _decode_qkv(x, params, pos, cfg, ctx)
 
     # Cache write: slot b's position pos[b] lives in page
-    # table[b, pos[b] // page], row pos[b] % page.  torch has no drop-mode
-    # scatter and an out-of-range index is a device-side assert, so the
-    # rows that must not be written (inactive slots) are routed to the
-    # pool's trailing page, which no table entry names.  No host sync.
+    # table[b, pos[b] // page], row pos[b] % page, of the rank that owns
+    # that page.  torch has no drop-mode scatter and an out-of-range index
+    # is a device-side assert, so the rows this rank must not write are
+    # routed to the pool's trailing page, which no table entry names.  No
+    # host sync.
+    off = cache_rank(ctx) * np_loc
     col = (pos // page).clamp(max=table.shape[1] - 1).long()
-    lp = table.gather(1, col[:, None])[:, 0].long()
+    lp = table.gather(1, col[:, None])[:, 0].long() - off
     writable = active & (lp >= 0) & (lp < np_loc)
     lp_safe = torch.where(writable, lp, np_loc)
     row = (pos % page).long()
     k_pages[lp_safe, row] = knew.to(k_pages.dtype)
     v_pages[lp_safe, row] = vnew.to(v_pages.dtype)
 
-    q_all = managed.managed_all_gather(
-        q.transpose(0, 1), "model", ctx, mode=ctx.mdmp_mode)  # [H, B, hd]
-    q_all = q_all.transpose(0, 1).contiguous()              # [B, H, hd]
+    q_all = _all_heads(q, ctx)                              # [B, H, hd]
     lens = torch.where(active, pos + 1, 0).to(torch.int32)
-    o = paged.paged_attention(q_all, k_pages, v_pages, table, lens,
-                              window=window, engine=engine)
-    o = o.reshape(b, h, hd).to(x.dtype)
-
-    o_my = o[:, :h_loc]                        # this model rank's heads
-    y = managed.managed_all_reduce(
-        o_my.reshape(b, h_loc * hd) @ params["w_o"], "model", ctx,
-        mode=ctx.mdmp_mode)
-    return y.to(x.dtype), (k_pages, v_pages)
+    if cache_shards(ctx) == 1:
+        o = paged.paged_attention(q_all, k_pages, v_pages, table, lens,
+                                  window=window, engine=engine)
+    else:
+        m, l, acc = paged.paged_attention_partials_torch(
+            q_all, k_pages[:np_loc], v_pages[:np_loc], table, lens,
+            window=window, pool_offset=off)
+        l, acc = _merge_over_cache(m, l, acc, ctx)
+        o = (acc / torch.clamp(l[..., None], min=1e-30))[:, 0]
+    o = o.reshape(b, h, hd)
+    return _o_proj(o, params, cfg, ctx, x.dtype), (k_pages, v_pages)

@@ -6,12 +6,15 @@ sharded over ``model``), ring ops work on the S-major [S_loc * B, D]
 layout, and weights are FSDP-gathered on use.  Decode flow ("TP-2D"): the
 residual is [B, D_loc(data)], the batch is replicated, and the
 feature/vocab contractions close with managed all-reduces over ``data`` /
-``model``.  At axis size 1 every collective and gather is the identity
-(core/managed.py, core/overlap.py), so each function below is the plain
-one-device computation.
+``model``.  The embedding, the loss and the greedy pick are
+vocab-parallel over ``model``.  At axis size 1 every collective and
+gather is the identity (core/managed.py, core/overlap.py), so each
+function below is the plain one-device computation.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -67,19 +70,36 @@ def rms_norm_sharded(x: torch.Tensor, scale_loc: torch.Tensor, eps: float,
 # ---------------------------------------------------------------------------
 
 
+def _silu(u: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu: x * sigmoid(x), the sigmoid rounded to x's type."""
+    return u * torch.sigmoid(u)
+
+
+def _gelu_tanh(u: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default (tanh) form op by op in u's type, its
+    constants rounded to that type — the reference's rounding in bf16,
+    where torch's fused GELU rounds once and differs in about 40% of the
+    elements by an ulp."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=u.dtype,
+                     device=u.device)
+    k = torch.tensor(0.044715, dtype=u.dtype, device=u.device)
+    return u * (0.5 * (1.0 + torch.tanh(c * (u + k * u ** 3))))
+
+
 def activation(name: str, u: torch.Tensor,
                g: torch.Tensor | None) -> torch.Tensor:
-    """Gated (u = gate, g = linear) or plain activation.  GELU is the tanh
-    approximation, jax.nn.gelu's default."""
+    """Gated (u = gate, g = linear) or plain activation, with jax.nn's
+    formulas and rounding (GELU is the tanh approximation, jax.nn.gelu's
+    default)."""
     if name == "swiglu":
-        return F.silu(u) * g
+        return _silu(u) * g
     if name == "geglu":
-        return F.gelu(u, approximate="tanh") * g
+        return _gelu_tanh(u) * g
     if name == "relu2":
         r = F.relu(u)
         return r * r
     if name == "gelu":
-        return F.gelu(u, approximate="tanh")
+        return _gelu_tanh(u)
     raise ValueError(name)
 
 
@@ -136,17 +156,12 @@ def mlp_block_decode(x: torch.Tensor, params: dict, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _require_tp1(what: str, ctx: MeshCtx) -> None:
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            f"vocab-parallel {what} comes with ROADMAP Queue 1 slice 4")
-
-
 def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` for ``tokens`` — the reference's one-hot
-    contraction at tp=1 without the [..., V] one-hot.  A token outside the
-    table gives zeros, as its all-zero one-hot does (an out-of-range index
-    would be a device-side assert on CUDA)."""
+    contraction without the [..., V] one-hot.  A token outside the table
+    (another model rank's vocab block) gives zeros, as its all-zero
+    one-hot does (an out-of-range index would be a device-side assert on
+    CUDA)."""
     v = table.shape[0]
     tok = tokens.long()
     inside = (tok >= 0) & (tok < v)
@@ -155,14 +170,26 @@ def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def embed_sp(tokens: torch.Tensor, table_loc: torch.Tensor,
              cfg: ModelConfig, ctx: MeshCtx) -> torch.Tensor:
-    """SP-flow lookup: tokens [B, S] -> x [B, S_loc, D].  The reference
-    contracts a one-hot over the vocab in a matmul-reduce-scatter; at tp=1
-    that is a row lookup, whose gradient scatters into the table rows."""
-    _require_tp1("embed_sp", ctx)
+    """Vocab-parallel lookup fused with the sequence scatter: tokens [B, S]
+    (replicated over model) -> x [B, S_loc, D].  Above tp=1 it is the
+    reference's one-hot(tokens) @ table, whose contraction (the vocab) is
+    sharded over ``model``: a matmul-reduce-scatter.  At tp=1 it is a row
+    lookup, whose gradient scatters into the table rows."""
     if table_loc.shape[-1] != cfg.d_model:
         table_loc = fsdp_gather(table_loc, "data", ctx, axis=1,
                                 mode=ctx.mdmp_mode)
-    return _lookup(table_loc, tokens)
+    if ctx.tp == 1:
+        return _lookup(table_loc, tokens)
+    b, s = tokens.shape
+    v_loc = table_loc.shape[0]
+    tok2 = tokens.t().reshape(s * b).long() - ctx.axis_index("model") * v_loc
+    onehot = table_loc.new_zeros((s * b, v_loc))
+    onehot[torch.arange(s * b, device=tokens.device),
+           tok2.clamp(0, v_loc - 1)] = ((tok2 >= 0) & (tok2 < v_loc)).to(
+               table_loc.dtype)
+    x2 = managed.matmul_reduce_scatter(onehot, table_loc, "model", ctx,
+                                       mode=ctx.mdmp_mode)
+    return from_ring(x2, b)
 
 
 class _LogitsF32(torch.autograd.Function):
@@ -200,38 +227,48 @@ def logits_f32(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def lm_loss_sp(x: torch.Tensor, unembed_loc: torch.Tensor,
                tokens: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx, *,
                chunk: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
-    """Cross-entropy over the logits, chunked over the sequence so the
-    [*, V] logits tensor never fully materialises (as the reference, whose
-    chunks cover ``(S // chunk') * chunk'`` positions).
+    """Cross-entropy over vocab-parallel logits, chunked over the sequence
+    so the [*, V_loc] logits tensor never fully materialises (as the
+    reference, whose chunks cover ``(S // chunk') * chunk'`` positions).
 
-    x: [B, S_loc, D]; unembed_loc: [D, V]; tokens: [B, S] labels (< 0 are
-    ignored).  Returns (sum_loss / tp, count / tp); the caller sums over
-    all axes.  Each chunk's logits keep the f32 accumulator of the bf16
-    operands, as the reference's ``preferred_element_type=f32``
-    (``logits_f32``)."""
-    _require_tp1("lm_loss_sp", ctx)
+    The final hidden is first gathered over 'model' so that every rank
+    holds every position; the logsumexp's statistics and the target logit
+    then cross the model axis, the logits do not.
+
+    x: [B, S_loc, D]; unembed_loc: [D_loc(data), V_loc(model)]; tokens:
+    [B, S] labels (< 0 are ignored).  Returns (sum_loss / tp, count / tp);
+    the caller sums over all axes.  Each chunk's logits keep the f32
+    accumulator of the bf16 operands, as the reference's
+    ``preferred_element_type=f32`` (``logits_f32``)."""
     b = x.shape[0]
     w = fsdp_gather(unembed_loc, "data", ctx, mode=ctx.mdmp_mode)  # [D, V]
+    v_loc = w.shape[1]
+    vidx = ctx.axis_index("model") * v_loc
     x_full = from_ring(managed.managed_all_gather(to_ring(x), "model", ctx,
                                                   mode=ctx.mdmp_mode), b)
     s = x_full.shape[1]
     n_chunks = max(1, s // max(chunk, 1))
     chunk = s // n_chunks
-    v = w.shape[1]
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
         xs = x_full[:, i * chunk:(i + 1) * chunk]
         lbl = tokens[:, i * chunk:(i + 1) * chunk].long()
-        logits = logits_f32(xs, w)                          # [B, c, V]
+        logits = logits_f32(xs, w)                          # [B, c, V_loc]
         # the max is a constant shift: detached, as the reference's
         # stop_gradient keeps it out of AD
-        lmax = logits.amax(dim=-1, keepdim=True).detach()
-        lse = torch.log(torch.exp(logits - lmax).sum(dim=-1,
-                                                     keepdim=True)) + lmax
-        inside = (lbl >= 0) & (lbl < v)
-        tgt = logits.gather(-1, lbl.clamp(0, v - 1)[..., None]) \
-            * inside[..., None]
+        lmax = managed.all_reduce_max(
+            logits.amax(dim=-1, keepdim=True).detach(), ("model",), ctx)
+        lse = torch.log(managed.managed_all_reduce(
+            torch.exp(logits - lmax).sum(dim=-1, keepdim=True), "model",
+            ctx)) + lmax
+        # the target logit: the reference's sum of logits * one-hot, whose
+        # one nonzero term lives on the rank that holds the label's block
+        loc = lbl - vidx
+        inside = (loc >= 0) & (loc < v_loc)
+        tgt = managed.managed_all_reduce(
+            logits.gather(-1, loc.clamp(0, v_loc - 1)[..., None])
+            * inside[..., None], "model", ctx)
         nll = (lse - tgt)[..., 0]
         valid = (lbl >= 0).float()
         loss_sum = loss_sum + (nll * valid).sum()
@@ -241,10 +278,13 @@ def lm_loss_sp(x: torch.Tensor, unembed_loc: torch.Tensor,
 
 def embed_decode(tokens: torch.Tensor, table_loc: torch.Tensor,
                  cfg: ModelConfig, ctx: MeshCtx) -> torch.Tensor:
-    """Decode-flow lookup: tokens [B] -> x [B, D_loc(data)] (a row lookup at
-    tp=1, see ``_lookup``)."""
-    _require_tp1("embed_decode", ctx)
-    return _lookup(table_loc, tokens)
+    """Decode-flow lookup: tokens [B] (replicated) -> x [B, D_loc(data)].
+    table_loc: [V_loc(model), D_loc(data)]; each model rank looks up its
+    vocab block (zeros elsewhere) and the blocks sum over 'model'."""
+    v_loc = table_loc.shape[0]
+    part = _lookup(table_loc, tokens.long() - ctx.axis_index("model") * v_loc)
+    return managed.managed_all_reduce(part, "model", ctx,
+                                      mode=ctx.mdmp_mode)
 
 
 def logits_decode(x: torch.Tensor, unembed_loc: torch.Tensor,
@@ -256,10 +296,18 @@ def logits_decode(x: torch.Tensor, unembed_loc: torch.Tensor,
 
 
 def greedy_sample(logits_loc: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
-    """Greedy decode over [B, V] logits: the lowest index among the maxima
-    (``torch.argmax`` returns the first maximum), int32, on the device."""
-    _require_tp1("greedy_sample", ctx)
-    return torch.argmax(logits_loc, dim=-1).to(torch.int32)
+    """Greedy decode across vocab-parallel logits [B, V_loc(model)]: the
+    lowest global index among the maxima (``torch.argmax`` returns the
+    first maximum), int32, on the device."""
+    arg = torch.argmax(logits_loc, dim=-1).to(torch.int32)
+    if ctx.tp == 1:
+        return arg
+    local_max = logits_loc.amax(dim=-1)
+    gmax = managed.all_reduce_max(local_max, ("model",), ctx)
+    local_arg = arg + ctx.axis_index("model") * logits_loc.shape[-1]
+    cand = torch.where(local_max >= gmax, local_arg,
+                       torch.iinfo(torch.int32).max)
+    return managed.all_reduce_min(cand, ("model",), ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -251,9 +251,11 @@ class Model(nn.Module):
         return kw
 
     def loss_sp(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Training loss.  batch: tokens [B, S], labels [B, S] (labels < 0
-        are ignored).  Returns (loss, metrics); the MoE family adds
-        ``0.01 * aux / n_layers`` of its load-balance loss."""
+        """Training loss.  batch: this rank's rows, tokens [B_loc, S] and
+        labels [B_loc, S] (labels < 0 are ignored; ``ctx.shard_batch``
+        cuts them from the global batch).  Returns (loss, metrics) — the
+        loss summed over the mesh, the same on every rank; the MoE family
+        adds ``0.01 * aux / n_layers`` of its load-balance loss."""
         cfg, ctx = self.cfg, self.ctx
         x = self._assemble_input_sp(batch)
         x, aux, _ = transformer.stack_sp(x, dict(self.layers.items()), cfg,
@@ -281,8 +283,9 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill_sp(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Prefill: (logits of the LAST position [B, V] f32, cache in
-        prefill layout {"kv": (k, v) each [L, B, S_loc, KV, hd]})."""
+        """Prefill of this rank's batch rows: (logits of the LAST position
+        [B_loc, V_loc(model)] f32, cache in prefill layout {"kv": (k, v)
+        each [L, B_loc, S_loc, KV, hd]})."""
         cfg, ctx = self.cfg, self.ctx
         x = self._assemble_input_sp(batch)
         x, _, kvs = transformer.stack_sp(
@@ -290,8 +293,10 @@ class Model(nn.Module):
             collect_kv=True, remat=False, **self._stack_kw(x))
         x = layers.rms_norm(x, self.top["final_ln"], cfg.norm_eps)
         # the final position lives on the last model rank's shard: the
-        # masked all-reduce broadcasts it (rank 0 is that rank at tp=1)
-        last = managed.managed_all_reduce(x[:, -1, :].float(), "model", ctx)
+        # masked all-reduce broadcasts it to every rank
+        is_last = float(ctx.axis_index("model") == ctx.tp - 1)
+        last = managed.managed_all_reduce(x[:, -1, :].float() * is_last,
+                                          "model", ctx)
         wg = fsdp_gather(self._unembed(), "data", ctx, axis=0,
                          mode=ctx.mdmp_mode)
         logits = last @ wg.float()
@@ -356,16 +361,16 @@ class Model(nn.Module):
     def decode_cache_specs(self, shape: ShapeConfig
                            ) -> dict[str, tuple[tuple[int, ...],
                                                 torch.dtype]]:
-        """{"k"|"v": (shape, dtype)} of the contiguous decode cache:
-        [L, B, S, KV, hd] stacked over layers, S covering the sequence (or
-        the sliding window, as a ring buffer) padded to the cache
-        shards."""
+        """{"k"|"v": (shape, dtype)} of this rank's contiguous decode
+        cache: [L, B, S_shard, KV, hd] stacked over layers, S covering the
+        sequence (or the sliding window, as a ring buffer) padded to the
+        cache shards and sharded over them."""
         cfg, ctx = self.cfg, self.ctx
         n_sh = attention.cache_shards(ctx)
         w = transformer.layer_window(cfg, 0)
         s_total = min(shape.seq_len, w) if w else shape.seq_len
         s_pad = pad_to_multiple(max(s_total, n_sh), n_sh)
-        kv = ((cfg.n_layers, shape.global_batch, s_pad,
+        kv = ((cfg.n_layers, shape.global_batch, s_pad // n_sh,
                attention.padded_kv_heads(cfg), cfg.head_dim), self.dtype)
         return {"k": kv, "v": kv}
 
@@ -374,17 +379,19 @@ class Model(nn.Module):
     def paged_cache_specs(self, slots: int, n_pages: int, page_size: int
                           ) -> dict[str, tuple[tuple[int, ...],
                                                torch.dtype]]:
-        """{"kp"|"vp": (shape, dtype)} of the paged serving cache: per-layer
-        page POOLS stacked [L, n_pages + 1, page, KV, hd].  Pages
-        0..n_pages-1 are the page table's; the trailing page takes the
-        cache writes of inactive slots (the reference drops them with a
-        drop-mode scatter, which torch lacks) and is never read.  Nothing
-        scales with max_seq: completed sequences recycle their pages
-        through the free list (serve/kv_cache.py)."""
+        """{"kp"|"vp": (shape, dtype)} of this rank's paged serving
+        cache: per-layer page POOLS stacked [L, Np_loc + 1, page, KV, hd],
+        the page dim sharded over the cache axes (cache rank r owns global
+        page ids [r*Np_loc, (r+1)*Np_loc), Np_loc = n_pages / shards).
+        The trailing page takes the cache writes this rank must not make
+        (inactive slots, other shards' pages; the reference drops them
+        with a drop-mode scatter, which torch lacks) and is never read.
+        Nothing scales with max_seq: completed sequences recycle their
+        pages through the free list (serve/kv_cache.py)."""
         cfg, ctx = self.cfg, self.ctx
         n_sh = attention.cache_shards(ctx)
         if n_pages % n_sh:
             raise ValueError(f"{n_pages} pages over {n_sh} cache shards")
-        shape = (cfg.n_layers, n_pages + 1, page_size,
+        shape = (cfg.n_layers, n_pages // n_sh + 1, page_size,
                  attention.padded_kv_heads(cfg), cfg.head_dim)
         return {"kp": (shape, self.dtype), "vp": (shape, self.dtype)}

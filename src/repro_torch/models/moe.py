@@ -14,7 +14,8 @@ one all_to_all each way), ``stream`` (the buffers streamed around the EP
 ring; at axis size 1, as in the reference, it takes the bulk branch),
 ``dense`` (every expert on every token, gate-masked: capacity-free) and
 ``auto`` (the cost model picks).  Every collective is the identity at
-axis size 1 and raises above it (ROADMAP Queue 1 slice 4).
+axis size 1; above it the MoE layers raise (MoE across ranks is ROADMAP
+Queue 1 item 3).
 
 The expert FFN of the capacity path runs through
 ``kernels/grouped_matmul.py``: the hand-written CUDA kernel on a card,
@@ -131,7 +132,9 @@ def _all_experts(x2: torch.Tensor, w1: torch.Tensor,
 
 def _require_tp1(what: str, ctx: MeshCtx) -> None:
     if ctx.tp != 1:
-        raise managed._multi_rank(what, "model", ctx.tp)
+        raise NotImplementedError(
+            f"{what} over a model axis of size {ctx.tp}: MoE across ranks "
+            "is ROADMAP Queue 1 item 3")
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +150,6 @@ def _dense_fallback_ep(x2: torch.Tensor, gates: torch.Tensor,
     """The no-dispatch schedule: all-gather the tokens, run this rank's
     E_loc experts on the FULL token set gate-masked, reduce-scatter the
     outputs back.  Capacity-free: no token is ever dropped."""
-    _require_tp1("the dense MoE schedule's expert slice", ctx)
     ge = _scatter_gates(gates, top_idx, n_experts)          # [t, E]
     x_full = managed.managed_all_gather(x2, "model", ctx,
                                         mode=ctx.mdmp_mode)
@@ -167,6 +169,7 @@ def moe_block_ep(x: torch.Tensor, params: dict, cfg: ModelConfig,
     'model'; tokens routed under the managed dispatch schedule.
     ``dispatch`` is a resolved (schedule, g, cf), resolved here when
     None; ``engine`` pins the grouped FFN's engine."""
+    _require_tp1("moe_block_ep", ctx)
     e_cfg = cfg.moe
     b, s_loc, d = x.shape
     t = b * s_loc
@@ -188,15 +191,12 @@ def moe_block_ep(x: torch.Tensor, params: dict, cfg: ModelConfig,
     dest, tok, keep, order = dispatch_indices(top_idx, e, cap)
     buffers = gather_to_buffers(x2, dest, tok, keep, e, cap)
     counts = expert_counts(top_idx, e, cap)
-    if schedule == "stream":
-        # streamed around the EP ring above axis size 1; at tp=1 the
-        # reference takes the bulk branch below, and so does the port
-        _require_tp1("managed_expert_stream", ctx)
+    # "stream" streams around the EP ring above axis size 1; at tp=1 the
+    # reference takes the bulk branch below, and so does the port
     # [E, C, D] -> [E_loc, tp*C, D] through the all_to_all, the kept
     # counts alongside (tp=1: both as they are)
     recv = managed.managed_all_to_all(buffers, "model", ctx, split_axis=0,
                                       concat_axis=1, mode=ctx.mdmp_mode)
-    _require_tp1("the all_to_all of the expert counts", ctx)
     e_loc = e // tp
     hg = recv.reshape(e_loc * tp, cap, d)
     out_g = _expert_ffn(hg, w1, w1g, w2, cfg.mlp, counts, engine)
@@ -221,6 +221,7 @@ def moe_block_expert_tp(x: torch.Tensor, params: dict, cfg: ModelConfig,
     the down-projection reduce-scatters back to sequence shards.  "stream"
     chunks the sequence AG/RS rings; "dense" skips the capacity buffers
     (every expert on every token, gate-masked: capacity-free)."""
+    _require_tp1("moe_block_expert_tp", ctx)
     e_cfg = cfg.moe
     b, s_loc, d = x.shape
     schedule, g, cf = dispatch or resolve_dispatch(cfg, ctx, b * s_loc,
@@ -275,6 +276,7 @@ def moe_block_decode(x: torch.Tensor, params: dict, cfg: ModelConfig,
     replicated batch identically; expert weights stay in place and every
     expert is computed per token, gate-masked (the ep_a2a rank would keep
     its E_loc gate columns; at tp=1 that is all of them)."""
+    _require_tp1("moe_block_decode", ctx)
     e_cfg = cfg.moe
     e = e_cfg.n_experts
 
@@ -295,7 +297,6 @@ def moe_block_decode(x: torch.Tensor, params: dict, cfg: ModelConfig,
         u = managed.managed_all_reduce(u, "data", ctx, mode=ctx.mdmp_mode)
         act = layers.activation(cfg.mlp, u, None)
     part = torch.matmul(act, params["w2"])                      # [E, B, D]
-    _require_tp1("moe_block_decode's expert slice", ctx)
     y = torch.einsum("ebd,be->bd", part, gate_full.to(part.dtype))
     y = managed.managed_all_reduce(y, "model", ctx, mode=ctx.mdmp_mode)
     return y.to(x.dtype)

@@ -139,12 +139,10 @@ def stack_sp(x: torch.Tensor, stacked: dict, cfg: ModelConfig,
 
 
 def _ln_loc(scale: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
-    """Replicated [D] norm scale -> this data-rank's [D_loc] slice (the
-    whole scale at dp=1, the only data-axis size this slice runs)."""
-    if ctx.dp != 1:
-        raise NotImplementedError(
-            "a data axis above 1 comes with ROADMAP Queue 1 slice 4")
-    return scale
+    """Replicated [D] norm scale -> this data-rank's [D_loc] slice."""
+    d_loc = scale.shape[0] // ctx.dp
+    r = ctx.axis_index("data")
+    return scale[r * d_loc:(r + 1) * d_loc]
 
 
 def _mlp_decode(h2: torch.Tensor, p: dict, cfg: ModelConfig,

@@ -2,10 +2,14 @@
 
 The reference runs model code per rank inside one ``shard_map`` over the
 ``data`` / ``model`` (/ ``pod``) mesh, with every cross-device byte going
-through a managed collective.  The port keeps that per-rank style.  In
-this slice every mesh axis has size 1: one process drives one card, and
-each managed collective is the identity (core/managed.py).  The
-``torch.distributed`` mesh comes with the managed collectives.
+through a managed collective.  The port keeps that per-rank style: one
+process per rank, and a ``torch.distributed`` process group per mesh
+axis.  ``MeshCtx.from_mesh`` reads the axes, their sizes, this rank's
+coordinates and the groups from a ``DeviceMesh`` (launch/mesh.py); the
+mesh only supplies groups, DTensor places no collective.  A ``MeshCtx``
+built from sizes alone is one rank's view with every axis at size 1
+(or an axis above 1 whose group a caller passes itself, as the ring
+does).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Any
 from repro_torch.configs.base import pad_to_multiple
 
 __all__ = ["LOGICAL_RULES", "MeshCtx", "ParamSpec", "pad_to_multiple",
-           "padded"]
+           "padded", "shard_of"]
 
 
 def padded(n: int, m: int) -> tuple[int, int]:
@@ -35,6 +39,41 @@ class MeshCtx:
     axis_sizes: dict[str, int] = dataclasses.field(
         default_factory=lambda: {"data": 1, "model": 1})
     mdmp_mode: str = "auto"             # threaded into managed collectives
+    #: this rank's coordinate along each axis (0 where absent)
+    coords: dict[str, int] = dataclasses.field(default_factory=dict,
+                                               compare=False)
+    #: the process group of each axis above size 1
+    groups: dict[str, Any] = dataclasses.field(default_factory=dict,
+                                               compare=False, repr=False)
+
+    @staticmethod
+    def from_mesh(mesh: Any, mdmp_mode: str = "auto") -> "MeshCtx":
+        """The view of one rank of a ``torch.distributed`` DeviceMesh with
+        named dims (``("data", "model")`` or ``("pod", "data",
+        "model")``): sizes, this rank's coordinates, one group per axis."""
+        names = tuple(mesh.mesh_dim_names)
+        sizes = {ax: int(n) for ax, n in zip(names, mesh.mesh.shape)}
+        return MeshCtx(axis_sizes=sizes, mdmp_mode=mdmp_mode,
+                       coords={ax: int(mesh.get_local_rank(ax))
+                               for ax in names},
+                       groups={ax: mesh.get_group(ax) for ax in names
+                               if sizes[ax] > 1})
+
+    def axis_index(self, axis_name: str) -> int:
+        """This rank's coordinate along ``axis_name`` (the reference's
+        ``lax.axis_index``)."""
+        return self.coords.get(axis_name, 0)
+
+    def group(self, axis_name: str) -> Any:
+        """The process group of ``axis_name`` (None at size 1)."""
+        if self.axis_sizes.get(axis_name, 1) == 1:
+            return None
+        if axis_name not in self.groups:
+            raise ValueError(
+                f"axis {axis_name!r} of size {self.axis_sizes[axis_name]} "
+                "needs its process group: build the MeshCtx with "
+                "MeshCtx.from_mesh")
+        return self.groups[axis_name]
 
     @property
     def tp(self) -> int:
@@ -69,6 +108,23 @@ class MeshCtx:
             raise ValueError(f"global batch {global_batch} not divisible by "
                              f"{self.batch_shards} batch shards")
         return global_batch // self.batch_shards
+
+    def batch_index(self) -> int:
+        """This rank's shard of the batch (``batch_axes`` row-major)."""
+        i = 0
+        for ax in self.batch_axes:
+            i = i * self.axis_sizes.get(ax, 1) + self.axis_index(ax)
+        return i
+
+    def shard_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch (leading dim sharded over
+        ``batch_axes``, the reference's ``P(batch_axes, ...)``)."""
+        i = self.batch_index()
+        out = {}
+        for k, v in batch.items():
+            b = self.local_batch(v.shape[0])
+            out[k] = v[i * b:(i + 1) * b]
+        return out
 
 
 #: logical dimension names -> mesh axis they shard over (None = replicated)
@@ -107,3 +163,21 @@ class ParamSpec:
                 raise ValueError(f"dim {l}={s} not divisible by {ax}={n}")
             out.append(s // n)
         return tuple(out)
+
+
+def shard_of(full: Any, spec: ParamSpec, ctx: MeshCtx) -> Any:
+    """This rank's block of a full (global-shape) array or tensor: each
+    dim sharded over a mesh axis keeps the rank's slice along it (the
+    reference's ``device_put`` under ``NamedSharding(mesh, pspec)``)."""
+    if tuple(full.shape) != tuple(spec.shape):
+        raise ValueError(f"shape {tuple(full.shape)} != spec "
+                         f"{tuple(spec.shape)}")
+    idx = []
+    for s, l in zip(spec.shape, spec.logical):
+        ax = LOGICAL_RULES[l]
+        n = ctx.axis_sizes.get(ax, 1) if ax else 1
+        if s % n:
+            raise ValueError(f"dim {l}={s} not divisible by {ax}={n}")
+        r = ctx.axis_index(ax) if ax else 0
+        idx.append(slice(r * (s // n), (r + 1) * (s // n)))
+    return full[tuple(idx)]

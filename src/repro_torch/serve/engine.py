@@ -14,7 +14,12 @@ measured step latencies.
 The cache is the paged pool of serve/kv_cache.py: per-layer page pools,
 one host-side page table, pages recycled through the free list as
 requests retire.  The pools are updated in place (the reference donates
-them).  The engine serves the dense and MoE decoder families.
+them).  Over a mesh every rank runs the same engine on the same
+requests: the table holds global page ids, and each rank's pools hold
+its shard of the pages (sharded over the cache axes, rank r owning ids
+[r*Np_loc, (r+1)*Np_loc)); a sharded pool preempts by recompute only,
+since a swapped chain would come back on other ranks' pages.  The
+engine serves the dense and MoE decoder families.
 
 Overload is a managed condition, not a crash.  Admission is optimistic
 (watermark mode commits only the prompt's pages), and when the pool
@@ -64,10 +69,14 @@ class ServeEngine:
                  max_queue: int | None = None, burst_new: int = 8):
         if preempt not in ("auto", "swap", "recompute", "none"):
             raise ValueError(f"unknown preempt policy {preempt!r}")
+        n_sh = attention.cache_shards(model.ctx)
+        if preempt == "swap" and n_sh > 1:
+            raise ValueError(
+                "preempt='swap' moves a page chain of one pool; a pool "
+                f"sharded over {n_sh} ranks preempts by recompute")
         self.model = model
         self.device = model.device
         self.slots = slots
-        n_sh = attention.cache_shards(model.ctx)
         pages_per_seq = max(1, math.ceil(max_seq / page_size))
         if n_pages is None:
             n_pages = slots * pages_per_seq
@@ -88,6 +97,7 @@ class ServeEngine:
                 self._n_params, slots, dtype_bytes=self._dtype_bytes))
         self._schedule = schedule
         self._preempt = preempt
+        self._n_sh = n_sh
         self._burst_new = int(burst_new)
         self._cache_specs = model.paged_cache_specs(slots, n_pages,
                                                     page_size)
@@ -393,7 +403,7 @@ class ServeEngine:
             self._n_params, batch_slots=self.slots,
             dtype_bytes=self._dtype_bytes, measured_step_s=step,
             measured_pcie_bw=self.metrics.swap_bw_estimate(),
-            wait_s=wait_s, policy=policy)
+            wait_s=wait_s, allow_swap=self._n_sh == 1, policy=policy)
         if d.policy == "wait":
             return False
         if d.policy == "swap":
@@ -460,7 +470,7 @@ class ServeEngine:
                     track="serve", chunk=plan.chunk, scale=useful,
                     quantum=self._quantum_idx - 1, reads="kv_pages"):
                 out_np = self._run_quantum(plan)
-            wall = time.perf_counter() - t0
+            wall = self._agreed(time.perf_counter() - t0)
             self._hold.clear()    # a quantum dispatched: evictees may
             # re-enter admission on the next planning round
             self.metrics.note_quantum(wall, plan.chunk, useful,
@@ -471,6 +481,16 @@ class ServeEngine:
                 self._retire(rs.req.rid, rs.generated)
             self._maybe_retune()
         return results
+
+    def _agreed(self, seconds: float) -> float:
+        """The slowest rank's ``seconds`` over the mesh: every rank feeds
+        its metrics, and so its schedule and preemption decisions, the
+        same number, and so keeps issuing the same collectives."""
+        ctx = self.model.ctx
+        if all(n == 1 for n in ctx.axis_sizes.values()):
+            return seconds
+        t = torch.tensor([seconds], dtype=torch.float32, device=self.device)
+        return float(managed.all_reduce_max(t, ctx.all_axes, ctx))
 
     def _maybe_retune(self) -> None:
         """The iteration-(k)->(k+1) correction: once enough quanta are

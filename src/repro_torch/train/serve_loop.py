@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.models import layers, transformer
+from repro_torch.models import attention, layers, transformer
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
 
@@ -82,6 +82,10 @@ class Generator:
         if self.engine != "contiguous":
             raise ValueError("generate_from_prefill continues into the "
                              "contiguous cache")
+        if attention.cache_shards(self.model.ctx) != 1:
+            raise ValueError("generate_from_prefill fills one cache shard; "
+                             "over a mesh, generate() feeds the prompt "
+                             "through the sharded decode")
         cache = self.empty_cache()
         k_pre, v_pre = prefill["kv"]
         p = k_pre.shape[2]

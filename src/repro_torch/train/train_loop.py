@@ -1,9 +1,17 @@
 """Fault-tolerant training loop + the train step builder (port of
 ``repro.train.train_loop``).
 
-The train step runs one process per card; every mesh axis has size 1
-here, so each managed collective (and the gradient sync) is the
-identity.  The step differentiates ``Model.loss_sp`` with autograd — the
+The train step is per-rank code over the mesh (one process per rank):
+every collective in the forward, the backward and the gradient sync is a
+managed op.  Gradient flow:
+
+  * FSDP-sharded params: the fsdp_gather's gradient reduce-scatters each
+    layer's gradient in that layer's backward — MDMP's as-ready "send on
+    last write" (core/overlap.py);
+  * replicated params (and the pod axis): explicit all-reduces over
+    exactly the mesh axes absent from each param's spec (``sync_grads``).
+
+The step differentiates ``Model.loss_sp`` with autograd — the
 flash-attention backward is the CUDA kernel on a card — then takes one
 AdamW step that updates the model's parameters IN PLACE (the reference
 donates its buffers and returns new ones).
@@ -34,15 +42,7 @@ from repro_torch.models.model import (Model, flatten_specs,
 from repro_torch.obs.calibrate import Recalibrator
 from repro_torch.obs.tracer import get_tracer
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
-from repro_torch.parallel.sharding import MeshCtx
-
-
-def _multi_rank(what: str, ctx: MeshCtx) -> None:
-    big = {ax: n for ax, n in ctx.axis_sizes.items() if n != 1}
-    if big:
-        raise NotImplementedError(
-            f"{what} over mesh axes {big}: the torch.distributed "
-            "collectives come with ROADMAP Queue 1 slice 4")
+from repro_torch.parallel.sharding import LOGICAL_RULES, MeshCtx, ParamSpec
 
 
 def _later(what: str, slice_: int) -> NotImplementedError:
@@ -55,13 +55,30 @@ def _later(what: str, slice_: int) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 
+def _missing_axes(spec: ParamSpec, all_axes: tuple[str, ...]
+                  ) -> tuple[str, ...]:
+    present = {LOGICAL_RULES[l] for l in spec.logical}
+    return tuple(ax for ax in all_axes if ax not in present)
+
+
 def sync_grads(grads: Any, spec_tree: Any, ctx: MeshCtx) -> Any:
-    """Sum each grad over the mesh axes absent from its spec — the
-    identity when every axis has size 1, the only case this slice runs
-    (the int8-compressed pod reduction comes with slice 9)."""
-    del spec_tree
-    _multi_rank("sync_grads", ctx)
-    return grads
+    """Sum each grad over the mesh axes absent from its spec: the
+    FSDP/TP-sharded dims were already reduced by the collectives'
+    gradients."""
+    specs = flatten_specs(spec_tree)
+    out = {}
+    for name, g in flatten_specs(grads).items():
+        for ax in _missing_axes(specs[name], ctx.all_axes):
+            g = managed.managed_all_reduce(g, ax, ctx)
+        out[name] = g
+    return unflatten_specs(out)
+
+
+def _replication_factor(spec: ParamSpec, ctx: MeshCtx) -> int:
+    n = 1
+    for ax in _missing_axes(spec, ctx.all_axes):
+        n *= ctx.axis_sizes[ax]
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -74,25 +91,37 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
                      ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """Returns ``step(opt_state, batch) -> (opt_state, metrics)``.
 
-    ``batch`` holds tokens and labels [B, S] on the model's device.  The
-    step updates the model's parameters and ``opt_state`` in place;
-    metrics are 0-d tensors (loss, grad_norm, lr), read without a host
-    sync.  ``cfg.accum_steps`` > 1 splits the batch into that many
-    microbatches along B and averages their gradients, as the
-    reference."""
+    ``batch`` holds the GLOBAL tokens and labels [B, S] on the model's
+    device; each rank takes its rows (``ctx.shard_batch``).  The step
+    updates this rank's parameter shards and ``opt_state`` in place;
+    metrics are 0-d tensors (loss, grad_norm, lr), the same on every
+    rank, read without a host sync.  ``cfg.accum_steps`` > 1 splits the
+    local batch into that many microbatches along B and averages their
+    gradients, as the reference."""
     cfg, ctx = model.cfg, model.ctx
     if pipeline != "none":
         raise _later(f"pipeline={pipeline!r}", 9)
-    _multi_rank("build_train_step", ctx)
     accum = max(1, cfg.accum_steps)
     names = list(flatten_specs(model.params()))
+    spec_tree = model.param_specs()
+    rep = [_replication_factor(sp, ctx)
+           for sp in flatten_specs(spec_tree).values()]
+    n_devices = 1
+    for n in ctx.axis_sizes.values():
+        n_devices *= n
 
     def grads_of(batch: dict) -> tuple[torch.Tensor, list[torch.Tensor]]:
         leaves = list(flatten_specs(model.params()).values())
         loss, _ = model.loss_sp(batch)
-        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+        # the summed loss is replicated on every rank, and the gradient of
+        # each all-reduce is an all-reduce: the raw gradient is n_devices
+        # times too large, so differentiate loss / n_devices (as the
+        # reference)
+        return loss.detach(), list(torch.autograd.grad(loss / n_devices,
+                                                       leaves))
 
     def step(opt_state: dict, batch: dict) -> tuple[dict, dict]:
+        batch = ctx.shard_batch(batch)
         if accum > 1:
             b = batch["tokens"].shape[0]
             if b % accum:
@@ -109,12 +138,11 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
         else:
             loss, grads = grads_of(batch)
         grad_tree = unflatten_specs(dict(zip(names, grads)))
-        grad_tree = sync_grads(grad_tree, model.param_specs(), ctx)
-        # the reference's replication-aware global norm, where every
-        # replication factor is 1
+        grad_tree = sync_grads(grad_tree, spec_tree, ctx)
+        # the replication-aware global norm
         ssq = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for g in grads:
-            ssq = ssq + torch.sum(torch.square(g.float()))
+        for g, r in zip(flatten_specs(grad_tree).values(), rep):
+            ssq = ssq + torch.sum(torch.square(g.float())) / r
         for ax in ctx.all_axes:
             ssq = managed.managed_all_reduce(ssq, ax, ctx)
         gnorm = torch.sqrt(ssq)

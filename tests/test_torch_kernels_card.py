@@ -254,8 +254,11 @@ def test_paged_attention_rejects_unaligned_pool(cuda):
 #: the diagonal mid-tile, and MQA 48/1 at hd 64; then the edges of the
 #: bf16 backward's 128-row kv tiles and 64-row query tiles: Skv of 127,
 #: 129 and 257, Sq that is not a multiple of 64, at G = 1, 4 and 48 and
-#: hd 64 and 128
+#: hd 64 and 128; hd 16 (the reduced configs, SIMT kernels in both types)
+#: at the quickstart's shape and ragged with a window
 FLASH_CASES = [
+    (8, 128, 128, 4, 1, 16, True, 0, 0),
+    (1, 100, 127, 8, 2, 16, True, 30, 27),
     (2, 256, 256, 32, 8, 128, True, 0, 0),
     (1, 200, 200, 32, 8, 128, False, 0, 0),
     (2, 130, 130, 32, 8, 128, True, 64, 0),
@@ -416,6 +419,7 @@ CARRY_CASES = [
     (1, 129, 257, 32, 8, 128, True, 0, 300, 250, True),
     (1, 257, 127, 8, 2, 128, False, 0, 0, 0, True),
     (1, 200, 129, 48, 1, 64, True, 0, 128, 0, True),
+    (1, 130, 200, 4, 1, 16, True, 0, 128, 64, True),
 ]
 CARRY_TOL = [(torch.float32, 2e-5), (torch.bfloat16, 1e-4)]
 
@@ -635,6 +639,7 @@ BLOCK_CASES = [
     (1, 127, 257, 8, 8, 128, True, 0, 100, 0),
     (1, 96, 160, 16, 4, 64, True, 0, 0, 64),
     (1, 64, 64, 8, 2, 128, True, 0, 0, 128),
+    (1, 96, 160, 4, 1, 16, True, 0, 0, 64),
 ]
 
 
@@ -885,6 +890,27 @@ def test_jacobi_ksweep_twice_and_graph_replayed_give_equal_bits(cuda, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [9, 16, 23])
+@pytest.mark.parametrize("shape", [(700, 2101), (5, 130)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jacobi_ksweep_chained_launches_equal_plain(cuda, shape, k):
+    """k > 8 as chained launches of depth <= 8 over the one k-deep slab
+    (``ksweep_chain``), frozen depths (0, 0), (k, k), (k+1, k+1): f32
+    equal to the plain version bit for bit, one launch per link."""
+    m, n = shape
+    parts = _ksweep_parts(cuda, torch.float32, m, n, k, 29)
+    for ft, fb in ((0, 0), (k, k), (k + 1, k + 1)):
+        before = stencil.KSWEEP_LAUNCHES
+        got = stencil.jacobi_ksweep_parts(*parts, k, ft, fb)
+        torch.cuda.synchronize()
+        assert stencil.KSWEEP_LAUNCHES - before == \
+            len(stencil.ksweep_chain(k))
+        want = stencil.jacobi_ksweep_parts(*parts, k, ft, fb,
+                                           engine="torch")
+        assert torch.equal(got, want), (ft, fb)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_jacobi_ksweep_built_kernel_matches_its_plan(cuda, dtype):
     """The built kernel's band and shared memory are the plan's and the
@@ -950,7 +976,7 @@ def test_jacobi_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         stencil.jacobi_step(u.t().contiguous().t(), f.t().contiguous().t())
     with pytest.raises(ValueError, match="k <= 8"):
-        stencil.jacobi_ksweep(u, f, stencil.KSWEEP_MAX_K + 1, 0, 0)
+        stencil.ksweep_built(stencil.KSWEEP_MAX_K + 1)
 
 
 @pytest.mark.gpu

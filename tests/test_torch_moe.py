@@ -405,7 +405,8 @@ def test_multi_rank_moe_names_slice_4(block_inputs):
     ctx = MeshCtx(axis_sizes={"data": 1, "model": 2})
     for impl in ("ep_a2a", "expert_tp"):
         cfg = _block_cfgs(impl, "bulk")[1]
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError,
+                           match="MoE across ranks is ROADMAP Queue 1 item 3"):
             moe.moe_block(_t(x), tp, cfg, ctx, dispatch=("bulk", 1, 8.0))
 
 

@@ -294,3 +294,50 @@ def test_ksweep_plan_stitched_equals_pallas(m, n, strip, k, frozen):
                                             depth, interpret=True)
     got = _stitched(_t(u_pad), _t(f_pad), k, depth, depth, plan)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- k > 8: chained launches over one slab --------------------------------
+
+
+def test_ksweep_chain_depths():
+    """k sweeps on the card as launches of depth <= KSWEEP_MAX_K: 8s, the
+    remainder last."""
+    assert stencil.ksweep_chain(8) == (8,)
+    assert stencil.ksweep_chain(9) == (8, 1)
+    assert stencil.ksweep_chain(16) == (8, 8)
+    assert stencil.ksweep_chain(23) == (8, 8, 7)
+    with pytest.raises(ValueError):
+        stencil.ksweep_chain(0)
+
+
+@pytest.mark.parametrize("frozen", ["none", "k", "k+1"])
+@pytest.mark.parametrize("k", [9, 16, 23])
+def test_ksweep_chained_stitched_equals_pallas(k, frozen):
+    """The card's path for k > 8 — ``ksweep_chained``'s launches, each
+    run as the kernel's plan pieces on their own apron tiles
+    (``_stitched``, frozen rows by global padded row) — equals the
+    reference's Pallas slab kernel (interpret mode) bit for bit in f32."""
+    depth = {"none": 0, "k": k, "k+1": k + 1}[frozen]
+    m, n = 2 * stencil.KSWEEP_MIN_STRIP * stencil.KSWEEP_MAX_K + 3, 900
+    rng = np.random.default_rng(k)
+    u_pad, f_pad = _rand(rng, (m + 2 * k, n)), _rand(rng, (m + 2 * k, n))
+    plans = []
+
+    def sweep(u_lo, u, u_hi, f_lo, f, f_hi, d, ft, fb, out):
+        plan = stencil.ksweep_plan(u.shape[0], n, d, torch.float32, 4)
+        plans.append(plan)
+        got = _stitched(torch.cat([u_lo, u, u_hi]), torch.cat([f_lo, f,
+                                                                f_hi]),
+                        d, ft, fb, plan)
+        return got if out is None else out.copy_(got)
+
+    got = stencil.ksweep_chained(_t(u_pad), _t(f_pad), k, depth, depth,
+                                 sweep)
+    assert len(plans) == len(stencil.ksweep_chain(k))
+    assert all(p.bands == 2 for p in plans) and plans[0].strips > 1
+    want = ref_stencil.jacobi_ksweep_pallas(_j(u_pad), _j(f_pad), k, depth,
+                                            depth, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the wrapper's plain path takes any k and agrees
+    plain = stencil.jacobi_ksweep(_t(u_pad), _t(f_pad), k, depth, depth)
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(want))
