@@ -94,7 +94,32 @@ phase that fails:
                bytes between the card and host memory per step (gloo on
                one card, not NCCL: staged messages and gloo's own copies
                of all-reduces), and ``jacobi_mdmp --ranks 2`` (every
-               schedule equal, and equal to one rank).
+               schedule equal, and equal to one rank);
+ 12. moe     — two processes on the card again (``--moe-mesh-rank``):
+    mesh       moonshot-v1-16b-a3b at full width, 2 layers, f32, a
+               capacity factor that drops no token; one train step (B 2,
+               S 512) on a 1x2 mesh under ep_a2a bulk, ep_a2a stream (g =
+               2) and expert_tp against rank 0's 1x1 step (loss and
+               gradient norm rtol 1e-5, gathered parameters as phase 11;
+               the ep runs against 1x1 with ep_a2a's rank-averaged
+               load-balance term), grouped launches exact (SIMT), the 1x2
+               engine's tokens against 1x1's, and a bf16 prefill per
+               layout whose grouped launches all take the tensor cores and
+               whose first call, at its shard shape, is held to the plain
+               version as phase 2 holds it;
+ 13. families — the flash kernels against the plain versions at the
+               families' shapes; mamba2-130m (bf16, uncut) through
+               ServeEngine against the contiguous Generator; hymba-1.5b
+               uncut: a 2 x 2048 prefill (its 1024 window bites), served,
+               one bf16 training step of 1 x 2048; whisper-small (1500
+               stub frames, prefill 2 x 448, 16 tokens) and internvl2-1b
+               (256 stub patches, prefill 2 x 1024, 16 tokens); f32
+               training of mamba2 and hymba (4 layers) at chunk 256 with
+               every gradient finite; each family at 2 layers in f32 with
+               the kernels against the plain path (loss 1e-5, gradients
+               1e-4); hymba's paged kernel against the plain paged path;
+               exact flash and paged launch counts throughout; and
+               ``repro_torch.examples.serve_batched`` on the card.
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
 trip), the grouped-expert FFN, the ring's block backward (bf16 in, f32
@@ -1533,11 +1558,11 @@ def make_prompts(vocab: int) -> list[np.ndarray]:
             for p in plens]
 
 
-def serve(torch, model, prompts, n_new, **kw):
+def serve(torch, model, prompts, n_new, max_seq=512, **kw):
     from repro_torch.kernels import paged_attention as paged
     from repro_torch.serve.engine import ServeEngine
 
-    eng = ServeEngine(model, slots=8, page_size=16, max_seq=512, **kw)
+    eng = ServeEngine(model, slots=8, page_size=16, max_seq=max_seq, **kw)
     rids = [eng.submit(p, n_new) for p in prompts]
     paged.LAUNCHES = 0                # counts of this run only
     t0 = time.perf_counter()
@@ -2927,29 +2952,8 @@ def phase_mesh(torch, root, card):
     """Phase 11: the two rank processes, then jacobi_mdmp --ranks 2,
     each on the one card over gloo.  A failure in either process fails
     the phase."""
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    try:
-        init = "file://" + os.path.join(tmp, "init")
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
-             str(r), init, tmp], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for r in range(2)]
-        try:
-            outs = [p.communicate(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                fail(f"phase 11 rank {r} exited {p.returncode}: "
-                     f"{err[-3000:]}")
-        res = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
-                res.append(json.load(fh))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = run_rank_pair("--mesh-rank", "phase 11", 600)
     one = res[0]["one"]
     want = (2 * MESH_LAYERS, MESH_LAYERS)
     print(f"  phi4-mini-3.8b at full width, {MESH_LAYERS} layers, f32, TF32 "
@@ -3014,6 +3018,749 @@ def phase_mesh(torch, root, card):
         print(f"  jacobi_mdmp --ranks 2: {line}", flush=True)
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE across ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: moonshot at full width, this many layers, f32; one train step's batch
+MOE_MESH_LAYERS, MOE_MESH_B, MOE_MESH_S = 2, 2, 512
+#: capacity factor above E / top_k = 10.67: every expert's capacity covers
+#: every local token, so no rank drops a token and 1x2 computes 1x1's
+#: function
+MOE_MESH_CF = 11.0
+#: (name, layout, dispatch, g) of the 1x2 runs
+MOE_MESH_RUNS = (("ep_bulk", "ep_a2a", "bulk", 0),
+                 ("ep_stream", "ep_a2a", "stream", 2),
+                 ("expert_tp", "expert_tp", "bulk", 0))
+MOE_MESH_RTOL = 1e-5
+
+
+def moe_mesh_cfg(layout: str, dispatch: str, g: int, dtype: str):
+    from repro_torch import configs
+    cfg = configs.get_config("moonshot-v1-16b-a3b")
+    return dataclasses.replace(
+        cfg, n_layers=MOE_MESH_LAYERS, dtype=dtype,
+        moe=dataclasses.replace(cfg.moe, impl=layout, dispatch=dispatch,
+                                dispatch_g=g, capacity_factor=MOE_MESH_CF))
+
+
+def moe_grouped_calls(layout: str, dispatch: str, g: int) -> int:
+    """Grouped-kernel launches of one layer's forward on one of 2 ranks:
+    the stream runs g chunks at each of its 2 ring steps."""
+    return 2 * g if dispatch == "stream" else 1
+
+
+def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
+    """One of phase 12's two processes.  Rank 0 first runs the 1x1 step
+    and the engine on the full f32 weights; then both ranks run each 1x2
+    layout and dispatch on their shards of the same weights, and a bf16
+    prefill per layout whose first grouped call is held to the plain
+    version at its shard shape.  Results go to rank{r}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import bridge
+    from repro_torch.core import managed, transport
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, flatten_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import MeshCtx, shard_of
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.train_loop import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch_mesh.init_distributed("cuda", init_method=init, rank=rank,
+                                 world_size=2)
+    base = moe_mesh_cfg("ep_a2a", "bulk", 0, "float32")
+    full = Model(base, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    data = SyntheticLMData(DataConfig(vocab_size=base.vocab_size,
+                                      seq_len=MOE_MESH_S,
+                                      global_batch=MOE_MESH_B, seed=SEED))
+    batch = train_batch(torch, data, 0)
+    opt_cfg = AdamWConfig(lr=1e-2)
+    prompts = mesh_prompts(base.vocab_size)
+    res = {"rank": rank}
+
+    def serve(model):
+        eng = ServeEngine(model, **MESH_SERVE)
+        rids = [eng.submit(p, MESH_NEW) for p in prompts]
+        got = eng.run()
+        return [got[r].tolist() for r in rids]
+
+    def step(model):
+        gm.GROUPED_LAUNCHES = 0
+        gm.ENGINE_LAUNCHES.update(wgmma=0, simt=0)
+        transport.reset_staged_bytes()
+        fn = build_train_step(model, opt_cfg)
+        opt = adamw_init(model.params(), opt_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with managed.capture_decisions() as cap:
+            _, metrics = fn(opt, batch)
+            loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        recs = [r for r in cap.records
+                if r.op in ("moe_dispatch", "expert_stream")]
+        return dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    grouped=gm.GROUPED_LAUNCHES,
+                    engines=dict(gm.ENGINE_LAUNCHES),
+                    staged=transport.staged_bytes(),
+                    decisions=[f"{r.op}({r.mode}, g={r.chunks}, "
+                               f"{r.nbytes} B)" for r in recs])
+
+    def copy_shards(model, ctx):
+        specs = flatten_specs(model.param_specs())
+        with torch.no_grad():
+            for name, t in flatten_specs(model.params()).items():
+                t.copy_(shard_of(full_host[name], specs[name], ctx))
+
+    def halves_router(x, w, n_experts, top_k):
+        """The router with the load-balance term of ep_a2a over two ranks:
+        the mean of the terms of each row's two sequence halves (the
+        tokens [B, S] flattened row-major), the same function as a 1x2
+        ep_a2a step computes."""
+        gates, idx, _ = real_router(x, w, n_experts, top_k)
+        xs = x.reshape(MOE_MESH_B, -1, x.shape[-1])
+        half = xs.shape[1] // 2
+        aux = [real_router(xs[:, r * half:(r + 1) * half].reshape(
+            -1, x.shape[-1]), w, n_experts, top_k)[2] for r in range(2)]
+        return gates, idx, (aux[0] + aux[1]) / 2
+
+    real_router = moe._router
+    one = {}
+    if rank == 0:
+        paged.LAUNCHES = 0
+        res["one_tokens"] = serve(full)
+        res["one_paged"] = paged.LAUNCHES
+    # the full weights wait in host memory: the card holds both ranks
+    full_host = {k: v.detach().cpu() for k, v in
+                 flatten_specs(full.params()).items()}
+    del full
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # 1x1 as it is (expert_tp's function), and with ep_a2a's
+        # rank-averaged load-balance term (the ep runs' function)
+        for which in ("one", "one_ep"):
+            model = Model(base, device="cuda")
+            copy_shards(model, model.ctx)
+            moe._router = halves_router if which == "one_ep" else real_router
+            try:
+                res[which] = step(model)
+            finally:
+                moe._router = real_router
+            # the updated parameters wait in host memory, and the cached
+            # blocks go back to the card, which rank 1 shares
+            one[which] = {k: v.detach().cpu() for k, v in
+                          flatten_specs(model.params()).items()}
+            del model
+            torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = launch_mesh.make_mesh((1, 2), ("data", "model"), "cuda")
+    for name, layout, dispatch, g in MOE_MESH_RUNS:
+        ctx = MeshCtx.from_mesh(mesh, "auto")
+        model = Model(moe_mesh_cfg(layout, dispatch, g, "float32"), ctx,
+                      device="cuda")
+        copy_shards(model, ctx)
+        if name == "ep_bulk":
+            paged.LAUNCHES = 0
+            res["mesh_tokens"] = serve(model)
+            res["mesh_paged"] = paged.LAUNCHES
+        res[name] = step(model)
+        worst = (0.0, "")
+        ref = "one_ep" if layout == "ep_a2a" else "one"
+        for pname in flatten_specs(model.params()):
+            got = bridge.param_full(model, pname)
+            if rank == 0:
+                want = one[ref][pname].to(got.device)
+                bad = (got - want).abs() - MESH_RTOL * want.abs()
+                worst = max(worst, (float(bad.max()), pname))
+        res[f"{name}_worst"] = worst
+        del model
+        torch.cuda.empty_cache()
+    del full_host, one
+
+    # bf16 prefills: every grouped launch on the tensor cores, and the
+    # first call's shard-shaped inputs through the kernel and the plain
+    # version
+    rng = np.random.default_rng(SEED + 12)
+    tokens = torch.from_numpy(rng.integers(
+        0, base.vocab_size - 1, size=(MOE_MESH_B, MOE_MESH_S)).astype(
+        np.int32)).cuda()
+    seen = []
+    real_ffn = moe._expert_ffn
+
+    def spy(h, w1, w1g, w2, mlp, valid, engine):
+        if not seen:
+            seen.append((h, w1, w1g, w2, valid, mlp))
+        return real_ffn(h, w1, w1g, w2, mlp, valid, engine)
+
+    moe._expert_ffn = spy
+    try:
+        for name, layout, dispatch, g in MOE_MESH_RUNS:
+            cfg = moe_mesh_cfg(layout, dispatch, g, "bfloat16")
+            model = Model(cfg, MeshCtx.from_mesh(mesh, "auto"),
+                          device="cuda").init(
+                torch.Generator(device="cuda").manual_seed(SEED + rank))
+            seen.clear()
+            gm.GROUPED_LAUNCHES = 0
+            gm.ENGINE_LAUNCHES.update(wgmma=0, simt=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill_sp(model.ctx.shard_batch(
+                {"tokens": tokens}))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            engines = dict(gm.ENGINE_LAUNCHES)
+            h, w1, w1g, w2, valid, mlp = seen[0]
+            err, rel, share = grouped_call(
+                torch, gm, h, w1, w1g, w2, valid, mlp,
+                dict(GROUPED_TOL)["bfloat16"], f"{name} bf16 prefill")
+            res[f"{name}_bf16"] = dict(
+                engines=engines, ms=ms, err=err, rel=rel, share=share,
+                shape=[list(h.shape), list(w1.shape), list(w2.shape)],
+                finite=bool(torch.isfinite(logits).all()))
+            del model, logits, seen[:]
+            torch.cuda.empty_cache()
+    finally:
+        moe._expert_ffn = real_ffn
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_rank_pair(flag: str, what: str, timeout: int) -> list[dict]:
+    """Start this script twice with ``flag`` (ranks 0 and 1, file://
+    init); a failure in either fails ``what``.  Returns their results.
+    This process first hands its cached blocks back to the card, which
+    the two ranks share with it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"of the card ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated) while the two ranks run", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        init = "file://" + os.path.join(tmp, "init")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, str(r), init,
+             tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        bad = [f"{what} rank {r} exited {p.returncode}: {err[-3000:]}"
+               for r, (p, (_, err)) in enumerate(zip(procs, outs))
+               if p.returncode != 0]
+        if bad:
+            fail("\n".join(bad))
+        res = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_moe_mesh(torch, card):
+    """Phase 12: moonshot's MoE over a 1x2 mesh of two processes on the
+    one card (gloo), held to rank 0's 1x1 run."""
+    t0 = time.perf_counter()
+    res = run_rank_pair("--moe-mesh-rank", "phase 12", 900)
+    one = res[0]["one"]
+    per_step = 2 * MOE_MESH_LAYERS          # forward and its remat replay
+    print(f"  moonshot-v1-16b-a3b at full width (d 2048, 64 experts top-6, "
+          f"F 1408, vocab 163840), {MOE_MESH_LAYERS} layers, f32, TF32 off, "
+          f"capacity factor {MOE_MESH_CF} (no token dropped), B="
+          f"{MOE_MESH_B}, S={MOE_MESH_S}; two processes on {card}, gloo; "
+          f"1x1 on rank 0: loss {one['loss']!r}, grad_norm "
+          f"{one['grad_norm']!r}, step {one['ms']:.1f} ms, grouped launches "
+          f"{one['grouped']} {one['engines']}; {one['decisions']}",
+          flush=True)
+    if one["grouped"] != per_step:
+        fail(f"1x1 grouped launches {one['grouped']}, not {per_step}")
+    one_ep = res[0]["one_ep"]
+    print(f"  1x1 with ep_a2a's load-balance term (the mean of the two "
+          f"sequence halves' terms, as two ranks compute it): loss "
+          f"{one_ep['loss']!r}, grad_norm {one_ep['grad_norm']!r}",
+          flush=True)
+    for name, layout, dispatch, g in MOE_MESH_RUNS:
+        want = per_step * moe_grouped_calls(layout, dispatch, g)
+        ref = one_ep if layout == "ep_a2a" else one
+        for r in range(2):
+            got = res[r][name]
+            if got["grouped"] != want or got["engines"]["wgmma"]:
+                fail(f"{name} rank {r}: grouped launches {got['grouped']} "
+                     f"{got['engines']}, not {want} on SIMT")
+            for key in ("loss", "grad_norm"):
+                if abs(got[key] - ref[key]) > MOE_MESH_RTOL * abs(ref[key]):
+                    fail(f"{name} rank {r}: {key} {got[key]!r} != 1x1 "
+                         f"{ref[key]!r} (rtol {MOE_MESH_RTOL})")
+            n_stream = sum(d.startswith("expert_stream") for d in
+                           got["decisions"])
+            if n_stream != (per_step if dispatch == "stream" else 0):
+                fail(f"{name} rank {r}: {n_stream} expert_stream decisions")
+        oracle = ("1x1 with the halves' load-balance term"
+                  if layout == "ep_a2a" else "1x1")
+        bad, pname = res[0][f"{name}_worst"]
+        if bad > MESH_ATOL:
+            fail(f"{name}: updated parameter {pname} off the 1x1 step by "
+                 f"{bad:.3e} beyond rtol {MESH_RTOL} (atol {MESH_ATOL})")
+        print(f"  1x2 {name} ({layout}, {dispatch}"
+              f"{f', g={g}' if g else ''}): loss "
+              f"{res[0][name]['loss']!r} / {res[1][name]['loss']!r}, "
+              f"grad_norm {res[0][name]['grad_norm']!r} / "
+              f"{res[1][name]['grad_norm']!r} ({oracle} within rtol "
+              f"{MOE_MESH_RTOL}); updated parameters gathered within rtol "
+              f"{MESH_RTOL} / atol {MESH_ATOL} (worst excess {bad:.2e} at "
+              f"{pname}); grouped launches per rank {want} (SIMT, f32); "
+              f"step host wall {res[0][name]['ms']:.1f} / "
+              f"{res[1][name]['ms']:.1f} ms; bytes between card and host "
+              f"per step {res[0][name]['staged']} / "
+              f"{res[1][name]['staged']}; rank 0 decisions "
+              f"{sorted(set(res[0][name]['decisions']))} "
+              f"(x{len(res[0][name]['decisions'])})", flush=True)
+    for r in range(2):
+        if res[r]["mesh_tokens"] != res[0]["one_tokens"]:
+            fail(f"1x2 rank {r} greedy tokens {res[r]['mesh_tokens']} != "
+                 f"1x1 {res[0]['one_tokens']}")
+    print(f"  ServeEngine on 1x2 (ep_a2a, the experts' gate columns per "
+          f"rank, summed over 'model'; paged launches "
+          f"{res[0]['mesh_paged']}): greedy tokens equal 1x1's "
+          f"({res[0]['one_paged']} paged launches): "
+          f"{res[0]['one_tokens']}", flush=True)
+    worst = 0.0
+    for name, layout, dispatch, g in MOE_MESH_RUNS:
+        want = MOE_MESH_LAYERS * moe_grouped_calls(layout, dispatch, g)
+        for r in range(2):
+            b = res[r][f"{name}_bf16"]
+            if b["engines"] != {"wgmma": want, "simt": 0} or not b["finite"]:
+                fail(f"{name} bf16 prefill rank {r}: grouped launches "
+                     f"{b['engines']} (want {want} on the tensor cores), "
+                     f"finite logits {b['finite']}")
+            worst = max(worst, b["err"])
+        b = res[0][f"{name}_bf16"]
+        print(f"  bf16 prefill 1x2 {name}: {want} grouped launches per rank "
+              f"on the tensor cores; first call at h {b['shape'][0]}, w1 "
+              f"{b['shape'][1]}, w2 {b['shape'][2]} against the plain "
+              f"version: max|err| {b['err']:.3e} / "
+              f"{res[1][f'{name}_bf16']['err']:.3e} (tolerance "
+              f"{dict(GROUPED_TOL)['bfloat16']} x max|want|), f32 down "
+              f"product off by {b['rel']:.2e}, bf16 output equal on "
+              f"{b['share']:.4f}; prefill host wall {b['ms']:.1f} / "
+              f"{res[1][f'{name}_bf16']['ms']:.1f} ms", flush=True)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the SSM, hybrid, audio and vision families on one card
+# ---------------------------------------------------------------------------
+
+#: (what, B, Sq, Skv, H, KV, hd, causal, window): flash at the families'
+#: new shapes — hymba's 1024 window over 2048 positions (its heads padded
+#: 25 -> 32, kv 5 -> 8), whisper's non-causal encoder over 1500 frames (a
+#: ragged length) and its cross-attention of 448 positions over them,
+#: internvl's GQA 16/2; hd 64 (the tensor-core kernels) and hd 16 (the
+#: reduced configs')
+FAMILY_FLASH = [
+    ("hymba window", 2, 2048, 2048, 32, 8, 64, True, 1024),
+    ("whisper encoder", 2, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper cross", 2, 448, 1500, 16, 16, 64, False, 0),
+    ("internvl", 2, 1024, 1024, 16, 2, 64, True, 0),
+    ("reduced hymba window", 2, 64, 64, 4, 2, 16, True, 16),
+    ("reduced whisper cross", 2, 12, 16, 4, 4, 16, False, 0),
+]
+FAM_NEW = 16
+FAM_TRAIN_S = 2048
+#: the long prompt of hymba's 2-layer paged check: past its 1024 window
+HYMBA_LONG_PROMPT = 1100
+
+
+def family_flash_checks(torch) -> float:
+    """The flash kernels (forward and backward) against the plain
+    versions at FAMILY_FLASH, f32 at 1e-4 and bf16 at 2e-2 of the largest
+    magnitude, as phase 2; returns the worst bf16 error."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    worst = 0.0
+    for what, b, sq, skv, h, kvh, hd, causal, window in FAMILY_FLASH:
+        line = []
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            q, k, v, dout = flash_inputs(torch, gen, b, sq, skv, h, kvh, hd,
+                                         dtype)
+            kw = dict(causal=causal, window=window)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            want_out, _ = fa.flash_attention_torch(q.float(), k.float(),
+                                                   v.float(), **kw)
+            wants = fa.flash_attention_bwd_torch(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), **kw)
+            for name, got, want in (("out", out, want_out),
+                                    ("dq", grads[0], wants[0]),
+                                    ("dk", grads[1], wants[1]),
+                                    ("dv", grads[2], wants[2])):
+                err = (got.float() - want).abs().max().item()
+                scale = max(1.0, want.abs().max().item())
+                if not err <= tol * scale:
+                    fail(f"flash {name} at {what} ({str(dtype)[6:]}): "
+                         f"max|err| {err:.3e} > {tol} x {scale:.3g}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                line.append(f"{str(dtype)[6:]} {name} {err:.1e}")
+        print(f"  flash kernels vs plain at {what} (B={b}, Sq={sq}, Skv={skv},"
+              f" H={h}, KV={kvh}, hd={hd}, causal={causal}, window={window})"
+              f": {', '.join(line)}", flush=True)
+    return worst
+
+
+def family_batch(torch, cfg, b, s, seed):
+    """A training batch of ``cfg`` with its stub frames or patches."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b, seed=seed))
+    batch = train_batch(torch, data, 0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn((b, cfg.encoder.n_frames, cfg.d_model),
+                                      generator=gen, device="cuda")
+    if cfg.vision is not None:
+        batch["patches"] = torch.randn((b, cfg.vision.n_patches,
+                                        cfg.d_model), generator=gen,
+                                       device="cuda")
+    return batch
+
+
+def attention_calls(cfg) -> int:
+    """Flash-attention calls of one forward: one per decoder layer, plus
+    the encoder's layers and the decoder's cross-attention (whisper); none
+    for the SSM family."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.encoder is not None:
+        return cfg.encoder.n_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def family_train(torch, cfg, b, s, *, grads: bool):
+    """One build_train_step step (AdamW) from seeded weights, with exact
+    flash launch counts (forward and remat replay, one backward per
+    call); with ``grads`` every gradient of a separate loss_sp is checked
+    finite first.  Returns (loss, grad_norm, ms, largest |gradient|)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model, flatten_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import build_train_step
+
+    model = Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    batch = family_batch(torch, cfg, b, s, SEED)
+    gmax = None
+    if grads:
+        loss, _ = model.loss_sp(batch)
+        leaves = flatten_specs(model.params())
+        gs = torch.autograd.grad(loss, list(leaves.values()))
+        bad = [n for n, g in zip(leaves, gs) if not torch.isfinite(g).all()]
+        if bad or not torch.isfinite(loss):
+            fail(f"{cfg.name} {cfg.dtype}: loss {float(loss)}, gradients "
+                 f"not finite: {bad[:8]}")
+        gmax = max(g.abs().max().item() for g in gs)
+        del gs, loss
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    step = build_train_step(model, opt_cfg)
+    opt = adamw_init(model.params(), opt_cfg)
+    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step(opt, batch)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = attention_calls(cfg)
+    want = (2 * n if cfg.remat else n, n)
+    if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
+        fail(f"{cfg.name} train step: flash launches {fa.FWD_LAUNCHES} / "
+             f"{fa.BWD_LAUNCHES}, not {want}")
+    if not (np.isfinite(loss) and np.isfinite(norm)):
+        fail(f"{cfg.name} train step: loss {loss}, grad_norm {norm}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return loss, norm, ms, gmax
+
+
+def family_parity(torch, cfg, b, s):
+    """At full width, 2 layers, f32 (TF32 off): loss_sp and every gradient
+    with the flash kernels against ``attn_engine="torch"`` (phase 6's
+    tolerances), with exact flash launch counts; returns the worst
+    gradient error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model, flatten_specs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = family_batch(torch, cfg, b, s, SEED + 1)
+    n = attention_calls(cfg)
+    runs = {}
+    for engine in ("auto", "torch"):
+        model = Model(cfg, device="cuda", attn_engine=engine).init(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        loss, _ = model.loss_sp(batch)
+        leaves = flatten_specs(model.params())
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        want = (2 * n, n) if engine == "auto" else (0, 0)
+        if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
+            fail(f"{cfg.name} parity ({engine}): flash launches "
+                 f"{fa.FWD_LAUNCHES} / {fa.BWD_LAUNCHES}, not {want}")
+        runs[engine] = dict(loss=loss.item(), grads=grads)
+        del model
+    worst = check_loss_and_grads(runs["auto"], runs["torch"],
+                                 f"{cfg.name} 2 layers f32")
+    print(f"  {cfg.name} full width, 2 layers, f32 (TF32 off), B={b}, S={s}"
+          f": loss {runs['auto']['loss']:.6f} (kernels) vs "
+          f"{runs['torch']['loss']:.6f} (plain); every gradient within "
+          f"{worst[0]:.2e} of its largest magnitude (tolerance 1e-4); "
+          f"flash launches {2 * n} / {n}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    return worst[0]
+
+
+def phase_families(torch, root, card):
+    """Phase 13: mamba2-130m, hymba-1.5b, whisper-small and internvl2-1b
+    at their published sizes (bf16, seeded random weights), then each at
+    2 layers in f32 with the kernels against the plain path."""
+    from repro_torch import configs
+    from repro_torch.configs.base import EncoderConfig, ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.serve_loop import Generator
+
+    t13 = time.perf_counter()
+    flash_worst = family_flash_checks(torch)
+    rng = np.random.default_rng(SEED + 13)
+
+    # mamba2-130m: the engine's slot state against the contiguous cache
+    cfg = configs.get_config("mamba2-130m")
+    model = Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = rng.integers(0, cfg.vocab_size - 1, size=(8, 48)).astype(
+        np.int32)
+    fa.FWD_LAUNCHES = paged.LAUNCHES = 0
+    eng = ServeEngine(model, slots=8, page_size=16, max_seq=96,
+                      schedule="static")
+    rids = [eng.submit(p, FAM_NEW) for p in prompts]
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = np.stack([out[r] for r in rids])
+    contiguous = Generator(model, ShapeConfig("s", 96, 8, "decode")).generate(
+        prompts, FAM_NEW)
+    if not np.array_equal(served, contiguous):
+        fail(f"mamba2-130m: ServeEngine tokens {served.tolist()} != "
+             f"contiguous Generator {contiguous.tolist()}")
+    if fa.FWD_LAUNCHES or paged.LAUNCHES:
+        fail(f"mamba2-130m launched attention kernels: flash "
+             f"{fa.FWD_LAUNCHES}, paged {paged.LAUNCHES}")
+    print(f"  mamba2-130m ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.ssm_heads} SSM heads, d_state {cfg.ssm.d_state}, bf16): "
+          f"8 requests of 48 tokens + {FAM_NEW} new through ServeEngine in "
+          f"{wall:.2f} s ({eng.decode_steps} decode steps, "
+          f"{wall / eng.decode_steps * 1e3:.2f} ms host wall each); tokens "
+          f"equal the contiguous Generator's; no attention launch",
+          flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+
+    # hymba-1.5b: the window bites in a 2048-token prefill
+    cfg = configs.get_config("hymba-1.5b")
+    model = Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size - 1, size=(2, 2048)).astype(np.int32)).cuda()
+    model.prefill_sp({"tokens": tokens[:, :256]})             # warm-up
+    fa.FWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    if fa.FWD_LAUNCHES != cfg.n_layers or not torch.isfinite(logits).all():
+        fail(f"hymba prefill: {fa.FWD_LAUNCHES} flash launches (want "
+             f"{cfg.n_layers}), finite {bool(torch.isfinite(logits).all())}")
+    del logits, cache
+    hp = [rng.integers(0, cfg.vocab_size - 1, size=int(p)).astype(np.int32)
+          for p in rng.integers(32, 129, size=4)]
+    got, eng, wall, launches = serve(torch, model, hp, FAM_NEW,
+                                     schedule="static")
+    if launches != cfg.n_layers * eng.decode_steps or any(
+            len(t) != FAM_NEW for t in got):
+        fail(f"hymba serving: paged launches {launches} != "
+             f"{cfg.n_layers} x {eng.decode_steps}")
+    print(f"  hymba-1.5b ({cfg.n_layers} layers, heads {cfg.n_heads} -> "
+          f"{cfg.padded_heads}, {cfg.ssm_heads} SSM heads, window "
+          f"{cfg.sliding_window} except layers {cfg.full_attn_layers}, "
+          f"bf16): prefill 2 x 2048 in {pre_ms:.1f} ms ({cfg.n_layers} flash "
+          f"launches); 4 requests served in {wall:.2f} s, paged launches "
+          f"{launches} = {cfg.n_layers} x {eng.decode_steps} decode steps",
+          flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+    loss, norm, ms, _ = family_train(torch, cfg, 1, FAM_TRAIN_S, grads=False)
+    print(f"  hymba-1.5b bf16 train step 1 x {FAM_TRAIN_S}: loss {loss:.4f},"
+          f" grad_norm {norm:.4f}, {ms:.1f} ms host wall, flash launches "
+          f"{2 * cfg.n_layers} / {cfg.n_layers}", flush=True)
+
+    # whisper-small and internvl2-1b: prefill with the stubs, 16 tokens
+    for arch, s in (("whisper-small", 448), ("internvl2-1b", 1024)):
+        cfg = configs.get_config(arch)
+        model = Model(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        batch = family_batch(torch, cfg, 2, s, SEED + 2)
+        stubs = {k: v.cpu().numpy() for k, v in batch.items()
+                 if k in ("frames", "patches")}
+        prompt = batch["tokens"].cpu().numpy()
+        gen = Generator(model, ShapeConfig("s", s + FAM_NEW, 2, "decode"))
+        gen.prefill_generate(prompt[:, :64], 2, **stubs)       # warm-up
+        fa.FWD_LAUNCHES = paged.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = gen.prefill_generate(prompt, FAM_NEW, **stubs)
+        wall = time.perf_counter() - t0
+        n = attention_calls(cfg)
+        if (fa.FWD_LAUNCHES, paged.LAUNCHES) != (n, 0):
+            fail(f"{arch}: flash launches {fa.FWD_LAUNCHES} (want {n}), "
+                 f"paged {paged.LAUNCHES}")
+        if toks.shape != (2, FAM_NEW) or toks.min() < 0 or \
+                toks.max() >= cfg.padded_vocab:
+            fail(f"{arch}: generated {toks.tolist()}")
+        stub = (f"{cfg.encoder.n_frames} stub frames" if cfg.encoder
+                else f"{cfg.vision.n_patches} stub patches")
+        print(f"  {arch} ({cfg.n_layers} layers, d {cfg.d_model}, bf16): "
+              f"{stub}, prefill 2 x {s} and {FAM_NEW} greedy tokens in "
+              f"{wall:.2f} s, {n} flash launches (none in decode): "
+              f"{toks[0].tolist()}", flush=True)
+        del model, gen
+        torch.cuda.empty_cache()
+
+    # f32 training at full size: every gradient finite at chunk 256
+    for arch in ("mamba2-130m", "hymba-1.5b"):
+        cfg = dataclasses.replace(configs.get_config(arch), dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        loss, norm, ms, gmax = family_train(torch, cfg, 1, FAM_TRAIN_S,
+                                            grads=True)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  {arch} f32 full size, {cfg.n_layers} layers, 1 x "
+              f"{FAM_TRAIN_S} (SSD chunk {cfg.ssm.chunk}): every gradient "
+              f"finite (largest |g| {gmax:.3e}); train step loss "
+              f"{loss:.4f}, grad_norm {norm:.4f}, {ms:.1f} ms, peak memory "
+              f"{peak:.2f} GB", flush=True)
+
+    # each family at 2 layers in f32: kernels against the plain path
+    worst = 0.0
+    for arch, b, s in (("mamba2-130m", 1, 512), ("hymba-1.5b", 1, 2048),
+                       ("whisper-small", 2, 448), ("internvl2-1b", 2, 1024)):
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=2,
+                                  dtype="float32")
+        if cfg.encoder is not None:
+            cfg = dataclasses.replace(cfg, encoder=EncoderConfig(
+                n_layers=2, n_frames=cfg.encoder.n_frames))
+        worst = max(worst, family_parity(torch, cfg, b, s))
+
+    # hymba's paged kernel at 2 layers in f32: against the plain paged
+    # path on the short prompts, then, with one prompt long enough that
+    # the window masks positions in the windowed layer's decode steps,
+    # against the contiguous cache (the plain paged path loops over the
+    # table's pages in Python: about 95 ms a step at 70 pages)
+    cfg = dataclasses.replace(configs.get_config("hymba-1.5b"), n_layers=2,
+                              dtype="float32")
+    windowed = [i for i in range(cfg.n_layers)
+                if transformer.layer_window(cfg, i)]
+    long = rng.integers(0, cfg.vocab_size - 1,
+                        size=HYMBA_LONG_PROMPT).astype(np.int32)
+    hp2 = [long] + hp[:3]
+    last_pos = max(len(p) for p in hp2) + FAM_NEW - 2
+    max_seq = -(-(last_pos + 1) // 16) * 16
+    if windowed != [1] or last_pos - cfg.sliding_window < 1:
+        fail(f"hymba 2 layers: windowed layers {windowed}, last decode "
+             f"position {last_pos}: the window masks nothing")
+    toks = {}
+    for engine in ("auto", "torch"):
+        model = Model(cfg, device="cuda", paged_engine=engine).init(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        got, eng, _, launches = serve(torch, model, hp, FAM_NEW,
+                                      schedule="static")
+        want = cfg.n_layers * eng.decode_steps if engine == "auto" else 0
+        if launches != want:
+            fail(f"hymba 2 layers ({engine}): paged launches {launches}, "
+                 f"not {want}")
+        toks[engine] = [t.tolist() for t in got]
+        del eng
+        if engine == "auto":
+            got, eng, wall, launches = serve(torch, model, hp2, FAM_NEW,
+                                             max_seq=max_seq,
+                                             schedule="static")
+            steps = eng.decode_steps
+            if launches != cfg.n_layers * steps:
+                fail(f"hymba 2 layers, long prompt: paged launches "
+                     f"{launches}, not {cfg.n_layers} x {steps}")
+            toks["long"] = [t.tolist() for t in got]
+            gen = Generator(model, ShapeConfig("s", max_seq, 1, "decode"))
+            toks["contiguous"] = [
+                gen.prefill_generate(p[None], FAM_NEW)[0].tolist()
+                for p in hp2]
+            del eng, gen
+        del model
+    if toks["auto"] != toks["torch"]:
+        fail(f"hymba 2 layers f32: paged kernel tokens {toks['auto']} != "
+             f"plain {toks['torch']}")
+    if toks["long"] != toks["contiguous"]:
+        fail(f"hymba 2 layers f32, long prompt: paged kernel tokens "
+             f"{toks['long']} != contiguous {toks['contiguous']}")
+    print(f"  hymba-1.5b 2 layers f32 (layer 0 global, layer 1 windowed "
+          f"{cfg.sliding_window}): the engine's greedy tokens with the paged "
+          f"kernel equal the plain paged path's for prompts of "
+          f"{[len(p) for p in hp]} + {FAM_NEW}; for prompts of "
+          f"{[len(p) for p in hp2]} + {FAM_NEW} (decode positions up to "
+          f"{last_pos}, past the window; {cfg.n_layers} x {steps} paged "
+          f"launches, {wall:.2f} s) they equal the contiguous Generator's "
+          f"(prefill_sp, then the ring-buffer cache)", flush=True)
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    ex = subprocess.run([sys.executable, "-m",
+                         "repro_torch.examples.serve_batched"], env=env,
+                        capture_output=True, text=True, timeout=600)
+    if ex.returncode != 0 or ex.stdout.count("request ") != 4:
+        fail(f"serve_batched on the card: {ex.stdout[-2000:]} "
+             f"{ex.stderr[-2000:]}")
+    for line in ex.stdout.splitlines():
+        print(f"  serve_batched: {line}", flush=True)
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s (worst bf16 "
+          f"flash error at the families' shapes {flash_worst:.3e}; worst "
+          f"2-layer gradient error {worst:.2e})", flush=True)
 
 
 def main() -> int:
@@ -3124,6 +3871,12 @@ def main() -> int:
     print("phase 11: two ranks on one card (1x2 and 2x1 meshes, serving, "
           "Jacobi)", flush=True)
     phase_mesh(torch, root, card)
+    print("phase 12: MoE across ranks (moonshot-v1-16b-a3b on a 1x2 mesh "
+          "of two processes)", flush=True)
+    phase_moe_mesh(torch, card)
+    print("phase 13: the SSM, hybrid, audio and vision families",
+          flush=True)
+    phase_families(torch, root, card)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
@@ -3179,9 +3932,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:
+    if sys.argv[1:2] in (["--mesh-rank"], ["--moe-mesh-rank"]):
         sys.path.insert(0, os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "src"))
-        mesh_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        rank_main = (mesh_rank_main if sys.argv[1] == "--mesh-rank"
+                     else moe_mesh_rank_main)
+        rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     sys.exit(main())

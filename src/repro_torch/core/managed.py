@@ -15,9 +15,13 @@ At axis size 1 each is the identity.  The serving resolvers
 resolver (``resolve_halo_aggregation``), the MoE dispatch resolver
 (``resolve_moe_dispatch``), the attention-schedule resolver
 (``resolve_attention_schedule``) and the generic call-site resolver
-``_resolve`` run on the host and price with ``DEFAULT_HW``.  MoE across
-ranks (``managed_expert_stream``, ``managed_psum_scatter_gather``) is
-ROADMAP Queue 1 item 3.
+``_resolve`` run on the host and price with ``DEFAULT_HW``.
+
+``managed_expert_stream`` (expert parallelism) streams the MoE capacity
+buffers around the expert-parallel ring: each block's permute is posted
+before the previous block's expert FFN runs, and each chunk's result goes
+home with its own permute.  ``managed_psum_scatter_gather`` is the
+all-reduce as a reduce-scatter followed by an all-gather.
 
 ``managed_ring_attention`` (context parallelism) runs over a process
 group too: kv blocks travel around the ring by batched point-to-point
@@ -262,18 +266,19 @@ def _split(x: torch.Tensor, chunks: int) -> list[torch.Tensor]:
 
 
 def _permute_start(tensors: list[torch.Tensor], group: Group, idx: int,
-                   n: int, tag0: int = 0
+                   n: int, tag0: int = 0, shift: int = 1
                    ) -> tuple[list[torch.Tensor], transport.Pending]:
     """Post one ring step (the reference's ``_ring_perm``: rank i sends to
-    i + 1): every tensor goes to the next rank, and the previous rank's
-    arrive in fresh buffers once the returned ``Pending`` has been waited
-    for.  Tags keep the messages apart where next and previous are the
+    i + ``shift``): every tensor goes to rank idx + shift, and rank idx -
+    shift's arrive in fresh buffers once the returned ``Pending`` has been
+    waited for.  Tags keep the messages apart where both peers are the
     same rank (n = 2).  The sent tensors must stay unchanged until
     then."""
     recv = [torch.empty_like(t) for t in tensors]
     pending = transport.p2p_start(
-        [(t, (idx + 1) % n, tag0 + i) for i, t in enumerate(tensors)],
-        [(r, (idx - 1) % n, tag0 + i) for i, r in enumerate(recv)], group)
+        [(t, (idx + shift) % n, tag0 + i) for i, t in enumerate(tensors)],
+        [(r, (idx - shift) % n, tag0 + i) for i, r in enumerate(recv)],
+        group)
     return recv, pending
 
 
@@ -788,6 +793,113 @@ def resolve_halo_aggregation(axis_name: str, axis_size: int,
     return decision
 
 
+# ---------------------------------------------------------------------------
+# Managed expert dispatch (expert parallelism)
+#
+# The paper's Figure-3 strategy mapped onto MoE token routing: the [E, C,
+# D] capacity buffers are the declared communication, and instead of one
+# bulk all-to-all each way around the expert FFN, the ring streams one
+# rank-block at a time — the NEXT block's permute is posted before the
+# current block's expert FFN runs, and each of the g capacity chunks'
+# results returns home with its own permute as soon as it is computed.
+# The same math as all-to-all -> FFN -> reverse all-to-all (the bulk
+# oracle).  The reference's backward is plain autodiff over linear
+# permutes; here each permute is a ``torch.autograd.Function`` whose
+# backward is the inverse permute, so autograd streams the backward ring
+# through ``expert_fn``'s own backward.
+# ---------------------------------------------------------------------------
+
+
+class _Permuted(torch.autograd.Function):
+    """``arrived`` (what a permute by ``shift`` brought) as the function of
+    the ``sent`` tensor: its gradient is the inverse permute of the
+    output's gradient."""
+
+    @staticmethod
+    def forward(fctx, sent, arrived, shift, group, idx, n):
+        fctx.args = (group, idx, n, shift)
+        return arrived.view_as(arrived)
+
+    @staticmethod
+    def backward(fctx, dy):
+        group, idx, n, shift = fctx.args
+        (dx,), pending = _permute_start([dy.contiguous()], group, idx, n,
+                                        shift=-shift)
+        pending.wait()
+        return dx, None, None, None, None, None
+
+
+def managed_expert_stream(buffers: torch.Tensor, counts: torch.Tensor,
+                          axis_name: str, ctx: MeshCtx, expert_fn, *,
+                          g: int = 1) -> torch.Tensor:
+    """Stream expert-capacity buffers around ``axis_name``.
+
+    buffers: [E, C, D] capacity rows of THIS rank's tokens (expert-major,
+    experts sharded E_loc = E/n per rank); counts: [E] int valid-row
+    counts (rows past the count are zero padding); ``expert_fn(block,
+    valid)`` applies this rank's LOCAL experts to an [E_loc, c, D] block
+    (c = C/g) with per-expert valid counts [E_loc].  Returns [E, C, D]:
+    row-block e holds the processed rows of expert e for MY tokens —
+    exactly ``managed_all_to_all -> ffn -> reverse managed_all_to_all``.
+    """
+    n = _axis_size(axis_name, ctx)
+    e, c, d = buffers.shape
+    if n == 1:
+        return expert_fn(buffers, counts)
+    if e % n:
+        raise ValueError(f"expert_stream: {e} experts over {n} ranks")
+    eff_g = g if (g >= 1 and c % max(1, g) == 0) else 1
+    _resolve("expert_stream", axis_name, ctx, _nbytes(buffers),
+             "interleaved", eff_g, "all_to_all")
+    with dispatch_span("moe.expert_stream", buffers, op="expert_stream",
+                       axis=axis_name, nbytes=_nbytes(buffers),
+                       chunks=eff_g, buffer="expert_buffers"):
+        return _expert_stream_body(
+            buffers.reshape(n, e // n, c, d), counts.reshape(n, e // n),
+            ctx.group(axis_name), ctx.axis_index(axis_name), n, eff_g,
+            expert_fn)
+
+
+def _expert_stream_body(blocks, cnt_blocks, group, idx, n, eff_g,
+                        expert_fn):
+    _, e_loc, c, d = blocks.shape
+    cs = c // eff_g
+    out = [None] * n
+    cur, cur_cnt = blocks[idx], cnt_blocks[idx]
+    for s in range(n):
+        if s + 1 < n:
+            # post the NEXT block's transfer before this block's FFN
+            send_to = (idx + s + 1) % n
+            (nxt, nxt_cnt), pending = _permute_start(
+                [blocks[send_to].detach(), cnt_blocks[send_to]], group,
+                idx, n, shift=s + 1)
+        rets, back = [], []
+        for j in range(eff_g):
+            vj = torch.clamp(cur_cnt - j * cs, 0, cs)
+            yj = expert_fn(cur[:, j * cs:(j + 1) * cs].contiguous(), vj)
+            if s > 0:
+                # the chunk's result returns to its source rank while the
+                # next chunk's FFN runs
+                (arr,), ret = _permute_start([yj.detach().contiguous()], group,
+                                             idx, n, tag0=2 + j, shift=-s)
+                back.append(ret)
+                yj = (yj, arr)
+            rets.append(yj)
+        for ret in back:
+            ret.wait()
+        if s > 0:
+            rets = [_Permuted.apply(y, arr, -s, group, idx, n)
+                    for y, arr in rets]
+        # what arrived in the return permutes: rank idx+s's experts'
+        # output on MY capacity rows
+        out[(idx + s) % n] = torch.cat(rets, dim=1) if eff_g > 1 else rets[0]
+        if s + 1 < n:
+            pending.wait()
+            cur = _Permuted.apply(blocks[send_to], nxt, s + 1, group, idx, n)
+            cur_cnt = nxt_cnt
+    return torch.cat(out, dim=0)
+
+
 def resolve_moe_dispatch(axis_name: str, axis_size: int, tokens_local: int,
                          d_model: int, n_experts: int, top_k: int,
                          d_ff_expert: int, *, mults: int = 3,
@@ -1076,3 +1188,19 @@ def resolve_attention_schedule(axis_name: str, axis_size: int, batch: int,
             predicted_bulk_s=decision.bulk_s,
             predicted_interleaved_s=decision.chosen_s))
     return decision
+
+
+# ---------------------------------------------------------------------------
+# Convenience: sequence-parallel psum replacement
+# ---------------------------------------------------------------------------
+
+
+def managed_psum_scatter_gather(x: torch.Tensor, axis_name: str,
+                                ctx: MeshCtx, *,
+                                mode: str | None = None) -> torch.Tensor:
+    """The all-reduce as a reduce-scatter then an all-gather, so that the
+    two halves can straddle compute (Megatron-SP style); numerically the
+    all-reduce."""
+    return managed_all_gather(
+        managed_reduce_scatter(x, axis_name, ctx, mode=mode), axis_name,
+        ctx, mode=mode)

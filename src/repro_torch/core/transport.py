@@ -12,7 +12,8 @@ failure.  ``REGISTRY`` counts under ``STAGED_BYTES`` every byte that
 crosses between the card and host memory, each way: the copies made
 here, and those gloo makes itself when it all-reduces a CUDA tensor (the
 message to host memory and the sum back).  Gloo has no reduce-scatter: a
-gloo group reduces the whole message and keeps its block.
+gloo group reduces the whole message and keeps its block; nor, in every
+build, an all-to-all: a gloo group sends the blocks point to point.
 """
 
 from __future__ import annotations
@@ -104,13 +105,19 @@ def reduce_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
 def all_to_all(blocks: Sequence[torch.Tensor],
                group: Group) -> list[torch.Tensor]:
     """``blocks[j]`` goes to rank j; returns the blocks received, in
-    source-rank order (blocks of one shape)."""
+    source-rank order (blocks of one shape).  Gloo has no all-to-all in
+    every build: over a gloo group the blocks go as one batch of
+    point-to-point messages (staged through host buffers for CUDA
+    tensors, as every gloo message)."""
     src = [b.detach().contiguous() for b in blocks]
-    if stages("all_to_all", group, src[0]):
-        host = [_to_host(b) for b in src]
-        got = [torch.empty_like(h) for h in host]
-        dist.all_to_all(got, host, group=group)
-        return [_to_device(g, src[0]) for g in got]
+    if dist.get_backend(group) == "gloo":
+        me = dist.get_rank(group)
+        got = [torch.empty_like(b) for b in src]
+        got[me] = src[me].clone()
+        peers = [j for j in range(len(src)) if j != me]
+        p2p_start([(src[j], j, 0) for j in peers],
+                  [(got[j], j, 0) for j in peers], group).wait()
+        return got
     got = [torch.empty_like(b) for b in src]
     dist.all_to_all(got, src, group=group)
     return got

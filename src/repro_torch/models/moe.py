@@ -1,5 +1,5 @@
 """Mixture-of-Experts blocks (port of ``repro.models.moe``): two layouts
-x three managed dispatch schedules, run per rank at axis size 1.
+x three managed dispatch schedules, per rank over the ``model`` axis.
 
 Layouts:
 
@@ -11,15 +11,19 @@ Layouts:
 Dispatch schedules (``cfg.moe.dispatch``, resolved by
 ``managed.resolve_moe_dispatch``): ``bulk`` (capacity buffers through
 one all_to_all each way), ``stream`` (the buffers streamed around the EP
-ring; at axis size 1, as in the reference, it takes the bulk branch),
-``dense`` (every expert on every token, gate-masked: capacity-free) and
-``auto`` (the cost model picks).  Every collective is the identity at
-axis size 1; above it the MoE layers raise (MoE across ranks is ROADMAP
-Queue 1 item 3).
+ring by ``managed.managed_expert_stream``; at axis size 1, as in the
+reference, it takes the bulk branch), ``dense`` (every expert on every
+token, gate-masked: capacity-free) and ``auto`` (the cost model picks).
+Capacity comes from each rank's own tokens, so ranks drop differently
+from one rank unless the capacity factor is high enough.  Every
+collective is the identity at axis size 1.
 
 The expert FFN of the capacity path runs through
 ``kernels/grouped_matmul.py``: the hand-written CUDA kernel on a card,
 whose per-expert valid counts (``expert_counts``) stay on the device.
+Across ranks it runs at shard shapes: the ep_a2a bulk branch's G =
+E_loc * tp groups over E_loc experts, the stream's [E_loc, C/g, D]
+blocks with clipped counts, expert_tp's F_loc = F / tp columns.
 The decode flow computes every expert per token, gate-masked, with plain
 products (the reference's semantics): one ``torch.matmul`` of
 ``x[None]`` [1, B, D] against the stacked [E, D, F] weights, so no
@@ -32,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import managed
+from repro_torch.core import managed, transport
 from repro_torch.core.overlap import fsdp_gather
 from repro_torch.kernels import grouped_matmul
 from repro_torch.models import layers
@@ -130,13 +134,6 @@ def _all_experts(x2: torch.Tensor, w1: torch.Tensor,
     return torch.matmul(act, w2)
 
 
-def _require_tp1(what: str, ctx: MeshCtx) -> None:
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            f"{what} over a model axis of size {ctx.tp}: MoE across ranks "
-            "is ROADMAP Queue 1 item 3")
-
-
 # ---------------------------------------------------------------------------
 # ep_a2a: expert-parallel dispatch across the 'model' axis
 # ---------------------------------------------------------------------------
@@ -150,13 +147,16 @@ def _dense_fallback_ep(x2: torch.Tensor, gates: torch.Tensor,
     """The no-dispatch schedule: all-gather the tokens, run this rank's
     E_loc experts on the FULL token set gate-masked, reduce-scatter the
     outputs back.  Capacity-free: no token is ever dropped."""
+    e_loc = n_experts // ctx.tp
     ge = _scatter_gates(gates, top_idx, n_experts)          # [t, E]
     x_full = managed.managed_all_gather(x2, "model", ctx,
                                         mode=ctx.mdmp_mode)
     ge_full = managed.managed_all_gather(ge.to(x2.dtype), "model", ctx,
                                          mode=ctx.mdmp_mode)
-    o = _all_experts(x_full, w1, w1g, w2, cfg.mlp)           # [E, T, D]
-    y_part = torch.einsum("etd,te->td", o, ge_full.to(o.dtype))
+    o = _all_experts(x_full, w1, w1g, w2, cfg.mlp)        # [E_loc, T, D]
+    eidx = ctx.axis_index("model") * e_loc
+    g_loc = ge_full[:, eidx:eidx + e_loc]
+    y_part = torch.einsum("etd,te->td", o, g_loc.to(o.dtype))
     return managed.managed_reduce_scatter(y_part, "model", ctx,
                                           mode=ctx.mdmp_mode)
 
@@ -169,7 +169,6 @@ def moe_block_ep(x: torch.Tensor, params: dict, cfg: ModelConfig,
     'model'; tokens routed under the managed dispatch schedule.
     ``dispatch`` is a resolved (schedule, g, cf), resolved here when
     None; ``engine`` pins the grouped FFN's engine."""
-    _require_tp1("moe_block_ep", ctx)
     e_cfg = cfg.moe
     b, s_loc, d = x.shape
     t = b * s_loc
@@ -191,18 +190,33 @@ def moe_block_ep(x: torch.Tensor, params: dict, cfg: ModelConfig,
     dest, tok, keep, order = dispatch_indices(top_idx, e, cap)
     buffers = gather_to_buffers(x2, dest, tok, keep, e, cap)
     counts = expert_counts(top_idx, e, cap)
-    # "stream" streams around the EP ring above axis size 1; at tp=1 the
-    # reference takes the bulk branch below, and so does the port
-    # [E, C, D] -> [E_loc, tp*C, D] through the all_to_all, the kept
-    # counts alongside (tp=1: both as they are)
-    recv = managed.managed_all_to_all(buffers, "model", ctx, split_axis=0,
-                                      concat_axis=1, mode=ctx.mdmp_mode)
-    e_loc = e // tp
-    hg = recv.reshape(e_loc * tp, cap, d)
-    out_g = _expert_ffn(hg, w1, w1g, w2, cfg.mlp, counts, engine)
-    out = out_g.reshape(e_loc, tp * cap, d)
-    back = managed.managed_all_to_all(out, "model", ctx, split_axis=1,
-                                      concat_axis=0, mode=ctx.mdmp_mode)
+
+    if schedule == "stream" and tp > 1:
+        def expert_fn(blk, valid):
+            return _expert_ffn(blk, w1, w1g, w2, cfg.mlp, valid, engine)
+
+        back = managed.managed_expert_stream(buffers, counts, "model", ctx,
+                                             expert_fn, g=g)
+    else:
+        # tokens cross the EP axis: [E, C, D] -> [E_loc, tp*C, D]; the
+        # per-expert kept counts ride along on an int all-to-all so the
+        # grouped kernel skips the padded capacity rows on the receiving
+        # side (G = E_loc * tp groups, tp per expert)
+        recv = managed.managed_all_to_all(buffers, "model", ctx,
+                                          split_axis=0, concat_axis=1,
+                                          mode=ctx.mdmp_mode)
+        e_loc = e // tp
+        cnt_recv = counts
+        if tp > 1:
+            cnt_recv = torch.cat(transport.all_to_all(
+                list(counts.chunk(tp)), ctx.group("model")))
+        hg = recv.reshape(e_loc * tp, cap, d)
+        vg = cnt_recv.reshape(tp, e_loc).T.reshape(e_loc * tp)
+        out_g = _expert_ffn(hg, w1, w1g, w2, cfg.mlp, vg, engine)
+        out = out_g.reshape(e_loc, tp * cap, d)
+        # route results back
+        back = managed.managed_all_to_all(out, "model", ctx, split_axis=1,
+                                          concat_axis=0, mode=ctx.mdmp_mode)
     y2 = combine_from_buffers(back, dest, tok, keep, gates, order, t)
     return y2.reshape(b, s_loc, d).to(x.dtype), aux
 
@@ -221,7 +235,6 @@ def moe_block_expert_tp(x: torch.Tensor, params: dict, cfg: ModelConfig,
     the down-projection reduce-scatters back to sequence shards.  "stream"
     chunks the sequence AG/RS rings; "dense" skips the capacity buffers
     (every expert on every token, gate-masked: capacity-free)."""
-    _require_tp1("moe_block_expert_tp", ctx)
     e_cfg = cfg.moe
     b, s_loc, d = x.shape
     schedule, g, cf = dispatch or resolve_dispatch(cfg, ctx, b * s_loc,
@@ -274,9 +287,9 @@ def moe_block_decode(x: torch.Tensor, params: dict, cfg: ModelConfig,
                      ctx: MeshCtx) -> torch.Tensor:
     """x: [B, D_loc(data)] -> [B, D_loc(data)].  Every rank routes the
     replicated batch identically; expert weights stay in place and every
-    expert is computed per token, gate-masked (the ep_a2a rank would keep
-    its E_loc gate columns; at tp=1 that is all of them)."""
-    _require_tp1("moe_block_decode", ctx)
+    local expert is computed per token, gate-masked: an ep_a2a rank keeps
+    the gate columns of its E_loc experts, an expert_tp rank all of them
+    (its ff partials sum over 'model')."""
     e_cfg = cfg.moe
     e = e_cfg.n_experts
 
@@ -296,7 +309,11 @@ def moe_block_decode(x: torch.Tensor, params: dict, cfg: ModelConfig,
     else:
         u = managed.managed_all_reduce(u, "data", ctx, mode=ctx.mdmp_mode)
         act = layers.activation(cfg.mlp, u, None)
-    part = torch.matmul(act, params["w2"])                      # [E, B, D]
+    part = torch.matmul(act, params["w2"])                  # [E_loc, B, D]
+    if moe_layout(cfg, ctx) == "ep_a2a":
+        e_loc = e // ctx.tp
+        eidx = ctx.axis_index("model") * e_loc
+        gate_full = gate_full[:, eidx:eidx + e_loc]
     y = torch.einsum("ebd,be->bd", part, gate_full.to(part.dtype))
     y = managed.managed_all_reduce(y, "model", ctx, mode=ctx.mdmp_mode)
     return y.to(x.dtype)

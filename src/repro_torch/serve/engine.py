@@ -19,7 +19,10 @@ requests: the table holds global page ids, and each rank's pools hold
 its shard of the pages (sharded over the cache axes, rank r owning ids
 [r*Np_loc, (r+1)*Np_loc)); a sharded pool preempts by recompute only,
 since a swapped chain would come back on other ranks' pages.  The
-engine serves the dense and MoE decoder families.
+engine serves every token-only decoder family (dense, MoE, SSM, hybrid):
+SSM state is slot-indexed and masked, so "paging" is slot reuse there,
+and those families preempt by recompute (a swap moves page chains, not
+slot state).
 
 Overload is a managed condition, not a crash.  Admission is optimistic
 (watermark mode commits only the prompt's pages), and when the pool
@@ -74,6 +77,13 @@ class ServeEngine:
             raise ValueError(
                 "preempt='swap' moves a page chain of one pool; a pool "
                 f"sharded over {n_sh} ranks preempts by recompute")
+        #: the families whose whole per-request state is the page chain
+        self._swappable = (model.cfg.family in ("dense", "moe")
+                           and n_sh == 1)
+        if preempt == "swap" and not self._swappable:
+            raise ValueError(f"preempt='swap' moves page chains; the "
+                             f"{model.cfg.family} family's slot state "
+                             "preempts by recompute")
         self.model = model
         self.device = model.device
         self.slots = slots
@@ -102,10 +112,12 @@ class ServeEngine:
         self._cache_specs = model.paged_cache_specs(slots, n_pages,
                                                     page_size)
         # bytes per pool page, summed across the pools (each pool is
-        # layer-stacked [L, Np + 1, page, KV, hd], so a page spans layers)
+        # layer-stacked [L, Np + 1, page, KV, hd], so a page spans layers;
+        # the slot-indexed SSM state is no page's)
         self._page_bytes = sum(
             math.prod(shape) // shape[1] * dtype.itemsize
-            for shape, dtype in self._cache_specs.values())
+            for name, (shape, dtype) in self._cache_specs.items()
+            if name in ("kp", "vp"))
         self._rid = 0
         # the online-correction trigger (obs.Recalibrator): fire once as
         # soon as 3 quanta are measured, then again whenever the per-step
@@ -403,7 +415,7 @@ class ServeEngine:
             self._n_params, batch_slots=self.slots,
             dtype_bytes=self._dtype_bytes, measured_step_s=step,
             measured_pcie_bw=self.metrics.swap_bw_estimate(),
-            wait_s=wait_s, allow_swap=self._n_sh == 1, policy=policy)
+            wait_s=wait_s, allow_swap=self._swappable, policy=policy)
         if d.policy == "wait":
             return False
         if d.policy == "swap":

@@ -20,8 +20,17 @@ Reduced granite-34b (dense, MQA) in f32, the reference's weights
   * greedy decode through the contiguous cache sharded over (data x
     model) on (2, 2): the reference's 1x1 tokens exactly.
 
-The (2, 2) processes run their four steps, the prefill and the decode;
-the (2, 2, 2) ones start at the same time.
+Reduced mamba2-130m (ssm) and moonshot-v1-16b-a3b (moe, ep_a2a,
+capacity factor 16), the other two families of
+tests/dist_suite/test_model_parallel.py, run in the same processes: one
+train step on (2, 2) in bulk and interleaved mode and on (2, 2, 2) in
+bulk (loss within rtol 2e-4, 1e-3 for the MoE, and updated parameters
+within rtol 2e-3 / atol 3e-4 of the reference's 1x1 step, the
+reference's tolerances), and greedy decode on (2, 2) and (2, 2, 2)
+equal to the reference's 1x1 tokens.
+
+The (2, 2) processes run their steps, the prefill and the decodes; the
+(2, 2, 2) ones start at the same time.
 """
 
 import dataclasses
@@ -52,12 +61,23 @@ ARCH = "granite-34b"
 MESHES = [("2x2", ("bulk", "interleaved", "ulysses", "ring")),
           ("2x2x2", ("bulk",))]
 ATTN_IMPLS = ("ulysses", "ring")
+#: the other families of the reference's suite: mesh -> train modes
+FAMILIES = ("mamba2-130m", "moonshot-v1-16b-a3b")
+FAMILY_MESHES = {"2x2": ("bulk", "interleaved"), "2x2x2": ("bulk",)}
 LR = 1e-2
 
 
-def _ref_cfg():
-    return dataclasses.replace(ref_configs.get_reduced(ARCH),
-                               dtype="float32")
+def _family_cfg(cfg):
+    """f32, and the reference suite's capacity factor 16 for the MoE."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    return cfg
+
+
+def _ref_cfg(arch=ARCH):
+    return _family_cfg(ref_configs.get_reduced(arch))
 
 
 def _prompt(cfg):
@@ -133,6 +153,26 @@ def rank_main(rank, world, init, mesh_spec, modes, inputs, out):
         gen = Generator(model, ShapeConfig("t", seq_len=32, global_batch=4,
                                            kind="decode"))
         res["decode"] = gen.generate(data["prompt"], n_new=5)
+    for arch in FAMILIES:
+        fcfg = _family_cfg(configs.get_reduced(arch))
+        fparams = data[f"params_{arch}"].item()
+        for mode in FAMILY_MESHES[mesh_spec]:
+            model = bridge.params_from_numpy(
+                fparams, Model(fcfg, MeshCtx.from_mesh(mesh, mode),
+                               device="cpu"))
+            step = build_train_step(model, AdamWConfig(lr=LR))
+            _, metrics = step(adamw_init(model.params(), AdamWConfig()),
+                              batch)
+            res[f"{arch}/{mode}_loss"] = float(metrics["loss"])
+            for k, v in flatten_specs(
+                    bridge.params_to_numpy_full(model)).items():
+                res[f"{arch}/{mode}/{k}"] = v
+        model = bridge.params_from_numpy(
+            fparams, Model(fcfg, MeshCtx.from_mesh(mesh, "bulk"),
+                           device="cpu"))
+        gen = Generator(model, ShapeConfig("t", seq_len=32, global_batch=4,
+                                           kind="decode"))
+        res[f"{arch}/decode"] = gen.generate(data["prompt"], n_new=5)
     if rank == 0:
         np.savez(out, **res)
     dist.barrier()
@@ -162,8 +202,16 @@ def runs(tmp_path_factory):
                                        global_batch=4)).global_batch_at(0)
     prompt = _prompt(cfg)
     inputs = tmp / "inputs.npz"
+    fam = {}
+    for arch in FAMILIES:
+        fmodel = RefModel(_ref_cfg(arch),
+                          RefMeshCtx.from_mesh(mesh1, mdmp_mode="bulk"))
+        fam[arch] = (fmodel, jax.tree.map(
+            np.asarray, fmodel.init(jax.random.key(0))))
     np.savez(inputs, params=np.array(params, dtype=object),
-             batch=np.array(batch, dtype=object), prompt=prompt)
+             batch=np.array(batch, dtype=object), prompt=prompt,
+             **{f"params_{a}": np.array(p, dtype=object)
+                for a, (_, p) in fam.items()})
     (tmp / "worker.py").write_text(WORKER.format(tests=str(ROOT / "tests")))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu")
@@ -189,8 +237,21 @@ def runs(tmp_path_factory):
             model, mesh1, RefShapeConfig("t", seq_len=32, global_batch=4,
                                          kind="decode"),
             p).generate(prompt, n_new=5)
+        for arch, (fmodel, fparams) in fam.items():
+            fstep, fpshard, _ = ref_build_train_step(
+                fmodel, RefAdamWConfig(lr=LR), mesh1, donate=False)
+            fp = jax.tree.map(lambda a, s: jax.device_put(a, s), fparams,
+                              fpshard)
+            fp2, _, fm = fstep(fp, ref_adamw_init(fp, RefAdamWConfig()), b)
+            ref[arch] = {"loss": float(fm["loss"]),
+                         "params": _flat(jax.tree.map(np.asarray, fp2)),
+                         "decode": RefGenerator(
+                             fmodel, mesh1,
+                             RefShapeConfig("t", seq_len=32, global_batch=4,
+                                            kind="decode"),
+                             fp).generate(prompt, n_new=5)}
         everyone = [p for ps in procs.values() for p in ps]
-        errs = [p.communicate(timeout=300)[1] for p in everyone]
+        errs = [p.communicate(timeout=420)[1] for p in everyone]
     finally:
         for p in [p for ps in procs.values() for p in ps]:
             p.kill()
@@ -223,3 +284,27 @@ def test_prefill_2x2_matches_reference_one_device(runs):
 def test_decode_2x2_matches_reference_one_device(runs):
     ref, port = runs[0], runs[1]["2x2"]
     np.testing.assert_array_equal(port["decode"], ref["decode"])
+
+
+@pytest.mark.parametrize("arch,spec,mode", [
+    (a, s, m) for a in FAMILIES for s, ms in FAMILY_MESHES.items()
+    for m in ms])
+def test_family_train_step_matches_reference_one_device(runs, arch, spec,
+                                                         mode):
+    """mamba2 and moonshot train steps over the mesh equal the
+    reference's 1x1 step (the reference suite's tolerances)."""
+    ref, port = runs[0][arch], runs[1][spec]
+    rtol = 1e-3 if "moonshot" in arch else 2e-4
+    np.testing.assert_allclose(port[f"{arch}/{mode}_loss"], ref["loss"],
+                               rtol=rtol)
+    for name, want in ref["params"].items():
+        np.testing.assert_allclose(port[f"{arch}/{mode}/{name}"], want,
+                                   rtol=2e-3, atol=3e-4,
+                                   err_msg=f"{arch} {spec} {mode} {name}")
+
+
+@pytest.mark.parametrize("spec", list(FAMILY_MESHES))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_matches_reference_one_device(runs, arch, spec):
+    np.testing.assert_array_equal(runs[1][spec][f"{arch}/decode"],
+                                  runs[0][arch]["decode"])

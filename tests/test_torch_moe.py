@@ -399,17 +399,6 @@ def test_grouped_ffn_engine_pin_reaches_the_block(block_inputs, monkeypatch):
     assert torch.equal(y_auto, y_plain)
 
 
-def test_multi_rank_moe_names_slice_4(block_inputs):
-    x, params = block_inputs
-    tp = {k: _t(v) for k, v in params.items()}
-    ctx = MeshCtx(axis_sizes={"data": 1, "model": 2})
-    for impl in ("ep_a2a", "expert_tp"):
-        cfg = _block_cfgs(impl, "bulk")[1]
-        with pytest.raises(NotImplementedError,
-                           match="MoE across ranks is ROADMAP Queue 1 item 3"):
-            moe.moe_block(_t(x), tp, cfg, ctx, dispatch=("bulk", 1, 8.0))
-
-
 # ---------------------------------------------------------------------------
 # The managed decision
 # ---------------------------------------------------------------------------

@@ -15,7 +15,11 @@ Reduced granite-34b in f32 with the reference's weights:
   * 8 pages on 2x4: every rank owns exactly one page (its cache rank's),
     the 14-token prompt and 5 new tokens live on 5 pages, each written on
     the rank that owns it, and the tokens equal the reference's
-    ``Generator``.
+    ``Generator``;
+  * reduced mamba2-130m (ssm, dist_suite/test_serving.py's other arch):
+    the four prompts' continuous batching on 2x4 — SSM heads sharded over
+    'model', slot state reset on reuse — equal to the reference's 1x1
+    engine and its contiguous ``Generator``.
 """
 
 import dataclasses
@@ -38,6 +42,7 @@ from repro.train.serve_loop import Generator as RefGenerator
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "granite-34b"
+SSM_ARCH = "mamba2-130m"
 ENGINE_KW = dict(slots=2, max_seq=32, page_size=4, schedule="continuous",
                  chunk=4)
 AUTO_KW = dict(slots=2, max_seq=32, page_size=4, schedule="auto")
@@ -85,6 +90,7 @@ def rank_main(rank, world, init, inputs, out):
     from repro_torch.models import attention
     from repro_torch.models.model import Model
     from repro_torch.parallel.sharding import MeshCtx
+    from repro_torch.serve.engine import ServeEngine
 
     torch.set_num_threads(1)
     launch_mesh.init_distributed("cpu", init_method=init, rank=rank,
@@ -104,7 +110,15 @@ def rank_main(rank, world, init, inputs, out):
         Model(cfg, ctx, device="cpu"))
     toks, long_toks, pool = serve_all(model)
     kp = pool.cache["kp"]
+    scfg = dataclasses.replace(configs.get_reduced(SSM_ARCH), dtype="float32")
+    smodel = bridge.params_from_numpy(
+        np.load(inputs, allow_pickle=True)["ssm_params"].item(),
+        Model(scfg, ctx, device="cpu"))
+    eng = ServeEngine(smodel, **ENGINE_KW)
+    rids = [eng.submit(p, 5) for p in _prompts(scfg.vocab_size)]
+    res = eng.run()
     np.savez(out, tokens=toks[0], auto=toks[1], long=long_toks,
+             ssm_tokens=np.stack([res[r] for r in rids]),
              cache_rank=attention.cache_rank(ctx),
              pool_pages=kp.shape[1], high_water=pool.pt.high_water,
              written=bool(kp[:, 0].abs().sum() > 0),
@@ -137,8 +151,13 @@ def runs(tmp_path_factory):
     mesh1 = jax.make_mesh((1, 1), ("data", "model"))
     model = RefModel(cfg, RefMeshCtx.from_mesh(mesh1, mdmp_mode="bulk"))
     params = jax.tree.map(np.asarray, model.init(jax.random.key(0)))
+    scfg = dataclasses.replace(ref_configs.get_reduced(SSM_ARCH),
+                               dtype="float32")
+    smodel = RefModel(scfg, RefMeshCtx.from_mesh(mesh1, mdmp_mode="bulk"))
+    sparams = jax.tree.map(np.asarray, smodel.init(jax.random.key(0)))
     inputs = tmp / "inputs.npz"
-    np.savez(inputs, params=np.array(params, dtype=object))
+    np.savez(inputs, params=np.array(params, dtype=object),
+             ssm_params=np.array(sparams, dtype=object))
     (tmp / "worker.py").write_text(WORKER.format(tests=str(ROOT / "tests")))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu")
@@ -160,6 +179,16 @@ def runs(tmp_path_factory):
                                   for q in _prompts(cfg.vocab_size)])
         ref["long"] = gen.generate(_long_prompt(cfg.vocab_size)[None],
                                    n_new=5)[0]
+        sp = jax.tree.map(lambda a, s: jax.device_put(a, s), sparams,
+                          infer_shardings(smodel.param_specs(), mesh1))
+        eng = RefServeEngine(smodel, mesh1, sp, **ENGINE_KW)
+        rids = [eng.submit(q, 5) for q in _prompts(scfg.vocab_size)]
+        res = eng.run()
+        ref["ssm_engine"] = np.stack([res[r] for r in rids])
+        sgen = RefGenerator(smodel, mesh1, RefShapeConfig("s", 32, 1,
+                                                          "decode"), sp)
+        ref["ssm_oracle"] = np.stack([sgen.generate(q[None], n_new=5)[0]
+                                      for q in _prompts(scfg.vocab_size)])
         torch.set_num_threads(2)
         port1 = bridge.params_from_numpy(params, Model(
             dataclasses.replace(configs.get_reduced(ARCH), dtype="float32"),
@@ -209,3 +238,12 @@ def test_paged_pool_sharding_covers_all_ranks(runs):
     # there; the others were never touched
     written = {int(r["cache_rank"]) for r in ranks if bool(r["written"])}
     assert written == set(range(5))
+
+
+def test_ssm_paged_serving_2x4_matches_1x1_and_oracle(runs):
+    """mamba2 over 2x4: every rank's tokens equal the reference's 1x1
+    engine and its contiguous Generator."""
+    ref, _, ranks = runs
+    np.testing.assert_array_equal(ref["ssm_engine"], ref["ssm_oracle"])
+    for r in ranks:
+        np.testing.assert_array_equal(r["ssm_tokens"], ref["ssm_oracle"])
