@@ -119,7 +119,30 @@ phase that fails:
                the kernels against the plain path (loss 1e-5, gradients
                1e-4); hymba's paged kernel against the plain paged path;
                exact flash and paged launch counts throughout; and
-               ``repro_torch.examples.serve_batched`` on the card.
+               ``repro_torch.examples.serve_batched`` on the card;
+ 14. pipeline — phi4-mini-3.8b uncut as one pipeline stage
+               (``build_train_step(pipeline="1f1b")``, M = 2 one-row
+               microbatches of B=2 x S=1024): 2 warm-up and 3 timed steps
+               and a gpipe step, exactly 128 forward and 64 backward flash
+               launches a step, the first loss within 2e-3 of phase 5's
+               plain step; two processes on the card as pod stages over
+               gloo (``--pipe-mesh-rank``): phi4-mini at full width, 4
+               layers, f32, one step under gpipe, 1f1b, interleaved and
+               auto against rank 0's 1x1 step (loss and gradient norm
+               rtol 1e-5, gradients rtol 3e-4 / atol 1e-6, updated
+               parameters phase 11's rtol 2e-3 / atol 3e-4), flash
+               launches per rank exact, each rank's handoff messages and
+               card-host bytes; the int8 pod reduction on a 2x1x1
+               data-parallel run (3 steps' losses against the f32 pod
+               all-reduce's, the payload a quarter of f32's plus the
+               scales); and train_100m's model through TrainLoop with the
+               managed cadence and a fault plan placed on that run's own
+               saves (a rank death and a corrupt checkpoint): every event
+               fires, the restore passes over the corrupt checkpoint, the
+               ckpt_interval decisions print with the measured write
+               bandwidth, and the resumed losses equal the nearer of two
+               uninterrupted runs' (bit for bit when those agree, else
+               within FAULT_SPREAD_FACTOR times their spread).
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
 trip), the grouped-expert FFN, the ring's block backward (bf16 in, f32
@@ -1853,7 +1876,8 @@ def phase_train(torch):
           f"{tuple(cache['kv'][0].shape)} x 2", flush=True)
     del model, logits, cache
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"loss0": losses[0], "tok_s": tok_s,
+                      "ms": sum(walls[2:]) / 3 * 1e3}
 
 
 def check_loss_and_grads(a: dict, b: dict, what: str) -> tuple:
@@ -3763,6 +3787,529 @@ def phase_families(torch, root, card):
           f"2-layer gradient error {worst:.2e})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: pipeline parallelism, the int8 pod reduction and the fault loop
+# ---------------------------------------------------------------------------
+
+#: (a) one rank: phi4-mini uncut as one pipeline stage, M microbatches
+PIPE_M = 2
+#: (a) the first pipelined step's loss against phase 5's plain step (bf16:
+#: the microbatches' one-row GEMMs round apart from the two-row batch's)
+PIPE_LOSS_RTOL = 2e-3
+#: (b) two stages: phi4-mini at full width, this many layers (the fewest
+#: interleaved v = 2 over 2 stages takes), f32, one step of 2 x 1024
+PIPE_MESH_LAYERS = 4
+PIPE_SCHEDULES = ("gpipe", "1f1b", "interleaved", "auto")
+#: (b) against rank 0's 1x1 step: loss and gradient norm; every gradient
+#: at the reference suite's gradient tolerance; the updated parameters at
+#: phase 11's mesh tolerance (AdamW's first step divides each gradient by
+#: its own magnitude, so a gradient that cancels to near zero carries its
+#: last digits into the update)
+PIPE_LOSS_MESH_RTOL, PIPE_NORM_RTOL = 1e-5, 1e-5
+PIPE_RTOL, PIPE_ATOL = 3e-4, 1e-6
+PIPE_PARAM_RTOL, PIPE_PARAM_ATOL = MESH_RTOL, MESH_ATOL
+#: (c) the int8 pod reduction on a 2x1x1 data-parallel step: steps, and
+#: the compressed losses' tolerance against the uncompressed ones, stated
+#: from a first run on an H100 (relative gaps 0, 1.5e-3, 2.6e-2): one
+#: int8 scale per tensor zeroes most of the tied embedding's gradient
+#: (its absmax comes from the batch's own tokens), and AdamW's first
+#: steps move a zeroed coordinate not at all where the f32 run moves it
+#: by about lr; as in the reference, no error feedback carries between
+#: steps
+COMPRESS_STEPS = 3
+COMPRESS_LOSS_RTOL = 5e-2
+#: (d) train_100m's model through TrainLoop with the managed cadence; the
+#: fault plan's steps follow the faulted run's own checkpoints (the
+#: cadence is decided from measured times): a rank death the step after
+#: its first save, a corrupt event the step after its second
+FAULT_STEPS = 30
+FAULT_MTBF_S = 1.0
+#: the resumed losses must lie within this many times the spread of two
+#: uninterrupted runs (the bf16 flash backward's reduce-adds sum in an
+#: order that varies, so runs differ), and equal them bit for bit where
+#: the spread is 0.  On an NVIDIA H100 80GB HBM3 at 700 W
+#: (scripts/fault_spread.py --broken), six pairs of uninterrupted runs
+#: spread 1.7e-4 to 4.0e-4 and a correctly resumed run lay 1.9e-4 to
+#: 4.1e-4 from each of four, up to 2.5 times the closest pair's spread;
+#: restores broken on purpose (the optimizer state dropped, only its
+#: moments dropped, the step counter one back) moved the losses by 0.94,
+#: 0.088 and 0.29
+FAULT_SPREAD_FACTOR = 10
+
+
+def pipeline_one_rank(torch, plain):
+    """Phase 14 (a): phi4-mini-3.8b uncut on a 1x1x1 pod mesh through
+    ``build_train_step(pipeline="1f1b", pipe_microbatches=2)``: 2 warm-up
+    and 3 timed steps, then one gpipe step; exact flash launches (each
+    chunk's forward in its F unit and again in its B unit, its backward
+    once) and the first loss against phase 5's plain step on the same
+    weights and batch."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import MeshCtx
+    from repro_torch.train.train_loop import build_train_step
+
+    cfg = configs.get_config("phi4-mini-3.8b")
+    b, s = TRAIN_ATTN["b"], TRAIN_ATTN["s"]
+    torch.cuda.reset_peak_memory_stats()
+    ctx = MeshCtx(axis_sizes={"pod": 1, "data": 1, "model": 1})
+    model = Model(cfg, ctx, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100,
+                          moment_dtype=cfg.moment_dtype)
+    opt = adamw_init(model.params(), opt_cfg)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b, seed=SEED))
+    want = (2 * PIPE_M * cfg.n_layers, PIPE_M * cfg.n_layers)
+    losses, walls = [], []
+    for sched, steps in (("1f1b", 5), ("gpipe", 1)):
+        step = build_train_step(model, opt_cfg, pipeline=sched,
+                                pipe_microbatches=PIPE_M, global_batch=b,
+                                seq_len=s)
+        for _ in range(steps):
+            batch = train_batch(torch, data, len(losses))
+            fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            opt, metrics = step(opt, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss)
+            got = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+            print(f"  {sched} step {len(losses) - 1}: loss {loss:.4f}, "
+                  f"{walls[-1] * 1e3:.1f} ms host wall, flash launches "
+                  f"{got[0]} forward / {got[1]} backward", flush=True)
+            if got != want:
+                fail(f"pipelined step ({sched}, M={PIPE_M}, 1 stage): flash "
+                     f"launches {got} != {want} (2 M L forward: F and B's "
+                     f"recompute; M L backward)")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite pipelined losses {losses}")
+    gap = abs(losses[0] - plain["loss0"]) / abs(plain["loss0"])
+    if gap > PIPE_LOSS_RTOL:
+        fail(f"the pipelined first step's loss {losses[0]!r} is off phase "
+             f"5's plain step {plain['loss0']!r} by {gap:.2e} relative "
+             f"(tolerance {PIPE_LOSS_RTOL})")
+    ms = sum(walls[2:5]) / 3 * 1e3
+    print(f"  1f1b, M={PIPE_M}, one stage (phi4-mini-3.8b uncut, bf16, B={b},"
+          f" S={s}): first loss {losses[0]!r} against phase 5's plain step "
+          f"{plain['loss0']!r} (relative gap {gap:.2e}, tolerance "
+          f"{PIPE_LOSS_RTOL}); after 2 warm-up steps {ms:.1f} ms a step = "
+          f"{b * s / ms * 1e3:.1f} tokens/s (phase 5's plain step "
+          f"{plain['ms']:.1f} ms = {plain['tok_s']:.1f} tokens/s); gpipe "
+          f"step {walls[5] * 1e3:.1f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del model, opt, step, metrics
+    torch.cuda.empty_cache()
+    return want
+
+
+def pipe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
+    """One of phase 14's two processes.  Rank 0 first runs the 1x1 step;
+    then both run phi4-mini (4 layers, f32) as two pipeline stages under
+    each schedule from the same weights, rank 0 holding the gradients
+    (read where the step hands them to AdamW) and the updated parameters
+    to the 1x1 step's; then a 2x1x1 data-parallel run with and without
+    the int8 pod reduction.  Results go to rank{r}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import managed, transport
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models.model import Model, flatten_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel import pipeline
+    from repro_torch.parallel.sharding import MeshCtx
+    from repro_torch.train import train_loop
+    from repro_torch.train.train_loop import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch_mesh.init_distributed("cuda", init_method=init, rank=rank,
+                                 world_size=2)
+    cfg = dataclasses.replace(configs.get_config("phi4-mini-3.8b"),
+                              n_layers=PIPE_MESH_LAYERS, dtype="float32")
+    # the gradients as the step hands them to AdamW: kept from the 1x1
+    # step, then each schedule's worst excess over them
+    grads = {"want": None, "worst": (0.0, "")}
+    adamw_update = train_loop.adamw_update
+
+    def held(params, grad_tree, state, ocfg, *, gnorm=None):
+        flat = flatten_specs(grad_tree)
+        if grads["want"] is None:
+            grads["want"] = {k: g.detach().clone() for k, g in flat.items()}
+        else:
+            worst = (0.0, "")
+            for k, g in flat.items():
+                want = grads["want"][k]
+                bad = (g - want).abs() - PIPE_RTOL * want.abs()
+                worst = max(worst, (float(bad.max()), k))
+            grads["worst"] = worst
+        return adamw_update(params, grad_tree, state, ocfg, gnorm=gnorm)
+    b, s = TRAIN_ATTN["b"], TRAIN_ATTN["s"]
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                      global_batch=b, seed=SEED))
+    opt_cfg = AdamWConfig(lr=1e-2)
+    res = {"rank": rank}
+
+    def model_on(ctx):
+        # over pod alone no weight is sharded: every rank draws the 1x1
+        # model's weights from the seed
+        return Model(cfg, ctx, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(SEED))
+
+    def run(model, steps=1, **kw):
+        opt = adamw_init(model.params(), opt_cfg)
+        out = {"losses": [], "ms": [], "fwd": 0, "bwd": 0}
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        transport.reset_staged_bytes()
+        pipeline.reset_handoffs()
+        with managed.capture_decisions() as cap:
+            fn = build_train_step(model, opt_cfg, global_batch=b,
+                                  seq_len=s, **kw)
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt, metrics = fn(opt, train_batch(torch, data, i))
+                out["losses"].append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    out["grad_norm"] = float(metrics["grad_norm"])
+                    out["fwd"], out["bwd"] = fa.FWD_LAUNCHES, fa.BWD_LAUNCHES
+                    out["staged"] = transport.staged_bytes()
+                    out["handoffs"] = pipeline.handoffs()
+        pod = [r for r in cap.records if r.axis == "pod"]
+        out["gather_bytes"] = sum(r.nbytes for r in pod
+                                  if r.op == "all_gather") / steps
+        out["reduce_bytes"] = sum(r.nbytes for r in pod
+                                  if r.op == "all_reduce") / steps
+        out["decision"] = [(r.mode, r.chunks) for r in cap.records
+                           if r.op == "pipeline_schedule"]
+        del opt, fn
+        return out
+
+    one = None
+    if rank == 0:
+        train_loop.adamw_update = held
+        model = model_on(MeshCtx())
+        res["one"] = run(model)
+        one = {k: v.detach().clone()
+               for k, v in flatten_specs(model.params()).items()}
+        del model
+        torch.cuda.empty_cache()
+    dist.barrier()
+    shape, axes = launch_mesh.parse_mesh("2x1x1")
+    ctx = MeshCtx.from_mesh(launch_mesh.make_mesh(shape, axes, "cuda"),
+                            "auto")
+    for sched in PIPE_SCHEDULES:
+        model = model_on(ctx)
+        res[sched] = run(model, pipeline=sched, pipe_microbatches=(
+            None if sched == "auto" else PIPE_M))
+        worst, tight = (0.0, ""), (0.0, "")
+        if rank == 0:
+            for name, t in flatten_specs(model.params()).items():
+                diff = (t - one[name]).abs()
+                bad = diff - PIPE_PARAM_RTOL * one[name].abs()
+                worst = max(worst, (float(bad.max()), name))
+                bad = diff - PIPE_RTOL * one[name].abs()
+                tight = max(tight, (float(bad.max()), name))
+        res[sched].update(worst=worst, tight=tight,
+                          grad_worst=grads["worst"])
+        del model
+        torch.cuda.empty_cache()
+    train_loop.adamw_update = adamw_update
+    del one, grads["want"]
+    for compress in (False, True):
+        model = model_on(ctx)
+        res[f"compress{int(compress)}"] = run(model, steps=COMPRESS_STEPS,
+                                              compress_pod=compress)
+        # the gradients the pod reduction compresses (no weight is
+        # sharded over pod)
+        res[f"compress{int(compress)}"]["big"] = [
+            t.numel() for t in flatten_specs(model.params()).values()
+            if t.numel() > 4096]
+        del model
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def pipeline_two_ranks(torch, card):
+    """Phase 14 (b) and (c): the two rank processes, each schedule against
+    1x1, and the int8 pod reduction against the f32 one."""
+    res = run_rank_pair("--pipe-mesh-rank", "phase 14", 900)
+    one = res[0]["one"]
+    per_rank = PIPE_MESH_LAYERS // 2
+    print(f"  phi4-mini-3.8b at full width, {PIPE_MESH_LAYERS} layers, f32, "
+          f"TF32 off, B={TRAIN_ATTN['b']}, S={TRAIN_ATTN['s']}; two "
+          f"processes on {card}, gloo (file:// init); 1x1 on rank 0: loss "
+          f"{one['losses'][0]!r}, grad norm {one['grad_norm']!r}, step "
+          f"{one['ms'][0]:.1f} ms", flush=True)
+    for sched in PIPE_SCHEDULES:
+        (mode, m), = res[0][sched]["decision"]
+        want = (2 * m * per_rank, m * per_rank)
+        for r in range(2):
+            got = res[r][sched]
+            if got["decision"] != res[0][sched]["decision"]:
+                fail(f"{sched}: the ranks decided {got['decision']} and "
+                     f"{res[0][sched]['decision']}")
+            if (got["fwd"], got["bwd"]) != want:
+                fail(f"{sched} rank {r}: flash launches {got['fwd']} / "
+                     f"{got['bwd']}, not {want}")
+            loss_gap = abs(got["losses"][0] - one["losses"][0]) / abs(
+                one["losses"][0])
+            norm_gap = abs(got["grad_norm"] - one["grad_norm"]) / abs(
+                one["grad_norm"])
+            if loss_gap > PIPE_LOSS_MESH_RTOL or norm_gap > PIPE_NORM_RTOL:
+                fail(f"{sched} rank {r}: loss {got['losses'][0]!r} / grad "
+                     f"norm {got['grad_norm']!r} against 1x1's "
+                     f"{one['losses'][0]!r} / {one['grad_norm']!r}")
+        gbad, gname = res[0][sched]["grad_worst"]
+        if gbad > PIPE_ATOL:
+            fail(f"{sched}: gradient {gname} off the 1x1 step's by "
+                 f"{gbad:.3e} beyond rtol {PIPE_RTOL} (atol {PIPE_ATOL})")
+        bad, name = res[0][sched]["worst"]
+        if bad > PIPE_PARAM_ATOL:
+            fail(f"{sched}: updated parameter {name} off the 1x1 step by "
+                 f"{bad:.3e} beyond rtol {PIPE_PARAM_RTOL} (atol "
+                 f"{PIPE_PARAM_ATOL})")
+        tight, tname = res[0][sched]["tight"]
+        msgs, nbytes = res[0][sched]["handoffs"]
+        print(f"  {sched} ({mode}, M={m}): loss {res[0][sched]['losses'][0]!r}"
+              f" on both ranks, grad norm {res[0][sched]['grad_norm']!r}; "
+              f"every gradient within rtol {PIPE_RTOL} / atol {PIPE_ATOL} "
+              f"of 1x1's (worst excess {gbad:.2e} at {gname}), every "
+              f"updated parameter within rtol {PIPE_PARAM_RTOL} / atol "
+              f"{PIPE_PARAM_ATOL} (worst excess {bad:.2e} at {name}; "
+              f"beyond rtol {PIPE_RTOL} {tight:.2e} at {tname}); flash "
+              f"launches "
+              f"per rank {want[0]} / {want[1]}; rank 0 handed {msgs} "
+              f"messages ({nbytes / 1e6:.1f} MB), rank 1 "
+              f"{res[1][sched]['handoffs'][0]}; step host wall "
+              f"{res[0][sched]['ms'][0]:.1f} / {res[1][sched]['ms'][0]:.1f} "
+              f"ms; bytes between card and host memory "
+              f"{res[0][sched]['staged']} / {res[1][sched]['staged']}",
+              flush=True)
+    plain, packed = res[0]["compress0"], res[0]["compress1"]
+    gaps = [abs(a - c) / abs(a) for a, c in zip(plain["losses"],
+                                                packed["losses"])]
+    if packed["losses"][0] != plain["losses"][0] or max(gaps) > \
+            COMPRESS_LOSS_RTOL:
+        fail(f"--compress-pod losses {packed['losses']} against "
+             f"{plain['losses']} (relative gaps {gaps})")
+    n, count = sum(packed["big"]), len(packed["big"])
+    if packed["gather_bytes"] != n + 4 * count or (
+            plain["reduce_bytes"] - packed["reduce_bytes"] != 4 * n):
+        fail(f"--compress-pod payload: all-gathers {packed['gather_bytes']} "
+             f"B a step for {n} compressed elements in {count} gradients "
+             f"(want {n + 4 * count}); all-reduces {packed['reduce_bytes']} "
+             f"against {plain['reduce_bytes']}")
+    for r in range(2):
+        if res[r]["compress1"]["losses"] != packed["losses"]:
+            fail(f"--compress-pod rank {r} losses differ from rank 0's")
+    print(f"  2x1x1 data-parallel, {COMPRESS_STEPS} steps: f32 pod "
+          f"all-reduce losses {plain['losses']}, int8 pod reduction "
+          f"{packed['losses']} (relative gaps {[f'{g:.2e}' for g in gaps]}, "
+          f"tolerance {COMPRESS_LOSS_RTOL}); pod payload a step "
+          f"{plain['reduce_bytes'] / 1e6:.3f} MB of f32 all-reduces -> "
+          f"{packed['gather_bytes'] / 1e6:.3f} MB of int8 all-gathers "
+          f"({n} elements in {count} gradients, {4 * count} B of scales) "
+          f"+ {packed['reduce_bytes'] / 1e6:.6f} MB still all-reduced; "
+          f"step host wall {plain['ms']} / {packed['ms']} ms; bytes "
+          f"between card and host memory in the first step "
+          f"{plain['staged']} / {packed['staged']}", flush=True)
+
+
+class OwnSavesPlan:
+    """The faulted run's plan, placed on that run's own checkpoints (the
+    cadence is decided from measured times, so another run's saves need
+    not fall where this run's do): a rank death at the step after the
+    first save is issued, then a corrupt event at the step after the
+    first save issued after that restore.  The loop's recovery waits for
+    the save in flight, so the rank death restores the first save; the
+    corrupt event lets the second land (``settle``), truncates it, and
+    leaves the first to fall back to.  Neither is placed at the last
+    step.  ``attach`` counts the saves the loop issues; the plan is then
+    the loop's ``fault_hook``, called before the fault plan's own hook in
+    the same step."""
+
+    def __init__(self):
+        self.issued = []            # the steps of the saves issued so far
+        self.placed = {}            # kind -> step
+        self.corrupted = None       # the checkpoint the corrupt event hits
+        self._issued_at_death = None
+
+    def attach(self, loop):
+        save = loop.mgr.save_async
+
+        def counted(step, tree, extra=None):
+            self.issued.append(step)
+            save(step, tree, extra)
+
+        loop.mgr.save_async = counted
+
+    def __call__(self, loop, step):
+        from repro_torch.checkpoint import ckpt
+        from repro_torch.core.faults import FaultEvent
+
+        if "corrupt" in self.placed or step >= FAULT_STEPS - 1:
+            return
+        if "rank_death" not in self.placed:
+            if not self.issued:
+                return
+            kind = "rank_death"
+            self._issued_at_death = len(self.issued)
+        else:
+            if len(self.issued) == self._issued_at_death:
+                return
+            kind = "corrupt"
+            # the checkpoint the corrupt event attacks: the latest once
+            # the save in flight has landed
+            loop.mgr.wait()
+            self.corrupted = ckpt.latest_step(loop.cfg.ckpt_dir)
+        self.placed[kind] = step
+        loop.fault_plan.events.append(FaultEvent(kind=kind, step=step))
+
+    @property
+    def spec(self):
+        return ";".join(f"{k}@{s}" for k, s in self.placed.items())
+
+
+def fault_run(torch, tmp, name, plan=None):
+    """train_100m's model (bf16, uncut) through TrainLoop with the managed
+    cadence, FAULT_STEPS steps of 8 x 256; under an ``OwnSavesPlan`` when
+    one is given.  Returns the loop, its result, the loss of each step
+    (the last run of a step that ran twice) and every step run in order
+    as (step, loss)."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.tuner import ScheduleTuner
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.examples import train_100m
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import MeshCtx
+    from repro_torch.train.train_loop import (TrainLoop, TrainLoopConfig,
+                                              build_train_step)
+
+    cfg = train_100m.CONFIG_100M
+    model = Model(cfg, MeshCtx(), device="cuda")
+    opt_cfg = AdamWConfig(lr=6e-4, warmup_steps=20, total_steps=FAULT_STEPS)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                      global_batch=8))
+    box = {}
+    loop = TrainLoop(build_train_step(model, opt_cfg), model, opt_cfg, data,
+                     TrainLoopConfig(total_steps=FAULT_STEPS,
+                                     ckpt_every=max(5, FAULT_STEPS // 4),
+                                     ckpt_dir=os.path.join(tmp, name),
+                                     managed_cadence=True,
+                                     mtbf_s=FAULT_MTBF_S),
+                     plan and (lambda step: plan(box["loop"], step)),
+                     tuner=ScheduleTuner(),
+                     fault_plan=FaultPlan() if plan else None)
+    box["loop"] = loop
+    if plan:
+        plan.attach(loop)
+    out = loop.run(*loop.init_state(seed=SEED))
+    ran = [(h["step"], h["loss"]) for h in out["history"]]
+    losses = dict(ran)
+    del model
+    return loop, out, [losses[i] for i in range(FAULT_STEPS)], ran
+
+
+def fault_loop(torch, card):
+    """Phase 14 (d): two uninterrupted runs (their spread says whether the
+    flash backward is deterministic) and one under a fault plan placed on
+    its own checkpoints; the faulted run restores past the corrupt
+    checkpoint, fires every event, and replays the uninterrupted
+    losses."""
+    from repro_torch.core import cost_model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    try:
+        loop_a, out_a, a, _ = fault_run(torch, tmp, "a")
+        _, _, b, _ = fault_run(torch, tmp, "b")
+        plan = OwnSavesPlan()
+        loop, out, f, ran = fault_run(torch, tmp, "f", plan)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    saved_a = [r.step for r in loop_a.ckpt_metrics.saves]
+    saved = [r.step for r in loop.ckpt_metrics.saves]
+    restored = [r.step for r in loop.ckpt_metrics.restores]
+    if len(plan.placed) != 2:
+        fail(f"the faulted run's checkpoints (steps {saved}) left no room "
+             f"before step {FAULT_STEPS - 1} for a rank death and a "
+             f"corrupt event: placed {plan.spec!r}")
+    if loop.fault_plan.unfired() or out["restarts"] != 2:
+        fail(f"fault plan {plan.spec}: unfired "
+             f"{loop.fault_plan.unfired()}, {out['restarts']} restarts")
+    if len(restored) != 2 or not (0 < restored[1] < plan.corrupted):
+        fail(f"the restore after the corrupt checkpoint (step "
+             f"{plan.corrupted}) took step {restored[1:]}: not an earlier "
+             f"checkpoint (restores {restored}, saves {saved})")
+    spread = max(abs(x - y) for x, y in zip(a, b))
+    off = min(max(abs(x - y) for x, y in zip(u, f)) for u in (a, b))
+    if not all(np.isfinite(f)) or off > FAULT_SPREAD_FACTOR * spread:
+        fail(f"resumed losses off the nearer uninterrupted run's by {off!r} "
+             f"(two uninterrupted runs differ by {spread!r}; allowed "
+             f"{FAULT_SPREAD_FACTOR} times that)")
+    # every run of the fallback checkpoint's step starts from that
+    # checkpoint's state
+    reruns = [loss for st, loss in ran if st == restored[1]]
+    decisions = loop.ckpt_decisions
+    measured = [d for d in decisions
+                if d.write_bw != cost_model.CKPT_WRITE_BW]
+    if not measured:
+        fail("no ckpt_interval decision priced the measured write "
+             "bandwidth")
+    d = measured[-1]
+    print(f"  train_100m's model (bf16, uncut), {FAULT_STEPS} steps of 8 x "
+          f"256 through TrainLoop, --ckpt-every auto, MTBF {FAULT_MTBF_S} s; "
+          f"an uninterrupted run saved at steps {saved_a}, the faulted "
+          f"run at {saved} under the plan {plan.spec!r} placed on its own "
+          f"saves: every event fired, {out['restarts']} restarts, "
+          f"{out['steps_executed']} steps executed; the rank death "
+          f"restored step {restored[0]}, the corrupt checkpoint (step "
+          f"{plan.corrupted}) was passed over for step {restored[1]}",
+          flush=True)
+    for rec in decisions:
+        print(f"  decision ckpt_interval({rec.mode} N={rec.interval} snap="
+              f"{rec.snapshot_bytes / 1e6:.1f}MB step {rec.step_s * 1e3:.2f} "
+              f"ms, write bandwidth {rec.write_bw / 1e9:.3f} GB/s, cost "
+              f"{rec.ckpt_cost_s * 1e3:.2f} ms, fixed_ovh "
+              f"{rec.fixed_overhead:.4f}, chosen_ovh "
+              f"{rec.chosen_overhead:.4f})", flush=True)
+    verdict = ("bit for bit: the flash backward is deterministic"
+               if spread == 0 else "the flash backward is not deterministic")
+    print(f"  the last decision priced the measured write bandwidth "
+          f"{d.write_bw / 1e9:.3f} GB/s; two uninterrupted runs differ by "
+          f"at most {spread!r} in loss ({verdict}), the resumed run from "
+          f"the nearer by {off!r} (allowed {FAULT_SPREAD_FACTOR} times the "
+          f"spread); step {restored[1]} ran {len(reruns)} times from its "
+          f"checkpoint with losses {reruns}; uninterrupted "
+          f"host wall {out_a['wall_s']:.2f} s, faulted {out['wall_s']:.2f} "
+          f"s on {card}", flush=True)
+
+
+def phase_pipeline(torch, card, plain):
+    """Phase 14: the pipeline on one rank and over two processes, the
+    int8 pod reduction, and the fault-tolerant loop."""
+    t14 = time.perf_counter()
+    launches = pipeline_one_rank(torch, plain)
+    pipeline_two_ranks(torch, card)
+    fault_loop(torch, card)
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3844,7 +4391,7 @@ def main() -> int:
     print("phase 4: kernel path vs plain path, end to end", flush=True)
     phase_e2e(torch)
     print("phase 5: train phi4-mini-3.8b at full size", flush=True)
-    flash_launches = phase_train(torch)
+    flash_launches, plain_train = phase_train(torch)
     print("phase 6: training, prefill and generation, kernels vs plain",
           flush=True)
     phase_parity(torch)
@@ -3877,6 +4424,10 @@ def main() -> int:
     print("phase 13: the SSM, hybrid, audio and vision families",
           flush=True)
     phase_families(torch, root, card)
+    print("phase 14: pipeline parallelism (one rank; two processes as "
+          "stages), the int8 pod reduction, the fault-tolerant loop",
+          flush=True)
+    phase_pipeline(torch, card, plain_train)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
@@ -3932,11 +4483,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--mesh-rank"], ["--moe-mesh-rank"]):
+    RANK_MAINS = {"--mesh-rank": mesh_rank_main,
+                  "--moe-mesh-rank": moe_mesh_rank_main,
+                  "--pipe-mesh-rank": pipe_mesh_rank_main}
+    if sys.argv[1:2] and sys.argv[1] in RANK_MAINS:
         sys.path.insert(0, os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "src"))
-        rank_main = (mesh_rank_main if sys.argv[1] == "--mesh-rank"
-                     else moe_mesh_rank_main)
+        rank_main = RANK_MAINS[sys.argv[1]]
         rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -21,8 +21,8 @@ Fault-tolerance contract:
     in checkpoint/metrics.py.
 The snapshot is a second copy of the whole state on the device: at
 phi4-mini's full width (bf16 parameters, f32 moments) that is 40 GB more,
-which one card cannot hold beside the run; the sharded state of the
-managed-collectives slice is what makes it fit (ROADMAP Queue 1 slice 10).
+which one card cannot hold beside the run (a host-side snapshot is open
+work, ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import re
 import shutil
 import threading
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -114,10 +114,15 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
+def restore(ckpt_dir: str, step: int, like: Any,
+            reshard: Callable[[str, np.ndarray], np.ndarray] | None = None
+            ) -> tuple[Any, dict]:
     """Restore into the structure of ``like`` (nested dicts of tensors):
     new tensors of the recorded dtype on each ``like`` leaf's device.
-    Raises on a missing key or a shape that differs."""
+    ``reshard(key, array)`` maps an array whose shape differs from its
+    ``like`` leaf to this rank's block (an elastic resume: a checkpoint of
+    whole arrays restored onto a larger mesh).  Raises on a missing key or
+    a shape that still differs."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -129,6 +134,8 @@ def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
         if key not in arrays:
             raise KeyError(f"checkpoint missing {key}")
         arr = arrays[key]
+        if reshard is not None and tuple(arr.shape) != tuple(leaf.shape):
+            arr = np.ascontiguousarray(reshard(key, arr))
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: ckpt {arr.shape} vs model "
                              f"{tuple(leaf.shape)}")
@@ -137,8 +144,9 @@ def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
     return unflatten_specs(leaves), manifest["extra"]
 
 
-def restore_latest(ckpt_dir: str, like: Any
-                   ) -> tuple[Any, dict, int] | None:
+def restore_latest(ckpt_dir: str, like: Any,
+                   reshard: Callable[[str, np.ndarray], np.ndarray]
+                   | None = None) -> tuple[Any, dict, int] | None:
     """Restore the newest readable checkpoint, falling back step by step
     past corrupt ones (a truncated shard passes the directory check but
     fails the load).  A corrupt directory is quarantined (renamed
@@ -146,7 +154,7 @@ def restore_latest(ckpt_dir: str, like: Any
     Returns (tree, extra, step) or None."""
     for step in reversed(valid_steps(ckpt_dir)):
         try:
-            tree, extra = restore(ckpt_dir, step, like)
+            tree, extra = restore(ckpt_dir, step, like, reshard)
             return tree, extra, step
         except Exception:               # noqa: BLE001 — fallback path
             bad = os.path.join(ckpt_dir, f"step_{step:08d}")

@@ -1,6 +1,5 @@
 """Checkpoint instrumentation — the runtime counters the cadence is
-planned from (port of ``repro.checkpoint.metrics``; the managed cadence
-that reads them comes with ROADMAP Queue 1 slice 10).
+planned from (port of ``repro.checkpoint.metrics``).
 
 Same contract as ``serve/metrics.py``: iteration k's measured behaviour
 schedules iteration k+1.  For checkpointing the "iteration" is one async

@@ -5,12 +5,14 @@ The port prices with an NVIDIA H100 (``H100``, the ``DEFAULT_HW``).
 ``TPU_V5E`` is kept so tests can hold the port's decisions to the
 reference's on the same machine model.  Ported: the collective times and
 the generic bulk-vs-interleaved decision (``decide``), and the serve,
-preemption, halo, MoE dispatch and attention-schedule decisions.  The
-pipeline and checkpoint decisions come with the slices that use them.
-The halo-aggregation decision keeps the reference's formulas; only its
-fit test prices what the machine's k-sweep kernel holds on chip (the
-TPU's whole-row tile, or the CUDA kernel's shared-memory ring and the
-deepest k its registers hold: the ``ksweep_*`` fields).
+preemption, halo, MoE dispatch and attention-schedule decisions, and
+the pipeline-schedule and checkpoint-cadence (Young/Daly) decisions.
+The planner's per-collective components and the roofline terms are not
+ported (ROADMAP Queue 1 item 7).  The halo-aggregation decision keeps
+the reference's formulas; only its fit test prices what the machine's
+k-sweep kernel holds on chip (the TPU's whole-row tile, or the CUDA
+kernel's shared-memory ring and the deepest k its registers hold: the
+``ksweep_*`` fields).
 """
 
 from __future__ import annotations
@@ -974,3 +976,334 @@ def decide_attention_schedule(batch: int, s_local: int, heads: int,
     return AttentionScheduleDecision(
         schedule=best, times_s=times, bulk_s=times["bulk"],
         chosen_s=times[best], comm_s=comm_s, flash_s=flash_s)
+
+
+
+
+# ---------------------------------------------------------------------------
+# Pipeline schedule decision (gpipe vs 1f1b vs interleaved + microbatching)
+# ---------------------------------------------------------------------------
+#
+# The pipeline executor (parallel/pipeline.py) runs lock-step ticks: per
+# tick every stage does at most one forward and one backward unit and
+# hands activations forward / gradients backward with one collective
+# permute each.  The knob is (schedule, microbatch count M, virtual chunk
+# factor v), and the trade is exactly the paper's control-vs-data-flow
+# decision (El-Nashar, arXiv:1311.0731) at schedule granularity:
+#
+#   gpipe        ticks = 2(M+S-1),  critical compute = (M+S-1)(cf+cb),
+#                stash = M microbatch activations per stage.
+#                The bubble fraction is the classic (S-1)/(M+S-1).
+#   1f1b         ticks = M+2S-1,    compute ~= M(cf+cb) + (2S-1) cb,
+#                stash <= 2S (O(n_stage), independent of M).
+#   interleaved  ticks = Mv+vS+S-1, compute ~= M(cf+cb) + (vS+S-1) cb / v,
+#                stash <= 2vS chunk activations (each 1/1 of a microbatch
+#                block).  The ramp's compute shrinks ~v x but every tick
+#                still pays the per-message alpha — v x more messages.
+#
+# Per tick the two handoffs (activation fwd + gradient bwd) cost
+# 2 alpha + 2 bytes / bw, with the bytes hidden under the tick's compute
+# to the extent the stage boundary is ready early (the instrument.py
+# readiness budget of the boundary operand).
+
+
+#: backward flops per forward flop of a transformer chunk (dgrad + wgrad)
+PIPELINE_BWD_FLOP_RATIO = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineScheduleDecision:
+    """Outcome of the pipeline-schedule decision for one training loop."""
+    schedule: str                  # "gpipe" | "1f1b" | "interleaved"
+    n_micro: int                   # microbatch count M
+    virtual: int                   # virtual chunks per rank (1 unless interleaved)
+    times_s: dict[str, float]      # "sched:M:v" -> predicted step seconds
+    bulk_s: float                  # best gpipe variant (unmanaged baseline)
+    chosen_s: float
+    bubble_frac: float             # idle fraction of the chosen schedule
+    stash_bytes: int               # peak activation stash per stage
+
+    @property
+    def predicted_speedup(self) -> float:
+        if self.chosen_s <= 0:
+            return 1.0
+        return self.bulk_s / self.chosen_s
+
+
+def pipeline_stash_slots(schedule: str, n_micro: int, n_stage: int,
+                         virtual: int = 1) -> int:
+    """Closed-form peak live activation count per stage (upper bound,
+    matches the executor's host-allocated stash within +1).  Each slot
+    holds ONE microbatch activation block — GPipe's slot count grows with
+    M (whole batch stashed), 1f1b's is capped at 2S."""
+    m, s = max(1, n_micro), max(1, n_stage)
+    if schedule == "gpipe":
+        return m
+    if schedule == "1f1b":
+        return min(m, 2 * s)
+    return min(m * max(1, virtual), 2 * max(1, virtual) * s + s)
+
+
+def pipeline_schedule_time(schedule: str, n_micro: int, n_stage: int,
+                           virtual: int, batch_fwd_s: float,
+                           batch_bytes: float, *,
+                           hw: HardwareModel = DEFAULT_HW,
+                           overlap_budget: float = 1.0
+                           ) -> tuple[float, int]:
+    """(predicted step seconds, tick count) of one schedule variant.
+
+    ``batch_fwd_s``     one rank's forward compute for the WHOLE batch
+                        (its full layer chunk set, all M microbatches) —
+                        per-microbatch compute is batch_fwd_s / M.
+    ``batch_bytes``     the whole batch's activation block at the stage
+                        boundary — each handoff carries batch_bytes / M
+                        (the gradient handoff is charged the same).
+    ``overlap_budget``  fraction of a tick's compute under which the
+                        transfer can hide (instrument readiness of the
+                        stage boundary; 1.0 = fully hideable).
+    """
+    m, s, v = max(1, n_micro), max(1, n_stage), max(1, virtual)
+    cf = batch_fwd_s / m
+    cb = PIPELINE_BWD_FLOP_RATIO * cf
+    if schedule == "gpipe":
+        ticks = 2 * (m + s - 1)
+        compute = (m + s - 1) * (cf + cb)
+    elif schedule == "1f1b":
+        ticks = m + 2 * s - 1
+        compute = m * (cf + cb) + (2 * s - 1) * cb
+    elif schedule == "interleaved":
+        ticks = m * v + v * s + s - 1
+        compute = m * (cf + cb) + (v * s + s - 1) * cb / v
+    else:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    link = 2.0 * (batch_bytes / m) / hw.link_bw
+    exposed = max(0.0, link - max(0.0, min(1.0, overlap_budget))
+                  * compute / ticks)
+    return ticks * (2.0 * hw.alpha_s + exposed) + compute, ticks
+
+
+def decide_pipeline_schedule(n_stage: int, batch_fwd_s: float,
+                             batch_bytes: float, *,
+                             n_layers: int | None = None,
+                             stash_cap_bytes: float | None = None,
+                             candidate_micro: Sequence[int] = (4, 8, 16, 32),
+                             candidate_virtual: Sequence[int] = (2,),
+                             hw: HardwareModel = DEFAULT_HW,
+                             overlap_budget: float = 1.0,
+                             force_schedule: str | None = None,
+                             force_micro: int | None = None,
+                             force_virtual: int | None = None
+                             ) -> PipelineScheduleDecision:
+    """Pick (schedule, M, v) for one pipeline-parallel training loop.
+
+    Candidates are dropped when their activation stash (slot count x
+    batch_bytes/M per slot) overruns ``stash_cap_bytes`` — this is what
+    retires GPipe, whose stash is the whole batch regardless of M — or,
+    for interleaved, when M %% S != 0 or v*S exceeds ``n_layers``.  1f1b
+    variants are exempt from the cap (smallest stash, the always-safe
+    fallback).  ``force_*`` pin the choice (an MDMPConfig override, or
+    the tuner's measured winner) while still reporting the modeled
+    table."""
+    s = max(1, n_stage)
+    micros = sorted({int(c) for c in candidate_micro if c >= 1})
+    if force_micro is not None:
+        # an explicit M pins the microbatch count for EVERY schedule (the
+        # CLI contract), not just when the schedule is forced too
+        micros = [max(1, int(force_micro))]
+    virtuals = sorted({int(c) for c in candidate_virtual if c >= 2})
+    if force_virtual is not None and int(force_virtual) >= 2:
+        virtuals = sorted({*virtuals, int(force_virtual)})
+
+    def variants():
+        for m in micros:
+            yield "gpipe", m, 1
+            yield "1f1b", m, 1
+            for v in virtuals:
+                if m % s:
+                    continue
+                if n_layers is not None and v * s > n_layers:
+                    continue
+                yield "interleaved", m, v
+
+    times: dict[str, float] = {}
+    for sched, m, v in variants():
+        if stash_cap_bytes is not None and sched != "1f1b":
+            stash = pipeline_stash_slots(sched, m, s, v) * batch_bytes / m
+            if stash > stash_cap_bytes:
+                continue
+        t, _ = pipeline_schedule_time(
+            sched, m, s, v, batch_fwd_s, batch_bytes, hw=hw,
+            overlap_budget=overlap_budget)
+        times[f"{sched}:{m}:{v}"] = t
+
+    def pick(pred):
+        cands = [(t, k) for k, t in times.items() if pred(k)]
+        return min(cands) if cands else None
+
+    bulk = pick(lambda k: k.startswith("gpipe:"))
+    if bulk is None:        # every gpipe stash overran the cap
+        bulk = pick(lambda k: True)
+    if force_schedule is not None:
+        if force_schedule not in ("gpipe", "1f1b", "interleaved"):
+            raise ValueError(f"unknown pipeline schedule "
+                             f"{force_schedule!r}")
+        sched = force_schedule
+        m = int(force_micro) if force_micro is not None else None
+        v = int(force_virtual) if force_virtual is not None else None
+        key = pick(lambda k, sched=sched, m=m, v=v:
+                   k.startswith(sched + ":")
+                   and (m is None or k.split(":")[1] == str(m))
+                   and (v is None or k.split(":")[2] == str(v)))
+        if key is None:     # forced variant not in the surviving table
+            mm = m if m is not None else min(micros)
+            vv = v if v is not None else \
+                (min(virtuals) if sched == "interleaved" and virtuals else 1)
+            if sched == "interleaved":
+                # fail at the decision layer, not deep inside
+                # build_schedule, when the forced variant is invalid
+                if mm % s:
+                    raise ValueError(
+                        f"interleaved needs n_micro % n_stage == 0 "
+                        f"(got {mm} % {s})")
+                if n_layers is not None and vv * s > n_layers:
+                    raise ValueError(
+                        f"interleaved needs virtual*n_stage <= n_layers "
+                        f"(got {vv}*{s} > {n_layers})")
+            t, _ = pipeline_schedule_time(
+                sched, mm, s, vv, batch_fwd_s, batch_bytes, hw=hw,
+                overlap_budget=overlap_budget)
+            times[f"{sched}:{mm}:{vv}"] = t
+            key = (t, f"{sched}:{mm}:{vv}")
+        chosen = key
+    else:
+        chosen = pick(lambda k: True)
+    sched, m_str, v_str = chosen[1].split(":")
+    m, v = int(m_str), int(v_str)
+
+    cf = batch_fwd_s / m
+    cb = PIPELINE_BWD_FLOP_RATIO * cf
+    busy = m * (cf + cb)
+    if sched == "gpipe":
+        crit = (m + s - 1) * (cf + cb)
+    elif sched == "1f1b":
+        crit = busy + (2 * s - 1) * cb
+    else:
+        crit = busy + (v * s + s - 1) * cb / v
+    bubble = 0.0 if crit <= 0 else max(0.0, 1.0 - busy / crit)
+    return PipelineScheduleDecision(
+        schedule=sched, n_micro=m, virtual=v, times_s=times,
+        bulk_s=bulk[0] if bulk else chosen[0], chosen_s=chosen[0],
+        bubble_frac=bubble,
+        stash_bytes=int(pipeline_stash_slots(sched, m, s, v)
+                        * batch_bytes / m))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint cadence decision (the Young/Daly optimum as a managed knob)
+# ---------------------------------------------------------------------------
+#
+# Recovery traffic deserves the same alpha-beta treatment as the forward
+# collectives: a checkpoint costs δ seconds (on-device snapshot block +
+# the metered D2H drain; the disk write rides the writer thread), and a
+# failure with MTBF M loses on average half an interval of work plus the
+# restore.  First-order expected overhead per useful second at interval
+# τ seconds:
+#
+#     overhead(τ) = δ/τ + (τ/2 + R)/M            (Daly 2006, first order)
+#
+# minimised at the Young/Daly optimum τ* = sqrt(2 δ M).  Goodput — useful
+# steps per wall second including recovery — is step_s/(1+overhead).  The
+# decision quantises τ* to a candidate step interval N (checkpoints only
+# land on step boundaries), prices the whole candidate table, and reports
+# the fixed-cadence baseline (ckpt_every=25) for the speedup column.
+# Measured δ and write bandwidth come from checkpoint/metrics.py; the
+# step time is the train loop's EWMA — iteration k prices iteration k+1.
+
+
+#: default end-to-end checkpoint write bandwidth (D2H + serialisation)
+#: used before the first measured save; on-model for a host NVMe path
+CKPT_WRITE_BW = 2.0e9
+
+#: the unmanaged fixed cadence every prior PR shipped (TrainLoopConfig)
+CKPT_FIXED_INTERVAL = 25
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointDecision:
+    """Outcome of the checkpoint-cadence decision for one train loop."""
+    mode: str                      # "daly" | "fixed"
+    interval: int                  # chosen steps between checkpoints
+    step_s: float                  # instrumented step seconds (EWMA)
+    ckpt_cost_s: float             # δ — per-checkpoint critical-path cost
+    snapshot_bytes: int
+    write_bw: float                # bytes/s (measured or default)
+    mtbf_s: float
+    restore_s: float
+    daly_interval_s: float         # continuous τ* = sqrt(2 δ M)
+    overhead: dict[int, float]     # candidate N -> expected overhead frac
+    fixed_overhead: float          # overhead at CKPT_FIXED_INTERVAL
+    chosen_overhead: float
+
+    @property
+    def predicted_speedup(self) -> float:
+        """Modeled goodput gain over the fixed cadence."""
+        return (1.0 + self.fixed_overhead) / (1.0 + self.chosen_overhead)
+
+
+def checkpoint_overhead(interval_steps: int, step_s: float,
+                        ckpt_cost_s: float, mtbf_s: float,
+                        restore_s: float) -> float:
+    """Expected overhead fraction (non-useful seconds per useful second)
+    of checkpointing every ``interval_steps`` steps under MTBF failures."""
+    tau = max(1, int(interval_steps)) * max(step_s, 1e-12)
+    return (ckpt_cost_s / tau
+            + (0.5 * tau + restore_s) / max(mtbf_s, 1e-12))
+
+
+def decide_checkpoint(step_s: float, snapshot_bytes: int, *,
+                      mtbf_s: float = 1800.0,
+                      write_bw: float | None = None,
+                      ckpt_cost_s: float | None = None,
+                      restore_s: float | None = None,
+                      candidate_intervals: Sequence[int] = (2, 4, 5, 8, 10,
+                                                            20, 25, 50, 100,
+                                                            200),
+                      hw: HardwareModel = DEFAULT_HW,
+                      force_interval: int | None = None
+                      ) -> CheckpointDecision:
+    """Pick the checkpoint interval (steps) for one train loop.
+
+    δ defaults to ``snapshot_bytes / write_bw`` (the drain at the write
+    bandwidth; the snapshot block is a same-order HBM copy folded into
+    the bandwidth term) and is overridden by a measured ``ckpt_cost_s``
+    from checkpoint/metrics.py.  ``force_interval`` pins the choice (an
+    MDMPConfig bulk override = the fixed baseline, or an explicit
+    ``--ckpt-every``) while still reporting the modeled table."""
+    bw = float(write_bw) if write_bw else CKPT_WRITE_BW
+    delta = (float(ckpt_cost_s) if ckpt_cost_s is not None
+             else snapshot_bytes / bw)
+    delta = max(delta, 1e-9)
+    rest = (float(restore_s) if restore_s is not None
+            else snapshot_bytes / bw)
+    step = max(float(step_s), 1e-9)
+    tau_star = math.sqrt(2.0 * delta * max(mtbf_s, 1e-9))
+
+    cands = sorted({int(n) for n in candidate_intervals if n >= 1}
+                   | {CKPT_FIXED_INTERVAL})
+    overhead = {n: checkpoint_overhead(n, step, delta, mtbf_s, rest)
+                for n in cands}
+    fixed_ov = overhead[CKPT_FIXED_INTERVAL]
+    if force_interval is not None:
+        interval = max(1, int(force_interval))
+        mode = "fixed"
+        if interval not in overhead:
+            overhead[interval] = checkpoint_overhead(interval, step, delta,
+                                                     mtbf_s, rest)
+    else:
+        interval = min(cands, key=lambda n: (overhead[n], n))
+        mode = "daly"
+    return CheckpointDecision(
+        mode=mode, interval=interval, step_s=step, ckpt_cost_s=delta,
+        snapshot_bytes=int(snapshot_bytes), write_bw=bw, mtbf_s=mtbf_s,
+        restore_s=rest, daly_interval_s=tau_star, overhead=overhead,
+        fixed_overhead=fixed_ov, chosen_overhead=overhead[interval])

@@ -1,10 +1,25 @@
 """Deterministic fault injection — the failure taxonomy as a declared plan
-(port of ``repro.core.faults``; the training hook and the checkpoint
-corruption come with the fault-tolerance slice).
+(port of ``repro.core.faults``).
 
 A ``FaultPlan`` is a list of (kind, step) events parsed from a compact
-spec string, each firing exactly once at its step.  The serving engine
-checks ``serve_quantum`` and ``serve_overload`` at every quantum boundary.
+spec string, each firing exactly once at its step.  The train loop threads
+the plan through ``TrainLoop`` (via ``FaultPlan.train_hook``) and the
+serving engine checks ``serve_quantum`` and ``serve_overload`` at every
+quantum boundary, so the recovery paths — restore-and-retry, checkpoint
+fallback, replica drain and re-admit — run under test.
+
+Kinds the training loop fires:
+
+  transient@k        one step-k exception (a flaky collective, a preempted
+                     host); the loop restores the latest checkpoint
+  rank_death@k       a rank dies at step k (``RankDeath``); the restart
+                     path is the same restore (on a new mesh it replays
+                     the tuner's winners, ``tuner.replan_for_mesh``)
+  slow@k:sec         a straggler: step k stalls ``sec`` seconds (feeds the
+                     EWMA straggler detector, raises nothing)
+  corrupt@k[:bytes]  step k truncates the LATEST checkpoint's arrays.npz
+                     to ``bytes`` (default 16) and then dies — recovery
+                     must fall back to the previous step
 
 Kinds the serving path fires:
 
@@ -15,9 +30,6 @@ Kinds the serving path fires:
   pool_squeeze@q:f   the usable KV page pool shrinks to fraction f at
                      quantum q (a co-tenant claiming device memory)
 
-The training kinds (transient, rank_death, slow, corrupt) parse but are
-fired only by the training loop.
-
 Spec grammar:  ``kind@step[:arg]`` joined by ``;`` or ``,`` — e.g.
 ``"burst@1:6;pool_squeeze@3:0.8"``.
 """
@@ -25,6 +37,9 @@ Spec grammar:  ``kind@step[:arg]`` joined by ``;`` or ``,`` — e.g.
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+from typing import Callable
 
 
 class FaultError(RuntimeError):
@@ -82,6 +97,43 @@ class FaultPlan:
     def unfired(self) -> list[FaultEvent]:
         return [ev for ev in self.events if not ev.fired]
 
+    # -- training ------------------------------------------------------------
+
+    def train_hook(self, ckpt_dir: str | None = None,
+                   settle: Callable[[], None] | None = None
+                   ) -> Callable[[int], None]:
+        """A ``TrainLoop.fault_hook``: raises / stalls / corrupts per the
+        plan.  ``ckpt_dir`` is needed for ``corrupt`` events (they attack
+        the latest on-disk checkpoint before dying); ``settle`` (the
+        checkpoint manager's ``wait``) lets an asynchronous save in flight
+        land first, so that the checkpoint attacked is the one the restore
+        would otherwise take (the reference races its writer thread
+        here)."""
+
+        def hook(step: int) -> None:
+            ev = self.fire("slow", step)
+            if ev is not None:
+                time.sleep(ev.arg)
+            ev = self.fire("corrupt", step)
+            if ev is not None:
+                if ckpt_dir is None:
+                    raise ValueError("corrupt@k fault needs the checkpoint "
+                                     "dir")
+                if settle is not None:
+                    settle()
+                corrupt_latest(ckpt_dir,
+                               keep_bytes=int(ev.arg) if ev.arg else 16)
+                raise RankDeath(f"injected rank death at step {step} "
+                                "(latest checkpoint shard corrupted)")
+            ev = self.fire("transient", step)
+            if ev is not None:
+                raise FaultError(f"injected transient fault at step {step}")
+            ev = self.fire("rank_death", step)
+            if ev is not None:
+                raise RankDeath(f"injected rank death at step {step}")
+
+        return hook
+
     # -- serving -------------------------------------------------------------
 
     def serve_quantum(self, quantum_idx: int) -> None:
@@ -105,3 +157,18 @@ class FaultPlan:
                 out.append(ev)
                 ev = self.fire(kind, quantum_idx)
         return out
+
+
+def corrupt_latest(ckpt_dir: str, *, keep_bytes: int = 16) -> str | None:
+    """Truncate the latest checkpoint's ``arrays.npz`` to ``keep_bytes``
+    (a torn write / lost object shard).  The manifest survives, so only a
+    restore attempt discovers the damage — exercising the fallback-to-
+    previous-step path, not just ``latest_step`` validation."""
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    step = ckpt_lib.latest_step(ckpt_dir)
+    if step is None:
+        return None
+    path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
+    with open(path, "rb+") as f:
+        f.truncate(keep_bytes)
+    return path

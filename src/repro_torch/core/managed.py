@@ -14,8 +14,10 @@ At axis size 1 each is the identity.  The serving resolvers
 (``resolve_serve_schedule``, ``resolve_preempt``), the halo-aggregation
 resolver (``resolve_halo_aggregation``), the MoE dispatch resolver
 (``resolve_moe_dispatch``), the attention-schedule resolver
-(``resolve_attention_schedule``) and the generic call-site resolver
-``_resolve`` run on the host and price with ``DEFAULT_HW``.
+(``resolve_attention_schedule``), the pipeline-schedule resolver
+(``resolve_pipeline_schedule``), the checkpoint-cadence resolver
+(``resolve_checkpoint``) and the generic call-site resolver ``_resolve``
+run on the host and price with ``DEFAULT_HW``.
 
 ``managed_expert_stream`` (expert parallelism) streams the MoE capacity
 buffers around the expert-parallel ring: each block's permute is posted
@@ -790,6 +792,108 @@ def resolve_halo_aggregation(axis_name: str, axis_size: int,
             mode=decision.mode, chunks=decision.k,
             predicted_bulk_s=decision.bulk_sweep_s,
             predicted_interleaved_s=decision.aggregated_sweep_s))
+    return decision
+
+
+def resolve_pipeline_schedule(axis_name: str, axis_size: int,
+                              batch_fwd_s: float, batch_bytes: float, *,
+                              n_layers: int | None = None,
+                              stash_cap_bytes: float | None = None,
+                              candidate_micro: Sequence[int] = (4, 8, 16,
+                                                                32),
+                              candidate_virtual: Sequence[int] = (2,),
+                              overlap_budget: float = 1.0,
+                              mode: str | None = None,
+                              schedule: str | None = None,
+                              n_micro: int | None = None,
+                              virtual: int | None = None
+                              ) -> cost_model.PipelineScheduleDecision:
+    """The managed-runtime entry for the pipeline-schedule knob (gpipe vs
+    1f1b vs interleaved, plus the microbatch count M and virtual chunk
+    factor v) — the analogue of ``resolve_halo_aggregation`` for the
+    pipeline-parallel training loop.  Called at build time with static
+    shapes; the chosen (schedule, M, v) feeds
+    ``parallel/pipeline.build_schedule`` and lands in the decision log.
+
+    ``mode='bulk'`` pins gpipe (the unmanaged forward-then-backward
+    baseline); ``mode='interleaved'`` pins 1f1b (the always-intermingle
+    schedule); ``schedule``/``n_micro``/``virtual`` pin an explicit
+    choice (the tuner's measured winner).  ``overlap_budget`` is how
+    much of a tick's compute can hide the handoff bytes (1.0 until the
+    instrumentation of ROADMAP Queue 1 item 7 measures the stage
+    boundary's readiness).  The DecisionRecord reuses ``chunks`` to
+    carry the microbatch count M."""
+    cfg = get_config()
+    pk = _plan_knob("pipeline_schedule", axis_name)
+    if pk is not None and schedule is None and n_micro is None and \
+            mode in (None, "auto"):
+        schedule = pk.get("mode")
+        n_micro = pk.get("chunks")
+        if virtual is None:
+            virtual = pk.get("virtual")
+    eff_mode = mode or cfg.mode
+    # an EXPLICIT schedule wins over the ambient mode (same precedence as
+    # cfg.attn_impl vs mdmp_mode): mode only maps to a schedule when none
+    # was requested
+    force = schedule if schedule is not None else \
+        {"bulk": "gpipe", "interleaved": "1f1b"}.get(eff_mode)
+    decision = cost_model.decide_pipeline_schedule(
+        axis_size, batch_fwd_s, batch_bytes, n_layers=n_layers,
+        stash_cap_bytes=stash_cap_bytes,
+        candidate_micro=candidate_micro,
+        candidate_virtual=candidate_virtual, hw=cfg.hw,
+        overlap_budget=overlap_budget, force_schedule=force,
+        force_micro=n_micro, force_virtual=virtual)
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op="pipeline_schedule", axis=axis_name,
+            nbytes=int(batch_bytes / max(1, decision.n_micro)),
+            mode=decision.schedule, chunks=decision.n_micro,
+            predicted_bulk_s=decision.bulk_s,
+            predicted_interleaved_s=decision.chosen_s))
+    return decision
+
+
+def resolve_checkpoint(axis_name: str, step_s: float, snapshot_bytes: int,
+                       *, mtbf_s: float = 1800.0,
+                       measured_write_bw: float | None = None,
+                       measured_ckpt_cost_s: float | None = None,
+                       measured_restore_s: float | None = None,
+                       mode: str | None = None,
+                       interval: int | None = None
+                       ) -> cost_model.CheckpointDecision:
+    """The managed-runtime entry for the checkpoint-cadence knob (the
+    Young/Daly interval) — the analogue of ``resolve_serve_schedule`` for
+    the fault-tolerance path.  Called by ``TrainLoop`` between steps with
+    the EWMA step time and checkpoint/metrics.py's measured write
+    bandwidth / per-checkpoint cost; the chosen interval drives the next
+    ``save_async`` and lands in the decision log.
+
+    ``mode='bulk'`` pins the fixed ``ckpt_every=25`` baseline (the
+    unmanaged cadence every prior PR shipped); an explicit ``interval``
+    wins over the ambient mode (same precedence as every other managed
+    knob).  The DecisionRecord reuses ``chunks`` to carry the interval
+    and the predicted fields to carry overhead fractions (fixed vs
+    chosen)."""
+    cfg = get_config()
+    pk = _plan_knob("ckpt_interval", axis_name)
+    if pk is not None and interval is None and mode in (None, "auto"):
+        interval = pk.get("chunks")
+    eff_mode = mode or cfg.mode
+    force = interval if interval is not None else (
+        cost_model.CKPT_FIXED_INTERVAL if eff_mode == "bulk" else None)
+    decision = cost_model.decide_checkpoint(
+        step_s, snapshot_bytes, mtbf_s=mtbf_s,
+        write_bw=measured_write_bw,
+        ckpt_cost_s=measured_ckpt_cost_s,
+        restore_s=measured_restore_s, hw=cfg.hw, force_interval=force)
+    if cfg.log_decisions:
+        log_decision(DecisionRecord(
+            op="ckpt_interval", axis=axis_name,
+            nbytes=int(snapshot_bytes),
+            mode=decision.mode, chunks=decision.interval,
+            predicted_bulk_s=decision.fixed_overhead,
+            predicted_interleaved_s=decision.chosen_overhead))
     return decision
 
 

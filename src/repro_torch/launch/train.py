@@ -1,7 +1,7 @@
-"""Training CLI — the fault-tolerant train loop on one CUDA card (port of
+"""Training CLI — the fault-tolerant train loop (port of
 ``repro.launch.train``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \
         --reduced --device cpu --steps 5
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises when no card
@@ -14,13 +14,19 @@ per rank under torchrun, e.g.
         --arch granite-34b --reduced --device cpu --mesh 2x2
 
 (gloo on the CPU or where ranks share a card, NCCL with a card per
-rank; launch/mesh.py).  Flags of later slices are refused with
-the slice that brings them: ``--pipeline`` other than ``none`` (slice
-9), ``--fault-plan``, ``--ckpt-every auto`` and ``--compress-pod``
-(slices 10 and 9), and the whole-program planner, the static verifier
-and ``--trace`` (slice 11): ``--plan local`` and ``--verify off`` only.
+rank; launch/mesh.py).  ``--pipeline gpipe|1f1b|interleaved|auto`` runs
+the pod axis of a ``PxDxM`` mesh as pipeline stages (``auto``: the
+managed cost model picks the schedule and ``--microbatches`` M) and
+prints the ``pipeline_schedule`` decision; ``--compress-pod`` sums the
+pod axis's gradients as int8 with error feedback.  ``--fault-plan``
+injects the deterministic faults of core/faults.py, ``--ckpt-every
+auto`` lets the managed Young/Daly cadence (with ``--mtbf``) pick the
+checkpoint interval; both print their decisions and the unfired events.
 ``--moe-dispatch`` pins the MoE dispatch schedule of an MoE arch
 (``auto`` lets the managed cost model pick) and prints the decisions.
+The whole-program planner, the static verifier and ``--trace`` come with
+ROADMAP Queue 1 item 7: ``--plan local`` and ``--verify off`` only, and
+``--trace`` is refused.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import os
 
 from repro_torch import configs
 from repro_torch.core import managed
+from repro_torch.core.faults import FaultPlan
+from repro_torch.core.tuner import ScheduleTuner
 from repro_torch.data.pipeline import DataConfig, SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
@@ -39,8 +47,8 @@ from repro_torch.launch import mesh as launch_mesh
 from repro_torch.train.train_loop import (TrainLoop, TrainLoopConfig,
                                           build_train_step)
 
-#: flag -> the ROADMAP Queue 1 slice that brings it
-LATER = {"--compress-pod": 9, "--fault-plan": 10, "--trace": 11}
+#: flag -> the ROADMAP Queue 1 item that brings it
+LATER = {"--trace": 7}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -57,14 +65,20 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--mdmp-mode", default="auto",
                     choices=["auto", "bulk", "interleaved"])
-    ap.add_argument("--pipeline", default="none", choices=["none"],
-                    help="pipeline stages come with a later slice")
+    ap.add_argument("--pipeline", default="none",
+                    choices=["none", "gpipe", "1f1b", "interleaved",
+                             "auto"],
+                    help="run the pod axis as pipeline stages (auto = "
+                         "managed schedule decision)")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="pipeline microbatch count M (default: the "
+                         "cost model's pick)")
     ap.add_argument("--plan", default="local", choices=["local"],
                     help="communication planning scope (the program "
-                         "planner comes with a later slice)")
+                         "planner is ROADMAP Queue 1 item 7)")
     ap.add_argument("--verify", default="off", choices=["off"],
-                    help="static-verifier preflight (comes with a later "
-                         "slice)")
+                    help="static-verifier preflight (ROADMAP Queue 1 "
+                         "item 7)")
     ap.add_argument("--mesh", default="1x1",
                     help="DxM or PxDxM; above 1x1 under torchrun with a "
                          "matching WORLD_SIZE")
@@ -73,22 +87,28 @@ def main(argv: list[str] | None = None) -> None:
                          "system's temporary directory)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ckpt-every", default=None,
-                    help="checkpoint interval in steps")
+                    help="checkpoint interval in steps, or 'auto' for "
+                         "the managed Young/Daly cadence (re-resolved "
+                         "online from measured step time + write bw)")
+    ap.add_argument("--mtbf", type=float, default=1800.0,
+                    help="assumed mean time between failures, seconds "
+                         "(feeds the Young/Daly cadence)")
     ap.add_argument("--moe-dispatch", default=None,
                     choices=["bulk", "stream", "dense", "auto"],
                     help="MoE expert-dispatch schedule (auto = managed "
                          "cost-model decision)")
-    ap.add_argument("--compress-pod", action="store_true")
-    ap.add_argument("--fault-plan", default=None)
+    ap.add_argument("--compress-pod", action="store_true",
+                    help="int8 error-feedback sum over the pod axis")
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic fault injection spec, e.g. "
+                         "'transient@6;slow@9:0.5;corrupt@14' "
+                         "(core/faults.py grammar)")
     ap.add_argument("--trace", default=None, metavar="PATH")
     args = ap.parse_args(argv)
 
-    for flag, slice_ in LATER.items():
+    for flag, item in LATER.items():
         if getattr(args, flag[2:].replace("-", "_")):
-            ap.error(f"{flag} comes with ROADMAP Queue 1 slice {slice_}")
-    if args.ckpt_every == "auto":
-        ap.error("--ckpt-every auto (the managed cadence) comes with "
-                 "ROADMAP Queue 1 slice 10")
+            ap.error(f"{flag} comes with ROADMAP Queue 1 item {item}")
 
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
@@ -99,34 +119,73 @@ def main(argv: list[str] | None = None) -> None:
                      "layers")
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch=args.moe_dispatch))
+    _, axes = launch_mesh.parse_mesh(args.mesh)
+    if args.pipeline != "none" and "pod" not in axes:
+        ap.error("--pipeline needs a pod axis: pass a 3-axis --mesh like "
+                 "2x1x1 (pod x data x model)")
     ctx = launch_mesh.mesh_ctx(args.mesh, device, args.mdmp_mode)
     say = print if launch_mesh.is_main() else (lambda *a, **k: None)
     model = Model(cfg, ctx, device=device)
     say(f"arch={args.arch} params={cfg.param_count() / 1e6:.1f}M "
         f"mesh={tuple(ctx.axis_sizes.values())} device={device} "
-        f"mdmp={args.mdmp_mode}")
+        f"mdmp={args.mdmp_mode} pipeline={args.pipeline}")
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                           total_steps=args.steps,
                           moment_dtype=cfg.moment_dtype)
-    step_fn = build_train_step(model, opt_cfg)
+    managed.clear_decision_log()
+    step_fn = build_train_step(
+        model, opt_cfg, compress_pod=args.compress_pod,
+        pipeline=args.pipeline, pipe_microbatches=args.microbatches,
+        global_batch=args.batch, seq_len=args.seq)
+    for rec in managed.decision_log():
+        if rec.op == "pipeline_schedule":
+            say(f"decision pipeline_schedule({rec.mode} M={rec.chunks} "
+                f"axis={rec.axis} handoff={rec.nbytes / 1e3:.1f}kB "
+                f"bulk={rec.predicted_bulk_s * 1e3:.2f}ms "
+                f"chosen={rec.predicted_interleaved_s * 1e3:.2f}ms)")
     data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
                                       seq_len=args.seq,
                                       global_batch=args.batch))
-    ckpt_every = (max(5, args.steps // 4) if args.ckpt_every is None
+    managed_cadence = args.ckpt_every == "auto"
+    ckpt_every = (max(5, args.steps // 4)
+                  if args.ckpt_every in (None, "auto")
                   else int(args.ckpt_every))
     loop_cfg = TrainLoopConfig(total_steps=args.steps,
-                               ckpt_every=ckpt_every)
+                               ckpt_every=ckpt_every,
+                               managed_cadence=managed_cadence,
+                               mtbf_s=args.mtbf)
     if args.ckpt is not None:
         loop_cfg.ckpt_dir = args.ckpt
     if launch_mesh.dist.is_initialized():
         # every rank checkpoints its own shards
         loop_cfg.ckpt_dir = os.path.join(
             loop_cfg.ckpt_dir, f"rank{launch_mesh.dist.get_rank()}")
-    loop = TrainLoop(step_fn, model, opt_cfg, data, loop_cfg)
+    fault_plan = (FaultPlan.parse(args.fault_plan) if args.fault_plan
+                  else None)
+    loop = TrainLoop(step_fn, model, opt_cfg, data, loop_cfg,
+                     tuner=ScheduleTuner(), fault_plan=fault_plan)
     opt, s0 = (loop.resume_or_init(args.seed) if args.resume
                else loop.init_state(args.seed))
     out = loop.run(opt, s0)
+    for rec in managed.decision_log():
+        if rec.op == "ckpt_interval":
+            say(f"decision ckpt_interval({rec.mode} N={rec.chunks} "
+                f"axis={rec.axis} snap={rec.nbytes / 1e6:.1f}MB "
+                f"fixed_ovh={rec.predicted_bulk_s:.4f} "
+                f"chosen_ovh={rec.predicted_interleaved_s:.4f})")
+    for d in loop.ckpt_decisions[-1:]:
+        say(f"  cadence from step {d.step_s * 1e3:.2f} ms, write bandwidth "
+            f"{d.write_bw / 1e9:.3f} GB/s, checkpoint cost "
+            f"{d.ckpt_cost_s * 1e3:.2f} ms, mtbf {d.mtbf_s:.0f} s")
+    for r in out["replayed"]:
+        say(f"replan {r['op']}: {r['mode']}:{r['chunks']} "
+            f"{r['axis']}{r['old_n']} -> {r['axis']}{r['new_n']}")
+    if fault_plan is not None:
+        left = fault_plan.unfired()
+        say(f"faults injected={len(fault_plan.events) - len(left)} "
+            f"unfired={len(left)} restarts={out['restarts']} "
+            f"steps_executed={out['steps_executed']}")
     if args.moe_dispatch is not None:
         seen = set()
         for rec in managed.decision_log():

@@ -103,26 +103,34 @@ class MeshCtx:
     def all_axes(self) -> tuple[str, ...]:
         return tuple(self.axis_sizes.keys())
 
-    def local_batch(self, global_batch: int) -> int:
-        if global_batch % self.batch_shards:
+    def local_batch(self, global_batch: int,
+                    axes: tuple[str, ...] | None = None) -> int:
+        shards = 1
+        for ax in (self.batch_axes if axes is None else axes):
+            shards *= self.axis_sizes.get(ax, 1)
+        if global_batch % shards:
             raise ValueError(f"global batch {global_batch} not divisible by "
-                             f"{self.batch_shards} batch shards")
-        return global_batch // self.batch_shards
+                             f"{shards} batch shards")
+        return global_batch // shards
 
-    def batch_index(self) -> int:
-        """This rank's shard of the batch (``batch_axes`` row-major)."""
+    def batch_index(self, axes: tuple[str, ...] | None = None) -> int:
+        """This rank's shard of the batch over ``axes`` (default
+        ``batch_axes``), row-major."""
         i = 0
-        for ax in self.batch_axes:
+        for ax in (self.batch_axes if axes is None else axes):
             i = i * self.axis_sizes.get(ax, 1) + self.axis_index(ax)
         return i
 
-    def shard_batch(self, batch: dict) -> dict:
-        """This rank's rows of a global batch (leading dim sharded over
-        ``batch_axes``, the reference's ``P(batch_axes, ...)``)."""
-        i = self.batch_index()
+    def shard_batch(self, batch: dict,
+                    axes: tuple[str, ...] | None = None) -> dict:
+        """This rank's rows of a global batch: the leading dim sharded
+        over ``axes`` (default ``batch_axes``; the reference's
+        ``P(batch_axes, ...)``).  Pipeline training passes ``("data",)``:
+        every stage then holds the same rows."""
+        i = self.batch_index(axes)
         out = {}
         for k, v in batch.items():
-            b = self.local_batch(v.shape[0])
+            b = self.local_batch(v.shape[0], axes)
             out[k] = v[i * b:(i + 1) * b]
         return out
 

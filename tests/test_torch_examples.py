@@ -16,7 +16,8 @@
         the loss trajectory within 1e-3 and the continuation equal.
   * ``train_100m --steps 2 --seq 32 --batch 2 --device cpu`` (the
     110M-parameter config): finite losses and a checkpoint on disk;
-    ``--pipeline`` other than ``none`` is refused.
+    ``--pipeline gpipe`` on one stage prints its schedule decision and
+    trains; an unknown schedule is refused.
 """
 
 import dataclasses
@@ -138,7 +139,15 @@ def test_train_100m_runs_and_checkpoints(capsys, tmp_path):
     assert any(os.scandir(tmp_path))
 
 
-def test_train_100m_refuses_pipelines(capsys):
+def test_train_100m_refuses_pipelines(capsys, tmp_path):
+    """``--pipeline`` runs the pod axis as stages (one process: one
+    stage) and prints the schedule decision; an unknown schedule is
+    refused."""
     with pytest.raises(SystemExit):
-        train_100m.main(["--pipeline", "gpipe", "--device", "cpu"])
-    assert "slice 9" in capsys.readouterr().err
+        train_100m.main(["--pipeline", "zigzag", "--device", "cpu"])
+    assert "invalid choice" in capsys.readouterr().err
+    out = train_100m.main(["--pipeline", "gpipe", "--steps", "2", "--seq",
+                           "32", "--batch", "2", "--device", "cpu",
+                           "--ckpt", str(tmp_path)])
+    assert "pipeline schedule: gpipe M=" in capsys.readouterr().out
+    assert all(math.isfinite(h["loss"]) for h in out["history"])
