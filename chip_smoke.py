@@ -142,7 +142,27 @@ phase that fails:
                ckpt_interval decisions print with the measured write
                bandwidth, and the resumed losses equal the nearer of two
                uninterrupted runs' (bit for bit when those agree, else
-               within FAULT_SPREAD_FACTOR times their spread).
+               within FAULT_SPREAD_FACTOR times their spread);
+ 15. plan    — the directives, the planner, the verifier and the trace:
+               ``launch.train`` with phi4-mini uncut (B=2 x S=1024, 3
+               steps, 1x1) planned, strictly verified and traced against
+               the plain launch (the program_plan line, no finding,
+               exactly 64 / 32 flash launches a step, the first loss bit
+               for bit and later ones within PLAN_LOSS_RTOL, the trace's
+               spans, ``launch.trace`` summary and diff), the end-of-run
+               save stood in; ``launch.serve`` planned and traced on
+               phase 3's requests (phase 3's tokens, 32 paged launches a
+               decode step); two processes (``--plan-mesh-rank``) running
+               ``launch.train`` on a 1x2 mesh (phi4-mini at full width, 2
+               layers, f32, S 256, attn_impl auto) planned and strictly
+               verified against plain (the plan's knob in the attention
+               records, loss and gradient norm within phase 11's
+               tolerances); ``CommRegion.plan`` of the Jacobi region on
+               meta specs (k as ``resolve_halo_aggregation``, card memory
+               and every launch count unchanged, the stencil kernel one
+               recorded op reading u and f), ``jacobi_mdmp`` and
+               ``moe_dispatch --ranks 2`` (schedules agree, grouped
+               launches counted).
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
 trip), the grouped-expert FFN, the ring's block backward (bf16 in, f32
@@ -1688,6 +1708,7 @@ def phase_serve(torch):
     print(f"  paged_attention launches {launches} = {cfg.n_layers} layers "
           f"x {eng.decode_steps} decode steps; {wall / eng.decode_steps * 1e3:.2f}"
           f" ms host wall per decode step", flush=True)
+    PHASE3.update(tokens=got, decode_steps=eng.decode_steps)
     profile_decode_step(torch, model)
     del model, eng
     torch.cuda.empty_cache()
@@ -4310,6 +4331,421 @@ def phase_pipeline(torch, card, plain):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the directives, the planner, the verifier and the trace
+# ---------------------------------------------------------------------------
+
+#: phase 3's tokens and decode steps, which phase 15 (b) is held to
+PHASE3: dict = {}
+#: a launch's end-of-run checkpoint is replaced by this stand-in: at full
+#: size it is a 38 GB snapshot beside the 38 GB live state and a 38 GB
+#: disk write, outside the phase's budget (phases 10 and 14 checkpoint)
+SAVE_STAND_IN_S = 0.01
+#: phase 15 (a): the flash backward's bulk reduce-adds sum in no fixed
+#: order, so two runs' losses agree bit for bit only at the first step;
+#: later ones within this (relative; two plain runs differ by 1e-4-1e-2,
+#: phase 14, and the planned run's third loss was 4.1e-3 off the plain
+#: one's in the first chip run of phase 15)
+PLAN_LOSS_RTOL = 2e-2
+#: phase 15 (c): phase 11's setup with the sequence cut (an f32 step there
+#: takes 10-20 s) and the managed attention dispatcher, whose schedule
+#: the plan's knob binds
+PLAN_MESH_S = 256
+
+
+class saves_stood_in:
+    """``with saves_stood_in(calls):`` — ``CheckpointManager.save_async``
+    records the step in ``calls`` and sleeps ``SAVE_STAND_IN_S`` instead
+    of snapshotting and writing."""
+
+    def __init__(self, calls: list):
+        self.calls = calls
+
+    def __enter__(self):
+        from repro_torch.checkpoint import ckpt
+
+        self._real = ckpt.CheckpointManager.save_async
+        calls = self.calls
+
+        def stand_in(mgr, step, tree, extra=None):
+            calls.append(step)
+            time.sleep(SAVE_STAND_IN_S)
+
+        ckpt.CheckpointManager.save_async = stand_in
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint import ckpt
+
+        ckpt.CheckpointManager.save_async = self._real
+
+
+def launch_quietly(main, argv):
+    """``main(argv)`` with its output captured: (result, text, seconds).
+    The plan and the tracer a launch installs are taken down after."""
+    import contextlib
+    import io
+
+    from repro_torch import obs
+    from repro_torch.core import managed
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(argv)
+    except SystemExit as e:
+        fail(f"{argv} exited {e.code}: {buf.getvalue()[-3000:]}")
+    finally:
+        managed.install_plan(None)
+        obs.install_tracer(None)
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+def plan_train(torch, tmp, card):
+    """(a) phi4-mini-3.8b uncut through launch.train, planned, verified
+    strictly and traced, against the same launcher's plain launch."""
+    import gc
+
+    from repro_torch import obs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import trace as trace_cli
+    from repro_torch.launch import train as train_cli
+
+    t0 = time.perf_counter()
+    runs = {}
+    for name, flags in (("local", ["--plan", "local", "--verify", "off"]),
+                        ("program", ["--plan", "program", "--verify",
+                                     "strict"])):
+        path = os.path.join(tmp, f"train_{name}.json")
+        argv = ["--arch", "phi4-mini-3.8b", "--batch", "2", "--seq", "1024",
+                "--steps", "3", "--seed", str(SEED), "--ckpt",
+                os.path.join(tmp, f"ck_{name}"), "--trace", path] + flags
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        saves = []
+        with saves_stood_in(saves):
+            out, text, wall = launch_quietly(train_cli.main, argv)
+        torch.cuda.synchronize()
+        runs[name] = dict(losses=[h["loss"] for h in out["history"]],
+                          fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
+                          text=text, wall=wall, path=path, saves=saves,
+                          step_ms=[h["time_s"] * 1e3
+                                   for h in out["history"]])
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    prog, local = runs["program"], runs["local"]
+    for line in prog["text"].splitlines():
+        if line.startswith(("decision program_plan", "  trail", "mdmplint")):
+            print(f"  launch.train --plan program: {line.strip()}",
+                  flush=True)
+    if "decision program_plan(" not in prog["text"] or \
+            "mdmplint: train:phi4-mini-3.8b clean (0 diagnostics)" \
+            not in prog["text"]:
+        fail(f"launch.train --plan program --verify strict printed no "
+             f"program_plan line or a verifier finding: "
+             f"{prog['text'][-2000:]}")
+    for name, r in runs.items():
+        if (r["fwd"], r["bwd"]) != (3 * 64, 3 * 32):
+            fail(f"launch.train ({name}): flash launches {r['fwd']} / "
+                 f"{r['bwd']} over 3 steps, not 64 / 32 a step")
+    if prog["losses"][0] != local["losses"][0]:
+        fail(f"the planned launch's first loss {prog['losses'][0]!r} != "
+             f"the plain launch's {local['losses'][0]!r}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(prog["losses"],
+                                                 local["losses"])]
+    if len(gaps) != 3 or max(gaps) > PLAN_LOSS_RTOL:
+        fail(f"planned losses {prog['losses']} against plain "
+             f"{local['losses']} (relative gaps {gaps}, tolerance "
+             f"{PLAN_LOSS_RTOL} after the first)")
+    doc = obs.load_trace(prog["path"])
+    names = [e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"]
+    if names.count("train.step") != 3 or "lint.preflight" not in names \
+            or "plan.resolve" not in names:
+        fail(f"the planned launch's trace holds spans {sorted(set(names))}")
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_sum = trace_cli.main([prog["path"]])
+        rc_diff = trace_cli.main(["--diff", local["path"], prog["path"]])
+    summary = buf.getvalue()
+    if rc_sum != 0 or rc_diff != 0 or "train.step" not in summary:
+        fail(f"launch.trace on the two traces: summary rc {rc_sum}, diff rc "
+             f"{rc_diff}: {summary[-2000:]}")
+    for line in summary.splitlines():
+        if line.strip().startswith(("train.step", "lint.preflight",
+                                    "plan.resolve", "OK:", "diff ")):
+            print(f"  launch.trace: {line.strip()}", flush=True)
+    print(f"  (a) launch.train phi4-mini-3.8b uncut, B=2 x S=1024, 3 steps "
+          f"at 1x1: planned + verified + traced losses {prog['losses']} "
+          f"against plain {local['losses']} (first bit for bit, relative "
+          f"gaps {[f'{g:.2e}' for g in gaps]}); flash launches 64 / 32 a "
+          f"step in both; host wall per step {prog['step_ms']} / "
+          f"{local['step_ms']} ms; launch walls {prog['wall']:.1f} / "
+          f"{local['wall']:.1f} s; end-of-run saves stood in "
+          f"{prog['saves']} / {local['saves']}; trace "
+          f"{len(names)} spans; {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+
+
+def plan_serve(torch, tmp, card):
+    """(b) phi4-mini uncut through launch.serve, planned, verified and
+    traced, on phase 3's 8 requests."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.launch import serve as serve_cli
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config("phi4-mini-3.8b")
+    path = os.path.join(tmp, "serve.json")
+    argv = ["--arch", "phi4-mini-3.8b", "--seed", str(SEED), "--requests",
+            "8", "--min-prompt-len", "64", "--prompt-len", "256",
+            "--new-tokens", "32", "--slots", "8", "--page-size", "16",
+            "--max-seq", "512", "--plan", "program", "--verify", "warn",
+            "--trace", path]
+    # launch.serve draws its requests from default_rng(0), phase 3 drew
+    # them (in the same order) from default_rng(SEED + 1): map the one
+    # seed to the other so the launcher serves phase 3's requests
+    real_rng = np.random.default_rng
+    np.random.default_rng = lambda seed=None: real_rng(
+        SEED + 1 if seed == 0 else seed)
+    paged.LAUNCHES = 0
+    try:
+        out, text, wall = launch_quietly(serve_cli.main, argv)
+    finally:
+        np.random.default_rng = real_rng
+    torch.cuda.synchronize()
+    launches, steps = paged.LAUNCHES, out["engine"].decode_steps
+    got = out["tokens"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "decision program_plan(" not in text or "mdmplint: serve:" not in text:
+        fail(f"launch.serve --plan program printed no program_plan or "
+             f"mdmplint line: {text[-2000:]}")
+    want = PHASE3["tokens"]
+    if len(got) != len(want) or any(
+            g is None or not np.array_equal(g, w) for g, w in zip(got, want)):
+        fail(f"launch.serve's tokens differ from phase 3's: "
+             f"{[None if g is None else g[:8].tolist() for g in got]} vs "
+             f"{[w[:8].tolist() for w in want]}")
+    if launches != cfg.n_layers * steps:
+        fail(f"launch.serve: paged launches {launches} != {cfg.n_layers} x "
+             f"{steps} decode steps")
+    for line in text.splitlines():
+        if line.startswith(("decision program_plan", "  trail", "mdmplint",
+                            "decision serve_schedule", "trace:")):
+            print(f"  launch.serve --plan program: {line.strip()}",
+                  flush=True)
+    print(f"  (b) launch.serve phi4-mini-3.8b uncut, phase 3's 8 requests: "
+          f"tokens equal phase 3's; paged launches {launches} = "
+          f"{cfg.n_layers} x {steps} decode steps (phase 3: "
+          f"{PHASE3['decode_steps']}); launch wall {wall:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
+def plan_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
+    """One of phase 15 (c)'s two processes: launch.train on a 1x2 mesh
+    over gloo, planned and verified strictly, then plainly; the losses,
+    gradient norms, installed knobs and decision records go to
+    rank{r}.json."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import managed
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import train as train_cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch_mesh.init_distributed("cuda", init_method=init, rank=rank,
+                                 world_size=2)
+    cut = dataclasses.replace(configs.get_config("phi4-mini-3.8b"),
+                              n_layers=MESH_LAYERS, dtype="float32",
+                              attn_impl="auto")
+    configs.get_config = lambda name: cut
+    metrics = []
+    real_build = train_cli.build_train_step
+
+    def build(*a, **k):
+        fn = real_build(*a, **k)
+
+        def step(opt, batch):
+            opt, m = fn(opt, batch)
+            metrics.append({"loss": float(m["loss"]),
+                            "grad_norm": float(m["grad_norm"])})
+            return opt, m
+        return step
+
+    train_cli.build_train_step = build
+    res = {}
+    for name, flags in (("program", ["--plan", "program", "--verify",
+                                     "strict"]),
+                        ("local", ["--plan", "local", "--verify", "off"])):
+        metrics.clear()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with saves_stood_in([]), contextlib.redirect_stdout(buf):
+            train_cli.main(["--arch", "phi4-mini-3.8b", "--mesh", "1x2",
+                            "--batch", str(MESH_B), "--seq",
+                            str(PLAN_MESH_S), "--steps", "1", "--seed",
+                            str(SEED), "--ckpt",
+                            os.path.join(out_dir, f"ck_{name}")] + flags)
+        plan = managed.active_plan()
+        res[name] = dict(metrics[0], wall=time.perf_counter() - t0,
+                         knobs=None if plan is None else plan.knobs,
+                         records=[[r.op, r.axis, r.mode, r.chunks]
+                                  for r in managed.decision_log()],
+                         text=buf.getvalue())
+        managed.install_plan(None)
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def plan_mesh(torch, card):
+    """(c) a real plan over two ranks on the one card."""
+    t0 = time.perf_counter()
+    res = run_rank_pair("--plan-mesh-rank", "phase 15 (c)", 600)
+    for r in range(2):
+        prog, local = res[r]["program"], res[r]["local"]
+        knobs = prog["knobs"] or {}
+        if "decision program_plan(" not in prog["text"] and r == 0:
+            fail(f"(c) rank 0 printed no program_plan line: "
+                 f"{prog['text'][-2000:]}")
+        if "attention_schedule|model" not in knobs:
+            fail(f"(c) rank {r}: the installed plan binds {knobs}, not the "
+                 f"model axis's attention schedule")
+        knob = knobs["attention_schedule|model"]
+        bound = [rec for rec in prog["records"]
+                 if rec[:2] == ["attention_schedule", "model"]]
+        # the planner's trail record comes first; the model's own follow
+        # (their chunks hold the axis size)
+        if len(bound) < 2 or any(rec[2] != knob["mode"] for rec in bound):
+            fail(f"(c) rank {r}: attention_schedule records {bound} do not "
+                 f"carry the plan's knob {knob}")
+        if abs(prog["loss"] - local["loss"]) > MESH_LOSS_RTOL * abs(
+                local["loss"]):
+            fail(f"(c) rank {r}: planned loss {prog['loss']} != plain "
+                 f"{local['loss']} (rtol {MESH_LOSS_RTOL})")
+        if abs(prog["grad_norm"] - local["grad_norm"]) > MESH_NORM_RTOL * \
+                abs(local["grad_norm"]):
+            fail(f"(c) rank {r}: planned grad norm {prog['grad_norm']} != "
+                 f"plain {local['grad_norm']} (rtol {MESH_NORM_RTOL})")
+    p0, l0 = res[0]["program"], res[0]["local"]
+    print(f"  (c) launch.train over a 1x2 mesh of two processes (phi4-mini "
+          f"full width, {MESH_LAYERS} layers, f32, attn_impl auto, B="
+          f"{MESH_B}, S={PLAN_MESH_S}): plan {p0['knobs']}; "
+          f"{sum(rec[0] == 'attention_schedule' for rec in p0['records'])} "
+          f"attention_schedule records carry it; loss {p0['loss']!r} / "
+          f"plain {l0['loss']!r}, grad norm {p0['grad_norm']!r} / "
+          f"{l0['grad_norm']!r} (rtol {MESH_LOSS_RTOL} / {MESH_NORM_RTOL}); "
+          f"launch walls {p0['wall']:.1f} / {l0['wall']:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
+def kernel_counts() -> tuple:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.kernels import stencil
+
+    return (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.CARRY_LAUNCHES,
+            fa.BWD_BLOCK_LAUNCHES, paged.LAUNCHES, gm.GROUPED_LAUNCHES,
+            stencil.STEP_LAUNCHES, stencil.KSWEEP_LAUNCHES)
+
+
+def plan_workflow(torch, root, card):
+    """(d) the paper's workflow: CommRegion.plan on meta specs costs the
+    card nothing; then the two examples over two processes."""
+    from repro_torch.core import instrument, managed
+    from repro_torch.examples import jacobi_mdmp
+
+    t0 = time.perf_counter()
+    for ranks, m, n in ((2, 1024, 514), (2, JACOBI_N, JACOBI_N)):
+        rows = m // ranks
+        torch.cuda.synchronize()
+        mem0, c0 = torch.cuda.memory_allocated(), kernel_counts()
+        region, plan = jacobi_mdmp.plan_region(ranks, rows, n)
+        report = instrument.analyze_region(
+            jacobi_mdmp.shard_compute, instrument.Spec((rows, n)),
+            instrument.Spec((rows, n)), labels=("u", "f"))
+        torch.cuda.synchronize()
+        mem1, c1 = torch.cuda.memory_allocated(), kernel_counts()
+        if (mem1, c1) != (mem0, c0):
+            fail(f"(d) instrumenting the Jacobi region moved the card: "
+                 f"memory {mem0} -> {mem1}, launches {c0} -> {c1}")
+        k = managed.resolve_halo_aggregation("x", ranks, rows, n).k
+        if plan.k_for("halo_agg") != k:
+            fail(f"(d) the plan's k {plan.k_for('halo_agg')} != "
+                 f"resolve_halo_aggregation's {k} at {rows} x {n}")
+        recs = report.records
+        if report.total_eqns != 1 or (recs["u"].reads, recs["f"].reads,
+                                      recs["u"].writes) != (1, 1, 0):
+            fail(f"(d) the stencil region's report {report}")
+        print(f"  (d) CommRegion.plan at {rows} x {n} a rank on meta specs: "
+              f"k={k} (resolve_halo_aggregation's), card memory "
+              f"{mem0} -> {mem1} B, kernel launches unchanged; the report "
+              f"counts {report.total_eqns} op (jacobi_step) reading u "
+              f"{recs['u'].reads}x and f {recs['f'].reads}x; "
+              f"{region.last_report.total_eqns} op in the region's report",
+              flush=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    for example, want in (("jacobi_mdmp", "== one rank"),
+                          ("moe_dispatch", "all three dispatch schedules "
+                                           "allclose")):
+        t1 = time.perf_counter()
+        got = subprocess.run([sys.executable, "-m",
+                              f"repro_torch.examples.{example}", "--ranks",
+                              "2"], env=env, capture_output=True, text=True,
+                             timeout=600)
+        if got.returncode != 0 or want not in got.stdout:
+            fail(f"(d) {example} --ranks 2 on the card: {got.stdout[-2000:]} "
+                 f"{got.stderr[-2000:]}")
+        for line in got.stdout.splitlines():
+            print(f"  {example} --ranks 2: {line}", flush=True)
+        if example == "moe_dispatch":
+            launches = {}
+            for line in got.stdout.splitlines():
+                parts = line.split()
+                if "grouped-kernel" in parts:
+                    launches[parts[0]] = int(parts[-1])
+            if launches.get("bulk") != 1 or not launches.get("stream") \
+                    or launches.get("dense") != 0:
+                fail(f"(d) moe_dispatch's grouped-kernel launches on rank 0 "
+                     f"{launches}: want bulk 1, stream > 0, dense 0")
+        print(f"  (d) {example} --ranks 2 took "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"  (d) took {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+
+
+def phase_plan(torch, root, card):
+    """Phase 15: the slice's path on the card: the planned, verified and
+    traced launchers, a real plan over two ranks, and CommRegion.plan."""
+    t15 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    try:
+        plan_train(torch, tmp, card)
+        plan_serve(torch, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    plan_mesh(torch, card)
+    plan_workflow(torch, root, card)
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s on {card}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4428,6 +4864,9 @@ def main() -> int:
           "stages), the int8 pod reduction, the fault-tolerant loop",
           flush=True)
     phase_pipeline(torch, card, plain_train)
+    print("phase 15: the directives, the whole-program planner, the static "
+          "verifier and the trace export", flush=True)
+    phase_plan(torch, root, card)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)
@@ -4485,7 +4924,8 @@ def main() -> int:
 if __name__ == "__main__":
     RANK_MAINS = {"--mesh-rank": mesh_rank_main,
                   "--moe-mesh-rank": moe_mesh_rank_main,
-                  "--pipe-mesh-rank": pipe_mesh_rank_main}
+                  "--pipe-mesh-rank": pipe_mesh_rank_main,
+                  "--plan-mesh-rank": plan_mesh_rank_main}
     if sys.argv[1:2] and sys.argv[1] in RANK_MAINS:
         sys.path.insert(0, os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "src"))

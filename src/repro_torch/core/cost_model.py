@@ -6,9 +6,11 @@ The port prices with an NVIDIA H100 (``H100``, the ``DEFAULT_HW``).
 reference's on the same machine model.  Ported: the collective times and
 the generic bulk-vs-interleaved decision (``decide``), and the serve,
 preemption, halo, MoE dispatch and attention-schedule decisions, and
-the pipeline-schedule and checkpoint-cadence (Young/Daly) decisions.
-The planner's per-collective components and the roofline terms are not
-ported (ROADMAP Queue 1 item 7).  The halo-aggregation decision keeps
+the pipeline-schedule and checkpoint-cadence (Young/Daly) decisions, and
+the whole-program planner's per-collective components
+(``CommComponents``, ``collective_wire_s``, ``collective_msgs``,
+``collective_components``).  The roofline terms are the last slice's.
+The halo-aggregation decision keeps
 the reference's formulas; only its fit test prices what the machine's
 k-sweep kernel holds on chip (the TPU's whole-row tile, or the CUDA
 kernel's shared-memory ring and the deepest k its registers hold: the
@@ -1307,3 +1309,76 @@ def decide_checkpoint(step_s: float, snapshot_bytes: int, *,
         snapshot_bytes=int(snapshot_bytes), write_bw=bw, mtbf_s=mtbf_s,
         restore_s=rest, daly_interval_s=tau_star, overhead=overhead,
         fixed_overhead=fixed_ov, chosen_overhead=overhead[interval])
+
+
+# ---------------------------------------------------------------------------
+# Joint-plan components (used by plan/planner.py — the MDMP compiler)
+# ---------------------------------------------------------------------------
+#
+# The per-subsystem decide_* functions above price each knob ALONE on the
+# link with a private overlap budget.  The whole-program planner instead
+# needs each knob candidate decomposed into the terms it must pool across
+# ops sharing a mesh axis: the bytes-on-link time (serialised within a
+# contention set), the message count (alpha each, never hidden), the
+# adjacent compute an interleaved schedule can hide the wire under (one
+# account per contention set — compute hides the link once, not once per
+# op), and the buffer footprint drawn from the pooled stash cap.
+
+
+@dataclasses.dataclass(frozen=True)
+class CommComponents:
+    """Wire/message/hide decomposition of one knob candidate."""
+    wire_s: float          # bytes-on-link seconds (no alphas)
+    msgs: int              # message count (alpha_s each)
+    hide_s: float          # compute available to hide wire_s (0 for bulk)
+    stash_bytes: int = 0   # buffer footprint against the pooled cap
+
+    def solo_s(self, alpha: float) -> float:
+        """The LOCAL model of this knob: alone on the link, private hide
+        budget — what per-subsystem resolution implicitly assumes."""
+        return max(0.0, self.wire_s - self.hide_s) + alpha * self.msgs
+
+
+def collective_wire_s(collective: str, nbytes: float, n: int,
+                      hw: HardwareModel = DEFAULT_HW) -> float:
+    """Bytes-on-link seconds of one ring collective — the alpha-free term
+    of the ring_*_time primitives above (AG: shard bytes in; RS/A2A: full/
+    local bytes in; AR = RS + AG of the shard)."""
+    if n <= 1:
+        return 0.0
+    if collective == "all_gather":
+        return (n - 1) * nbytes / hw.link_bw
+    if collective in ("reduce_scatter", "all_to_all"):
+        return (n - 1) * (nbytes / n) / hw.link_bw
+    if collective == "all_reduce":
+        return 2.0 * (n - 1) * (nbytes / n) / hw.link_bw
+    raise ValueError(f"unknown collective {collective!r}")
+
+
+def collective_msgs(collective: str, n: int, *, mode: str = "bulk",
+                    chunks: int = 1) -> int:
+    """Message (dispatch) count of one collective knob.  A BULK collective
+    is ONE fused op (the one all_gather / all-reduce / all_to_all call
+    the managed runtime falls through to — one dispatch regardless of
+    n); the interleaved ring issues one point-to-point permute per
+    step, ``(n-1) * chunks`` of them (doubled for all_reduce's RS+AG
+    rings).  This asymmetry is the
+    planner's lever: streaming buys overlap at per-message cost, bulk
+    minimises messages — the paper's aggregation counter-knob."""
+    if n <= 1:
+        return 0
+    if mode != "interleaved":
+        return 1
+    steps = (n - 1) * max(1, chunks)
+    return 2 * steps if collective == "all_reduce" else steps
+
+
+def collective_components(collective: str, nbytes: float, n: int, *,
+                          mode: str = "bulk", chunks: int = 1,
+                          compute_time_s: float = 0.0,
+                          hw: HardwareModel = DEFAULT_HW) -> CommComponents:
+    """CommComponents of one generic managed-collective knob candidate."""
+    return CommComponents(
+        wire_s=collective_wire_s(collective, nbytes, n, hw),
+        msgs=collective_msgs(collective, n, mode=mode, chunks=chunks),
+        hide_s=compute_time_s if mode == "interleaved" else 0.0)

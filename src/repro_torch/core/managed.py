@@ -171,8 +171,8 @@ class capture_decisions:
 #
 # Precedence, most-binding first: explicit caller knob > program-plan knob
 # > ambient mode > cost-model auto.  The plan is duck-typed (anything with
-# ``knob_for(op, axis) -> dict | None``); the planner itself is ported in
-# a later slice.
+# ``knob_for(op, axis) -> dict | None``): plan/planner.py's
+# ``ProgramPlan``.
 
 
 def install_plan(plan: Any | None) -> None:
@@ -818,11 +818,11 @@ def resolve_pipeline_schedule(axis_name: str, axis_size: int,
     ``mode='bulk'`` pins gpipe (the unmanaged forward-then-backward
     baseline); ``mode='interleaved'`` pins 1f1b (the always-intermingle
     schedule); ``schedule``/``n_micro``/``virtual`` pin an explicit
-    choice (the tuner's measured winner).  ``overlap_budget`` is how
-    much of a tick's compute can hide the handoff bytes (1.0 until the
-    instrumentation of ROADMAP Queue 1 item 7 measures the stage
-    boundary's readiness).  The DecisionRecord reuses ``chunks`` to
-    carry the microbatch count M."""
+    choice (the tuner's measured winner).  ``overlap_budget`` is the
+    instrumented readiness of the stage boundary
+    (``instrument.analyze_region``, as ``CommRegion.plan`` passes it) —
+    how much of a tick's compute can hide the handoff bytes.  The
+    DecisionRecord reuses ``chunks`` to carry the microbatch count M."""
     cfg = get_config()
     pk = _plan_knob("pipeline_schedule", axis_name)
     if pk is not None and schedule is None and n_micro is None and \

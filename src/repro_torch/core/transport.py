@@ -14,6 +14,11 @@ here, and those gloo makes itself when it all-reduces a CUDA tensor (the
 message to host memory and the sum back).  Gloo has no reduce-scatter: a
 gloo group reduces the whole message and keeps its block; nor, in every
 build, an all-to-all: a gloo group sends the blocks point to point.
+
+Under the instrumentation's recorder (core/instrument.py) each call is one
+``CollectiveRecord`` under the reference's primitive name (``psum``,
+``all_gather``, ``reduce_scatter``, ``all_to_all``, ``ppermute``); meta
+operands are recorded and nothing is sent.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import instrument
 from repro_torch.obs.registry import MetricsRegistry
 
 Group = dist.ProcessGroup | None
@@ -59,10 +65,29 @@ def _to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return host.to(like.device)
 
 
+def _recorded(primitive: str, group: Group,
+              operands: Sequence[torch.Tensor], meta, run):
+    """One call under the active recorder: record it, then run it with
+    its own ops unrecorded, or only shape it when the operands are
+    meta."""
+    rec = instrument.ACTIVE
+    rec.collective(primitive, group, operands)
+    with rec.quiet():
+        return meta() if instrument.is_meta(*operands) else run()
+
+
 def all_reduce(x: torch.Tensor, group: Group,
                op: dist.ReduceOp.RedOpType = dist.ReduceOp.SUM
                ) -> torch.Tensor:
     """The reduction of ``x`` over ``group`` as a new tensor."""
+    if instrument.ACTIVE is not None:
+        return _recorded("psum", group, [x], lambda: torch.empty_like(x),
+                         lambda: _all_reduce(x, group, op))
+    return _all_reduce(x, group, op)
+
+
+def _all_reduce(x: torch.Tensor, group: Group,
+                op: dist.ReduceOp.RedOpType) -> torch.Tensor:
     out = x.detach().clone(memory_format=torch.contiguous_format)
     if stages("all_reduce", group, out):
         host = _to_host(out)
@@ -78,6 +103,16 @@ def all_reduce(x: torch.Tensor, group: Group,
 
 def all_gather(x: torch.Tensor, group: Group) -> list[torch.Tensor]:
     """Every rank's ``x`` in group-rank order."""
+    if instrument.ACTIVE is not None:
+        return _recorded(
+            "all_gather", group, [x],
+            lambda: [torch.empty_like(x)
+                     for _ in range(dist.get_world_size(group))],
+            lambda: _all_gather(x, group))
+    return _all_gather(x, group)
+
+
+def _all_gather(x: torch.Tensor, group: Group) -> list[torch.Tensor]:
     n = dist.get_world_size(group)
     src = x.detach().contiguous()
     if stages("all_gather", group, src):
@@ -95,8 +130,19 @@ def reduce_scatter(x: torch.Tensor, group: Group) -> torch.Tensor:
     divisible by the group's size)."""
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     m = x.shape[0] // n
+    if instrument.ACTIVE is not None:
+        return _recorded(
+            "reduce_scatter", group, [x],
+            lambda: x.new_empty((m,) + tuple(x.shape[1:])),
+            lambda: _reduce_scatter(x, group, m, idx))
+    return _reduce_scatter(x, group, m, idx)
+
+
+def _reduce_scatter(x: torch.Tensor, group: Group, m: int,
+                    idx: int) -> torch.Tensor:
     if dist.get_backend(group) == "gloo":
-        return all_reduce(x, group)[idx * m:(idx + 1) * m].contiguous()
+        return _all_reduce(x, group, dist.ReduceOp.SUM)[
+            idx * m:(idx + 1) * m].contiguous()
     out = x.new_empty((m,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x.detach().contiguous(), group=group)
     return out
@@ -109,14 +155,23 @@ def all_to_all(blocks: Sequence[torch.Tensor],
     every build: over a gloo group the blocks go as one batch of
     point-to-point messages (staged through host buffers for CUDA
     tensors, as every gloo message)."""
+    if instrument.ACTIVE is not None:
+        return _recorded("all_to_all", group, list(blocks),
+                         lambda: [torch.empty_like(b) for b in blocks],
+                         lambda: _all_to_all(blocks, group))
+    return _all_to_all(blocks, group)
+
+
+def _all_to_all(blocks: Sequence[torch.Tensor],
+                group: Group) -> list[torch.Tensor]:
     src = [b.detach().contiguous() for b in blocks]
     if dist.get_backend(group) == "gloo":
         me = dist.get_rank(group)
         got = [torch.empty_like(b) for b in src]
         got[me] = src[me].clone()
         peers = [j for j in range(len(src)) if j != me]
-        p2p_start([(src[j], j, 0) for j in peers],
-                  [(got[j], j, 0) for j in peers], group).wait()
+        _p2p_start([(src[j], j, 0) for j in peers],
+                   [(got[j], j, 0) for j in peers], group).wait()
         return got
     got = [torch.empty_like(b) for b in src]
     dist.all_to_all(got, src, group=group)
@@ -147,7 +202,18 @@ def p2p_start(sends: Sequence[tuple[torch.Tensor, int, int]],
     are group ranks.  A receive fills its tensor once the returned
     ``Pending`` is waited for; a sent tensor must stay unchanged until
     then.  Every rank posts its ops in the same order (NCCL pairs them by
-    order, gloo by tag)."""
+    order, gloo by tag).  Under the recorder the batch is one
+    ``ppermute`` of the sent bytes."""
+    if instrument.ACTIVE is not None:
+        return _recorded("ppermute", group, [t for t, _, _ in sends],
+                         lambda: Pending([], [], []),
+                         lambda: _p2p_start(sends, recvs, group))
+    return _p2p_start(sends, recvs, group)
+
+
+def _p2p_start(sends: Sequence[tuple[torch.Tensor, int, int]],
+               recvs: Sequence[tuple[torch.Tensor, int, int]],
+               group: Group) -> Pending:
     ops, copies, keep = [], [], []
     for t, peer, tag in sends:
         if not t.is_contiguous():

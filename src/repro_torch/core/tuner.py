@@ -10,10 +10,9 @@ optimisations at runtime to auto-tune" (Sec. 4).
 
 The cache is JSON-serialisable so tuned schedules persist across restarts
 (they ride along with checkpoints), in the reference's format: a
-reference tuner's JSON loads here and replans the same way.  The
-whole-program plans it may carry (``__program_plans__``) are kept and
-written back, but storing, reading or re-planning one needs the program
-planner (``plan/``), which is ROADMAP Queue 1 item 7: those methods raise.
+reference tuner's JSON loads here and replans the same way, the
+whole-program plans it carries (``__program_plans__``, plan/planner.py's
+``ProgramPlan``) included.
 """
 
 from __future__ import annotations
@@ -26,12 +25,6 @@ import re
 
 from repro_torch.core import cost_model, managed
 from repro_torch.core.cost_model import DEFAULT_HW, HardwareModel
-
-
-def _needs_planner(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs the program planner (plan/ir.py, plan/planner.py), "
-        f"ROADMAP Queue 1 item 7")
 
 
 def call_site_key(op: str, shape: tuple, dtype: str, axis: str,
@@ -365,13 +358,20 @@ class ScheduleTuner:
     def store_program_plan(self, plan) -> str:
         """Persist a ``plan.planner.ProgramPlan`` keyed by (program
         signature, topology) — the whole-program analogue of a call-site
-        entry.  Needs the planner (ROADMAP Queue 1 item 7)."""
-        raise _needs_planner("storing a ProgramPlan")
+        entry.  Rides along in the same JSON cache / checkpoint."""
+        key = self.program_plan_key(plan.signature, plan.topology)
+        self._program_plans[key] = plan.to_dict()
+        return key
 
     def get_program_plan(self, signature: str, topology: str):
-        """The stored ``ProgramPlan`` for this (program, topology).  Needs
-        the planner (ROADMAP Queue 1 item 7)."""
-        raise _needs_planner("reading a ProgramPlan")
+        """Return the stored ``ProgramPlan`` for this (program, topology),
+        or None.  Lazy import keeps core free of a plan dependency."""
+        d = self._program_plans.get(self.program_plan_key(signature,
+                                                          topology))
+        if d is None:
+            return None
+        from repro_torch.plan.planner import ProgramPlan
+        return ProgramPlan.from_dict(d)
 
     @property
     def program_plans(self) -> dict[str, dict]:
@@ -550,10 +550,46 @@ def replan_for_mesh(tuner: ScheduleTuner, new_axis_sizes: dict[str, int],
 def replan_program_plans(tuner: ScheduleTuner,
                          new_axis_sizes: dict[str, int]) -> list[dict]:
     """Re-run the whole-program planner over every persisted ProgramPlan
-    on the NEW topology.  With no plan persisted there is nothing to do;
-    re-planning one needs the planner (ROADMAP Queue 1 item 7)."""
-    if tuner.program_plans:
-        raise _needs_planner(
-            f"re-planning {len(tuner.program_plans)} persisted ProgramPlans "
-            f"onto {new_axis_sizes}")
-    return []
+    on the NEW topology.  Each stored plan's CommOps are rebuilt with the
+    new axis extents and their per-rank payloads rescaled (total bytes
+    conserved, like the call-site replay above); the joint pass then
+    re-searches the knob space from scratch — a knob the old topology
+    forced off its local optimum may be free again on the new one.  The
+    fresh plan is stored under the new-topology key and one
+    ``program_plan`` record per re-plan is returned (and logged to the
+    decision trail by ``plan_program`` itself)."""
+    from repro_torch.plan.ir import CommOp
+    from repro_torch.plan.planner import plan_program
+
+    #: per-rank meta fields that shrink/grow with the shard count
+    local_fields = ("tokens_local", "s_local", "rows_local")
+
+    out: list[dict] = []
+    for old_key, d in sorted(tuner.program_plans.items()):
+        ops = [CommOp.from_dict(o) for o in d.get("ops", [])]
+        if not ops:
+            continue
+        changed = False
+        for op in ops:
+            n_old = max(1, op.axis_size)
+            n_new = int(new_axis_sizes.get(op.axis, n_old))
+            if n_new == n_old:
+                continue
+            changed = True
+            op.axis_size = n_new
+            op.nbytes = max(1, op.nbytes * n_old // n_new)
+            for f in local_fields:
+                if f in op.meta:
+                    op.meta[f] = max(1, int(op.meta[f]) * n_old // n_new)
+        plan = plan_program(ops, hw=tuner.hw,
+                            notes=[f"replanned from {old_key}"]
+                            if changed else [])
+        tuner.store_program_plan(plan)
+        out.append({"op": "program_plan", "axis": plan.topology,
+                    "old_key": old_key,
+                    "new_key": tuner.program_plan_key(plan.signature,
+                                                      plan.topology),
+                    "mode": "coordinated" if plan.coordinated else "local",
+                    "chunks": len(plan.choices),
+                    "old_n": 0, "new_n": 0})
+    return out

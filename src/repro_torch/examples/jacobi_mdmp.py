@@ -11,10 +11,12 @@ share one card, whose halo messages then pass through host buffers), the
 rows of the global grid split over them.  With ``--device cpu --ranks
 8`` it is the reference example: a 1024 x 514 grid, 48 sweeps.
 
-  1. plan the AGGREGATION knob: ``managed.resolve_halo_aggregation``
-     prices how many sweeps one k-row halo slab should carry (the call
-     the reference's ``CommRegion.plan`` makes; the CommRegion facade
-     needs the tracing of a later slice) and logs its DecisionRecord;
+  1. declare the communication (``CommRegion`` directives) and let the
+     region instrument the per-shard stencil — the kernel, run once on
+     meta specs, so the walk allocates and launches nothing — and plan
+     each message, including the AGGREGATION knob: how many sweeps one
+     k-row halo slab should carry (``managed.resolve_halo_aggregation``,
+     whose DecisionRecord lands in the trail);
   2. run all three schedules — bulk (paper Fig 2), intermingled (Fig 3)
      and aggregated (k sweeps per exchange) — and check they agree, and
      that they equal one rank's solve of the whole grid;
@@ -34,7 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import halo, managed, transport
+from repro_torch.core import halo, instrument, managed, transport
+from repro_torch.core.region import CommRegion
 from repro_torch.device import resolve_device
 from repro_torch.kernels import stencil
 
@@ -64,6 +67,27 @@ def run(rank: int, ranks: int, args: argparse.Namespace,
             dist.destroy_process_group()
 
 
+def shard_compute(u: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """The per-shard stencil the halos must overlap with: one
+    ``jacobi_step`` kernel launch."""
+    return stencil.jacobi_step(u, f)
+
+
+def plan_region(ranks: int, rows: int, n: int):
+    """Declare the halo exchange and plan it (the paper's ``#pragma
+    commregion`` block): (region, plan)."""
+    region = CommRegion("jacobi", axis_sizes={"x": ranks})
+    region.send("halo_up", axis="x", shape=(n,), dtype=torch.float32)
+    region.send("halo_down", axis="x", shape=(n,), dtype=torch.float32)
+    region.halo("halo_agg", axis="x", rows_local=rows, cols=n,
+                dtype=torch.float32)
+    local = instrument.Spec((rows, n), torch.float32)
+    plan = region.plan(
+        shard_compute, local, local,
+        compute_time_s=5.0 * rows * n / managed.get_config().hw.peak_flops)
+    return region, plan
+
+
 def _run(rank, ranks, args, dev, group):
     m, n, iters = args.m, args.n, args.iters
     rng = np.random.default_rng(args.seed)
@@ -74,15 +98,17 @@ def _run(rank, ranks, args, dev, group):
     f_loc = torch.from_numpy(f[rank * rows:(rank + 1) * rows]).to(dev)
     say = print if rank == 0 else (lambda *a, **k: None)
 
-    # 1. plan the aggregation knob
-    decision = managed.resolve_halo_aggregation("x", ranks, rows, n)
-    k = decision.k
+    # 1. declare + plan
+    _, plan = plan_region(ranks, rows, n)
     say(f"{m} x {n} grid, rows split over {ranks} rank(s) on {dev}, "
         f"{iters} sweeps")
+    say(plan.summary())
+    k = plan.k_for("halo_agg")
+    agg = plan.entries["halo_agg"]
     say(f"cost model ({managed.get_config().hw.name}) chose k={k}: one "
         f"{k}-row halo slab per {k} sweeps (messages / sweep drop 2 -> "
-        f"{2.0 / k:.3f}); predicted {decision.bulk_sweep_s * 1e6:.2f} us "
-        f"per sweep bulk, {decision.aggregated_sweep_s * 1e6:.2f} us "
+        f"{2.0 / k:.3f}); predicted {agg.predicted_bulk_s * 1e6:.2f} us "
+        f"per sweep bulk, {agg.predicted_interleaved_s * 1e6:.2f} us "
         f"aggregated")
     say("decision trail:", managed.decision_log()[-1])
 

@@ -58,6 +58,7 @@ import math
 
 import torch
 
+from repro_torch.core import instrument
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -411,6 +412,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if engine == "torch" or q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
+    if instrument.is_meta(q):
+        return instrument.meta_kernel(
+            "flash_attention_fwd", (q, k, v),
+            (torch.empty_like(q), q.new_empty(q.shape[:3],
+                                              dtype=torch.float32)))
     _check_kernel_inputs(q, k, v)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -428,6 +434,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(hd), stream)
     _raise_on(lib, err, "forward")
     FWD_LAUNCHES += 1
+    instrument.note_kernel("flash_attention_fwd", (q, k, v), (out, lse))
     return out, lse
 
 
@@ -456,6 +463,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_torch(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
                                          q_offset=q_offset)
+    if instrument.is_meta(q):
+        return instrument.meta_kernel(
+            "flash_attention_bwd", (q, k, v, out, lse, dout),
+            (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
     _check_kernel_inputs(q, k, v, out, dout)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise TypeError("lse must be contiguous f32")
@@ -485,6 +496,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(window), int(bool(causal)), 1.0 / math.sqrt(hd), stream)
     _raise_on(lib, err, "backward")
     BWD_LAUNCHES += 1
+    instrument.note_kernel("flash_attention_bwd", (q, k, v, out, lse, dout),
+                           (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -516,6 +529,10 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_step_torch(
             q, k, v, m, l, acc, causal=causal, window=window,
             q_offset=q_offset, k_offset=k_offset)
+    if instrument.is_meta(q):
+        return instrument.meta_kernel(
+            "flash_attention_carry", (q, k, v, m, l, acc),
+            (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)))
     _check_kernel_inputs(q, k, v)
     if not all(t.is_contiguous() for t in (m, l, acc)):
         raise ValueError("the kernels take contiguous tensors")
@@ -535,6 +552,8 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(hd), stream)
     _raise_on(lib, err, "carry")
     CARRY_LAUNCHES += 1
+    instrument.note_kernel("flash_attention_carry", (q, k, v, m, l, acc),
+                           (m_out, l_out, acc_out))
     return m_out, l_out, acc_out
 
 
@@ -571,6 +590,11 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_bwd_block_torch(
             q, k, v, dout, lse, dsum, causal=causal, window=window,
             q_offset=q_offset, k_offset=k_offset, blk_kv=blk_kv)
+    if instrument.is_meta(q):
+        return instrument.meta_kernel(
+            "flash_attention_bwd_block", (q, k, v, dout, lse, dsum),
+            tuple(t.new_empty(t.shape, dtype=torch.float32)
+                  for t in (q, k, v)))
     _check_kernel_inputs(q, k, v, dout)
     if not (lse.is_contiguous() and dsum.is_contiguous()):
         raise ValueError("the kernels take contiguous tensors")
@@ -597,4 +621,6 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
             1.0 / math.sqrt(hd), stream)
     _raise_on(lib, err, "block backward")
     BWD_BLOCK_LAUNCHES += 1
+    instrument.note_kernel("flash_attention_bwd_block",
+                           (q, k, v, dout, lse, dsum), (dq, dk, dv))
     return dq, dk, dv

@@ -56,6 +56,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import instrument
 from repro_torch.kernels import build
 
 #: kernel calls since the count was last set to 0
@@ -244,6 +245,8 @@ def _launch(h, w1, w1_gate, w2, valid, mlp, plan: Plan,
                            f"{lib.grouped_error_string(err).decode()}")
     GROUPED_LAUNCHES += 1
     ENGINE_LAUNCHES[plan.engine] += 1
+    instrument.note_kernel("grouped_expert_ffn", (h, w1, w1_gate, w2, valid),
+                           (out,))
 
 
 def grouped_expert_ffn_cuda(h: torch.Tensor, w1: torch.Tensor,
@@ -251,6 +254,11 @@ def grouped_expert_ffn_cuda(h: torch.Tensor, w1: torch.Tensor,
                             valid: torch.Tensor, mlp: str) -> torch.Tensor:
     """One call of the kernels (both launches) on CUDA tensors, by
     ``grouped_plan``; raises on anything they do not take."""
+    if instrument.is_meta(h):
+        _check_shapes(h, w1, w1_gate, w2, valid, mlp)
+        return instrument.meta_kernel(
+            "grouped_expert_ffn", (h, w1, w1_gate, w2, valid),
+            torch.empty_like(h))
     _check_card(h, w1, w1_gate, w2, valid, mlp)
     out = torch.empty_like(h)
     _launch(h, w1, w1_gate, w2, valid, mlp, grouped_plan(h, w1, w2, mlp),

@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import instrument
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (NEG_INF, Partials,
                                                  finalize_partials,
@@ -301,6 +302,8 @@ def _launch(q, k_pages, v_pages, table, lens, window: int, plan: Plan,
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg}")
     LAUNCHES += 1
+    instrument.note_kernel("paged_attention",
+                           (q, k_pages, v_pages, table, lens), (out,))
 
 
 def _workspaces(q: torch.Tensor, plan: Plan):
@@ -339,6 +342,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if engine == "torch" or q.device.type == "cpu":
         return paged_attention_torch(q, k_pages, v_pages, table, lens,
                                      window=window)
+    if instrument.is_meta(q):
+        return instrument.meta_kernel(
+            "paged_attention", (q, k_pages, v_pages, table, lens),
+            torch.empty_like(q))
     plan = _check_card(q, k_pages, v_pages, table, lens)
     out = torch.empty_like(q)
     if plan is None:

@@ -45,6 +45,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import instrument
 from repro_torch.kernels import build
 
 #: kernel launches since the count was last set to 0
@@ -320,6 +321,10 @@ def jacobi_step(u: torch.Tensor, f: torch.Tensor, *,
         for a, b in ranges:
             out[a:b] = new[a:b]
         return out
+    if instrument.is_meta(u):
+        return instrument.meta_kernel(
+            "jacobi_step", (u, f, lo, hi),
+            torch.empty_like(u) if out is None else out)
     halos = [h for h in (lo, hi) if h is not None]
     _check_kernel_inputs(u, f, *halos, *([] if out is None else [out]))
     if out is None:
@@ -337,6 +342,7 @@ def jacobi_step(u: torch.Tensor, f: torch.Tensor, *,
             a0, a1, b0, b1, stream)
     _raise_on(lib, err, "jacobi_step")
     STEP_LAUNCHES += 1
+    instrument.note_kernel("jacobi_step", (u, f, lo, hi), (out,))
     return out
 
 
@@ -374,6 +380,10 @@ def jacobi_ksweep_parts(u_lo: torch.Tensor, u: torch.Tensor,
         new = jacobi_ksweep_torch(u_lo, u, u_hi, f_lo, f, f_hi, k,
                                   frozen_top, frozen_bot)
         return new if out is None else out.copy_(new)
+    if instrument.is_meta(u):
+        return instrument.meta_kernel(
+            "jacobi_ksweep", (u_lo, u, u_hi, f_lo, f, f_hi),
+            torch.empty_like(u) if out is None else out)
     parts = (u_lo, u_hi, f_lo, f, f_hi)
     _check_kernel_inputs(u, *parts, *([] if out is None else [out]))
     if out is None:
@@ -444,6 +454,8 @@ def _ksweep_launch(u_lo: torch.Tensor, u: torch.Tensor, u_hi: torch.Tensor,
             stream)
     _raise_on(lib, err, "jacobi_ksweep")
     KSWEEP_LAUNCHES += 1
+    instrument.note_kernel("jacobi_ksweep", (u_lo, u, u_hi, f_lo, f, f_hi),
+                           (out,))
     return out
 
 

@@ -24,9 +24,13 @@ auto`` lets the managed Young/Daly cadence (with ``--mtbf``) pick the
 checkpoint interval; both print their decisions and the unfired events.
 ``--moe-dispatch`` pins the MoE dispatch schedule of an MoE arch
 (``auto`` lets the managed cost model pick) and prints the decisions.
-The whole-program planner, the static verifier and ``--trace`` come with
-ROADMAP Queue 1 item 7: ``--plan local`` and ``--verify off`` only, and
-``--trace`` is refused.
+``--plan program|auto`` runs the whole-program planner (plan/) over the
+step's communication set, prints the ``program_plan`` decision and its
+trail and installs the plan; ``--verify warn|strict`` (default ``warn``)
+runs the static verifier (analysis/) over the same set under the knobs
+the launch will run, and ``strict`` exits 1 on an error; ``--trace PATH``
+records the run's spans and decisions to a Chrome-trace JSON with the
+calibration ledger (``python -m repro_torch.launch.trace PATH``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import argparse
 import dataclasses
 import os
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.core import managed
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.tuner import ScheduleTuner
@@ -47,11 +51,10 @@ from repro_torch.launch import mesh as launch_mesh
 from repro_torch.train.train_loop import (TrainLoop, TrainLoopConfig,
                                           build_train_step)
 
-#: flag -> the ROADMAP Queue 1 item that brings it
-LATER = {"--trace": 7}
 
-
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict:
+    """Run the launch; returns ``TrainLoop.run``'s result (the losses are
+    in its ``history``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.list_archs())
     ap.add_argument("--reduced", action="store_true")
@@ -73,12 +76,20 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--microbatches", type=int, default=None,
                     help="pipeline microbatch count M (default: the "
                          "cost model's pick)")
-    ap.add_argument("--plan", default="local", choices=["local"],
-                    help="communication planning scope (the program "
-                         "planner is ROADMAP Queue 1 item 7)")
-    ap.add_argument("--verify", default="off", choices=["off"],
-                    help="static-verifier preflight (ROADMAP Queue 1 "
-                         "item 7)")
+    ap.add_argument("--plan", default="local",
+                    choices=["local", "program", "auto"],
+                    help="communication planning scope: 'local' keeps "
+                         "per-subsystem resolution; 'program'/'auto' run "
+                         "the whole-program planner (repro_torch.plan) "
+                         "over the step's comm set and install the "
+                         "coordinated ProgramPlan before the step is built")
+    ap.add_argument("--verify", default="warn",
+                    choices=["off", "warn", "strict"],
+                    help="static-verifier preflight (repro_torch.analysis):"
+                         " 'warn' prints findings and logs a "
+                         "DecisionRecord(op=\"lint\"); 'strict' exits "
+                         "non-zero on any error with the declared/"
+                         "traced side-by-side")
     ap.add_argument("--mesh", default="1x1",
                     help="DxM or PxDxM; above 1x1 under torchrun with a "
                          "matching WORLD_SIZE")
@@ -103,13 +114,17 @@ def main(argv: list[str] | None = None) -> None:
                     help="deterministic fault injection spec, e.g. "
                          "'transient@6;slow@9:0.5;corrupt@14' "
                          "(core/faults.py grammar)")
-    ap.add_argument("--trace", default=None, metavar="PATH")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record every hot path to a Chrome-trace JSON "
+                         "(open in ui.perfetto.dev), print the "
+                         "predicted-vs-measured calibration report, and "
+                         "embed the calibration ledger in the file")
     args = ap.parse_args(argv)
 
-    for flag, item in LATER.items():
-        if getattr(args, flag[2:].replace("-", "_")):
-            ap.error(f"{flag} comes with ROADMAP Queue 1 item {item}")
-
+    if args.trace:
+        # install before anything resolves so planner/lint/step spans
+        # and decision timestamps all land on one ring
+        obs.install_tracer(obs.Tracer())
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
@@ -134,6 +149,57 @@ def main(argv: list[str] | None = None) -> None:
                           total_steps=args.steps,
                           moment_dtype=cfg.moment_dtype)
     managed.clear_decision_log()
+    tuner = ScheduleTuner()
+    prog = None
+    if args.plan != "local" or args.verify != "off":
+        # Lower this step's communication set to comm-IR ops once — the
+        # whole-program planner (--plan) and the static-verifier preflight
+        # (--verify) both consume it, so the linted program is exactly the
+        # planned one.
+        from repro_torch.plan import (lower_train_ops, plan_program,
+                                      train_geometry)
+        hw = managed.get_config().hw
+        geo = train_geometry(cfg, mesh_axes=dict(ctx.axis_sizes),
+                             batch=args.batch, seq=args.seq, hw=hw,
+                             pipeline=args.pipeline)
+        ops = lower_train_ops(
+            mesh_axes=geo["mesh_axes"], grad_bytes=geo["grad_bytes"],
+            pipeline=geo["pipeline"], attention=geo["attention"],
+            moe=geo["moe"])
+        prog = plan_program(ops, hw=hw, notes=[f"launch.train {args.arch}"])
+    if args.plan != "local":
+        # Whole-program pass: price the JOINT schedule and install the
+        # plan so every resolve_* call below prefers the coordinated knob.
+        kind = "coordinated" if prog.coordinated else "local"
+        say(f"decision program_plan({kind} ops={len(prog.choices)} "
+            f"topo={prog.topology} "
+            f"local-concat={prog.local_solo_sum_s * 1e6:.1f}us "
+            f"joint={prog.joint_cost_s * 1e6:.1f}us)")
+        for line in prog.summary().splitlines()[1:]:
+            say(f"  trail{line}")
+        tuner.store_program_plan(prog)
+        managed.install_plan(prog)
+    if args.verify != "off":
+        # Static-verifier preflight: drift/permute/deadlock/race/
+        # feasibility passes over the lowered comm set under the knobs
+        # this launch will actually run (forced flags override the plan's
+        # picks, so strict mode catches the clamp BEFORE the executor
+        # silently degrades it).
+        from repro_torch import analysis
+        key = "pipeline_schedule|pod"
+        if args.microbatches is not None:
+            knob = dict(prog.knobs.get(key)
+                        or {"mode": args.pipeline, "virtual": 2})
+            knob["chunks"] = args.microbatches
+            if args.pipeline not in ("none", "auto"):
+                knob["mode"] = args.pipeline
+            prog.knobs[key] = knob
+        elif args.pipeline not in ("none", "auto") and key in prog.knobs:
+            prog.knobs[key] = dict(prog.knobs[key], mode=args.pipeline)
+        graph = analysis.from_ops(
+            f"train:{args.arch}", axis_sizes=dict(ctx.axis_sizes),
+            declared=ops, plan=prog, hw=hw)
+        analysis.preflight(graph, args.verify, out=say)
     step_fn = build_train_step(
         model, opt_cfg, compress_pod=args.compress_pod,
         pipeline=args.pipeline, pipe_microbatches=args.microbatches,
@@ -164,7 +230,7 @@ def main(argv: list[str] | None = None) -> None:
     fault_plan = (FaultPlan.parse(args.fault_plan) if args.fault_plan
                   else None)
     loop = TrainLoop(step_fn, model, opt_cfg, data, loop_cfg,
-                     tuner=ScheduleTuner(), fault_plan=fault_plan)
+                     tuner=tuner, fault_plan=fault_plan)
     opt, s0 = (loop.resume_or_init(args.seed) if args.resume
                else loop.init_state(args.seed))
     out = loop.run(opt, s0)
@@ -201,6 +267,25 @@ def main(argv: list[str] | None = None) -> None:
               f"{h['time_s']:.2f}s")
     say(f"done at step {out['step']}, final loss "
           f"{out['history'][-1]['loss']:.4f}")
+    if args.trace:
+        tr = obs.get_tracer()
+        decisions = managed.decision_log()
+        # decisions made inside the step (attention/MoE/pipeline modes)
+        # have no host-side span of their own — the train.step span
+        # covers the work they chose
+        obs.cover_with(tr.spans(), "train.step", (r.op for r in decisions))
+        led = obs.CalibrationLedger()
+        led.correlate(tr.spans(), decisions)
+        say(led.report())
+        if launch_mesh.is_main():
+            obs.write_chrome_trace(
+                args.trace, tr, decisions,
+                other_data={"run": f"train:{args.arch}",
+                            "calibration": led.snapshot()})
+        say(f"trace: {args.trace} ({tr.n_spans} spans, "
+            f"{len(decisions)} decisions, "
+            f"coverage {led.coverage() * 100:.0f}%)")
+    return out
 
 
 if __name__ == "__main__":

@@ -21,10 +21,11 @@ tests/test_torch_pipeline_parallel.py):
     parameters within rtol 3e-4 / atol 1e-6), and its flash-attention
     call count (each chunk's forward twice, its backward once).
 
-Not mirrored: the reference file's three instrument tests and its region
-test (``tests/test_pipeline.py:196-265``, ``:337``).  They exercise
-``core/instrument.py`` and ``core/region.py``, which the port has not yet
-(ROADMAP Queue 1 item 7).
+Not mirrored here: the reference file's three instrument tests
+(``tests/test_pipeline.py:196-265``) hold its jaxpr walk's binder
+alignment through scan, cond and while, which an eager recorder does not
+have; its region test (``:337``) is held in
+``tests/test_torch_instrument.py``.
 """
 
 import dataclasses

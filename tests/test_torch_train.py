@@ -334,15 +334,15 @@ def test_train_cli_runs_on_cpu_and_refuses_later_slices(tmp_path):
     base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
             "cpu", "--reduced", "--arch", "phi4-mini-3.8b", "--ckpt",
             str(tmp_path / "ck")]
-    out = subprocess.run(base + ["--steps", "5"], capture_output=True,
-                         text=True, timeout=300, env=env)
+    # no flag is left to a later slice: --trace, --plan and --verify run
+    out = subprocess.run(
+        base + ["--steps", "5", "--trace", str(tmp_path / "t.json"),
+                "--plan", "program", "--verify", "strict"],
+        capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     assert "done at step 5, final loss" in out.stdout
-    # the tracer is the one flag still to come (ROADMAP Queue 1 item 7)
-    for flag in (["--trace", str(tmp_path / "t.json")],):
-        bad = subprocess.run(base + flag, capture_output=True, text=True,
-                             timeout=300, env=env)
-        assert bad.returncode != 0 and "Queue 1 item 7" in bad.stderr, flag
+    assert "decision program_plan(" in out.stdout
+    assert (tmp_path / "t.json").exists()
 
 
 def test_train_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -355,9 +355,9 @@ def test_train_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 
 def test_later_slices_raise_and_name_their_slice():
     """The pipeline, the fault plan, the tuner and the managed cadence
-    are ported; what they still lack raises and names what brings it:
-    the pipeline needs a pod axis, the tuner's program plans the planner
-    (ROADMAP Queue 1 item 7)."""
+    are ported; what they lack raises and names what brings it: the
+    pipeline needs a pod axis.  The tuner's program plans, once left to
+    the planner's slice, now store and read back."""
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.tuner import ScheduleTuner
 
@@ -373,5 +373,9 @@ def test_later_slices_raise_and_name_their_slice():
                      fault_plan=FaultPlan.parse("transient@1"),
                      tuner=ScheduleTuner())
     assert loop.fault_hook is not None and loop.tuner is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        loop.tuner.store_program_plan(object())
+    from repro_torch.plan import plan_program, lower_train_ops
+    plan = plan_program(lower_train_ops(mesh_axes={"data": 2, "model": 1},
+                                        grad_bytes=1 << 20), log=False)
+    loop.tuner.store_program_plan(plan)
+    assert loop.tuner.get_program_plan(plan.signature,
+                                       plan.topology).knobs == plan.knobs

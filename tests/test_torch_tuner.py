@@ -10,8 +10,9 @@ priced on ``TPU_V5E`` on both sides):
     topology exactly as the reference does: the same records, the same
     new entries and the same decision trail;
   * ``parse_call_site_key`` inverts ``call_site_key`` as the reference's;
-  * the program-plan methods, which need the planner (ROADMAP Queue 1
-    item 7), raise; a tuner without plans replans without them.
+  * the program-plan methods store, read and re-plan as the reference's
+    (a stored plan without ops is kept and skipped by the replan); a
+    tuner without plans replans without them.
 """
 
 import dataclasses
@@ -206,14 +207,16 @@ def test_bad_keys_are_skipped_by_replan():
 
 
 def test_program_plan_methods_name_the_planner():
-    t = tuner.ScheduleTuner()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t.store_program_plan(object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t.get_program_plan("sig", "data2")
+    t = tuner.ScheduleTuner(hw=cm.TPU_V5E)
+    assert t.get_program_plan("sig", "data2") is None
     _, blob = _reference_json()
     t.load_entries(blob)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tuner.replan_for_mesh(t, {"data": 2})
+    ref = ref_tuner.ScheduleTuner(hw=ref_cm.TPU_V5E)
+    ref.load_entries(blob)
+    # the reference's blob holds a plan without ops: both replans keep
+    # it and skip it, and replay the call sites alike
+    assert tuner.replan_for_mesh(t, {"data": 2}) == \
+        ref_tuner.replan_for_mesh(ref, {"data": 2})
+    assert t.program_plans == ref.program_plans
     assert tuner.ScheduleTuner.program_plan_key("a", "b") == \
         ref_tuner.ScheduleTuner.program_plan_key("a", "b")
