@@ -162,7 +162,17 @@ phase that fails:
                and every launch count unchanged, the stencil kernel one
                recorded op reading u and f), ``jacobi_mdmp`` and
                ``moe_dispatch --ranks 2`` (schedules agree, grouped
-               launches counted).
+               launches counted);
+ 16. dryrun  — ``repro_torch.launch.dryrun`` counts one rank's step on
+               abstract tensors: phase 5's training step and prefill and
+               phase 8's moonshot prefill, each with its predicted flash
+               and grouped launches equal to the measured ones, its H100
+               roofline bound (launch/hlo.py's FLOPs and device-memory
+               bytes) at or below the measured time, and (phase 5) its
+               predicted peak memory within DRYRUN_PEAK_BAND of
+               ``max_memory_allocated``; then four production cells on a
+               fake 256 / 512-rank group (``DRYRUN_CELLS``), each ok, with
+               no process group left and the card untouched.
 
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
 trip), the grouped-expert FFN, the ring's block backward (bf16 in, f32
@@ -410,21 +420,23 @@ def paged_inputs(torch, rng, *, b, h, kvh, hd, page, lens, n_pages, dtype):
 COLD_BYTES = 100_000_000
 
 
-def paged_bound(lens, window, h, kvh, hd, page, dtype_name, itemsize):
-    """Least time for one call: K/V bytes the call needs (each input read
-    once, the output written once) over HBM, against the flops over the
-    peak of the inputs' type.  Returns (ms, 'bytes'|'operations')."""
-    b = len(lens)
-    need = sum(min(int(n), window) if window else int(n) for n in lens)
-    pmax = max(1, -(-int(max(lens)) // page))
-    nbytes = (need * kvh * hd * 2 * itemsize          # K and V
-              + 2 * b * h * hd * itemsize             # q in, out
-              + 4 * b * (1 + pmax))                   # lens, table
-    flops = 4.0 * h * hd * need                       # q.k and p.v
+def roof_ms(flops, nbytes, dtype_name):
+    """Least time of a call's work: its bytes over HBM against its flops
+    over the peak of the inputs' type.  Returns (ms, 'bytes'|'operations')."""
     t_bytes = nbytes / HBM_BW
     t_ops = flops / PEAK[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_bound(lens, window, h, kvh, hd, page, dtype_name, itemsize):
+    """Least time for one call over ``lens``: the kernel module's work
+    (``paged_work``: the attended K/V, q and out, lens and table) over the
+    card's rates.  Returns (ms, 'bytes'|'operations')."""
+    from repro_torch.kernels import paged_attention as paged
+
+    return roof_ms(*paged.paged_work(lens, window, h, kvh, hd, page,
+                                     itemsize), dtype_name)
 
 
 def paged_split_err(torch, paged, q, kp, vp, table, lens, window):
@@ -593,38 +605,27 @@ BLOCK_TOL = 1e-4
 
 
 def flash_bounds(b, s, h, kvh, hd, itemsize):
-    """Least times at the training shape (causal, each input read once,
-    each output written once): the forward's QK^T and PV over the
-    unmasked pairs; the backward's recomputed QK^T, dP, dV, dK and dQ.
+    """Least times at the training shape (causal): the kernel module's
+    work (``flash_work``: the forward's QK^T and PV over the unmasked
+    pairs; the backward's recomputed QK^T, dP, dV, dK and dQ; each input
+    read once, each output written once) at the bf16 tensor-core rate.
     Returns {"fwd"|"bwd": (ms, 'bytes'|'operations')}."""
-    pairs = b * h * s * (s + 1) // 2
-    q_bytes = b * s * h * hd * itemsize
-    kv_bytes = 2 * b * s * kvh * hd * itemsize
-    lse_bytes = b * s * h * 4
-    out = {}
-    for name, flops, nbytes in (
-            ("fwd", 4.0 * pairs * hd, 2 * q_bytes + kv_bytes + lse_bytes),
-            ("bwd", 10.0 * pairs * hd,
-             4 * q_bytes + 2 * kv_bytes + lse_bytes)):
-        t_ops = flops / PEAK["bfloat16"]
-        t_bytes = nbytes / HBM_BW
-        out[name] = (max(t_ops, t_bytes) * 1e3,
-                     "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    from repro_torch.kernels import flash_attention as fa
+
+    return {name: roof_ms(*fa.flash_work(name, b, s, s, h, kvh, hd,
+                                         itemsize, causal=True), "bfloat16")
+            for name in ("fwd", "bwd")}
 
 
 def block_bwd_bound(b, s, h, kvh, hd, itemsize):
     """Least time of ring attention's block backward over [B, S] with an
-    S-long causal block: the backward's 10 flop per (pair, hd) at the bf16
-    tensor-core rate, against q, dout, k, v, lse and dsum read once and
-    the f32 dq, dk, dv written once.  Returns (ms, 'bytes'|'operations')."""
-    pairs = b * h * s * (s + 1) // 2
-    nbytes = (2 * b * s * h * hd * itemsize + 2 * b * s * kvh * hd * itemsize
-              + 2 * b * s * h * 4 + (b * s * h * hd + 2 * b * s * kvh * hd) * 4)
-    t_ops = 10.0 * pairs * hd / PEAK["bfloat16"]
-    t_bytes = nbytes / HBM_BW
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    S-long causal block: ``flash_work("bwd_block")`` (10 flop per (pair,
+    hd); q, dout, k, v, lse and dsum read once, the f32 dq, dk, dv written
+    once) at the bf16 tensor-core rate.  Returns (ms, 'bytes'|'operations')."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return roof_ms(*fa.flash_work("bwd_block", b, s, s, h, kvh, hd, itemsize,
+                                  causal=True), "bfloat16")
 
 
 def flash_inputs(torch, gen, b, sq, skv, h, kvh, hd, dtype):
@@ -809,16 +810,14 @@ KSWEEP_TURN_REPS = 5
 
 def stencil_bound(m, n, itemsize, sweeps, u_ghost=0, f_ghost=0):
     """Least time for one call that leaves ``sweeps`` sweeps on an [m, n]
-    block: u with its ``u_ghost`` ghost rows and f with its ``f_ghost``
-    read once, u' written once, over HBM, against the 5 f32 operations of
-    each needed interior update over the f32 peak.  Returns
+    block: ``stencil_work`` (u with its ``u_ghost`` ghost rows and f with
+    its ``f_ghost`` read once, u' written once; 5 f32 operations an
+    interior update) over the card's rates.  Returns
     (ms, 'bytes'|'operations')."""
-    nbytes = ((m + u_ghost) + (m + f_ghost) + m) * n * itemsize
-    flops = 5.0 * m * max(n - 2, 0) * sweeps
-    t_bytes = nbytes / HBM_BW
-    t_ops = flops / PEAK["float32"]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    from repro_torch.kernels import stencil as st
+
+    return roof_ms(*st.stencil_work(m, n, itemsize, sweeps, u_ghost,
+                                    f_ghost), "float32")
 
 
 def stencil_check(torch, got, want, tol, name):
@@ -1158,17 +1157,14 @@ def routed_counts(torch, rng):
 
 
 def grouped_bound(kept, c, d, f, e, itemsize, gated=True):
-    """Least time for one call that keeps ``kept`` rows: the function's
-    products (three for a gated FFN) at the bf16 tensor-core rate, however
-    a kernel runs them, against the kept rows of h, the expert weights and
-    the whole output over HBM.  Returns (ms, 'bytes'|'operations')."""
-    mults = 2 if gated else 1
-    t_ops = 2.0 * (mults + 1) * d * f * kept / PEAK["bfloat16"]
-    nbytes = ((kept * d + (mults + 1) * e * d * f) * itemsize
-              + e * c * d * itemsize + 4 * e)
-    t_bytes = nbytes / HBM_BW
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """Least time for one call over ``e`` groups (one an expert) that keeps
+    ``kept`` rows: ``grouped_work`` (the products at the bf16 tensor-core
+    rate; the kept rows of h, the expert weights and the whole output over
+    HBM).  Returns (ms, 'bytes'|'operations')."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    return roof_ms(*gm.grouped_work(kept, e, c, d, f, e, itemsize, gated),
+                   "bfloat16")
 
 
 def grouped_check(torch, got, want, valid, tol, name):
@@ -1398,16 +1394,13 @@ VRING = dict(n=4, blk=1024, h=32, kvh=8, hd=128)
 
 def carry_bounds(b, s, h, kvh, hd, itemsize):
     """Least time of one causal carry step over [B, S] with an S-long kv
-    block: QK^T and PV over the unmasked pairs at the bf16 tensor-core
-    rate, against q, k, v read once and the f32 carry (m, l, acc) read
-    and written once.  Returns (ms, 'bytes'|'operations')."""
-    pairs = b * h * s * (s + 1) // 2
-    nbytes = (b * s * h * hd * itemsize + 2 * b * s * kvh * hd * itemsize
-              + 2 * (b * s * h * hd * 4 + 2 * b * s * h * 4))
-    t_ops = 4.0 * pairs * hd / PEAK["bfloat16"]
-    t_bytes = nbytes / HBM_BW
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    block: ``flash_work("carry")`` (QK^T and PV over the unmasked pairs at
+    the bf16 tensor-core rate; q, k, v read once, the f32 carry read and
+    written once).  Returns (ms, 'bytes'|'operations')."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return roof_ms(*fa.flash_work("carry", b, s, s, h, kvh, hd, itemsize,
+                                  causal=True), "bfloat16")
 
 
 def carry_inputs(torch, gen, b, sq, skv, h, kvh, hd, dtype, carried):
@@ -1828,6 +1821,8 @@ def phase_train(torch):
           f"moments, remat={cfg.remat}; B={b}, S={s}", flush=True)
     losses, walls, counts = [], [], []
     fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0     # counts of this run only
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()      # the steps' own peak (phase 16)
     for i in range(5):
         batch = train_batch(torch, data, i)
         f0, b0 = fa.FWD_LAUNCHES, fa.BWD_LAUNCHES
@@ -1849,7 +1844,8 @@ def phase_train(torch):
     if any(c != want for c in counts):
         fail(f"flash launches per step {counts} != {want} (layers + "
              "remat recompute forward, layers backward)")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps_peak = torch.cuda.max_memory_allocated()
+    peak_gb = max(init_peak, steps_peak) / 1e9
     tok_s = b * s * 3 / sum(walls[2:])
     print(f"  5 steps: losses {[round(x, 4) for x in losses]}; after 2 "
           f"warm-up steps {sum(walls[2:]) / 3 * 1e3:.1f} ms per step = "
@@ -1882,10 +1878,12 @@ def phase_train(torch):
     model.prefill_sp({"tokens": tokens})                  # warm-up
     f0 = fa.FWD_LAUNCHES
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, cache = model.prefill_sp({"tokens": tokens})
     torch.cuda.synchronize()
     pre_ms = (time.perf_counter() - t0) * 1e3
+    pre_peak = torch.cuda.max_memory_allocated()
     if fa.FWD_LAUNCHES - f0 != cfg.n_layers:
         fail(f"prefill launched the flash forward "
              f"{fa.FWD_LAUNCHES - f0} times, not {cfg.n_layers}")
@@ -1898,7 +1896,11 @@ def phase_train(torch):
     del model, logits, cache
     torch.cuda.empty_cache()
     return launches, {"loss0": losses[0], "tok_s": tok_s,
-                      "ms": sum(walls[2:]) / 3 * 1e3}
+                      "ms": sum(walls[2:]) / 3 * 1e3,
+                      "walls_ms": [w * 1e3 for w in walls],
+                      "step_counts": counts, "steps_peak": steps_peak,
+                      "prefill_ms": pre_ms, "prefill_peak": pre_peak,
+                      "prefill_fwd": cfg.n_layers}
 
 
 def check_loss_and_grads(a: dict, b: dict, what: str) -> tuple:
@@ -2167,6 +2169,11 @@ def moe_prompts(vocab: int) -> list[np.ndarray]:
             for p in plens]
 
 
+#: phase 8's prefill as measured, for phase 16: host wall, launches, the
+#: rows the grouped calls kept and their capacity rows
+MOE_MEASURED: dict = {}
+
+
 def phase_moe_serve(torch):
     """Steps 1-3: moonshot uncut, prefill with the grouped kernel, then
     served through the paged engine."""
@@ -2196,8 +2203,20 @@ def phase_moe_serve(torch):
     rng = np.random.default_rng(SEED + 3)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size - 1, size=(p["b"], p["s"])).astype(np.int32)).cuda()
-    with managed.capture_decisions() as cap:
-        model.prefill_sp({"tokens": tokens})                 # warm-up
+    kept = []                      # rows the warm-up's calls keep
+    cuda_call = gm.grouped_expert_ffn_cuda
+
+    def spy(h, w1, w1_gate, w2, valid, mlp):
+        kept.append((valid.clamp(0, h.shape[1]).sum(), h.shape[0] *
+                     h.shape[1]))
+        return cuda_call(h, w1, w1_gate, w2, valid, mlp)
+
+    gm.grouped_expert_ffn_cuda = spy
+    try:
+        with managed.capture_decisions() as cap:
+            model.prefill_sp({"tokens": tokens})             # warm-up
+    finally:
+        gm.grouped_expert_ffn_cuda = cuda_call
     torch.cuda.synchronize()
     gm.GROUPED_LAUNCHES = 0                      # counts of this run only
     gm.ENGINE_LAUNCHES.update(wgmma=0, simt=0)
@@ -2241,6 +2260,9 @@ def phase_moe_serve(torch):
           f"{dev_ms / prof_ms * 100:.1f}%)", flush=True)
     print_by_kind(per_kernel, "prefill")
     torch.cuda.empty_cache()
+    MOE_MEASURED.update(prefill_ms=pre_ms, launches=dict(launches),
+                        kept_rows=sum(int(k) for k, _ in kept),
+                        capacity_rows=sum(c for _, c in kept))
 
     prompts = moe_prompts(cfg.vocab_size)
     gm.GROUPED_LAUNCHES = 0
@@ -4746,6 +4768,148 @@ def phase_plan(torch, root, card):
           flush=True)
 
 
+#: phase 16's band for the dry run's predicted peak memory against
+#: torch.cuda.max_memory_allocated() over the same step (two runs on the
+#: H100 set it, PERF.md §6: ratios 0.964-0.999; the measured peak also
+#: holds what earlier phases leave allocated, 0.4 GB in a whole run)
+DRYRUN_PEAK_BAND = 0.08
+
+#: phase 16 (d): production cells counted on abstract tensors (arch,
+#: shape, multi-pod); nemotron's attention cells meet the flash kernels'
+#: head_dim-192 refusal, so grok-1 stands for the 2x16x16 decode
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k", False),
+                ("moonshot-v1-16b-a3b", "prefill_32k", False),
+                ("mamba2-130m", "long_500k", False),
+                ("grok-1-314b", "decode_32k", True))
+
+
+def dryrun_one_card(arch, kind, b, s):
+    """The dry run of one step of ``arch`` at B=b x S=s on one rank (1x1):
+    (record, counter)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, hlo
+    from repro_torch.launch.mesh import AXES
+
+    with dryrun.fake_mesh((1, 1), AXES) as ctx:
+        counter = dryrun.count_step(configs.get_config(arch),
+                                    ShapeConfig(kind, s, b, kind), ctx)
+    return hlo.analyze_compiled(counter, 1), counter
+
+
+def dryrun_check(torch, card, what, rec, counter, want_launches,
+                 measured_ms, fastest_ms, measured_peak=None):
+    """Launches predicted == measured; the roofline bound of the count at
+    or below the fastest measured time; the predicted peak within
+    DRYRUN_PEAK_BAND of the measured one (where given)."""
+    from repro_torch.core import cost_model as cm
+
+    got = counter.launches()
+    if got != want_launches:
+        fail(f"(16) {what}: the dry run predicts launches {got}, the card "
+             f"launched {want_launches}")
+    terms = cm.roofline(rec["flops_per_chip"], rec["hbm_bytes_per_chip"],
+                        0.0, 1, cm.H100)
+    bound_ms = terms.bound_s * 1e3
+    peak = rec["memory"]["peak_bytes"]
+    line = (f"  (16) {what}: predicted launches {got} = measured; "
+            f"{rec['flops_per_chip']:.4e} flop, "
+            f"{rec['hbm_bytes_per_chip']:.4e} B of device memory traffic "
+            f"-> H100 bound {bound_ms:.2f} ms ({terms.dominant}; compute "
+            f"{terms.compute_s * 1e3:.2f} ms, memory "
+            f"{terms.memory_s * 1e3:.2f} ms), measured {measured_ms:.2f} ms "
+            f"(fastest {fastest_ms:.2f}): share "
+            f"{bound_ms / measured_ms * 100:.1f}%; predicted peak "
+            f"{peak / 1e9:.3f} GB")
+    if measured_peak is not None:
+        line += (f", measured {measured_peak / 1e9:.3f} GB (ratio "
+                 f"{peak / measured_peak:.4f})")
+    print(line + f" on {card}", flush=True)
+    if bound_ms > fastest_ms:
+        fail(f"(16) {what}: the bound {bound_ms:.2f} ms exceeds the "
+             f"measured {fastest_ms:.2f} ms: the count is wrong")
+    if measured_peak is not None and \
+            abs(peak / measured_peak - 1.0) > DRYRUN_PEAK_BAND:
+        fail(f"(16) {what}: predicted peak {peak} B is not within "
+             f"{DRYRUN_PEAK_BAND:.0%} of the measured {measured_peak} B")
+
+
+def phase_dryrun(torch, card, train):
+    """Phase 16: the dry run's counts held against what phases 5 and 8
+    measured, and four production cells counted on abstract tensors, with
+    the card untouched."""
+    import torch.distributed as dist
+
+    from repro_torch.core import cost_model as cm
+    from repro_torch.launch import dryrun
+
+    t16 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0, c0 = torch.cuda.memory_allocated(), kernel_counts()
+    b, s = TRAIN_ATTN["b"], TRAIN_ATTN["s"]
+
+    # (a) phase 5's training step, (b) its prefill
+    rec, counter = dryrun_one_card("phi4-mini-3.8b", "train", b, s)
+    fwd, bwd = train["step_counts"][0]
+    walls = train["walls_ms"]
+    dryrun_check(torch, card, f"(a) phi4-mini-3.8b training step {b} x {s}",
+                 rec, counter, {"flash_attention_fwd": fwd,
+                                "flash_attention_bwd": bwd},
+                 train["ms"], min(walls[2:]), train["steps_peak"])
+    rec, counter = dryrun_one_card("phi4-mini-3.8b", "prefill", b, s)
+    dryrun_check(torch, card, f"(b) phi4-mini-3.8b prefill_sp {b} x {s}",
+                 rec, counter, {"flash_attention_fwd": train["prefill_fwd"]},
+                 train["prefill_ms"], train["prefill_ms"],
+                 train["prefill_peak"])
+
+    # (c) phase 8's moonshot prefill (host wall), grouped work at capacity
+    p, m = MOE_PREFILL, MOE_MEASURED
+    rec, counter = dryrun_one_card("moonshot-v1-16b-a3b", "prefill", p["b"],
+                                   p["s"])
+    dryrun_check(torch, card, f"(c) moonshot-v1-16b-a3b prefill_sp "
+                 f"{p['b']} x {p['s']}", rec, counter,
+                 {"flash_attention_fwd": m["launches"]["fwd"],
+                  "grouped_expert_ffn": m["launches"]["grouped"]},
+                 m["prefill_ms"], m["prefill_ms"])
+    rows = sum(k.shapes[0][0] * k.shapes[0][1] for k in counter.kernels
+               if k.name == "grouped_expert_ffn")
+    print(f"  (16) (c) the grouped work is counted at {rows} capacity rows; "
+          f"phase 8's calls kept {m['kept_rows']} of their "
+          f"{m['capacity_rows']} capacity rows", flush=True)
+    if rows != m["capacity_rows"]:
+        fail(f"(16) (c) counted {rows} capacity rows, the card's calls had "
+             f"{m['capacity_rows']}")
+
+    # (d) production cells on the fake 256 / 512-rank group
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(arch, shape, multi_pod)
+        if rec.get("status") != "ok":
+            fail(f"(16) (d) {arch} {shape}: {rec}")
+        terms = cm.roofline(rec["flops_per_chip"], rec["hbm_bytes_per_chip"],
+                            rec["collective_bytes_per_chip"], 1, cm.H100)
+        print(f"  (16) (d) {arch} {shape} {rec['mesh']} (rank 0 of "
+              f"{rec['n_chips']}): {rec['flops_per_chip']:.4e} flop, "
+              f"{rec['hbm_bytes_per_chip']:.4e} B device memory, "
+              f"{rec['collective_bytes_per_chip']:.4e} B on the links, peak "
+              f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB a chip; H100 "
+              f"terms compute {terms.compute_s * 1e3:.2f} / memory "
+              f"{terms.memory_s * 1e3:.2f} / collective "
+              f"{terms.collective_s * 1e3:.2f} ms, dominant "
+              f"{terms.dominant}; counted in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    mem1, c1 = torch.cuda.memory_allocated(), kernel_counts()
+    if dist.is_initialized():
+        fail("(16) the dry run left a process group behind")
+    if (mem1, c1) != (mem0, c0):
+        fail(f"(16) the dry run moved the card: memory {mem0} -> {mem1}, "
+             f"launches {c0} -> {c1}")
+    print(f"  (16) card memory {mem0} -> {mem1} B and every launch count "
+          f"unchanged, no process group left; phase 16 took "
+          f"{time.perf_counter() - t16:.1f} s on {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4828,6 +4992,7 @@ def main() -> int:
     phase_e2e(torch)
     print("phase 5: train phi4-mini-3.8b at full size", flush=True)
     flash_launches, plain_train = phase_train(torch)
+    train_measured = dict(plain_train)
     print("phase 6: training, prefill and generation, kernels vs plain",
           flush=True)
     phase_parity(torch)
@@ -4867,6 +5032,10 @@ def main() -> int:
     print("phase 15: the directives, the whole-program planner, the static "
           "verifier and the trace export", flush=True)
     phase_plan(torch, root, card)
+    print("phase 16: the dry run (one rank's step counted on abstract "
+          "tensors) against phases 5 and 8, and four production cells",
+          flush=True)
+    phase_dryrun(torch, card, train_measured)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -9,7 +9,12 @@ preemption, halo, MoE dispatch and attention-schedule decisions, and
 the pipeline-schedule and checkpoint-cadence (Young/Daly) decisions, and
 the whole-program planner's per-collective components
 (``CommComponents``, ``collective_wire_s``, ``collective_msgs``,
-``collective_components``).  The roofline terms are the last slice's.
+``collective_components``), the paper's PingPong model and its two
+crossovers (``pingpong_times``, ``crossover_compute_per_element``,
+``crossover_compute_chunked``, priced on the paper's machines
+``HECTOR_XE6`` / ``HELIOS_BULLX`` / ``JUQUEEN_BGQ``), and the three-term
+roofline of a counted step (``RooflineTerms``, ``roofline``; the dry
+run's counts come from ``launch/hlo.py``).
 The halo-aggregation decision keeps
 the reference's formulas; only its fit test prices what the machine's
 k-sweep kernel holds on chip (the TPU's whole-row tile, or the CUDA
@@ -91,6 +96,26 @@ H100 = HardwareModel(
     hbm_bytes=80 * 10 ** 9,
     ksweep_max_k=stencil.KSWEEP_MAX_K,
 )
+
+# The paper's evaluation machines, with representative 2013-era constants
+# (interconnect latency / bandwidth from published specs), as the
+# reference keeps them: the paper-reproduction crossovers read them
+# (HECToR/JUQUEEN cross over, HELIOS's network without asynchronous
+# progress does not).  ``scalar_flops`` is the delay loop's one-core rate.
+HECTOR_XE6 = HardwareModel(
+    name="hector_cray_xe6", alpha_s=1.5e-6, link_bw=5.0e9,
+    peak_flops=147.2e9 * 32, hbm_bw=85.0e9,
+    issue_overhead_s=2.0e-7, overlap_eff=1.0, scalar_flops=2.3e9)
+HELIOS_BULLX = HardwareModel(
+    name="helios_bullx_b510", alpha_s=1.2e-6, link_bw=4.0e9,
+    peak_flops=2.7e9 * 8 * 16, hbm_bw=102.0e9,
+    # the paper found MPI always beat MDMP on HELIOS: its MPI did not
+    # progress non-blocking messages asynchronously -> no overlap benefit
+    issue_overhead_s=2.0e-7, overlap_eff=0.0, scalar_flops=2.7e9)
+JUQUEEN_BGQ = HardwareModel(
+    name="juqueen_bgq", alpha_s=2.5e-6, link_bw=2.0e9,
+    peak_flops=204.8e9, hbm_bw=42.6e9,
+    issue_overhead_s=4.0e-7, overlap_eff=1.0, scalar_flops=1.6e9)
 
 DEFAULT_HW = H100
 
@@ -233,6 +258,101 @@ def decide(nbytes: float, axis_size: int, *, compute_time_s: float = 0.0,
 
 # ---------------------------------------------------------------------------
 # Serving schedule decision (static waves vs continuous batching, quantum C)
+def pingpong_times(n_elements: int, delay_elements: float,
+                   hw: HardwareModel = DEFAULT_HW,
+                   nbytes_per_element: float = 4.0,
+                   flops_per_delay_element: float = 1.0,
+                   sent_elements: int | None = None
+                   ) -> tuple[float, float]:
+    """LogP-flavoured model of the paper's (Selective)DelayPingPong family.
+
+    One half-iteration copies ``n_elements`` between buffers with
+    ``delay_elements`` adds of artificial compute per element, and sends
+    ``sent_elements`` of them (default: all).
+
+    bulk (MPI baseline): compute fully, then one message —
+        T = compute + alpha + bytes/bw
+    fine (MDMP): one message per sent element, issued as its last write
+    retires; transfers progress asynchronously with efficiency
+    ``hw.overlap_eff`` while the remaining compute runs —
+        T = compute_exposed + per-message issue overhead
+            + un-overlappable message time.
+    A machine without a scalar rate (``scalar_flops`` 0, the H100) prices
+    the delay loop at its peak.  Returns (bulk_s, fine_s)."""
+    scalar = hw.scalar_flops or hw.peak_flops
+    t_el = delay_elements * flops_per_delay_element / scalar
+    s = n_elements if sent_elements is None else sent_elements
+    compute = n_elements * t_el
+    msg_bytes = s * nbytes_per_element
+
+    bulk = compute + hw.alpha_s + msg_bytes / hw.link_bw
+
+    per_msg = hw.alpha_s + nbytes_per_element / hw.link_bw
+    transfer = s * per_msg
+    overhead = s * hw.issue_overhead_s
+    hidden = hw.overlap_eff * min(transfer, compute)
+    fine = compute + overhead + (transfer - hidden)
+    return bulk, fine
+
+
+def _crossover(diff) -> float:
+    """The least delay per element at which ``diff`` (fine - bulk) is <=
+    0, by bisection over [0, 1e9]; ``inf`` when fine never wins."""
+    lo, hi = 0.0, 1e9
+    if diff(hi) > 0:
+        return math.inf
+    if diff(lo) <= 0:
+        return 0.0
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        if diff(mid) <= 0:
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def crossover_compute_per_element(n_elements: int,
+                                  hw: HardwareModel = DEFAULT_HW,
+                                  nbytes_per_element: float = 4.0,
+                                  sent_elements: int | None = None) -> float:
+    """The paper's DelayPingPong crossover (Fig 5b/6b): the number of
+    delay elements per communicated element above which MDMP's
+    fine-grained intermingled messaging beats the bulk message.  Returns
+    ``inf`` when fine-grained never wins (the paper's HELIOS result)."""
+    def diff(d: float) -> float:
+        bulk, fine = pingpong_times(n_elements, d, hw,
+                                    nbytes_per_element,
+                                    sent_elements=sent_elements)
+        return fine - bulk
+
+    return _crossover(diff)
+
+
+def crossover_compute_chunked(n_elements: int, chunks: int,
+                              hw: HardwareModel = DEFAULT_HW,
+                              nbytes_per_element: float = 4.0) -> float:
+    """The crossover when messages are intermingled at *tile* granularity
+    (``chunks`` messages of n/chunks elements) instead of the paper's
+    per-element messages: per-message overheads amortise over the tile,
+    so the crossover exists at realistic constants.  Returns
+    delay-elements-per-element at which chunked-interleaved beats bulk."""
+    scalar = hw.scalar_flops or hw.peak_flops
+    msg_bytes = n_elements * nbytes_per_element
+
+    def diff(d: float) -> float:
+        compute = n_elements * d / scalar
+        bulk = compute + hw.alpha_s + msg_bytes / hw.link_bw
+        per_chunk = hw.alpha_s + (msg_bytes / chunks) / hw.link_bw
+        transfer = chunks * per_chunk
+        hidden = hw.overlap_eff * min(transfer * (chunks - 1) / chunks,
+                                      compute)
+        fine = compute + chunks * hw.issue_overhead_s + transfer - hidden
+        return fine - bulk
+
+    return _crossover(diff)
+
+
 # ---------------------------------------------------------------------------
 #
 # Per-engine-step time is the decode roofline: every step streams the
@@ -1309,6 +1429,41 @@ def decide_checkpoint(step_s: float, snapshot_bytes: int, *,
         snapshot_bytes=int(snapshot_bytes), write_bw=bw, mtbf_s=mtbf_s,
         restore_s=rest, daly_interval_s=tau_star, overhead=overhead,
         fixed_overhead=fixed_ov, chosen_overhead=overhead[interval])
+
+
+# ---------------------------------------------------------------------------
+# Roofline terms (of the dry run's counts, launch/hlo.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+def roofline(hlo_flops: float, hlo_bytes: float, collective_bytes: float,
+             n_chips: int, hw: HardwareModel = DEFAULT_HW) -> RooflineTerms:
+    """The three-term roofline: ``hlo_flops`` / ``hlo_bytes`` over the
+    ``n_chips`` chips' peak and memory rate, ``collective_bytes`` (link
+    bytes) over their links.  The dry run's counts are one rank's, so a
+    step's bound on one chip is ``roofline(flops, bytes, link, 1)``."""
+    return RooflineTerms(
+        compute_s=hlo_flops / (n_chips * hw.peak_flops),
+        memory_s=hlo_bytes / (n_chips * hw.hbm_bw),
+        collective_s=collective_bytes / (n_chips * hw.link_bw),
+    )
 
 
 # ---------------------------------------------------------------------------

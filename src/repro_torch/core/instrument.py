@@ -295,9 +295,12 @@ class Recorder(TorchDispatchMode):
     # -- what reports itself --------------------------------------------------
 
     def kernel(self, name: str, reads: Sequence[Any],
-               writes: Sequence[Any] = ()) -> None:
+               writes: Sequence[Any] = (), work: Callable | None = None
+               ) -> None:
         """One kernel launch: one op reading ``reads`` and writing
-        ``writes`` (a write counts where an output is tracked)."""
+        ``writes`` (a write counts where an output is tracked).  ``work``
+        returns the launch's (flops, bytes), for a recorder that counts
+        them (launch/hlo.py)."""
         self.depth += 1
         self._read([t for t in reads if t is not None])
         for t in writes:
@@ -348,29 +351,40 @@ ACTIVE: Recorder | None = None
 
 
 def note_kernel(name: str, reads: Sequence[Any],
-                writes: Sequence[Any] = ()) -> None:
+                writes: Sequence[Any] = (), *,
+                work: Callable | None = None) -> None:
     """Report one kernel launch to the active recorder (a wrapper calls
     this where it counts its launches; without a recorder it does
-    nothing)."""
+    nothing).  ``work`` returns the launch's (flops, bytes): the kernel
+    module's work function of the call's shapes."""
     if ACTIVE is not None:
-        ACTIVE.kernel(name, reads, writes)
+        ACTIVE.kernel(name, reads, writes, work)
 
 
-def meta_kernel(name: str, reads: Sequence[Any], outputs: Any) -> Any:
-    """A kernel wrapper handed meta tensors: under a recorder, report one
-    launch and return the meta ``outputs``; outside one, raise (a meta
-    tensor is neither CUDA nor CPU, and no plain version stands in)."""
+def meta_kernel(name: str, reads: Sequence[Any], outputs: Any, *,
+                work: Callable | None = None) -> Any:
+    """A kernel wrapper handed meta tensors, past the checks of what its
+    kernel takes: under a recorder, report one launch and return the meta
+    ``outputs``; outside one, raise (a meta tensor is neither CUDA nor
+    CPU, and no plain version stands in)."""
     if ACTIVE is None:
         raise RuntimeError(f"no {name} kernel for meta tensors: they run "
                            f"only under instrument.analyze_region")
     ACTIVE.kernel(name, reads, [o for o in tree_leaves(outputs)
-                                if isinstance(o, torch.Tensor)])
+                                if isinstance(o, torch.Tensor)], work)
     return outputs
 
 
 def is_meta(*tensors: Any) -> bool:
     return any(isinstance(t, torch.Tensor) and t.device.type == "meta"
                for t in tensors)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's side of a device branch: a CUDA
+    tensor, or a meta one, which stands for the card under a recorder (a
+    dry run counts the path a CUDA tensor takes, kernels included)."""
+    return t.device.type in ("cuda", "meta")
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,12 @@ def _to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return host.to(like.device)
 
 
+def _like(x: torch.Tensor) -> torch.Tensor:
+    """A meta call's result: contiguous, as every message a backend
+    returns."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def _recorded(primitive: str, group: Group,
               operands: Sequence[torch.Tensor], meta, run):
     """One call under the active recorder: record it, then run it with
@@ -81,7 +87,7 @@ def all_reduce(x: torch.Tensor, group: Group,
                ) -> torch.Tensor:
     """The reduction of ``x`` over ``group`` as a new tensor."""
     if instrument.ACTIVE is not None:
-        return _recorded("psum", group, [x], lambda: torch.empty_like(x),
+        return _recorded("psum", group, [x], lambda: _like(x),
                          lambda: _all_reduce(x, group, op))
     return _all_reduce(x, group, op)
 
@@ -106,8 +112,7 @@ def all_gather(x: torch.Tensor, group: Group) -> list[torch.Tensor]:
     if instrument.ACTIVE is not None:
         return _recorded(
             "all_gather", group, [x],
-            lambda: [torch.empty_like(x)
-                     for _ in range(dist.get_world_size(group))],
+            lambda: [_like(x) for _ in range(dist.get_world_size(group))],
             lambda: _all_gather(x, group))
     return _all_gather(x, group)
 
@@ -157,7 +162,7 @@ def all_to_all(blocks: Sequence[torch.Tensor],
     tensors, as every gloo message)."""
     if instrument.ACTIVE is not None:
         return _recorded("all_to_all", group, list(blocks),
-                         lambda: [torch.empty_like(b) for b in blocks],
+                         lambda: [_like(b) for b in blocks],
                          lambda: _all_to_all(blocks, group))
     return _all_to_all(blocks, group)
 

@@ -56,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core import instrument
@@ -78,6 +79,75 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the others (16: the reduced configs)
 KERNEL_HEAD_DIMS = (16, 64, 128)
 TC_HEAD_DIMS = (64, 128)
+
+
+# ---------------------------------------------------------------------------
+# The least work of each kernel entry (the one definition the dry run,
+# launch/hlo.py, and the card's roofline bounds read)
+# ---------------------------------------------------------------------------
+
+
+def attended_pairs(sq: int, skv: int, *, causal: bool, window: int = 0,
+                   q_offset: int = 0, k_offset: int = 0) -> int:
+    """The unmasked (query, key) pairs of one batch row and head: query i
+    at position ``q_offset + i`` attends key j at ``k_offset + j`` (j <
+    ``skv``) where causal allows (key <= query) and the window does
+    (query - key < window), as ``_step_mask``.  Host arithmetic only: it
+    runs under the dry run's recorder."""
+    if sq <= 0 or skv <= 0:
+        return 0
+    qpos = np.arange(sq, dtype=np.int64) + int(q_offset)
+    hi = np.full(sq, int(k_offset) + skv - 1, dtype=np.int64)
+    lo = np.full(sq, int(k_offset), dtype=np.int64)
+    if causal:
+        hi = np.minimum(hi, qpos)
+    if window > 0:
+        lo = np.maximum(lo, qpos - int(window) + 1)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_work(kind: str, b: int, sq: int, skv: int, h: int, kvh: int,
+               hd: int, itemsize: int, *, causal: bool = True,
+               window: int = 0, q_offset: int = 0, k_offset: int = 0
+               ) -> tuple[int, int]:
+    """(flops, bytes) of one call of ``kind`` — "fwd", "bwd", "carry" or
+    "bwd_block" — over q [B, Sq, H, hd] and k, v [B, Skv, KV, hd] of
+    ``itemsize`` bytes: the function's least work, however a kernel runs
+    it.  Flops: QK^T and PV, 2 each per unmasked (pair, hd) (forward and
+    carry: 4); the backward's recomputed QK^T, dP, dV, dK and dQ (10).
+    Bytes: each input read once and each output written once — forward q,
+    k, v in, out and the f32 lse out; backward q, k, v, out, dout and lse
+    in, dq, dk, dv out; carry q, k, v in and the f32 (m, l, acc) read and
+    written; block backward q, dout, k, v, lse and dsum in and f32 dq, dk,
+    dv out."""
+    pairs = b * h * attended_pairs(sq, skv, causal=causal, window=window,
+                                   q_offset=q_offset, k_offset=k_offset)
+    q_bytes = b * sq * h * hd * itemsize
+    kv_bytes = 2 * b * skv * kvh * hd * itemsize
+    row_f32 = b * sq * h * 4
+    if kind == "fwd":
+        return 4 * pairs * hd, 2 * q_bytes + kv_bytes + row_f32
+    if kind == "bwd":
+        return 10 * pairs * hd, 4 * q_bytes + 2 * kv_bytes + row_f32
+    if kind == "carry":
+        return 4 * pairs * hd, (q_bytes + kv_bytes
+                                + 2 * (b * sq * h * hd * 4 + 2 * row_f32))
+    if kind == "bwd_block":
+        return 10 * pairs * hd, (2 * q_bytes + kv_bytes + 2 * row_f32
+                                 + (b * sq * h * hd + 2 * b * skv * kvh * hd)
+                                 * 4)
+    raise ValueError(f"unknown flash kernel {kind!r}")
+
+
+def _work(kind: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
+          window: int, q_offset: int, k_offset: int = 0):
+    """A wrapper's launch, as the recorder reads it: ``flash_work`` of
+    the call's shapes, evaluated only where a recorder asks."""
+    b, sq, h, hd = q.shape
+    return lambda: flash_work(kind, b, sq, k.shape[1], h, k.shape[2], hd,
+                              q.element_size(), causal=causal,
+                              window=window, q_offset=q_offset,
+                              k_offset=k_offset)
 
 
 def init_partials(b: int, sq: int, h: int, hd: int, *,
@@ -358,6 +428,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_kernel_inputs(q: torch.Tensor, *tensors: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash-attention kernel for {q.device}")
+    _check_operands(q, *tensors)
+
+
+def _check_operands(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What the kernels take — types, head dims, contiguity — checked on
+    the card and on abstract (meta) tensors alike, so a dry run refuses
+    what the card refuses."""
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
                                          for t in tensors):
         raise TypeError(f"the kernels take f32 or bf16 q, k, v of one type; "
@@ -396,6 +473,12 @@ def _raise_on(lib: ctypes.CDLL, err: int, which: str) -> None:
                            f"{msg}")
 
 
+def _check_bwd_operands(q, k, v, out, lse, dout) -> None:
+    _check_operands(q, k, v, out, dout)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("lse must be contiguous f32")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, engine: str = "auto"
@@ -413,10 +496,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_torch(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
     if instrument.is_meta(q):
+        _check_operands(q, k, v)
         return instrument.meta_kernel(
             "flash_attention_fwd", (q, k, v),
             (torch.empty_like(q), q.new_empty(q.shape[:3],
-                                              dtype=torch.float32)))
+                                              dtype=torch.float32)),
+            work=_work("fwd", q, k, causal, window, q_offset))
     _check_kernel_inputs(q, k, v)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -434,7 +519,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(hd), stream)
     _raise_on(lib, err, "forward")
     FWD_LAUNCHES += 1
-    instrument.note_kernel("flash_attention_fwd", (q, k, v), (out, lse))
+    instrument.note_kernel("flash_attention_fwd", (q, k, v), (out, lse),
+                           work=_work("fwd", q, k, causal, window, q_offset))
     return out, lse
 
 
@@ -464,12 +550,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          causal=causal, window=window,
                                          q_offset=q_offset)
     if instrument.is_meta(q):
+        _check_bwd_operands(q, k, v, out, lse, dout)
         return instrument.meta_kernel(
             "flash_attention_bwd", (q, k, v, out, lse, dout),
-            (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
-    _check_kernel_inputs(q, k, v, out, dout)
-    if lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise TypeError("lse must be contiguous f32")
+            (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+            work=_work("bwd", q, k, causal, window, q_offset))
+    _check_kernel_inputs(q)
+    _check_bwd_operands(q, k, v, out, lse, dout)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
@@ -497,8 +584,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(lib, err, "backward")
     BWD_LAUNCHES += 1
     instrument.note_kernel("flash_attention_bwd", (q, k, v, out, lse, dout),
-                           (dq, dk, dv))
+                           (dq, dk, dv),
+                           work=_work("bwd", q, k, causal, window, q_offset))
     return dq, dk, dv
+
+
+def _check_carry_operands(q, k, v, m, l, acc) -> None:
+    _check_operands(q, k, v)
+    if not all(t.is_contiguous() for t in (m, l, acc)):
+        raise ValueError("the kernels take contiguous tensors")
 
 
 def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -530,12 +624,13 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, m, l, acc, causal=causal, window=window,
             q_offset=q_offset, k_offset=k_offset)
     if instrument.is_meta(q):
+        _check_carry_operands(q, k, v, m, l, acc)
         return instrument.meta_kernel(
             "flash_attention_carry", (q, k, v, m, l, acc),
-            (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)))
-    _check_kernel_inputs(q, k, v)
-    if not all(t.is_contiguous() for t in (m, l, acc)):
-        raise ValueError("the kernels take contiguous tensors")
+            (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)),
+            work=_work("carry", q, k, causal, window, q_offset, k_offset))
+    _check_kernel_inputs(q)
+    _check_carry_operands(q, k, v, m, l, acc)
     skv, kvh = k.shape[1], k.shape[2]
     m_out, l_out, acc_out = (torch.empty_like(m), torch.empty_like(l),
                              torch.empty_like(acc))
@@ -553,8 +648,16 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(lib, err, "carry")
     CARRY_LAUNCHES += 1
     instrument.note_kernel("flash_attention_carry", (q, k, v, m, l, acc),
-                           (m_out, l_out, acc_out))
+                           (m_out, l_out, acc_out),
+                           work=_work("carry", q, k, causal, window, q_offset,
+                                      k_offset))
     return m_out, l_out, acc_out
+
+
+def _check_block_operands(q, k, v, dout, lse, dsum) -> None:
+    _check_operands(q, k, v, dout)
+    if not (lse.is_contiguous() and dsum.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
 
 
 def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
@@ -591,13 +694,15 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
             q, k, v, dout, lse, dsum, causal=causal, window=window,
             q_offset=q_offset, k_offset=k_offset, blk_kv=blk_kv)
     if instrument.is_meta(q):
+        _check_block_operands(q, k, v, dout, lse, dsum)
         return instrument.meta_kernel(
             "flash_attention_bwd_block", (q, k, v, dout, lse, dsum),
             tuple(t.new_empty(t.shape, dtype=torch.float32)
-                  for t in (q, k, v)))
-    _check_kernel_inputs(q, k, v, dout)
-    if not (lse.is_contiguous() and dsum.is_contiguous()):
-        raise ValueError("the kernels take contiguous tensors")
+                  for t in (q, k, v)),
+            work=_work("bwd_block", q, k, causal, window, q_offset,
+                       k_offset))
+    _check_kernel_inputs(q)
+    _check_block_operands(q, k, v, dout, lse, dsum)
     skv, kvh = k.shape[1], k.shape[2]
     adds = _tensor_cores(q)                # the tensor-core kernel adds
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device) \
@@ -622,5 +727,7 @@ def flash_attention_bwd_block(q: torch.Tensor, k: torch.Tensor,
     _raise_on(lib, err, "block backward")
     BWD_BLOCK_LAUNCHES += 1
     instrument.note_kernel("flash_attention_bwd_block",
-                           (q, k, v, dout, lse, dsum), (dq, dk, dv))
+                           (q, k, v, dout, lse, dsum), (dq, dk, dv),
+                           work=_work("bwd_block", q, k, causal, window,
+                                      q_offset, k_offset))
     return dq, dk, dv

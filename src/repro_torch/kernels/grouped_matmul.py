@@ -192,12 +192,39 @@ def _check_shapes(h, w1, w1_gate, w2, valid, mlp) -> None:
         raise ValueError(f"valid must be [{n_g}]; got {tuple(valid.shape)}")
 
 
-def _check_card(h, w1, w1_gate, w2, valid, mlp) -> None:
-    """What the kernels need beyond ``_check_shapes``."""
-    _check_shapes(h, w1, w1_gate, w2, valid, mlp)
+def grouped_work(kept: float, n_g: int, c: int, d: int, f: int, e: int,
+                 itemsize: int, gated: bool = True) -> tuple[float, float]:
+    """(flops, bytes) of one call over ``n_g`` groups of ``c`` capacity
+    rows that keeps ``kept`` rows, for ``e`` experts of [d, f] / [f, d]:
+    the function's least work, however a kernel runs it.  Flops: the
+    products (three for a gated FFN, two else), 2 per multiply-add of a
+    kept row; bytes: the kept rows of h and the expert weights read once,
+    the whole output written once, the valid counts read once."""
+    mults = 2 if gated else 1
+    nbytes = ((kept * d + (mults + 1) * e * d * f) * itemsize
+              + n_g * c * d * itemsize + 4 * n_g)
+    return 2.0 * (mults + 1) * d * f * kept, nbytes
+
+
+def _work(h, w1, valid, mlp: str, abstract: bool):
+    """A wrapper's launch, as the recorder reads it: ``grouped_work`` of
+    the rows ``valid`` keeps, or of every capacity row where there are
+    no counts to read (a dry run's meta tensors, as the reference's jnp
+    engine computes every capacity row)."""
+    def work():
+        n_g, c, d = h.shape
+        e, _, f = w1.shape
+        kept = (n_g * c if abstract
+                else int(valid.clamp(0, c).sum().item()))
+        return grouped_work(kept, n_g, c, d, f, e, h.element_size(),
+                            gated(mlp))
+    return work
+
+
+def _check_operands(h, w1, w1_gate, w2, valid) -> None:
+    """What the kernels take — types, devices, contiguity — checked on the
+    card and on abstract (meta) tensors alike."""
     weights = [w1, w2] + ([w1_gate] if w1_gate is not None else [])
-    if h.device.type != "cuda":
-        raise RuntimeError(f"no grouped-expert kernel for {h.device}")
     if h.dtype not in _DTYPE_CODE or any(w.dtype != h.dtype
                                          for w in weights):
         raise TypeError(f"the grouped-expert kernel takes f32 or bf16 "
@@ -208,6 +235,14 @@ def _check_card(h, w1, w1_gate, w2, valid, mlp) -> None:
     if not all(t.is_contiguous() for t in (h, *weights)):
         raise ValueError("the grouped-expert kernel takes contiguous "
                          "tensors")
+
+
+def _check_card(h, w1, w1_gate, w2, valid, mlp) -> None:
+    """What the kernels need beyond ``_check_shapes``."""
+    _check_shapes(h, w1, w1_gate, w2, valid, mlp)
+    if h.device.type != "cuda":
+        raise RuntimeError(f"no grouped-expert kernel for {h.device}")
+    _check_operands(h, w1, w1_gate, w2, valid)
 
 
 def _launch(h, w1, w1_gate, w2, valid, mlp, plan: Plan,
@@ -246,7 +281,7 @@ def _launch(h, w1, w1_gate, w2, valid, mlp, plan: Plan,
     GROUPED_LAUNCHES += 1
     ENGINE_LAUNCHES[plan.engine] += 1
     instrument.note_kernel("grouped_expert_ffn", (h, w1, w1_gate, w2, valid),
-                           (out,))
+                           (out,), work=_work(h, w1, valid, mlp, False))
 
 
 def grouped_expert_ffn_cuda(h: torch.Tensor, w1: torch.Tensor,
@@ -256,9 +291,10 @@ def grouped_expert_ffn_cuda(h: torch.Tensor, w1: torch.Tensor,
     ``grouped_plan``; raises on anything they do not take."""
     if instrument.is_meta(h):
         _check_shapes(h, w1, w1_gate, w2, valid, mlp)
+        _check_operands(h, w1, w1_gate, w2, valid)
         return instrument.meta_kernel(
             "grouped_expert_ffn", (h, w1, w1_gate, w2, valid),
-            torch.empty_like(h))
+            torch.empty_like(h), work=_work(h, w1, valid, mlp, True))
     _check_card(h, w1, w1_gate, w2, valid, mlp)
     out = torch.empty_like(h)
     _launch(h, w1, w1_gate, w2, valid, mlp, grouped_plan(h, w1, w2, mlp),
@@ -334,4 +370,9 @@ def grouped_expert_ffn(h: torch.Tensor, w1: torch.Tensor,
     if engine == "torch":
         return grouped_expert_ffn_torch(h, w1, w1_gate, w2, valid, mlp)
     _check_shapes(h, w1, w1_gate, w2, valid, mlp)
-    return _GroupedFFN.apply(h, w1, w1_gate, w2, valid, mlp)
+    # the kernels take contiguous operands: an FSDP-gathered expert weight
+    # is a moved view of the gathered blocks
+    return _GroupedFFN.apply(
+        h.contiguous(), w1.contiguous(),
+        None if w1_gate is None else w1_gate.contiguous(), w2.contiguous(),
+        valid, mlp)

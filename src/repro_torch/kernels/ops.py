@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from repro_torch.core import instrument
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
     NEG_INF, Partials, _blk_mask, _grouped, _ungrouped, flash_attention_bwd,
@@ -57,7 +58,7 @@ def flash_attention_applicable(q: torch.Tensor, k: torch.Tensor,
     (the kernel on a card) should replace the dense reference."""
     return (q.dim() == 4 and k.dim() == 4
             and q.shape[1] * k.shape[1] >= DENSE_MAX_SEQ * DENSE_MAX_SEQ
-            or q.device.type == "cuda")
+            or instrument.on_card(q))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -98,7 +99,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def _flash_fwd_impl(q, k, v, causal, window, q_offset, engine
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    if engine == "torch" or q.device.type == "cuda":
+    if engine == "torch" or instrument.on_card(q):
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, engine=engine)
     sq, skv = q.shape[1], k.shape[1]

@@ -252,11 +252,39 @@ def _check(q, k_pages, v_pages, table, lens) -> None:
         raise ValueError(f"inputs lie on several devices: {devs}")
 
 
-def _check_card(q, k_pages, v_pages, table, lens) -> Plan | None:
-    """What the kernels need beyond ``_check``; the plan of the call (None
-    for an empty batch)."""
-    if q.device.type != "cuda":
-        raise RuntimeError(f"no paged-attention kernel for {q.device}")
+def paged_work(lens, window: int, h: int, kvh: int, hd: int, page: int,
+               itemsize: int) -> tuple[int, int]:
+    """(flops, bytes) of one call over rows of ``lens`` valid positions:
+    the function's least work, however a kernel runs it.  Flops: q.k and
+    p.v, 2 each per attended (position, head, hd); bytes: the attended
+    K and V read once, q read and the output written once, the lengths
+    and the page table read once."""
+    b = len(lens)
+    need = sum(min(int(n), window) if window else int(n) for n in lens)
+    pmax = max(1, -(-int(max(lens, default=0)) // page))
+    nbytes = (need * kvh * hd * 2 * itemsize          # K and V
+              + 2 * b * h * hd * itemsize             # q in, out
+              + 4 * b * (1 + pmax))                   # lens, table
+    return 4 * h * hd * need, nbytes
+
+
+def _work(q, k_pages, table, window: int, lens=None):
+    """A wrapper's launch, as the recorder reads it: ``paged_work`` over
+    the lengths ``lens`` holds, or over every row's full table where
+    there are none to read (a dry run's meta tensors: the shape's full
+    context)."""
+    def work():
+        b, h, hd = q.shape
+        _, page, kvh, _ = k_pages.shape
+        full = ([table.shape[1] * page] * b if lens is None
+                else lens.tolist())
+        return paged_work(full, window, h, kvh, hd, page, q.element_size())
+    return work
+
+
+def _check_operands(q, k_pages, v_pages, table, lens) -> None:
+    """What the kernels take — types, contiguity — checked on the card and
+    on abstract (meta) tensors alike."""
     if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"the kernel takes f32 or bf16 q and pools of the "
@@ -265,6 +293,14 @@ def _check_card(q, k_pages, v_pages, table, lens) -> Plan | None:
     if not all(t.is_contiguous() for t in (q, k_pages, v_pages, table,
                                            lens)):
         raise ValueError("the kernel takes contiguous tensors")
+
+
+def _check_card(q, k_pages, v_pages, table, lens) -> Plan | None:
+    """What the kernels need beyond ``_check``; the plan of the call (None
+    for an empty batch)."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no paged-attention kernel for {q.device}")
+    _check_operands(q, k_pages, v_pages, table, lens)
     if q.shape[0] == 0:
         return None
     plan = launch_plan(q, k_pages, table)
@@ -303,7 +339,8 @@ def _launch(q, k_pages, v_pages, table, lens, window: int, plan: Plan,
         raise RuntimeError(f"paged_attention kernel launch failed: {msg}")
     LAUNCHES += 1
     instrument.note_kernel("paged_attention",
-                           (q, k_pages, v_pages, table, lens), (out,))
+                           (q, k_pages, v_pages, table, lens), (out,),
+                           work=_work(q, k_pages, table, window, lens))
 
 
 def _workspaces(q: torch.Tensor, plan: Plan):
@@ -343,9 +380,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_torch(q, k_pages, v_pages, table, lens,
                                      window=window)
     if instrument.is_meta(q):
+        _check_operands(q, k_pages, v_pages, table, lens)
         return instrument.meta_kernel(
             "paged_attention", (q, k_pages, v_pages, table, lens),
-            torch.empty_like(q))
+            torch.empty_like(q), work=_work(q, k_pages, table, window))
     plan = _check_card(q, k_pages, v_pages, table, lens)
     out = torch.empty_like(q)
     if plan is None:

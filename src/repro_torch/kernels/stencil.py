@@ -255,9 +255,26 @@ def _check_engine(engine: str) -> None:
         raise ValueError(f"unknown engine {engine!r}")
 
 
+def stencil_work(m: int, n: int, itemsize: int, sweeps: int,
+                 u_ghost: int = 0, f_ghost: int = 0) -> tuple[int, int]:
+    """(flops, bytes) of one call that leaves ``sweeps`` sweeps on an
+    [m, n] block: the function's least work, however a kernel runs it.
+    Flops: the 5 operations of each needed interior update; bytes: u with
+    its ``u_ghost`` ghost rows and f with its ``f_ghost`` read once, u'
+    written once."""
+    nbytes = ((m + u_ghost) + (m + f_ghost) + m) * n * itemsize
+    return 5 * m * max(n - 2, 0) * sweeps, nbytes
+
+
 def _check_kernel_inputs(ref: torch.Tensor, *tensors: torch.Tensor) -> None:
     if ref.device.type != "cuda":
         raise RuntimeError(f"no stencil kernel for {ref.device}")
+    _check_operands(ref, *tensors)
+
+
+def _check_operands(ref: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What the kernels take — types, devices, contiguity — checked on the
+    card and on abstract (meta) tensors alike."""
     if ref.dtype not in _DTYPE_CODE or any(t.dtype != ref.dtype
                                            for t in tensors):
         raise TypeError(f"the stencil kernels take f32 or bf16 arrays of one "
@@ -321,11 +338,13 @@ def jacobi_step(u: torch.Tensor, f: torch.Tensor, *,
         for a, b in ranges:
             out[a:b] = new[a:b]
         return out
+    halos = [h for h in (lo, hi) if h is not None]
+    work = (lambda: stencil_work(m, n, u.element_size(), 1, len(halos)))
     if instrument.is_meta(u):
+        _check_operands(u, f, *halos, *([] if out is None else [out]))
         return instrument.meta_kernel(
             "jacobi_step", (u, f, lo, hi),
-            torch.empty_like(u) if out is None else out)
-    halos = [h for h in (lo, hi) if h is not None]
+            torch.empty_like(u) if out is None else out, work=work)
     _check_kernel_inputs(u, f, *halos, *([] if out is None else [out]))
     if out is None:
         out = torch.empty_like(u)
@@ -342,7 +361,7 @@ def jacobi_step(u: torch.Tensor, f: torch.Tensor, *,
             a0, a1, b0, b1, stream)
     _raise_on(lib, err, "jacobi_step")
     STEP_LAUNCHES += 1
-    instrument.note_kernel("jacobi_step", (u, f, lo, hi), (out,))
+    instrument.note_kernel("jacobi_step", (u, f, lo, hi), (out,), work=work)
     return out
 
 
@@ -380,11 +399,14 @@ def jacobi_ksweep_parts(u_lo: torch.Tensor, u: torch.Tensor,
         new = jacobi_ksweep_torch(u_lo, u, u_hi, f_lo, f, f_hi, k,
                                   frozen_top, frozen_bot)
         return new if out is None else out.copy_(new)
+    parts = (u_lo, u_hi, f_lo, f, f_hi)
     if instrument.is_meta(u):
+        _check_operands(u, *parts, *([] if out is None else [out]))
         return instrument.meta_kernel(
             "jacobi_ksweep", (u_lo, u, u_hi, f_lo, f, f_hi),
-            torch.empty_like(u) if out is None else out)
-    parts = (u_lo, u_hi, f_lo, f, f_hi)
+            torch.empty_like(u) if out is None else out,
+            work=lambda: stencil_work(m, n, u.element_size(), k, 2 * k,
+                                      2 * k))
     _check_kernel_inputs(u, *parts, *([] if out is None else [out]))
     if out is None:
         out = torch.empty_like(u)
@@ -455,7 +477,10 @@ def _ksweep_launch(u_lo: torch.Tensor, u: torch.Tensor, u_hi: torch.Tensor,
     _raise_on(lib, err, "jacobi_ksweep")
     KSWEEP_LAUNCHES += 1
     instrument.note_kernel("jacobi_ksweep", (u_lo, u, u_hi, f_lo, f, f_hi),
-                           (out,))
+                           (out,), work=lambda: stencil_work(
+                               m, n, u.element_size(), k, u_lo.shape[0]
+                               + u_hi.shape[0], f_lo.shape[0]
+                               + f_hi.shape[0]))
     return out
 
 

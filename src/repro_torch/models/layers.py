@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import managed
+from repro_torch.core import instrument, managed
 from repro_torch.core.overlap import fsdp_gather
 from repro_torch.parallel.sharding import MeshCtx
 
@@ -194,7 +194,8 @@ def embed_sp(tokens: torch.Tensor, table_loc: torch.Tensor,
 
 class _LogitsF32(torch.autograd.Function):
     """[N, D] @ [D, V] -> [N, V] f32 with f32 accumulation of low-precision
-    operands.  On CUDA the forward is ``aten::mm.dtype`` (no f32 copy of the
+    operands.  On CUDA (and on meta tensors, which stand for the card in a
+    dry run) the forward is ``aten::mm.dtype`` (no f32 copy of the
     [D, V] unembedding); torch has no derivative for it, so the backward
     is written here and keeps bf16 products, as a bf16 matmul's would.  On
     the CPU, which has no ``mm.dtype``, the forward upcasts the chunk's
@@ -203,7 +204,7 @@ class _LogitsF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, w):
         ctx.save_for_backward(x2, w)
-        if x2.device.type == "cuda":
+        if instrument.on_card(x2):
             return torch.mm(x2, w, out_dtype=torch.float32)
         return x2.float() @ w.float()
 

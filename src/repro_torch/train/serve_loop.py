@@ -1,5 +1,10 @@
-"""Generation driver (port of the ``Generator`` of
+"""Serving steps and the generation loop (port of
 ``repro.train.serve_loop``).
+
+``build_decode_step`` / ``build_prefill_step`` are the per-rank
+counterparts of the reference's jitted SPMD steps: plain functions over
+this rank's parameters (the model holds them), with no ``smap`` or
+``jit`` — the dry run (launch/dryrun.py) counts them on abstract tensors.
 
 Two engines behind one facade, with the same greedy tokens:
 
@@ -14,7 +19,7 @@ Two engines behind one facade, with the same greedy tokens:
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -23,6 +28,27 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
+
+
+def build_decode_step(model: Model, shape: ShapeConfig
+                      ) -> tuple[Callable, dict | list]:
+    """Returns (step, cache specs): ``step(cache, token [B], pos) ->
+    (next_token [B], cache)``, one greedy decode step against this rank's
+    CONTIGUOUS cache (``Model.decode_step``, the cache written in place),
+    and the cache's ``{name: (shape, dtype)}`` (``Model.
+    decode_cache_specs``; a per-layer list for the hybrid family)."""
+    def step(cache: dict | list, token: torch.Tensor, pos: int
+             ) -> tuple[torch.Tensor, dict | list]:
+        return model.decode_step(cache, token, pos)
+    return step, model.decode_cache_specs(shape)
+
+
+def build_prefill_step(model: Model) -> Callable:
+    """Returns ``step(batch) -> (last-token logits [B_loc, V_loc], prefill
+    cache)`` over this rank's batch rows (``Model.prefill_sp``)."""
+    def step(batch: dict) -> tuple[torch.Tensor, dict]:
+        return model.prefill_sp(batch)
+    return step
 
 
 class Generator:

@@ -351,3 +351,71 @@ def test_ring_attention_resolution_logs_the_reference_record(mode):
     assert (rec.mode, rec.predicted_bulk_s, rec.predicted_interleaved_s) \
         == (d.mode if mode is None else mode, d.bulk_time_s,
             d.interleaved_time_s)
+
+
+# -- the paper's machines, PingPong and its crossovers, the roofline ---------
+
+MACHINES = ["TPU_V5E", "HECTOR_XE6", "HELIOS_BULLX", "JUQUEEN_BGQ"]
+
+
+@pytest.mark.parametrize("name", MACHINES[1:])
+def test_paper_machines_equal_reference(name):
+    got = dataclasses.asdict(getattr(cm, name))
+    want = dataclasses.asdict(getattr(ref_cm, name))
+    # the port's H100-only fields sit at their defaults
+    assert {k: got[k] for k in want} == want
+    assert (got["tile_rows"], got["ksweep_max_k"]) == (256, 0)
+
+
+@pytest.mark.parametrize("name", MACHINES)
+@pytest.mark.parametrize("n", [1, 64, 4096, 1 << 20])
+def test_pingpong_times_equal_reference(name, n):
+    hw, ref_hw = getattr(cm, name), getattr(ref_cm, name)
+    for delay in (0.0, 1.0, 37.5, 1e4):
+        for sent in (None, 1, max(1, n // 8)):
+            for nbytes in (4.0, 8.0):
+                assert cm.pingpong_times(n, delay, hw, nbytes, 1.0, sent) \
+                    == ref_cm.pingpong_times(n, delay, ref_hw, nbytes, 1.0,
+                                             sent)
+
+
+@pytest.mark.parametrize("name", MACHINES)
+@pytest.mark.parametrize("n", [64, 4096, 1 << 20])
+def test_crossovers_equal_reference(name, n):
+    hw, ref_hw = getattr(cm, name), getattr(ref_cm, name)
+    for sent in (None, max(1, n // 16)):
+        assert cm.crossover_compute_per_element(n, hw, 4.0, sent) == \
+            ref_cm.crossover_compute_per_element(n, ref_hw, 4.0, sent)
+    for chunks in (1, 2, 8, 64, 1024):
+        assert cm.crossover_compute_chunked(n, chunks, hw) == \
+            ref_cm.crossover_compute_chunked(n, chunks, ref_hw)
+
+
+def test_h100_crossover_prices_the_delay_loop_at_its_peak():
+    """The H100 has no scalar rate: the delay loop runs at its peak, as
+    the reference's code does for any machine without one."""
+    assert cm.H100.scalar_flops == 0.0
+    bulk, fine = cm.pingpong_times(4096, 10.0, cm.H100)
+    compute = 4096 * 10.0 / cm.H100.peak_flops
+    assert bulk == pytest.approx(compute + cm.H100.alpha_s
+                                 + 4096 * 4.0 / cm.H100.link_bw, rel=1e-12)
+    assert fine > 0.0
+    assert cm.crossover_compute_chunked(1 << 20, 8) == \
+        cm.crossover_compute_chunked(1 << 20, 8, hw=cm.H100)
+
+
+@pytest.mark.parametrize("name", MACHINES)
+@pytest.mark.parametrize("flops,nbytes,coll,n", [
+    (197e12, 819e9, 50e9, 1), (1e9, 1e12, 0.0, 1), (3.1e15, 2.2e12, 9e11, 256),
+    (0.0, 0.0, 1e6, 512)])
+def test_roofline_equals_reference(name, flops, nbytes, coll, n):
+    got = cm.roofline(flops, nbytes, coll, n, getattr(cm, name))
+    want = ref_cm.roofline(flops, nbytes, coll, n, getattr(ref_cm, name))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.dominant, got.bound_s) == (want.dominant, want.bound_s)
+
+
+def test_roofline_defaults_to_the_h100():
+    got = cm.roofline(989e12, 3.35e12, 450e9, 1)
+    assert got == cm.roofline(989e12, 3.35e12, 450e9, 1, cm.H100)
+    assert got.bound_s == pytest.approx(1.0)
