@@ -13,11 +13,11 @@ phase that fails:
                ptxas's registers, spills and stack, and count the
                tensor-core (HGMMA) instructions of each flash kernel and
                each grouped-expert tensor-core kernel in its SASS: the
-               bf16 forward, carry, backward, block-backward and grouped
-               kernels must have some, and the paged kernel's bf16 fast
-               path and the grouped tensor-core kernels must not spill
-               (no stack or local memory in ``cuobjdump -res-usage`` of
-               the built library);
+               bf16 forward, carry, backward, block-backward (at hd 64,
+               128 and 192) and grouped kernels must have some, and they,
+               the paged kernel's bf16 fast path and the grouped
+               tensor-core kernels must not spill (no stack or local
+               memory in ``cuobjdump -res-usage`` of the built library);
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
                the card at the stated tolerances (paged attention, with
                its split plan, and its bf16 fast path's f32 split
@@ -172,8 +172,29 @@ phase that fails:
                predicted peak memory within DRYRUN_PEAK_BAND of
                ``max_memory_allocated``; then four production cells on a
                fake 256 / 512-rank group (``DRYRUN_CELLS``), each ok, with
-               no process group left and the card untouched.
+               no process group left and the card untouched;
+ 17. nemotron — nemotron-4-340b at full width (d_model 18432, 96/8 heads
+               of 192, d_ff 73728 relu2, vocab 256000), cut to 2 layers in
+               bf16: prefill_sp of 1 x 4096 (2 flash launches, logits
+               within 2e-2 of the plain engine's, timed in turns with it
+               while nvidia-smi reads the SM clock), phase 3's 8 requests
+               through ServeEngine (paged launches = 2 x decode steps on
+               paged_mma_kernel<192>, the prompts included: the engine's
+               chunked prefill runs the paged decode step, no flash
+               launch), a 1 x 8192 ring prefill (2 carry launches, no
+               flash, logits against megatron's); at 1 layer in f32 the
+               kernel path's prefill logits (1e-4) and greedy tokens
+               against the plain path's; and nemotron's reduced config
+               widened to head_dim 192 (d_model 768, 4/2 heads, d_ff 3072)
+               trained 3 AdamW steps in bf16 at B=2 x S=2048 with exact
+               flash launch counts, and in f32 held to the plain path
+               (loss 1e-5, gradients 1e-4).
 
+Phase 2 also holds the flash forward, backward, carry step and block
+backward at head_dim 192 (nemotron's call, 1 x 4096 at 96/8 heads, and
+GQA 12:1, MHA, windowed, ragged and offset cases) to their plain versions
+in f32 and bf16 with exact launch counts, and times them at nemotron's
+call beside their bounds, the plain versions and SDPA (enable_gqa).
 Phase 2 also holds the two stencil kernels (one sweep; k sweeps per round
 trip), the grouped-expert FFN, the ring's block backward (bf16 in, f32
 out, at the ring training step's shape) and the ring-attention carry step
@@ -214,6 +235,14 @@ import time
 import numpy as np
 
 HBM_BW = 3.35e12                      # H100 SXM data sheet, bytes/s
+#: the flash kernels on the tensor cores (bf16): each must have HGMMA
+#: instructions in its SASS and neither stack nor local memory
+FLASH_WGMMA = ([f"flash_fwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128, 192)
+                for c in ("false", "true")]
+               + [f"flash_bwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128)
+                  for c in ("false", "true")]
+               + [f"flash_bwd_wgmma_split_kernel<192, {c}>"
+                  for c in ("false", "true")])
 PEAK = {"bfloat16": 989e12,           # dense tensor-core rate, flop/s
         "float32": 67e12}             # f32 outside the tensor cores
 SEED = 0
@@ -467,13 +496,15 @@ def phase_kernel(torch):
     page, hd = 16, 128
     ragged = [0, 1, 16, 17, 32, 100, 255, 288]        # 0, 1, page edges
     errs = {}
-    # (H, KV, window): phi4-mini's GQA, a window, granite's MQA, moonshot
-    cases = [(32, 8, 0), (32, 8, 64), (48, 1, 0), (16, 16, 0)]
+    # (H, KV, window, hd): phi4-mini's GQA, a window, granite's MQA,
+    # moonshot, nemotron's 96/8 heads of 192
+    cases = [(32, 8, 0, 128), (32, 8, 64, 128), (48, 1, 0, 128),
+             (16, 16, 0, 128), (96, 8, 0, 192)]
     for dtype, tol in ((torch.float32, dict(atol=1e-4, rtol=0.0)),
                        (torch.bfloat16, dict(atol=2e-2, rtol=2e-2))):
-        for h, kvh, window in cases:
+        for h, kvh, window, case_hd in cases:
             q, kp, vp, table, lens = paged_inputs(
-                torch, rng, b=8, h=h, kvh=kvh, hd=hd, page=page,
+                torch, rng, b=8, h=h, kvh=kvh, hd=case_hd, page=page,
                 lens=ragged, n_pages=160, dtype=dtype)
             plan = paged.launch_plan(q, kp, table)
             got = paged.paged_attention(q, kp, vp, table, lens,
@@ -483,7 +514,8 @@ def phase_kernel(torch):
                 q.float(), kp.float(), vp.float(), table, lens,
                 window=window)
             err = (got.float() - want).abs().max().item()
-            name = f"{str(dtype)[6:]} H={h} KV={kvh} window={window}"
+            name = (f"{str(dtype)[6:]} H={h} KV={kvh} window={window} hd "
+                    f"{case_hd}")
             errs[name] = err
             if not torch.isfinite(got.float()).all():
                 fail(f"kernel output not finite ({name})")
@@ -577,15 +609,18 @@ def phase_kernel(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: flash attention forward and backward, kernel vs plain, and times
+# phase 2: the flash kernels (forward, backward, carry step, block
+# backward) at head_dim 128 and 192, kernel vs plain, and their times
 # ---------------------------------------------------------------------------
 
-#: (B, Sq, Skv, H, KV, causal, window, q_offset), head_dim 128: GQA 32/8
-#: and MQA 48/1 (granite-34b's heads), causal and not, windows 0 and 64,
+#: (B, Sq, Skv, H, KV, causal, window, q_offset), head_dim 128: the
+#: training shape (phi4-mini, B=2, S=1024, 32/8, causal); GQA 32/8 and
+#: MQA 48/1 (granite-34b's heads), causal and not, windows 0 and 64,
 #: q_offset > 0 with Sq < Skv, and Sq, Skv that are not multiples of 64;
 #: then the edges of the bf16 kernel's 128-row tiles (127, 129, 257, a
 #: window of 100, the diagonal mid-tile)
 FLASH_CASES = [
+    (2, 1024, 1024, 32, 8, True, 0, 0),
     (2, 256, 256, 32, 8, True, 0, 0),
     (1, 200, 200, 32, 8, False, 0, 0),
     (2, 130, 130, 32, 8, True, 64, 0),
@@ -597,11 +632,35 @@ FLASH_CASES = [
     (1, 257, 257, 32, 8, True, 100, 0),
     (1, 129, 257, 32, 8, True, 0, 60),
 ]
+#: the same at head_dim 192: nemotron's call (1 x 4096, 96/8 heads,
+#: causal), phase 17 (e)'s training call (2 x 2048, 4/2 heads, causal),
+#: then GQA 12:1 with a window, MHA not causal with a ragged Skv, and
+#: q_offset with Sq < Skv
+FLASH192_CASES = [
+    (1, 4096, 4096, 96, 8, True, 0, 0),
+    (2, 2048, 2048, 4, 2, True, 0, 0),
+    (1, 257, 257, 24, 2, True, 100, 0),
+    (1, 200, 333, 8, 8, False, 0, 0),
+    (2, 129, 300, 24, 2, True, 0, 171),
+]
 #: the training phase's attention: phi4-mini at B=2, S=1024, causal
 TRAIN_ATTN = dict(b=2, s=1024, h=32, kvh=8, hd=128)
+#: nemotron's attention call: one 4096-token sequence, 96/8 heads, hd 192
+NEMO_ATTN = dict(b=1, s=4096, h=96, kvh=8, hd=192)
+#: phase 2's flash cases and timed call, by head dim
+FLASH_PHASES = {128: (FLASH_CASES, TRAIN_ATTN, "the training shape"),
+                192: (FLASH192_CASES, NEMO_ATTN, "nemotron's call")}
 #: the block backward's f32 outputs against the plain version in f32, of
 #: the largest magnitude of each: P and dS are kept as bf16 hi/lo pairs
 BLOCK_TOL = 1e-4
+#: bf16 out, dq, dk and dv: ||got - want|| / ||want|| over the tensor.
+#: The max-abs check scales by the largest magnitude, which in a long
+#: causal call comes from the first rows and exceeds most values; the
+#: norm weighs every row.  On an H100 every case read 1.58e-3 to 1.67e-3
+#: at hd 128 and 192 (the outputs' rounding to bf16), and a dropped 64-row
+#: kv tile or a wrong l 0.27 to 0.39 (``norm_controls``, which must read
+#: above this limit)
+FLASH_NORM_TOL = 5e-3
 
 
 def flash_bounds(b, s, h, kvh, hd, itemsize):
@@ -635,151 +694,252 @@ def flash_inputs(torch, gen, b, sq, skv, h, kvh, hd, dtype):
                           (b, skv, kvh, hd), (b, sq, h, hd))]
 
 
-def phase_flash(torch):
+def rel_check(torch, got, want, tol, what, floor=1.0):
+    """max|got - want| within ``tol`` x max(floor, max|want|) (finite,
+    f32); returns the error."""
+    if not torch.isfinite(got.float()).all():
+        fail(f"{what}: not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(floor, want.float().abs().max().item())
+    if not err <= tol * scale:
+        fail(f"{what}: max|err| {err:.3e} > {tol} x {scale:.3g}")
+    return err
+
+
+def norm_err(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in f32."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def flash_checks(torch, gen, hd, cases) -> dict:
+    """Forward, backward, carry step and block backward at ``hd`` against
+    their plain versions in f32 and bf16 on every case, with exact launch
+    counts; bf16 out, dq, dk and dv also by norm.  Returns the worst bf16
+    error of each kernel and the worst bf16 norm error ("norm")."""
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = dict.fromkeys(("fwd", "bwd", "carry", "bwd_block", "norm"), 0.0)
+    for b, sq, skv, h, kvh, causal, window, q_off in cases:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            dname = str(dtype)[6:]
+            bf16 = dtype == torch.bfloat16
+            q, k, v, dout = flash_inputs(torch, gen, b, sq, skv, h, kvh, hd,
+                                         dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_off)
+            name = (f"hd {hd} {dname} B={b} Sq={sq} Skv={skv} H={h} "
+                    f"KV={kvh} causal={causal} window={window} "
+                    f"q_offset={q_off}")
+            c0 = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.CARRY_LAUNCHES,
+                  fa.BWD_BLOCK_LAUNCHES)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            # the carry step from a carried state (the plain step over the
+            # first half of the keys) over the second half, at k_offset
+            half = skv // 2
+            carry = fa.flash_attention_step_torch(
+                q.float(), k[:, :half].float(), v[:, :half].float(),
+                *fa.init_partials(b, sq, h, hd, device="cuda"), **kw)
+            k2, v2 = k[:, half:].contiguous(), v[:, half:].contiguous()
+            got_c = fa.flash_attention_carry(q, k2, v2, *carry, **kw,
+                                             k_offset=half)
+            dsum = (dout.float() * out.float()).sum(-1)
+            got_b = fa.flash_attention_bwd_block(q, k, v, dout, lse, dsum,
+                                                 **kw)
+            torch.cuda.synchronize()
+            c1 = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.CARRY_LAUNCHES,
+                  fa.BWD_BLOCK_LAUNCHES)
+            if tuple(y - x for x, y in zip(c0, c1)) != (1, 1, 1, 1):
+                fail(f"flash launches {c0} -> {c1} at {name}, not one each")
+            line, norms = [], []
+
+            def held(what, got, want, key):
+                err = rel_check(torch, got, want, tol, f"{what} {name}")
+                line.append(f"{what} {err:.2e}")
+                if bf16:
+                    worst[key] = max(worst[key], err)
+                    nerr = norm_err(got, want)
+                    norms.append(f"{what} {nerr:.2e}")
+                    worst["norm"] = max(worst["norm"], nerr)
+                    if not nerr <= FLASH_NORM_TOL:
+                        fail(f"{what} {name}: ||err|| / ||want|| {nerr:.3e} "
+                             f"> {FLASH_NORM_TOL}")
+
+            want_out, want_lse = fa.flash_attention_torch(
+                q.float(), k.float(), v.float(), **kw)
+            held("out", out, want_out, "fwd")
+            line.append("lse "
+                        f"{rel_check(torch, lse, want_lse, 1e-4, name):.2e}")
+            del want_out, want_lse
+            wants = fa.flash_attention_bwd_torch(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), **kw)
+            for what, g, w in zip(("dq", "dk", "dv"), grads, wants):
+                held(what, g, w, "bwd")
+            del wants, grads
+            want_c = fa.flash_attention_step_torch(
+                q.float(), k2.float(), v2.float(), *carry, **kw,
+                k_offset=half)
+            err = carry_check(torch, got_c, want_c, CARRY_TOL[dname],
+                              f"carry {name}")
+            line.append(f"carry {err:.2e}")
+            if bf16:
+                worst["carry"] = max(worst["carry"], err)
+            del want_c, got_c, carry
+            want_b = fa.flash_attention_bwd_block_torch(
+                q.float(), k.float(), v.float(), dout.float(), lse, dsum,
+                **kw)
+            for what, g, w in zip(("dq", "dk", "dv"), got_b, want_b):
+                if g.dtype != torch.float32:
+                    fail(f"block backward {what} is {g.dtype} at {name}")
+                err = rel_check(torch, g, w, BLOCK_TOL,
+                                f"block {what} {name}", floor=1e-30)
+                line.append(f"block {what} {err:.2e}")
+                if bf16:
+                    worst["bwd_block"] = max(worst["bwd_block"], err)
+            del want_b, got_b
+            torch.cuda.empty_cache()
+            norm_txt = (f"; ||err|| / ||want|| {', '.join(norms)} (limit "
+                        f"{FLASH_NORM_TOL})" if bf16 else "")
+            print(f"  flash kernels vs plain at {name}: max|err| "
+                  f"{', '.join(line)} (tolerance {tol} x max(1, max|want|); "
+                  f"lse 1e-4; carry {CARRY_TOL[dname]} and block "
+                  f"{BLOCK_TOL} of the largest magnitude){norm_txt}; one "
+                  f"launch each", flush=True)
+    return worst
+
+
+def norm_controls(torch, gen, shape, label) -> None:
+    """The norm check's power at the timed call, from the plain versions
+    in f32: the output with one 64-row kv tile (keys 64-127) left out, the
+    output with that tile left out of l only, the gradients from that
+    wrong l, and dK/dV with that tile's rows never written must each read
+    above FLASH_NORM_TOL against the right answer."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kvh, hd = (shape[x] for x in ("b", "s", "h", "kvh", "hd"))
+    q, k, v, dout = flash_inputs(torch, gen, b, s, s, h, kvh, hd,
+                                 torch.float32)
+    empty = fa.init_partials(b, s, h, hd, device="cuda")
+    m, l, acc = fa.flash_attention_step_torch(q, k, v, *empty)
+    out, lse = fa.finalize_partials(m, l, acc)
+    part = fa.flash_attention_step_torch(q, k[:, :64], v[:, :64], *empty)
+    m_d, l_d, acc_d = fa.flash_attention_step_torch(
+        q, k[:, 128:], v[:, 128:], *part, k_offset=128)
+    del part
+    l_w = l_d * torch.exp(m_d - m)
+    out_w, lse_w = fa.finalize_partials(m, l_w, acc)
+    reads = {"dropped tile: out": norm_err(
+        fa.finalize_partials(m_d, l_d, acc_d)[0], out),
+        "wrong l: out": norm_err(out_w, out)}
+    del m_d, l_d, acc_d, acc, l_w
+    grads = fa.flash_attention_bwd_torch(q, k, v, out, lse, dout)
+    bad = fa.flash_attention_bwd_torch(q, k, v, out_w, lse_w, dout)
+    for what, g, w in zip(("dq", "dk", "dv"), bad, grads):
+        reads[f"wrong l: {what}"] = norm_err(g, w)
+    del bad
+    for what, w in zip(("dk", "dv"), grads[1:]):
+        g = w.clone()
+        g[:, 64:128] = 0
+        reads[f"dropped tile: {what}"] = norm_err(g, w)
+    del grads, q, k, v, dout, out, lse, out_w, lse_w
+    torch.cuda.empty_cache()
+    print(f"  norm check's controls at {label} (B={b}, S={s}, {h}/{kvh} "
+          f"heads, hd {hd}, causal, plain versions in f32): ||err|| / "
+          f"||want|| " + ", ".join(f"{k_} {e:.3e}" for k_, e in reads.items())
+          + f" (each must exceed the limit {FLASH_NORM_TOL})", flush=True)
+    low = {k_: e for k_, e in reads.items() if not e > FLASH_NORM_TOL}
+    if low:
+        fail(f"the flash norm check at {label} would pass broken kernels: "
+             f"{low}")
+
+
+def flash_times(torch, gen, shape, label, worst) -> dict:
+    """The four flash kernels timed at ``shape`` (bf16, causal) beside
+    their bounds, their plain versions and SDPA (forward; backward as
+    autograd.grad of the call in a CUDA graph less the forward's graph
+    time).  Returns {kernel: times}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        for b, sq, skv, h, kvh, causal, window, q_off in FLASH_CASES:
-            q, k, v, dout = flash_inputs(torch, gen, b, sq, skv, h, kvh,
-                                         128, dtype)
-            kw = dict(causal=causal, window=window, q_offset=q_off)
-            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-            grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-            torch.cuda.synchronize()
-            want_out, want_lse = fa.flash_attention_torch(
-                q.float(), k.float(), v.float(), **kw)
-            wants = fa.flash_attention_bwd_torch(
-                q.float(), k.float(), v.float(), out.float(), lse,
-                dout.float(), **kw)
-            name = (f"{str(dtype)[6:]} B={b} Sq={sq} Skv={skv} H={h} "
-                    f"KV={kvh} causal={causal} window={window} "
-                    f"q_offset={q_off}")
-            line = []
-            for what, got, want, t in (
-                    ("out", out, want_out, tol), ("lse", lse, want_lse, 1e-4),
-                    ("dq", grads[0], wants[0], tol),
-                    ("dk", grads[1], wants[1], tol),
-                    ("dv", grads[2], wants[2], tol)):
-                if not torch.isfinite(got.float()).all():
-                    fail(f"flash {what} not finite ({name})")
-                err = (got.float() - want).abs().max().item()
-                scale = max(1.0, want.abs().max().item())
-                if err > t * scale:
-                    fail(f"flash kernel {what} disagrees with the plain "
-                         f"version ({name}): max|err| {err:.3e} > {t} x "
-                         f"{scale:.3g}")
-                line.append(f"{what} {err:.2e}")
-                if dtype == torch.bfloat16 and what != "lse":
-                    key = "fwd" if what == "out" else "bwd"
-                    errs[key] = max(errs[key], err)
-            print(f"  flash kernels vs plain {name}: max|err| "
-                  f"{', '.join(line)} (tolerance {tol} x max(1, max|want|),"
-                  f" lse 1e-4)", flush=True)
-
-    # times at the training shape, bf16, causal; two input sets so that
-    # consecutive calls do not find their inputs in the 50 MB L2
-    t = TRAIN_ATTN
-    sets = [flash_inputs(torch, gen, t["b"], t["s"], t["s"], t["h"],
-                         t["kvh"], t["hd"], torch.bfloat16)
+    b, s, h, kvh, hd = (shape[x] for x in ("b", "s", "h", "kvh", "hd"))
+    # two input sets, so that consecutive calls do not find their inputs
+    # in the 50 MB L2
+    sets = [flash_inputs(torch, gen, b, s, s, h, kvh, hd, torch.bfloat16)
             for _ in range(2)]
-    fwd_res = []
-    for q, k, v, _ in sets:
-        fwd_res.append(fa.flash_attention_fwd(q, k, v))
-    kernel_fwd = [lambda s=s: fa.flash_attention_fwd(*s[:3]) for s in sets]
-    plain_fwd = [lambda s=s: fa.flash_attention_torch(*s[:3]) for s in sets]
-    kernel_bwd = [lambda s=s, r=r: fa.flash_attention_bwd(*s[:3], *r, s[3])
-                  for s, r in zip(sets, fwd_res)]
-    plain_bwd = [lambda s=s, r=r: fa.flash_attention_bwd_torch(
-        *s[:3], *r, s[3]) for s, r in zip(sets, fwd_res)]
-    lib_in = [[x.transpose(1, 2).contiguous() for x in s] for s in sets]
-    lib_fwd = [lambda s=s: F.scaled_dot_product_attention(
-        *s[:3], is_causal=True, enable_gqa=True) for s in lib_in]
-    # the library backward in a CUDA graph: autograd runs a backward op on
-    # its forward's stream, so the captured call is SDPA's forward and
-    # backward together, and the backward's time is that graph's time less
-    # the forward's graph time
-    leaves = [[x.detach().requires_grad_() for x in s[:3]] for s in lib_in]
-    lib_fwd_bwd = [lambda s=s, lv=lv: torch.autograd.grad(
+    fwd_res = [fa.flash_attention_fwd(*st[:3]) for st in sets]
+    blk_in = [(*st[:3], st[3], r[1], (st[3].float() * r[0].float()).sum(-1))
+              for st, r in zip(sets, fwd_res)]
+    carry_in = [(*st[:3], *fa.init_partials(b, s, h, hd, device="cuda"))
+                for st in sets]
+    lib_in = [[x.transpose(1, 2).contiguous() for x in st] for st in sets]
+    leaves = [[x.detach().requires_grad_() for x in st[:3]] for st in lib_in]
+    sdpa = [lambda st=st: F.scaled_dot_product_attention(
+        *st[:3], is_causal=True, enable_gqa=True) for st in lib_in]
+    sdpa_fwd_bwd = [lambda st=st, lv=lv: torch.autograd.grad(
         F.scaled_dot_product_attention(*lv, is_causal=True, enable_gqa=True),
-        lv, s[3]) for s, lv in zip(lib_in, leaves)]
-    lib_fwd_ms = graph_ms(torch, lib_fwd * 4, 5)
-    times = {
-        "fwd": dict(ms=graph_ms(torch, kernel_fwd * 4, 5),
-                    plain_ms=graph_ms(torch, plain_fwd, 3),
-                    library_ms=lib_fwd_ms),
-        "bwd": dict(ms=graph_ms(torch, kernel_bwd * 2, 5),
-                    plain_ms=graph_ms(torch, plain_bwd, 3),
-                    library_ms=graph_ms(torch, lib_fwd_bwd * 2, 5)
-                    - lib_fwd_ms),
+        lv, st[3]) for st, lv in zip(lib_in, leaves)]
+    sdpa_ms = graph_ms(torch, sdpa * 4, 5)
+    sdpa_bwd_ms = graph_ms(torch, sdpa_fwd_bwd * 2, 5) - sdpa_ms
+    bounds = flash_bounds(b, s, h, kvh, hd, 2)
+    bounds["carry"] = carry_bounds(b, s, h, kvh, hd, 2)
+    bounds["bwd_block"] = block_bwd_bound(b, s, h, kvh, hd, 2)
+    calls = {
+        "fwd": ([lambda st=st: fa.flash_attention_fwd(*st[:3])
+                 for st in sets] * 4,
+                [lambda st=st: fa.flash_attention_torch(*st[:3])
+                 for st in sets], sdpa_ms),
+        "bwd": ([lambda st=st, r=r: fa.flash_attention_bwd(*st[:3], *r,
+                                                           st[3])
+                 for st, r in zip(sets, fwd_res)] * 2,
+                [lambda st=st, r=r: fa.flash_attention_bwd_torch(
+                    *st[:3], *r, st[3]) for st, r in zip(sets, fwd_res)],
+                sdpa_bwd_ms),
+        "carry": ([lambda a=a: fa.flash_attention_carry(*a, causal=True)
+                   for a in carry_in] * 4,
+                  [lambda a=a: fa.flash_attention_step_torch(*a,
+                                                            causal=True)
+                   for a in carry_in], sdpa_ms),
+        "bwd_block": ([lambda a=a: fa.flash_attention_bwd_block(
+                           *a, causal=True) for a in blk_in] * 2,
+                      [lambda a=a: fa.flash_attention_bwd_block_torch(
+                          *a, causal=True) for a in blk_in], sdpa_bwd_ms),
     }
-    bounds = flash_bounds(t["b"], t["s"], t["h"], t["kvh"], t["hd"], 2)
-    pairs = t["b"] * t["h"] * t["s"] * (t["s"] + 1) // 2
-    for name, what, per_pair in (("fwd", "forward", 4), ("bwd", "backward",
-                                                         10)):
-        tm = times[name]
-        tm["bound_ms"], tm["bound_by"] = bounds[name]
-        tflops = per_pair * pairs * t["hd"] / (tm["ms"] * 1e-3) / 1e12
-        lib = ("F.scaled_dot_product_attention(is_causal=True, "
-               "enable_gqa=True)" if name == "fwd" else
-               "the backward of that call (autograd.grad of the call, in a "
-               "CUDA graph, less the call's own graph time)")
-        print(f"  flash_attention {what} at the training shape (B=2, "
-              f"S=1024, 32/8 heads, hd 128, causal, bf16): kernel "
-              f"{tm['ms']:.4f} ms ({tflops:.1f} TFLOP/s over the unmasked "
-              f"pairs), bound {tm['bound_ms']:.4f} ms "
-              f"({tm['bound_by']}; the kernel reaches "
-              f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
-              f"{tm['plain_ms']:.4f} ms, library yardstick {lib} "
-              f"{tm['library_ms']:.4f} ms", flush=True)
+    pairs = b * h * s * (s + 1) // 2
+    times = {}
+    for kind, (kernel, plain, lib_ms) in calls.items():
+        tm = dict(ms=graph_ms(torch, kernel, 5),
+                  plain_ms=graph_ms(torch, plain, 2), library_ms=lib_ms)
+        tm["bound_ms"], tm["bound_by"] = bounds[kind]
+        per_pair = 4 if kind in ("fwd", "carry") else 10
+        tflops = per_pair * pairs * hd / (tm["ms"] * 1e-3) / 1e12
+        times[kind] = tm
+        print(f"  flash {kind} at {label} (B={b}, S={s}, {h}/{kvh} heads, "
+              f"hd {hd}, causal, bf16): kernel {tm['ms']:.4f} ms "
+              f"({tflops:.1f} TFLOP/s over the unmasked pairs), bound "
+              f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}; the kernel "
+              f"reaches {tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
+              f"{tm['plain_ms']:.4f} ms, library yardstick "
+              f"F.scaled_dot_product_attention(is_causal=True, "
+              f"enable_gqa=True) "
+              f"{'forward' if kind in ('fwd', 'carry') else 'backward'} "
+              f"{lib_ms:.4f} ms; worst bf16 error at hd {hd} "
+              f"{worst[kind]:.2e}", flush=True)
+    del sets, fwd_res, blk_in, carry_in, lib_in, leaves
+    torch.cuda.empty_cache()
+    return times
 
-    # ring attention's block backward at the ring training step's shape
-    # (one rank: one block over the whole sequence, offsets 0), bf16 in,
-    # f32 out, against the plain version in f32, then timed
-    blk_in = [(*s[:3], s[3], r[1], (s[3].float() * r[0].float()).sum(-1))
-              for s, r in zip(sets, fwd_res)]
-    got = fa.flash_attention_bwd_block(*blk_in[0], causal=True)
-    torch.cuda.synchronize()
-    q, k, v, dout, lse, dsum = blk_in[0]
-    want = fa.flash_attention_bwd_block_torch(
-        q.float(), k.float(), v.float(), dout.float(), lse, dsum,
-        causal=True)
-    line = []
-    for what, g, w in zip(("dq", "dk", "dv"), got, want):
-        if g.dtype != torch.float32 or not torch.isfinite(g).all():
-            fail(f"block backward {what} is not finite f32")
-        err = (g - w).abs().max().item()
-        scale = w.abs().max().item()
-        if err > BLOCK_TOL * scale:
-            fail(f"block backward {what} disagrees with the plain version: "
-                 f"max|err| {err:.3e} > {BLOCK_TOL} x {scale:.3g}")
-        errs["bwd_block"] = max(errs.get("bwd_block", 0.0), err)
-        line.append(f"{what} {err:.2e} (of {scale:.3g})")
-    del got, want
-    kernel_blk = [lambda a=a: fa.flash_attention_bwd_block(*a, causal=True)
-                  for a in blk_in]
-    plain_blk = [lambda a=a: fa.flash_attention_bwd_block_torch(
-        *a, causal=True) for a in blk_in]
-    tm = dict(ms=graph_ms(torch, kernel_blk * 2, 5),
-              plain_ms=graph_ms(torch, plain_blk, 3),
-              library_ms=times["bwd"]["library_ms"])
-    tm["bound_ms"], tm["bound_by"] = block_bwd_bound(
-        t["b"], t["s"], t["h"], t["kvh"], t["hd"], 2)
-    times["bwd_block"] = tm
-    tflops = 10 * pairs * t["hd"] / (tm["ms"] * 1e-3) / 1e12
-    print(f"  flash_attention_bwd_block vs plain at the ring training "
-          f"step's shape (B=2, S=1024, 32/8 heads, hd 128, causal, offsets "
-          f"0, bf16 in, f32 out): max|err| {', '.join(line)} (tolerance "
-          f"{BLOCK_TOL} of the largest magnitude); kernel {tm['ms']:.4f} ms "
-          f"({tflops:.1f} TFLOP/s over the unmasked pairs), bound "
-          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}; the kernel reaches "
-          f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain "
-          f"{tm['plain_ms']:.4f} ms, library yardstick the SDPA backward "
-          f"above {tm['library_ms']:.4f} ms", flush=True)
-    return times, errs
+
+def phase_flash(torch, hd):
+    """The flash kernels at ``hd`` held to their plain versions on
+    FLASH_PHASES' cases, the norm check's controls, then the times at its
+    call.  Returns ({kernel: times}, {kernel: worst bf16 error})."""
+    cases, shape, label = FLASH_PHASES[hd]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + hd)
+    worst = flash_checks(torch, gen, hd, cases)
+    norm_controls(torch, gen, shape, label)
+    return flash_times(torch, gen, shape, label, worst), worst
 
 
 # ---------------------------------------------------------------------------
@@ -4775,8 +4935,7 @@ def phase_plan(torch, root, card):
 DRYRUN_PEAK_BAND = 0.08
 
 #: phase 16 (d): production cells counted on abstract tensors (arch,
-#: shape, multi-pod); nemotron's attention cells meet the flash kernels'
-#: head_dim-192 refusal, so grok-1 stands for the 2x16x16 decode
+#: shape, multi-pod); grok-1 stands for the 2x16x16 decode
 DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k", False),
                 ("moonshot-v1-16b-a3b", "prefill_32k", False),
                 ("mamba2-130m", "long_500k", False),
@@ -4910,6 +5069,311 @@ def phase_dryrun(torch, card, train):
           f"{time.perf_counter() - t16:.1f} s on {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: nemotron-4-340b (head_dim 192) at full width, cut in depth
+# ---------------------------------------------------------------------------
+
+#: phase 17's depth: every width is nemotron's published one; 2 layers
+#: in bf16 are 32.7 GB of weights (the embedding and the untied head are
+#: 2 x 4.7 B parameters), 1 layer in f32 is 51.6 GB
+NEMO_LAYERS = 2
+NEMO_PREFILL_S = 4096
+NEMO_RING_S = 8192
+#: bf16 logits of two attention engines (or schedules) on the same
+#: weights, of the largest logit: phase 13's bf16 tolerance
+NEMO_BF16_TOL = 2e-2
+#: (b): one in this many paged calls of the served run (558 calls on an
+#: H100) is held to the plain version
+NEMO_PAGED_EVERY = 70
+#: (d): prompts and greedy tokens of the f32 parity
+NEMO_PARITY = dict(b=4, s=128, new=8)
+#: (e): nemotron's reduced config widened to its head_dim (768 / 4 = 192),
+#: trained at B=2 x S=2048
+NEMO_NARROW = dict(d_model=768, n_heads=4, n_kv_heads=2, d_ff=3072)
+NEMO_TRAIN = dict(b=2, s=2048, steps=3)
+
+
+def nemo_prefill_turns(torch, model, tokens):
+    """(a) and (f): prefill_sp with the flash kernels and with the plain
+    engine pinned, in turns (kernel, plain, plain, kernel) while
+    nvidia-smi reads the SM clock; returns ({engine: [ms, ms]}, [MHz])."""
+    def turns():
+        ms = {"auto": [], "torch": []}
+        for engine in ("auto", "torch", "torch", "auto"):
+            model.attn_engine = engine
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill_sp({"tokens": tokens})
+            torch.cuda.synchronize()
+            ms[engine].append((time.perf_counter() - t0) * 1e3)
+        model.attn_engine = "auto"
+        return ms
+
+    ms, samples = with_clocks(turns)
+    return ms, [mhz for _, mhz, _, _ in samples]
+
+
+def phase_nemotron(torch, card):
+    """Phase 17: nemotron-4-340b at full width through the normal entry
+    points, on the flash kernels at head_dim 192."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.serve_loop import Generator
+    from repro_torch.train.train_loop import build_train_step
+
+    t17 = time.perf_counter()
+    full = configs.get_config("nemotron-4-340b")
+    cfg = dataclasses.replace(full, n_layers=NEMO_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    print(f"  nemotron-4-340b at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff} {cfg.mlp}, vocab {cfg.vocab_size}, untied), "
+          f"{cfg.n_layers} of {full.n_layers} layers: "
+          f"{cfg.param_count() / 1e9:.2f} B params in bf16, init "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    rng = np.random.default_rng(SEED + 17)
+
+    # (a) prefill of 1 x 4096, against the plain engine on the same weights
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size - 1, size=(1, NEMO_PREFILL_S)).astype(
+            np.int32)).cuda()
+    model.prefill_sp({"tokens": tokens[:, :256]})              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.FWD_LAUNCHES = 0
+    logits, _ = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if fa.FWD_LAUNCHES != cfg.n_layers:
+        fail(f"(17) (a) prefill launched the flash forward "
+             f"{fa.FWD_LAUNCHES} times, not {cfg.n_layers}")
+    if tuple(logits.shape) != (1, cfg.padded_vocab):
+        fail(f"(17) (a) prefill logits {tuple(logits.shape)}")
+    model.attn_engine = "torch"
+    plain, _ = model.prefill_sp({"tokens": tokens})
+    model.attn_engine = "auto"
+    if fa.FWD_LAUNCHES != cfg.n_layers:
+        fail("(17) (a) the plain engine launched the flash forward")
+    err = rel_check(torch, logits, plain, NEMO_BF16_TOL,
+                    "(17) (a) prefill logits, kernels against plain")
+    scale = plain.float().abs().max().item()
+    del plain
+    ms, mhz = nemo_prefill_turns(torch, model, tokens)
+    print(f"  (a) prefill_sp 1 x {NEMO_PREFILL_S}: {cfg.n_layers} flash "
+          f"forward launches; logits within {err:.3e} of the plain "
+          f"engine's (tolerance {NEMO_BF16_TOL} x {scale:.3g}); in turns "
+          f"kernel {ms['auto'][0]:.1f} ms, plain {ms['torch'][0]:.1f} / "
+          f"{ms['torch'][1]:.1f} ms, kernel {ms['auto'][1]:.1f} ms host wall"
+          f" (SM clock {min(mhz, default=0):.0f}-{max(mhz, default=0):.0f} "
+          f"MHz over {len(mhz)} reads); peak memory {peak:.2f} GB",
+          flush=True)
+    del logits
+
+    # (b) the paged ServeEngine on phase 3's request mix
+    prompts = make_prompts(cfg.vocab_size)
+    plan = paged.launch_plan(
+        torch.empty((8, cfg.n_heads, cfg.head_dim), dtype=torch.bfloat16,
+                    device="cuda"),
+        torch.empty((1, 16, cfg.n_kv_heads, cfg.head_dim),
+                    dtype=torch.bfloat16, device="meta"),
+        torch.empty((8, 512 // 16), dtype=torch.int32, device="meta"))
+    if plan.engine != "mma":
+        fail(f"(17) (b) the paged kernel would take {plan} at head_dim 192")
+    # every NEMO_PAGED_EVERY-th paged call's inputs and output are kept
+    # (the engine writes its pools in place) and held to the plain version
+    # in f32 after the run
+    kept, real = [], paged.paged_attention
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if spy.calls % NEMO_PAGED_EVERY == 0:
+            kept.append(([a.clone() for a in args], kw, out.clone()))
+        spy.calls += 1
+        return out
+
+    spy.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    fa.FWD_LAUNCHES = 0
+    paged.paged_attention = spy
+    try:
+        got, eng, wall, launches = serve(torch, model, prompts, 32,
+                                         schedule="auto")
+    finally:
+        paged.paged_attention = real
+    paged_err, top = 0.0, 0
+    for args, kw, out in kept:
+        q, kp, vp, table, lens = args
+        want = paged.paged_attention_torch(q.float(), kp.float(), vp.float(),
+                                           table, lens,
+                                           window=kw.get("window", 0))
+        try:
+            torch.testing.assert_close(out.float(), want, atol=2e-2,
+                                       rtol=2e-2)
+        except AssertionError as e:
+            fail(f"(17) (b) a served paged call (lens "
+                 f"{lens.tolist()}) disagrees with the plain version: {e}")
+        paged_err = max(paged_err, (out.float() - want).abs().max().item())
+        top = max(top, int(lens.max()))
+    if len(kept) != -(-spy.calls // NEMO_PAGED_EVERY):
+        fail(f"(17) (b) kept {len(kept)} of {spy.calls} paged calls")
+    del kept
+    for i, toks in enumerate(got):
+        if len(toks) != 32 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            fail(f"(17) (b) request {i} returned {len(toks)} tokens in "
+                 f"[{toks.min()}, {toks.max()}]")
+    if launches != cfg.n_layers * eng.decode_steps:
+        fail(f"(17) (b) paged launches {launches} != {cfg.n_layers} x "
+             f"{eng.decode_steps} decode steps")
+    if fa.FWD_LAUNCHES:
+        fail(f"(17) (b) the engine launched the flash forward "
+             f"{fa.FWD_LAUNCHES} times: its prompts go through the paged "
+             f"decode step (chunked prefill)")
+    s = eng.metrics.summary()
+    print(f"  (b) ServeEngine: 8 requests (prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))}, 32 new each)"
+          f" in {wall:.2f} s, mean TTFT {s['mean_ttft_s'] * 1e3:.1f} ms, "
+          f"mean TPOT {s['mean_tpot_s'] * 1e3:.2f} ms; paged launches "
+          f"{launches} = {cfg.n_layers} x {eng.decode_steps} decode steps "
+          f"(paged_mma_kernel<192>, G = {cfg.n_heads // cfg.n_kv_heads}, "
+          f"{plan.n_splits} splits of {plan.pages_per_split} pages, "
+          f"{plan.ctas} CTAs at 512 positions), the prompts included "
+          f"(chunked prefill through the paged decode step: no flash "
+          f"launch); every {NEMO_PAGED_EVERY}th paged call "
+          f"({-(-spy.calls // NEMO_PAGED_EVERY)} calls, chains up to {top}) "
+          f"within {paged_err:.3e} of the plain version in f32 (atol and "
+          f"rtol 2e-2, phase 2's bf16 tolerance); "
+          f"{wall / eng.decode_steps * 1e3:.2f} ms host wall per decode "
+          f"step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del eng, got
+
+    # (c) ring attention at one rank, against the megatron prefill
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size - 1, size=(1, NEMO_RING_S)).astype(np.int32)).cuda()
+    set_attn_impl(model, "ring")
+    model.prefill_sp({"tokens": tokens[:, :256]})              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.FWD_LAUNCHES = fa.CARRY_LAUNCHES = 0
+    t0 = time.perf_counter()
+    ring, _ = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    if (fa.CARRY_LAUNCHES, fa.FWD_LAUNCHES) != (cfg.n_layers, 0):
+        fail(f"(17) (c) ring prefill: carry / flash launches "
+             f"{fa.CARRY_LAUNCHES} / {fa.FWD_LAUNCHES}, not "
+             f"{cfg.n_layers} / 0")
+    set_attn_impl(model, "megatron")
+    t0 = time.perf_counter()
+    mega, _ = model.prefill_sp({"tokens": tokens})
+    torch.cuda.synchronize()
+    mega_ms = (time.perf_counter() - t0) * 1e3
+    if fa.FWD_LAUNCHES != cfg.n_layers:
+        fail("(17) (c) the megatron prefill did not run the flash forward")
+    err = rel_check(torch, ring, mega, NEMO_BF16_TOL,
+                    "(17) (c) ring prefill logits against megatron's")
+    print(f"  (c) attn_impl='ring', 1 rank: prefill_sp 1 x {NEMO_RING_S} in "
+          f"{ring_ms:.1f} ms ({cfg.n_layers} carry launches, 0 flash), "
+          f"megatron {mega_ms:.1f} ms; logits within {err:.3e} of "
+          f"megatron's (tolerance {NEMO_BF16_TOL} x "
+          f"{mega.float().abs().max().item():.3g}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del model, ring, mega, tokens
+    torch.cuda.empty_cache()
+
+    # (d) 1 layer in f32 (TF32 off): the kernel path against the plain one
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg1 = dataclasses.replace(full, n_layers=1, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg1, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    p = NEMO_PARITY
+    prompts = rng.integers(0, cfg1.vocab_size - 1,
+                           size=(p["b"], p["s"])).astype(np.int32)
+    shape = ShapeConfig("nemo", p["s"] + p["new"], p["b"], "decode")
+    runs = {}
+    for engine in ("auto", "torch"):
+        model.attn_engine = engine
+        fa.FWD_LAUNCHES = 0
+        logits, _ = model.prefill_sp({"tokens": torch.from_numpy(
+            prompts).cuda()})
+        toks = Generator(model, shape).prefill_generate(prompts, p["new"])
+        runs[engine] = (logits, np.asarray(toks), fa.FWD_LAUNCHES)
+    model.attn_engine = "auto"
+    (lk, tk, nk), (lp, tp, npl) = runs["auto"], runs["torch"]
+    if nk < 2 * cfg1.n_layers or npl:
+        fail(f"(17) (d) flash launches {nk} (kernels) / {npl} (plain)")
+    err = rel_check(torch, lk, lp, 1e-4,
+                    "(17) (d) f32 prefill logits, kernels against plain",
+                    floor=1e-30)
+    if not np.array_equal(tk, tp):
+        fail(f"(17) (d) greedy tokens {tk.tolist()} (kernels) != "
+             f"{tp.tolist()} (plain)")
+    print(f"  (d) 1 layer in f32 (TF32 off, "
+          f"{cfg1.param_count() / 1e9:.2f} B params): prefill logits of "
+          f"{p['b']} x {p['s']} within {err:.3e} of the plain engine's "
+          f"(tolerance 1e-4 of {lp.abs().max().item():.3g}); "
+          f"{p['new']} greedy tokens from each prefill equal; flash "
+          f"launches {nk} / 0; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del model, runs, lk, lp
+    torch.cuda.empty_cache()
+
+    # (e) training at head_dim 192: the reduced config widened
+    narrow = dataclasses.replace(configs.get_reduced("nemotron-4-340b"),
+                                 name="nemotron-4-340b reduced to hd 192",
+                                 **NEMO_NARROW)
+    tr = NEMO_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(narrow, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    step = build_train_step(model, opt_cfg)
+    opt = adamw_init(model.params(), opt_cfg)
+    n = narrow.n_layers
+    want = (2 * n if narrow.remat else n, n)
+    losses, walls = [], []
+    for i in range(tr["steps"]):
+        batch = family_batch(torch, narrow, tr["b"], tr["s"], SEED + i)
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
+            fail(f"(17) (e) step {i}: flash launches {fa.FWD_LAUNCHES} / "
+                 f"{fa.BWD_LAUNCHES}, not {want}")
+    if not all(np.isfinite(losses)):
+        fail(f"(17) (e) losses {losses}")
+    print(f"  (e) reduced nemotron at head_dim 192 (d_model "
+          f"{narrow.d_model}, {narrow.n_heads}/{narrow.n_kv_heads} heads, "
+          f"d_ff {narrow.d_ff}, {n} layers, vocab {narrow.vocab_size}, bf16),"
+          f" B={tr['b']} x S={tr['s']}: {tr['steps']} AdamW steps, losses "
+          f"{[round(x, 4) for x in losses]}, {', '.join(f'{w:.1f}' for w in walls)}"
+          f" ms host wall, flash launches {want[0]} / {want[1]} a step; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    del model, step, opt, batch
+    torch.cuda.empty_cache()
+    worst = family_parity(torch, dataclasses.replace(narrow, dtype="float32"),
+                          tr["b"], tr["s"])
+    print(f"  (e) f32: kernels against plain, worst gradient {worst:.2e} "
+          f"of its largest magnitude; phase 17 took "
+          f"{time.perf_counter() - t17:.1f} s on {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4939,18 +5403,20 @@ def main() -> int:
     counts = hgmma_counts(build, "flash_attention", r"flash_[a-z_]+_kernel")
     for kernel, n in sorted(counts.items()):
         print(f"  {kernel}: {n} HGMMA instructions", flush=True)
-    for kind in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel"):
-        wgmma = [k for k in counts if k.startswith(kind)]
-        if len(wgmma) < 4 or any(counts[k] == 0 for k in wgmma):
-            fail(f"the bf16 forward, carry, backward and block backward "
-                 f"kernels (hd 64 and 128) must run on the tensor cores; "
-                 f"HGMMA counts {counts}")
+    wgmma = [k for k in counts if "_wgmma_" in k]
+    if sorted(wgmma) != sorted(FLASH_WGMMA) or not all(
+            counts[k] for k in wgmma):
+        fail(f"the bf16 forward, carry, backward and block backward "
+             f"kernels (hd 64, 128 and 192) must be {FLASH_WGMMA}, each "
+             f"on the tensor cores; HGMMA counts {counts}")
 
     # the paged bf16 fast path, the grouped tensor-core kernels and the
     # k-sweep kernel's instantiations (their sweeps' windows live in
     # registers): read from the built library, so a cached build is
     # checked too
-    checks = (("paged_attention", r"paged_(?:mma|merge)_kernel",
+    checks = (("flash_attention", r"flash_[a-z]+_wgmma_[a-z_]*kernel",
+               FLASH_WGMMA),
+              ("paged_attention", r"paged_(?:mma|merge)_kernel",
                [f"paged_mma_kernel<{hd}>" for hd in (32, 64, 128, 192)]
                + ["paged_merge_kernel"]),
               ("grouped_matmul", r"ffn_(?:up|down)_wgmma_kernel",
@@ -4982,7 +5448,8 @@ def main() -> int:
              f"HGMMA counts {grouped}")
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)
-    flash_t, flash_err = phase_flash(torch)
+    flash_t, flash_err = phase_flash(torch, 128)
+    phase_flash(torch, 192)
     stencil_t, stencil_err = phase_stencil(torch)
     grouped_t, grouped_err = phase_grouped(torch)
     carry_t, carry_err = phase_carry(torch)
@@ -5036,6 +5503,9 @@ def main() -> int:
           "tensors) against phases 5 and 8, and four production cells",
           flush=True)
     phase_dryrun(torch, card, train_measured)
+    print("phase 17: nemotron-4-340b (head_dim 192) at full width: prefill, "
+          "serving, ring, parity and training", flush=True)
+    phase_nemotron(torch, card)
     torch.cuda.synchronize()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -87,7 +87,14 @@
 //   * the forward's epilogue divides, acc / max(l, 1e-30), and writes
 //     lse = m + log(l): at an empty carry the carry step, finalized in
 //     torch (finalize_partials), gives the forward's output bit for bit,
-//     which makes the one-rank ring prefill equal the megatron one.
+//     which makes the one-rank ring prefill equal the megatron one;
+//   * at hd 192 (nemotron-4-340b: 96/8 heads) a stage holds 64 kv rows
+//     (fwd_kn), not 128: Q 48 KB + 2 x (K 24 KB + V 24 KB) = 144 KB (128
+//     rows would take 240 KB, over the 227 KB a CTA may have), and a
+//     consumer holds acc (96 registers) with S (32) or P's hi and lo (32),
+//     under the 240 that setmaxnreg gives it (at 128 rows S alone is 64).
+//     S = Q K^T is then m64n64k16 and P V m64n192k16 over three 64-column
+//     boxes of V, the leading byte offset apart.
 //
 // The bf16 backward and block backward: one kernel on the tensor cores
 // (flash_bwd_wgmma_kernel<HD, kBlock>).  Bound on this card, by
@@ -136,6 +143,26 @@
 //     changes from run to run, so the backward is not bit for bit
 //     repeatable.
 //
+// At hd 192 the backward is flash_bwd_wgmma_split_kernel<192, kBlock>:
+// the kernel above would hold dK and dV (96 + 96 registers) beside S^T and
+// dP^T (64) and take 261 KB of shared memory.  Its budget instead:
+//   * one CTA of 256 threads per (b, h, 64 kv rows); warpgroup 0 holds dK
+//     and warpgroup 1 dV of all 64 rows, each over all 192 columns: 96
+//     accumulator registers a thread, beside one 32-register product
+//     (S^T or dP^T), a second one in (dP^T, read back) and the hi/lo
+//     fragments (32), under the 255 a thread of 8 warps may have;
+//   * per query tile, warpgroup 0 computes S^T = K Q^T and warpgroup 1
+//     dP^T = V dO^T (m64n64k16, 12 k-steps); dP^T goes to warpgroup 0
+//     through shared memory, thread by thread in the accumulator layout
+//     (16 KB), which forms P and dS, passes P^T's hi/lo fragments back
+//     (16 KB) and writes dS hi/lo (16 KB, over the dP^T it has read);
+//     then dK += dS^T Q and dV += P^T dO (m64n192k16, MN-major Q and dO)
+//     run side by side, and dQ += dS K with warpgroup 0 taking hd columns
+//     0..63 and warpgroup 1 64..191 (warpgroup 0 formed P and dS);
+//   * shared memory: K and V 2 x 24 KB, Q and dO 2 stages x 2 x 24 KB, the
+//     three exchange buffers 48 KB, the statistics 1 KB and the dQ
+//     staging 36 KB: 219,176 B with the barriers and the alignment.
+//
 // The f32 forward and carry step and the f32 backward are SIMT kernels
 // (simple and correct first; f32 FMAs, no tensor cores: TF32 would round
 // the reference's f32 products).  They are kept as the f32 oracle path of
@@ -157,9 +184,19 @@
 //     heads and the query tiles that see it; one launch for dQ with one
 //     CTA per (b, h, 64 query rows) looping over the kv tiles it sees.
 //
-// Head dims: the tensor-core kernels take hd 64 and 128 (their TMA boxes
-// are 64 hd columns wide); the SIMT kernels take 16, 64 and 128.  At hd 16
-// (the reduced configs) both types run the SIMT kernels: bf16 inputs are
+// At hd 192 the SIMT backward's tiles would take 240,128 B (dK/dV) and
+// 272,896 B (dQ) of shared memory, over the 232,448 a CTA may have: there
+// P^T and dS^T take turns in one buffer, and so do K^T and V^T (for S and
+// dP) and K (for dS K), 222,720 B each (the tiles stay 64 rows; a tile
+// takes one or two more barriers).  At hd 16, 64 and 128, which fit, each
+// has its own buffer, as before hd 192 was built (`dkdv_p_turns`,
+// `dq_k_turns`).
+//
+// Head dims: the tensor-core kernels take hd 64, 128 and 192 (their TMA
+// boxes are 64 hd columns wide); the SIMT kernels take 16, 64, 128 and
+// 192.  Every dispatch on the head dim names the ones it was built for
+// and refuses any other with cudaErrorInvalidValue.  At hd 16 (the
+// reduced configs) both types run the SIMT kernels: bf16 inputs are
 // staged as f32 and the outputs rounded once, as the tensor-core path
 // rounds its f32 accumulators.  A product whose output columns span hd
 // runs over a 64-column tile (HP = max(hd, 64)): the row-major tiles are
@@ -446,23 +483,34 @@ namespace tc {
 
 constexpr int kThreads = 384;         // producer + 2 consumer warpgroups
 constexpr int kM = 128;               // query rows of a CTA, 64 per consumer
-constexpr int kN = 128;               // kv rows of a stage
 constexpr int kStages = 2;
 constexpr int kBox = 128 * 128;       // bytes of one TMA box: 128 rows x 64
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kMinusInfBits = 0xff800000u;   // -inf in f32
 constexpr int kEmptyArrivals = 8;     // one lane of each consumer warp
 
+// kv rows of a stage: 128, and 64 at hd 192, where a stage of 128 rows
+// would not fit beside Q and the consumers' S (64 registers) would not fit
+// beside the 96 of the accumulator and P's 64.
+template <int HD>
+__host__ __device__ constexpr int fwd_kn() {
+  return HD == 192 ? 64 : 128;
+}
+
 // Byte offsets in the 1024-aligned dynamic shared memory.
 template <int HD>
 struct Smem {
-  static constexpr int kTileBytes = HD / 64 * kBox;   // a Q, K or V tile
+  static constexpr int kN = fwd_kn<HD>();
+  static constexpr int kKvBox = kN * 128;             // a K or V box
+  static constexpr int kQTile = HD / 64 * kBox;       // the Q tile
+  static constexpr int kKvTile = HD / 64 * kKvBox;    // a K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileBytes;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kK = kQ + kQTile;
+  static constexpr int kV = kK + kStages * kKvTile;
+  static constexpr int kBar = kV + kStages * kKvTile;
   // q_full, then k_full, v_full, k_empty, v_empty of each stage
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "over the opt-in shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -683,6 +731,37 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+#define FA_D8(C, i)                                                        \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
+      C(d[i + 6]), C(d[i + 7])
+#define FA_RW(x) "+f"(x)
+#define FA_WO(x) "=f"(x)
+
+// d += A B, m64n192k16, A from registers, B from shared memory MN-major
+// (three 64-column boxes, the leading byte offset apart).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : FA_D8(FA_RW, 0), FA_D8(FA_RW, 8), FA_D8(FA_RW, 16),
+        FA_D8(FA_RW, 24), FA_D8(FA_RW, 32), FA_D8(FA_RW, 40),
+        FA_D8(FA_RW, 48), FA_D8(FA_RW, 56), FA_D8(FA_RW, 64),
+        FA_D8(FA_RW, 72), FA_D8(FA_RW, 80), FA_D8(FA_RW, 88)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // d += A B, m64n64k16, A from registers, B from shared memory MN-major.
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
                                               uint32_t a1, uint32_t a2,
@@ -707,11 +786,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-#define FA_D8(C, i)                                                        \
-  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
-      C(d[i + 6]), C(d[i + 7])
-#define FA_RW(x) "+f"(x)
-#define FA_WO(x) "=f"(x)
 #define FA_N64_REGS                                                  \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
@@ -746,16 +820,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
 #undef FA_D8
 
 
-// P V over one kv tile: acc += A V for the 8 k-steps of 16 kv rows, A in
-// the register fragments `a` (4 per k-step), V MN-major at `v` (row r of
-// a box at v + 128 r; hd columns 64..127 one box further on).
-template <int HD>
-__device__ __forceinline__ void pv_mma(float (&acc)[HD / 2],
-                                       const uint32_t (&a)[32], uint32_t v) {
+// acc += A B over the k-steps of 16 rows of B: A in the register
+// fragments `a` (4 per k-step), B MN-major at `b` (row r of a box at b +
+// 128 r; hd columns 64.. one box, `box` bytes, further on), N = HD.  The
+// forward's P V (B = a V tile) and the backward's P^T dO and dS^T Q (B =
+// a dO or Q tile).
+template <int HD, int kSteps>
+__device__ __forceinline__ void rs_mma(float (&acc)[HD / 2],
+                                       const uint32_t (&a)[4 * kSteps],
+                                       uint32_t b, int box) {
+  static_assert(HD == 64 || HD == 128 || HD == 192,
+                "the tensor-core kernels take hd 64, 128 and 192");
 #pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk) {
-    const uint64_t d = desc(v + kk * 16 * 128, kBox, 1024);
-    if constexpr (HD == 128)
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint64_t d = desc(b + kk * 16 * 128, box, 1024);
+    if constexpr (HD == 192)
+      wgmma_rs_n192(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                    a[4 * kk + 3], d);
+    else if constexpr (HD == 128)
       wgmma_rs_n128(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                     a[4 * kk + 3], d);
     else
@@ -765,28 +847,28 @@ __device__ __forceinline__ void pv_mma(float (&acc)[HD / 2],
 }
 
 // The online-softmax update of one consumer thread's two rows (qpos and
-// qpos + 8) over a tile of scores s in the m64n128 accumulator layout:
+// qpos + 8) over a tile of N scores s in the m64nN accumulator layout:
 // s[4 j + 2 r + e] is row r, kv column kpos + 8 j + e.  Masked scores
 // become -inf, so their p is exactly 0 and they never raise the max; m
-// stays in natural-log units; lp is this thread's share of l (its 32
+// stays in natural-log units; lp is this thread's share of l (its N / 4
 // columns), summed over the quad only at the end.  p leaves as the A
 // fragments of P V, P = P_hi + P_lo in bf16 (p to about 2^-17): the
 // accumulator layout of S is the register A layout of P, so the pair
 // (s[2 x], s[2 x + 1]) becomes p_hi[x], p_lo[x].  acc is rescaled by
 // exp(m_old - m_new).  Row by row, so S and P of a row hold registers
 // together, never of the whole tile.
-template <bool kMask, int HD>
+template <bool kMask, int HD, int N>
 __device__ __forceinline__ void online_softmax(
-    const float (&s)[64], float (&m)[2], float (&lp)[2], float (&acc)[HD / 2],
-    uint32_t (&p_hi)[32], uint32_t (&p_lo)[32], int qpos, int kpos, int skv,
-    int causal, int window, float scale) {
+    const float (&s)[N / 2], float (&m)[2], float (&lp)[2],
+    float (&acc)[HD / 2], uint32_t (&p_hi)[N / 4], uint32_t (&p_lo)[N / 4],
+    int qpos, int kpos, int skv, int causal, int window, float scale) {
   const float sl = scale * kLog2e;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float x[32];
+    float x[N / 4];
     float mx = __uint_as_float(kMinusInfBits);
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         x[2 * j + e] = s[4 * j + 2 * r + e];
@@ -803,7 +885,7 @@ __device__ __forceinline__ void online_softmax(
     const float ms = m_new * kLog2e;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
       const float p0 = exp2_approx(fmaf(x[2 * j], sl, -ms));
       const float p1 = exp2_approx(fmaf(x[2 * j + 1], sl, -ms));
       sum += p0 + p1;
@@ -835,6 +917,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        int sq, int skv, int n_heads, int n_kv, int q_offset,
                        int window, int causal, float scale) {
   using L = Smem<HD>;
+  constexpr int kN = L::kN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // 128B swizzle atoms
@@ -876,7 +959,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer: one thread issues every load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x != 0 || n_tiles == 0) return;
-    mbar_expect_tx(q_full, L::kTileBytes);
+    mbar_expect_tx(q_full, L::kQTile);
 #pragma unroll
     for (int x = 0; x < HD / 64; ++x)
       tma_load(base + L::kQ + x * kBox, &tm_q, q_full, 64 * x, h, q0, b);
@@ -885,16 +968,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int par = (i / kStages) & 1;
       const int row = (t0 + i) * kN;
       mbar_wait(k_empty + 8 * st, par ^ 1);
-      mbar_expect_tx(k_full + 8 * st, L::kTileBytes);
+      mbar_expect_tx(k_full + 8 * st, L::kKvTile);
 #pragma unroll
       for (int x = 0; x < HD / 64; ++x)
-        tma_load(base + L::kK + st * L::kTileBytes + x * kBox, &tm_k,
+        tma_load(base + L::kK + st * L::kKvTile + x * L::kKvBox, &tm_k,
                  k_full + 8 * st, 64 * x, kvh, row, b);
       mbar_wait(v_empty + 8 * st, par ^ 1);
-      mbar_expect_tx(v_full + 8 * st, L::kTileBytes);
+      mbar_expect_tx(v_full + 8 * st, L::kKvTile);
 #pragma unroll
       for (int x = 0; x < HD / 64; ++x)
-        tma_load(base + L::kV + st * L::kTileBytes + x * kBox, &tm_v,
+        tma_load(base + L::kV + st * L::kKvTile + x * L::kKvBox, &tm_v,
                  v_full + 8 * st, 64 * x, kvh, row, b);
     }
     return;
@@ -941,8 +1024,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int mine = 1 + c, other = 2 - c;
     const uint32_t q_rows = base + L::kQ + c * 64 * 128;
     const uint32_t k_tiles = base + L::kK, v_tiles = base + L::kV;
-    float s[64];
-    uint32_t p_hi[32], p_lo[32];
+    float s[kN / 2];
+    uint32_t p_hi[kN / 4], p_lo[kN / 4];
     const int qpos = q_offset + row0;
     // a tile needs the mask where it reaches Skv, crosses the diagonal or
     // the window's edge for any of the CTA's 128 rows
@@ -960,8 +1043,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         pin(p_hi);
         pin(p_lo);
         wgmma_fence();
-        pv_mma<HD>(acc, p_hi, v_tiles + pst * L::kTileBytes);
-        pv_mma<HD>(acc, p_lo, v_tiles + pst * L::kTileBytes);
+        const uint32_t vt = v_tiles + pst * L::kKvTile;
+        rs_mma<HD, kN / 16>(acc, p_hi, vt, L::kKvBox);
+        rs_mma<HD, kN / 16>(acc, p_lo, vt, L::kKvBox);
         wgmma_commit();
         wgmma_wait<0>();
         pin(acc);
@@ -973,13 +1057,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         break;
       }
       wgmma_fence();                     // S = Q K^T of this tile
-      const uint32_t kt = k_tiles + st * L::kTileBytes;
-      wgmma_ss_n128_init(s, desc(q_rows, 16, 1024), desc(kt, 16, 1024));
+      const uint32_t kt = k_tiles + st * L::kKvTile;
 #pragma unroll
-      for (int kk = 1; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-        wgmma_ss_n128(s, desc(q_rows + off, 16, 1024),
-                      desc(kt + off, 16, 1024));
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint64_t da =
+            desc(q_rows + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024);
+        const uint64_t db =
+            desc(kt + (kk / 4) * L::kKvBox + (kk % 4) * 32, 16, 1024);
+        if constexpr (kN == 128) {
+          if (kk == 0)
+            wgmma_ss_n128_init(s, da, db);
+          else
+            wgmma_ss_n128(s, da, db);
+        } else {
+          if (kk == 0)
+            wgmma_ss_n64<0, true>(s, da, db);
+          else
+            wgmma_ss_n64<0, false>(s, da, db);
+        }
       }
       wgmma_commit();
       turn_pass(other);
@@ -991,10 +1086,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int k0 = (t0 + i) * kN;
       if (k0 + kN > skv || (causal && k0 + kN - 1 > qmin) ||
           (window > 0 && qmax - k0 >= window))
-        online_softmax<true, HD>(s, m, lp, acc, p_hi, p_lo, qpos,
+        online_softmax<true, HD, kN>(s, m, lp, acc, p_hi, p_lo, qpos,
                                  k0 + 2 * tq, skv, causal, window, scale);
       else
-        online_softmax<false, HD>(s, m, lp, acc, p_hi, p_lo, qpos,
+        online_softmax<false, HD, kN>(s, m, lp, acc, p_hi, p_lo, qpos,
                                   k0 + 2 * tq, skv, causal, window, scale);
     }
   }
@@ -1152,29 +1247,21 @@ __device__ __forceinline__ void bwd_probs(
 template <int HD>
 __device__ __forceinline__ void bwd_rs(float (&acc)[HD / 2],
                                        const uint32_t (&a)[16], uint32_t bt) {
-#pragma unroll
-  for (int kk = 0; kk < kBM / 16; ++kk) {
-    const uint64_t d = desc(bt + kk * 16 * 128, kQBox, 1024);
-    if constexpr (HD == 128)
-      wgmma_rs_n128(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
-                    a[4 * kk + 3], d);
-    else
-      wgmma_rs_n64(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
-                   a[4 * kk + 3], d);
-  }
+  rs_mma<HD, kBM / 16>(acc, a, bt, kQBox);
 }
 
 // x = A B^T over hd (HD / 16 k-steps), A = 64 rows of a K or V tile at
-// `a` (128-row boxes), B = a Q or dO tile at `bt` (64-row boxes), both
-// K-major: S^T = K Q^T and dP^T = V dO^T.
+// `a` (boxes `a_box` bytes apart: 128-row boxes, or 64-row ones at hd
+// 192), B = a Q or dO tile at `bt` (64-row boxes), both K-major: S^T = K
+// Q^T and dP^T = V dO^T.
 template <int HD>
 __device__ __forceinline__ void bwd_ss_t(float (&x)[32], uint32_t a,
-                                         uint32_t bt) {
+                                         uint32_t bt, int a_box = kBox) {
   wgmma_ss_n64<0, true>(x, desc(a, 16, 1024), desc(bt, 16, 1024));
 #pragma unroll
   for (int kk = 1; kk < HD / 16; ++kk)
     wgmma_ss_n64<0, false>(
-        x, desc(a + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024),
+        x, desc(a + (kk / 4) * a_box + (kk % 4) * 32, 16, 1024),
         desc(bt + (kk / 4) * kQBox + (kk % 4) * 32, 16, 1024));
 }
 
@@ -1219,6 +1306,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        void* __restrict__ dv, int batch, int sq, int skv,
                        int n_heads, int n_kv, int q_offset, int window,
                        int causal, float scale) {
+  static_assert(HD == 64 || HD == 128, "hd 192: the split kernel");
   using L = BwdSmem<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -1502,8 +1590,362 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward and block backward at hd 192 (see the note at the head
+// of the file): warpgroup 0 holds dK and warpgroup 1 dV of the CTA's 64 kv
+// rows, each over all 192 columns
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitN = 64;           // kv rows of a CTA
+
+template <int HD>
+struct SplitSmem {
+  static constexpr int kT = HD / 64 * kQBox;    // a 64-row K, V, Q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kT;
+  static constexpr int kQ = kV + kT;
+  static constexpr int kDO = kQ + kBwdStages * kT;
+  // warpgroup 1's dP^T for warpgroup 0 (put_frag's layout), then dS hi and
+  // lo as the K-major A operand of dQ, [64 q][64 kv] bf16, swizzled
+  static constexpr int kX = kDO + kBwdStages * kT;
+  // warpgroup 0's P^T hi and lo for warpgroup 1 (put_frag's layout)
+  static constexpr int kY = kX + 2 * kQBox;
+  // lse (times log2 e) then dsum of each stage's 64 rows, f32
+  static constexpr int kStat = kY + 128 * 32 * 4;
+  // dQ of each warpgroup, 64 rows x 64 hd columns f32 (rows kDqRow apart)
+  static constexpr int kDQ = kStat + kBwdStages * 2 * kBM * 4;
+  static constexpr int kBar = kDQ + 2 * kBM * kDqRow;
+  // kv_full, then full and empty of each stage
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kBwdStages) + 1024;
+  static_assert(2 * kQBox == 128 * 32 * 4, "dP^T and dS share kX");
+  static_assert(kBytes <= 232448, "over the opt-in shared memory");
+};
+
+// Thread tw's 32 fragment values into a [8][128] array of 16-byte vectors
+// (neighbouring threads on neighbouring vectors: no bank conflict), where
+// thread tw of the other warpgroup, whose fragments have the same layout,
+// reads them back.
+__device__ __forceinline__ void put_frag(uint8_t* buf, int tw,
+                                         const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    reinterpret_cast<float4*>(buf)[i * 128 + tw] =
+        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+}
+__device__ __forceinline__ void get_frag(const uint8_t* buf, int tw,
+                                         float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 t = reinterpret_cast<const float4*>(buf)[i * 128 + tw];
+    x[4 * i] = t.x;
+    x[4 * i + 1] = t.y;
+    x[4 * i + 2] = t.z;
+    x[4 * i + 3] = t.w;
+  }
+}
+__device__ __forceinline__ void put_frag(uint8_t* buf, int tw,
+                                         const uint32_t (&hi)[16],
+                                         const uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    reinterpret_cast<uint4*>(buf)[i * 128 + tw] =
+        make_uint4(hi[4 * i], hi[4 * i + 1], hi[4 * i + 2], hi[4 * i + 3]);
+    reinterpret_cast<uint4*>(buf)[(4 + i) * 128 + tw] =
+        make_uint4(lo[4 * i], lo[4 * i + 1], lo[4 * i + 2], lo[4 * i + 3]);
+  }
+}
+__device__ __forceinline__ void get_frag(const uint8_t* buf, int tw,
+                                         uint32_t (&hi)[16],
+                                         uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 h = reinterpret_cast<const uint4*>(buf)[i * 128 + tw];
+    const uint4 l = reinterpret_cast<const uint4*>(buf)[(4 + i) * 128 + tw];
+    hi[4 * i] = h.x;
+    hi[4 * i + 1] = h.y;
+    hi[4 * i + 2] = h.z;
+    hi[4 * i + 3] = h.w;
+    lo[4 * i] = l.x;
+    lo[4 * i + 1] = l.y;
+    lo[4 * i + 2] = l.z;
+    lo[4 * i + 3] = l.w;
+  }
+}
+
+// As flash_bwd_wgmma_kernel, with one CTA per (b, h, 64 kv rows), lowest
+// kv tile first.  Per query tile: warpgroup 0 computes S^T = K Q^T and
+// warpgroup 1 dP^T = V dO^T; dP^T goes through shared memory to
+// warpgroup 0, which forms P and dS, passes P^T back, and writes dS for
+// dQ; then dK += dS^T Q on warpgroup 0 beside dV += P^T dO on warpgroup
+// 1, and dQ += dS K with warpgroup 0 taking hd columns 0..63 and
+// warpgroup 1 64..191.
+template <int HD, bool kBlock>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ stats, int sq_pad,
+                             float* __restrict__ dq, void* __restrict__ dk,
+                             void* __restrict__ dv, int batch, int sq,
+                             int skv, int n_heads, int n_kv, int q_offset,
+                             int window, int causal, float scale) {
+  using L = SplitSmem<HD>;
+  constexpr int kBoxes = HD / 64;
+  static_assert(HD % 64 == 0 && kBoxes >= 2, "dQ's boxes split 1 : rest");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // 128B swizzle atoms
+  uint8_t* const basep = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t full = kv_full + 8;              // + 8 * stage
+  const uint32_t empty = full + 8 * kBwdStages;
+
+  int idx = blockIdx.x;
+  const int h = idx % n_heads;
+  idx /= n_heads;
+  const int b = idx % batch;
+  idx /= batch;
+  const int k0 = idx * kSplitN;
+  const int groups = n_heads / n_kv;
+  const int kvh = h / groups;
+
+  // query rows that see kv rows [k0, kmax]
+  const int kmax = min(k0 + kSplitN, skv) - 1;
+  const int i_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int i_hi = window > 0 ? min(sq, kmax + window - q_offset) : sq;
+  const int t0 = i_lo / kBM;
+  const int n_qt = i_hi > i_lo ? (i_hi + kBM - 1) / kBM - t0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBwdEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0 issues every TMA load, as in flash_bwd_wgmma_kernel.
+  const float* stat_bh = stats + ((int64_t)b * n_heads + h) * 2 * sq_pad;
+  auto issue = [&](int i) {
+    const int st = i % kBwdStages;
+    mbar_wait(empty + 8 * st, ((i / kBwdStages) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * st, 2 * L::kT + 2 * kBM * 4);
+    const int q0 = (t0 + i) * kBM;
+    const uint32_t stat = base + L::kStat + st * 2 * kBM * 4;
+    bulk_load(stat, stat_bh + q0, kBM * 4, full + 8 * st);
+    bulk_load(stat + kBM * 4, stat_bh + sq_pad + q0, kBM * 4, full + 8 * st);
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load(base + L::kQ + st * L::kT + x * kQBox, &tm_q, full + 8 * st,
+               64 * x, h, q0, b);
+      tma_load(base + L::kDO + st * L::kT + x * kQBox, &tm_do,
+               full + 8 * st, 64 * x, h, q0, b);
+    }
+  };
+  if (threadIdx.x == 0 && n_qt > 0) {
+    mbar_expect_tx(kv_full, 2 * L::kT);
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load(base + L::kK + x * kQBox, &tm_k, kv_full, 64 * x, kvh, k0, b);
+      tma_load(base + L::kV + x * kQBox, &tm_v, kv_full, 64 * x, kvh, k0, b);
+    }
+    for (int i = 0; i < min(n_qt, kBwdStages - 1); ++i) issue(i);
+  }
+
+  // ---- warpgroup 0: dK; warpgroup 1: dV ----
+  const int c = threadIdx.x >> 7;
+  const int tw = threadIdx.x & 127;
+  const int w = tw >> 5;
+  const int lane = tw & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int kv_row = k0 + 16 * w + g;               // and kv_row + 8
+  const bool elected = lane == 0;
+
+  // acc[4 j + 2 r + e]: kv row kv_row + 8 r, hd column 8 j + 2 tq + e
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  if (n_qt > 0) {
+    const uint32_t kv_rows = base + (c == 0 ? L::kK : L::kV);
+    uint8_t* const xp = basep + L::kX;
+    uint8_t* const yp = basep + L::kY;
+    const uint32_t ds_hi = base + L::kX;
+    const uint32_t ds_lo = ds_hi + kQBox;
+    const uint32_t dq_st = base + L::kDQ + c * kBM * kDqRow;
+    uint8_t* const dq_st_p = basep + L::kDQ + c * kBM * kDqRow;
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_qt; ++i) {
+      const int st = i % kBwdStages;
+      const int q0 = (t0 + i) * kBM;
+      const uint32_t qt = base + L::kQ + st * L::kT;
+      const uint32_t dot = base + L::kDO + st * L::kT;
+      const uint32_t mine = c == 0 ? qt : dot;      // Q for dK, dO for dV
+      if (threadIdx.x == 0 && i + kBwdStages - 1 < n_qt)
+        issue(i + kBwdStages - 1);
+      __syncwarp();
+      mbar_wait(full + 8 * st, (i / kBwdStages) & 1);
+
+      // S^T = K Q^T or dP^T = V dO^T, exact in f32 (bf16 products)
+      float x[32];
+      wgmma_fence();
+      bwd_ss_t<HD>(x, kv_rows, mine, kQBox);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(x);
+
+      uint32_t a_hi[16], a_lo[16];     // dS^T (warpgroup 0), P^T (1)
+      cta_sync();                      // the last tile's dQ has read kX
+      if (c == 1) put_frag(xp, tw, x);
+      cta_sync();                      // dP^T in kX
+      if (c == 0) {
+        float lse_r[16], dsum_r[16], dp[32];
+        const float* stat = reinterpret_cast<const float*>(
+            basep + L::kStat + st * 2 * kBM * 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(stat + 8 * j + 2 * tq);
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(stat + kBM + 8 * j + 2 * tq);
+          lse_r[2 * j] = l2.x;
+          lse_r[2 * j + 1] = l2.y;
+          dsum_r[2 * j] = d2.x;
+          dsum_r[2 * j + 1] = d2.y;
+        }
+        get_frag(xp, tw, dp);
+        uint32_t p_hi[16], p_lo[16];
+        if (q0 + kBM > sq || k0 + kSplitN > skv ||
+            (causal && q_offset + q0 < k0 + kSplitN - 1) ||
+            (window > 0 && q_offset + q0 + kBM - 1 - k0 >= window))
+          bwd_probs<true>(x, dp, lse_r, dsum_r, p_hi, p_lo, a_hi, a_lo, q0,
+                          kv_row, tq, sq, skv, q_offset, window, causal,
+                          scale);
+        else
+          bwd_probs<false>(x, dp, lse_r, dsum_r, p_hi, p_lo, a_hi, a_lo, q0,
+                           kv_row, tq, sq, skv, q_offset, window, causal,
+                           scale);
+        put_frag(yp, tw, p_hi, p_lo);
+      }
+      cta_sync();                      // P^T in kY; warpgroup 0 read kX
+      if (c == 0) {
+        store_ds(xp, a_hi, w, g, tq);
+        store_ds(xp + kQBox, a_lo, w, g, tq);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      } else {
+        get_frag(yp, tw, a_hi, a_lo);
+      }
+
+      // dK += dS^T Q or dV += P^T dO, each as hi + lo
+      pin(acc);
+      pin(a_hi);
+      pin(a_lo);
+      wgmma_fence();
+      bwd_rs<HD>(acc, a_hi, mine);
+      bwd_rs<HD>(acc, a_lo, mine);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      __syncwarp();
+      if (elected) mbar_arrive(empty + 8 * st);
+      cta_sync();                      // dS in kX
+
+      // dQ += dS K, 64 hd columns at a time: A = dS (K-major), B = K
+      // (MN-major)
+      for (int n = c == 0 ? 0 : 1; n < (c == 0 ? 1 : kBoxes); ++n) {
+        const uint32_t kb = base + L::kK + n * kQBox;
+        float y[32];
+        wgmma_fence();
+        wgmma_ss_n64<1, true>(y, desc(ds_hi, 16, 1024),
+                              desc(kb, kQBox, 1024));
+#pragma unroll
+        for (int kk = 1; kk < 4; ++kk)
+          wgmma_ss_n64<1, false>(y, desc(ds_hi + kk * 32, 16, 1024),
+                                 desc(kb + kk * 16 * 128, kQBox, 1024));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64<1, false>(y, desc(ds_lo + kk * 32, 16, 1024),
+                                 desc(kb + kk * 16 * 128, kQBox, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(y);
+        // y[4 j + 2 r + e]: q row 16 w + g + 8 r of the tile, hd column
+        // 64 n + 8 j + 2 tq + e; staged, then one bulk reduce-add per row
+        if (tw < kBM) bulk_wait<true>();
+        wg_sync(1 + c);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float2*>(dq_st_p +
+                                       (16 * w + g + 8 * r) * kDqRow +
+                                       (8 * j + 2 * tq) * 4) =
+                make_float2(y[4 * j + 2 * r], y[4 * j + 2 * r + 1]);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg_sync(1 + c);
+        if (tw < kBM && q0 + tw < sq) {
+          bulk_reduce_add(
+              dq + (((int64_t)b * sq + q0 + tw) * n_heads + h) * HD + 64 * n,
+              dq_st + tw * kDqRow, 64 * 4);
+          bulk_commit();
+        }
+      }
+    }
+  }
+
+  // ---- epilogue: dK (warpgroup 0) or dV (1) of the CTA's kv rows ----
+  if (tw < kBM) bulk_wait<false>();
+  void* const dst = c == 0 ? dk : dv;
+  if (groups > 1) {
+    // G CTAs share the kv head: stage the rows in the shared memory the
+    // loop is done with, then one bulk reduce-add per row
+    if (n_qt == 0) return;
+    constexpr int kKvRow = HD * 4 + 32;
+    static_assert(2 * kBM * kKvRow <= L::kBar, "dK, dV staging too large");
+    cta_sync();
+    uint8_t* const st_p = basep + c * kBM * kKvRow;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(st_p + (16 * w + g + 8 * r) * kKvRow +
+                                   (8 * j + 2 * tq) * 4) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(1 + c);
+    if (tw < kBM && k0 + tw < skv) {
+      const int64_t off = (((int64_t)b * skv + k0 + tw) * n_kv + kvh) * HD;
+      bulk_reduce_add(static_cast<float*>(dst) + off,
+                      base + c * kBM * kKvRow + tw * kKvRow, HD * 4);
+      bulk_commit();
+      bulk_wait<false>();
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kv_row + 8 * r;
+    if (row >= skv) continue;
+    const int64_t off = (((int64_t)b * skv + row) * n_kv + kvh) * HD + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const float a0 = acc[4 * j + 2 * r], a1 = acc[4 * j + 2 * r + 1];
+      if (kBlock)
+        *reinterpret_cast<float2*>(static_cast<float*>(dst) + off + 8 * j) =
+            make_float2(a0, a1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dst) + off +
+                                     8 * j) = bf16x2(a0, a1);
+    }
+  }
+}
+
 // The finishing pass: an f32 workspace into bf16, four values a thread
-// (n4 = n / 4: every workspace holds rows of hd 64 or 128).
+// (n4 = n / 4: every workspace holds rows of hd 64, 128 or 192).
 __global__ void to_bf16_kernel(const float* __restrict__ src,
                                __nv_bfloat16* __restrict__ dst, int64_t n4) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
@@ -1561,8 +2003,11 @@ flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ out,
   if (i < sq) {
     const int64_t src = ((int64_t)b * sq + i) * n_heads + h;
     if constexpr (kDsum) {
-      constexpr int kN = HD / 32;           // 4 or 2 bf16: 8 or 4 bytes
-      using Vec = typename std::conditional<kN == 4, uint2, uint32_t>::type;
+      constexpr int kN = HD / 32;           // 2, 4 or 6 bf16: 4, 8, 12 bytes
+      static_assert(kN == 2 || kN == 4 || kN == 6, "hd 64, 128 or 192");
+      using Vec = typename std::conditional<
+          kN == 2, uint32_t,
+          typename std::conditional<kN == 4, uint2, uint3>::type>::type;
       const Vec o = reinterpret_cast<const Vec*>(out + src * HD)[lane];
       const Vec g = reinterpret_cast<const Vec*>(dout + src * HD)[lane];
       const __nv_bfloat16* ob = reinterpret_cast<const __nv_bfloat16*>(&o);
@@ -1614,6 +2059,45 @@ __device__ __forceinline__ void probs_and_dscores(
   }
 }
 
+// Shared memory of the SIMT backward's kernels.  Where a kernel's tiles
+// would not fit the opt-in limit (hd 192), two of its buffers take turns:
+// P^T and dS^T (dK/dV), K^T + V^T and K (dQ), at the cost of one or two
+// more barriers a tile; below the limit each has its own.
+constexpr size_t kSmemOptIn = 232448;
+template <int HD>
+__host__ __device__ constexpr size_t dkdv_bytes(bool p_turns) {
+  return sizeof(float) *
+         (2 * HD * kLd64 + 2 * kTile * (padded_hd<HD>() + 4) +
+          (p_turns ? 1 : 2) * kTile * kLd64 + 2 * kTile);
+}
+template <int HD>
+__host__ __device__ constexpr bool dkdv_p_turns() {
+  return dkdv_bytes<HD>(false) > kSmemOptIn;
+}
+template <int HD>
+__host__ __device__ constexpr size_t dkdv_smem() {
+  return dkdv_bytes<HD>(dkdv_p_turns<HD>());
+}
+template <int HD>
+__host__ __device__ constexpr size_t dq_k_floats(bool k_turns) {
+  constexpr size_t kv = 2 * HD * kLd64, k = kTile * (padded_hd<HD>() + 4);
+  return k_turns ? (kv > k ? kv : k) : kv + k;
+}
+template <int HD>
+__host__ __device__ constexpr size_t dq_bytes(bool k_turns) {
+  return sizeof(float) * (2 * kTile * (padded_hd<HD>() + 4) +
+                          dq_k_floats<HD>(k_turns) + kTile * kLd64 +
+                          2 * kTile);
+}
+template <int HD>
+__host__ __device__ constexpr bool dq_k_turns() {
+  return dq_bytes<HD>(false) > kSmemOptIn;
+}
+template <int HD>
+__host__ __device__ constexpr size_t dq_smem() {
+  return dq_bytes<HD>(dq_k_turns<HD>());
+}
+
 // dK, dV of kv rows [k0, k0 + 64) of kv head kvh: loop over the G query
 // heads of the group and the query tiles that see these rows.  Inputs T,
 // outputs O (T, or f32 for the block backward).
@@ -1643,7 +2127,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* qs = vt + HD * kLd64;                  // [64][HP+4]
   float* dos = qs + kTile * kLdHd;              // [64][HP+4]
   float* pt = dos + kTile * kLdHd;              // [64][64+4]  P^T
-  float* dst = pt + kTile * kLd64;              // [64][64+4]  dS^T
+  constexpr bool kTurns = dkdv_p_turns<HD>();
+  float* dst = kTurns ? pt : pt + kTile * kLd64;  // [64][64+4]  dS^T
   float* lse_s = dst + kTile * kLd64;           // [64]
   float* dsum_s = lse_s + kTile;                // [64]
 
@@ -1691,10 +2176,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           pt[(4 * tx + c) * kLd64 + 4 * ty + r] = s[r][c];
-          dst[(4 * tx + c) * kLd64 + 4 * ty + r] = dp[r][c];
+          if constexpr (!kTurns)
+            dst[(4 * tx + c) * kLd64 + 4 * ty + r] = dp[r][c];
         }
       __syncthreads();
       block_mma<NC>(pt, kLd64, dos, kLdHd, kTile, ty, tx, dv_acc);  // P^T dO
+      if constexpr (kTurns) {  // dS^T into the buffer P^T leaves
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            dst[(4 * tx + c) * kLd64 + 4 * ty + r] = dp[r][c];
+        __syncthreads();
+      }
       block_mma<NC>(dst, kLd64, qs, kLdHd, kTile, ty, tx, dk_acc);  // dS^T Q
     }
   }
@@ -1734,12 +2229,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15;
 
   extern __shared__ float4 smem4[];
+  constexpr bool kTurns = dq_k_turns<HD>();
   float* qs = reinterpret_cast<float*>(smem4);  // [64][HP+4]
   float* dos = qs + kTile * kLdHd;              // [64][HP+4]
   float* ks = dos + kTile * kLdHd;              // [64][HP+4]
-  float* kt = ks + kTile * kLdHd;               // [HD][64+4]  K transposed
+  float* kt = kTurns ? ks : ks + kTile * kLdHd;  // [HD][64+4]  K transposed
   float* vt = kt + HD * kLd64;                  // [HD][64+4]  V transposed
-  float* dss = vt + HD * kLd64;                 // [64][64+4]  dS
+  float* dss = ks + dq_k_floats<HD>(kTurns);    // [64][64+4]  dS
   float* lse_s = dss + kTile * kLd64;           // [64]
   float* dsum_s = lse_s + kTile;                // [64]
 
@@ -1763,7 +2259,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
            window, &lo, &hi);
   for (int k0 = (lo / kTile) * kTile; k0 < hi; k0 += kTile) {
     __syncthreads();  // the previous tile's ks, kt, vt, dss are consumed
-    load_tile<T, HD, false, HP>(ks, kLdHd, kb, k0, skv, n_kv, kvh);
+    if constexpr (!kTurns)
+      load_tile<T, HD, false, HP>(ks, kLdHd, kb, k0, skv, n_kv, kvh);
     load_tile<T, HD, true>(kt, kLd64, kb, k0, skv, n_kv, kvh);
     load_tile<T, HD, true>(vt, kLd64, vb, k0, skv, n_kv, kvh);
     __syncthreads();
@@ -1782,6 +2279,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float4*>(dss + (4 * ty + r) * kLd64 + 4 * tx) =
           make_float4(dp[r][0], dp[r][1], dp[r][2], dp[r][3]);
     __syncthreads();
+    if constexpr (kTurns) {  // K into the buffer K^T and V^T leave
+      load_tile<T, HD, false, HP>(ks, kLdHd, kb, k0, skv, n_kv, kvh);
+      __syncthreads();
+    }
     block_mma<NC>(dss, kLd64, ks, kLdHd, kTile, ty, tx, dq_acc);  // dS K
   }
 
@@ -1821,17 +2322,10 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * kTile * (padded_hd<HD>() + 4) + HD * kLd64 +
                           kTile * kLd64);
 }
-template <int HD>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) *
-         (2 * HD * kLd64 + 2 * kTile * (padded_hd<HD>() + 4) +
-          2 * kTile * kLd64 + 2 * kTile);
-}
-template <int HD>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (3 * kTile * (padded_hd<HD>() + 4) +
-                          2 * HD * kLd64 + kTile * kLd64 + 2 * kTile);
-}
+static_assert(fwd_smem<192>() <= kSmemOptIn &&
+                  dkdv_smem<192>() <= kSmemOptIn &&
+                  dq_smem<192>() <= kSmemOptIn,
+              "over the opt-in shared memory");
 
 template <typename T, int HD, bool kCarry>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -1881,7 +2375,7 @@ EncodeTiled encode_tiled() {
 // rows x 64 hd columns of one head, 128-byte swizzled, rows past S read
 // as 0.
 bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int rows,
-                int heads, int hd, int box_rows = tc::kN) {
+                int heads, int hd, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
@@ -1909,12 +2403,13 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorMisalignedAddress;
   // with Skv = 0 no CTA loads k or v: a map over q stands in
   const bool empty = s.skv == 0;
+  constexpr int kN = tc::fwd_kn<HD>();
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD) ||
+  if (!tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD, tc::kM) ||
       !tensor_map(&tm_k, empty ? q : k, s.batch, empty ? 1 : s.skv,
-                  empty ? s.n_heads : s.n_kv, HD) ||
+                  empty ? s.n_heads : s.n_kv, HD, kN) ||
       !tensor_map(&tm_v, empty ? q : v, s.batch, empty ? 1 : s.skv,
-                  empty ? s.n_heads : s.n_kv, HD))
+                  empty ? s.n_heads : s.n_kv, HD, kN))
     return (int)cudaErrorInvalidValue;
   static int granted = 0;
   const size_t smem = tc::Smem<HD>::kBytes;
@@ -1932,23 +2427,30 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// Every dispatch on the head dim names each one the file is built for and
+// refuses any other (valid() checks first; a case left out would fall
+// through to the refusal, never into another instantiation).
 template <bool kCarry>
 int fwd_dispatch(int dtype, int hd, const void* q, const void* k,
                  const void* v, void* out, void* lse, const Carry& carry,
                  const Shape& s, cudaStream_t st) {
   using bf16 = __nv_bfloat16;
-  if (dtype == 0)
-    return hd == 128
-               ? fwd<float, 128, kCarry>(q, k, v, out, lse, carry, s, st)
-           : hd == 64
-               ? fwd<float, 64, kCarry>(q, k, v, out, lse, carry, s, st)
-               : fwd<float, 16, kCarry>(q, k, v, out, lse, carry, s, st);
-  if (dtype == 1)
-    return hd == 128
-               ? fwd_wgmma<128, kCarry>(q, k, v, out, lse, carry, s, st)
-           : hd == 64
-               ? fwd_wgmma<64, kCarry>(q, k, v, out, lse, carry, s, st)
-               : fwd<bf16, 16, kCarry>(q, k, v, out, lse, carry, s, st);
+  if (dtype == 0) switch (hd) {
+      case 16: return fwd<float, 16, kCarry>(q, k, v, out, lse, carry, s, st);
+      case 64: return fwd<float, 64, kCarry>(q, k, v, out, lse, carry, s, st);
+      case 128:
+        return fwd<float, 128, kCarry>(q, k, v, out, lse, carry, s, st);
+      case 192:
+        return fwd<float, 192, kCarry>(q, k, v, out, lse, carry, s, st);
+    }
+  if (dtype == 1) switch (hd) {
+      case 16: return fwd<bf16, 16, kCarry>(q, k, v, out, lse, carry, s, st);
+      case 64: return fwd_wgmma<64, kCarry>(q, k, v, out, lse, carry, s, st);
+      case 128:
+        return fwd_wgmma<128, kCarry>(q, k, v, out, lse, carry, s, st);
+      case 192:
+        return fwd_wgmma<192, kCarry>(q, k, v, out, lse, carry, s, st);
+    }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2012,7 +2514,8 @@ int bwd_simt(const void* q, const void* k, const void* v, const void* out,
 
 // The bf16 backward on the tensor cores: dq is a zeroed f32 workspace;
 // dk, dv are zeroed f32 workspaces when G > 1, else the outputs (bf16, or
-// f32 for the block backward).  TMA needs 16-byte aligned bases.
+// f32 for the block backward).  TMA needs 16-byte aligned bases.  At hd
+// 192 the kernel of 64 kv rows a CTA, else that of 128.
 template <int HD, bool kBlock>
 int bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
               const void* dout, const void* lse, const void* dsum,
@@ -2025,16 +2528,25 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
           16 !=
       0)
     return (int)cudaErrorMisalignedAddress;
+  constexpr bool kSplit = HD == 192;
+  constexpr int kRows = kSplit ? tc::kSplitN : tc::kBN;   // kv rows a CTA
+  using Smem =
+      std::conditional_t<kSplit, tc::SplitSmem<HD>, tc::BwdSmem<HD>>;
+  const auto kernel = [] {
+    if constexpr (kSplit)
+      return tc::flash_bwd_wgmma_split_kernel<HD, kBlock>;
+    else
+      return tc::flash_bwd_wgmma_kernel<HD, kBlock>;
+  }();
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   if (!tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD, tc::kBM) ||
       !tensor_map(&tm_do, dout, s.batch, s.sq, s.n_heads, HD, tc::kBM) ||
-      !tensor_map(&tm_k, k, s.batch, s.skv, s.n_kv, HD, tc::kBN) ||
-      !tensor_map(&tm_v, v, s.batch, s.skv, s.n_kv, HD, tc::kBN))
+      !tensor_map(&tm_k, k, s.batch, s.skv, s.n_kv, HD, kRows) ||
+      !tensor_map(&tm_v, v, s.batch, s.skv, s.n_kv, HD, kRows))
     return (int)cudaErrorInvalidValue;
   static int granted = 0;
-  const size_t smem = tc::BwdSmem<HD>::kBytes;
-  cudaError_t e =
-      allow_smem(tc::flash_bwd_wgmma_kernel<HD, kBlock>, smem, &granted);
+  const size_t smem = Smem::kBytes;
+  cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return (int)e;
   const int sq_pad = (s.sq + tc::kBM - 1) / tc::kBM * tc::kBM;
   const int64_t rows = (int64_t)s.batch * sq_pad * s.n_heads;
@@ -2050,11 +2562,10 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
                            s.n_heads);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int64_t ctas = (int64_t)((s.skv + tc::kBN - 1) / tc::kBN) * s.batch *
+  const int64_t ctas = (int64_t)((s.skv + kRows - 1) / kRows) * s.batch *
                        s.n_heads;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  tc::flash_bwd_wgmma_kernel<HD, kBlock>
-      <<<(unsigned)ctas, tc::kBwdThreads, smem, stream>>>(
+  kernel<<<(unsigned)ctas, tc::kBwdThreads, smem, stream>>>(
           tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(stats), sq_pad,
           static_cast<float*>(dq), dk, dv,
           s.batch, s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset, s.window,
@@ -2093,7 +2604,8 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
 
 bool valid(const Shape& s, int hd) {
   return s.batch >= 0 && s.sq >= 0 && s.skv >= 0 && s.n_kv > 0 &&
-         s.n_heads % s.n_kv == 0 && (hd == 16 || hd == 64 || hd == 128) &&
+         s.n_heads % s.n_kv == 0 &&
+         (hd == 16 || hd == 64 || hd == 128 || hd == 192) &&
          s.n_heads <= 65535 && s.batch <= 65535 && s.n_kv <= 65535;
 }
 
@@ -2155,21 +2667,25 @@ extern "C" int flash_attention_bwd_launch(
   if (!valid(s, hd)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0 || skv == 0 || n_heads == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return hd == 128 ? bwd_simt<float, 128>(q, k, v, out, dout, lse, scratch,
-                                            dq, dk, dv, s, st)
-           : hd == 64 ? bwd_simt<float, 64>(q, k, v, out, dout, lse, scratch,
-                                            dq, dk, dv, s, st)
-                      : bwd_simt<float, 16>(q, k, v, out, dout, lse, scratch,
-                                            dq, dk, dv, s, st);
-  if (dtype == 1)
-    return hd == 128 ? bwd_bf16<128>(q, k, v, out, dout, lse, scratch, dq,
-                                     dk, dv, ws_dq, ws_dk, ws_dv, s, st)
-           : hd == 64 ? bwd_bf16<64>(q, k, v, out, dout, lse, scratch, dq, dk,
-                                     dv, ws_dq, ws_dk, ws_dv, s, st)
-                      : bwd_simt<__nv_bfloat16, 16>(q, k, v, out, dout, lse,
-                                                    scratch, dq, dk, dv, s,
-                                                    st);
+#define FA_SIMT(T, HD) \
+  bwd_simt<T, HD>(q, k, v, out, dout, lse, scratch, dq, dk, dv, s, st)
+#define FA_TC(HD)                                                          \
+  bwd_bf16<HD>(q, k, v, out, dout, lse, scratch, dq, dk, dv, ws_dq, ws_dk, \
+               ws_dv, s, st)
+  if (dtype == 0) switch (hd) {
+      case 16: return FA_SIMT(float, 16);
+      case 64: return FA_SIMT(float, 64);
+      case 128: return FA_SIMT(float, 128);
+      case 192: return FA_SIMT(float, 192);
+    }
+  if (dtype == 1) switch (hd) {
+      case 16: return FA_SIMT(__nv_bfloat16, 16);
+      case 64: return FA_TC(64);
+      case 128: return FA_TC(128);
+      case 192: return FA_TC(192);
+    }
+#undef FA_TC
+#undef FA_SIMT
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2191,21 +2707,25 @@ extern "C" int flash_attention_bwd_block_launch(
   if (!valid(s, hd)) return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0 || skv == 0 || n_heads == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return hd == 128 ? bwd<float, float, 128>(q, k, v, dout, lse, dsum, dq,
-                                              dk, dv, s, st)
-           : hd == 64 ? bwd<float, float, 64>(q, k, v, dout, lse, dsum, dq,
-                                              dk, dv, s, st)
-                      : bwd<float, float, 16>(q, k, v, dout, lse, dsum, dq,
-                                              dk, dv, s, st);
-  if (dtype == 1)
-    return hd == 128 ? bwd_wgmma<128, true>(q, k, v, nullptr, dout, lse, dsum,
-                                            scratch, dq, dk, dv, s, st)
-           : hd == 64 ? bwd_wgmma<64, true>(q, k, v, nullptr, dout, lse, dsum,
-                                            scratch, dq, dk, dv, s, st)
-                      : bwd<__nv_bfloat16, float, 16>(q, k, v, dout, lse,
-                                                      dsum, dq, dk, dv, s,
-                                                      st);
+#define FA_SIMT(T, HD) \
+  bwd<T, float, HD>(q, k, v, dout, lse, dsum, dq, dk, dv, s, st)
+#define FA_TC(HD)                                                        \
+  bwd_wgmma<HD, true>(q, k, v, nullptr, dout, lse, dsum, scratch, dq, dk, \
+                      dv, s, st)
+  if (dtype == 0) switch (hd) {
+      case 16: return FA_SIMT(float, 16);
+      case 64: return FA_SIMT(float, 64);
+      case 128: return FA_SIMT(float, 128);
+      case 192: return FA_SIMT(float, 192);
+    }
+  if (dtype == 1) switch (hd) {
+      case 16: return FA_SIMT(__nv_bfloat16, 16);
+      case 64: return FA_TC(64);
+      case 128: return FA_TC(128);
+      case 192: return FA_TC(192);
+    }
+#undef FA_TC
+#undef FA_SIMT
   return (int)cudaErrorInvalidValue;
 }
 

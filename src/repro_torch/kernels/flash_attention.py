@@ -76,9 +76,9 @@ BWD_BLOCK_LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are compiled for: the tensor-core kernels (bf16)
 #: take ``TC_HEAD_DIMS``; the SIMT kernels take every one, and run bf16 at
-#: the others (16: the reduced configs)
-KERNEL_HEAD_DIMS = (16, 64, 128)
-TC_HEAD_DIMS = (64, 128)
+#: the others (16: the reduced configs); 192 is nemotron-4-340b's
+KERNEL_HEAD_DIMS = (16, 64, 128, 192)
+TC_HEAD_DIMS = (64, 128, 192)
 
 
 # ---------------------------------------------------------------------------
@@ -533,9 +533,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq in q's type, dk, dv in k's type) from the forward's (out, lse)
     and the output gradient ``dout``.  Dispatch as ``flash_attention_fwd``:
     a CUDA tensor launches the backward kernels and counts once (f32, and
-    bf16 at head_dim 16: the dsum pre-pass, dK/dV, dQ; bf16 at 64 and 128:
-    the statistics pass, the tensor-core kernel adding into f32 workspaces
-    allocated here, the pass into bf16)."""
+    bf16 at head_dim 16: the dsum pre-pass, dK/dV, dQ; bf16 at 64, 128 and
+    192: the statistics pass, the tensor-core kernel adding into f32
+    workspaces allocated here, the pass into bf16)."""
     global BWD_LAUNCHES
     _check(q, k, v, out, lse, dout)
     if out.shape != q.shape or dout.shape != q.shape \

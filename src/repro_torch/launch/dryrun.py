@@ -25,8 +25,8 @@ groups.  The record is RANK 0's step.  The group is torn down before
 group is already up, the dry run raises (it never joins a real one).
 
 Abstract tensors stand for the card: every kernel wrapper takes its card
-branch, refuses what the card refuses (nemotron-4-340b's head_dim 192 in
-the flash kernels) and counts one launch with its work function; no
+branch, refuses what the card refuses (the operand checks are the
+card's) and counts one launch with its work function; no
 plain version runs, nothing is allocated on a card or launched.  Sizes
 that depend on data are counted at their shape's bound: the grouped
 expert FFN at its capacity rows (what the reference's jnp engine

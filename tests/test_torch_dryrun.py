@@ -288,11 +288,19 @@ def test_dry_run_leaves_no_group_and_no_environment(reduced):
     assert not dist.is_initialized()
 
 
-def test_cli_records_skips_errors_and_its_cache(tmp_path, capsys):
+ROOFLINE_KEYS = ("status", "arch", "shape", "mesh", "kind", "n_chips",
+                 "params", "active_params", "flops_per_chip",
+                 "hbm_bytes_per_chip", "collective_bytes_per_chip")
+
+
+def test_cli_records_skips_errors_and_its_cache(tmp_path, capsys,
+                                                monkeypatch):
     """``main`` at the production mesh: a sub-quadratic long decode is ok
     with every key the roofline reads, a full-attention one is skipped
-    with the reason, nemotron's head_dim-192 prefill is the kernels'
-    refusal; a second run takes the ok cells from its cache."""
+    with the reason, nemotron's head_dim-192 prefill is ok (the flash
+    kernels take head_dim 192); a cell that raises is recorded as an
+    error with its exception and is not cached; a second run takes the ok
+    cells from its cache."""
     out = tmp_path / "dryrun.json"
     argv = ["--arch", "mamba2-130m", "--shape", "long_500k", "--out",
             str(out)]
@@ -301,11 +309,17 @@ def test_cli_records_skips_errors_and_its_cache(tmp_path, capsys):
                  "--out", str(out)])
     dryrun.main(["--arch", "nemotron-4-340b", "--shape", "prefill_32k",
                  "--out", str(out)])
+
+    def refuse(arch, shape_name, *args, **kwargs):
+        raise ValueError(f"no kernel for {arch} {shape_name}")
+
+    with monkeypatch.context() as m:
+        m.setattr(dryrun, "lower_cell", refuse)
+        dryrun.main(["--arch", "granite-34b", "--shape", "decode_32k",
+                     "--out", str(out)])
     recs = json.loads(out.read_text())
     ok = recs["mamba2-130m|long_500k|16x16"]
-    for key in ("status", "arch", "shape", "mesh", "kind", "n_chips",
-                "params", "active_params", "flops_per_chip",
-                "hbm_bytes_per_chip", "collective_bytes_per_chip"):
+    for key in ROOFLINE_KEYS:
         assert key in ok
     assert ok["status"] == "ok" and ok["n_chips"] == 256
     assert ok["memory"]["peak_bytes"] > 0
@@ -313,12 +327,20 @@ def test_cli_records_skips_errors_and_its_cache(tmp_path, capsys):
         "status": "skipped", "reason": (
             "full-attention arch: 500k decode state is O(seq)-quadratic; "
             "skipped per assignment rules")}
-    err = recs["nemotron-4-340b|prefill_32k|16x16"]
-    assert err["status"] == "error"
-    assert "head_dim in (16, 64, 128); got 192" in err["error"]
+    nemo = recs["nemotron-4-340b|prefill_32k|16x16"]
+    for key in ROOFLINE_KEYS:
+        assert key in nemo
+    assert nemo["status"] == "ok" and nemo["n_chips"] == 256
+    assert nemo["flops_per_chip"] > 0 and nemo["hbm_bytes_per_chip"] > 0
+    assert nemo["memory"]["peak_bytes"] > 0
+    assert recs["granite-34b|decode_32k|16x16"] == {
+        "status": "error", "error": "ValueError: no kernel for granite-34b "
+                                    "decode_32k"}
     capsys.readouterr()
     dryrun.main(argv)
-    assert "cached, skipping" in capsys.readouterr().out
+    text = capsys.readouterr().out
+    assert "cached, skipping" in text
+    assert "done: 2 ok, 1 skipped (documented), 1 errors" in text
     assert not dist.is_initialized()
 
 

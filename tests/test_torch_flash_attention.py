@@ -39,6 +39,9 @@ CASES = [
     (1, 64, 64, 4, 2, 16, True, 24, 0),       # sliding window
     (1, 32, 96, 4, 2, 16, True, 0, 64),       # q_offset, Sq < Skv
     (1, 32, 50, 4, 1, 16, False, 12, 18),     # ragged Skv, window
+    (1, 64, 64, 4, 2, 192, True, 0, 0),       # nemotron's head_dim, GQA
+    (1, 64, 96, 4, 4, 192, True, 24, 32),     # hd 192, MHA, window, offset
+    (1, 32, 50, 6, 1, 192, True, 0, 18),      # hd 192, 6:1, ragged Skv
 ]
 PALLAS_CASES = [c for c in CASES if c[2] % 32 == 0]
 
@@ -207,6 +210,7 @@ BLOCK_CASES = [
     (1, 32, 64, 4, 2, 16, True, 20, 64, 16),
     (1, 16, 24, 48, 1, 8, True, 0, 8, 0),
     (1, 32, 32, 4, 2, 16, False, 12, 10, 30),
+    (1, 48, 80, 6, 1, 192, True, 0, 64, 16),
 ]
 BLOCK_TOL = 2e-5
 

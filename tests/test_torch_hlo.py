@@ -306,19 +306,32 @@ def test_attended_pairs_count_the_mask():
 
 
 def test_abstract_flash_refuses_head_dim_192_as_the_card_does():
-    """nemotron-4-340b's head_dim (18432 / 96): the card's message, on
-    meta tensors under a recorder."""
-    q = _meta(1, 64, 4, 192, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"head_dim in \(16, 64, 128\); "
-                                         r"got 192"):
-        hlo.count(lambda: fa.flash_attention_fwd(q, q, q))
+    """On meta tensors under a recorder the flash entries take what the
+    card takes: nemotron-4-340b's head_dim (18432 / 96 = 192) is counted,
+    one launch of each kernel with its work; a head_dim the kernels are
+    not built for (96) is refused with the card's message."""
     lse = _meta(1, 64, 4)
-    for call in (lambda: fa.flash_attention_bwd(q, q, q, q, lse, q),
-                 lambda: fa.flash_attention_carry(
-                     q, q, q, lse, lse, _meta(1, 64, 4, 192)),
+
+    def calls(hd):
+        q = _meta(1, 64, 4, hd, dtype=torch.bfloat16)
+        m = _meta(1, 64, 4, hd)
+        return (("flash_attention_fwd",
+                 lambda: fa.flash_attention_fwd(q, q, q)),
+                ("flash_attention_bwd",
+                 lambda: fa.flash_attention_bwd(q, q, q, q, lse, q)),
+                ("flash_attention_carry",
+                 lambda: fa.flash_attention_carry(q, q, q, lse, lse, m)),
+                ("flash_attention_bwd_block",
                  lambda: fa.flash_attention_bwd_block(q, q, q, q, lse, lse,
-                                                      causal=True)):
-        with pytest.raises(ValueError, match="got 192"):
+                                                      causal=True)))
+
+    for name, call in calls(192):
+        counter = hlo.count(call)
+        assert counter.launches() == {name: 1}
+        assert counter.flops > 0
+    for _, call in calls(96):
+        with pytest.raises(ValueError, match=r"head_dim in \(16, 64, 128, "
+                                             r"192\); got 96"):
             hlo.count(call)
 
 

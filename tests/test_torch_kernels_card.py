@@ -255,7 +255,9 @@ def test_paged_attention_rejects_unaligned_pool(cuda):
 #: bf16 backward's 128-row kv tiles and 64-row query tiles: Skv of 127,
 #: 129 and 257, Sq that is not a multiple of 64, at G = 1, 4 and 48 and
 #: hd 64 and 128; hd 16 (the reduced configs, SIMT kernels in both types)
-#: at the quickstart's shape and ragged with a window
+#: at the quickstart's shape and ragged with a window; hd 192
+#: (nemotron-4-340b, whose bf16 kernels take 64 kv rows a stage or a CTA):
+#: GQA 12:1, MHA and MQA 12/1, causal and windowed, ragged Skv and q_offset
 FLASH_CASES = [
     (8, 128, 128, 4, 1, 16, True, 0, 0),
     (1, 100, 127, 8, 2, 16, True, 30, 27),
@@ -278,6 +280,12 @@ FLASH_CASES = [
     (1, 190, 257, 16, 4, 64, True, 30, 67),
     (2, 150, 257, 48, 1, 128, True, 0, 107),
     (1, 65, 127, 48, 1, 64, False, 0, 0),
+    (1, 256, 256, 24, 2, 192, True, 0, 0),
+    (2, 129, 129, 4, 4, 192, True, 0, 0),
+    (1, 100, 257, 12, 1, 192, False, 64, 0),
+    (1, 190, 257, 24, 2, 192, True, 30, 67),
+    (1, 65, 127, 8, 8, 192, True, 0, 62),
+    (1, 300, 300, 12, 1, 192, True, 0, 0),
 ]
 
 
@@ -380,17 +388,19 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda):
 
 
 @pytest.mark.gpu
-def test_flash_forward_equals_finalized_empty_carry_bit_for_bit(cuda):
+@pytest.mark.parametrize("h,kvh,hd", [(32, 8, 128), (24, 2, 192)])
+def test_flash_forward_equals_finalized_empty_carry_bit_for_bit(cuda, h, kvh,
+                                                                hd):
     """In bf16 the forward and the carry step are one kernel: at an empty
     carry, finalized as ring attention finalizes it, the carry gives the
-    forward's output and lse bit for bit (phi4-mini's heads, 1 x 1024,
-    causal), which is what makes the one-rank ring prefill equal
-    megatron's."""
-    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 1024, 1024, 32, 8,
-                               128)
+    forward's output and lse bit for bit (phi4-mini's heads, and
+    nemotron's head_dim and 12:1 grouping, 1 x 1024, causal), which is
+    what makes the one-rank ring prefill equal megatron's."""
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 1024, 1024, h, kvh,
+                               hd)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     carry = fa.flash_attention_carry(
-        q, k, v, *fa.init_partials(1, 1024, 32, 128, device=cuda),
+        q, k, v, *fa.init_partials(1, 1024, h, hd, device=cuda),
         causal=True)
     out_c, lse_c = fa.finalize_partials(*carry, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -406,7 +416,8 @@ def test_flash_forward_equals_finalized_empty_carry_bit_for_bit(cuda):
 #: an empty and a carried state, offsets with the block before, at and
 #: after the q rows (d < 0: nothing visible), a window, ragged Skv, hd 64
 #: and MQA; then the bf16 kernel's edges: Sq and Skv of 127, 129 and 257,
-#: a window of 100, d = 50 (the diagonal mid-tile), MQA 48/1 at hd 64
+#: a window of 100, d = 50 (the diagonal mid-tile), MQA 48/1 at hd 64;
+#: then hd 192 (64-row kv stages) empty, carried, windowed and ragged
 CARRY_CASES = [
     (1, 256, 256, 32, 8, 128, True, 0, 0, 0, False),
     (1, 128, 128, 32, 8, 128, True, 0, 256, 128, True),
@@ -420,6 +431,10 @@ CARRY_CASES = [
     (1, 257, 127, 8, 2, 128, False, 0, 0, 0, True),
     (1, 200, 129, 48, 1, 64, True, 0, 128, 0, True),
     (1, 130, 200, 4, 1, 16, True, 0, 128, 64, True),
+    (1, 256, 256, 24, 2, 192, True, 0, 0, 0, False),
+    (1, 129, 257, 24, 2, 192, True, 100, 300, 250, True),
+    (1, 257, 127, 4, 4, 192, False, 0, 0, 0, True),
+    (1, 200, 129, 12, 1, 192, True, 0, 128, 0, True),
 ]
 CARRY_TOL = [(torch.float32, 2e-5), (torch.bfloat16, 1e-4)]
 
@@ -630,7 +645,8 @@ def test_flash_backward_rejects_misaligned_bases(cuda):
 #: (B, Sq, Skv, H, KV, hd, causal, window, q_offset, k_offset): the block
 #: before the q rows, on the diagonal, a window, a negative offset
 #: difference (not causal, and causal with part visible), G = 1, 4, 48,
-#: ragged Sq and Skv, and a block that nothing sees
+#: ragged Sq and Skv, and a block that nothing sees; then hd 192 (the
+#: bf16 kernel of 64 kv rows a CTA) at G = 12, 1 and 4
 BLOCK_CASES = [
     (1, 256, 256, 32, 8, 128, True, 0, 256, 0),
     (1, 256, 256, 32, 8, 128, True, 0, 256, 256),
@@ -640,6 +656,11 @@ BLOCK_CASES = [
     (1, 96, 160, 16, 4, 64, True, 0, 0, 64),
     (1, 64, 64, 8, 2, 128, True, 0, 0, 128),
     (1, 96, 160, 4, 1, 16, True, 0, 0, 64),
+    (1, 256, 256, 24, 2, 192, True, 0, 256, 0),
+    (1, 127, 257, 8, 8, 192, True, 0, 100, 0),
+    (2, 130, 129, 12, 1, 192, False, 0, 0, 500),
+    (1, 200, 300, 8, 2, 192, True, 100, 300, 150),
+    (1, 64, 64, 8, 2, 192, True, 0, 0, 128),
 ]
 
 

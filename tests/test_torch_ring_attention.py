@@ -97,8 +97,9 @@ def _step_inputs(seed, skv, carried, b=1, sq=64, h=4, kvh=2, hd=32):
 
 
 @pytest.mark.parametrize("causal,window,carried,skv", STEP_CASES)
-def test_plain_carry_step_matches_reference(causal, window, carried, skv):
-    q, k, v, (m, l, acc) = _step_inputs(7, skv, carried)
+def test_plain_carry_step_matches_reference(causal, window, carried, skv,
+                                            hd=32):
+    q, k, v, (m, l, acc) = _step_inputs(7, skv, carried, hd=hd)
     got = fa.flash_attention_step_torch(
         _t(q), _t(k), _t(v), _t(m), _t(l), _t(acc), causal=causal,
         window=window, q_offset=64, k_offset=32)
@@ -182,6 +183,16 @@ def test_bwd_block_matches_reference(causal, window, skv, k_offset):
         _close(g.numpy(), w, 2e-5, 2e-5, nm)
 
 
+@pytest.mark.parametrize("causal,window,carried,skv",
+                         [(True, 0, True, 64), (False, 40, False, 50)])
+def test_plain_carry_step_at_head_dim_192_matches_reference(causal, window,
+                                                            carried, skv):
+    """nemotron-4-340b's head_dim: the plain step against the jnp engine
+    and (Skv 64) the Pallas carry kernel in interpret mode."""
+    test_plain_carry_step_matches_reference(causal, window, carried, skv,
+                                            hd=192)
+
+
 def test_init_partials_needs_a_device():
     with pytest.raises(TypeError):
         fa.init_partials(1, 4, 2, 8)            # no default device
@@ -194,9 +205,9 @@ def test_init_partials_needs_a_device():
 # ---------------------------------------------------------------------------
 
 
-def _ring_inputs():
+def _ring_inputs(shape=RING_SHAPE):
     rng = np.random.default_rng(0)
-    b, s, h, kvh, hd = RING_SHAPE
+    b, s, h, kvh, hd = shape
     q = _rand(rng, (b, s, h, hd))
     k = _rand(rng, (b, s, kvh, hd))
     v = _rand(rng, (b, s, kvh, hd))
@@ -230,8 +241,9 @@ def _ref_ring(q, k, v, dout, causal, window, mode):
 
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("mode", MODES)
-def test_one_rank_ring_matches_reference(causal, window, mode):
-    q, k, v, dout = _ring_inputs()
+def test_one_rank_ring_matches_reference(causal, window, mode,
+                                        shape=RING_SHAPE):
+    q, k, v, dout = _ring_inputs(shape)
     want_out, want_grads, want_recs = _ref_ring(q, k, v, dout, causal,
                                                 window, mode)
     leaves = [_t(a).requires_grad_() for a in (q, k, v)]
@@ -245,6 +257,14 @@ def test_one_rank_ring_matches_reference(causal, window, mode):
         _close(g.grad.numpy(), w, 3e-4, 3e-5, f"d{nm}")
     assert [dataclasses.asdict(r) | {"t": None} for r in cap.records] == \
         [dataclasses.asdict(r) | {"t": None} for r in want_recs]
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 70)])
+def test_one_rank_ring_at_head_dim_192_matches_reference(causal, window):
+    """nemotron-4-340b's head_dim (6:1 heads): output and gradients, and
+    the DecisionRecord, as at hd 32."""
+    test_one_rank_ring_matches_reference(causal, window, "bulk",
+                                         shape=(1, 128, 6, 1, 192))
 
 
 def test_ring_over_several_ranks_needs_their_group():
