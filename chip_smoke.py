@@ -241,7 +241,7 @@ FLASH_WGMMA = ([f"flash_fwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128, 192)
                 for c in ("false", "true")]
                + [f"flash_bwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128)
                   for c in ("false", "true")]
-               + [f"flash_bwd_wgmma_split_kernel<192, {c}>"
+               + [f"flash_bwd_wgmma_pair_kernel<192, {c}>"
                   for c in ("false", "true")])
 PEAK = {"bfloat16": 989e12,           # dense tensor-core rate, flop/s
         "float32": 67e12}             # f32 outside the tensor cores
@@ -635,13 +635,17 @@ FLASH_CASES = [
 #: the same at head_dim 192: nemotron's call (1 x 4096, 96/8 heads,
 #: causal), phase 17 (e)'s training call (2 x 2048, 4/2 heads, causal),
 #: then GQA 12:1 with a window, MHA not causal with a ragged Skv, and
-#: q_offset with Sq < Skv
+#: q_offset with Sq < Skv; then edges of the backward's clusters of two
+#: 64-row kv tiles: three kv tiles (the second cluster's upper CTA has no
+#: rows) at G = 12, and a window under a tile with q_offset > 0
 FLASH192_CASES = [
     (1, 4096, 4096, 96, 8, True, 0, 0),
     (2, 2048, 2048, 4, 2, True, 0, 0),
     (1, 257, 257, 24, 2, True, 100, 0),
     (1, 200, 333, 8, 8, False, 0, 0),
     (2, 129, 300, 24, 2, True, 0, 171),
+    (1, 192, 192, 12, 1, True, 0, 0),
+    (2, 129, 320, 24, 2, True, 20, 191),
 ]
 #: the training phase's attention: phi4-mini at B=2, S=1024, causal
 TRAIN_ATTN = dict(b=2, s=1024, h=32, kvh=8, hd=128)
@@ -931,11 +935,41 @@ def flash_times(torch, gen, shape, label, worst) -> dict:
     return times
 
 
+def bwd192_geometry(torch) -> None:
+    """The built hd-192 backward's geometry against ``bwd192_plan`` at
+    nemotron's call: kv rows a CTA, CTAs a cluster, shared memory, threads
+    and the L2 chunk must be the plan's; prints the launch order's chunks
+    and the clusters the card keeps resident."""
+    from repro_torch.kernels import flash_attention as fa
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    s = NEMO_ATTN
+    plan = fa.bwd192_plan(s["b"], s["s"], s["s"], s["h"], s["kvh"], True,
+                          n_sm=n_sm)
+    built = fa.bwd192_built()
+    print(f"  hd-192 backward at nemotron's call: plan {plan.kv_rows} kv "
+          f"rows a CTA, clusters of {plan.cluster}, {plan.threads} threads, "
+          f"{plan.smem} B of shared memory, {len(plan.clusters)} clusters "
+          f"in chunks of {plan.chunk} heads (Q, dO and dQ within "
+          f"{fa.BWD192_L2_CHUNK >> 20} MB), {plan.resident} resident on "
+          f"{n_sm} SMs; built {built}", flush=True)
+    got = (built["kv_rows"], built["cluster"], built["smem"],
+           built["threads"], built["l2_chunk"])
+    want = (plan.kv_rows, plan.cluster, plan.smem, plan.threads,
+            fa.BWD192_L2_CHUNK)
+    if got != want or not 1 <= built["resident"] <= plan.resident:
+        fail(f"the built hd-192 backward {built} is not its plan {want} "
+             f"(resident clusters at most {plan.resident})")
+
+
 def phase_flash(torch, hd):
     """The flash kernels at ``hd`` held to their plain versions on
     FLASH_PHASES' cases, the norm check's controls, then the times at its
-    call.  Returns ({kernel: times}, {kernel: worst bf16 error})."""
+    call (at hd 192 first the backward's geometry against its plan).
+    Returns ({kernel: times}, {kernel: worst bf16 error})."""
     cases, shape, label = FLASH_PHASES[hd]
+    if hd == 192:
+        bwd192_geometry(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + hd)
     worst = flash_checks(torch, gen, hd, cases)
     norm_controls(torch, gen, shape, label)

@@ -143,25 +143,63 @@
 //     changes from run to run, so the backward is not bit for bit
 //     repeatable.
 //
-// At hd 192 the backward is flash_bwd_wgmma_split_kernel<192, kBlock>:
-// the kernel above would hold dK and dV (96 + 96 registers) beside S^T and
-// dP^T (64) and take 261 KB of shared memory.  Its budget instead:
-//   * one CTA of 256 threads per (b, h, 64 kv rows); warpgroup 0 holds dK
-//     and warpgroup 1 dV of all 64 rows, each over all 192 columns: 96
-//     accumulator registers a thread, beside one 32-register product
-//     (S^T or dP^T), a second one in (dP^T, read back) and the hi/lo
-//     fragments (32), under the 255 a thread of 8 warps may have;
-//   * per query tile, warpgroup 0 computes S^T = K Q^T and warpgroup 1
-//     dP^T = V dO^T (m64n64k16, 12 k-steps); dP^T goes to warpgroup 0
-//     through shared memory, thread by thread in the accumulator layout
-//     (16 KB), which forms P and dS, passes P^T's hi/lo fragments back
-//     (16 KB) and writes dS hi/lo (16 KB, over the dP^T it has read);
-//     then dK += dS^T Q and dV += P^T dO (m64n192k16, MN-major Q and dO)
-//     run side by side, and dQ += dS K with warpgroup 0 taking hd columns
-//     0..63 and warpgroup 1 64..191 (warpgroup 0 formed P and dS);
-//   * shared memory: K and V 2 x 24 KB, Q and dO 2 stages x 2 x 24 KB, the
-//     three exchange buffers 48 KB, the statistics 1 KB and the dQ
-//     staging 36 KB: 219,176 B with the barriers and the alignment.
+// At hd 192 the backward is flash_bwd_wgmma_pair_kernel<192, kBlock>.  A
+// CTA holds 64 kv rows (dK and dV of 128 rows, 192 registers a thread,
+// would not fit beside S^T and dP^T).  Bound on this card, by operations:
+// at nemotron-4-340b's call (1 x 4096, 96/8 heads, causal) 1.56 ms (10
+// flop per unmasked pair and hd at 989 TFLOP/s; the hi/lo products make
+// the tensor work 16, 2.5 ms).  Measured (scripts/flash192_bwd_turns.py,
+// H100 80GB HBM3): the first hd-192 kernel's time a head was flat from 12
+// to 48 heads and rose 35% at 96, where its launch order (heads fastest)
+// spread the resident CTAs over every head's Q, dO and dQ (~600 MB against
+// the 50 MB L2); the rest was its serial CTA.  The design:
+//   * clusters of two CTAs (__cluster_dims__) on adjacent 64-row kv tiles
+//     of one (b, h): each query tile's Q and lse (CTA 0) and dO and dsum
+//     (CTA 1) are multicast into both CTAs, so one load serves 128 kv
+//     rows; 2 stages, a stage's empty barrier counting the warps of both
+//     CTAs.  Both CTAs step through the union of their query tiles and
+//     compute only on their own: under causality the upper CTA skips the
+//     first, with a window the lower one the last, and a pair whose upper
+//     tile lies past Skv has an upper CTA with no rows that only loads;
+//   * 5-D tensor maps ({column block, row, block, head, batch}) move a
+//     whole 24 KB tile in one TMA instruction; lane 0 of warp 3 of
+//     warpgroup 0 issues the tile, that of warpgroup 1 the statistics and
+//     the stage's expected bytes, as soon as both CTAs free the stage
+//     (try_wait; blocking only for the tile the CTA needs next);
+//   * both warpgroups busy: each computes S^T and dP^T for 32 of the 64
+//     query columns (m64n32k16, 12 k-steps, both operands in shared
+//     memory), forms its own P and dS, and writes P^T and dS^T (hi, lo)
+//     into 128-byte-swizzled [64 kv][64 q] tiles; then warpgroup 0 runs
+//     dK += dS^T Q and warpgroup 1 dV += P^T dO (m64n192k16, A from those
+//     tiles K-major), releasing the stage once they have read it
+//     (wgmma_wait<1>), and each dQ += dS K over 96 hd columns as one
+//     m64n96k16 a k-step (A = the dS^T tile read MN-major, B = K
+//     MN-major: K is loaded in 32-column blocks with the 64-byte swizzle,
+//     so column 96 starts a block and A is read once a k-step).  Two CTA
+//     barriers a tile;
+//   * each warpgroup stages its dQ partial as three swizzled 32-column
+//     f32 blocks and adds it to the f32 dq with one tensor-map
+//     reduce-add; dK and dV (G > 1) leave the same way, one reduce-add a
+//     warpgroup.  Not the pair's partials summed in one CTA first: over
+//     distributed shared memory that put ~5,500 cycles of cross-CTA
+//     waiting on every tile; nor f32 vector atomics from registers (1.2x
+//     slower);
+//   * the launch order keeps the resident clusters' Q, dO and dQ in L2:
+//     (b, h) units in chunks of at most kL2Chunk (32 MB) of Q + dO + dQ
+//     (at 1 x 4096, 5 heads; a small call is one chunk), chunks one after
+//     another with h slowest, and within a chunk the kv pairs lowest
+//     (heaviest under causality) first over the chunk's units, so the
+//     tail stays short;
+//   * shared memory: K and V 2 x 24 KB, Q and dO 2 stages x 2 x 24 KB,
+//     P^T and dS^T 32 KB, the statistics 1 KB, the dQ staging 48 KB:
+//     231,464 B with the barriers and the alignment.  dK or dV (96
+//     registers) beside the dQ partial (48): 226 registers, no spill.
+//   What bounds it: ~7,400 cycles a tile (before the m64n96 dQ), 78% in
+//   the three product phases, whose pace follows their shared-memory
+//   operand reads (~350 KB a tile).  Slower when measured: the next
+//   tile's S^T and dP^T issued behind this tile's products (1.1-1.3x),
+//   S^T and dP^T as m64n64 on one warpgroup each with halves traded
+//   through shared memory (spills, 1.2x).
 //
 // The f32 forward and carry step and the f32 backward are SIMT kernels
 // (simple and correct first; f32 FMAs, no tensor cores: TF32 would round
@@ -1306,7 +1344,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        void* __restrict__ dv, int batch, int sq, int skv,
                        int n_heads, int n_kv, int q_offset, int window,
                        int causal, float scale) {
-  static_assert(HD == 64 || HD == 128, "hd 192: the split kernel");
+  static_assert(HD == 64 || HD == 128, "hd 192: the pair kernel");
   using L = BwdSmem<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -1592,107 +1630,315 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---------------------------------------------------------------------------
 // The bf16 backward and block backward at hd 192 (see the note at the head
-// of the file): warpgroup 0 holds dK and warpgroup 1 dV of the CTA's 64 kv
-// rows, each over all 192 columns
+// of the file): clusters of two CTAs on adjacent 64-row kv tiles that share
+// every Q, dO and statistics tile and one dQ reduce-add a row
 // ---------------------------------------------------------------------------
 
-constexpr int kSplitN = 64;           // kv rows of a CTA
+constexpr int kPairN = 64;            // kv rows of a CTA
+constexpr int kPair = 2;              // CTAs of a cluster
+constexpr int kHalf = 96;             // hd columns of dQ a warpgroup holds
+constexpr int kDqBox = 32;            // f32 columns of a reduce block (128 B)
+// K's 32-column blocks (64-byte swizzle, so dQ's 96 columns start on one)
+constexpr int kK64Block = kPairN * 64;
+constexpr int kPairEmptyArrivals = 16;  // one lane of each warp of both CTAs
+// Q and dO (bf16) and dQ (f32) of the (batch row, head) units a chunk of
+// the launch order interleaves: chunks of heads come one after another, so
+// what the resident clusters re-read stays in the card's 50 MB L2
+constexpr int64_t kL2Chunk = 32ll << 20;
 
 template <int HD>
-struct SplitSmem {
+struct PairSmem {
+  static_assert(HD == 192, "the pair kernel is built for hd 192");
   static constexpr int kT = HD / 64 * kQBox;    // a 64-row K, V, Q or dO tile
   static constexpr int kK = 0;
   static constexpr int kV = kK + kT;
   static constexpr int kQ = kV + kT;
   static constexpr int kDO = kQ + kBwdStages * kT;
-  // warpgroup 1's dP^T for warpgroup 0 (put_frag's layout), then dS hi and
-  // lo as the K-major A operand of dQ, [64 q][64 kv] bf16, swizzled
-  static constexpr int kX = kDO + kBwdStages * kT;
-  // warpgroup 0's P^T hi and lo for warpgroup 1 (put_frag's layout)
-  static constexpr int kY = kX + 2 * kQBox;
+  // P^T then dS^T, each hi and lo: [64 kv][64 q] bf16, K-major, swizzled
+  static constexpr int kPT = kDO + kBwdStages * kT;
+  static constexpr int kDST = kPT + 2 * kQBox;
   // lse (times log2 e) then dsum of each stage's 64 rows, f32
-  static constexpr int kStat = kY + 128 * 32 * 4;
-  // dQ of each warpgroup, 64 rows x 64 hd columns f32 (rows kDqRow apart)
+  static constexpr int kStat = kDST + 2 * kQBox;
+  // each warpgroup's dQ partial as 3 boxes [64 q][32] f32, swizzled
+  // (128 B) as its tensor-map reduce-adds read them
   static constexpr int kDQ = kStat + kBwdStages * 2 * kBM * 4;
-  static constexpr int kBar = kDQ + 2 * kBM * kDqRow;
+  static constexpr int kBar = kDQ + 2 * (kHalf / kDqBox) * kBM * 128;
   // kv_full, then full and empty of each stage
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kBwdStages) + 1024;
-  static_assert(2 * kQBox == 128 * 32 * 4, "dP^T and dS share kX");
   static_assert(kBytes <= 232448, "over the opt-in shared memory");
 };
 
-// Thread tw's 32 fragment values into a [8][128] array of 16-byte vectors
-// (neighbouring threads on neighbouring vectors: no bank conflict), where
-// thread tw of the other warpgroup, whose fragments have the same layout,
-// reads them back.
-__device__ __forceinline__ void put_frag(uint8_t* buf, int tw,
-                                         const float (&x)[32]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    reinterpret_cast<float4*>(buf)[i * 128 + tw] =
-        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
 }
-__device__ __forceinline__ void get_frag(const uint8_t* buf, int tw,
-                                         float (&x)[32]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float4 t = reinterpret_cast<const float4*>(buf)[i * 128 + tw];
-    x[4 * i] = t.x;
-    x[4 * i + 1] = t.y;
-    x[4 * i + 2] = t.z;
-    x[4 * i + 3] = t.w;
-  }
+
+// The shared::cluster address of `addr` (this CTA's) in CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
 }
-__device__ __forceinline__ void put_frag(uint8_t* buf, int tw,
-                                         const uint32_t (&hi)[16],
-                                         const uint32_t (&lo)[16]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    reinterpret_cast<uint4*>(buf)[i * 128 + tw] =
-        make_uint4(hi[4 * i], hi[4 * i + 1], hi[4 * i + 2], hi[4 * i + 3]);
-    reinterpret_cast<uint4*>(buf)[(4 + i) * 128 + tw] =
-        make_uint4(lo[4 * i], lo[4 * i + 1], lo[4 * i + 2], lo[4 * i + 3]);
-  }
+
+// Every thread of both CTAs.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void get_frag(const uint8_t* buf, int tw,
-                                         uint32_t (&hi)[16],
-                                         uint32_t (&lo)[16]) {
+
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t cluster_bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          cluster_bar)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 64-byte-swizzled operand (as desc,
+// 32-element rows of 64 bytes; 8-row groups 512 bytes apart).
+__device__ __forceinline__ uint64_t desc64(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(512 >> 4) << 32 | static_cast<uint64_t>(2) << 62;
+}
+
+// The pair kernel's tensor maps are 5-D, {swizzle-wide column block, row,
+// block, head, batch}, so one instruction moves a whole tile of 64 rows,
+// laid out block after block in shared memory: at hd 192 three 64-column
+// blocks of bf16 (Q, dO, V; 128-byte swizzle), six 32-column ones (K;
+// 64-byte swizzle), or three 32-column blocks of f32 (96 dQ columns).
+
+// A tile into this CTA (K or V).
+__device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int row, int head,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %3, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(head), "r"(b)
+      : "memory");
+}
+
+// A tile (Q or dO), or 1-D bytes (lse or dsum), into both CTAs of the
+// cluster: the same offsets in each, completing on each CTA's barrier at
+// `bar`'s offset.
+__device__ __forceinline__ void tma_load5_pair(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int row,
+                                               int head, int b) {
+  const uint16_t both = 3;
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %3, %5, %6}], [%2], "
+      "%7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(head), "r"(b), "h"(both)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load_pair(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar) {
+  const uint16_t both = 3;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar), "h"(both)
+      : "memory");
+}
+
+// A tile of f32 (blocks from `block`) added from shared memory into
+// global memory, completing in the bulk group.
+__device__ __forceinline__ void tma_reduce5(const CUtensorMap* map,
+                                            uint32_t src, int row, int block,
+                                            int head, int b) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.5d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(0), "r"(row), "r"(block), "r"(head), "r"(b)
+      : "memory");
+}
+
+#define FP_D8(C, i)                                                        \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
+      C(d[i + 6]), C(d[i + 7])
+#define FP_RW(x) "+f"(x)
+#define FP_WO(x) "=f"(x)
+#define FP_N32_REGS                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15}, "
+#define FP_N192_REGS                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "   \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "   \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "   \
+  "%93, %94, %95}, "
+
+// d (+)= A B, m64nNk16, both from shared memory: A K-major (TA = 0) or
+// MN-major (TA = 1), B likewise (TB).  kInit writes d without reading it.
+template <int TA, int TB, bool kInit>
+__device__ __forceinline__ void ss_n32(float (&d)[16], uint64_t da,
+                                       uint64_t db) {
+  if constexpr (kInit)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %20, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FP_N32_REGS
+        "%16, %17, p, 1, 1, %18, %19;\n}\n"
+        : FP_D8(FP_WO, 0), FP_D8(FP_WO, 8)
+        : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(0));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %20, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FP_N32_REGS
+        "%16, %17, p, 1, 1, %18, %19;\n}\n"
+        : FP_D8(FP_RW, 0), FP_D8(FP_RW, 8)
+        : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(1));
+}
+#define FP_N96_REGS                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+  "%41, %42, %43, %44, %45, %46, %47}, "
+// d (+)= A B, m64n96k16, A and B MN-major from shared memory (dQ = dS K).
+template <bool kInit>
+__device__ __forceinline__ void ss_n96(float (&d)[48], uint64_t da,
+                                       uint64_t db) {
+  if constexpr (kInit)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " FP_N96_REGS
+        "%48, %49, p, 1, 1, 1, 1;\n}\n"
+        : FP_D8(FP_WO, 0), FP_D8(FP_WO, 8), FP_D8(FP_WO, 16),
+          FP_D8(FP_WO, 24), FP_D8(FP_WO, 32), FP_D8(FP_WO, 40)
+        : "l"(da), "l"(db), "r"(0));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " FP_N96_REGS
+        "%48, %49, p, 1, 1, 1, 1;\n}\n"
+        : FP_D8(FP_RW, 0), FP_D8(FP_RW, 8), FP_D8(FP_RW, 16),
+          FP_D8(FP_RW, 24), FP_D8(FP_RW, 32), FP_D8(FP_RW, 40)
+        : "l"(da), "l"(db), "r"(1));
+}
+#undef FP_N96_REGS
+
+// d += A B, m64n192k16, A K-major and B MN-major, both from shared memory.
+__device__ __forceinline__ void ss_n192(float (&d)[96], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " FP_N192_REGS
+      "%96, %97, p, 1, 1, 0, 1;\n}\n"
+      : FP_D8(FP_RW, 0), FP_D8(FP_RW, 8), FP_D8(FP_RW, 16),
+        FP_D8(FP_RW, 24), FP_D8(FP_RW, 32), FP_D8(FP_RW, 40),
+        FP_D8(FP_RW, 48), FP_D8(FP_RW, 56), FP_D8(FP_RW, 64),
+        FP_D8(FP_RW, 72), FP_D8(FP_RW, 80), FP_D8(FP_RW, 88)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef FP_N192_REGS
+#undef FP_N32_REGS
+#undef FP_WO
+#undef FP_RW
+#undef FP_D8
+
+// Query tiles [*t0, *t1) of 64 rows that see kv rows [k0, k0 + 64) (none
+// when k0 >= skv): from the first query that causality lets see k0 to the
+// last that the window lets see the tile's last row.  Every such tile
+// holds at least one unmasked pair (bwd192_plan in flash_attention.py is
+// this function in Python).
+__device__ __forceinline__ void pair_q_tiles(int k0, int sq, int skv,
+                                             int q_offset, int window,
+                                             int causal, int* t0, int* t1) {
+  *t0 = *t1 = 0;
+  if (k0 >= skv) return;
+  const int kmax = min(k0 + kPairN, skv) - 1;
+  const int i_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int i_hi = window > 0 ? min(sq, kmax + window - q_offset) : sq;
+  if (i_hi <= i_lo) return;
+  *t0 = i_lo / kBM;
+  *t1 = (i_hi + kBM - 1) / kBM;
+}
+
+// P^T and dS^T of one thread's 8 x 2 pairs, from S^T = K Q^T and dP^T =
+// V dO^T over its warpgroup's 32 query columns (m64n32 accumulator
+// layout: x[4 j + 2 r + e] is kv row kv_row + 8 r, query column qc + 8 j
+// + 2 tq + e).  P = exp(S scale - lse), masked pairs exactly 0; dS = P
+// (dP - dsum) scale.  Pair (x[2 m], x[2 m + 1]) leaves as bf16 hi/lo
+// (x to about 2^-17) in p_hi[m], p_lo[m] and d_hi[m], d_lo[m].
+template <bool kMask>
+__device__ __forceinline__ void pair_probs(
+    float (&s)[16], float (&dp)[16], const float (&lse_r)[8],
+    const float (&dsum_r)[8], uint32_t (&p_hi)[8], uint32_t (&p_lo)[8],
+    uint32_t (&d_hi)[8], uint32_t (&d_lo)[8], int qc, int kv_row, int tq,
+    int sq, int skv, int q_offset, int window, int causal, float scale) {
+  const float sl = scale * kLog2e;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 h = reinterpret_cast<const uint4*>(buf)[i * 128 + tw];
-    const uint4 l = reinterpret_cast<const uint4*>(buf)[(4 + i) * 128 + tw];
-    hi[4 * i] = h.x;
-    hi[4 * i + 1] = h.y;
-    hi[4 * i + 2] = h.z;
-    hi[4 * i + 3] = h.w;
-    lo[4 * i] = l.x;
-    lo[4 * i + 1] = l.y;
-    lo[4 * i + 2] = l.z;
-    lo[4 * i + 3] = l.w;
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 4 * j + 2 * r + e;
+        float p = exp2_approx(fmaf(s[n], sl, -lse_r[2 * j + e]));
+        if (kMask) {
+          const int qi = qc + 8 * j + 2 * tq + e;
+          if (qi >= sq ||
+              !visible(q_offset + qi, kv_row + 8 * r, skv, causal, window))
+            p = 0.f;
+        }
+        s[n] = p;
+        dp[n] = p * (dp[n] - dsum_r[2 * j + e]) * scale;
+      }
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    uint32_t hi = bf16x2(s[2 * m], s[2 * m + 1]);
+    p_hi[m] = hi;
+    p_lo[m] = bf16x2(s[2 * m] - __uint_as_float(hi << 16),
+                     s[2 * m + 1] - __uint_as_float(hi & 0xffff0000u));
+    hi = bf16x2(dp[2 * m], dp[2 * m + 1]);
+    d_hi[m] = hi;
+    d_lo[m] = bf16x2(dp[2 * m] - __uint_as_float(hi << 16),
+                     dp[2 * m + 1] - __uint_as_float(hi & 0xffff0000u));
   }
 }
 
-// As flash_bwd_wgmma_kernel, with one CTA per (b, h, 64 kv rows), lowest
-// kv tile first.  Per query tile: warpgroup 0 computes S^T = K Q^T and
-// warpgroup 1 dP^T = V dO^T; dP^T goes through shared memory to
-// warpgroup 0, which forms P and dS, passes P^T back, and writes dS for
-// dQ; then dK += dS^T Q on warpgroup 0 beside dV += P^T dO on warpgroup
-// 1, and dQ += dS K with warpgroup 0 taking hd columns 0..63 and
-// warpgroup 1 64..191.
+// One CTA of a pair: kv rows [k0, k0 + 64) of head h, k0 = 128 pt + 64 r
+// for cluster rank r.  Per query tile both warpgroups take 32 query
+// columns each of S^T and dP^T (m64n32), form their P and dS, and write
+// P^T and dS^T (hi, lo) into swizzled shared memory; then warpgroup 0 runs
+// dK += dS^T Q and warpgroup 1 dV += P^T dO (m64n192, A from shared
+// memory), and each dQ += dS K over 96 hd columns (A = dS^T read
+// MN-major), staged as three swizzled 32-column blocks and added to the
+// f32 dq by one tensor-map reduce-add.  Each CTA issues half of every
+// tile's loads (CTA 0 Q and lse, CTA 1 dO and dsum) into both CTAs; both
+// CTAs step through the union of their query tiles, and a CTA computes
+// only on its own.  kBlock = false: the flash backward (dK, dV at
+// G = 1 written in bf16); kBlock = true: the block backward (every output
+// f32).  `chunk` (units of (batch row, head) a chunk of the launch order
+// holds) comes from kL2Chunk and the shapes.
 template <int HD, bool kBlock>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
-                             const __grid_constant__ CUtensorMap tm_k,
-                             const __grid_constant__ CUtensorMap tm_v,
-                             const __grid_constant__ CUtensorMap tm_do,
-                             const float* __restrict__ stats, int sq_pad,
-                             float* __restrict__ dq, void* __restrict__ dk,
-                             void* __restrict__ dv, int batch, int sq,
-                             int skv, int n_heads, int n_kv, int q_offset,
-                             int window, int causal, float scale) {
-  using L = SplitSmem<HD>;
-  constexpr int kBoxes = HD / 64;
-  static_assert(HD % 64 == 0 && kBoxes >= 2, "dQ's boxes split 1 : rest");
+__global__ void __cluster_dims__(kPair, 1, 1)
+    __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const __grid_constant__ CUtensorMap tm_dq,
+                                const __grid_constant__ CUtensorMap tm_dk,
+                                const __grid_constant__ CUtensorMap tm_dv,
+                                const float* __restrict__ stats, int sq_pad,
+                                void* __restrict__ dk, void* __restrict__ dv,
+                                int batch, int sq, int skv, int n_heads,
+                                int n_kv, int q_offset, int window,
+                                int causal, float scale, int chunk) {
+  using L = PairSmem<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // 128B swizzle atoms
@@ -1701,247 +1947,313 @@ flash_bwd_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full = kv_full + 8;              // + 8 * stage
   const uint32_t empty = full + 8 * kBwdStages;
 
-  int idx = blockIdx.x;
-  const int h = idx % n_heads;
-  idx /= n_heads;
-  const int b = idx % batch;
-  idx /= batch;
-  const int k0 = idx * kSplitN;
+  // The launch order: chunks of `chunk` units (h slowest, then b), one
+  // after another; within a chunk the kv pairs, lowest (the most query
+  // rows under causality) first, each over the chunk's units.
+  const uint32_t r = cluster_rank();
+  const uint32_t pr = r ^ 1u;
+  const int n_pt = (skv + kPair * kPairN - 1) / (kPair * kPairN);
+  const int n_units = batch * n_heads;
+  int idx = blockIdx.x / kPair;
+  const int c = idx / (chunk * n_pt);
+  idx -= c * chunk * n_pt;
+  const int cu = min(chunk, n_units - c * chunk);
+  const int pt = idx / cu;
+  const int unit = c * chunk + idx % cu;
+  const int h = unit / batch;
+  const int b = unit % batch;
   const int groups = n_heads / n_kv;
   const int kvh = h / groups;
+  const int k0 = (kPair * pt + (int)r) * kPairN;
 
-  // query rows that see kv rows [k0, kmax]
-  const int kmax = min(k0 + kSplitN, skv) - 1;
-  const int i_lo = causal ? max(0, k0 - q_offset) : 0;
-  const int i_hi = window > 0 ? min(sq, kmax + window - q_offset) : sq;
-  const int t0 = i_lo / kBM;
-  const int n_qt = i_hi > i_lo ? (i_hi + kBM - 1) / kBM - t0 : 0;
+  // own and the other CTA's query tiles, and their union, which both step
+  int t0m, t1m, t0p, t1p;
+  pair_q_tiles(k0, sq, skv, q_offset, window, causal, &t0m, &t1m);
+  pair_q_tiles((kPair * pt + (int)pr) * kPairN, sq, skv, q_offset, window,
+               causal, &t0p, &t1p);
+  const int own_n = t1m - t0m;
+  const int T0 = own_n == 0 ? t0p : (t1p == t0p ? t0m : min(t0m, t0p));
+  const int n_u = max(t1m, t1p) - T0;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < kBwdStages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kBwdEmptyArrivals);
+      mbar_init(empty + 8 * s, kPairEmptyArrivals);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();   // both CTAs' barriers live before any remote access
 
-  // Thread 0 issues every TMA load, as in flash_bwd_wgmma_kernel.
+  // Lane 0 of warp 3 of each warpgroup issues this CTA's half of union
+  // tile v into stage v % 2 of both CTAs, once both have released the
+  // tile that used the stage: warpgroup 0 the Q (CTA 0) or dO (CTA 1)
+  // tile, warpgroup 1 the lse (CTA 0) or dsum (CTA 1) and the stage's
+  // expected bytes (an issue stalls its warp, so warp 0 of each warpgroup
+  // issues the dQ reduce-add instead).
+  const int wp = (threadIdx.x >> 5) & 3;
+  const bool producer = wp == 3 && (threadIdx.x & 31) == 0;
   const float* stat_bh = stats + ((int64_t)b * n_heads + h) * 2 * sq_pad;
-  auto issue = [&](int i) {
-    const int st = i % kBwdStages;
-    mbar_wait(empty + 8 * st, ((i / kBwdStages) & 1) ^ 1);
-    mbar_expect_tx(full + 8 * st, 2 * L::kT + 2 * kBM * 4);
-    const int q0 = (t0 + i) * kBM;
-    const uint32_t stat = base + L::kStat + st * 2 * kBM * 4;
-    bulk_load(stat, stat_bh + q0, kBM * 4, full + 8 * st);
-    bulk_load(stat + kBM * 4, stat_bh + sq_pad + q0, kBM * 4, full + 8 * st);
-#pragma unroll
-    for (int x = 0; x < kBoxes; ++x) {
-      tma_load(base + L::kQ + st * L::kT + x * kQBox, &tm_q, full + 8 * st,
-               64 * x, h, q0, b);
-      tma_load(base + L::kDO + st * L::kT + x * kQBox, &tm_do,
-               full + 8 * st, 64 * x, h, q0, b);
+  int issued = 0;
+  auto issue_upto = [&](int limit, bool block) {
+    for (limit = min(limit, n_u); issued < limit; ++issued) {
+      const int st = issued % kBwdStages;
+      const int par = ((issued / kBwdStages) & 1) ^ 1;
+      // (the other CTA's arrivals release at cluster scope; this wait
+      // acquires at CTA scope, as CUTLASS's multicast pipelines do)
+      if (block)
+        mbar_wait(empty + 8 * st, par);
+      else if (!mbar_try_wait(empty + 8 * st, par))
+        return;
+      const int q0 = (T0 + issued) * kBM;
+      if (threadIdx.x >= 128) {
+        mbar_expect_tx(full + 8 * st, 2 * L::kT + 2 * kBM * 4);
+        const uint32_t stat = base + L::kStat + st * 2 * kBM * 4 + r * kBM * 4;
+        bulk_load_pair(stat, stat_bh + r * sq_pad + q0, kBM * 4,
+                       full + 8 * st);
+      } else {
+        tma_load5_pair(base + (r == 0 ? L::kQ : L::kDO) + st * L::kT,
+                       r == 0 ? &tm_q : &tm_do, full + 8 * st, q0, h, b);
+      }
     }
   };
-  if (threadIdx.x == 0 && n_qt > 0) {
-    mbar_expect_tx(kv_full, 2 * L::kT);
-#pragma unroll
-    for (int x = 0; x < kBoxes; ++x) {
-      tma_load(base + L::kK + x * kQBox, &tm_k, kv_full, 64 * x, kvh, k0, b);
-      tma_load(base + L::kV + x * kQBox, &tm_v, kv_full, 64 * x, kvh, k0, b);
+  if (producer) issue_upto(kBwdStages, true);
+  if (threadIdx.x == 0) {
+    if (own_n > 0) {
+      mbar_expect_tx(kv_full, 2 * L::kT);
+      tma_load5(base + L::kK, &tm_k, kv_full, k0, kvh, b);
+      tma_load5(base + L::kV, &tm_v, kv_full, k0, kvh, b);
     }
-    for (int i = 0; i < min(n_qt, kBwdStages - 1); ++i) issue(i);
   }
 
-  // ---- warpgroup 0: dK; warpgroup 1: dV ----
-  const int c = threadIdx.x >> 7;
+  // ---- warpgroup 0: dK; warpgroup 1: dV; each 96 hd columns of dQ ----
+  const int w = threadIdx.x >> 7;
   const int tw = threadIdx.x & 127;
-  const int w = tw >> 5;
   const int lane = tw & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int kv_row = k0 + 16 * w + g;               // and kv_row + 8
-  const bool elected = lane == 0;
+  const int kv_row = k0 + 16 * wp + g;              // and kv_row + 8
 
   // acc[4 j + 2 r + e]: kv row kv_row + 8 r, hd column 8 j + 2 tq + e
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
-  if (n_qt > 0) {
-    const uint32_t kv_rows = base + (c == 0 ? L::kK : L::kV);
-    uint8_t* const xp = basep + L::kX;
-    uint8_t* const yp = basep + L::kY;
-    const uint32_t ds_hi = base + L::kX;
-    const uint32_t ds_lo = ds_hi + kQBox;
-    const uint32_t dq_st = base + L::kDQ + c * kBM * kDqRow;
-    uint8_t* const dq_st_p = basep + L::kDQ + c * kBM * kDqRow;
-    mbar_wait(kv_full, 0);
-    for (int i = 0; i < n_qt; ++i) {
-      const int st = i % kBwdStages;
-      const int q0 = (t0 + i) * kBM;
-      const uint32_t qt = base + L::kQ + st * L::kT;
-      const uint32_t dot = base + L::kDO + st * L::kT;
-      const uint32_t mine = c == 0 ? qt : dot;      // Q for dK, dO for dV
-      if (threadIdx.x == 0 && i + kBwdStages - 1 < n_qt)
-        issue(i + kBwdStages - 1);
+  // dQ: y64 over K's box b64 and y32 over 32 columns at b32: warpgroup 0
+  // hd columns 0..63 and 64..95, warpgroup 1 128..191 and 96..127; their
+  // columns within the warpgroup's 96, staged as 3 blocks of 32 at dq_st
+  const uint32_t kq = base + L::kK + 3 * w * kK64Block;
+  const uint32_t dq_st = base + L::kDQ + w * (kHalf / kDqBox) * kBM * 128;
+  uint8_t* const dq_st_p = basep + (dq_st - base);
+  if (own_n > 0) mbar_wait(kv_full, 0);
+  for (int u = 0; u < n_u; ++u) {
+    const int st = u % kBwdStages;
+    const int t = T0 + u;
+    const int q0 = t * kBM;
+    const bool mine = t >= t0m && t < t1m;
+    if (producer) {
+      issue_upto(u + 1, true);
+      issue_upto(u + 2, false);
+    }
+    __syncwarp();
+    mbar_wait(full + 8 * st, (u / kBwdStages) & 1);
+
+    // this CTA is done with the stage's Q and dO: release it in both CTAs
+    auto release = [&] {
       __syncwarp();
-      mbar_wait(full + 8 * st, (i / kBwdStages) & 1);
-
-      // S^T = K Q^T or dP^T = V dO^T, exact in f32 (bf16 products)
-      float x[32];
+      if (lane == 0) {
+        mbar_arrive(empty + 8 * st);
+        mbar_arrive_peer(peer_addr(empty + 8 * st, pr));
+      }
+      if (producer) issue_upto(u + kBwdStages + 1, false);
+    };
+    uint32_t p_hi[8], p_lo[8], d_hi[8], d_lo[8];
+    if (mine) {
+      // S^T = K Q^T and dP^T = V dO^T over this warpgroup's 32 query
+      // columns, exact in f32 (bf16 products)
+      const uint32_t qt = base + L::kQ + st * L::kT + 32 * w * 128;
+      const uint32_t dot = base + L::kDO + st * L::kT + 32 * w * 128;
+      const uint32_t ka = base + L::kK, va = base + L::kV;
+      float s[16], dp[16];
       wgmma_fence();
-      bwd_ss_t<HD>(x, kv_rows, mine, kQBox);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(x);
-
-      uint32_t a_hi[16], a_lo[16];     // dS^T (warpgroup 0), P^T (1)
-      cta_sync();                      // the last tile's dQ has read kX
-      if (c == 1) put_frag(xp, tw, x);
-      cta_sync();                      // dP^T in kX
-      if (c == 0) {
-        float lse_r[16], dsum_r[16], dp[32];
-        const float* stat = reinterpret_cast<const float*>(
-            basep + L::kStat + st * 2 * kBM * 4);
+      ss_n32<0, 0, true>(s, desc64(ka, 16), desc(qt, 16, 1024));
+      ss_n32<0, 0, true>(dp, desc(va, 16, 1024), desc(dot, 16, 1024));
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 l2 =
-              *reinterpret_cast<const float2*>(stat + 8 * j + 2 * tq);
-          const float2 d2 =
-              *reinterpret_cast<const float2*>(stat + kBM + 8 * j + 2 * tq);
-          lse_r[2 * j] = l2.x;
-          lse_r[2 * j + 1] = l2.y;
-          dsum_r[2 * j] = d2.x;
-          dsum_r[2 * j + 1] = d2.y;
-        }
-        get_frag(xp, tw, dp);
-        uint32_t p_hi[16], p_lo[16];
-        if (q0 + kBM > sq || k0 + kSplitN > skv ||
-            (causal && q_offset + q0 < k0 + kSplitN - 1) ||
-            (window > 0 && q_offset + q0 + kBM - 1 - k0 >= window))
-          bwd_probs<true>(x, dp, lse_r, dsum_r, p_hi, p_lo, a_hi, a_lo, q0,
+      for (int kk = 1; kk < HD / 16; ++kk) {
+        const uint32_t o = (kk / 4) * kQBox + (kk % 4) * 32;
+        ss_n32<0, 0, false>(
+            s, desc64(ka + (kk / 2) * kK64Block + (kk % 2) * 32, 16),
+            desc(qt + o, 16, 1024));
+        ss_n32<0, 0, false>(dp, desc(va + o, 16, 1024),
+                            desc(dot + o, 16, 1024));
+      }
+      wgmma_commit();
+      float lse_r[8], dsum_r[8];
+      const float* stat = reinterpret_cast<const float*>(
+          basep + L::kStat + st * 2 * kBM * 4) + 32 * w;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(stat + 8 * j + 2 * tq);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(stat + kBM + 8 * j + 2 * tq);
+        lse_r[2 * j] = l2.x;
+        lse_r[2 * j + 1] = l2.y;
+        dsum_r[2 * j] = d2.x;
+        dsum_r[2 * j + 1] = d2.y;
+      }
+      wgmma_wait<0>();
+      pin(s);
+      pin(dp);
+      const int qc = q0 + 32 * w;
+      if (q0 + kBM > sq || k0 + kPairN > skv ||
+          (causal && q_offset + q0 < k0 + kPairN - 1) ||
+          (window > 0 && q_offset + q0 + kBM - 1 - k0 >= window))
+        pair_probs<true>(s, dp, lse_r, dsum_r, p_hi, p_lo, d_hi, d_lo, qc,
+                         kv_row, tq, sq, skv, q_offset, window, causal,
+                         scale);
+      else
+        pair_probs<false>(s, dp, lse_r, dsum_r, p_hi, p_lo, d_hi, d_lo, qc,
                           kv_row, tq, sq, skv, q_offset, window, causal,
                           scale);
-        else
-          bwd_probs<false>(x, dp, lse_r, dsum_r, p_hi, p_lo, a_hi, a_lo, q0,
-                           kv_row, tq, sq, skv, q_offset, window, causal,
-                           scale);
-        put_frag(yp, tw, p_hi, p_lo);
-      }
-      cta_sync();                      // P^T in kY; warpgroup 0 read kX
-      if (c == 0) {
-        store_ds(xp, a_hi, w, g, tq);
-        store_ds(xp + kQBox, a_lo, w, g, tq);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      } else {
-        get_frag(yp, tw, a_hi, a_lo);
-      }
-
-      // dK += dS^T Q or dV += P^T dO, each as hi + lo
-      pin(acc);
-      pin(a_hi);
-      pin(a_lo);
-      wgmma_fence();
-      bwd_rs<HD>(acc, a_hi, mine);
-      bwd_rs<HD>(acc, a_lo, mine);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(acc);
-      __syncwarp();
-      if (elected) mbar_arrive(empty + 8 * st);
-      cta_sync();                      // dS in kX
-
-      // dQ += dS K, 64 hd columns at a time: A = dS (K-major), B = K
-      // (MN-major)
-      for (int n = c == 0 ? 0 : 1; n < (c == 0 ? 1 : kBoxes); ++n) {
-        const uint32_t kb = base + L::kK + n * kQBox;
-        float y[32];
-        wgmma_fence();
-        wgmma_ss_n64<1, true>(y, desc(ds_hi, 16, 1024),
-                              desc(kb, kQBox, 1024));
+    }
+    // the last tile's dQ reduce-adds have read their staging (ordered
+    // before this tile's staging writes by the CTA barriers below)
+    if (lane == 0 && wp == 0) bulk_wait<true>();
+    cta_sync();        // the last tile's products have read P^T and dS^T
+    if (mine) {
+      // (kv row m, query column k) at m * 128 + ((k / 8) ^ (m % 8)) * 16 +
+      // (k % 8) * 2, TMA's 128-byte swizzle; m % 8 = g
 #pragma unroll
-        for (int kk = 1; kk < 4; ++kk)
-          wgmma_ss_n64<1, false>(y, desc(ds_hi + kk * 32, 16, 1024),
-                                 desc(kb + kk * 16 * 128, kQBox, 1024));
+      for (int m = 0; m < 8; ++m) {
+        const int row = 16 * wp + g + 8 * (m & 1);
+        const int at = row * 128 + (((4 * w + (m >> 1)) ^ g) << 4) + 4 * tq;
+        *reinterpret_cast<uint32_t*>(basep + L::kPT + at) = p_hi[m];
+        *reinterpret_cast<uint32_t*>(basep + L::kPT + kQBox + at) = p_lo[m];
+        *reinterpret_cast<uint32_t*>(basep + L::kDST + at) = d_hi[m];
+        *reinterpret_cast<uint32_t*>(basep + L::kDST + kQBox + at) = d_lo[m];
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    cta_sync();        // P^T and dS^T of both warpgroups in place
+
+    float y[48];
+    if (mine) {
+      // dK += dS^T Q (warpgroup 0) or dV += P^T dO (1), each as hi + lo;
+      // A K-major from shared memory, B MN-major
+      const uint32_t a = base + (w == 0 ? L::kDST : L::kPT);
+      const uint32_t bt = base + (w == 0 ? L::kQ : L::kDO) + st * L::kT;
+      pin(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n64<1, false>(y, desc(ds_lo + kk * 32, 16, 1024),
-                                 desc(kb + kk * 16 * 128, kQBox, 1024));
-        wgmma_commit();
-        wgmma_wait<0>();
-        pin(y);
-        // y[4 j + 2 r + e]: q row 16 w + g + 8 r of the tile, hd column
-        // 64 n + 8 j + 2 tq + e; staged, then one bulk reduce-add per row
-        if (tw < kBM) bulk_wait<true>();
-        wg_sync(1 + c);
+          ss_n192(acc, desc(a + x * kQBox + kk * 32, 16, 1024),
+                  desc(bt + kk * 16 * 128, kQBox, 1024));
+      wgmma_commit();
+      // dQ += dS K over this warpgroup's 96 columns: A = dS^T read
+      // MN-major (transposed), B = K MN-major in 64-byte-swizzled blocks
+      const uint32_t ds = base + L::kDST;
+      ss_n96<true>(y, desc(ds, kQBox, 1024), desc64(kq, kK64Block));
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
+      for (int x = 0; x < 2; ++x)
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<float2*>(dq_st_p +
-                                       (16 * w + g + 8 * r) * kDqRow +
-                                       (8 * j + 2 * tq) * 4) =
-                make_float2(y[4 * j + 2 * r], y[4 * j + 2 * r + 1]);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        wg_sync(1 + c);
-        if (tw < kBM && q0 + tw < sq) {
-          bulk_reduce_add(
-              dq + (((int64_t)b * sq + q0 + tw) * n_heads + h) * HD + 64 * n,
-              dq_st + tw * kDqRow, 64 * 4);
-          bulk_commit();
+        for (int kk = x == 0 ? 1 : 0; kk < 4; ++kk)
+          ss_n96<false>(y, desc(ds + x * kQBox + kk * 16 * 128, kQBox, 1024),
+                        desc64(kq + kk * 16 * 64, kK64Block));
+      wgmma_commit();
+      wgmma_wait<1>();
+      pin(acc);
+      release();
+      wgmma_wait<0>();
+      pin(y);
+    } else {
+      release();
+    }
+
+    if (mine) {
+      // y[4 j + 2 r + e]: query row 16 wp + g + 8 r of the tile, column
+      // 8 j + 2 tq + e of the warpgroup's 96.  Column c of row m at block
+      // c / 32, m * 128 + (((c % 32) / 4) ^ (m % 8)) * 16 + (c % 4) * 4:
+      // the tensor map's 128-byte swizzle; m % 8 = g, and the float2
+      // stores of a warp fill each bank twice
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int m = 16 * wp + g + 8 * rr;
+#pragma unroll
+        for (int j = 0; j < kHalf / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          *reinterpret_cast<float2*>(
+              dq_st_p + (col / kDqBox) * kBM * 128 + m * 128 +
+              ((((col % kDqBox) >> 2) ^ g) << 4) + (col & 3) * 4) =
+              make_float2(y[4 * j + 2 * rr], y[4 * j + 2 * rr + 1]);
         }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(1 + w);
+      if (lane == 0 && wp == 0) {
+        tma_reduce5(&tm_dq, dq_st, q0, kHalf / kDqBox * w, h, b);
+        bulk_commit();
       }
     }
   }
 
   // ---- epilogue: dK (warpgroup 0) or dV (1) of the CTA's kv rows ----
-  if (tw < kBM) bulk_wait<false>();
-  void* const dst = c == 0 ? dk : dv;
+  // (a CTA may leave once its reduce-adds have read shared memory: the
+  // adds themselves complete before the launch does)
+  if (lane == 0 && wp == 0) bulk_wait<true>();
+  void* const dst = w == 0 ? dk : dv;
   if (groups > 1) {
-    // G CTAs share the kv head: stage the rows in the shared memory the
-    // loop is done with, then one bulk reduce-add per row
-    if (n_qt == 0) return;
-    constexpr int kKvRow = HD * 4 + 32;
-    static_assert(2 * kBM * kKvRow <= L::kBar, "dK, dV staging too large");
+    // G CTAs share the kv head: stage the rows as six swizzled 32-column
+    // blocks in the shared memory the loop is done with, then one
+    // tensor-map reduce-add a warpgroup
+    constexpr int kKvTile = HD / kDqBox * kBM * 128;
+    static_assert(2 * kKvTile <= L::kStat, "dK, dV staging too large");
     cta_sync();
-    uint8_t* const st_p = basep + c * kBM * kKvRow;
+    if (own_n > 0) {
+      uint8_t* const st_p = basep + w * kKvTile;
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+      for (int rr = 0; rr < 2; ++rr) {
+        const int m = 16 * wp + g + 8 * rr;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<float2*>(st_p + (16 * w + g + 8 * r) * kKvRow +
-                                   (8 * j + 2 * tq) * 4) =
-            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    wg_sync(1 + c);
-    if (tw < kBM && k0 + tw < skv) {
-      const int64_t off = (((int64_t)b * skv + k0 + tw) * n_kv + kvh) * HD;
-      bulk_reduce_add(static_cast<float*>(dst) + off,
-                      base + c * kBM * kKvRow + tw * kKvRow, HD * 4);
-      bulk_commit();
-      bulk_wait<false>();
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          *reinterpret_cast<float2*>(
+              st_p + (col / kDqBox) * kBM * 128 + m * 128 +
+              ((((col % kDqBox) >> 2) ^ g) << 4) + (col & 3) * 4) =
+              make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(1 + w);
+      if (lane == 0 && wp == 0) {
+        tma_reduce5(w == 0 ? &tm_dk : &tm_dv, base + w * kKvTile, k0, 0, kvh,
+                    b);
+        bulk_commit();
+        bulk_wait<true>();
+      }
     }
-    return;
-  }
+  } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = kv_row + 8 * r;
-    if (row >= skv) continue;
-    const int64_t off = (((int64_t)b * skv + row) * n_kv + kvh) * HD + 2 * tq;
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = kv_row + 8 * rr;
+      if (row >= skv) continue;
+      const int64_t off =
+          (((int64_t)b * skv + row) * n_kv + kvh) * HD + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const float a0 = acc[4 * j + 2 * r], a1 = acc[4 * j + 2 * r + 1];
-      if (kBlock)
-        *reinterpret_cast<float2*>(static_cast<float*>(dst) + off + 8 * j) =
-            make_float2(a0, a1);
-      else
-        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dst) + off +
-                                     8 * j) = bf16x2(a0, a1);
+      for (int j = 0; j < HD / 8; ++j) {
+        const float a0 = acc[4 * j + 2 * rr], a1 = acc[4 * j + 2 * rr + 1];
+        if (kBlock)
+          *reinterpret_cast<float2*>(static_cast<float*>(dst) + off + 8 * j) =
+              make_float2(a0, a1);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dst) +
+                                       off + 8 * j) = bf16x2(a0, a1);
+      }
     }
   }
+  cluster_sync();   // neither CTA leaves while the other may reach it
 }
 
 // The finishing pass: an f32 workspace into bf16, four values a thread
@@ -2392,6 +2704,37 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The pair kernel's 5-D tensor map of a [B, S, heads, hd] tensor of
+// `esize`-byte elements (bf16 2, f32 4): {`swizzle`-byte column block,
+// row, block, head, batch}, boxes of `box_rows` rows x `box_blocks`
+// blocks of one head, swizzled 128 or 64 bytes; rows past S read as 0
+// and are not written.
+bool tensor_map5(CUtensorMap* map, const void* ptr, int esize, int batch,
+                 int rows, int heads, int hd, int box_rows, int box_blocks,
+                 int swizzle = 128) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int inner = swizzle / esize;
+  const cuuint64_t dims[5] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)(hd / inner), (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t row_bytes = (cuuint64_t)heads * hd * esize;
+  const cuuint64_t strides[4] = {row_bytes, (cuuint64_t)swizzle,
+                                 (cuuint64_t)hd * esize, row_bytes * rows};
+  const cuuint32_t box[5] = {(cuuint32_t)inner, (cuuint32_t)box_rows,
+                             (cuuint32_t)box_blocks, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map,
+                esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                5, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The bf16 forward and carry step: TMA needs 16-byte aligned bases (the
 // strides of contiguous [.., hd] rows are multiples of 128 bytes).
 template <int HD, bool kCarry>
@@ -2512,10 +2855,20 @@ int bwd_simt(const void* q, const void* k, const void* v, const void* out,
   return bwd<T, T, HD>(q, k, v, dout, lse, scratch, dq, dk, dv, s, st);
 }
 
+// Units of (batch row, head) a chunk of the pair kernel's launch order
+// interleaves: as many as keep their Q and dO (bf16) and dQ (f32), sq x
+// 192 x 8 bytes each, within tc::kL2Chunk; at least 1, at most `units`.
+int pair_chunk(int sq, int64_t units) {
+  const int64_t unit_bytes = std::max<int64_t>(1, (int64_t)sq * 192 * 8);
+  return (int)std::min<int64_t>(std::max<int64_t>(1, tc::kL2Chunk / unit_bytes),
+                                std::max<int64_t>(1, units));
+}
+
 // The bf16 backward on the tensor cores: dq is a zeroed f32 workspace;
 // dk, dv are zeroed f32 workspaces when G > 1, else the outputs (bf16, or
 // f32 for the block backward).  TMA needs 16-byte aligned bases.  At hd
-// 192 the kernel of 64 kv rows a CTA, else that of 128.
+// 192 the pair kernel (clusters of two CTAs of 64 kv rows), else the
+// kernel of 128 kv rows a CTA.
 template <int HD, bool kBlock>
 int bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
               const void* dout, const void* lse, const void* dsum,
@@ -2528,22 +2881,33 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
           16 !=
       0)
     return (int)cudaErrorMisalignedAddress;
-  constexpr bool kSplit = HD == 192;
-  constexpr int kRows = kSplit ? tc::kSplitN : tc::kBN;   // kv rows a CTA
+  constexpr bool kIsPair = HD == 192;
+  constexpr int kRows = kIsPair ? tc::kPairN : tc::kBN;   // kv rows a CTA
   using Smem =
-      std::conditional_t<kSplit, tc::SplitSmem<HD>, tc::BwdSmem<HD>>;
+      std::conditional_t<kIsPair, tc::PairSmem<HD>, tc::BwdSmem<HD>>;
   const auto kernel = [] {
-    if constexpr (kSplit)
-      return tc::flash_bwd_wgmma_split_kernel<HD, kBlock>;
+    if constexpr (kIsPair)
+      return tc::flash_bwd_wgmma_pair_kernel<HD, kBlock>;
     else
       return tc::flash_bwd_wgmma_kernel<HD, kBlock>;
   }();
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD, tc::kBM) ||
-      !tensor_map(&tm_do, dout, s.batch, s.sq, s.n_heads, HD, tc::kBM) ||
-      !tensor_map(&tm_k, k, s.batch, s.skv, s.n_kv, HD, kRows) ||
-      !tensor_map(&tm_v, v, s.batch, s.skv, s.n_kv, HD, kRows))
-    return (int)cudaErrorInvalidValue;
+  const bool mapped =
+      kIsPair
+          ? tensor_map5(&tm_q, q, 2, s.batch, s.sq, s.n_heads, HD, tc::kBM,
+                        HD / 64) &&
+                tensor_map5(&tm_do, dout, 2, s.batch, s.sq, s.n_heads, HD,
+                            tc::kBM, HD / 64) &&
+                tensor_map5(&tm_k, k, 2, s.batch, s.skv, s.n_kv, HD, kRows,
+                            HD / 32, 64) &&
+                tensor_map5(&tm_v, v, 2, s.batch, s.skv, s.n_kv, HD, kRows,
+                            HD / 64)
+          : tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD, tc::kBM) &&
+                tensor_map(&tm_do, dout, s.batch, s.sq, s.n_heads, HD,
+                           tc::kBM) &&
+                tensor_map(&tm_k, k, s.batch, s.skv, s.n_kv, HD, kRows) &&
+                tensor_map(&tm_v, v, s.batch, s.skv, s.n_kv, HD, kRows);
+  if (!mapped) return (int)cudaErrorInvalidValue;
   static int granted = 0;
   const size_t smem = Smem::kBytes;
   cudaError_t e = allow_smem(kernel, smem, &granted);
@@ -2562,14 +2926,38 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
                            s.n_heads);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int64_t ctas = (int64_t)((s.skv + kRows - 1) / kRows) * s.batch *
-                       s.n_heads;
-  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)ctas, tc::kBwdThreads, smem, stream>>>(
-          tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(stats), sq_pad,
-          static_cast<float*>(dq), dk, dv,
-          s.batch, s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset, s.window,
-          s.causal, s.scale);
+  if constexpr (kIsPair) {
+    // dK and dV are added through maps only where they are f32 workspaces
+    // (G > 1); at G = 1 the kernel writes them and the maps stand unused
+    const bool grouped = s.n_heads > s.n_kv;
+    CUtensorMap tm_dq, tm_dk, tm_dv;
+    if (!tensor_map5(&tm_dq, dq, 4, s.batch, s.sq, s.n_heads, HD, tc::kBM,
+                     tc::kHalf / tc::kDqBox) ||
+        !tensor_map5(&tm_dk, grouped ? dk : dq, 4, s.batch,
+                     grouped ? s.skv : s.sq, grouped ? s.n_kv : s.n_heads,
+                     HD, kRows, HD / tc::kDqBox) ||
+        !tensor_map5(&tm_dv, grouped ? dv : dq, 4, s.batch,
+                     grouped ? s.skv : s.sq, grouped ? s.n_kv : s.n_heads,
+                     HD, kRows, HD / tc::kDqBox))
+      return (int)cudaErrorInvalidValue;
+    const int64_t units = (int64_t)s.batch * s.n_heads;
+    const int64_t pairs = (s.skv + tc::kPair * kRows - 1) / (tc::kPair * kRows);
+    const int64_t ctas = tc::kPair * pairs * units;
+    if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)ctas, tc::kBwdThreads, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, tm_dq, tm_dk, tm_dv,
+        static_cast<const float*>(stats),
+        sq_pad, dk, dv, s.batch, s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset,
+        s.window, s.causal, s.scale, pair_chunk(s.sq, units));
+  } else {
+    const int64_t ctas = (int64_t)((s.skv + kRows - 1) / kRows) * s.batch *
+                         s.n_heads;
+    if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)ctas, tc::kBwdThreads, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(stats), sq_pad,
+        static_cast<float*>(dq), dk, dv, s.batch, s.sq, s.skv, s.n_heads,
+        s.n_kv, s.q_offset, s.window, s.causal, s.scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -2727,6 +3115,40 @@ extern "C" int flash_attention_bwd_block_launch(
 #undef FA_TC
 #undef FA_SIMT
   return (int)cudaErrorInvalidValue;
+}
+
+// The hd-192 backward's geometry, read by the tests against the Python
+// plan (flash_attention.py::bwd192_plan): what = 0 kv rows a CTA, 1 CTAs
+// a cluster, 2 dynamic shared memory bytes, 3 threads a CTA, 4 the bytes
+// a chunk of the launch order may keep in L2, 5 clusters the card keeps
+// resident at once (the occupancy API on the compiled kernel; needs a
+// card).  Returns -1 for another `what` or a failed query.
+extern "C" int flash_bwd192_geometry(int what) {
+  using L = tc::PairSmem<192>;
+  switch (what) {
+    case 0: return tc::kPairN;
+    case 1: return tc::kPair;
+    case 2: return L::kBytes;
+    case 3: return tc::kBwdThreads;
+    case 4: return (int)tc::kL2Chunk;
+    case 5: {
+      const auto kernel = tc::flash_bwd_wgmma_pair_kernel<192, false>;
+      if (cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes) != cudaSuccess)
+        return -1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(tc::kPair * 1024, 1, 1);
+      cfg.blockDim = dim3(tc::kBwdThreads, 1, 1);
+      cfg.dynamicSmemBytes = L::kBytes;
+      int clusters = 0;
+      if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) !=
+          cudaSuccess)
+        return -1;
+      return clusters;
+    }
+  }
+  return -1;
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

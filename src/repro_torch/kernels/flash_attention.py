@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,6 +80,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the others (16: the reduced configs); 192 is nemotron-4-340b's
 KERNEL_HEAD_DIMS = (16, 64, 128, 192)
 TC_HEAD_DIMS = (64, 128, 192)
+
+#: the bf16 backward's geometry at head_dim 192 (``csrc/flash_attention.cu``,
+#: ``flash_bwd_wgmma_pair_kernel``): kv rows a CTA, CTAs a cluster (two
+#: adjacent kv tiles share every Q / dO tile), threads a CTA, its dynamic
+#: shared memory (``PairSmem<192>::kBytes``), query rows a tile, and the
+#: bytes of Q and dO (bf16) and dQ (f32) a chunk of its launch order may
+#: keep in L2 (``kL2Chunk``).  A variant is a source edit of both;
+#: ``bwd192_built`` reads the library's and the card tests hold them equal
+BWD192_KV_ROWS = 64
+BWD192_CLUSTER = 2
+BWD192_THREADS = 256
+BWD192_SMEM = 231464
+BWD192_Q_ROWS = 64
+BWD192_L2_CHUNK = 32 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +152,84 @@ def flash_work(kind: str, b: int, sq: int, skv: int, h: int, kvh: int,
                                  + (b * sq * h * hd + 2 * b * skv * kvh * hd)
                                  * 4)
     raise ValueError(f"unknown flash kernel {kind!r}")
+
+
+class Bwd192Cluster(NamedTuple):
+    """One cluster of the hd-192 backward: kv rows [k0, k0 + 128) of head
+    ``h`` of batch row ``b``; CTA r of it holds rows k0 + 64 r.. and
+    computes on query tiles ``tiles[r]`` = [t0, t1) of 64 rows (empty
+    where it has no rows or nothing sees them); both CTAs step through
+    ``union``, loading each tile once for both."""
+    b: int
+    h: int
+    k0: int
+    tiles: tuple[tuple[int, int], tuple[int, int]]
+    union: tuple[int, int]
+
+
+class Bwd192Plan(NamedTuple):
+    """How one hd-192 bf16 backward (or block backward) call runs on the
+    card: the kernel's geometry, the launch order of its clusters, the
+    units of (batch row, head) a chunk of that order interleaves, and the
+    clusters that ``n_sm`` SMs hold at once (one CTA an SM)."""
+    kv_rows: int
+    cluster: int
+    threads: int
+    smem: int
+    chunk: int
+    resident: int
+    clusters: tuple[Bwd192Cluster, ...]
+
+
+def _bwd192_tiles(k0: int, sq: int, skv: int, causal: bool, window: int,
+                  q_offset: int) -> tuple[int, int]:
+    """Query tiles [t0, t1) that see kv rows [k0, k0 + 64): from the first
+    query causality lets see k0 to the last the window lets see the last
+    row (the kernel's ``pair_q_tiles``); (0, 0) when none do."""
+    if k0 >= skv:
+        return 0, 0
+    kmax = min(k0 + BWD192_KV_ROWS, skv) - 1
+    i_lo = max(0, k0 - q_offset) if causal else 0
+    i_hi = min(sq, kmax + window - q_offset) if window > 0 else sq
+    if i_hi <= i_lo:
+        return 0, 0
+    return i_lo // BWD192_Q_ROWS, -(-i_hi // BWD192_Q_ROWS)
+
+
+def bwd192_plan(b: int, sq: int, skv: int, h: int, kvh: int, causal: bool,
+                window: int = 0, q_offset: int = 0, n_sm: int = 132
+                ) -> Bwd192Plan:
+    """The hd-192 backward's plan for q [b, sq, h, 192] against k, v [b,
+    skv, kvh, 192] (``q_offset``: q's position less k's).  Clusters of two
+    CTAs on adjacent 64-row kv tiles; the launch order takes the (b, h)
+    units, h slowest, in chunks whose Q, dO and dQ (sq x 192 x 8 bytes a
+    unit) fit ``BWD192_L2_CHUNK``, one chunk after another, and within a
+    chunk the kv pairs lowest first (the most query rows under causality)
+    over the chunk's units.  Host arithmetic on the shapes and the SM
+    count only."""
+    if min(b, sq, skv, h, kvh, n_sm) < 1 or h % kvh:
+        raise ValueError("bwd192_plan takes positive sizes and h a "
+                         "multiple of kvh")
+    units = b * h
+    chunk = min(max(1, BWD192_L2_CHUNK // (sq * 192 * 8)), units)
+    pair_rows = BWD192_CLUSTER * BWD192_KV_ROWS
+    n_pt = -(-skv // pair_rows)
+    order = []
+    for c0 in range(0, units, chunk):
+        for pt in range(n_pt):
+            for unit in range(c0, min(c0 + chunk, units)):
+                k0 = pt * pair_rows
+                tiles = tuple(_bwd192_tiles(k0 + r * BWD192_KV_ROWS, sq, skv,
+                                            causal, window, q_offset)
+                              for r in range(BWD192_CLUSTER))
+                live = [t for t in tiles if t[1] > t[0]]
+                union = ((min(t[0] for t in live), max(t[1] for t in live))
+                         if live else (0, 0))
+                order.append(Bwd192Cluster(unit % b, unit // b, k0, tiles,
+                                           union))
+    return Bwd192Plan(BWD192_KV_ROWS, BWD192_CLUSTER, BWD192_THREADS,
+                      BWD192_SMEM, chunk, n_sm // BWD192_CLUSTER,
+                      tuple(order))
 
 
 def _work(kind: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -405,7 +498,23 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_carry_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_bwd192_geometry.argtypes = [i]
+        lib.flash_bwd192_geometry.restype = i
     return lib
+
+
+def bwd192_built() -> dict[str, int]:
+    """The built hd-192 backward's geometry, read from the library: kv
+    rows a CTA, CTAs a cluster, dynamic shared memory, threads a CTA, the
+    L2 chunk's bytes, and the clusters the card keeps resident at once
+    (the occupancy API on the compiled kernel; needs a card)."""
+    lib = _lib()
+    keys = ("kv_rows", "cluster", "smem", "threads", "l2_chunk", "resident")
+    got = {key: lib.flash_bwd192_geometry(what)
+           for what, key in enumerate(keys)}
+    if min(got.values()) < 0:
+        raise RuntimeError(f"flash_bwd192_geometry: {got}")
+    return got
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

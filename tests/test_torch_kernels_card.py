@@ -257,7 +257,12 @@ def test_paged_attention_rejects_unaligned_pool(cuda):
 #: hd 64 and 128; hd 16 (the reduced configs, SIMT kernels in both types)
 #: at the quickstart's shape and ragged with a window; hd 192
 #: (nemotron-4-340b, whose bf16 kernels take 64 kv rows a stage or a CTA):
-#: GQA 12:1, MHA and MQA 12/1, causal and windowed, ragged Skv and q_offset
+#: GQA 12:1, MHA and MQA 12/1, causal and windowed, ragged Skv and
+#: q_offset; then the edges of the hd-192 backward's clusters of two kv
+#: tiles: an odd number of kv tiles (Skv 192, 320), Skv = 64 k + 1 (65),
+#: a cluster whose upper CTA has no rows (Skv 64, 192, 320), causal with
+#: q_offset > 0 and Sq < Skv, a window smaller than a tile, G = 1 and 12,
+#: B = 2
 FLASH_CASES = [
     (8, 128, 128, 4, 1, 16, True, 0, 0),
     (1, 100, 127, 8, 2, 16, True, 30, 27),
@@ -286,6 +291,12 @@ FLASH_CASES = [
     (1, 190, 257, 24, 2, 192, True, 30, 67),
     (1, 65, 127, 8, 8, 192, True, 0, 62),
     (1, 300, 300, 12, 1, 192, True, 0, 0),
+    (1, 192, 192, 12, 1, 192, True, 0, 0),
+    (2, 320, 320, 8, 8, 192, True, 0, 0),
+    (1, 100, 65, 4, 4, 192, True, 0, 0),
+    (1, 64, 64, 8, 2, 192, False, 0, 0),
+    (2, 129, 320, 24, 2, 192, True, 20, 191),
+    (1, 70, 192, 12, 12, 192, True, 0, 122),
 ]
 
 
@@ -600,15 +611,18 @@ def test_flash_carry_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-def test_flash_backward_twice_agrees(cuda):
+@pytest.mark.parametrize("batch,s,h,kvh,hd", [(2, 256, 32, 8, 128),
+                                              (1, 320, 24, 2, 192)])
+def test_flash_backward_twice_agrees(cuda, batch, s, h, kvh, hd):
     """The bf16 backward run twice on the same inputs.  Its f32 workspaces
     sum the CTAs' contributions with atomics, in an order that changes
     from run to run, so the two runs may differ in the last bits of the
     f32 sums: within 1e-6 of the largest magnitude before the bf16
     rounding, and so within one bf16 rounding (2e-2, as against the plain
-    version) after it."""
-    q, k, v, dout = _flash_inputs(cuda, torch.bfloat16, 2, 256, 256, 32, 8,
-                                  128)
+    version) after it.  At hd 192 the clusters' partials meet in one CTA
+    before the sum."""
+    q, k, v, dout = _flash_inputs(cuda, torch.bfloat16, batch, s, s, h,
+                                  kvh, hd)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     first = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
     second = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
@@ -638,6 +652,23 @@ def test_flash_backward_rejects_misaligned_bases(cuda):
     assert (fa.BWD_LAUNCHES, fa.BWD_BLOCK_LAUNCHES) == (b0, k0)
 
 
+@pytest.mark.gpu
+def test_flash_bwd192_built_kernel_matches_its_plan(cuda):
+    """The built hd-192 backward's geometry (kv rows a CTA, CTAs a
+    cluster, shared memory, threads, the L2 chunk) is
+    ``flash_attention.bwd192_plan``'s, and the card keeps clusters of it
+    resident (at most one CTA an SM: the plan's count is an upper
+    bound)."""
+    built = fa.bwd192_built()
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = fa.bwd192_plan(1, 4096, 4096, 96, 8, True, n_sm=n_sm)
+    assert (built["kv_rows"], built["cluster"], built["smem"],
+            built["threads"]) == (plan.kv_rows, plan.cluster, plan.smem,
+                                  plan.threads)
+    assert built["l2_chunk"] == fa.BWD192_L2_CHUNK
+    assert 1 <= built["resident"] <= plan.resident
+
+
 # ---------------------------------------------------------------------------
 # ring attention's block backward
 # ---------------------------------------------------------------------------
@@ -646,7 +677,9 @@ def test_flash_backward_rejects_misaligned_bases(cuda):
 #: before the q rows, on the diagonal, a window, a negative offset
 #: difference (not causal, and causal with part visible), G = 1, 4, 48,
 #: ragged Sq and Skv, and a block that nothing sees; then hd 192 (the
-#: bf16 kernel of 64 kv rows a CTA) at G = 12, 1 and 4
+#: bf16 kernel of 64 kv rows a CTA) at G = 12, 1 and 4, and its clusters'
+#: edges: odd kv tiles, Skv = 64 k + 1, an upper CTA with no rows, a
+#: window under a tile with q_offset > 0 and Sq < Skv, B = 2
 BLOCK_CASES = [
     (1, 256, 256, 32, 8, 128, True, 0, 256, 0),
     (1, 256, 256, 32, 8, 128, True, 0, 256, 256),
@@ -661,6 +694,11 @@ BLOCK_CASES = [
     (2, 130, 129, 12, 1, 192, False, 0, 0, 500),
     (1, 200, 300, 8, 2, 192, True, 100, 300, 150),
     (1, 64, 64, 8, 2, 192, True, 0, 0, 128),
+    (1, 192, 192, 12, 1, 192, True, 0, 0, 0),
+    (2, 320, 320, 8, 8, 192, True, 0, 0, 0),
+    (1, 100, 65, 4, 4, 192, True, 0, 64, 0),
+    (1, 129, 320, 12, 1, 192, True, 30, 191, 0),
+    (2, 64, 64, 4, 1, 192, False, 0, 0, 0),
 ]
 
 
