@@ -237,8 +237,10 @@ import numpy as np
 HBM_BW = 3.35e12                      # H100 SXM data sheet, bytes/s
 #: the flash kernels on the tensor cores (bf16): each must have HGMMA
 #: instructions in its SASS and neither stack nor local memory
-FLASH_WGMMA = ([f"flash_fwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128, 192)
+FLASH_WGMMA = ([f"flash_fwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128)
                 for c in ("false", "true")]
+               + [f"flash_fwd_wgmma_skip_kernel<192, {c}>"
+                  for c in ("false", "true")]
                + [f"flash_bwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128)
                   for c in ("false", "true")]
                + [f"flash_bwd_wgmma_pair_kernel<192, {c}>"
@@ -637,7 +639,10 @@ FLASH_CASES = [
 #: then GQA 12:1 with a window, MHA not causal with a ragged Skv, and
 #: q_offset with Sq < Skv; then edges of the backward's clusters of two
 #: 64-row kv tiles: three kv tiles (the second cluster's upper CTA has no
-#: rows) at G = 12, and a window under a tile with q_offset > 0
+#: rows) at G = 12, and a window under a tile with q_offset > 0; then
+#: edges of the forward (2 stages of 64 kv rows): one kv tile a CTA (the
+#: carry over the second half sees none: every row copied through), and
+#: 11 tiles that wrap the ring
 FLASH192_CASES = [
     (1, 4096, 4096, 96, 8, True, 0, 0),
     (2, 2048, 2048, 4, 2, True, 0, 0),
@@ -646,6 +651,8 @@ FLASH192_CASES = [
     (2, 129, 300, 24, 2, True, 0, 171),
     (1, 192, 192, 12, 1, True, 0, 0),
     (2, 129, 320, 24, 2, True, 20, 191),
+    (1, 64, 512, 12, 1, True, 0, 0),
+    (1, 704, 704, 8, 2, True, 0, 0),
 ]
 #: the training phase's attention: phi4-mini at B=2, S=1024, causal
 TRAIN_ATTN = dict(b=2, s=1024, h=32, kvh=8, hd=128)
@@ -962,16 +969,113 @@ def bwd192_geometry(torch) -> None:
              f"(resident clusters at most {plan.resident})")
 
 
+def fwd192_geometry(torch) -> None:
+    """The built hd-192 forward's geometry against ``fwd192_plan`` at
+    nemotron's call: query rows a CTA, kv rows a stage, stages, threads
+    and shared memory must be the plan's, and an SM must keep one CTA."""
+    from repro_torch.kernels import flash_attention as fa
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    s = NEMO_ATTN
+    plan = fa.fwd192_plan(s["b"], s["s"], s["s"], s["h"], s["kvh"], True,
+                          n_sm=n_sm)
+    built = fa.fwd192_built()
+    print(f"  hd-192 forward at nemotron's call: plan {plan.q_rows} query "
+          f"rows a CTA, {plan.stages} stages of {plan.kv_rows} kv rows, "
+          f"{plan.threads} threads, {plan.smem} B of shared memory, "
+          f"{len(plan.units)} CTAs over "
+          f"{sum(u.n_tiles for u in plan.units)} kv tiles, heaviest first; "
+          f"built {built}", flush=True)
+    got = tuple(built[k] for k in ("q_rows", "kv_rows", "stages",
+                                   "threads", "smem"))
+    want = (plan.q_rows, plan.kv_rows, plan.stages, plan.threads, plan.smem)
+    if got != want or built["resident"] != 1:
+        fail(f"the built hd-192 forward {built} is not its plan {want} "
+             f"(one CTA an SM)")
+
+
+def fwd192_edges(torch, gen) -> None:
+    """The hd-192 carry step updated in place (the *_out pointers equal to
+    the *_in ones), and the forward and carry where the logits rise along
+    the keys (every alpha below 1) or peak in the first 8 (every alpha
+    after a row's first tile exactly 1, so the rescale is skipped), held
+    to their plain versions: the bf16 output by FLASH_NORM_TOL, the carry
+    within CARRY_TOL."""
+    import math
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kvh, hd = 1, 704, 24, 2, 192
+    q, k, v, _ = flash_inputs(torch, gen, b, s, s, h, kvh, hd,
+                              torch.bfloat16)
+    carry = fa.flash_attention_step_torch(
+        q.float(), k[:, :64].float(), v[:, :64].float(),
+        *fa.init_partials(b, s, h, hd, device="cuda"), causal=False)
+    want = fa.flash_attention_step_torch(q.float(), k.float(), v.float(),
+                                         *carry, causal=True, q_offset=640,
+                                         k_offset=0)
+    m, l, acc = (t.clone() for t in carry)
+    lib = fa._lib()
+    err = lib.flash_attention_carry_launch(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+        l.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        acc.data_ptr(), b, s, s, h, kvh, hd, 640, 0, 0, 1,
+        1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"the in-place hd-192 carry launch returned {err}")
+    err = carry_check(torch, (m, l, acc), want, CARRY_TOL["bfloat16"],
+                      "hd-192 carry in place")
+    reads = [f"carry in place {err:.2e}"]
+    del q, k, v, carry, want, m, l, acc
+    u = torch.ones(hd, device="cuda") / math.sqrt(hd)
+    keys = torch.arange(s, device="cuda", dtype=torch.float32)
+    for trend, lift in (("rising", 16.0 * keys / s),
+                        ("first", 16.0 * (keys < 8).float())):
+        noise = [0.1 * torch.randn(dims, generator=gen, device="cuda")
+                 for dims in ((b, s, h, hd), (b, s, kvh, hd))]
+        q = (16.0 * u + noise[0]).bfloat16()
+        k = (lift[None, :, None, None] * u + noise[1]).bfloat16()
+        v = torch.randn((b, s, kvh, hd), generator=gen,
+                        device="cuda").bfloat16()
+        out, _ = fa.flash_attention_fwd(q, k, v, causal=True)
+        got = fa.flash_attention_carry(
+            q, k, v, *fa.init_partials(b, s, h, hd, device="cuda"),
+            causal=True)
+        torch.cuda.synchronize()
+        want_out, _ = fa.flash_attention_torch(q.float(), k.float(),
+                                               v.float(), causal=True)
+        nerr = norm_err(out, want_out)
+        if not nerr <= FLASH_NORM_TOL:
+            fail(f"hd-192 forward, logits {trend}: ||err|| / ||want|| "
+                 f"{nerr:.3e} > {FLASH_NORM_TOL}")
+        want = fa.flash_attention_step_torch(
+            q.float(), k.float(), v.float(),
+            *fa.init_partials(b, s, h, hd, device="cuda"), causal=True)
+        cerr = carry_check(torch, got, want, CARRY_TOL["bfloat16"],
+                           f"hd-192 carry, logits {trend}")
+        reads.append(f"logits {trend}: out {nerr:.2e} by norm, carry "
+                     f"{cerr:.2e}")
+        del q, k, v, out, got, want, want_out, noise
+    torch.cuda.empty_cache()
+    print(f"  hd-192 forward and carry edges (1 x {s}, {h}/{kvh} heads, "
+          f"causal, bf16) against plain: " + "; ".join(reads), flush=True)
+
+
 def phase_flash(torch, hd):
     """The flash kernels at ``hd`` held to their plain versions on
     FLASH_PHASES' cases, the norm check's controls, then the times at its
-    call (at hd 192 first the backward's geometry against its plan).
+    call (at hd 192 first the forward's and the backward's geometry
+    against their plans, and after the cases the forward's edges).
     Returns ({kernel: times}, {kernel: worst bf16 error})."""
     cases, shape, label = FLASH_PHASES[hd]
     if hd == 192:
+        fwd192_geometry(torch)
         bwd192_geometry(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + hd)
     worst = flash_checks(torch, gen, hd, cases)
+    if hd == 192:
+        fwd192_edges(torch, gen)
     norm_controls(torch, gen, shape, label)
     return flash_times(torch, gen, shape, label, worst), worst
 

@@ -88,13 +88,44 @@
 //     lse = m + log(l): at an empty carry the carry step, finalized in
 //     torch (finalize_partials), gives the forward's output bit for bit,
 //     which makes the one-rank ring prefill equal the megatron one;
-//   * at hd 192 (nemotron-4-340b: 96/8 heads) a stage holds 64 kv rows
-//     (fwd_kn), not 128: Q 48 KB + 2 x (K 24 KB + V 24 KB) = 144 KB (128
-//     rows would take 240 KB, over the 227 KB a CTA may have), and a
-//     consumer holds acc (96 registers) with S (32) or P's hi and lo (32),
-//     under the 240 that setmaxnreg gives it (at 128 rows S alone is 64).
-//     S = Q K^T is then m64n64k16 and P V m64n192k16 over three 64-column
-//     boxes of V, the leading byte offset apart.
+//   * at hd 192 the kernel of its own below.
+//
+// At hd 192 (nemotron-4-340b: 96/8 heads) the bf16 forward and carry step
+// are flash_fwd_wgmma_skip_kernel<192, kCarry>: the kernel above at 64 kv
+// rows a stage (kSkN; 128 rows of K and V beside Q would take 240 KB,
+// over the 227 KB a CTA may have, so S = Q K^T is m64n64k16 and P V
+// m64n192k16 over three 64-column boxes of V), Q 48 KB + 2 x (K 24 KB + V
+// 24 KB), a consumer holding acc (96 registers) with S (32) or P's hi and
+// lo (32) within the 168 ptxas gives a thread of 384.  Bound on this card,
+// by operations: 0.6255 ms at nemotron's call (1 x 4096, causal); the
+// hi/lo P V makes its tensor work 9.57e11 flop, 0.967 ms at 989 TFLOP/s.
+// Where a kv tile's time went in that kernel (scripts/flash192_fwd_phases.py,
+// cycles a warp-tile): P V 920 and S 493 against 768 and 384 at the rated
+// rate, the softmax 990 hidden behind the other consumer's turn (turn
+// waits 240): the tensor cores are busy ~97% of the loop at ~81% of their
+// rate, the two products paced by their shared-memory operand reads; and
+// 12% of a CTA before its first S (6,100 cycles) and in its forward
+// epilogue (8,100: 96 IEEE divisions a thread and scattered stores).  Two
+// changes pay:
+//   * the rescale of a row's acc is skipped where that row's alpha is
+//     exactly 1 in every lane of the warp (online_softmax_skip: a warp
+//     vote on the computed alpha; x * 1.0f == x, so no bit changes); 40%
+//     of the warp-tiles at nemotron's call keep every alpha at 1;
+//   * the forward's epilogue: each quotient acc / l correctly rounded from
+//     one reciprocal a row (y = RN(1 / l), q = RN(acc y), then RN(q + (acc
+//     - l q) y) = RN(acc / l), Markstein's correction, exact away from
+//     underflow, so the forward still equals the finalized empty carry bit
+//     for bit), staged in the warpgroup's rows of the Q tile (free once its
+//     last S has completed) in the load's 128-byte swizzle and stored by
+//     three TMA stores.
+// Built, measured and dropped (slower in turns against this kernel's
+// parent; PERF.md §6): 256 threads with no producer warpgroup and the next
+// tile's S issued behind this tile's softmax (a wgmma's issue waits for the
+// tensor cores, so the softmax overlapped little, and the lane that issued
+// the loads held its warpgroup ~800 cycles a tile); Q in registers (S from
+// registers: 168 registers at 384 threads spill it, and at 256 the
+// register-A m64n64 products ran slower); persistent CTAs over the units
+// with the next unit's Q loaded into a second buffer.
 //
 // The bf16 backward and block backward: one kernel on the tensor cores
 // (flash_bwd_wgmma_kernel<HD, kBlock>).  Bound on this card, by
@@ -527,18 +558,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kMinusInfBits = 0xff800000u;   // -inf in f32
 constexpr int kEmptyArrivals = 8;     // one lane of each consumer warp
 
-// kv rows of a stage: 128, and 64 at hd 192, where a stage of 128 rows
-// would not fit beside Q and the consumers' S (64 registers) would not fit
-// beside the 96 of the accumulator and P's 64.
-template <int HD>
-__host__ __device__ constexpr int fwd_kn() {
-  return HD == 192 ? 64 : 128;
-}
+// kv rows of a stage (at hd 192 flash_fwd_wgmma_skip_kernel stages kSkN)
+constexpr int kFwdN = 128;
 
 // Byte offsets in the 1024-aligned dynamic shared memory.
 template <int HD>
 struct Smem {
-  static constexpr int kN = fwd_kn<HD>();
+  static constexpr int kN = kFwdN;
   static constexpr int kKvBox = kN * 128;             // a K or V box
   static constexpr int kQTile = HD / 64 * kBox;       // the Q tile
   static constexpr int kKvTile = HD / 64 * kKvBox;    // a K or V tile
@@ -2256,6 +2282,353 @@ __global__ void __cluster_dims__(kPair, 1, 1)
   cluster_sync();   // neither CTA leaves while the other may reach it
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward and carry step at hd 192; see the note at the head of
+// the file
+// ---------------------------------------------------------------------------
+
+constexpr int kSkN = 64;              // kv rows of a stage
+constexpr int kSkStages = 2;          // K and V tiles in flight
+
+template <int HD>
+struct SkSmem {
+  static_assert(HD == 192, "the hd-192 forward kernel");
+  static constexpr int kN = kSkN;
+  static constexpr int kKvBox = kN * 128;             // a K or V box
+  static constexpr int kQTile = HD / 64 * kBox;       // the Q tile
+  static constexpr int kKvTile = HD / 64 * kKvBox;    // a K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQTile;
+  static constexpr int kV = kK + kSkStages * kKvTile;
+  static constexpr int kBar = kV + kSkStages * kKvTile;
+  // q_full, then k_full, v_full, k_empty, v_empty of each stage
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kSkStages) + 1024;
+  static_assert(kBytes <= 232448, "over the opt-in shared memory");
+};
+
+// One box of the output from shared memory, 128-byte swizzled as a TMA
+// load leaves it: hd columns [c0, c0 + 64) of 64 rows from `row` of head
+// `head` of batch `b`; rows past S are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int head,
+                                          int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(head), "r"(row), "r"(b)
+      : "memory");
+}
+
+// online_softmax, with the rescale of a row's acc skipped where the alpha
+// of that row is exactly 1 in every lane of the warp (a warp vote on the
+// computed alpha; x * 1.0f == x, so the skip changes no bit).  A copy, so
+// that the hd-64 and hd-128 kernels stay as they were timed.
+template <bool kMask, int HD, int N>
+__device__ __forceinline__ void online_softmax_skip(
+    const float (&s)[N / 2], float (&m)[2], float (&lp)[2],
+    float (&acc)[HD / 2], uint32_t (&p_hi)[N / 4], uint32_t (&p_lo)[N / 4],
+    int qpos, int kpos, int skv, int causal, int window, float scale) {
+  const float sl = scale * kLog2e;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x[N / 4];
+    float mx = __uint_as_float(kMinusInfBits);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        x[2 * j + e] = s[4 * j + 2 * r + e];
+        if (kMask && !visible(qpos + 8 * r, kpos + 8 * j + e, skv, causal,
+                              window))
+          x[2 * j + e] = __uint_as_float(kMinusInfBits);
+        mx = fmaxf(mx, x[2 * j + e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // max(s) * scale == max(s * scale): rounding is monotonic, scale > 0
+    const float m_new = fmaxf(m[r], mx * scale);
+    const float alpha = exp2_approx((m[r] - m_new) * kLog2e);
+    const float ms = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float p0 = exp2_approx(fmaf(x[2 * j], sl, -ms));
+      const float p1 = exp2_approx(fmaf(x[2 * j + 1], sl, -ms));
+      sum += p0 + p1;
+      const uint32_t hi = bf16x2(p0, p1);
+      p_hi[2 * j + r] = hi;
+      p_lo[2 * j + r] = bf16x2(p0 - __uint_as_float(hi << 16),
+                               p1 - __uint_as_float(hi & 0xffff0000u));
+    }
+    lp[r] = alpha * lp[r] + sum;
+    m[r] = m_new;
+    if (!__all_sync(0xffffffffu, alpha == 1.f)) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j + 2 * r] *= alpha;
+        acc[4 * j + 2 * r + 1] *= alpha;
+      }
+    }
+  }
+}
+
+// kCarry = false: the forward (state initialised, out and lse written).
+// kCarry = true: one carry step (state from `carry`, stored back there).
+// One CTA per (b, h, 128 query rows), heaviest first under causality:
+// flash_fwd_wgmma_kernel's turns at kSkN kv rows a stage, with the exact
+// rescale skip of online_softmax_skip and the forward's output leaving by
+// TMA stores.
+template <int HD, bool kCarry>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_skip_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o,
+                       float* __restrict__ lse, Carry carry, int batch,
+                       int sq, int skv, int n_heads, int n_kv, int q_offset,
+                       int window, int causal, float scale) {
+  using L = SkSmem<HD>;
+  constexpr int kN = L::kN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // 128B swizzle atoms
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;             // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kSkStages;
+  const uint32_t k_empty = v_full + 8 * kSkStages;
+  const uint32_t v_empty = k_empty + 8 * kSkStages;
+
+  const int n_qt = (sq + kM - 1) / kM;
+  int idx = blockIdx.x;
+  const int h = idx % n_heads;
+  idx /= n_heads;
+  const int b = idx % batch;
+  idx /= batch;
+  const int q0 = (causal ? n_qt - 1 - idx : idx) * kM;
+  const int kvh = h / (n_heads / n_kv);
+
+  int lo, hi;
+  kv_range(q_offset + q0, q_offset + min(q0 + kM, sq) - 1, skv, causal,
+           window, &lo, &hi);
+  const int t0 = lo / kN;
+  const int n_tiles = hi > lo ? (hi + kN - 1) / kN - t0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSkStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kEmptyArrivals);
+      mbar_init(v_empty + 8 * s, kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 0 || n_tiles == 0) return;
+    mbar_expect_tx(q_full, L::kQTile);
+#pragma unroll
+    for (int x = 0; x < HD / 64; ++x)
+      tma_load(base + L::kQ + x * kBox, &tm_q, q_full, 64 * x, h, q0, b);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kSkStages;
+      const int par = (i / kSkStages) & 1;
+      const int row = (t0 + i) * kN;
+      mbar_wait(k_empty + 8 * st, par ^ 1);
+      mbar_expect_tx(k_full + 8 * st, L::kKvTile);
+#pragma unroll
+      for (int x = 0; x < HD / 64; ++x)
+        tma_load(base + L::kK + st * L::kKvTile + x * L::kKvBox, &tm_k,
+                 k_full + 8 * st, 64 * x, kvh, row, b);
+      mbar_wait(v_empty + 8 * st, par ^ 1);
+      mbar_expect_tx(v_full + 8 * st, L::kKvTile);
+#pragma unroll
+      for (int x = 0; x < HD / 64; ++x)
+        tma_load(base + L::kV + st * L::kKvTile + x * L::kKvBox, &tm_v,
+                 v_full + 8 * st, 64 * x, kvh, row, b);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows [q0 + 64 c, q0 + 64 c + 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = q0 + 64 * c + 16 * (tw >> 5) + g;   // and row0 + 8
+  const bool elected = lane == 0;
+
+  // acc[4 j + 2 r + e]: row row0 + 8 r, hd column 8 j + 2 tq + e
+  float m[2] = {kNegInf, kNegInf}, lp[2] = {0.f, 0.f}, acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  if (kCarry) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + 8 * r;
+      if (i >= sq) continue;
+      const int64_t row = ((int64_t)b * sq + i) * n_heads + h;
+      m[r] = carry.m_in[row];
+      lp[r] = tq == 0 ? carry.l_in[row] : 0.f;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const float2 a = *reinterpret_cast<const float2*>(
+            carry.acc_in + row * HD + 8 * j + 2 * tq);
+        acc[4 * j + 2 * r] = a.x;
+        acc[4 * j + 2 * r + 1] = a.y;
+      }
+    }
+  }
+
+  if (n_tiles > 0) {
+    // A consumer's turn on the tensor cores is P V of the previous tile,
+    // then S = Q K^T of this one; its softmax then overlaps the other
+    // consumer's turn.  P V completes before S starts, so P and S never
+    // hold registers together: acc + S or acc + P fit the 168 registers
+    // a thread of a 384-thread CTA may have.
+    const int mine = 1 + c, other = 2 - c;
+    const uint32_t q_rows = base + L::kQ + c * 64 * 128;
+    const uint32_t k_tiles = base + L::kK, v_tiles = base + L::kV;
+    float s[kN / 2];
+    uint32_t p_hi[kN / 4], p_lo[kN / 4];
+    const int qpos = q_offset + row0;
+    // a tile needs the mask where it reaches Skv, crosses the diagonal or
+    // the window's edge for any of the CTA's 128 rows
+    const int qmin = q_offset + q0, qmax = q_offset + q0 + kM - 1;
+    mbar_wait(q_full, 0);
+    if (c == 1) turn_pass(1);            // consumer 0 takes the first turn
+    for (int i = 0; i <= n_tiles; ++i) {
+      const int st = i % kSkStages;
+      const int pst = (i + kSkStages - 1) % kSkStages;
+      if (i < n_tiles) mbar_wait(k_full + 8 * st, (i / kSkStages) & 1);
+      turn_wait(mine);
+      if (i > 0) {                       // acc += P V of the previous tile
+        mbar_wait(v_full + 8 * pst, ((i - 1) / kSkStages) & 1);
+        pin(acc);
+        pin(p_hi);
+        pin(p_lo);
+        wgmma_fence();
+        const uint32_t vt = v_tiles + pst * L::kKvTile;
+        rs_mma<HD, kN / 16>(acc, p_hi, vt, L::kKvBox);
+        rs_mma<HD, kN / 16>(acc, p_lo, vt, L::kKvBox);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc);
+        __syncwarp();
+        if (elected) mbar_arrive(v_empty + 8 * pst);
+      }
+      if (i == n_tiles) {                // the last turn: no S to compute
+        if (c == 0) turn_pass(other);
+        break;
+      }
+      wgmma_fence();                     // S = Q K^T of this tile
+      const uint32_t kt = k_tiles + st * L::kKvTile;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint64_t da =
+            desc(q_rows + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024);
+        const uint64_t db =
+            desc(kt + (kk / 4) * L::kKvBox + (kk % 4) * 32, 16, 1024);
+        if constexpr (kN == 128) {
+          if (kk == 0)
+            wgmma_ss_n128_init(s, da, db);
+          else
+            wgmma_ss_n128(s, da, db);
+        } else {
+          if (kk == 0)
+            wgmma_ss_n64<0, true>(s, da, db);
+          else
+            wgmma_ss_n64<0, false>(s, da, db);
+        }
+      }
+      wgmma_commit();
+      turn_pass(other);
+      wgmma_wait<0>();
+      pin(s);
+      __syncwarp();
+      if (elected) mbar_arrive(k_empty + 8 * st);
+
+      const int k0 = (t0 + i) * kN;
+      if (k0 + kN > skv || (causal && k0 + kN - 1 > qmin) ||
+          (window > 0 && qmax - k0 >= window))
+        online_softmax_skip<true, HD, kN>(s, m, lp, acc, p_hi, p_lo,
+                                      qpos, k0 + 2 * tq, skv, causal,
+                                      window, scale);
+      else
+        online_softmax_skip<false, HD, kN>(s, m, lp, acc, p_hi, p_lo,
+                                       qpos, k0 + 2 * tq, skv, causal,
+                                       window, scale);
+    }
+  }
+
+  // ---- epilogue: l over the quad, then the rows below Sq ----
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = lp[r] + __shfl_xor_sync(0xffffffffu, lp[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (kCarry) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + 8 * r;
+      if (i >= sq) continue;
+      const int64_t row = ((int64_t)b * sq + i) * n_heads + h;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(carry.acc_out + row * HD + 8 * j +
+                                   2 * tq) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      if (tq == 0) {
+        carry.m_out[row] = m[r];
+        carry.l_out[row] = l[r];
+      }
+    }
+    return;
+  }
+  // out = acc / l, each quotient correctly rounded (Markstein: y = RN(1 /
+  // l), q = RN(acc y), then RN(q + (acc - l q) y) is RN(acc / l) away
+  // from underflow), staged in the warpgroup's 64 rows of the Q tile (its
+  // last S has completed) in the load's 128-byte swizzle and stored by TMA
+  uint8_t* const basep = smem_raw + (base - raw);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    const float y = __frcp_rn(l_safe);
+    const int mrow = 16 * (tw >> 5) + g + 8 * r;
+    auto quot = [&](float a) {
+      const float q = a * y;
+      return fmaf(fmaf(-l_safe, q, a), y, q);
+    };
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(
+          basep + L::kQ + (j / 8) * kBox + (64 * c + mrow) * 128 +
+          (((j % 8) ^ g) << 4) + 4 * tq) =
+          bf16x2(quot(acc[4 * j + 2 * r]), quot(acc[4 * j + 2 * r + 1]));
+    const int i = row0 + 8 * r;
+    if (tq == 0 && i < sq)
+      lse[((int64_t)b * sq + i) * n_heads + h] = m[r] + logf(l_safe);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + c) : "memory");
+  if (tw == 0) {
+#pragma unroll
+    for (int x = 0; x < HD / 64; ++x)
+      tma_store(&tm_o, base + L::kQ + x * kBox + c * 64 * 128, 64 * x, h,
+                q0 + 64 * c, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
 // The finishing pass: an f32 workspace into bf16, four values a thread
 // (n4 = n / 4: every workspace holds rows of hd 64, 128 or 192).
 __global__ void to_bf16_kernel(const float* __restrict__ src,
@@ -2736,7 +3109,8 @@ bool tensor_map5(CUtensorMap* map, const void* ptr, int esize, int batch,
 }
 
 // The bf16 forward and carry step: TMA needs 16-byte aligned bases (the
-// strides of contiguous [.., hd] rows are multiples of 128 bytes).
+// strides of contiguous [.., hd] rows are multiples of 128 bytes).  At hd
+// 192 its own kernel (64 kv rows a stage, the output by TMA stores).
 template <int HD, bool kCarry>
 int fwd_wgmma(const void* q, const void* k, const void* v, void* out,
               void* lse, const Carry& carry, const Shape& s,
@@ -2744,9 +3118,10 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
+  constexpr bool k192 = HD == 192;
   // with Skv = 0 no CTA loads k or v: a map over q stands in
   const bool empty = s.skv == 0;
-  constexpr int kN = tc::fwd_kn<HD>();
+  constexpr int kN = k192 ? tc::kSkN : tc::kFwdN;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!tensor_map(&tm_q, q, s.batch, s.sq, s.n_heads, HD, tc::kM) ||
       !tensor_map(&tm_k, empty ? q : k, s.batch, empty ? 1 : s.skv,
@@ -2755,18 +3130,35 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                   empty ? s.n_heads : s.n_kv, HD, kN))
     return (int)cudaErrorInvalidValue;
   static int granted = 0;
-  const size_t smem = tc::Smem<HD>::kBytes;
-  const cudaError_t e =
-      allow_smem(tc::flash_fwd_wgmma_kernel<HD, kCarry>, smem, &granted);
-  if (e != cudaSuccess) return (int)e;
   const int64_t ctas = (int64_t)((s.sq + tc::kM - 1) / tc::kM) * s.batch *
                        s.n_heads;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  tc::flash_fwd_wgmma_kernel<HD, kCarry>
-      <<<(unsigned)ctas, tc::kThreads, smem, stream>>>(
-          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out),
-          static_cast<float*>(lse), carry, s.batch, s.sq, s.skv, s.n_heads,
-          s.n_kv, s.q_offset, s.window, s.causal, s.scale);
+  if constexpr (k192) {
+    // the carry step writes no bf16 output: a map over q stands in
+    CUtensorMap tm_o;
+    if (!tensor_map(&tm_o, kCarry ? q : out, s.batch, s.sq, s.n_heads, HD,
+                    tc::kM / 2))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = tc::SkSmem<HD>::kBytes;
+    const cudaError_t e = allow_smem(
+        tc::flash_fwd_wgmma_skip_kernel<HD, kCarry>, smem, &granted);
+    if (e != cudaSuccess) return (int)e;
+    tc::flash_fwd_wgmma_skip_kernel<HD, kCarry>
+        <<<(unsigned)ctas, tc::kThreads, smem, stream>>>(
+            tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), carry,
+            s.batch, s.sq, s.skv, s.n_heads, s.n_kv, s.q_offset, s.window,
+            s.causal, s.scale);
+  } else {
+    const size_t smem = tc::Smem<HD>::kBytes;
+    const cudaError_t e =
+        allow_smem(tc::flash_fwd_wgmma_kernel<HD, kCarry>, smem, &granted);
+    if (e != cudaSuccess) return (int)e;
+    tc::flash_fwd_wgmma_kernel<HD, kCarry>
+        <<<(unsigned)ctas, tc::kThreads, smem, stream>>>(
+            tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out),
+            static_cast<float*>(lse), carry, s.batch, s.sq, s.skv,
+            s.n_heads, s.n_kv, s.q_offset, s.window, s.causal, s.scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -3146,6 +3538,36 @@ extern "C" int flash_bwd192_geometry(int what) {
           cudaSuccess)
         return -1;
       return clusters;
+    }
+  }
+  return -1;
+}
+
+// The hd-192 forward's geometry, read by the tests against the Python
+// plan (flash_attention.py::fwd192_plan): what = 0 query rows a CTA, 1 kv
+// rows a stage, 2 stages of each ring, 3 threads a CTA, 4 dynamic shared
+// memory bytes, 5 CTAs an SM keeps resident (the occupancy API on the
+// compiled kernel; needs a card).  Returns -1 for another `what` or a
+// failed query.
+extern "C" int flash_fwd192_geometry(int what) {
+  using L = tc::SkSmem<192>;
+  switch (what) {
+    case 0: return tc::kM;
+    case 1: return tc::kSkN;
+    case 2: return tc::kSkStages;
+    case 3: return tc::kThreads;
+    case 4: return L::kBytes;
+    case 5: {
+      const auto kernel = tc::flash_fwd_wgmma_skip_kernel<192, false>;
+      if (cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes) != cudaSuccess)
+        return -1;
+      int ctas = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &ctas, kernel, tc::kThreads, L::kBytes) != cudaSuccess)
+        return -1;
+      return ctas;
     }
   }
   return -1;

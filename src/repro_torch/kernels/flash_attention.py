@@ -95,6 +95,18 @@ BWD192_SMEM = 231464
 BWD192_Q_ROWS = 64
 BWD192_L2_CHUNK = 32 << 20
 
+#: the bf16 forward and carry step's geometry at head_dim 192
+#: (``flash_fwd_wgmma_skip_kernel``): query rows a CTA (64 a consumer
+#: warpgroup), kv rows a stage, stages of the K and V rings, threads a CTA
+#: (a producer and two consumer warpgroups) and its dynamic shared memory
+#: (``SkSmem<192>::kBytes``).  A variant is a source edit of both;
+#: ``fwd192_built`` reads the library's and the card tests hold them equal
+FWD192_Q_ROWS = 128
+FWD192_KV_ROWS = 64
+FWD192_STAGES = 2
+FWD192_THREADS = 384
+FWD192_SMEM = 148552
+
 
 # ---------------------------------------------------------------------------
 # The least work of each kernel entry (the one definition the dry run,
@@ -230,6 +242,61 @@ def bwd192_plan(b: int, sq: int, skv: int, h: int, kvh: int, causal: bool,
     return Bwd192Plan(BWD192_KV_ROWS, BWD192_CLUSTER, BWD192_THREADS,
                       BWD192_SMEM, chunk, n_sm // BWD192_CLUSTER,
                       tuple(order))
+
+
+class Fwd192Unit(NamedTuple):
+    """One CTA of the hd-192 forward or carry step: query rows [q0, q0 +
+    128) of head ``h`` of batch row ``b``, over kv tiles [t0, t0 +
+    n_tiles) of 64 rows (none: the carry's rows are copied through, the
+    forward's written as zeros)."""
+    b: int
+    h: int
+    q0: int
+    t0: int
+    n_tiles: int
+
+
+class Fwd192Plan(NamedTuple):
+    """How one hd-192 bf16 forward (or carry step) call runs on the card:
+    the kernel's geometry, the CTAs ``n_sm`` SMs hold at once (one an SM)
+    and the launch order of its CTAs."""
+    q_rows: int
+    kv_rows: int
+    stages: int
+    threads: int
+    smem: int
+    resident: int
+    units: tuple[Fwd192Unit, ...]
+
+
+def fwd192_plan(b: int, sq: int, skv: int, h: int, kvh: int, causal: bool,
+                window: int = 0, q_offset: int = 0, n_sm: int = 132
+                ) -> Fwd192Plan:
+    """The hd-192 forward's plan for q [b, sq, h, 192] against k, v [b,
+    skv, kvh, 192] (``q_offset``: q's position less k's): one CTA per (b,
+    h, 128 query rows), heads fastest, then batch rows, then query tiles,
+    the last (heaviest under causality) first; each over the 64-row kv
+    tiles from the first its rows' window lets them see to the last
+    causality does (the kernel's ``kv_range``).  Host arithmetic on the
+    shapes and the SM count only."""
+    if min(b, sq, h, kvh, n_sm) < 1 or skv < 0 or h % kvh:
+        raise ValueError("fwd192_plan takes positive sizes and h a "
+                         "multiple of kvh")
+    n_qt = -(-sq // FWD192_Q_ROWS)
+    units = []
+    for idx in range(n_qt * b * h):
+        hh, rest = idx % h, idx // h
+        bb, rest = rest % b, rest // b
+        q0 = (n_qt - 1 - rest if causal else rest) * FWD192_Q_ROWS
+        qlo = q_offset + q0
+        qhi = q_offset + min(q0 + FWD192_Q_ROWS, sq) - 1
+        lo = max(0, qlo - window + 1) if window > 0 else 0
+        hi = min(skv, qhi + 1) if causal else skv
+        t0 = lo // FWD192_KV_ROWS
+        n = -(-hi // FWD192_KV_ROWS) - t0 if hi > lo else 0
+        units.append(Fwd192Unit(bb, hh, q0, t0, n))
+    return Fwd192Plan(FWD192_Q_ROWS, FWD192_KV_ROWS, FWD192_STAGES,
+                      FWD192_THREADS, FWD192_SMEM, n_sm, tuple(units))
 
 
 def _work(kind: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -500,6 +567,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_bwd192_geometry.argtypes = [i]
         lib.flash_bwd192_geometry.restype = i
+        lib.flash_fwd192_geometry.argtypes = [i]
+        lib.flash_fwd192_geometry.restype = i
     return lib
 
 
@@ -514,6 +583,20 @@ def bwd192_built() -> dict[str, int]:
            for what, key in enumerate(keys)}
     if min(got.values()) < 0:
         raise RuntimeError(f"flash_bwd192_geometry: {got}")
+    return got
+
+
+def fwd192_built() -> dict[str, int]:
+    """The built hd-192 forward's geometry, read from the library: query
+    rows a CTA, kv rows a stage, stages, threads a CTA, dynamic shared
+    memory, and the CTAs an SM keeps resident (the occupancy API on the
+    compiled kernel; needs a card)."""
+    lib = _lib()
+    keys = ("q_rows", "kv_rows", "stages", "threads", "smem", "resident")
+    got = {key: lib.flash_fwd192_geometry(what)
+           for what, key in enumerate(keys)}
+    if min(got.values()) < 0:
+        raise RuntimeError(f"flash_fwd192_geometry: {got}")
     return got
 
 

@@ -262,7 +262,9 @@ def test_paged_attention_rejects_unaligned_pool(cuda):
 #: tiles: an odd number of kv tiles (Skv 192, 320), Skv = 64 k + 1 (65),
 #: a cluster whose upper CTA has no rows (Skv 64, 192, 320), causal with
 #: q_offset > 0 and Sq < Skv, a window smaller than a tile, G = 1 and 12,
-#: B = 2
+#: B = 2; then edges of the hd-192 forward (2 stages of 64 kv rows): one
+#: kv tile for every CTA (Skv <= 64), and odd tile counts that wrap the
+#: ring (7 and 11 tiles)
 FLASH_CASES = [
     (8, 128, 128, 4, 1, 16, True, 0, 0),
     (1, 100, 127, 8, 2, 16, True, 30, 27),
@@ -297,6 +299,9 @@ FLASH_CASES = [
     (1, 64, 64, 8, 2, 192, False, 0, 0),
     (2, 129, 320, 24, 2, 192, True, 20, 191),
     (1, 70, 192, 12, 12, 192, True, 0, 122),
+    (2, 130, 50, 12, 1, 192, False, 0, 0),
+    (1, 200, 430, 24, 2, 192, False, 0, 0),
+    (1, 704, 704, 8, 2, 192, True, 0, 0),
 ]
 
 
@@ -428,7 +433,10 @@ def test_flash_forward_equals_finalized_empty_carry_bit_for_bit(cuda, h, kvh,
 #: after the q rows (d < 0: nothing visible), a window, ragged Skv, hd 64
 #: and MQA; then the bf16 kernel's edges: Sq and Skv of 127, 129 and 257,
 #: a window of 100, d = 50 (the diagonal mid-tile), MQA 48/1 at hd 64;
-#: then hd 192 (64-row kv stages) empty, carried, windowed and ragged
+#: then hd 192 (64-row kv stages) empty, carried, windowed and ragged;
+#: then the hd-192 kernel's edges: one kv tile (Skv <= 64), none (d < 0:
+#: every row copied through), and 7 tiles that wrap its 2-stage ring,
+#: carried
 CARRY_CASES = [
     (1, 256, 256, 32, 8, 128, True, 0, 0, 0, False),
     (1, 128, 128, 32, 8, 128, True, 0, 256, 128, True),
@@ -446,6 +454,9 @@ CARRY_CASES = [
     (1, 129, 257, 24, 2, 192, True, 100, 300, 250, True),
     (1, 257, 127, 4, 4, 192, False, 0, 0, 0, True),
     (1, 200, 129, 12, 1, 192, True, 0, 128, 0, True),
+    (1, 129, 64, 24, 2, 192, False, 0, 0, 0, True),
+    (1, 128, 128, 24, 2, 192, True, 0, 0, 200, True),
+    (2, 130, 448, 12, 1, 192, False, 0, 0, 0, True),
 ]
 CARRY_TOL = [(torch.float32, 2e-5), (torch.bfloat16, 1e-4)]
 
@@ -526,6 +537,75 @@ def test_flash_carry_kernel_in_place(cuda, dtype, tol):
     assert err == 0
     torch.cuda.synchronize()
     _carry_close((m, l, acc), want, tol, "in place")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", CARRY_TOL)
+def test_flash_carry_kernel_in_place_hd192(cuda, dtype, tol):
+    """The hd-192 carry step with the *_out pointers equal to the *_in
+    ones, carried, over 5 kv tiles a CTA and the diagonal, against the
+    plain step at the out-of-place tolerances."""
+    b, sq, skv, h, kvh, hd = 1, 257, 300, 12, 1, 192
+    q, k, v, carry = _carry_inputs(cuda, dtype, b, sq, skv, h, kvh, hd,
+                                   True)
+    kw = dict(causal=True, window=0, q_offset=200, k_offset=0)
+    want = fa.flash_attention_step_torch(q.float(), k.float(), v.float(),
+                                         *carry, **kw)
+    m, l, acc = (t.clone() for t in carry)
+    lib = fa._lib()
+    err = lib.flash_attention_carry_launch(
+        1 if dtype == torch.bfloat16 else 0, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, sq, skv, h, kvh, hd,
+        kw["q_offset"], kw["k_offset"], kw["window"], 1, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    _carry_close((m, l, acc), want, tol, "in place")
+
+
+def _trend_inputs(cuda, trend, b=1, s=384, h=12, kvh=1, hd=192, seed=3):
+    """bf16 q, k, v whose logits rise along the keys (``"rising"``: each
+    64-key tile raises every row's max, so no alpha is 1) or peak in the
+    first 8 keys (``"first"``: after a row's first tile its max never
+    moves, so every later alpha is exactly 1)."""
+    rng = np.random.default_rng(seed)
+    u = np.ones(hd, np.float32) / math.sqrt(hd)
+    if trend == "rising":
+        lift = 16.0 * np.arange(s, dtype=np.float32) / s
+    else:
+        lift = np.where(np.arange(s) < 8, 16.0, 0.0).astype(np.float32)
+    q = 16.0 * u + 0.1 * rng.normal(size=(b, s, h, hd))
+    k = lift[None, :, None, None] * u + 0.1 * rng.normal(
+        size=(b, s, kvh, hd))
+    v = rng.normal(size=(b, s, kvh, hd))
+    return [torch.from_numpy(x.astype(np.float32)).to(cuda).bfloat16()
+            for x in (q, k, v)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trend", ["rising", "first"])
+def test_flash192_rescale_skip_both_branches(cuda, trend):
+    """The hd-192 forward and carry skip acc *= alpha where every alpha of
+    a warp is exactly 1: held to the plain versions where the max moves
+    on every tile (no skip) and where it never moves after a row's first
+    tile (a skip on every later tile), causal and not."""
+    q, k, v = _trend_inputs(cuda, trend)
+    b, s, h, hd = q.shape
+    for causal in (True, False):
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_carry(
+            q, k, v, *fa.init_partials(b, s, h, hd, device=cuda),
+            causal=causal)
+        torch.cuda.synchronize()
+        want_out, want_lse = fa.flash_attention_torch(
+            q.float(), k.float(), v.float(), causal=causal)
+        _close(out, want_out, 2e-2, f"{trend} causal={causal} out")
+        _close(lse, want_lse, 1e-4, f"{trend} causal={causal} lse")
+        want = fa.flash_attention_step_torch(
+            q.float(), k.float(), v.float(),
+            *fa.init_partials(b, s, h, hd, device=cuda), causal=causal)
+        _carry_close(got, want, 1e-4, f"{trend} causal={causal} carry")
 
 
 @pytest.mark.gpu
@@ -667,6 +747,21 @@ def test_flash_bwd192_built_kernel_matches_its_plan(cuda):
                                   plan.threads)
     assert built["l2_chunk"] == fa.BWD192_L2_CHUNK
     assert 1 <= built["resident"] <= plan.resident
+
+
+@pytest.mark.gpu
+def test_flash_fwd192_built_kernel_matches_its_plan(cuda):
+    """The built hd-192 forward's geometry (query rows a CTA, kv rows a
+    stage, stages, threads, shared memory) is
+    ``flash_attention.fwd192_plan``'s, and the card keeps one CTA of it
+    on each SM."""
+    built = fa.fwd192_built()
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = fa.fwd192_plan(1, 4096, 4096, 96, 8, True, n_sm=n_sm)
+    assert (built["q_rows"], built["kv_rows"], built["stages"],
+            built["threads"], built["smem"]) == (
+        plan.q_rows, plan.kv_rows, plan.stages, plan.threads, plan.smem)
+    assert built["resident"] == 1 and plan.resident == n_sm
 
 
 # ---------------------------------------------------------------------------
@@ -1142,9 +1237,17 @@ def test_grouped_ffn_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         gm.grouped_expert_ffn(h, w1.bfloat16(), w1g, w2, valid,
                               mlp="swiglu")
+    # the entry makes a strided operand contiguous (an FSDP-gathered
+    # expert weight is a moved view): its result is the contiguous one's;
+    # the raw launch still refuses a strided operand
+    view = h.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    got = gm.grouped_expert_ffn(view, w1, w1g, w2, valid, mlp="swiglu")
+    want = gm.grouped_expert_ffn(h, w1, w1g, w2, valid, mlp="swiglu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="contiguous"):
-        gm.grouped_expert_ffn(h.transpose(1, 2).contiguous().transpose(1, 2),
-                              w1, w1g, w2, valid, mlp="swiglu")
+        gm.grouped_expert_ffn_cuda(view, w1, w1g, w2, valid, "swiglu")
     with pytest.raises(ValueError, match="devices"):
         gm.grouped_expert_ffn(h, w1, w1g, w2, valid.cpu(), mlp="swiglu")
     with pytest.raises(RuntimeError, match="launch failed"):
