@@ -16,8 +16,9 @@ phase that fails:
                bf16 forward, carry, backward, block-backward (at hd 64,
                128 and 192) and grouped kernels must have some, and they,
                the paged kernel's bf16 fast path and the grouped
-               tensor-core kernels must not spill (no stack or local
-               memory in ``cuobjdump -res-usage`` of the built library);
+               tensor-core kernels, the backward's ``mma.sync`` ones
+               among them, must not spill (no stack or local memory in
+               ``cuobjdump -res-usage`` of the built library);
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
                the card at the stated tolerances (paged attention, with
                its split plan, and its bf16 fast path's f32 split
@@ -25,7 +26,10 @@ phase that fails:
                forward and backward), then timed beside its bound, the
                plain version and a library yardstick: paged attention at
                the serve, long-context, granite MQA (48/1) and moonshot
-               G=1 (16/16) shapes;
+               G=1 (16/16) shapes; its partials entry over a pool cut in
+               two halves (each a rank's pool with its offset) in both
+               engines against the plain partials (1e-4 of their size)
+               and, merged, the plain unsharded output;
   3. serve   — phi4-mini-3.8b at its published size (32 layers, bf16,
                seeded random weights) through ServeEngine; the kernel's
                launch count must equal n_layers x decode steps;
@@ -57,11 +61,15 @@ phase that fails:
                requests served through ServeEngine (paged launches = 48 x
                decode steps, no grouped launch); 3 training steps at full
                width and 4 layers with exactly 8 grouped launches per
-               step, all on the tensor cores, and a fourth under
-               torch.profiler; and at 2 layers in f32 (the
-               grouped kernel's SIMT engine) the kernel path against the
-               plain path (loss, gradients, prefill logits) and the
-               contiguous Generator against the paged engine;
+               step, all on the tensor cores, and exactly 4 grouped
+               backward launches per step on the tensor cores, and a
+               fourth step under torch.profiler; and at 2 layers in f32
+               (the grouped kernels' SIMT engines, forward and backward)
+               the kernel path against the plain path (loss, gradients,
+               prefill logits) and the contiguous Generator against the
+               paged engine; no plain grouped FFN, grouped backward or
+               paged partials version gets a CUDA tensor on the kernel
+               path (``plain_spy``);
   9. ring    — ring attention (context parallelism) on phi4-mini-3.8b
                uncut with attn_impl="ring" at one rank: prefill_sp of
                1 x 8192 tokens with exactly 32 carry-kernel launches and
@@ -90,7 +98,9 @@ phase that fails:
                same weights (loss rtol 2e-4; gradient norm rtol 1e-5;
                every parameter, gathered, rtol 2e-3 / atol 3e-4; flash
                launches per rank exact), the
-               1x2 ``ServeEngine``'s greedy tokens against 1x1's, the
+               1x2 ``ServeEngine``'s greedy tokens against 1x1's (its
+               pool over 2 cache shards: the paged kernel's partials on
+               both ranks, no plain partials), the
                bytes between the card and host memory per step (gloo on
                one card, not NCCL: staged messages and gloo's own copies
                of all-reduces), and ``jacobi_mdmp --ranks 2`` (every
@@ -102,7 +112,9 @@ phase that fails:
                2) and expert_tp against rank 0's 1x1 step (loss and
                gradient norm rtol 1e-5, gathered parameters as phase 11;
                the ep runs against 1x1 with ep_a2a's rank-averaged
-               load-balance term), grouped launches exact (SIMT), the 1x2
+               load-balance term), grouped launches exact (SIMT), one f32
+               grouped backward launch per forward call on each rank and
+               no plain version on a CUDA tensor, the 1x2
                engine's tokens against 1x1's, and a bf16 prefill per
                layout whose grouped launches all take the tensor cores and
                whose first call, at its shard shape, is held to the plain
@@ -212,7 +224,12 @@ before rounding within 1e-4 of the plain f32 product and their bf16
 output equal to it rounded on 99% of the elements); at moonshot's
 prefill call it prints the plan (engine, tiles, CTAs, live tiles) and
 times the kernel in turns with a three-bmm yardstick while nvidia-smi
-reads the clocks.
+reads the clocks.  Its backward is held the same way (every activation,
+one and two groups an expert, valid counts of 0, part and all of a
+group; dh exactly 0 past valid, an empty expert's weight gradients
+exactly 0; on the tensor cores every gradient equal to the plain f32 one
+rounded on 99% of its elements), and at moonshot's training call (C =
+240) it is timed in turns with torch autograd through three bf16 bmm.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -255,6 +272,50 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: the plain versions that no card path may reach: (module under
+#: repro_torch.kernels, function)
+PLAIN_VERSIONS = (("grouped_matmul", "grouped_expert_ffn_torch"),
+                  ("grouped_matmul", "grouped_expert_ffn_bwd_torch"),
+                  ("paged_attention", "paged_attention_partials_torch"),
+                  ("paged_attention", "split_partials_torch"))
+
+
+class plain_spy:
+    """Within the block, each call of a function of PLAIN_VERSIONS that is
+    handed a CUDA tensor is counted in ``hits`` by name, and goes on as
+    before: a card path that reaches a plain version shows there."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        self.hits, self.saved = {}, []
+        for mod, name in PLAIN_VERSIONS:
+            module = importlib.import_module(f"repro_torch.kernels.{mod}")
+            real = getattr(module, name)
+
+            def spy(*args, _real=real, _name=name, **kw):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in (*args, *kw.values())):
+                    self.hits[_name] = self.hits.get(_name, 0) + 1
+                return _real(*args, **kw)
+
+            setattr(module, name, spy)
+            self.saved.append((module, name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in self.saved:
+            setattr(module, name, real)
+        return False
+
+    def check(self, what: str) -> None:
+        if self.hits:
+            fail(f"{what}: a plain version was handed CUDA tensors on the "
+                 f"card path: {self.hits}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -271,11 +332,11 @@ def kernel_name(mangled: str, kernel: str) -> str | None:
     found = re.search(rf"({kernel})I(.*?)E(?:Ev|EE)", mangled)
     if not found:
         return None
-    args = re.sub(r"Li(\d+)E", r"\1, ", found.group(2) + "E")
+    args = re.sub(r"^f", "float, ", found.group(2) + "E")
+    args = re.sub(r"Li(\d+)E", r"\1, ", args)
     args = re.sub(r"Lb([01])E", lambda b: ("false", "true")[
         int(b.group(1))] + ", ", args)
     args = args.replace("13__nv_bfloat16", "bf16, ")
-    args = re.sub(r"^f", "float, ", args)
     return f"{found.group(1)}<{args.rstrip(', E')}>"
 
 
@@ -608,6 +669,113 @@ def phase_kernel(torch):
             kvh=16, b=8, lens=serve_lens, reps=10, plain_reps=5)
     bf16_err = max(v for k, v in errs.items() if k.startswith("bfloat16"))
     return main, bf16_err
+
+
+def partials_err(torch, got, want):
+    """Flash partials (m, l, acc) [B, 1, H(, hd)] against the plain ones:
+    the worst error relative to their size (acc: to the largest |acc| of
+    its row); inf where the two disagree on which rows attend nothing."""
+    (m, l, acc), (m_r, l_r, acc_r) = got, want
+    live = l_r > 0
+    if not torch.equal(l > 0, live) or not torch.equal(
+            m[~live], m_r[~live]) or bool((acc[~live] != 0).any()):
+        return float("inf")
+    size = acc_r.abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-30)
+    dm = (m - m_r)[live].abs() / m_r[live].abs().clamp_min(1.0)
+    return max(((l - l_r).abs() / l_r.clamp_min(1e-30)).max().item(),
+               dm.max().item() if dm.numel() else 0.0,
+               ((acc - acc_r).abs() / size).max().item())
+
+
+#: (H, KV, window, hd) of the partials checks: phi4-mini's GQA, a window,
+#: moonshot's G=1, nemotron's 96/8 heads of 192
+PARTIALS_CASES = [(32, 8, 0, 128), (32, 8, 64, 128), (16, 16, 0, 128),
+                  (96, 8, 0, 192)]
+#: the partials entry against the plain partials in f32 on the same
+#: inputs, relative to their size (partials_err)
+PARTIALS_TOL = 1e-4
+
+
+def phase_paged_partials(torch):
+    """Phase 2: the paged kernel's partials over a pool cut in two halves
+    (each a rank's pool with its offset; the chains cross the cut),
+    against the plain partials in both engines, merged against the plain
+    unsharded output; then its time at the serving shape.  Returns the
+    timing and the worst max|err| of the merged output."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as paged
+
+    rng = np.random.default_rng(SEED + 21)
+    ragged = [0, 1, 16, 17, 32, 100, 255, 288]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, kvh, window, hd in PARTIALS_CASES:
+            q, kp, vp, table, lens = paged_inputs(
+                torch, rng, b=8, h=h, kvh=kvh, hd=hd, page=16, lens=ragged,
+                n_pages=160, dtype=dtype)
+            half = kp.shape[0] // 2
+            name = (f"{str(dtype)[6:]} H={h} KV={kvh} window={window} hd "
+                    f"{hd}")
+            parts, errs = [], []
+            for off in (0, half):
+                local = (q, kp[off:off + half], vp[off:off + half], table,
+                         lens)
+                plan = paged.launch_plan(q, local[1], table)
+                before = paged.LAUNCHES
+                got = paged.paged_attention_partials(
+                    *local, window=window, pool_offset=off)
+                torch.cuda.synchronize()
+                if paged.LAUNCHES != before + 1:
+                    fail(f"paged partials {name}: not one launch")
+                want = paged.paged_attention_partials_torch(
+                    q.float(), local[1].float(), local[2].float(), table,
+                    lens, window=window, pool_offset=off)
+                errs.append(partials_err(torch, got, want))
+                parts.append(got)
+            out, _ = fa.finalize_partials(*fa.merge_partials(*parts))
+            full = paged.paged_attention_torch(
+                q.float(), kp.float(), vp.float(), table, lens,
+                window=window)
+            merged = (out[:, 0] - full).abs().max().item()
+            if not max(errs) <= PARTIALS_TOL or not merged <= PARTIALS_TOL:
+                fail(f"paged partials {name}: off the plain partials by "
+                     f"{max(errs):.3e} of their size, merged off the plain "
+                     f"output by {merged:.3e} (limit {PARTIALS_TOL})")
+            worst = max(worst, merged)
+            print(f"  paged_attention_partials vs plain {name} over two "
+                  f"pool halves of {half} pages (offsets 0, {half}; "
+                  f"{plan.engine}, {plan.n_splits} splits): off by "
+                  f"{max(errs):.3e} of their size, the two merged off the "
+                  f"unsharded plain output by {merged:.3e} (limit "
+                  f"{PARTIALS_TOL})", flush=True)
+
+    # its time at the serving shape, on one half of the pool
+    lens = [int(x) for x in rng.integers(64, 289, size=8)]
+    n_pages = sum(-(-n // 16) for n in lens) + 2
+    q, kp, vp, table, lns = paged_inputs(
+        torch, rng, b=8, h=32, kvh=8, hd=128, page=16, lens=lens,
+        n_pages=n_pages, dtype=torch.bfloat16)
+    half = n_pages // 2
+    local = (q, kp[half:], vp[half:], table, lns)
+    kernel = [lambda: paged.paged_attention_partials(*local,
+                                                     pool_offset=half)]
+    plain = [lambda: paged.paged_attention_partials_torch(
+        *local, pool_offset=half)]
+    need = paged.local_positions(table, lns, 16, kp.shape[0] - half, half)
+    tm = dict(ms=graph_ms(torch, kernel, 20), plain_ms=graph_ms(torch, plain,
+                                                                 5),
+              library_ms=None)
+    tm["bound_ms"], tm["bound_by"] = paged_bound(need, 0, 32, 8, 128, 16,
+                                                 "bfloat16", 2)
+    plan = paged.launch_plan(q, local[1], table)
+    print(f"  paged_attention_partials at the serving shape (B=8, 32/8 "
+          f"heads, bf16, lens 64-288, the second of two pool halves: "
+          f"{sum(need)} of {sum(lens)} positions local; {plan.engine}, "
+          f"{plan.n_splits} splits): kernel {tm['ms']:.4f} ms, bound "
+          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}), plain "
+          f"{tm['plain_ms']:.4f} ms; no single library call gives the "
+          f"partials", flush=True)
+    return tm, worst
 
 
 # ---------------------------------------------------------------------------
@@ -1444,10 +1612,10 @@ def grouped_inputs(torch, gen, shape, dtype, valid):
     return [t.to(dtype) for t in (h, *ws)]
 
 
-def routed_counts(torch, rng):
-    """Kept rows per expert of one prefill call: each token's top-6
-    distinct experts drawn uniformly, loads clamped at the capacity."""
-    p = MOE_PREFILL
+def routed_counts(torch, rng, p=MOE_PREFILL):
+    """Kept rows per expert of one call of ``p`` (the prefill's by
+    default): each token's top-6 distinct experts drawn uniformly, loads
+    clamped at the capacity."""
     picks = np.argsort(rng.random((p["b"] * p["s"], p["e"])), axis=1)
     load = np.bincount(picks[:, :p["k"]].ravel(), minlength=p["e"])
     return torch.tensor(np.minimum(load, p["c"]).astype(np.int32),
@@ -1658,6 +1826,203 @@ def phase_grouped(torch):
     else:
         print("  nvidia-smi during the turns: no read", flush=True)
     del sets, h, w1, w1g, w2, kernel, plain, yard, timers
+    torch.cuda.empty_cache()
+    return tm, err_bf16
+
+
+#: (G, C, D, F, E) of the backward's checks: the SIMT engine's (f32 at
+#: 1e-5, and bf16 at 2e-2 where D or F is no multiple of 64) and the
+#: tensor cores' (bf16 at 2e-2); one and two groups an expert, sizes that
+#: end on part of a tile
+GROUPED_BWD_SHAPES = [(4, 40, 24, 40, 4), (4, 40, 24, 40, 2),
+                      (3, 70, 130, 70, 3)]
+GROUPED_BWD_TC_SHAPES = [(4, 200, 128, 192, 4), (4, 129, 192, 128, 2)]
+#: the tensor cores' bf16 gradients equal the plain f32 ones rounded to
+#: bf16 on at least this share of their elements (dU, dG and act kept as
+#: bf16 alone, without their lo halves, move them by about 4e-3)
+GROUPED_BWD_BF16_SHARE = 0.99
+#: moonshot-v1-16b-a3b's training call (phase 8): B=2 x S=1024 tokens,
+#: top-6 of 64 experts, capacity ceil(2048 * 6 * 1.25 / 64) = 240
+MOE_TRAIN = dict(b=2, s=1024, e=64, k=6, c=240, d=2048, f=1408)
+#: alternating timings of the backward and its yardstick, and graph
+#: replays of each per turn
+GROUPED_BWD_TURNS = 5
+GROUPED_BWD_TURN_REPS = 10
+
+
+def grouped_bwd_inputs(torch, gen, shape, dtype, valid):
+    """grouped_inputs and dy, each with 1e3-scale garbage past valid."""
+    h, w1, w1g, w2 = grouped_inputs(torch, gen, shape, dtype, valid)
+    g, c, d = shape[:3]
+    dy = torch.randn((g, c, d), generator=gen, device="cuda")
+    rows = torch.arange(c, device="cuda")[None, :, None]
+    junk = 1e3 * torch.randn((g, c, d), generator=gen, device="cuda")
+    dy = torch.where(rows < valid[:, None, None], dy, junk).to(dtype)
+    return h, w1, w1g, w2, dy
+
+
+def grouped_bwd_call(torch, gm, h, w1, w1g, w2, valid, dy, mlp, tol, name):
+    """One backward call against the plain backward in f32: each gradient
+    within tol x max(1, max|want|), dh exactly 0 past valid, the weight
+    gradients of an expert that keeps no row exactly 0, one launch on
+    ``bwd_engine``'s engine; on the tensor cores each gradient also equal
+    to the plain one rounded to bf16 on GROUPED_BWD_BF16_SHARE of its
+    elements.  Returns (max|err|, the smallest equal share or None)."""
+    engine = gm.bwd_engine(h, w1, w2)
+    before = dict(gm.BWD_ENGINE_LAUNCHES)
+    got = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, mlp)
+    torch.cuda.synchronize()
+    if gm.BWD_ENGINE_LAUNCHES[engine] != before[engine] + 1:
+        fail(f"{name}: the {engine} backward did not launch once")
+    want = gm.grouped_expert_ffn_bwd_torch(
+        *[None if t is None else t.float() for t in (h, w1, w1g, w2)], valid,
+        dy.float(), mlp)
+    live = (torch.arange(h.shape[1], device="cuda")[None, :, None]
+            < valid[:, None, None]).expand_as(h)
+    gpe = h.shape[0] // w1.shape[0]
+    empty = valid.reshape(-1, gpe).clamp_min(0).sum(1) == 0
+    errs, shares = [], []
+    for what, g_, w_ in zip(("dh", "dw1", "dw1g", "dw2"), got, want):
+        if g_ is None:
+            continue
+        errs.append(stencil_check(torch, g_, w_, tol, f"{name} {what}"))
+        zero = g_[~live] if what == "dh" else g_[empty]
+        if not torch.equal(zero.float(), torch.zeros_like(zero.float())):
+            fail(f"{name}: {what} is not exactly 0 past valid or for an "
+                 f"expert with no kept row")
+        if engine == "mma":
+            sel = live if what == "dh" else torch.ones_like(g_, dtype=bool)
+            shares.append((g_[sel] == w_[sel].to(g_.dtype)).float().mean()
+                          .item())
+            if not shares[-1] >= GROUPED_BWD_BF16_SHARE:
+                fail(f"{name}: {what} equals the plain f32 gradient rounded "
+                     f"on {shares[-1]:.4f} of its elements (at least "
+                     f"{GROUPED_BWD_BF16_SHARE})")
+    return max(errs), (min(shares) if shares else None)
+
+
+def phase_grouped_bwd(torch):
+    """Phase 2: the grouped FFN's backward kernels against the plain
+    backward (both engines, every activation, one and two groups an
+    expert, valid counts of 0, part and all of a group), then at
+    moonshot's training call, timed in turns with a yardstick."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rng = np.random.default_rng(SEED + 20)
+    err_bf16 = 0.0
+    cases = [(dname, tol, shape) for dname, tol in GROUPED_TOL
+             for shape in GROUPED_BWD_SHAPES]
+    cases += [("bfloat16", GROUPED_TOL[1][1], shape)
+              for shape in GROUPED_BWD_TC_SHAPES]
+    for dname, tol, shape in cases:
+        dtype = getattr(torch, dname)
+        g, c, _, _, e = shape
+        vals = rng.integers(1, c, size=g)
+        vals[: g // e] = 0                    # expert 0 keeps no row
+        vals[-1] = c
+        valid = torch.tensor(vals, dtype=torch.int32, device="cuda")
+        h, w1, w1g, w2, dy = grouped_bwd_inputs(torch, gen, shape, dtype,
+                                                valid)
+        engine = gm.bwd_engine(h, w1, w2)
+        errs, shares = [], []
+        for mlp in ("swiglu", "geglu", "relu2", "gelu"):
+            err, share = grouped_bwd_call(
+                torch, gm, h, w1, w1g if gm.gated(mlp) else None, w2, valid,
+                dy, mlp, tol, f"grouped_expert_ffn_bwd {dname} {mlp} {shape}")
+            errs.append(err)
+            if share is not None:
+                shares.append(share)
+        if dtype == torch.bfloat16:
+            err_bf16 = max(err_bf16, max(errs))
+        print(f"  grouped_expert_ffn_bwd vs plain {dname} (G, C, D, F, E) = "
+              f"{shape} on the {engine} engine, valid {valid.tolist()}, "
+              f"swiglu, geglu, relu2, gelu: max|err| {max(errs):.2e} "
+              f"(tolerance {tol} x max(1, max|want|)); dh exactly 0 past "
+              f"valid, expert 0's weight gradients exactly 0"
+              + (f"; every gradient equal to the plain f32 one rounded to "
+                 f"bf16 on at least {min(shares):.4f} of its elements "
+                 f"(limit {GROUPED_BWD_BF16_SHARE})" if shares else ""),
+              flush=True)
+
+    # moonshot's training call, kernel against plain, then its times; two
+    # input sets so consecutive calls do not find the weights in L2
+    p = MOE_TRAIN
+    shape = (p["e"], p["c"], p["d"], p["f"], p["e"])
+    sets = []
+    for _ in range(2):
+        valid = routed_counts(torch, rng, p)
+        sets.append((*grouped_bwd_inputs(torch, gen, shape, torch.bfloat16,
+                                         valid), valid))
+    h, w1, w1g, w2, dy, valid = sets[0]
+    err, share = grouped_bwd_call(
+        torch, gm, h, w1, w1g, w2, valid, dy, "swiglu", GROUPED_TOL[1][1],
+        f"grouped_expert_ffn_bwd bf16 training call {shape}")
+    err_bf16 = max(err_bf16, err)
+    kept_mean = sum(int(s[5].sum()) for s in sets) / len(sets)
+    print(f"  grouped_expert_ffn_bwd vs plain bf16 at moonshot's training "
+          f"call (G = E = 64, C = 240, D = 2048, F = 1408, swiglu, "
+          f"{int(valid.sum())} kept rows, the mma engine): max|err| "
+          f"{err:.2e} (tolerance {GROUPED_TOL[1][1]} x max(1, max|want|)); "
+          f"dh exactly 0 past valid; every gradient equal to the plain f32 "
+          f"one rounded on at least {share:.4f} of its elements", flush=True)
+
+    def autograd_bmm3(s):
+        hh, a, b, c2, y = s[:5]
+        leaves = [t.detach().requires_grad_() for t in (hh, a, b, c2)]
+        out = torch.bmm(torch.bmm(leaves[0], leaves[1])
+                        * torch.bmm(leaves[0], leaves[2]), leaves[3])
+        return torch.autograd.grad(out, leaves, y)
+
+    kernel = [lambda s=s: gm.grouped_expert_ffn_bwd(*s[:4], s[5], s[4],
+                                                    "swiglu") for s in sets]
+    plain = [lambda s=s: gm.grouped_expert_ffn_bwd_torch(*s[:4], s[5], s[4],
+                                                         "swiglu")
+             for s in sets]
+    yard = [lambda s=s: autograd_bmm3(s) for s in sets]
+    tm = dict(plain_ms=graph_ms(torch, plain, 3), library_ms=None)
+    timers = graph_timer(torch, kernel * 2), graph_timer(torch, yard * 2)
+
+    def take_turns():
+        out = []
+        for _ in range(GROUPED_BWD_TURNS):
+            t0 = time.perf_counter()
+            out.append((timers[0](GROUPED_BWD_TURN_REPS),
+                        timers[1](GROUPED_BWD_TURN_REPS), t0,
+                        time.perf_counter()))
+        return out
+
+    turns, clocks = with_clocks(take_turns)
+    kernel_ms = sorted(t[0] for t in turns)
+    yard_ms = sorted(t[1] for t in turns)
+    tm["ms"] = kernel_ms[len(turns) // 2]
+    tm["bound_ms"], tm["bound_by"] = roof_ms(*gm.grouped_bwd_work(
+        kept_mean, p["e"], p["c"], p["d"], p["f"], p["e"], 2), "bfloat16")
+    print(f"  grouped_expert_ffn_bwd at moonshot's training call (bf16, "
+          f"{kept_mean:.0f} kept rows of {p['e'] * p['c']}): kernel "
+          f"{tm['ms']:.4f} ms (the median of {GROUPED_BWD_TURNS} turns, "
+          f"{kernel_ms[0]:.4f}-{kernel_ms[-1]:.4f} ms), bound "
+          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}: grouped_bwd_work's "
+          f"eight products at the bf16 rate, the weights read and their "
+          f"gradients written over HBM; the kernel reaches "
+          f"{tm['bound_ms'] / tm['ms'] * 100:.1f}% of it), plain (f32, in "
+          f"a CUDA graph) {tm['plain_ms']:.4f} ms; no single library call "
+          f"computes it; yardstick, in turns with the kernel: torch "
+          f"autograd through three bf16 torch.bmm on the padded buffers "
+          f"(forward and backward, cuBLAS, padding included, an "
+          f"elementwise product in place of the activation) "
+          f"{yard_ms[len(turns) // 2]:.4f} ms "
+          f"({yard_ms[0]:.4f}-{yard_ms[-1]:.4f} ms)", flush=True)
+    line = []
+    for k_ms, y_ms, t0, t1 in turns:
+        mhz = [c[1] for c in clocks if t0 <= c[0] <= t1]
+        line.append(f"{k_ms:.4f} / {y_ms:.4f} ms at "
+                    + (f"{min(mhz):.0f}-{max(mhz):.0f} MHz" if mhz
+                       else "no read"))
+    print(f"  turns of {GROUPED_BWD_TURN_REPS} replays each, kernel / "
+          f"yardstick, SM clock read meanwhile: {'; '.join(line)}",
+          flush=True)
+    del sets, h, w1, w1g, w2, dy, kernel, plain, yard, timers
     torch.cuda.empty_cache()
     return tm, err_bf16
 
@@ -2055,7 +2420,9 @@ def device_ms_by_kernel(torch, prof, n: int) -> dict[str, float]:
 
 def kind_of(name: str) -> str:
     """The kind of a profiled kernel, by its name."""
-    return ("grouped expert FFN" if "ffn_up" in name or "ffn_down" in name
+    return ("grouped expert FFN backward" if "ffn_bwd" in name
+            else "grouped expert FFN" if "ffn_up" in name
+            or "ffn_down" in name
             else "flash carry step" if "flash_fwd" in name
             and "true>" in name
             else "flash block backward" if "flash_bwd_wgmma" in name
@@ -2627,35 +2994,42 @@ def phase_moe_train(torch):
                                       global_batch=b, seed=SEED))
     n_params = sum(t.numel() for t in model.parameters())
     losses, walls, counts = [], [], []
-    gm.GROUPED_LAUNCHES = 0
+    gm.GROUPED_LAUNCHES = gm.GROUPED_BWD_LAUNCHES = 0
+    gm.BWD_ENGINE_LAUNCHES.update(mma=0, simt=0)
     fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+
+    def launches():
+        return (gm.ENGINE_LAUNCHES["wgmma"], fa.FWD_LAUNCHES,
+                fa.BWD_LAUNCHES, gm.GROUPED_LAUNCHES,
+                gm.GROUPED_BWD_LAUNCHES, gm.BWD_ENGINE_LAUNCHES["mma"])
+
     for i in range(3):
         batch = train_batch(torch, data, i)
-        c0 = (gm.ENGINE_LAUNCHES["wgmma"], fa.FWD_LAUNCHES, fa.BWD_LAUNCHES,
-              gm.GROUPED_LAUNCHES)
+        c0 = launches()
         t0 = time.perf_counter()
         opt, metrics = step(opt, batch)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts.append((gm.ENGINE_LAUNCHES["wgmma"] - c0[0],
-                       fa.FWD_LAUNCHES - c0[1], fa.BWD_LAUNCHES - c0[2],
-                       gm.GROUPED_LAUNCHES - c0[3]))
+        counts.append(tuple(b - a for a, b in zip(c0, launches())))
     # grouped launches on the tensor-core engine, flash forward, flash
-    # backward, and grouped launches of either engine
+    # backward, grouped launches of either engine, grouped backward
+    # launches of either engine and on the tensor cores
     want = (2 * cfg.n_layers, 2 * cfg.n_layers, cfg.n_layers,
-            2 * cfg.n_layers)
+            2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
     if not all(np.isfinite(losses)):
         fail(f"non-finite MoE training loss: {losses}")
     if any(c != want for c in counts):
         fail(f"(grouped on the tensor cores, flash forward, flash "
-             f"backward, grouped) launches per step {counts} != {want}")
+             f"backward, grouped, grouped backward, grouped backward on the "
+             f"tensor cores) launches per step {counts} != {want}")
     print(f"  moonshot-v1-16b-a3b full width, {cfg.n_layers} layers "
           f"({n_params / 1e9:.2f} B params, bf16, f32 AdamW moments, "
           f"remat), B={b}, S={s}: losses {[round(x, 4) for x in losses]}, "
           f"host wall per step {[round(w * 1e3, 1) for w in walls]} ms, "
           f"launches per step (grouped on the tensor cores, flash "
-          f"forward, flash backward, grouped) {counts[0]}, peak memory "
+          f"forward, flash backward, grouped, grouped backward, grouped "
+          f"backward on the tensor cores) {counts[0]}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
     # where one step's device time goes (a fourth step, outside the counts)
@@ -2675,6 +3049,7 @@ def phase_moe_train(torch):
     print_by_kind(per_kernel, "MoE training step")
     del model, opt, step, batch, metrics
     torch.cuda.empty_cache()
+    return sum(c[4] for c in counts)
 
 
 def phase_moe_parity(torch):
@@ -2715,19 +3090,24 @@ def phase_moe_parity(torch):
             gen = torch.Generator(device="cuda").manual_seed(SEED)
             model = Model(cfg, device="cuda", attn_engine=engine,
                           moe_engine=engine).init(gen)
-            gm.GROUPED_LAUNCHES = 0
+            gm.GROUPED_LAUNCHES = gm.GROUPED_BWD_LAUNCHES = 0
             gaps.clear()
-            loss, _ = model.loss_sp(train_batch(torch, data, 0))
-            leaves = flatten_specs(model.params())
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
-            want = 2 * cfg.n_layers if engine == "auto" else 0
-            if gm.GROUPED_LAUNCHES != want:
-                fail(f"{engine}: {gm.GROUPED_LAUNCHES} grouped launches for "
-                     f"one loss and gradient, not {want}")
-            prompts = data.global_batch_at(9)["tokens"]
-            logits, _ = model.prefill_sp({"tokens": torch.from_numpy(
-                prompts).cuda()})
+            with plain_spy() as spy:
+                loss, _ = model.loss_sp(train_batch(torch, data, 0))
+                leaves = flatten_specs(model.params())
+                grads = dict(zip(leaves, torch.autograd.grad(
+                    loss, list(leaves.values()))))
+                prompts = data.global_batch_at(9)["tokens"]
+                logits, _ = model.prefill_sp({"tokens": torch.from_numpy(
+                    prompts).cuda()})
+            if engine == "auto":
+                spy.check("phase 8 parity, the kernel path")
+            want = (3 * cfg.n_layers, cfg.n_layers) if engine == "auto" \
+                else (0, 0)
+            if (gm.GROUPED_LAUNCHES, gm.GROUPED_BWD_LAUNCHES) != want:
+                fail(f"{engine}: {gm.GROUPED_LAUNCHES} grouped and "
+                     f"{gm.GROUPED_BWD_LAUNCHES} grouped backward launches "
+                     f"for one loss, gradient and prefill, not {want}")
             runs[engine] = dict(loss=loss.item(), grads=grads,
                                 logits=logits, gap=min(gaps))
             if engine == "auto":
@@ -2761,9 +3141,11 @@ def phase_moe_parity(torch):
 
     prompts = data.global_batch_at(10)["tokens"][:, :48]
     shape = ShapeConfig("smoke", 128, prompts.shape[0], "decode")
-    contiguous = Generator(kernel_model, shape).generate(prompts, 16)
-    paged = Generator(kernel_model, shape, engine="paged",
-                      page_size=16).generate(prompts, 16)
+    with plain_spy() as spy:
+        contiguous = Generator(kernel_model, shape).generate(prompts, 16)
+        paged = Generator(kernel_model, shape, engine="paged",
+                          page_size=16).generate(prompts, 16)
+    spy.check("phase 8, the Generators")
     if not np.array_equal(contiguous, paged):
         fail(f"MoE contiguous Generator {contiguous.tolist()} != paged "
              f"engine {paged.tolist()}")
@@ -3272,6 +3654,7 @@ def mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
                     staged=transport.staged_bytes())
 
     one = None
+    spy = plain_spy().__enter__()
     if rank == 0:
         paged.LAUNCHES = 0
         res["one_tokens"] = serve(full)
@@ -3307,6 +3690,8 @@ def mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
         res[f"{spec}_worst"] = worst
         del model, ctx
         torch.cuda.empty_cache()
+    spy.__exit__(None, None, None)
+    res["plain_hits"] = spy.hits
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
     dist.barrier()
@@ -3329,7 +3714,8 @@ def phase_mesh(torch, root, card):
     if (one["fwd"], one["bwd"]) != want or res[0]["one_paged"] == 0:
         fail(f"the 1x1 run's launches: flash {one['fwd']} / {one['bwd']} "
              f"(want {want}), paged {res[0]['one_paged']}")
-    launches = {"fwd": 0, "bwd": 0}
+    launches = {"fwd": 0, "bwd": 0,
+                "paged_partials": res[0]["1x2_paged"] + res[1]["1x2_paged"]}
     for spec in MESH_SPECS:
         for r in range(2):
             got = res[r][spec]
@@ -3367,11 +3753,18 @@ def phase_mesh(torch, root, card):
         if res[r]["1x2_tokens"] != res[0]["one_tokens"]:
             fail(f"1x2 rank {r} greedy tokens {res[r]['1x2_tokens']} != "
                  f"1x1 {res[0]['one_tokens']}")
-    print(f"  ServeEngine on 1x2 (the page pool over 2 cache shards, plain "
-          f"partials LSE-merged; paged kernel launches {res[0]['1x2_paged']}"
-          f"): greedy tokens equal 1x1's (paged kernel, "
-          f"{res[0]['one_paged']} launches): {res[0]['one_tokens']}",
-          flush=True)
+        if not res[r]["1x2_paged"] > 0:
+            fail(f"1x2 rank {r}: the sharded paged decode launched the "
+                 f"paged kernel {res[r]['1x2_paged']} times")
+        if res[r]["plain_hits"]:
+            fail(f"phase 11 rank {r}: a plain version was handed CUDA "
+                 f"tensors: {res[r]['plain_hits']}")
+    print(f"  ServeEngine on 1x2 (the page pool over 2 cache shards, the "
+          f"paged kernel's partials of each shard LSE-merged; paged kernel "
+          f"launches {res[0]['1x2_paged']} / {res[1]['1x2_paged']} by "
+          f"rank): greedy tokens equal 1x1's (paged kernel, "
+          f"{res[0]['one_paged']} launches): {res[0]['one_tokens']}; no "
+          f"plain version handed a CUDA tensor on either rank", flush=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     jac = subprocess.run([sys.executable, "-m",
                           "repro_torch.examples.jacobi_mdmp", "--ranks", "2"],
@@ -3461,8 +3854,9 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
         return [got[r].tolist() for r in rids]
 
     def step(model):
-        gm.GROUPED_LAUNCHES = 0
+        gm.GROUPED_LAUNCHES = gm.GROUPED_BWD_LAUNCHES = 0
         gm.ENGINE_LAUNCHES.update(wgmma=0, simt=0)
+        gm.BWD_ENGINE_LAUNCHES.update(mma=0, simt=0)
         transport.reset_staged_bytes()
         fn = build_train_step(model, opt_cfg)
         opt = adamw_init(model.params(), opt_cfg)
@@ -3478,6 +3872,8 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
                     ms=(time.perf_counter() - t0) * 1e3,
                     grouped=gm.GROUPED_LAUNCHES,
                     engines=dict(gm.ENGINE_LAUNCHES),
+                    bwd=gm.GROUPED_BWD_LAUNCHES,
+                    bwd_engines=dict(gm.BWD_ENGINE_LAUNCHES),
                     staged=transport.staged_bytes(),
                     decisions=[f"{r.op}({r.mode}, g={r.chunks}, "
                                f"{r.nbytes} B)" for r in recs])
@@ -3502,6 +3898,7 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
 
     real_router = moe._router
     one = {}
+    spy = plain_spy().__enter__()
     if rank == 0:
         paged.LAUNCHES = 0
         res["one_tokens"] = serve(full)
@@ -3552,6 +3949,8 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
         del model
         torch.cuda.empty_cache()
     del full_host, one
+    spy.__exit__(None, None, None)
+    res["plain_hits"] = spy.hits
 
     # bf16 prefills: every grouped launch on the tensor cores, and the
     # first call's shard-shaped inputs through the kernel and the plain
@@ -3654,10 +4053,20 @@ def phase_moe_mesh(torch, card):
           f"{MOE_MESH_B}, S={MOE_MESH_S}; two processes on {card}, gloo; "
           f"1x1 on rank 0: loss {one['loss']!r}, grad_norm "
           f"{one['grad_norm']!r}, step {one['ms']:.1f} ms, grouped launches "
-          f"{one['grouped']} {one['engines']}; {one['decisions']}",
-          flush=True)
-    if one["grouped"] != per_step:
-        fail(f"1x1 grouped launches {one['grouped']}, not {per_step}")
+          f"{one['grouped']} {one['engines']}, backward {one['bwd']} "
+          f"{one['bwd_engines']}; {one['decisions']}; no plain version "
+          f"handed a CUDA tensor on either rank", flush=True)
+    for which in ("one", "one_ep"):
+        got = res[0][which]
+        if (got["grouped"], got["bwd"], got["bwd_engines"]["simt"]) != (
+                per_step, MOE_MESH_LAYERS, MOE_MESH_LAYERS):
+            fail(f"1x1 ({which}) grouped launches {got['grouped']}, backward "
+                 f"{got['bwd']} {got['bwd_engines']}: not {per_step} and "
+                 f"{MOE_MESH_LAYERS} on SIMT")
+    for r in range(2):
+        if res[r]["plain_hits"]:
+            fail(f"phase 12 rank {r}: a plain version was handed CUDA "
+                 f"tensors: {res[r]['plain_hits']}")
     one_ep = res[0]["one_ep"]
     print(f"  1x1 with ep_a2a's load-balance term (the mean of the two "
           f"sequence halves' terms, as two ranks compute it): loss "
@@ -3671,6 +4080,11 @@ def phase_moe_mesh(torch, card):
             if got["grouped"] != want or got["engines"]["wgmma"]:
                 fail(f"{name} rank {r}: grouped launches {got['grouped']} "
                      f"{got['engines']}, not {want} on SIMT")
+            # one backward for each forward call; the remat replay has none
+            if got["bwd"] != want // 2 or got["bwd_engines"]["mma"]:
+                fail(f"{name} rank {r}: grouped backward launches "
+                     f"{got['bwd']} {got['bwd_engines']}, not {want // 2} "
+                     f"on SIMT")
             for key in ("loss", "grad_norm"):
                 if abs(got[key] - ref[key]) > MOE_MESH_RTOL * abs(ref[key]):
                     fail(f"{name} rank {r}: {key} {got[key]!r} != 1x1 "
@@ -3692,7 +4106,8 @@ def phase_moe_mesh(torch, card):
               f"{res[1][name]['grad_norm']!r} ({oracle} within rtol "
               f"{MOE_MESH_RTOL}); updated parameters gathered within rtol "
               f"{MESH_RTOL} / atol {MESH_ATOL} (worst excess {bad:.2e} at "
-              f"{pname}); grouped launches per rank {want} (SIMT, f32); "
+              f"{pname}); grouped launches per rank {want}, backward "
+              f"{want // 2} (SIMT, f32); "
               f"step host wall {res[0][name]['ms']:.1f} / "
               f"{res[1][name]['ms']:.1f} ms; bytes between card and host "
               f"per step {res[0][name]['staged']} / "
@@ -5562,6 +5977,12 @@ def main() -> int:
                    (0, "true"), (1, "true"), (2, "false"), (3, "false"))]
                + ["ffn_down_wgmma_kernel<bf16>",
                   "ffn_down_wgmma_kernel<float>"]),
+              ("grouped_matmul", r"ffn_bwd_[a-z]+_mma_kernel",
+               [f"ffn_bwd_act_mma_kernel<{a}, {g}>" for a, g in (
+                   (0, "true"), (1, "true"), (2, "false"), (3, "false"))]
+               + [f"ffn_bwd_dh_mma_kernel<{g}>" for g in ("true", "false")]
+               + [f"ffn_bwd_dw_mma_kernel<{n}>" for n in ("1, 2",
+                                                          "2, 1")]),
               ("stencil", r"jacobi_ksweep_kernel",
                [f"jacobi_ksweep_kernel<{t}, {k}>" for t in ("float", "bf16")
                 for k in range(1, 9)]))
@@ -5586,10 +6007,12 @@ def main() -> int:
              f"HGMMA counts {grouped}")
     print("phase 2: kernels vs plain versions", flush=True)
     main_t, err = phase_kernel(torch)
+    partials_t, partials_err_max = phase_paged_partials(torch)
     flash_t, flash_err = phase_flash(torch, 128)
     phase_flash(torch, 192)
     stencil_t, stencil_err = phase_stencil(torch)
     grouped_t, grouped_err = phase_grouped(torch)
+    grouped_bwd_t, grouped_bwd_err = phase_grouped_bwd(torch)
     carry_t, carry_err = phase_carry(torch)
     print("phase 3: serve phi4-mini-3.8b at full size", flush=True)
     launches = phase_serve(torch)
@@ -5607,9 +6030,13 @@ def main() -> int:
     print("phase 8: moonshot-v1-16b-a3b (MoE): prefill, serving, training "
           "and parity", flush=True)
     t8 = time.perf_counter()
-    grouped_launches, _ = phase_moe_serve(torch)
-    phase_moe_train(torch)
+    with plain_spy() as spy:
+        grouped_launches, _ = phase_moe_serve(torch)
+        grouped_bwd_launches = phase_moe_train(torch)
+    spy.check("phase 8 (prefill, serving, training)")
     phase_moe_parity(torch)
+    print("  phase 8: no plain version handed a CUDA tensor on the kernel "
+          "path", flush=True)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
     print("phase 9: ring attention (context parallelism) on phi4-mini-3.8b",
           flush=True)
@@ -5623,7 +6050,7 @@ def main() -> int:
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
     print("phase 11: two ranks on one card (1x2 and 2x1 meshes, serving, "
           "Jacobi)", flush=True)
-    phase_mesh(torch, root, card)
+    mesh_launches = phase_mesh(torch, root, card)
     print("phase 12: MoE across ranks (moonshot-v1-16b-a3b on a 1x2 mesh "
           "of two processes)", flush=True)
     phase_moe_mesh(torch, card)
@@ -5674,11 +6101,21 @@ def main() -> int:
                     launches=jacobi_launches_run["ksweep"],
                     max_abs_err=stencil_err["ksweep"],
                     **stencil_t["ksweep"]),
+               dict(name="paged_attention_partials", route="cuda",
+                    source="src/repro_torch/kernels/csrc/paged_attention.cu",
+                    replaces="src/repro/kernels/paged_attention.py:152",
+                    launches=mesh_launches["paged_partials"],
+                    max_abs_err=partials_err_max, **partials_t),
                dict(name="grouped_expert_ffn", route="cuda",
                     source="src/repro_torch/kernels/csrc/grouped_matmul.cu",
                     replaces="src/repro/kernels/grouped_matmul.py:142",
                     launches=grouped_launches, max_abs_err=grouped_err,
                     **grouped_t),
+               dict(name="grouped_expert_ffn_bwd", route="cuda",
+                    source="src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                    replaces="src/repro/kernels/grouped_matmul.py:200",
+                    launches=grouped_bwd_launches,
+                    max_abs_err=grouped_bwd_err, **grouped_bwd_t),
                dict(name="flash_attention_carry", route="cuda",
                     source=flash_src,
                     replaces="src/repro/kernels/flash_attention.py:262",

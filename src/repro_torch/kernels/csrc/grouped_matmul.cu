@@ -102,6 +102,34 @@
 //   valid[g] staged as zeros before any product, row tiles wholly past
 //   valid[g] do no arithmetic, every edge masked.
 //
+// The backward (grouped_ffn_bwd_launch) replaces no TPU kernel: the
+// reference's custom VJP differentiates grouped_expert_ffn_jnp with
+// jax.vjp (src/repro/kernels/grouped_matmul.py:196-216).  From dy it
+// gives dh (rows past valid[g] exactly 0) and dw1, dw1g, dw2 (sums over
+// the kept rows of each expert's groups only; an expert with none gets
+// zeros), in three steps:
+//   1. per live row tile of group g: u [and the gate] again, dact = dy
+//      w2[e]^T, then act, dU = dact act'_u [and dG = dact act'_g] in f32;
+//   2. dh = dU w1[e]^T [+ dG w1g[e]^T] per row tile, zeros past valid;
+//   3. per expert: dw1 = sum h^T dU, dw1g = sum h^T dG, dw2 = sum act^T dy
+//      over the kept rows (the contraction), each a launch of its own.
+// Numerics as the reference's vjp: every product in f32, each result
+// rounded once to its operand's type.  On the tensor cores (bf16, mm::)
+// step 1's operands are bf16, so its products are exact, and act, dU and
+// dG are stored as bf16 hi/lo planes (as the forward's act), so steps 2
+// and 3 keep their f32 operand to about 1e-5 of its size: dU_hi w1 +
+// dU_lo w1, h dU_hi + h dU_lo, act_hi dy + act_lo dy.  mma.sync m16n8k16
+// from ldmatrix fragments (the .trans form where the operand's
+// contraction axis is its rows, as in step 3), cp.async stages of 32 deep
+// in a ring of three, 8 warps a CTA; no wgmma, no TMA, no split-K.
+// Bound on this card at moonshot-v1-16b-a3b's training call (G = E = 64,
+// C = 240, D 2048, F 1408, swiglu, bf16, ~12,288 kept rows): eight
+// products of ~71 GFLOP, 0.57 ms at 989 TFLOP/s, against the weights read
+// and their gradients written, 2.2 GB, 0.66 ms at 3.35 TB/s: bytes bound
+// it.  The hi/lo halves double the products of steps 2 and 3 (13 bf16
+// products in all), and the SIMT engine (f32) runs the same three steps on
+// f32 FMA tiles with an f32 workspace.
+//
 // Measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W): at
 // moonshot's prefill call the tensor-core engine takes 1.12-1.24 ms over
 // every reading of three runs, drifting within a run (35-38% of the
@@ -1006,6 +1034,1025 @@ int launch_wgmma(int act_code, const void* h, const void* w1,
                                                  down, ctas_down, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The backward, SIMT engine: dh, dw1, dw1g and dw2 from dy in f32 FMA tiles
+// (f32, and bf16 shapes the tensor-core backward does not take); see the
+// note at the head of the file
+// ---------------------------------------------------------------------------
+
+// act(u, g) and the cotangents of u and g from dact = d out / d act at one
+// element: dU = dact d act / du, dG = dact d act / dg (0 when ungated).
+// GELU is the tanh approximation, as in the forward.
+template <int ACT>
+__device__ __forceinline__ void act_grads(float u, float g, float da,
+                                          float* act, float* du, float* dg) {
+  if (ACT == kSwiglu) {
+    const float s = 1.0f / (1.0f + expf(-u));
+    const float silu = u * s;
+    *act = silu * g;
+    *du = da * g * (s * (1.0f + u * (1.0f - s)));
+    *dg = da * silu;
+    return;
+  }
+  if (ACT == kRelu2) {
+    const float r = fmaxf(u, 0.0f);
+    *act = r * r;
+    *du = da * (2.0f * r);
+    *dg = 0.0f;
+    return;
+  }
+  const float k = 0.7978845608028654f, c3 = 0.044715f;   // sqrt(2 / pi)
+  const float t = tanhf(k * (u + c3 * u * u * u));
+  const float gelu = 0.5f * u * (1.0f + t);
+  const float dgelu = 0.5f * (1.0f + t) +
+                      0.5f * u * (1.0f - t * t) * k * (1.0f + 3.0f * c3 * u * u);
+  if (ACT == kGeglu) {
+    *act = gelu * g;
+    *du = da * g * dgelu;
+    *dg = da * gelu;
+  } else {
+    *act = gelu;
+    *du = da * dgelu;
+    *dg = 0.0f;
+  }
+}
+
+// Backward step 1: u [, gate] again and dact = dy w2[e]^T over a 64 x 64
+// tile of (rows, F), then act, dU [and dG] into f32 workspaces [G, C, F]
+// for rows below valid[g].  A tile wholly past valid[g] does nothing: steps
+// 2 and 3 never read those rows.
+template <typename T, int ACT, bool GATED>
+__global__ void __launch_bounds__(kThreads)
+ffn_bwd_act_kernel(const T* __restrict__ h, const T* __restrict__ w1,
+                   const T* __restrict__ w1g, const T* __restrict__ w2,
+                   const T* __restrict__ dy, const int* __restrict__ valid,
+                   float* __restrict__ act, float* __restrict__ du,
+                   float* __restrict__ dg, int c, int d, int f, int gpe) {
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = blockIdx.x * kColsA;
+  const int v = clamp_valid(valid, g, c);
+  if (row0 >= v) return;
+  const int e = g / gpe;
+
+  __shared__ __align__(16) float hs[kDepth][kRows + kPad];   // h^T tile
+  __shared__ __align__(16) float ys[kDepth][kRows + kPad];   // dy^T tile
+  __shared__ __align__(16) float us[kDepth][kColsA];         // w1
+  __shared__ __align__(16) float gs[GATED ? kDepth : 1][kColsA];
+  __shared__ float vs[kDepth][kColsA + 1];                   // w2^T
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const T* hg = h + (int64_t)g * c * d;
+  const T* yg = dy + (int64_t)g * c * d;
+  const T* w1e = w1 + (int64_t)e * d * f;
+  const T* wge = GATED ? w1g + (int64_t)e * d * f : nullptr;
+  const T* w2e = w2 + (int64_t)e * f * d;
+
+  float acc_u[4][4], acc_g[4][4], acc_a[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc_u[i][j] = acc_g[i][j] = acc_a[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += kDepth) {
+    for (int i = tid; i < kRows * kDepth; i += kThreads) {
+      const int m = i / kDepth, kk = i % kDepth;
+      const int r = row0 + m, k = k0 + kk;
+      const bool in = r < v && k < d;
+      hs[kk][m] = in ? to_f32(hg[(int64_t)r * d + k]) : 0.0f;
+      ys[kk][m] = in ? to_f32(yg[(int64_t)r * d + k]) : 0.0f;
+    }
+    for (int i = tid; i < kDepth * kColsA; i += kThreads) {
+      const int kk = i / kColsA, n = i % kColsA;
+      const int k = k0 + kk, col = col0 + n;
+      const bool in = k < d && col < f;
+      const int64_t at = (int64_t)k * f + col;
+      us[kk][n] = in ? to_f32(w1e[at]) : 0.0f;
+      if (GATED) gs[kk][n] = in ? to_f32(wge[at]) : 0.0f;
+      // w2^T: neighbouring threads read neighbouring k of one row of w2
+      const int kt = i % kDepth, nt = i / kDepth;
+      const bool in2 = k0 + kt < d && col0 + nt < f;
+      vs[kt][nt] = in2 ? to_f32(w2e[(int64_t)(col0 + nt) * d + k0 + kt])
+                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&hs[kk][ty * 4]);
+      const float4 y = *reinterpret_cast<const float4*>(&ys[kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&us[kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float yv[4] = {y.x, y.y, y.z, y.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+      float wv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = vs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc_u[i][j] = fmaf(av[i], bv[j], acc_u[i][j]);
+          acc_a[i][j] = fmaf(yv[i], wv[j], acc_a[i][j]);
+        }
+      if (GATED) {
+        const float4 q = *reinterpret_cast<const float4*>(&gs[kk][tx * 4]);
+        const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc_g[i][j] = fmaf(av[i], qv[j], acc_g[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= v) continue;
+    const int64_t at = ((int64_t)g * c + r) * f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + tx * 4 + j;
+      if (col >= f) continue;
+      float x, u, q;
+      act_grads<ACT>(acc_u[i][j], acc_g[i][j], acc_a[i][j], &x, &u, &q);
+      act[at + col] = x;
+      du[at + col] = u;
+      if (GATED) dg[at + col] = q;
+    }
+  }
+}
+
+// Backward step 2: dh = dU w1[e]^T [+ dG w1g[e]^T] over a 64 x 128 tile of
+// (rows, D) in h's type; rows at or past valid[g] are exact zeros, and a
+// tile wholly past valid[g] writes its zeros with no arithmetic.
+template <typename T, bool GATED>
+__global__ void __launch_bounds__(kThreads)
+ffn_bwd_dh_kernel(const float* __restrict__ du, const float* __restrict__ dg,
+                  const T* __restrict__ w1, const T* __restrict__ w1g,
+                  const int* __restrict__ valid, T* __restrict__ dh, int c,
+                  int d, int f, int gpe) {
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = blockIdx.x * kColsB;
+  const int v = clamp_valid(valid, g, c);
+  const int tid = threadIdx.x;
+  T* og = dh + (int64_t)g * c * d;
+
+  if (row0 >= v) {
+    const T zero = from_f32<T>(0.0f);
+    for (int i = tid; i < kRows * kColsB; i += kThreads) {
+      const int r = row0 + i / kColsB, col = col0 + i % kColsB;
+      if (r < c && col < d) og[(int64_t)r * d + col] = zero;
+    }
+    return;
+  }
+  const int e = g / gpe;
+
+  __shared__ __align__(16) float as[kDepth][kRows + kPad];          // dU^T
+  __shared__ __align__(16) float bs[GATED ? kDepth : 1][kRows + kPad];  // dG^T
+  __shared__ float ws[kDepth][kColsB + 1];                          // w1^T
+  __shared__ float wgs[GATED ? kDepth : 1][kColsB + 1];             // w1g^T
+
+  const int tx = tid % 16, ty = tid / 16;
+  const float* dug = du + (int64_t)g * c * f;
+  const float* dgg = GATED ? dg + (int64_t)g * c * f : nullptr;
+  const T* w1e = w1 + (int64_t)e * d * f;
+  const T* wge = GATED ? w1g + (int64_t)e * d * f : nullptr;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < f; k0 += kDepth) {
+    for (int i = tid; i < kRows * kDepth; i += kThreads) {
+      const int m = i / kDepth, kk = i % kDepth;
+      const int r = row0 + m, k = k0 + kk;
+      const bool in = r < v && k < f;
+      as[kk][m] = in ? dug[(int64_t)r * f + k] : 0.0f;
+      if (GATED) bs[kk][m] = in ? dgg[(int64_t)r * f + k] : 0.0f;
+    }
+    // w1^T: neighbouring threads read neighbouring k of one row of w1[e]
+    for (int i = tid; i < kDepth * kColsB; i += kThreads) {
+      const int kk = i % kDepth, n = i / kDepth;
+      const int k = k0 + kk, col = col0 + n;
+      const bool in = k < f && col < d;
+      const int64_t at = (int64_t)col * f + k;
+      ws[kk][n] = in ? to_f32(w1e[at]) : 0.0f;
+      if (GATED) wgs[kk][n] = in ? to_f32(wge[at]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      float bv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = ws[kk][tx * 8 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      if (GATED) {
+        const float4 q = *reinterpret_cast<const float4*>(&bs[kk][ty * 4]);
+        const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bv[j] = wgs[kk][tx * 8 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= c) continue;
+    T* dst = og + (int64_t)r * d;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + tx * 8 + j;
+      if (col < d) dst[col] = from_f32<T>(r < v ? acc[i][j] : 0.0f);
+    }
+  }
+}
+
+// Backward step 3: one weight gradient of expert e over the rows its gpe
+// groups keep, out[e][m][n] = sum over g of e and r < valid[g] of
+// a[g, r, m] b[g, r, n] (dw1 = h^T dU, dw1g = h^T dG, dw2 = act^T dy), in
+// 64 x 64 tiles of (M, N) that walk the kept rows kDepth at a time; an
+// expert with no kept row writes zeros.
+template <typename TA, typename TB, typename TO>
+__global__ void __launch_bounds__(kThreads)
+ffn_bwd_dw_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
+                  const int* __restrict__ valid, TO* __restrict__ out, int c,
+                  int m_dim, int n_dim, int gpe) {
+  constexpr int kTile = 64;
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+
+  __shared__ __align__(16) float as[kDepth][kTile];
+  __shared__ __align__(16) float bs[kDepth][kTile];
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int gi = 0; gi < gpe; ++gi) {
+    const int g = e * gpe + gi;
+    const int v = clamp_valid(valid, g, c);
+    const TA* ag = a + (int64_t)g * c * m_dim;
+    const TB* bg = b + (int64_t)g * c * n_dim;
+    for (int r0 = 0; r0 < v; r0 += kDepth) {
+      for (int i = tid; i < kDepth * kTile; i += kThreads) {
+        const int kk = i / kTile, x = i % kTile;
+        const int r = r0 + kk;
+        as[kk][x] = (r < v && m0 + x < m_dim)
+                        ? to_f32(ag[(int64_t)r * m_dim + m0 + x]) : 0.0f;
+        bs[kk][x] = (r < v && n0 + x < n_dim)
+                        ? to_f32(bg[(int64_t)r * n_dim + n0 + x]) : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kDepth; ++kk) {
+        const float4 p = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+        const float4 q = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+        const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], qv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+  TO* oe = out + (int64_t)e * m_dim * n_dim;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= m_dim) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < n_dim) oe[(int64_t)m * n_dim + n] = from_f32<TO>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int ACT, bool GATED>
+int launch_bwd_act(const void* h, const void* w1, const void* w1g,
+                   const void* w2, const void* dy, const int* valid,
+                   float* act, float* du, float* dg, int g, int c, int d,
+                   int f, int gpe, cudaStream_t stream) {
+  const dim3 grid((f + kColsA - 1) / kColsA, (c + kRows - 1) / kRows, g);
+  ffn_bwd_act_kernel<T, ACT, GATED><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w1),
+      static_cast<const T*>(w1g), static_cast<const T*>(w2),
+      static_cast<const T*>(dy), valid, act, du, dg, c, d, f, gpe);
+  return (int)cudaGetLastError();
+}
+
+// out [E, M, N] = the sums of a^T b over each expert's kept rows
+template <typename TA, typename TB, typename TO>
+int launch_bwd_dw(const TA* a, const TB* b, const int* valid, TO* out,
+                  int e, int c, int m_dim, int n_dim, int gpe,
+                  cudaStream_t stream) {
+  const dim3 grid((n_dim + 63) / 64, (m_dim + 63) / 64, e);
+  ffn_bwd_dw_kernel<TA, TB, TO><<<grid, kThreads, 0, stream>>>(
+      a, b, valid, out, c, m_dim, n_dim, gpe);
+  return (int)cudaGetLastError();
+}
+
+// The SIMT backward: step 1 into ws = f32 [3, G, C, F] (act, dU, dG), then
+// steps 2 and 3.
+template <typename T>
+int launch_bwd_simt(int act_code, const void* h, const void* w1,
+                    const void* w1g, const void* w2, const void* dy,
+                    const int* valid, float* ws, void* dh, void* dw1,
+                    void* dw1g, void* dw2, int g, int c, int d, int f, int e,
+                    cudaStream_t stream) {
+  const int gpe = g / e;
+  const bool gated = act_code == kSwiglu || act_code == kGeglu;
+  float* act = ws;
+  float* du = ws + (int64_t)g * c * f;
+  float* dg = du + (int64_t)g * c * f;
+  int err;
+  switch (act_code) {
+    case kSwiglu:
+      err = launch_bwd_act<T, kSwiglu, true>(h, w1, w1g, w2, dy, valid, act,
+                                             du, dg, g, c, d, f, gpe, stream);
+      break;
+    case kGeglu:
+      err = launch_bwd_act<T, kGeglu, true>(h, w1, w1g, w2, dy, valid, act,
+                                            du, dg, g, c, d, f, gpe, stream);
+      break;
+    case kRelu2:
+      err = launch_bwd_act<T, kRelu2, false>(h, w1, w1g, w2, dy, valid, act,
+                                             du, dg, g, c, d, f, gpe, stream);
+      break;
+    case kGelu:
+      err = launch_bwd_act<T, kGelu, false>(h, w1, w1g, w2, dy, valid, act,
+                                            du, dg, g, c, d, f, gpe, stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  const dim3 grid((d + kColsB - 1) / kColsB, (c + kRows - 1) / kRows, g);
+  if (gated)
+    ffn_bwd_dh_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        du, dg, static_cast<const T*>(w1), static_cast<const T*>(w1g), valid,
+        static_cast<T*>(dh), c, d, f, gpe);
+  else
+    ffn_bwd_dh_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        du, nullptr, static_cast<const T*>(w1), nullptr, valid,
+        static_cast<T*>(dh), c, d, f, gpe);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const T* ht = static_cast<const T*>(h);
+  if ((err = launch_bwd_dw<T, float, T>(ht, du, valid, static_cast<T*>(dw1),
+                                        e, c, d, f, gpe, stream)) != 0)
+    return err;
+  if (gated &&
+      (err = launch_bwd_dw<T, float, T>(ht, dg, valid, static_cast<T*>(dw1g),
+                                        e, c, d, f, gpe, stream)) != 0)
+    return err;
+  return launch_bwd_dw<float, T, T>(act, static_cast<const T*>(dy), valid,
+                                    static_cast<T*>(dw2), e, c, f, d, gpe,
+                                    stream);
+}
+
+// ---------------------------------------------------------------------------
+// The backward on the tensor cores (bf16, mma.sync m16n8k16 fed by 16-byte
+// cp.async stages); see the note at the head of the file
+// ---------------------------------------------------------------------------
+
+namespace mm {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kRows = 128;        // rows of a step-1 or step-2 tile
+constexpr int kActCols = 64;      // F columns of a step-1 tile
+constexpr int kCols = 128;        // columns of a step-2 tile; a step-3 tile
+                                  // is kCols x kCols
+constexpr int kK = 32;            // contraction depth of a stage
+constexpr int kStages = 3;        // the cp.async ring
+constexpr int kPad = 8;           // elements after each shared-memory row,
+                                  // so ldmatrix rows fall on distinct banks
+
+// Elements of a shared-memory row of a tile `w` elements wide.
+__host__ __device__ constexpr int row_of(int w) { return w + kPad; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; with ok == false the destination is
+// zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a (16 x 16 bf16, row) b (16 x 8 bf16, col) in f32
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The fragments of a warp, from a tile with rows of `ld` elements.  The
+// A fragment (16 x 16 at rows m0, depth k0) of a tile stored [m][k] ...
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
+                                       int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 +
+                 (lane >> 4) * 8);
+}
+
+// ... and of a tile stored [k][m] (the operand transposed);
+__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const bf16* s,
+                                         int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
+                   ((lane >> 3) & 1) * 8);
+}
+
+// the B fragments of two n8 tiles (columns n0 and n0 + 8, depth k0; b[0..1]
+// the first, b[2..3] the second) of a tile stored [n][k] ...
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* s,
+                                       int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 +
+                 ((lane >> 3) & 1) * 8);
+}
+
+// ... and of a tile stored [k][n].
+__device__ __forceinline__ void frag_b_t(uint32_t (&b)[4], const bf16* s,
+                                         int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
+                   (lane >> 4) * 8);
+}
+
+// acc[i][2 nb + j] += a[i] b[nb] over the warp's n8 tiles
+template <int MT, int NB>
+__device__ __forceinline__ void mma_block(float (&acc)[MT][2 * NB][4],
+                                          const uint32_t (&a)[MT][4],
+                                          const uint32_t (&b)[NB][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      mma16816(acc[i][2 * nb], a[i], b[nb][0], b[nb][1]);
+      mma16816(acc[i][2 * nb + 1], a[i], b[nb][2], b[nb][3]);
+    }
+}
+
+// Issue the copies of an R x W tile of a row-major bf16 matrix (rows `ld`
+// elements apart, starting at src) whose first `rows` rows and `cols`
+// columns lie in the tensor; the rest of the tile is zero-filled and never
+// read (`base`, an address inside the tensor, stands in for it).  cols is
+// a multiple of 8.
+template <int R, int W>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int64_t ld, int rows, int cols,
+                                          const bf16* base) {
+  constexpr int kChunks = W / 8;
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, ch = i - r * kChunks;
+    const bool ok = r < rows && ch * 8 < cols;
+    cp_async16(dst + r * row_of(W) + ch * 8, ok ? src + r * ld + ch * 8 : base,
+               ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x as bf16 pairs hi = bf16(x), lo = bf16(x - hi), stored at p and p + plane
+__device__ __forceinline__ void store_hi_lo(bf16* p, int64_t plane, float x0,
+                                            float x1) {
+  const uint32_t hi = pack(x0, x1);
+  *reinterpret_cast<uint32_t*>(p) = hi;
+  *reinterpret_cast<uint32_t*>(p + plane) =
+      pack(x0 - __uint_as_float(hi << 16),
+           x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// Step 1: u = h w1[e] [, gate = h w1g[e]] and dact = dy w2[e]^T over a
+// 128 x 64 tile of (rows, F) (bf16 operands, so the f32 products are
+// exact), then act, dU [and dG] as bf16 hi/lo planes (planes 0-1 act, 2-3
+// dU, 4-5 dG, each [G, C, F]) for rows below valid[g].  A tile wholly past
+// valid[g] does nothing; rows past valid[g] are neither loaded nor written.
+// 8 warps, each 32 rows x 32 columns.
+template <int ACT, bool GATED>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_bwd_act_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w1,
+                       const bf16* __restrict__ w1g,
+                       const bf16* __restrict__ w2,
+                       const bf16* __restrict__ dy,
+                       const int* __restrict__ valid,
+                       bf16* __restrict__ planes, int n_g, int c, int d, int f,
+                       int gpe) {
+  constexpr int kA = row_of(kK);             // h, dy and w2 tile rows
+  constexpr int kW = row_of(kActCols);       // w1 and w1g tile rows
+  constexpr int kH = kRows * kA;             // an h or dy tile
+  constexpr int kW1 = kK * kW;               // a w1 or w1g tile [k][n]
+  constexpr int kStage = 2 * kH + (GATED ? 2 : 1) * kW1 + kActCols * kA;
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = blockIdx.x * kActCols;
+  const int v = clamp_valid(valid, g, c);
+  if (row0 >= v) return;
+  const int e = g / gpe;
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(bwd_smem);
+
+  const int rows = min(kRows, v - row0);
+  const int cols = f - col0;
+  const bf16* hg = h + ((int64_t)g * c + row0) * d;
+  const bf16* yg = dy + ((int64_t)g * c + row0) * d;
+  const bf16* w1e = w1 + (int64_t)e * d * f + col0;
+  const bf16* wge = GATED ? w1g + (int64_t)e * d * f + col0 : w1;
+  const bf16* w2e = w2 + ((int64_t)e * f + col0) * d;   // [n][k] rows
+  const int nk = (d + kK - 1) / kK;
+  auto load = [&](int kb) {
+    bf16* s = smem + (kb % kStages) * kStage;
+    const int k0 = kb * kK;
+    load_tile<kRows, kK>(s, hg + k0, d, rows, d - k0, h);
+    load_tile<kRows, kK>(s + kH, yg + k0, d, rows, d - k0, dy);
+    load_tile<kK, kActCols>(s + 2 * kH, w1e + (int64_t)k0 * f, f, d - k0,
+                            cols, w1);
+    if (GATED)
+      load_tile<kK, kActCols>(s + 2 * kH + kW1, wge + (int64_t)k0 * f, f,
+                              d - k0, cols, w1g);
+    load_tile<kActCols, kK>(s + 2 * kH + (GATED ? 2 : 1) * kW1, w2e + k0, d,
+                            cols, d - k0, w2);
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  float acc_u[2][4][4], acc_g[2][4][4], acc_a[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        acc_u[i][j][x] = acc_g[i][j][x] = acc_a[i][j][x] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (kb + kStages - 1 < nk) load(kb + kStages - 1);
+    cp_async_commit();
+    const bf16* s = smem + (kb % kStages) * kStage;
+    const bf16* ws1 = s + 2 * kH;
+    const bf16* ws2 = ws1 + (GATED ? 2 : 1) * kW1;
+#pragma unroll
+    for (int kk = 0; kk < kK; kk += 16) {
+      uint32_t ha[2][4], ya[2][4], b[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        frag_a(ha[i], s, kA, wm + 16 * i, kk);
+        frag_a(ya[i], s + kH, kA, wm + 16 * i, kk);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) frag_b_t(b[nb], ws1, kW, wn + 16 * nb, kk);
+      mma_block<2, 2>(acc_u, ha, b);
+      if (GATED) {
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+          frag_b_t(b[nb], ws1 + kW1, kW, wn + 16 * nb, kk);
+        mma_block<2, 2>(acc_g, ha, b);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) frag_b(b[nb], ws2, kA, wn + 16 * nb, kk);
+      mma_block<2, 2>(acc_a, ya, b);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int64_t plane = (int64_t)n_g * c * f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + wm + 16 * i + (lane >> 2) + 8 * half;
+      if (row >= v) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + wn + 8 * j + 2 * (lane & 3);
+        if (col >= f) continue;
+        float x[2], u[2], q[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          act_grads<ACT>(acc_u[i][j][2 * half + t],
+                         acc_g[i][j][2 * half + t],
+                         acc_a[i][j][2 * half + t], &x[t], &u[t], &q[t]);
+        bf16* p = planes + ((int64_t)g * c + row) * f + col;
+        store_hi_lo(p, plane, x[0], x[1]);
+        store_hi_lo(p + 2 * plane, plane, u[0], u[1]);
+        if (GATED) store_hi_lo(p + 4 * plane, plane, q[0], q[1]);
+      }
+    }
+}
+
+// Step 2: dh = dU w1[e]^T [+ dG w1g[e]^T] over a 128 x 128 tile of (rows,
+// D), dU and dG as their hi/lo planes into one f32 accumulator, rounded
+// once to bf16; rows at or past valid[g] are exact zeros, and a tile wholly
+// past valid[g] writes its zeros with no load.  8 warps, each 64 rows x 32
+// columns.
+template <bool GATED>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_bwd_dh_mma_kernel(const bf16* __restrict__ planes,
+                      const bf16* __restrict__ w1,
+                      const bf16* __restrict__ w1g,
+                      const int* __restrict__ valid, bf16* __restrict__ dh,
+                      int n_g, int c, int d, int f, int gpe) {
+  constexpr int kA = row_of(kK);
+  constexpr int kT = kRows * kA;             // a [128][k] tile
+  constexpr int kNA = GATED ? 4 : 2;         // dU hi, lo [, dG hi, lo]
+  constexpr int kStage = (kNA + (GATED ? 2 : 1)) * kT;
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = blockIdx.x * kCols;
+  const int v = clamp_valid(valid, g, c);
+  const int cols = min(kCols, d - col0);
+  bf16* og = dh + (int64_t)g * c * d + col0;
+  if (row0 >= v) {
+    const int chunks = cols / 8, rows = min(kRows, c - row0);
+    for (int i = threadIdx.x; i < rows * chunks; i += kThreads)
+      *reinterpret_cast<uint4*>(og + (int64_t)(row0 + i / chunks) * d +
+                                (i % chunks) * 8) = make_uint4(0, 0, 0, 0);
+    return;
+  }
+  const int e = g / gpe;
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(bwd_smem);
+
+  const int64_t plane = (int64_t)n_g * c * f;
+  const int rows = min(kRows, v - row0);
+  const bf16* du = planes + 2 * plane + ((int64_t)g * c + row0) * f;
+  const bf16* w1e = w1 + ((int64_t)e * d + col0) * f;   // [n][k] rows
+  const bf16* wge = GATED ? w1g + ((int64_t)e * d + col0) * f : w1;
+  const int nk = (f + kK - 1) / kK;
+  auto load = [&](int kb) {
+    bf16* s = smem + (kb % kStages) * kStage;
+    const int k0 = kb * kK;
+#pragma unroll
+    for (int p = 0; p < kNA; ++p)
+      load_tile<kRows, kK>(s + p * kT, du + p * plane + k0, f, rows, f - k0,
+                           planes);
+    load_tile<kCols, kK>(s + kNA * kT, w1e + k0, f, cols, f - k0, w1);
+    if (GATED)
+      load_tile<kCols, kK>(s + (kNA + 1) * kT, wge + k0, f, cols, f - k0,
+                           w1g);
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (kb + kStages - 1 < nk) load(kb + kStages - 1);
+    cp_async_commit();
+    const bf16* s = smem + (kb % kStages) * kStage;
+#pragma unroll
+    for (int kk = 0; kk < kK; kk += 16) {
+#pragma unroll
+      for (int w = 0; w < (GATED ? 2 : 1); ++w) {
+        uint32_t b[2][4], a[4][4];
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+          frag_b(b[nb], s + (kNA + w) * kT, kA, wn + 16 * nb, kk);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {        // the hi plane, then the lo
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            frag_a(a[i], s + (2 * w + p) * kT, kA, wm + 16 * i, kk);
+          mma_block<4, 2>(acc, a, b);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + wm + 16 * i + (lane >> 2) + 8 * half;
+      if (row >= c) continue;
+      const bool keep = row < v;   // a select: rows past valid are 0
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wn + 8 * j + 2 * (lane & 3);
+        if (col >= cols) continue;
+        *reinterpret_cast<uint32_t*>(og + (int64_t)row * d + col) =
+            pack(keep ? acc[i][j][2 * half] : 0.f,
+                 keep ? acc[i][j][2 * half + 1] : 0.f);
+      }
+    }
+}
+
+// Step 3: one weight gradient of expert e over a 128 x 128 tile of (M, N),
+// out[e] = the sum over its groups g and rows r < valid[g] of a[g, r]^T
+// b[g, r] (dw1 = h^T dU and dw1g = h^T dG: a one bf16 plane, b the hi/lo
+// planes; dw2 = act^T dy: a the hi/lo planes, b one), every product of a's
+// planes with b's in one f32 accumulator, rounded once to bf16.  The kept
+// rows are the contraction, kK a stage: rows past valid[g] read as zeros
+// and a group's stages end with its last kept row, so an expert with no
+// kept row writes zeros.  8 warps, each 64 x 32.
+template <int NA, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_bwd_dw_mma_kernel(const bf16* __restrict__ a, int64_t a_plane,
+                      const bf16* __restrict__ b, int64_t b_plane,
+                      const int* __restrict__ valid, bf16* __restrict__ out,
+                      int c, int m_dim, int n_dim, int gpe) {
+  constexpr int kT = kK * row_of(kCols);     // a [k][128] tile
+  constexpr int kStage = (NA + NB) * kT;
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * kCols, n0 = blockIdx.x * kCols;
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(bwd_smem);
+
+  int nk = 0;                                // stages over the expert's rows
+  for (int gi = 0; gi < gpe; ++gi)
+    nk += (clamp_valid(valid, e * gpe + gi, c) + kK - 1) / kK;
+  auto load = [&](int t) {
+    // stage t -> (group, its first row)
+    int gi = 0, r0 = t * kK, v = clamp_valid(valid, e * gpe, c);
+    while (r0 >= (v + kK - 1) / kK * kK) {
+      r0 -= (v + kK - 1) / kK * kK;
+      v = clamp_valid(valid, e * gpe + ++gi, c);
+    }
+    const int64_t row = (int64_t)(e * gpe + gi) * c + r0;
+    bf16* s = smem + (t % kStages) * kStage;
+#pragma unroll
+    for (int p = 0; p < NA; ++p)
+      load_tile<kK, kCols>(s + p * kT, a + p * a_plane + row * m_dim + m0,
+                           m_dim, v - r0, m_dim - m0, a);
+#pragma unroll
+    for (int p = 0; p < NB; ++p)
+      load_tile<kK, kCols>(s + (NA + p) * kT,
+                           b + p * b_plane + row * n_dim + n0, n_dim, v - r0,
+                           n_dim - n0, b);
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (kb + kStages - 1 < nk) load(kb + kStages - 1);
+    cp_async_commit();
+    const bf16* s = smem + (kb % kStages) * kStage;
+#pragma unroll
+    for (int kk = 0; kk < kK; kk += 16) {
+      uint32_t bf[NB][2][4], af[4][4];
+#pragma unroll
+      for (int p = 0; p < NB; ++p)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+          frag_b_t(bf[p][nb], s + (NA + p) * kT, row_of(kCols),
+                   wn + 16 * nb, kk);
+#pragma unroll
+      for (int p = 0; p < NA; ++p) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          frag_a_t(af[i], s + p * kT, row_of(kCols), wm + 16 * i, kk);
+#pragma unroll
+        for (int q = 0; q < NB; ++q) mma_block<4, 2>(acc, af, bf[q]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* oe = out + (int64_t)e * m_dim * n_dim;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
+      if (m >= m_dim) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * (lane & 3);
+        if (n >= n_dim) continue;
+        *reinterpret_cast<uint32_t*>(oe + (int64_t)m * n_dim + n) =
+            pack(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+    }
+}
+
+// Dynamic shared memory of each kernel
+constexpr int act_smem(bool gated) {
+  return 2 * kStages *
+         (2 * kRows * row_of(kK) + (gated ? 2 : 1) * kK * row_of(kActCols) +
+          kActCols * row_of(kK));
+}
+constexpr int dh_smem(bool gated) {
+  return 2 * kStages * (gated ? 6 : 3) * kRows * row_of(kK);
+}
+constexpr int dw_smem() { return 2 * kStages * 3 * kK * row_of(kCols); }
+
+}  // namespace mm
+
+template <int ACT, bool GATED>
+int launch_bwd_act_mma(const void* h, const void* w1, const void* w1g,
+                       const void* w2, const void* dy, const int* valid,
+                       __nv_bfloat16* planes, int g, int c, int d, int f,
+                       int gpe, cudaStream_t stream) {
+  static bool done = false;
+  constexpr int smem = mm::act_smem(GATED);
+  const cudaError_t e =
+      allow_smem(mm::ffn_bwd_act_mma_kernel<ACT, GATED>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((f + mm::kActCols - 1) / mm::kActCols,
+                  (c + mm::kRows - 1) / mm::kRows, g);
+  using bf = __nv_bfloat16;
+  mm::ffn_bwd_act_mma_kernel<ACT, GATED><<<grid, mm::kThreads, smem, stream>>>(
+      static_cast<const bf*>(h), static_cast<const bf*>(w1),
+      static_cast<const bf*>(w1g), static_cast<const bf*>(w2),
+      static_cast<const bf*>(dy), valid, planes, g, c, d, f, gpe);
+  return (int)cudaGetLastError();
+}
+
+template <bool GATED>
+int launch_bwd_dh_mma(const __nv_bfloat16* planes, const void* w1,
+                      const void* w1g, const int* valid, void* dh, int g,
+                      int c, int d, int f, int gpe, cudaStream_t stream) {
+  static bool done = false;
+  constexpr int smem = mm::dh_smem(GATED);
+  const cudaError_t e =
+      allow_smem(mm::ffn_bwd_dh_mma_kernel<GATED>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((d + mm::kCols - 1) / mm::kCols,
+                  (c + mm::kRows - 1) / mm::kRows, g);
+  using bf = __nv_bfloat16;
+  mm::ffn_bwd_dh_mma_kernel<GATED><<<grid, mm::kThreads, smem, stream>>>(
+      planes, static_cast<const bf*>(w1), static_cast<const bf*>(w1g), valid,
+      static_cast<bf*>(dh), g, c, d, f, gpe);
+  return (int)cudaGetLastError();
+}
+
+template <int NA, int NB>
+int launch_bwd_dw_mma(const __nv_bfloat16* a, int64_t a_plane,
+                      const __nv_bfloat16* b, int64_t b_plane,
+                      const int* valid, void* out, int e, int c, int m_dim,
+                      int n_dim, int gpe, cudaStream_t stream) {
+  static bool done = false;
+  constexpr int smem = mm::dw_smem();
+  const cudaError_t err =
+      allow_smem(mm::ffn_bwd_dw_mma_kernel<NA, NB>, smem, &done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_dim + mm::kCols - 1) / mm::kCols,
+                  (m_dim + mm::kCols - 1) / mm::kCols, e);
+  mm::ffn_bwd_dw_mma_kernel<NA, NB><<<grid, mm::kThreads, smem, stream>>>(
+      a, a_plane, b, b_plane, valid, static_cast<__nv_bfloat16*>(out), c,
+      m_dim, n_dim, gpe);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core backward: bf16, D and F multiples of 8, every base on a
+// 16-byte boundary (cp.async); step 1 into ws = bf16 [6, G, C, F] (act, dU
+// and dG as hi/lo planes), then steps 2 and 3.
+int launch_bwd_mma(int act_code, const void* h, const void* w1,
+                   const void* w1g, const void* w2, const void* dy,
+                   const int* valid, void* ws, void* dh, void* dw1,
+                   void* dw1g, void* dw2, int g, int c, int d, int f, int e,
+                   cudaStream_t stream) {
+  const bool gated = act_code == kSwiglu || act_code == kGeglu;
+  if (d % 8 != 0 || f % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w1) |
+        reinterpret_cast<uintptr_t>(gated ? w1g : w1) |
+        reinterpret_cast<uintptr_t>(w2) | reinterpret_cast<uintptr_t>(dy) |
+        reinterpret_cast<uintptr_t>(ws) | reinterpret_cast<uintptr_t>(dh) |
+        reinterpret_cast<uintptr_t>(dw1) |
+        reinterpret_cast<uintptr_t>(gated ? dw1g : dw1) |
+        reinterpret_cast<uintptr_t>(dw2)) %
+       16) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int gpe = g / e;
+  auto* planes = static_cast<__nv_bfloat16*>(ws);
+  int err;
+  switch (act_code) {
+    case kSwiglu:
+      err = launch_bwd_act_mma<kSwiglu, true>(h, w1, w1g, w2, dy, valid,
+                                              planes, g, c, d, f, gpe, stream);
+      break;
+    case kGeglu:
+      err = launch_bwd_act_mma<kGeglu, true>(h, w1, w1g, w2, dy, valid,
+                                             planes, g, c, d, f, gpe, stream);
+      break;
+    case kRelu2:
+      err = launch_bwd_act_mma<kRelu2, false>(h, w1, w1g, w2, dy, valid,
+                                              planes, g, c, d, f, gpe, stream);
+      break;
+    case kGelu:
+      err = launch_bwd_act_mma<kGelu, false>(h, w1, w1g, w2, dy, valid,
+                                             planes, g, c, d, f, gpe, stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  err = gated ? launch_bwd_dh_mma<true>(planes, w1, w1g, valid, dh, g, c, d,
+                                        f, gpe, stream)
+              : launch_bwd_dh_mma<false>(planes, w1, w1, valid, dh, g, c, d,
+                                         f, gpe, stream);
+  if (err != 0) return err;
+  const int64_t plane = (int64_t)g * c * f;
+  const auto* hb = static_cast<const __nv_bfloat16*>(h);
+  if ((err = launch_bwd_dw_mma<1, 2>(hb, 0, planes + 2 * plane, plane, valid,
+                                     dw1, e, c, d, f, gpe, stream)) != 0)
+    return err;
+  if (gated &&
+      (err = launch_bwd_dw_mma<1, 2>(hb, 0, planes + 4 * plane, plane, valid,
+                                     dw1g, e, c, d, f, gpe, stream)) != 0)
+    return err;
+  return launch_bwd_dw_mma<2, 1>(planes, plane,
+                                 static_cast<const __nv_bfloat16*>(dy), 0,
+                                 valid, dw2, e, c, f, d, gpe, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; engine: 0 = SIMT (either type, any
@@ -1041,6 +2088,46 @@ extern "C" int grouped_ffn_launch(int dtype, int engine, int act_code,
   if (dtype == 1)
     return launch_ffn<__nv_bfloat16>(act_code, h, w1, w1g, w2, valid, ws,
                                      out, g, c, d, f, gpe, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of grouped_ffn_launch: from dy [G, C, D] (h's type), dh
+// [G, C, D] in h's type (rows past valid[g] exactly 0) and dw1, dw1g
+// [E, D, F] and dw2 [E, F, D] in the weights' type (dw1g and w1g only for
+// the gated 0 and 1; an expert with no kept row gets zeros), by steps 1-3
+// on one stream.  engine: 0 = SIMT (either type, any shape; ws f32
+// [3, G, C, F]: act, dU, dG), 1 = the tensor cores (bf16, D and F
+// multiples of 8, 16-byte aligned bases; ws bf16 [6, G, C, F]: act, dU and
+// dG as hi/lo planes).  Returns a cudaError_t (0 = every launch made).
+extern "C" int grouped_ffn_bwd_launch(int dtype, int engine, int act_code,
+                                      const void* h, const void* w1,
+                                      const void* w1g, const void* w2,
+                                      const void* dy, const int* valid,
+                                      void* ws, void* dh, void* dw1,
+                                      void* dw1g, void* dw2, int g, int c,
+                                      int d, int f, int e, void* stream) {
+  if (g < 1 || c < 1 || d < 1 || f < 1 || e < 1 || g % e != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool gated = act_code == kSwiglu || act_code == kGeglu;
+  if (gated && (w1g == nullptr || dw1g == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (g > 65535 || e > 65535 || (c + kRows - 1) / kRows > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (engine == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_bwd_mma(act_code, h, w1, w1g, w2, dy, valid, ws, dh, dw1,
+                          dw1g, dw2, g, c, d, f, e, s);
+  }
+  if (engine != 0) return (int)cudaErrorInvalidValue;
+  float* wsf = static_cast<float*>(ws);
+  if (dtype == 0)
+    return launch_bwd_simt<float>(act_code, h, w1, w1g, w2, dy, valid, wsf,
+                                  dh, dw1, dw1g, dw2, g, c, d, f, e, s);
+  if (dtype == 1)
+    return launch_bwd_simt<__nv_bfloat16>(act_code, h, w1, w1g, w2, dy, valid,
+                                          wsf, dh, dw1, dw1g, dw2, g, c, d, f,
+                                          e, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,6 +12,17 @@
 //   lens     [B] int32 valid positions (0 = nothing: the output is zeros)
 //   out      [B, H, hd] in q's type
 //
+// or, for a pool sharded over ranks, the flash partials of this rank's
+// pages in place of out (paged_attention.py::paged_attention_partials):
+// m (natural-log units) and l [B, H] and the unnormalised acc [B, H, hd],
+// all f32, which the caller LSE-merges across ranks.  The table then
+// holds GLOBAL page ids; id - pool_offset indexes the local pool, and an
+// entry outside it (another rank's page) contributes nothing, as in the
+// plain version.  A row with nothing to attend gets m = NEG_INF, l = 0 and
+// acc = 0.  Both engines write partials: the f32 path's kernel its own
+// (m, l, acc), the bf16 fast path its splits' partials through the merge
+// kernel, which folds them without normalising.
+//
 // Query head h reads kv head h / G (G = H / KV).  A sliding window keeps
 // positions lens-window <= kpos < lens.  As in the reference, only the
 // pmax * page positions the table can name are attended, and a position
@@ -137,8 +148,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_simt_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
             const T* __restrict__ v_pages, const int* __restrict__ table,
-            const int* __restrict__ lens, T* __restrict__ out, int n_heads,
-            int n_kv, int hd, int page, int pmax, int n_pages, int window,
+            const int* __restrict__ lens, T* __restrict__ out,
+            float* __restrict__ out_m, float* __restrict__ out_l,
+            float* __restrict__ out_acc, int n_heads, int n_kv, int hd,
+            int page, int pmax, int n_pages, int pool_offset, int window,
             float scale) {
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -183,7 +196,7 @@ paged_simt_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int r = tid; r < kTile; r += kThreads) {
       int pid = -1;
       if (r < n) {
-        pid = trow[(t0 + r) / page];
+        pid = trow[(t0 + r) / page] - pool_offset;
         if (pid < 0 || pid >= n_pages) pid = -1;
       }
       page_s[r] = pid;
@@ -254,15 +267,26 @@ paged_simt_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     __syncthreads();
   }
 
-  T* ob = out + ((int64_t)b * n_heads + h0) * hd;
+  const int64_t row0 = (int64_t)b * n_heads + h0;
+  if (out_acc != nullptr) {          // this pool's partials, unnormalised
+    for (int i = tid; i < groups * hd; i += kThreads)
+      out_acc[row0 * hd + i] = acc[i];
+    for (int g = tid; g < groups; g += kThreads) {
+      out_m[row0 + g] = m_s[g];
+      out_l[row0 + g] = l_s[g];
+    }
+    return;
+  }
+  T* ob = out + row0 * hd;
   for (int i = tid; i < groups * hd; i += kThreads)
     ob[i] = from_f32<T>(acc[i] / fmaxf(l_s[i / hd], 1e-30f));
 }
 
 template <typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* table, const void* lens, void* out, int batch,
-           int n_heads, int n_kv, int hd, int page, int pmax, int n_pages,
+           const void* table, const void* lens, void* out, float* out_m,
+           float* out_l, float* out_acc, int batch, int n_heads, int n_kv,
+           int hd, int page, int pmax, int n_pages, int pool_offset,
            int window, float scale, cudaStream_t stream) {
   static int smem_opted_in = 0;       // bytes already granted above 48 KB
   const size_t groups = n_heads / n_kv;
@@ -280,8 +304,9 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   paged_simt_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int*>(table),
-      static_cast<const int*>(lens), static_cast<T*>(out), n_heads, n_kv,
-      hd, page, pmax, n_pages, window, scale);
+      static_cast<const int*>(lens), static_cast<T*>(out), out_m, out_l,
+      out_acc, n_heads, n_kv, hd, page, pmax, n_pages, pool_offset, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -309,9 +334,12 @@ struct Params {
   const int* table;
   const int* lens;
   bf16* out;
-  float* ws_acc;     // [n_splits, B * H, hd] (unused with one split)
+  float* ws_acc;     // [n_splits, B * H, hd] (unused when direct)
   float* ws_ml;      // [n_splits, B * H, 2]: (m in log2 units, l)
-  int batch, n_heads, n_kv, page, pmax, n_pages, window;
+  float* out_m;      // the partials out, [B * H] and [B * H, hd], or null
+  float* out_l;
+  float* out_acc;
+  int batch, n_heads, n_kv, page, pmax, n_pages, pool_offset, window;
   int pages_per_split, n_splits, row_tiles;
   float scale_log2;  // 1/sqrt(hd) * log2(e)
 };
@@ -324,6 +352,11 @@ struct Dims {
   static constexpr int kLoadsPerThread = kTile * kChunks / kThreads;
   static_assert(kTile * kChunks % kThreads == 0, "chunks per thread");
 };
+
+// One split that writes the output itself: no workspace, no merge.
+__host__ __device__ __forceinline__ bool direct(const Params& p) {
+  return p.n_splits == 1 && p.out_acc == nullptr;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -379,7 +412,7 @@ __device__ __forceinline__ void load_page_ids(const Params& p, int b,
   const int* trow = p.table + (int64_t)b * p.pmax;
   const int nc = (s.end - 1) / p.page + 1 - s.c0;
   for (int i = threadIdx.x; i < nc; i += kThreads) {
-    const int pid = trow[s.c0 + i];
+    const int pid = trow[s.c0 + i] - p.pool_offset;
     pages_s[i] = (pid >= 0 && pid < p.n_pages) ? pid : -1;
   }
 }
@@ -421,7 +454,7 @@ __device__ __forceinline__ void load_tile(const Params& p, const Span& s,
 // the CTA writes the output itself).
 __device__ __forceinline__ void write_empty(const Params& p, int b, int split,
                                             int h0, int rows, int hd) {
-  if (p.n_splits == 1) {
+  if (direct(p)) {
     bf16* ob = p.out + ((int64_t)b * p.n_heads + h0) * hd;
     for (int i = threadIdx.x; i < rows * hd; i += kThreads)
       ob[i] = __float2bfloat16(0.f);
@@ -460,7 +493,7 @@ __device__ __forceinline__ void finish(const Params& p, int b, int split,
       a0 += wt * a.x;
       a1 += wt * a.y;
     }
-    if (p.n_splits == 1) {
+    if (direct(p)) {
       const float inv = 1.f / fmaxf(l, 1e-30f);
       *reinterpret_cast<__nv_bfloat162*>(
           p.out + ((int64_t)b * p.n_heads + h0 + r) * HD + d) =
@@ -710,10 +743,14 @@ paged_mma_kernel(const Params p) {
 }
 
 // Fold the splits' partials in split order: one warp per (slot, head).
+// With out_acc, write the folded partial unnormalised (m in natural-log
+// units; m = NEG_INF, l = 0, acc = 0 where no split attended anything) in
+// place of the output.
 __global__ void __launch_bounds__(kThreads)
 paged_merge_kernel(const float* __restrict__ ws_acc,
              const float* __restrict__ ws_ml, bf16* __restrict__ out,
-             int rows, int hd, int n_splits) {
+             float* __restrict__ out_m, float* __restrict__ out_l,
+             float* __restrict__ out_acc, int rows, int hd, int n_splits) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -735,6 +772,14 @@ paged_merge_kernel(const float* __restrict__ ws_acc,
       a.y += w * v.y;
       a.z += w * v.z;
       a.w += w * v.w;
+    }
+    if (out_acc != nullptr) {
+      *reinterpret_cast<float4*>(out_acc + (int64_t)row * hd + d) = a;
+      if (d == 0) {
+        out_m[row] = l > 0.f ? mx * (1.0f / kLog2e) : kNegInf;
+        out_l[row] = l;
+      }
+      continue;
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
     __nv_bfloat162* o =
@@ -772,7 +817,7 @@ int launch(const Params& p, int hd, cudaStream_t stream) {
   else if (hd == 64) err = launch_mma<64>(p, stream);
   else if (hd == 128) err = launch_mma<128>(p, stream);
   else if (hd == 192) err = launch_mma<192>(p, stream);
-  if (err != 0 || p.n_splits == 1) return err;
+  if (err != 0 || direct(p)) return err;
   const int rows = p.batch * p.n_heads;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((rows + kWarps - 1) / kWarps);
@@ -785,7 +830,7 @@ int launch(const Params& p, int hd, cudaStream_t stream) {
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, paged_merge_kernel, (const float*)p.ws_acc, (const float*)p.ws_ml,
-      p.out, rows, hd, p.n_splits);
+      p.out, p.out_m, p.out_l, p.out_acc, rows, hd, p.n_splits);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -798,35 +843,46 @@ int launch(const Params& p, int hd, cudaStream_t stream) {
 // (paged_simt_kernel, either type, any hd), 1 = the bf16 split-KV mma.sync
 // kernel (hd 32, 64, 128, 192), which takes pages_per_split and n_splits
 // from the wrapper's split plan (n_splits = ceil(pmax / pages_per_split))
-// and, when n_splits > 1, f32 workspaces ws_acc [n_splits, B, H, hd] and
-// ws_ml [n_splits, B, H, 2] (m in log2 units, l).  Returns a cudaError_t
-// (0 = launched).
+// and, when n_splits > 1 or partials are asked for, f32 workspaces ws_acc
+// [n_splits, B, H, hd] and ws_ml [n_splits, B, H, 2] (m in log2 units, l).
+// Page id - pool_offset indexes the pool of n_pages.  With out_acc (and
+// out_m, out_l) not null the call writes the partials of the header's note
+// there and not out.  Returns a cudaError_t (0 = launched).
 extern "C" int paged_attention_launch(
     int dtype, int engine, const void* q, const void* k_pages,
     const void* v_pages, const void* table, const void* lens, void* out,
-    void* ws_acc, void* ws_ml, int batch, int n_heads, int n_kv, int hd,
-    int page, int pmax, int n_pages, int window, float scale,
+    void* ws_acc, void* ws_ml, void* out_m, void* out_l, void* out_acc,
+    int batch, int n_heads, int n_kv, int hd, int page, int pmax,
+    int n_pages, int pool_offset, int window, float scale,
     int pages_per_split, int n_splits, void* stream) {
   if (batch <= 0) return 0;
   if (n_kv <= 0 || n_heads % n_kv != 0 || hd <= 0 || page <= 0 || pmax <= 0)
     return (int)cudaErrorInvalidValue;
+  const bool partials = out_acc != nullptr;
+  if (partials ? (out_m == nullptr || out_l == nullptr) : out == nullptr)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pm = static_cast<float*>(out_m);
+  float* pl = static_cast<float*>(out_l);
+  float* pa = static_cast<float*>(out_acc);
   if (engine == 0) {
     if (dtype == 0)
-      return simt::launch<float>(q, k_pages, v_pages, table, lens, out,
-                                 batch, n_heads, n_kv, hd, page, pmax,
-                                 n_pages, window, scale, s);
+      return simt::launch<float>(q, k_pages, v_pages, table, lens, out, pm,
+                                 pl, pa, batch, n_heads, n_kv, hd, page,
+                                 pmax, n_pages, pool_offset, window, scale,
+                                 s);
     if (dtype == 1)
       return simt::launch<__nv_bfloat16>(q, k_pages, v_pages, table, lens,
-                                         out, batch, n_heads, n_kv, hd, page,
-                                         pmax, n_pages, window, scale, s);
+                                         out, pm, pl, pa, batch, n_heads,
+                                         n_kv, hd, page, pmax, n_pages,
+                                         pool_offset, window, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 1 || engine != 1 || pages_per_split <= 0 ||
       pages_per_split > split::kMaxSplitPages ||
       n_splits != (pmax + pages_per_split - 1) / pages_per_split ||
       n_splits > 65535 || batch > 65535 ||
-      (n_splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
+      ((n_splits > 1 || partials) && (ws_acc == nullptr || ws_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int groups = n_heads / n_kv;
   split::Params p;
@@ -838,12 +894,16 @@ extern "C" int paged_attention_launch(
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ws_acc = static_cast<float*>(ws_acc);
   p.ws_ml = static_cast<float*>(ws_ml);
+  p.out_m = pm;
+  p.out_l = pl;
+  p.out_acc = pa;
   p.batch = batch;
   p.n_heads = n_heads;
   p.n_kv = n_kv;
   p.page = page;
   p.pmax = pmax;
   p.n_pages = n_pages;
+  p.pool_offset = pool_offset;
   p.window = window;
   p.pages_per_split = pages_per_split;
   p.n_splits = n_splits;

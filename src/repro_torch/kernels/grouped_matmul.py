@@ -41,10 +41,20 @@ same predicate, then batched products in f32 (the reference's
 ``grouped_expert_ffn_jnp``).  ``grouped_expert_ffn`` is a
 ``torch.autograd.Function``: a CUDA tensor launches the kernels (or
 raises), a CPU tensor takes the plain version, and ``engine="torch"``
-pins the plain version on any device.  Its backward recomputes through
-the plain version (the reference's custom VJP, whose backward is jnp, not
-a kernel).  ``GROUPED_LAUNCHES`` counts kernel calls, ``ENGINE_LAUNCHES``
-the calls of each engine.
+pins the plain version on any device.  ``GROUPED_LAUNCHES`` counts kernel
+calls, ``ENGINE_LAUNCHES`` the calls of each engine.
+
+Its backward is ``grouped_expert_ffn_bwd``, which dispatches the same way:
+the CUDA kernels of ``grouped_ffn_bwd_launch`` (three steps: u, the gate
+and dact again with act, dU and dG; dh; the three weight gradients over
+each expert's kept rows), on the tensor cores (``mma.sync``, with act, dU
+and dG as bf16 hi/lo planes) where the forward's tensor-core engine runs
+and on SIMT otherwise (``bwd_engine``), or ``grouped_expert_ffn_bwd_torch``
+on the CPU: the reference's backward (``jax.vjp`` of
+``grouped_expert_ffn_jnp``) written out as formulas, every product in
+f32.  No TPU kernel stands behind it.  ``GROUPED_BWD_LAUNCHES`` counts its
+kernel calls, ``BWD_ENGINE_LAUNCHES`` the calls of each engine, and
+``grouped_bwd_work`` is its work function.
 """
 
 from __future__ import annotations
@@ -63,10 +73,16 @@ from repro_torch.kernels import build
 GROUPED_LAUNCHES = 0
 #: kernel calls of each engine since the counts were last set to 0
 ENGINE_LAUNCHES = {"wgmma": 0, "simt": 0}
+#: backward kernel calls, and those of each engine, since last set to 0
+GROUPED_BWD_LAUNCHES = 0
+BWD_ENGINE_LAUNCHES = {"mma": 0, "simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"swiglu": 0, "geglu": 1, "relu2": 2, "gelu": 3}
 _ENGINE_CODE = {"simt": 0, "wgmma": 1}
+_BWD_ENGINE_CODE = {"simt": 0, "mma": 1}
+#: sqrt(2 / pi) and the cubic term of the tanh GELU
+_GELU_K, _GELU_C = 0.7978845608028654, 0.044715
 #: the tensor-core engine's D and F granularity: one 128-byte TMA box
 TC_DEPTH = 64
 
@@ -92,7 +108,7 @@ def _act(mlp: str, u: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version (the oracle, and the backward of the kernel path)
+# Plain PyTorch versions (the oracles of the forward and backward kernels)
 # ---------------------------------------------------------------------------
 
 
@@ -119,6 +135,70 @@ def grouped_expert_ffn_torch(h: torch.Tensor, w1: torch.Tensor,
     return out.reshape(n_g, c, d).to(h.dtype)
 
 
+def _act_grads(mlp: str, u: torch.Tensor, g: torch.Tensor | None,
+               da: torch.Tensor):
+    """act(u, g) and the cotangents of u and g from da = d out / d act:
+    (act, du, dg), dg None for the ungated activations.  The derivatives
+    of ``_act`` written out (the kernel's act_grads)."""
+    if mlp == "swiglu":
+        s = torch.sigmoid(u)
+        silu = u * s
+        return silu * g, da * g * (s * (1.0 + u * (1.0 - s))), da * silu
+    if mlp == "relu2":
+        r = torch.relu(u)
+        return r * r, da * (2.0 * r), None
+    if mlp not in ("geglu", "gelu"):
+        raise ValueError(mlp)
+    t = torch.tanh(_GELU_K * (u + _GELU_C * u * u * u))
+    gelu = 0.5 * u * (1.0 + t)
+    dgelu = 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * _GELU_K * (
+        1.0 + 3.0 * _GELU_C * u * u)
+    if mlp == "geglu":
+        return gelu * g, da * g * dgelu, da * gelu
+    return gelu, da * dgelu, None
+
+
+def grouped_expert_ffn_bwd_torch(h: torch.Tensor, w1: torch.Tensor,
+                                 w1_gate: torch.Tensor | None,
+                                 w2: torch.Tensor, valid: torch.Tensor,
+                                 dy: torch.Tensor, mlp: str):
+    """The backward of ``grouped_expert_ffn_torch`` at dy [G, C, D]:
+    (dh, dw1, dw1g, dw2) in the operands' types, dw1g None when ungated.
+    The reference's ``jax.vjp`` of ``grouped_expert_ffn_jnp`` written out,
+    no autograd: u (and the gate) again, dact = dy w2^T, dU and dG from
+    the activation's derivative, dh = dU w1^T (+ dG w1g^T), dw1 = h^T dU,
+    dw1g = h^T dG, dw2 = act^T dy, every product in f32.  Rows at or past
+    ``valid`` give dh exactly 0 and add nothing to any weight gradient (h
+    and dy are masked there), and an expert's gradients sum over its
+    groups."""
+    n_g, c, d = h.shape
+    e = w1.shape[0]
+    rows = torch.arange(c, device=h.device)
+    live = rows[None, :, None] < valid.to(h.device)[:, None, None]
+
+    def masked(t):             # [G, C, D] -> the experts' rows [E, gpe C, D]
+        t = torch.where(live, t, torch.zeros((), dtype=t.dtype,
+                                             device=t.device))
+        return t.reshape(e, (n_g // e) * c, d).float()
+
+    he, dye = masked(h), masked(dy)
+    w1f = w1.float()
+    wgf = w1_gate.float() if gated(mlp) else None
+    u = torch.bmm(he, w1f)
+    gate = torch.bmm(he, wgf) if gated(mlp) else None
+    da = torch.bmm(dye, w2.float().transpose(1, 2))
+    act, du, dg = _act_grads(mlp, u, gate, da)
+    dh = torch.bmm(du, w1f.transpose(1, 2))
+    if dg is not None:
+        dh = dh + torch.bmm(dg, wgf.transpose(1, 2))
+    dh = torch.where(live, dh.reshape(n_g, c, d), 0.0).to(h.dtype)
+    ht = he.transpose(1, 2)
+    dw1 = torch.bmm(ht, du).to(w1.dtype)
+    dw1g = None if dg is None else torch.bmm(ht, dg).to(w1_gate.dtype)
+    dw2 = torch.bmm(act.transpose(1, 2), dye).to(w2.dtype)
+    return dh, dw1, dw1g, dw2
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
@@ -137,6 +217,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _tensor_cores(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+                  ) -> bool:
+    """bf16 with D and F multiples of ``TC_DEPTH``: the shapes and types
+    the tensor-core engines (forward and backward) take."""
+    d, f = h.shape[2], w1.shape[2]
+    bf16 = torch.bfloat16
+    return (h.dtype == w1.dtype == w2.dtype == bf16 and d % TC_DEPTH == 0
+            and f % TC_DEPTH == 0)
+
+
 def grouped_plan(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                  mlp: str, *, n_sm: int | None = None) -> Plan:
     """The plan the wrapper launches for these shapes and types: the
@@ -144,15 +234,19 @@ def grouped_plan(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     otherwise.  Reads shapes and types only, never a value (nor ``valid``),
     so a call never waits for the card.  The tensor-core launches are
     persistent, one CTA per SM (``n_sm``, default h's card's count)."""
-    d, f = h.shape[2], w1.shape[2]
-    bf16 = torch.bfloat16
-    if (h.dtype == w1.dtype == w2.dtype == bf16 and d % TC_DEPTH == 0
-            and f % TC_DEPTH == 0):
+    if _tensor_cores(h, w1, w2):
         if n_sm is None:
             n_sm = _sm_count(h.device.index if h.device.index is not None
                              else torch.cuda.current_device())
         return Plan("wgmma", n_sm)
     return Plan("simt", 0)
+
+
+def bwd_engine(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
+    """The engine of the backward for these shapes and types: the tensor
+    cores ("mma") where the forward's tensor-core engine runs, SIMT
+    otherwise.  Reads shapes and types only."""
+    return "mma" if _tensor_cores(h, w1, w2) else "simt"
 
 
 def _lib() -> ctypes.CDLL:
@@ -162,6 +256,9 @@ def _lib() -> ctypes.CDLL:
         lib.grouped_ffn_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, i,
                                            i, i, i, i, i, i, p]
         lib.grouped_ffn_launch.restype = i
+        lib.grouped_ffn_bwd_launch.argtypes = [i, i, i, p, p, p, p, p, p, p,
+                                               p, p, p, p, i, i, i, i, i, p]
+        lib.grouped_ffn_bwd_launch.restype = i
         out = ctypes.POINTER(ctypes.c_int)
         lib.grouped_tile_shape.argtypes = [i, i, out, out, out]
         lib.grouped_tile_shape.restype = i
@@ -206,7 +303,24 @@ def grouped_work(kept: float, n_g: int, c: int, d: int, f: int, e: int,
     return 2.0 * (mults + 1) * d * f * kept, nbytes
 
 
-def _work(h, w1, valid, mlp: str, abstract: bool):
+def grouped_bwd_work(kept: float, n_g: int, c: int, d: int, f: int, e: int,
+                     itemsize: int, gated: bool = True
+                     ) -> tuple[float, float]:
+    """(flops, bytes) of one backward call that keeps ``kept`` of its
+    ``n_g`` x ``c`` capacity rows: the function's least work, however a
+    kernel runs it.  Flops: u (and the gate) again, dact, dw2, dh (one
+    product per first-layer weight) and dw1 (and dw1g), 2 per multiply-add
+    of a kept row: 8 products gated, 5 ungated; bytes: the kept rows of h
+    and dy and the expert weights read once, the weight gradients and the
+    whole dh written once, the valid counts read once."""
+    mults = 2 if gated else 1
+    weights = (mults + 1) * e * d * f
+    nbytes = ((2 * kept * d + 2 * weights + n_g * c * d) * itemsize
+              + 4 * n_g)
+    return 2.0 * (3 * mults + 2) * d * f * kept, nbytes
+
+
+def _work(h, w1, valid, mlp: str, abstract: bool, fn=grouped_work):
     """A wrapper's launch, as the recorder reads it: ``grouped_work`` of
     the rows ``valid`` keeps, or of every capacity row where there are
     no counts to read (a dry run's meta tensors, as the reference's jnp
@@ -216,8 +330,7 @@ def _work(h, w1, valid, mlp: str, abstract: bool):
         e, _, f = w1.shape
         kept = (n_g * c if abstract
                 else int(valid.clamp(0, c).sum().item()))
-        return grouped_work(kept, n_g, c, d, f, e, h.element_size(),
-                            gated(mlp))
+        return fn(kept, n_g, c, d, f, e, h.element_size(), gated(mlp))
     return work
 
 
@@ -332,9 +445,87 @@ def down_product_f32(h: torch.Tensor, w1: torch.Tensor,
     return out
 
 
+def _check_dy(h: torch.Tensor, dy: torch.Tensor) -> None:
+    """What the backward kernels take of dy beyond h's checks."""
+    if dy.shape != h.shape or dy.dtype != h.dtype or dy.device != h.device:
+        raise ValueError(f"dy must be like h {tuple(h.shape)} {h.dtype}; got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if not dy.is_contiguous():
+        raise ValueError("the grouped-expert backward takes a contiguous dy")
+
+
+def grouped_expert_ffn_bwd(h: torch.Tensor, w1: torch.Tensor,
+                           w1_gate: torch.Tensor | None, w2: torch.Tensor,
+                           valid: torch.Tensor, dy: torch.Tensor, mlp: str):
+    """The backward of ``grouped_expert_ffn`` at dy: (dh, dw1, dw1g, dw2) in
+    the operands' types (dw1g None when ungated).  A CUDA tensor launches
+    the backward kernels on ``bwd_engine``'s engine (or raises), a CPU
+    tensor takes ``grouped_expert_ffn_bwd_torch``, and a meta tensor under
+    a recorder is counted as one launch of ``grouped_bwd_work``.  Like the
+    forward it reads ``valid`` on the card only, so it can be captured in
+    a CUDA graph."""
+    global GROUPED_BWD_LAUNCHES
+    _check_shapes(h, w1, w1_gate, w2, valid, mlp)
+    if h.device.type == "cpu":
+        return grouped_expert_ffn_bwd_torch(h, w1, w1_gate, w2, valid, dy,
+                                            mlp)
+    reads = (h, w1, w1_gate, w2, valid, dy)
+    if instrument.is_meta(h):
+        _check_operands(h, w1, w1_gate, w2, valid)
+        _check_dy(h, dy)
+        outs = (torch.empty_like(h), torch.empty_like(w1),
+                None if w1_gate is None else torch.empty_like(w1_gate),
+                torch.empty_like(w2))
+        return instrument.meta_kernel(
+            "grouped_expert_ffn_bwd", reads, outs,
+            work=_work(h, w1, valid, mlp, True, grouped_bwd_work))
+    _check_card(h, w1, w1_gate, w2, valid, mlp)
+    _check_dy(h, dy)
+    engine = bwd_engine(h, w1, w2)
+    n_g, c, d = h.shape
+    e, _, f = w1.shape
+    if engine == "mma":
+        bad = [name for name, t in (("h", h), ("w1", w1), ("w1_gate", w1_gate),
+                                    ("w2", w2), ("dy", dy))
+               if t is not None and t.data_ptr() % 16]
+        if bad:
+            raise ValueError(f"the tensor-core grouped backward copies "
+                             f"16-byte chunks: {', '.join(bad)} must start "
+                             f"on a 16-byte boundary")
+        # act, dU (and dG) as bf16 hi/lo planes
+        ws = torch.empty((6 if gated(mlp) else 4, n_g, c, f),
+                         dtype=torch.bfloat16, device=h.device)
+    else:
+        ws = torch.empty((3 if gated(mlp) else 2, n_g, c, f),
+                         dtype=torch.float32, device=h.device)
+    dh, dw1, dw2 = (torch.empty_like(t) for t in (h, w1, w2))
+    dw1g = None if w1_gate is None else torch.empty_like(w1_gate)
+    counts = valid.to(torch.int32).contiguous()
+    lib = _lib()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.grouped_ffn_bwd_launch(
+            _DTYPE_CODE[h.dtype], _BWD_ENGINE_CODE[engine], _ACT_CODE[mlp],
+            h.data_ptr(), w1.data_ptr(),
+            None if w1_gate is None else w1_gate.data_ptr(), w2.data_ptr(),
+            dy.data_ptr(), counts.data_ptr(), ws.data_ptr(), dh.data_ptr(),
+            dw1.data_ptr(), None if dw1g is None else dw1g.data_ptr(),
+            dw2.data_ptr(), n_g, c, d, f, e, stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_expert_ffn backward kernel launch "
+                           f"failed: {lib.grouped_error_string(err).decode()}")
+    GROUPED_BWD_LAUNCHES += 1
+    BWD_ENGINE_LAUNCHES[engine] += 1
+    outs = (dh, dw1, dw1g, dw2)
+    instrument.note_kernel("grouped_expert_ffn_bwd", reads,
+                           [t for t in outs if t is not None],
+                           work=_work(h, w1, valid, mlp, False,
+                                      grouped_bwd_work))
+    return outs
+
+
 class _GroupedFFN(torch.autograd.Function):
-    """The kernel forward (the plain version on the CPU) with a backward
-    that recomputes through the plain version."""
+    """The kernel forward and backward (the plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, h, w1, w1_gate, w2, valid, mlp):
@@ -347,15 +538,11 @@ class _GroupedFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         h, w1, w1_gate, w2, valid = ctx.saved_tensors
-        operands = (h, w1, w1_gate, w2)
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(need)
-                      for t, need in zip(operands, ctx.needs_input_grad)]
-            out = grouped_expert_ffn_torch(*leaves, valid, ctx.mlp)
-            wrt = [t for t in leaves if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, dy) if wrt else ())
-        return (*[next(grads) if t is not None and t.requires_grad else None
-                  for t in leaves], None, None)
+        grads = grouped_expert_ffn_bwd(h, w1, w1_gate, w2, valid,
+                                       dy.contiguous(), ctx.mlp)
+        return (*[g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)], None,
+                None)
 
 
 def grouped_expert_ffn(h: torch.Tensor, w1: torch.Tensor,

@@ -31,8 +31,11 @@ Two engines with identical math:
 
 ``paged_attention`` dispatches on the tensor's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version.
-``LAUNCHES`` counts wrapper calls that launched the kernel, so a run can
-show that its main path went through it.
+``paged_attention_partials`` does the same for a pool sharded over ranks:
+the kernel (either engine) writes this rank's f32 partials, pages of other
+ranks contributing nothing, for the caller's LSE merge.  ``LAUNCHES``
+counts wrapper calls that launched the kernel, so a run can show that its
+main path went through it.
 """
 
 from __future__ import annotations
@@ -221,8 +224,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, i, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                       i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [i]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -268,17 +271,39 @@ def paged_work(lens, window: int, h: int, kvh: int, hd: int, page: int,
     return 4 * h * hd * need, nbytes
 
 
-def _work(q, k_pages, table, window: int, lens=None):
+def local_positions(table: torch.Tensor, lens: torch.Tensor, page: int,
+                    n_pages: int, pool_offset: int, window: int = 0
+                    ) -> list[int]:
+    """The positions each row attends in a rank-local pool of ``n_pages``
+    whose first page has GLOBAL id ``pool_offset``: those below its length
+    (and in its window) whose page lies in this pool."""
+    pos = torch.arange(table.shape[1] * page, device=table.device)
+    pid = table.long()[:, pos // page] - pool_offset
+    n = lens.long()[:, None]
+    keep = (pos[None, :] < n) & (pid >= 0) & (pid < n_pages)
+    if window > 0:
+        keep &= pos[None, :] >= n - window
+    return keep.sum(dim=1).tolist()
+
+
+def _work(q, k_pages, table, window: int, lens=None, pool_offset=None):
     """A wrapper's launch, as the recorder reads it: ``paged_work`` over
-    the lengths ``lens`` holds, or over every row's full table where
-    there are none to read (a dry run's meta tensors: the shape's full
-    context)."""
+    the lengths ``lens`` holds (of a rank's pool, only the positions whose
+    page it holds: ``local_positions``), or over every row's full table
+    where there are none to read (a dry run's meta tensors: the shape's
+    full context)."""
     def work():
         b, h, hd = q.shape
-        _, page, kvh, _ = k_pages.shape
-        full = ([table.shape[1] * page] * b if lens is None
-                else lens.tolist())
-        return paged_work(full, window, h, kvh, hd, page, q.element_size())
+        n_pages, page, kvh, _ = k_pages.shape
+        if lens is None:
+            return paged_work([table.shape[1] * page] * b, window, h, kvh,
+                              hd, page, q.element_size())
+        if pool_offset is None:
+            return paged_work(lens.tolist(), window, h, kvh, hd, page,
+                              q.element_size())
+        return paged_work(local_positions(table, lens, page, n_pages,
+                                          pool_offset, window), 0, h, kvh,
+                          hd, page, q.element_size())
     return work
 
 
@@ -316,36 +341,41 @@ def _check_card(q, k_pages, v_pages, table, lens) -> Plan | None:
 
 
 def _launch(q, k_pages, v_pages, table, lens, window: int, plan: Plan,
-            out: torch.Tensor, ws_acc: torch.Tensor | None,
-            ws_ml: torch.Tensor | None) -> None:
-    """Launch ``plan`` (the split kernel and, with several splits, the
-    merge), writing ``out`` and the splits' partials to the workspaces."""
+            out: torch.Tensor | None, ws_acc: torch.Tensor | None,
+            ws_ml: torch.Tensor | None, *, partials: Partials | None = None,
+            pool_offset: int = 0) -> None:
+    """Launch ``plan`` (the split kernel and, with several splits or
+    ``partials``, the merge), writing ``out`` or the f32 ``partials`` (m,
+    l, acc) and the splits' partials to the workspaces."""
     global LAUNCHES
     b, h, hd = q.shape
     n_pages, page, kvh, _ = k_pages.shape
+    ptr = [None if t is None else t.data_ptr()
+           for t in (out, ws_acc, ws_ml, *(partials or (None,) * 3))]
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention_launch(
             _DTYPE_CODE[q.dtype], _ENGINE_CODE[plan.engine], q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-            lens.data_ptr(), out.data_ptr(),
-            None if ws_acc is None else ws_acc.data_ptr(),
-            None if ws_ml is None else ws_ml.data_ptr(), b, h, kvh, hd, page,
-            table.shape[1], n_pages, int(window), 1.0 / math.sqrt(hd),
+            lens.data_ptr(), *ptr, b, h, kvh, hd, page, table.shape[1],
+            n_pages, int(pool_offset), int(window), 1.0 / math.sqrt(hd),
             plan.pages_per_split, plan.n_splits, stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg}")
     LAUNCHES += 1
     instrument.note_kernel("paged_attention",
-                           (q, k_pages, v_pages, table, lens), (out,),
-                           work=_work(q, k_pages, table, window, lens))
+                           (q, k_pages, v_pages, table, lens),
+                           partials or (out,),
+                           work=_work(q, k_pages, table, window, lens,
+                                      pool_offset if partials else None))
 
 
-def _workspaces(q: torch.Tensor, plan: Plan):
-    """The f32 partials' workspaces (acc, (m, l)) of a plan with splits."""
-    if plan.engine == "simt" or plan.n_splits == 1:
+def _workspaces(q: torch.Tensor, plan: Plan, partials: bool = False):
+    """The f32 partials' workspaces (acc, (m, l)) of a plan with splits,
+    or of any split plan whose partials are asked for."""
+    if plan.engine == "simt" or (plan.n_splits == 1 and not partials):
         return None, None
     b, h, hd = q.shape
     return (torch.empty((plan.n_splits, b, h, hd), dtype=torch.float32,
@@ -416,3 +446,43 @@ def split_partials(q: torch.Tensor, k_pages: torch.Tensor,
     l = ws_ml[..., 1]
     m = torch.where(l > 0, ws_ml[..., 0] * math.log(2.0), NEG_INF)
     return plan, (m, l, torch.where(l[..., None] > 0, ws_acc, 0.0))
+
+
+def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, table: torch.Tensor,
+                             lens: torch.Tensor, *, window: int = 0,
+                             pool_offset: int = 0,
+                             engine: str = "auto") -> Partials:
+    """The flash partials (m, l, acc) of ``q`` [B, H, hd] against the page
+    chains in a rank-local pool, in the layout of
+    ``paged_attention_partials_torch``: m in natural-log units and l
+    [B, 1, H], acc [B, 1, H, hd] unnormalised, all f32.  ``table`` holds
+    GLOBAL page ids: id - ``pool_offset`` indexes ``k_pages``, and an entry
+    outside it (another rank's page) contributes nothing, so the partials
+    of all ranks LSE-merge to the whole attention.  A CUDA tensor launches
+    the kernel (the bf16 fast path through its merge, or the f32 path's
+    kernel; ``launch_plan``) or raises, a CPU tensor or ``engine="torch"``
+    takes the plain version, and a meta tensor under a recorder counts as
+    one ``paged_attention`` launch."""
+    _check(q, k_pages, v_pages, table, lens)
+    if engine not in ("auto", "torch"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "torch" or q.device.type == "cpu":
+        return paged_attention_partials_torch(q, k_pages, v_pages, table,
+                                              lens, window=window,
+                                              pool_offset=pool_offset)
+    b, h, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    parts = (torch.empty((b, 1, h), **f32), torch.empty((b, 1, h), **f32),
+             torch.empty((b, 1, h, hd), **f32))
+    if instrument.is_meta(q):
+        _check_operands(q, k_pages, v_pages, table, lens)
+        return instrument.meta_kernel(
+            "paged_attention", (q, k_pages, v_pages, table, lens), parts,
+            work=_work(q, k_pages, table, window))
+    plan = _check_card(q, k_pages, v_pages, table, lens)
+    if plan is not None:
+        _launch(q, k_pages, v_pages, table, lens, window, plan, None,
+                *_workspaces(q, plan, partials=True), partials=parts,
+                pool_offset=int(pool_offset))
+    return parts

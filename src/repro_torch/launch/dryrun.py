@@ -29,8 +29,8 @@ branch, refuses what the card refuses (the operand checks are the
 card's) and counts one launch with its work function; no
 plain version runs, nothing is allocated on a card or launched.  Sizes
 that depend on data are counted at their shape's bound: the grouped
-expert FFN at its capacity rows (what the reference's jnp engine
-computes), the contiguous decode at the shape's full context (the cache's
+expert FFN and its backward at their capacity rows (what the reference's
+jnp engine computes), the contiguous decode at the shape's full context (the cache's
 every position, as its attention reads them).
 
 Usage:

@@ -14,8 +14,8 @@ and reports its launch with its kernel module's work function.
     decompositions of matmul and einsum, convolutions) by its result and
     contracted dims, with ``torch.utils.flop_counter``'s formulas; every
     kernel launch by its work function (``flash_work``, ``paged_work``,
-    ``grouped_work``, ``stencil_work``) and by no aten op of its plain
-    version.
+    ``grouped_work``, ``grouped_bwd_work``, ``stencil_work``) and by no
+    aten op of its plain version.
   * Device-memory bytes: eager PyTorch fuses nothing, so every non-view
     aten op reads its operands and writes its result once; views cost 0;
     an in-place update of a slice (``copy_`` into a view, ``index_put_``)

@@ -463,9 +463,10 @@ def attention_decode_paged(x: torch.Tensor,
     active: [B] bool — inactive slots neither write the cache nor count;
             their outputs are zeros the engine discards.
     ``engine`` pins the paged-attention implementation (tests only).
-    With one cache shard the paged kernel runs; with more, the plain
-    partials of this shard's pages LSE-merge over the cache axes, as the
-    reference's ``paged_attention_partials_jnp`` branch.
+    With one cache shard the paged kernel runs; with more, the kernel's
+    partials of this shard's pages (``paged_attention_partials``) LSE-merge
+    over the cache axes, as the reference's ``paged_attention_partials_jnp``
+    branch.
     Returns (y [B, D_loc(data)], pool).
     """
     b = x.shape[0]
@@ -495,9 +496,9 @@ def attention_decode_paged(x: torch.Tensor,
         o = paged.paged_attention(q_all, k_pages, v_pages, table, lens,
                                   window=window, engine=engine)
     else:
-        m, l, acc = paged.paged_attention_partials_torch(
+        m, l, acc = paged.paged_attention_partials(
             q_all, k_pages[:np_loc], v_pages[:np_loc], table, lens,
-            window=window, pool_offset=off)
+            window=window, pool_offset=off, engine=engine)
         l, acc = _merge_over_cache(m, l, acc, ctx)
         o = (acc / torch.clamp(l[..., None], min=1e-30))[:, 0]
     o = o.reshape(b, h, hd)

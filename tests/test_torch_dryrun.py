@@ -29,7 +29,9 @@ What is held, and why the gaps that remain are what they are:
     logits with the remat forward's, where the eager checkpoint recomputes
     the whole block;
   * the kernel path's FLOPs equal the plain path's less the masked work
-    the work functions skip, computed from each launch's shapes.
+    the work functions skip, computed from each launch's shapes, with the
+    grouped FFN's backward counted as its kernel's work in place of the
+    plain path's autograd products.
 """
 
 import json
@@ -171,15 +173,25 @@ def _full_grid(launch):
 def test_kernel_path_is_the_plain_path_less_the_masked_work(arch, shape):
     rec, counter = port(arch, shape)
     plain, plain_counter = port(arch, shape, engine="torch")
-    masked = sum(_full_grid(k) - k.flops for k in counter.kernels)
-    # the grouped FFN's backward recomputes its forward through the plain
-    # version (the reference's custom VJP does too), once a layer; the
-    # plain path's autograd keeps its forward's activations instead
-    grouped = [k.flops for k in counter.kernels
-               if k.name == "grouped_expert_ffn"]
-    recompute = sum(grouped) / 2 if shape == "train_4k" else 0.0
+    masked = sum(_full_grid(k) - k.flops for k in counter.kernels
+                 if k.name != "grouped_expert_ffn_bwd")
+    # the grouped FFN's backward is its kernel's work (grouped_bwd_work:
+    # the first products again, dact, dh and the weight gradients) in
+    # place of the plain path's autograd, whose products are twice its
+    # forward's: the two forward launches of a layer (the forward and its
+    # remat replay)
+    fwd = [k for k in counter.kernels if k.name == "grouped_expert_ffn"]
+    bwd = [k for k in counter.kernels if k.name == "grouped_expert_ffn_bwd"]
+    assert len(bwd) == (len(fwd) // 2 if shape == "train_4k" else 0)
+    for k in bwd:         # h, w1, [w1g,] w2, valid, dy: 8 products, or 5
+        (g, c, d), (e, _, f) = k.shapes[:2]
+        assert k.flops == gm.grouped_bwd_work(g * c, g, c, d, f, e, 2,
+                                              len(k.shapes) == 6)[0]
+    grouped = sum(k.flops for k in fwd)
+    autograd = grouped if bwd else 0.0
     assert rec["flops_per_chip"] == \
-        plain["flops_per_chip"] - masked + recompute
+        plain["flops_per_chip"] - masked - autograd + sum(k.flops
+                                                          for k in bwd)
     assert plain_counter.kernels == []
     if shape == "train_4k" and arch != "mamba2-130m":
         assert masked > 0
@@ -197,9 +209,11 @@ def test_one_rank_cells_count_their_kernels(arch, shape):
             "prefill_32k": {"flash_attention_fwd": attn},
             "decode_32k": {}}[shape]
     if cfg.moe is not None and shape != "decode_32k":
-        # with the remat recompute in training
+        # with the remat recompute in training, and one backward a layer
         want["grouped_expert_ffn"] = cfg.n_layers * (
             2 if shape == "train_4k" else 1)
+        if shape == "train_4k":
+            want["grouped_expert_ffn_bwd"] = cfg.n_layers
     assert counter.launches() == {k: v for k, v in want.items() if v}
     m = rec["memory"]
     assert m["peak_bytes"] == m["argument_bytes"] + m["temp_bytes"] > 0
@@ -232,8 +246,8 @@ def test_full_width_phi4_step_predicts_the_cards_launches():
 
 def test_no_plain_version_runs(monkeypatch, reduced):
     """The dry run takes the card's branch everywhere: every plain
-    attention version raises, and the grouped FFN's plain version runs
-    only where the card runs it too (its backward's recompute)."""
+    attention version, the grouped FFN's plain forward and backward and
+    the plain paged partials raise."""
     def refuse(*a, **k):
         raise AssertionError("a plain version ran in the dry run")
 
@@ -244,25 +258,11 @@ def test_no_plain_version_runs(monkeypatch, reduced):
                       (ops, "flash_attention_torch"),
                       (ops, "flash_attention_bwd_block_torch"),
                       (ops, "_lse_dense"), (ref, "flash_attention_ref"),
-                      (paged_attention, "paged_attention_torch")):
+                      (paged_attention, "paged_attention_torch"),
+                      (paged_attention, "paged_attention_partials_torch"),
+                      (gm, "grouped_expert_ffn_torch"),
+                      (gm, "grouped_expert_ffn_bwd_torch")):
         monkeypatch.setattr(mod, name, refuse)
-    in_backward = []
-    plain_ffn = gm.grouped_expert_ffn_torch
-    backward = gm._GroupedFFN.backward
-
-    def ffn(*a, **k):
-        assert in_backward, "the grouped FFN's plain forward ran"
-        return plain_ffn(*a, **k)
-
-    def bwd(ctx, dy):
-        in_backward.append(1)
-        try:
-            return backward(ctx, dy)
-        finally:
-            in_backward.pop()
-
-    monkeypatch.setattr(gm, "grouped_expert_ffn_torch", ffn)
-    monkeypatch.setattr(gm._GroupedFFN, "backward", staticmethod(bwd))
     for arch in ("phi4-mini-3.8b", "moonshot-v1-16b-a3b"):
         for shape in ("train_4k", "prefill_32k"):
             rec = dryrun.lower_cell(arch, shape, False, mesh_shape="2x4")

@@ -1420,3 +1420,207 @@ def test_grouped_ffn_tensor_cores_reject_misaligned_bases(cuda):
         with pytest.raises(ValueError, match="16-byte"):
             gm.grouped_expert_ffn(*args, valid, mlp="swiglu")
     assert gm.GROUPED_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The grouped-expert FFN's backward kernels against the plain backward
+# ---------------------------------------------------------------------------
+
+#: (G, C, D, F, E) of the SIMT backward (f32, and bf16 where D or F is no
+#: multiple of 64) and of the tensor cores' (bf16): one and two groups an
+#: expert, sizes that end on part of a tile, one capacity row
+GROUPED_BWD_SHAPES = [(4, 16, 8, 12, 4), (8, 32, 8, 16, 2),
+                      (3, 257, 130, 70, 3)]
+GROUPED_BWD_TC_SHAPES = [(4, 200, 128, 192, 4), (4, 129, 192, 128, 2),
+                         (4, 1, 64, 64, 2)]
+#: the tensor cores' bf16 gradients equal the plain f32 ones rounded to
+#: bf16 on at least this share of their elements (dU, dG and act in bf16
+#: alone, without their lo halves, move them by about 4e-3)
+GROUPED_BWD_BF16_SHARE = 0.99
+
+
+def _grouped_bwd_inputs(cuda, dtype, shape, seed):
+    """h and dy with 1e3-scale garbage past each group's valid count, the
+    weights ~0.1 N(0, 1), and valid counts of 0 (every group of expert 0),
+    C and between."""
+    g, c, d, f, e = shape
+    (h, w1, w1g, w2), valid = _grouped_inputs(cuda, dtype, shape, seed)
+    valid[: g // e] = 0
+    valid[-1] = c
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.normal(size=(g, c, d)).astype(np.float32)
+    rows = np.arange(c)[None, :, None]
+    dy = np.where(rows < valid.cpu().numpy()[:, None, None], dy,
+                  1e3 * rng.normal(size=dy.shape).astype(np.float32))
+    return h, w1, w1g, w2, valid, torch.from_numpy(dy).to(cuda).to(dtype)
+
+
+def _grouped_bwd_call(cuda, dtype, tol, mlp, shape, engine):
+    h, w1, w1g, w2, valid, dy = _grouped_bwd_inputs(cuda, dtype, shape,
+                                                    sum(shape) + len(mlp))
+    w1g = w1g if gm.gated(mlp) else None
+    assert gm.bwd_engine(h, w1, w2) == engine
+    before = (gm.GROUPED_BWD_LAUNCHES, gm.BWD_ENGINE_LAUNCHES[engine])
+    got = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, mlp)
+    torch.cuda.synchronize()
+    assert (gm.GROUPED_BWD_LAUNCHES, gm.BWD_ENGINE_LAUNCHES[engine]) == (
+        before[0] + 1, before[1] + 1)
+    want = gm.grouped_expert_ffn_bwd_torch(
+        *[None if t is None else t.float() for t in (h, w1, w1g, w2)], valid,
+        dy.float(), mlp)
+    live = (torch.arange(shape[1], device=cuda)[None, :, None]
+            < valid[:, None, None]).expand_as(h)
+    for name, g_, w_, like in zip(("dh", "dw1", "dw1g", "dw2"), got, want,
+                                  (h, w1, w1g, w2)):
+        if like is None:
+            assert g_ is None and w_ is None
+            continue
+        assert g_.dtype == like.dtype and g_.shape == like.shape
+        _close(g_, w_, tol, f"{name} {mlp} {shape}")
+        if name == "dh":
+            assert torch.equal(g_[~live].float(),
+                               torch.zeros_like(g_[~live].float()))
+        else:                               # expert 0 keeps no row
+            assert torch.equal(g_[0].float(), torch.zeros_like(g_[0].float()))
+        if engine == "mma":
+            sel = live if name == "dh" else torch.ones_like(g_, dtype=bool)
+            share = (g_[sel] == w_[sel].to(g_.dtype)).float().mean().item()
+            assert share >= GROUPED_BWD_BF16_SHARE, (name, share)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", GROUPED_TOL)
+@pytest.mark.parametrize("mlp", ["swiglu", "geglu", "relu2", "gelu"])
+@pytest.mark.parametrize("shape", GROUPED_BWD_SHAPES, ids=str)
+def test_grouped_ffn_bwd_simt_matches_plain(cuda, dtype, tol, mlp, shape):
+    """The SIMT backward against the plain backward in f32 on the same
+    inputs: every gradient within tol x max(1, max|want|) (f32 1e-5, bf16
+    2e-2), dh exactly 0 past valid, an empty expert's weight gradients
+    exactly 0, one launch counted."""
+    _grouped_bwd_call(cuda, dtype, tol, mlp, shape, "simt")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ["swiglu", "geglu", "relu2", "gelu"])
+@pytest.mark.parametrize("shape", GROUPED_BWD_TC_SHAPES, ids=str)
+def test_grouped_ffn_bwd_tensor_cores_match_plain(cuda, mlp, shape):
+    """The tensor-core backward (bf16) as the SIMT test holds it, and each
+    gradient equal to the plain f32 one rounded to bf16 on at least
+    GROUPED_BWD_BF16_SHARE of its elements: dU, dG and act keep f32 through
+    their hi/lo planes."""
+    _grouped_bwd_call(cuda, torch.bfloat16, 2e-2, mlp, shape, "mma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_bwd_is_the_functions_backward(cuda, dtype):
+    """Autograd through grouped_expert_ffn on the card launches the
+    backward kernels once and gives the entry's bits (no atomics: two
+    calls agree), and the call replayed from a CUDA graph gives them too."""
+    shape = (4, 129, 192, 128, 2)
+    h, w1, w1g, w2, valid, dy = _grouped_bwd_inputs(cuda, dtype, shape, 3)
+    leaves = [t.clone().requires_grad_() for t in (h, w1, w1g, w2)]
+    out = gm.grouped_expert_ffn(*leaves[:3], leaves[3], valid, mlp="swiglu")
+    before = gm.GROUPED_BWD_LAUNCHES
+    grads = torch.autograd.grad(out, leaves, dy)
+    assert gm.GROUPED_BWD_LAUNCHES == before + 1
+    want = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, "swiglu")
+    for g_, w_ in zip(grads, want):
+        assert torch.equal(g_, w_)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, "swiglu")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy,
+                                             "swiglu")
+    graph.replay()
+    torch.cuda.synchronize()
+    for g_, w_ in zip(captured, want):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_bwd_rejects_what_it_does_not_take(cuda):
+    h, w1, w1g, w2, valid, dy = _grouped_bwd_inputs(
+        cuda, torch.bfloat16, (4, 129, 192, 128, 2), 5)
+    with pytest.raises(ValueError, match="dy"):
+        gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy.float(),
+                                  "swiglu")
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid,
+                                  dy.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), "swiglu")
+    odd = torch.empty(dy.numel() + 1, dtype=dy.dtype, device=cuda)[1:]
+    odd = odd.view(dy.shape).copy_(dy)
+    with pytest.raises(ValueError, match="16-byte"):
+        gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, odd, "swiglu")
+
+
+# ---------------------------------------------------------------------------
+# The paged kernel's partials over a sharded pool against the plain ones
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd,kvh,groups", [
+    (torch.float32, 128, 8, 4), (torch.float32, 192, 2, 6),
+    (torch.bfloat16, 128, 8, 4), (torch.bfloat16, 64, 1, 12),
+    (torch.bfloat16, 192, 2, 6)], ids=str)
+@pytest.mark.parametrize("window", ["none", "mid"])
+def test_paged_partials_over_two_pool_halves_match_plain(cuda, dtype, hd,
+                                                         kvh, groups, window):
+    """The pool cut in two at a page that splits chains between the halves,
+    each half a rank's pool with its offset: the kernel's f32 partials of
+    each half (the f32 path's kernel, or the bf16 fast path through its
+    merge) equal the plain partials in f32 on the same inputs within 1e-4
+    of their size, and the two LSE-merge to the plain unsharded output
+    within 1e-4 (f32) or 2e-2 (bf16, against the bf16 output's plain
+    version)."""
+    args, bnd = _split_inputs(cuda, dtype, kvh, groups, hd, 16,
+                              seed=groups + hd)
+    q, kp, vp, table, lens = args
+    win = {"none": 0, "mid": bnd // 2 + 3}[window]
+    half = kp.shape[0] // 2
+    parts = []
+    for off, end in ((0, half), (half, kp.shape[0])):
+        local = (q, kp[off:end], vp[off:end], table, lens)
+        before = paged.LAUNCHES
+        got = paged.paged_attention_partials(*local, window=win,
+                                             pool_offset=off)
+        torch.cuda.synchronize()
+        assert paged.LAUNCHES == before + 1
+        want = paged.paged_attention_partials_torch(
+            *[a.float() if i < 3 else a for i, a in enumerate(local)],
+            window=win, pool_offset=off)
+        assert all(g_.dtype == torch.float32 for g_ in got)
+        assert_split_partials_close(got, want)
+        parts.append(got)
+    out, _ = fa.finalize_partials(*fa.merge_partials(*parts))
+    full = paged.paged_attention_torch(q.float(), kp.float(), vp.float(),
+                                       table, lens, window=win)
+    torch.testing.assert_close(out[:, 0], full, rtol=0.0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_paged_partials_with_one_split(cuda):
+    """A table of one column: the bf16 fast path plans one split, and the
+    partials still come through the merge, unnormalised."""
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(8, 32, 128))
+    kp, vp = (rng.normal(size=(40, 16, 8, 128)) for _ in range(2))
+    table = rng.permutation(40)[:8].reshape(8, 1).astype(np.int32)
+    lens = np.array([0, 1, 5, 16, 16, 9, 3, 12], np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, table, lens)]
+    for i in range(3):
+        args[i] = args[i].to(torch.bfloat16)
+    plan = paged.launch_plan(args[0], args[1], args[3])
+    assert (plan.engine, plan.n_splits) == ("mma", 1)
+    got = paged.paged_attention_partials(*args, pool_offset=3)
+    want = paged.paged_attention_partials_torch(
+        *[a.float() if i < 3 else a for i, a in enumerate(args)],
+        pool_offset=3)
+    assert_split_partials_close(got, want)
