@@ -16,9 +16,10 @@ phase that fails:
                bf16 forward, carry, backward, block-backward (at hd 64,
                128 and 192) and grouped kernels must have some, and they,
                the paged kernel's bf16 fast path and the grouped
-               tensor-core kernels, the backward's ``mma.sync`` ones
-               among them, must not spill (no stack or local memory in
-               ``cuobjdump -res-usage`` of the built library);
+               tensor-core kernels, the backward's ``wgmma`` ones
+               among them (each with HGMMA too), must not spill (no
+               stack or local memory in ``cuobjdump -res-usage`` of the
+               built library);
   2. kernel  — each kernel's wrapper against its plain PyTorch version on
                the card at the stated tolerances (paged attention, with
                its split plan, and its bf16 fast path's f32 split
@@ -262,6 +263,14 @@ FLASH_WGMMA = ([f"flash_fwd_wgmma_kernel<{hd}, {c}>" for hd in (64, 128)
                   for c in ("false", "true")]
                + [f"flash_bwd_wgmma_pair_kernel<192, {c}>"
                   for c in ("false", "true")])
+#: the grouped FFN's tensor-core backward kernels (step 1 by activation,
+#: step 2 gated or not, step 3's [dw1 | dw1g] gated or not and dw2)
+GROUPED_BWD_WGMMA = (["ffn_bwd_dact_wgmma_kernel<float>"]
+                     + [f"ffn_bwd_act_wgmma_kernel<{a}, {g}>" for a, g in (
+    (0, "true"), (1, "true"), (2, "false"), (3, "false"))]
+    + [f"ffn_bwd_dh_wgmma_kernel<{g}>" for g in ("true", "false")]
+    + [f"ffn_bwd_dw_wgmma_kernel<{k}>" for k in ("0, true", "0, false",
+                                                 "1, false")])
 PEAK = {"bfloat16": 989e12,           # dense tensor-core rate, flop/s
         "float32": 67e12}             # f32 outside the tensor cores
 SEED = 0
@@ -1901,6 +1910,42 @@ def grouped_bwd_call(torch, gm, h, w1, w1g, w2, valid, dy, mlp, tol, name):
     return max(errs), (min(shares) if shares else None)
 
 
+#: the grouped backward's kernels by step, from their names
+GROUPED_BWD_STEP_KEYS = (("_dact_", "step 1"), ("_act_", "step 1"),
+                         ("_dh_", "step 2"), ("_dw_", "step 3"))
+
+
+def bwd_step_ms(torch, fns, calls: int):
+    """Device ms a call of each step of the grouped FFN's backward
+    (``ffn_bwd_act_*`` step 1, ``ffn_bwd_dh_*`` step 2, ``ffn_bwd_dw_*``
+    step 3), and of each of its kernels by name, from ``torch.profiler``
+    over ``calls`` calls of the functions in ``fns`` taken in turn (after
+    one warm call of each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    kernels: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us and "ffn_bwd" in e.key:
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / calls
+    steps = {step: 0.0 for _, step in GROUPED_BWD_STEP_KEYS}
+    for name, ms in kernels.items():
+        for key, step in GROUPED_BWD_STEP_KEYS:
+            if key in name:
+                steps[step] += ms
+                break
+    return steps, kernels
+
+
 def phase_grouped_bwd(torch):
     """Phase 2: the grouped FFN's backward kernels against the plain
     backward (both engines, every activation, one and two groups an
@@ -1976,25 +2021,28 @@ def phase_grouped_bwd(torch):
 
     kernel = [lambda s=s: gm.grouped_expert_ffn_bwd(*s[:4], s[5], s[4],
                                                     "swiglu") for s in sets]
+    nothing = torch.zeros_like(sets[0][5])
+    empty = [lambda s=s: gm.grouped_expert_ffn_bwd(*s[:4], nothing, s[4],
+                                                   "swiglu") for s in sets]
     plain = [lambda s=s: gm.grouped_expert_ffn_bwd_torch(*s[:4], s[5], s[4],
                                                          "swiglu")
              for s in sets]
     yard = [lambda s=s: autograd_bmm3(s) for s in sets]
     tm = dict(plain_ms=graph_ms(torch, plain, 3), library_ms=None)
-    timers = graph_timer(torch, kernel * 2), graph_timer(torch, yard * 2)
+    timers = (graph_timer(torch, kernel * 2), graph_timer(torch, yard * 2),
+              graph_timer(torch, empty * 2))
 
     def take_turns():
         out = []
         for _ in range(GROUPED_BWD_TURNS):
             t0 = time.perf_counter()
-            out.append((timers[0](GROUPED_BWD_TURN_REPS),
-                        timers[1](GROUPED_BWD_TURN_REPS), t0,
+            out.append((*(t(GROUPED_BWD_TURN_REPS) for t in timers), t0,
                         time.perf_counter()))
         return out
 
     turns, clocks = with_clocks(take_turns)
-    kernel_ms = sorted(t[0] for t in turns)
-    yard_ms = sorted(t[1] for t in turns)
+    kernel_ms, yard_ms, empty_ms = (sorted(t[i] for t in turns)
+                                    for i in range(3))
     tm["ms"] = kernel_ms[len(turns) // 2]
     tm["bound_ms"], tm["bound_by"] = roof_ms(*gm.grouped_bwd_work(
         kept_mean, p["e"], p["c"], p["d"], p["f"], p["e"], 2), "bfloat16")
@@ -2014,15 +2062,38 @@ def phase_grouped_bwd(torch):
           f"{yard_ms[len(turns) // 2]:.4f} ms "
           f"({yard_ms[0]:.4f}-{yard_ms[-1]:.4f} ms)", flush=True)
     line = []
-    for k_ms, y_ms, t0, t1 in turns:
+    for k_ms, y_ms, e_ms, t0, t1 in turns:
         mhz = [c[1] for c in clocks if t0 <= c[0] <= t1]
-        line.append(f"{k_ms:.4f} / {y_ms:.4f} ms at "
+        line.append(f"{k_ms:.4f} / {y_ms:.4f} / {e_ms:.4f} ms at "
                     + (f"{min(mhz):.0f}-{max(mhz):.0f} MHz" if mhz
                        else "no read"))
     print(f"  turns of {GROUPED_BWD_TURN_REPS} replays each, kernel / "
-          f"yardstick, SM clock read meanwhile: {'; '.join(line)}",
-          flush=True)
-    del sets, h, w1, w1g, w2, dy, kernel, plain, yard, timers
+          f"yardstick / all-empty call, SM clock read meanwhile: "
+          f"{'; '.join(line)}", flush=True)
+    g, c, d, f = p["e"], p["c"], p["d"], p["f"]
+    plan = gm.grouped_bwd_plan(g, c, d, f, g, True, n_sm=torch.cuda
+                               .get_device_properties(0).multi_processor_count)
+    built = gm.grouped_bwd_built(True)
+    for ln in plan.launches:
+        mine = (ln.threads, ln.rows, ln.cols, ln.depth, ln.stages, ln.smem)
+        print(f"  backward launch {ln.step}: plan {mine}, {len(ln.tiles)} "
+              f"tiles over {ln.grid} persistent CTAs (walk "
+              f"{' > '.join(ln.walk)}); built {built[ln.step][:6]}, "
+              f"{built[ln.step][6]} CTA an SM", flush=True)
+        if built[ln.step][:6] != mine or built[ln.step][6] != 1:
+            fail(f"the built backward launch {ln.step} is not its plan")
+    zeros_ms = (g * c * d + 3 * g * d * f) * 2 / HBM_BW * 1e3
+    steps = bwd_step_ms(torch, kernel, 4)[0]
+    empty_steps = bwd_step_ms(torch, empty, 4)[0]
+    print(f"  grouped_expert_ffn_bwd by step (torch.profiler, device ms a "
+          f"call over 4 calls): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+          + f"; the all-empty call (every valid 0) "
+          f"{empty_ms[len(turns) // 2]:.4f} ms in turns ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in empty_steps.items())
+          + f") against {zeros_ms:.4f} ms to write dh and the weight "
+          f"gradients' zeros at {HBM_BW / 1e12:.2f} TB/s", flush=True)
+    del sets, h, w1, w1g, w2, dy, kernel, empty, plain, yard, timers
     torch.cuda.empty_cache()
     return tm, err_bf16
 
@@ -5962,6 +6033,14 @@ def main() -> int:
         fail(f"the bf16 forward, carry, backward and block backward "
              f"kernels (hd 64, 128 and 192) must be {FLASH_WGMMA}, each "
              f"on the tensor cores; HGMMA counts {counts}")
+    counts = hgmma_counts(build, "grouped_matmul",
+                          r"ffn_bwd_[a-z0-9]+_wgmma_kernel")
+    for kernel, n in sorted(counts.items()):
+        print(f"  {kernel}: {n} HGMMA instructions", flush=True)
+    if sorted(counts) != sorted(GROUPED_BWD_WGMMA) or not all(
+            counts.values()):
+        fail(f"the grouped FFN's tensor-core backward kernels must be "
+             f"{GROUPED_BWD_WGMMA}, each on wgmma; HGMMA counts {counts}")
 
     # the paged bf16 fast path, the grouped tensor-core kernels and the
     # k-sweep kernel's instantiations (their sweeps' windows live in
@@ -5977,12 +6056,8 @@ def main() -> int:
                    (0, "true"), (1, "true"), (2, "false"), (3, "false"))]
                + ["ffn_down_wgmma_kernel<bf16>",
                   "ffn_down_wgmma_kernel<float>"]),
-              ("grouped_matmul", r"ffn_bwd_[a-z]+_mma_kernel",
-               [f"ffn_bwd_act_mma_kernel<{a}, {g}>" for a, g in (
-                   (0, "true"), (1, "true"), (2, "false"), (3, "false"))]
-               + [f"ffn_bwd_dh_mma_kernel<{g}>" for g in ("true", "false")]
-               + [f"ffn_bwd_dw_mma_kernel<{n}>" for n in ("1, 2",
-                                                          "2, 1")]),
+              ("grouped_matmul", r"ffn_bwd_[a-z0-9]+_wgmma_kernel",
+               GROUPED_BWD_WGMMA),
               ("stencil", r"jacobi_ksweep_kernel",
                [f"jacobi_ksweep_kernel<{t}, {k}>" for t in ("float", "bf16")
                 for k in range(1, 9)]))

@@ -112,23 +112,62 @@
 //      w2[e]^T, then act, dU = dact act'_u [and dG = dact act'_g] in f32;
 //   2. dh = dU w1[e]^T [+ dG w1g[e]^T] per row tile, zeros past valid;
 //   3. per expert: dw1 = sum h^T dU, dw1g = sum h^T dG, dw2 = sum act^T dy
-//      over the kept rows (the contraction), each a launch of its own.
+//      over the kept rows (the contraction).
 // Numerics as the reference's vjp: every product in f32, each result
-// rounded once to its operand's type.  On the tensor cores (bf16, mm::)
+// rounded once to its operand's type.  On the tensor cores (bf16, tc::)
 // step 1's operands are bf16, so its products are exact, and act, dU and
 // dG are stored as bf16 hi/lo planes (as the forward's act), so steps 2
 // and 3 keep their f32 operand to about 1e-5 of its size: dU_hi w1 +
-// dU_lo w1, h dU_hi + h dU_lo, act_hi dy + act_lo dy.  mma.sync m16n8k16
-// from ldmatrix fragments (the .trans form where the operand's
-// contraction axis is its rows, as in step 3), cp.async stages of 32 deep
-// in a ring of three, 8 warps a CTA; no wgmma, no TMA, no split-K.
+// dU_lo w1, h dU_hi + h dU_lo, act_hi dy + act_lo dy, each gradient's
+// products in one f32 accumulator, rounded once.  Five persistent
+// launches of wgmma fed by TMA, one CTA an SM (geometry: the constexpr
+// below and grouped_matmul.py::grouped_bwd_plan), in stream order:
+//   - step 1 in two launches, each the forward's launch A (a producer
+//     warpgroup, 48 KB stages, 128 rows of a tile, an m64n256
+//     accumulator a warpgroup): 1a dact = dy w2^T over 256 F columns
+//     (w2[e] is [F, D]: a 256-row K-major box) into an f32 workspace; 1b
+//     u beside the gate (two boxes of w1 beside two of w1g) over 128 F
+//     columns, then with dact act, dU [and dG] as hi/lo planes.  One CTA
+//     holding u, the gate and dact (192 accumulators, so 256 threads and
+//     no producer warpgroup) timed slower than the two, which add the
+//     workspace's round trip: the forward's launch A moves its tiles
+//     through L2 half again as fast (PERF.md);
+//   - step 2, the forward's launch B with the dU planes against w1's rows
+//     and then the dG planes against w1g's (a 256-row K-major box), all
+//     four products in one accumulator; rows past valid[g] by a select;
+//   - in steps 1 and 2 both warpgroups of a live tile take every stage
+//     (rows past valid[g] are computed and never stored), so the CTAs on
+//     the two row tiles of one weight block keep pace and find it in L2;
+//   - step 3, two launches, [dw1 | dw1g] (A = h, B = the dU box beside
+//     the dG box, hi planes then lo planes: two wgmmas a k-step) and dw2
+//     (A = act's hi and lo planes, B = dy), 128 x 256 tiles of each
+//     expert walked M fastest, 32 kept rows a stage with both operands
+//     MN-major (the wgmma's transpose flags).  TMA loads whole 32-row
+//     boxes; the rows of a group's last stage past valid[g] (garbage in h
+//     and dy, planes never written) are zeroed in shared memory by the
+//     consumers, fenced to the async proxy, before that stage's products,
+//     so no row past valid reaches a weight gradient (NaN x 0 would).  The
+//     epilogue writes bf16 into a 64 KB staging buffer and stores it by
+//     TMA (cp.async.bulk.tensor) while the producer loads the next tile;
+//     an expert with no kept row stores a zero tile the same way.
+// No split-K and no atomics (two calls give the same bits); valid is read
+// on the card only.  ptxas: 168 registers a thread in every launch (384
+// threads), no stack or local memory.
 // Bound on this card at moonshot-v1-16b-a3b's training call (G = E = 64,
 // C = 240, D 2048, F 1408, swiglu, bf16, ~12,288 kept rows): eight
 // products of ~71 GFLOP, 0.57 ms at 989 TFLOP/s, against the weights read
 // and their gradients written, 2.2 GB, 0.66 ms at 3.35 TB/s: bytes bound
 // it.  The hi/lo halves double the products of steps 2 and 3 (13 bf16
 // products in all), and the SIMT engine (f32) runs the same three steps on
-// f32 FMA tiles with an f32 workspace.
+// f32 FMA tiles with an f32 workspace.  Measured there (NVIDIA H100 80GB
+// HBM3, 700.00 W; scripts/grouped_bwd_turns.py, in turns with the
+// mma.sync kernels this design replaced): 2.34 ms a call (step 1 0.19 +
+// 0.63-0.64, step 2 0.50, step 3 0.52-0.53 + 0.25; the mma.sync kernels
+// 5.89-5.98), the all-empty call 0.40 ms against 0.35 to write its zeros.
+// Step 1b takes 0.63 ms where the forward's launch A, the same tiles and
+// loads, takes 0.37-0.42: its epilogue (dact read, six planes stored) and
+// the products of warpgroups past valid[g], which the forward skips
+// (PERF.md).
 //
 // Measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W): at
 // moonshot's prefill call the tensor-core engine takes 1.12-1.24 ms over
@@ -514,9 +553,11 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d += A B, m64n256k16 in bf16 with f32 accumulators; A K-major and B
-// MN-major (its N columns contiguous, as w1, w1g and w2 lie in memory),
-// both from shared memory.
+// d += A B, m64n256k16 in bf16 with f32 accumulators, A and B from shared
+// memory: TA / TB = 0 K-major, 1 MN-major (its M or N columns contiguous,
+// as w1, w1g and w2 lie in memory for the forward, and both operands of
+// the backward's weight gradients).
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                                            uint64_t db) {
   asm volatile(
@@ -539,11 +580,11 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : GM_D8(0), GM_D8(8), GM_D8(16), GM_D8(24), GM_D8(32), GM_D8(40),
         GM_D8(48), GM_D8(56), GM_D8(64), GM_D8(72), GM_D8(80), GM_D8(88),
         GM_D8(96), GM_D8(104), GM_D8(112), GM_D8(120)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 #undef GM_D8
@@ -613,24 +654,27 @@ __device__ __forceinline__ Ring ring_init(uint32_t base, int stage,
 
 // One k-block (64 deep) of a consumer's products from stage `s`:
 // acc += A B for each of the NA A boxes (the warpgroup's 64 rows of each
-// 128-row box) and B the kBoxes 64-column boxes after them, 4 wgmma
-// k-steps each.
-template <int NA>
+// 128-row box) and B after them, 4 wgmma k-steps each: kBoxes 64-column
+// boxes of B MN-major (TB = 1), or one kN-row box of B K-major (TB = 0,
+// the backward's w1 and w1g for dh = dU w1^T).
+template <int NA, int TB>
 __device__ __forceinline__ void stage_mma(float (&acc)[kAcc], uint32_t s,
                                           int c) {
 #pragma unroll
   for (int kk = 0; kk < kDepth / 16; ++kk) {
-    const uint64_t db = desc(s + NA * kABox + kk * 16 * 128, kBBox, 1024);
+    const uint32_t b = s + NA * kABox;
+    const uint64_t db = TB ? desc(b + kk * 16 * 128, kBBox, 1024)
+                           : desc(b + kk * 32, 16, 1024);
 #pragma unroll
     for (int x = 0; x < NA; ++x)
-      wgmma_n256(acc,
-                 desc(s + x * kABox + c * 64 * 128 + kk * 32, 16, 1024), db);
+      wgmma_n256<0, TB>(
+          acc, desc(s + x * kABox + c * 64 * 128 + kk * 32, 16, 1024), db);
   }
 }
 
 // The products of one tile over `nk` k-blocks.  A warpgroup with no live
 // row (live = false) takes each stage and gives it back untouched.
-template <int NA>
+template <int NA, int TB>
 __device__ __forceinline__ void tile_mma(float (&acc)[kAcc], const Ring& ring,
                                          uint32_t base, int stage, int* it,
                                          int nk, int c, int lane, bool live) {
@@ -651,7 +695,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[kAcc], const Ring& ring,
     ring.wait_full(*it);
     pin(acc);
     wgmma_fence();
-    stage_mma<NA>(acc, base + (*it % ring.stages) * stage, c);
+    stage_mma<NA, TB>(acc, base + (*it % ring.stages) * stage, c);
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
@@ -735,7 +779,7 @@ ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
     const int v = clamp_valid(valid, g, c);
     if (row0 >= v) continue;
     const bool live = row0 + 64 * cw < v;
-    tile_mma<1>(acc, ring, base, kUpStage, &it, nk, cw, lane, live);
+    tile_mma<1, 1>(acc, ring, base, kUpStage, &it, nk, cw, lane, live);
     if (!live) continue;
     const int f0 = col * kCols;
 #pragma unroll
@@ -767,10 +811,68 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = bf16x2(a, b);
 }
 
-// Launch B: out = act_hi w2 + act_lo w2 in one f32 accumulator per
-// 128 x kN tile of out, rounded once to OutT (bf16; f32 for the test
-// readout); rows at or past valid[g] are written as exact zeros, and a
-// tile that lies wholly past valid[g] writes its zeros without a load.
+// The consumers of a down launch (the forward's launch B, TB = 1, and the
+// backward's dh, TB = 0): the products of both A boxes of every stage of a
+// 128 x kN tile of out in one f32 accumulator, rounded once to OutT (bf16;
+// f32 for the test readout); rows at or past valid[g] are written as exact
+// zeros, and a tile that lies wholly past valid[g] writes its zeros
+// without a load.
+template <typename OutT, int TB>
+__device__ __forceinline__ void down_consumers(const Ring& ring,
+                                               uint32_t base, int nk,
+                                               const int* __restrict__ valid,
+                                               OutT* __restrict__ out, int c,
+                                               int d, Walk walk) {
+  const int n_tiles = walk.tiles();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int tq = lane & 3;
+  const int trow = 64 * cw + 16 * (tw >> 5) + (lane >> 2);
+  float acc[kAcc];
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int g, col, rt;
+    walk.tile(t, &g, &col, &rt);
+    const int row0 = rt * kRows;
+    const int v = clamp_valid(valid, g, c);
+    const int d0 = col * kN;
+    const int cols = min(kN, d - d0);
+    OutT* og = out + (int64_t)g * c * d + d0;
+    if (row0 >= v) {
+      // wholly past valid: 16-byte zero stores by both warpgroups
+      constexpr int kPer = 16 / sizeof(OutT);
+      const int chunks = cols / kPer;
+      const int rows = min(kRows, c - row0);
+      for (int i = threadIdx.x - 128; i < rows * chunks; i += 256)
+        *reinterpret_cast<uint4*>(og + (int64_t)(row0 + i / chunks) * d +
+                                  (i % chunks) * kPer) =
+            make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    // dh (TB = 0): both warpgroups take every stage, so the CTAs on the
+    // two row tiles of one weight block keep pace and share it in L2
+    // (skipping the dead half timed slower); the forward keeps its skip
+    // as it was timed
+    tile_mma<2, TB>(acc, ring, base, kDownStage, &it, nk, cw, lane,
+                    TB == 0 || row0 + 64 * cw < v);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + trow + 8 * r;
+      if (row >= c) continue;
+      const bool keep = row < v;   // a select: NaN past valid stays out
+      OutT* dst = og + (int64_t)row * d + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        if (8 * j >= cols) break;
+        store2(dst + 8 * j, keep ? acc[4 * j + 2 * r] : 0.f,
+               keep ? acc[4 * j + 2 * r + 1] : 0.f);
+      }
+    }
+  }
+}
+
+// Launch B: out = act_hi w2 + act_lo w2 (down_consumers).
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hi,
@@ -813,48 +915,7 @@ ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hi,
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int cw = wg - 1;
-  const int tw = threadIdx.x & 127;
-  const int lane = tw & 31;
-  const int tq = lane & 3;
-  const int trow = 64 * cw + 16 * (tw >> 5) + (lane >> 2);
-  float acc[kAcc];
-  int it = 0;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    int g, col, rt;
-    walk.tile(t, &g, &col, &rt);
-    const int row0 = rt * kRows;
-    const int v = clamp_valid(valid, g, c);
-    const int d0 = col * kN;
-    const int cols = min(kN, d - d0);
-    OutT* og = out + (int64_t)g * c * d + d0;
-    if (row0 >= v) {
-      // wholly past valid: 16-byte zero stores by both warpgroups
-      constexpr int kPer = 16 / sizeof(OutT);
-      const int chunks = cols / kPer;
-      const int rows = min(kRows, c - row0);
-      for (int i = threadIdx.x - 128; i < rows * chunks; i += 256)
-        *reinterpret_cast<uint4*>(og + (int64_t)(row0 + i / chunks) * d +
-                                  (i % chunks) * kPer) =
-            make_uint4(0, 0, 0, 0);
-      continue;
-    }
-    tile_mma<2>(acc, ring, base, kDownStage, &it, nk, cw, lane,
-                row0 + 64 * cw < v);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + trow + 8 * r;
-      if (row >= c) continue;
-      const bool keep = row < v;   // a select: NaN past valid stays out
-      OutT* dst = og + (int64_t)row * d + 2 * tq;
-#pragma unroll
-      for (int j = 0; j < kN / 8; ++j) {
-        if (8 * j >= cols) break;
-        store2(dst + 8 * j, keep ? acc[4 * j + 2 * r] : 0.f,
-               keep ? acc[4 * j + 2 * r + 1] : 0.f);
-      }
-    }
-  }
+  down_consumers<OutT, 1>(ring, base, nk, valid, out, c, d, walk);
 }
 
 }  // namespace tc
@@ -1436,571 +1497,491 @@ int launch_bwd_simt(int act_code, const void* h, const void* w1,
 }
 
 // ---------------------------------------------------------------------------
-// The backward on the tensor cores (bf16, mma.sync m16n8k16 fed by 16-byte
-// cp.async stages); see the note at the head of the file
+// The backward on the tensor cores (bf16; TMA, wgmma, persistent CTAs over
+// live tiles); see the note at the head of the file
 // ---------------------------------------------------------------------------
 
-namespace mm {
+namespace tc {
 
 typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kRows = 128;        // rows of a step-1 or step-2 tile
-constexpr int kActCols = 64;      // F columns of a step-1 tile
-constexpr int kCols = 128;        // columns of a step-2 tile; a step-3 tile
-                                  // is kCols x kCols
-constexpr int kK = 32;            // contraction depth of a stage
-constexpr int kStages = 3;        // the cp.async ring
-constexpr int kPad = 8;           // elements after each shared-memory row,
-                                  // so ldmatrix rows fall on distinct banks
-
-// Elements of a shared-memory row of a tile `w` elements wide.
-__host__ __device__ constexpr int row_of(int w) { return w + kPad; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; with ok == false the destination is
-// zero-filled and nothing is read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16 x 16 bf16, row) b (16 x 8 bf16, col) in f32
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The fragments of a warp, from a tile with rows of `ld` elements.  The
-// A fragment (16 x 16 at rows m0, depth k0) of a tile stored [m][k] ...
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
-                                       int ld, int m0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(a, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 +
-                 (lane >> 4) * 8);
-}
-
-// ... and of a tile stored [k][m] (the operand transposed);
-__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const bf16* s,
-                                         int ld, int m0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
-                   ((lane >> 3) & 1) * 8);
-}
-
-// the B fragments of two n8 tiles (columns n0 and n0 + 8, depth k0; b[0..1]
-// the first, b[2..3] the second) of a tile stored [n][k] ...
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* s,
-                                       int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 +
-                 ((lane >> 3) & 1) * 8);
-}
-
-// ... and of a tile stored [k][n].
-__device__ __forceinline__ void frag_b_t(uint32_t (&b)[4], const bf16* s,
-                                         int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
-                   (lane >> 4) * 8);
-}
-
-// acc[i][2 nb + j] += a[i] b[nb] over the warp's n8 tiles
-template <int MT, int NB>
-__device__ __forceinline__ void mma_block(float (&acc)[MT][2 * NB][4],
-                                          const uint32_t (&a)[MT][4],
-                                          const uint32_t (&b)[NB][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      mma16816(acc[i][2 * nb], a[i], b[nb][0], b[nb][1]);
-      mma16816(acc[i][2 * nb + 1], a[i], b[nb][2], b[nb][3]);
-    }
-}
-
-// Issue the copies of an R x W tile of a row-major bf16 matrix (rows `ld`
-// elements apart, starting at src) whose first `rows` rows and `cols`
-// columns lie in the tensor; the rest of the tile is zero-filled and never
-// read (`base`, an address inside the tensor, stands in for it).  cols is
-// a multiple of 8.
-template <int R, int W>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t ld, int rows, int cols,
-                                          const bf16* base) {
-  constexpr int kChunks = W / 8;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, ch = i - r * kChunks;
-    const bool ok = r < rows && ch * 8 < cols;
-    cp_async16(dst + r * row_of(W) + ch * 8, ok ? src + r * ld + ch * 8 : base,
-               ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // x as bf16 pairs hi = bf16(x), lo = bf16(x - hi), stored at p and p + plane
 __device__ __forceinline__ void store_hi_lo(bf16* p, int64_t plane, float x0,
                                             float x1) {
-  const uint32_t hi = pack(x0, x1);
+  const uint32_t hi = bf16x2(x0, x1);
   *reinterpret_cast<uint32_t*>(p) = hi;
   *reinterpret_cast<uint32_t*>(p + plane) =
-      pack(x0 - __uint_as_float(hi << 16),
-           x1 - __uint_as_float(hi & 0xffff0000u));
+      bf16x2(x0 - __uint_as_float(hi << 16),
+             x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
-// Step 1: u = h w1[e] [, gate = h w1g[e]] and dact = dy w2[e]^T over a
-// 128 x 64 tile of (rows, F) (bf16 operands, so the f32 products are
-// exact), then act, dU [and dG] as bf16 hi/lo planes (planes 0-1 act, 2-3
-// dU, 4-5 dG, each [G, C, F]) for rows below valid[g].  A tile wholly past
-// valid[g] does nothing; rows past valid[g] are neither loaded nor written.
-// 8 warps, each 32 rows x 32 columns.
-template <int ACT, bool GATED>
+// ---- step 1 ----
+
+// Step 1a: dact = dy w2[e]^T in f32 per live 128-row x kN-F tile (w2[e]
+// is [F, D], so a 256-row box of it is a K-major B), into an f32 workspace
+// [G, C, F] for rows below valid[g]: the forward's launch A with dy in
+// place of h and w2's rows in place of w1's columns.
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_bwd_act_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w1,
-                       const bf16* __restrict__ w1g,
-                       const bf16* __restrict__ w2,
-                       const bf16* __restrict__ dy,
-                       const int* __restrict__ valid,
-                       bf16* __restrict__ planes, int n_g, int c, int d, int f,
-                       int gpe) {
-  constexpr int kA = row_of(kK);             // h, dy and w2 tile rows
-  constexpr int kW = row_of(kActCols);       // w1 and w1g tile rows
-  constexpr int kH = kRows * kA;             // an h or dy tile
-  constexpr int kW1 = kK * kW;               // a w1 or w1g tile [k][n]
-  constexpr int kStage = 2 * kH + (GATED ? 2 : 1) * kW1 + kActCols * kA;
-  const int g = blockIdx.z;
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kActCols;
-  const int v = clamp_valid(valid, g, c);
-  if (row0 >= v) return;
-  const int e = g / gpe;
-  extern __shared__ __align__(128) unsigned char bwd_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(bwd_smem);
+ffn_bwd_dact_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
+                          const __grid_constant__ CUtensorMap tm_w2,
+                          const int* __restrict__ valid,
+                          OutT* __restrict__ dact, int c, int d, int f,
+                          Walk walk) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const Ring ring = ring_init(base, kUpStage, kUpStages);
+  const int n_tiles = walk.tiles();
+  const int nk = d / kDepth;
 
-  const int rows = min(kRows, v - row0);
-  const int cols = f - col0;
-  const bf16* hg = h + ((int64_t)g * c + row0) * d;
-  const bf16* yg = dy + ((int64_t)g * c + row0) * d;
-  const bf16* w1e = w1 + (int64_t)e * d * f + col0;
-  const bf16* wge = GATED ? w1g + (int64_t)e * d * f + col0 : w1;
-  const bf16* w2e = w2 + ((int64_t)e * f + col0) * d;   // [n][k] rows
-  const int nk = (d + kK - 1) / kK;
-  auto load = [&](int kb) {
-    bf16* s = smem + (kb % kStages) * kStage;
-    const int k0 = kb * kK;
-    load_tile<kRows, kK>(s, hg + k0, d, rows, d - k0, h);
-    load_tile<kRows, kK>(s + kH, yg + k0, d, rows, d - k0, dy);
-    load_tile<kK, kActCols>(s + 2 * kH, w1e + (int64_t)k0 * f, f, d - k0,
-                            cols, w1);
-    if (GATED)
-      load_tile<kK, kActCols>(s + 2 * kH + kW1, wge + (int64_t)k0 * f, f,
-                              d - k0, cols, w1g);
-    load_tile<kActCols, kK>(s + 2 * kH + (GATED ? 2 : 1) * kW1, w2e + k0, d,
-                            cols, d - k0, w2);
-  };
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  float acc_u[2][4][4], acc_g[2][4][4], acc_a[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        acc_u[i][j][x] = acc_g[i][j][x] = acc_a[i][j][x] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int g, col, rt;
+      walk.tile(t, &g, &col, &rt);
+      const int row0 = rt * kRows;
+      if (row0 >= clamp_valid(valid, g, c)) continue;
+      const int e = g / walk.gpe;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const uint32_t full = ring.acquire(it, kUpStage);
+        const uint32_t s = base + (it % kUpStages) * kUpStage;
+        tma_load(s, &tm_dy, full, kb * kDepth, row0, g);
+        tma_load(s + kABox, &tm_w2, full, kb * kDepth, col * kN, e);
+      }
+    }
+    return;
   }
-  for (int kb = 0; kb < nk; ++kb) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (kb + kStages - 1 < nk) load(kb + kStages - 1);
-    cp_async_commit();
-    const bf16* s = smem + (kb % kStages) * kStage;
-    const bf16* ws1 = s + 2 * kH;
-    const bf16* ws2 = ws1 + (GATED ? 2 : 1) * kW1;
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int tq = lane & 3;
+  const int trow = 64 * cw + 16 * (tw >> 5) + (lane >> 2);
+  float acc[kAcc];
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int g, col, rt;
+    walk.tile(t, &g, &col, &rt);
+    const int row0 = rt * kRows;
+    const int v = clamp_valid(valid, g, c);
+    if (row0 >= v) continue;
+    // both warpgroups take every stage, as in step 2
+    tile_mma<1, 0>(acc, ring, base, kUpStage, &it, nk, cw, lane, true);
+    const int f0 = col * kN;
 #pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      uint32_t ha[2][4], ya[2][4], b[2][4];
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + trow + 8 * r;
+      if (row >= v) continue;   // never read: step 1b stores no such row
+      OutT* dst = dact + ((int64_t)g * c + row) * f + f0 + 2 * tq;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        frag_a(ha[i], s, kA, wm + 16 * i, kk);
-        frag_a(ya[i], s + kH, kA, wm + 16 * i, kk);
+      for (int j = 0; j < kN / 8; ++j) {
+        if (j % 8 == 0 && j > 0 && f0 + 8 * j >= f) break;
+        store2(dst + 8 * j, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) frag_b_t(b[nb], ws1, kW, wn + 16 * nb, kk);
-      mma_block<2, 2>(acc_u, ha, b);
-      if (GATED) {
-#pragma unroll
-        for (int nb = 0; nb < 2; ++nb)
-          frag_b_t(b[nb], ws1 + kW1, kW, wn + 16 * nb, kk);
-        mma_block<2, 2>(acc_g, ha, b);
-      }
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) frag_b(b[nb], ws2, kA, wn + 16 * nb, kk);
-      mma_block<2, 2>(acc_a, ya, b);
     }
   }
-  cp_async_wait<0>();
+}
 
+// Step 1b: per live 128-row tile of kN / 2 F columns (kN ungated), u [|
+// gate] = h w1 [| w1g] as the forward's launch A computes them (one
+// m64n256 accumulator, u beside the gate), then with step 1a's dact act,
+// dU [and dG] as bf16 hi/lo planes (planes 0-1 act, 2-3 dU, 4-5 dG, each
+// [G, C, F]) for rows below valid[g].
+template <int ACT, bool GATED>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_bwd_act_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
+                         const __grid_constant__ CUtensorMap tm_w1,
+                         const __grid_constant__ CUtensorMap tm_w1g,
+                         const int* __restrict__ valid,
+                         const float* __restrict__ dact,
+                         bf16* __restrict__ planes, int n_g, int c, int d,
+                         int f, Walk walk) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const Ring ring = ring_init(base, kUpStage, kUpStages);
+  constexpr int kCols = GATED ? kN / 2 : kN;   // F columns of a tile
+  constexpr int kUBoxes = kCols / 64;          // boxes of w1 (of u)
+  const int n_tiles = walk.tiles();
+  const int nk = d / kDepth;
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int g, col, rt;
+      walk.tile(t, &g, &col, &rt);
+      const int row0 = rt * kRows;
+      if (row0 >= clamp_valid(valid, g, c)) continue;
+      const int e = g / walk.gpe;
+      const int f0 = col * kCols;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const uint32_t full = ring.acquire(it, kUpStage);
+        const uint32_t s = base + (it % kUpStages) * kUpStage;
+        tma_load(s, &tm_h, full, kb * kDepth, row0, g);
+#pragma unroll
+        for (int b = 0; b < kBoxes; ++b)
+          tma_load(s + kABox + b * kBBox, b < kUBoxes ? &tm_w1 : &tm_w1g,
+                   full, box_col(f0, b % kUBoxes, f), kb * kDepth, e);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int tq = lane & 3;
+  // acc[4 j + 2 r + e]: row 64 cw + 16 warp + lane / 4 + 8 r of the tile,
+  // column 8 j + 2 tq + e (the gate of u's column n is column n + kN / 2)
+  const int trow = 64 * cw + 16 * (tw >> 5) + (lane >> 2);
+  float acc[kAcc];
+  int it = 0;
   const int64_t plane = (int64_t)n_g * c * f;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int g, col, rt;
+    walk.tile(t, &g, &col, &rt);
+    const int row0 = rt * kRows;
+    const int v = clamp_valid(valid, g, c);
+    if (row0 >= v) continue;
+    // both warpgroups take every stage, as in step 2
+    tile_mma<1, 1>(acc, ring, base, kUpStage, &it, nk, cw, lane, true);
+    const int f0 = col * kCols;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + trow + 8 * r;
+      if (row >= v) continue;   // never read: steps 2 and 3 mask them
+      const int64_t at = ((int64_t)g * c + row) * f + f0 + 2 * tq;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + wm + 16 * i + (lane >> 2) + 8 * half;
-      if (row >= v) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = col0 + wn + 8 * j + 2 * (lane & 3);
-        if (col >= f) continue;
+      for (int j = 0; j < kCols / 8; ++j) {
+        if (j % 8 == 0 && j > 0 && f0 + 8 * j >= f) break;
+        const int i = 4 * j + 2 * r;
+        const float2 da = *reinterpret_cast<const float2*>(dact + at + 8 * j);
         float x[2], u[2], q[2];
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-          act_grads<ACT>(acc_u[i][j][2 * half + t],
-                         acc_g[i][j][2 * half + t],
-                         acc_a[i][j][2 * half + t], &x[t], &u[t], &q[t]);
-        bf16* p = planes + ((int64_t)g * c + row) * f + col;
+        act_grads<ACT>(acc[i], GATED ? acc[i + kAcc / 2] : 0.f, da.x, &x[0],
+                       &u[0], &q[0]);
+        act_grads<ACT>(acc[i + 1], GATED ? acc[i + 1 + kAcc / 2] : 0.f,
+                       da.y, &x[1], &u[1], &q[1]);
+        bf16* p = planes + at + 8 * j;
         store_hi_lo(p, plane, x[0], x[1]);
         store_hi_lo(p + 2 * plane, plane, u[0], u[1]);
         if (GATED) store_hi_lo(p + 4 * plane, plane, q[0], q[1]);
       }
     }
+  }
 }
 
-// Step 2: dh = dU w1[e]^T [+ dG w1g[e]^T] over a 128 x 128 tile of (rows,
-// D), dU and dG as their hi/lo planes into one f32 accumulator, rounded
-// once to bf16; rows at or past valid[g] are exact zeros, and a tile wholly
-// past valid[g] writes its zeros with no load.  8 warps, each 64 rows x 32
-// columns.
+// ---- step 2 ----
+
+// Step 2: dh = dU w1[e]^T [+ dG w1g[e]^T] per live 128 x kN tile of (rows,
+// D): the dU planes with w1's rows, then the dG planes with w1g's, each
+// stage the hi and lo boxes of one plane pair and a kN-row box of the
+// weight (K-major: w1[e] is [D, F], its contraction axis F contiguous), all
+// into one f32 accumulator, rounded once (down_consumers).
 template <bool GATED>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_bwd_dh_mma_kernel(const bf16* __restrict__ planes,
-                      const bf16* __restrict__ w1,
-                      const bf16* __restrict__ w1g,
-                      const int* __restrict__ valid, bf16* __restrict__ dh,
-                      int n_g, int c, int d, int f, int gpe) {
-  constexpr int kA = row_of(kK);
-  constexpr int kT = kRows * kA;             // a [128][k] tile
-  constexpr int kNA = GATED ? 4 : 2;         // dU hi, lo [, dG hi, lo]
-  constexpr int kStage = (kNA + (GATED ? 2 : 1)) * kT;
-  const int g = blockIdx.z;
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kCols;
-  const int v = clamp_valid(valid, g, c);
-  const int cols = min(kCols, d - col0);
-  bf16* og = dh + (int64_t)g * c * d + col0;
-  if (row0 >= v) {
-    const int chunks = cols / 8, rows = min(kRows, c - row0);
-    for (int i = threadIdx.x; i < rows * chunks; i += kThreads)
-      *reinterpret_cast<uint4*>(og + (int64_t)(row0 + i / chunks) * d +
-                                (i % chunks) * 8) = make_uint4(0, 0, 0, 0);
+ffn_bwd_dh_wgmma_kernel(const __grid_constant__ CUtensorMap tm_planes,
+                        const __grid_constant__ CUtensorMap tm_w1,
+                        const __grid_constant__ CUtensorMap tm_w1g,
+                        const int* __restrict__ valid, bf16* __restrict__ dh,
+                        int n_g, int c, int d, int f, Walk walk) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const Ring ring = ring_init(base, kDownStage, kDownStages);
+  const int n_tiles = walk.tiles();
+  const int nkf = f / kDepth;
+  const int nk = (GATED ? 2 : 1) * nkf;
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int g, col, rt;
+      walk.tile(t, &g, &col, &rt);
+      const int row0 = rt * kRows;
+      if (row0 >= clamp_valid(valid, g, c)) continue;
+      const int e = g / walk.gpe;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int half = kb / nkf, k0 = (kb - half * nkf) * kDepth;
+        const uint32_t full = ring.acquire(it, kDownStage);
+        const uint32_t s = base + (it % kDownStages) * kDownStage;
+        tma_load(s, &tm_planes, full, k0, row0, (2 + 2 * half) * n_g + g);
+        tma_load(s + kABox, &tm_planes, full, k0, row0,
+                 (3 + 2 * half) * n_g + g);
+        tma_load(s + 2 * kABox, half ? &tm_w1g : &tm_w1, full, k0, col * kN,
+                 e);
+      }
+    }
     return;
   }
-  const int e = g / gpe;
-  extern __shared__ __align__(128) unsigned char bwd_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(bwd_smem);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  down_consumers<bf16, 0>(ring, base, nk, valid, dh, c, d, walk);
+}
 
-  const int64_t plane = (int64_t)n_g * c * f;
-  const int rows = min(kRows, v - row0);
-  const bf16* du = planes + 2 * plane + ((int64_t)g * c + row0) * f;
-  const bf16* w1e = w1 + ((int64_t)e * d + col0) * f;   // [n][k] rows
-  const bf16* wge = GATED ? w1g + ((int64_t)e * d + col0) * f : w1;
-  const int nk = (f + kK - 1) / kK;
-  auto load = [&](int kb) {
-    bf16* s = smem + (kb % kStages) * kStage;
-    const int k0 = kb * kK;
-#pragma unroll
-    for (int p = 0; p < kNA; ++p)
-      load_tile<kRows, kK>(s + p * kT, du + p * plane + k0, f, rows, f - k0,
-                           planes);
-    load_tile<kCols, kK>(s + kNA * kT, w1e + k0, f, cols, f - k0, w1);
-    if (GATED)
-      load_tile<kCols, kK>(s + (kNA + 1) * kT, wge + k0, f, cols, f - k0,
-                           w1g);
-  };
+// ---- step 3 ----
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
+constexpr int kDwRows = 32;               // kept rows a stage
+constexpr int kDwBox = kDwRows * 128;     // 4 KB: 32 rows x 64 bf16 columns
+constexpr int kOutBox = 64 * 128;         // 8 KB: 64 rows x 64 bf16 columns
+constexpr int kDwRing = 160 * 1024;       // the stages; the output staging
+                                          // takes 64 KB more
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
+// KIND 0: [dw1 | dw1g] = h^T [dU | dG] (A = h, B = the hi and lo planes of
+// dU [and dG]); KIND 1: dw2 = act^T dy (A = act's hi and lo planes, B =
+// dy).  A stage holds, for kDwRows kept rows of one group, each A plane's
+// two 64-column boxes (one per warpgroup) and each B plane's kBoxes.
+template <int KIND>
+struct DwGeom {
+  static constexpr int kNA = KIND == 0 ? 1 : 2;
+  static constexpr int kNB = KIND == 0 ? 2 : 1;
+  static constexpr int kStage = (2 * kNA + kBoxes * kNB) * kDwBox;
+  static constexpr int kStages = kDwRing / kStage;
+  static constexpr int kOut = 2 * kBoxes * kOutBox;
+  static constexpr int kSmem = kOut + smem_bytes(kStage, kStages);
+};
+
+// Step 3's walk: the linear tile index t -> (expert, M tile, N tile), M
+// fastest, so the CTAs that run at once share one expert's rows in L2.
+struct DwWalk {
+  int n_m, n_n, n_e;
+  __device__ __forceinline__ int tiles() const { return n_m * n_n * n_e; }
+  __device__ __forceinline__ void tile(int t, int* e, int* mt,
+                                       int* nt) const {
+    *mt = t % n_m;
+    t /= n_m;
+    *nt = t % n_n;
+    *e = t / n_n;
   }
-  for (int kb = 0; kb < nk; ++kb) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (kb + kStages - 1 < nk) load(kb + kStages - 1);
-    cp_async_commit();
-    const bf16* s = smem + (kb % kStages) * kStage;
+};
+
+// One box of an output tile from shared memory (128-byte swizzled, as the
+// epilogue writes it) at (x, y, z) of a 3-D tensor map; parts outside the
+// tensor are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// Step 3: a weight gradient of expert e per 128 x 256 tile of (M, N) of
+// the wgmma, the sum over its groups g and rows r < valid[g] of A[g, r]^T
+// B[g, r] with both operands MN-major (the kept rows are the contraction),
+// every product of an A plane with a B plane in one f32 accumulator,
+// rounded once to bf16.  The rows of a group's last stage past valid[g]
+// are garbage (h and dy past valid, planes never written), so the
+// consumers zero them in shared memory before that stage's products.  An
+// expert with no kept row has no stage and stores zeros.  The epilogue
+// writes bf16 into a staging buffer of each warpgroup and stores it with
+// TMA while the producer loads the next tile.  KIND 0 gated: the N columns
+// are 128 of dw1 (tm_o) beside the same 128 of dw1g (tm_og).
+template <int KIND, bool GATED>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_b,
+                        const __grid_constant__ CUtensorMap tm_o,
+                        const __grid_constant__ CUtensorMap tm_og,
+                        const int* __restrict__ valid, int n_g, int c,
+                        int m_dim, int n_dim, int gpe, DwWalk walk) {
+  using L = DwGeom<KIND>;
+  // output boxes a tile of one tensor: gated dw1 and dw1g 2 each, else 4
+  constexpr int kOutBoxes = KIND == 0 && GATED ? kBoxes / 2 : kBoxes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const basep = smem_raw + (base - raw);
+  const uint32_t stages = base + L::kOut;
+  const Ring ring = ring_init(stages, L::kStage, L::kStages);
+  const int n_tiles = walk.tiles();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int e, mt, nt;
+      walk.tile(t, &e, &mt, &nt);
+      const int m0 = mt * kRows, n0 = nt * kOutBoxes * 64;
+      for (int gi = 0; gi < gpe; ++gi) {
+        const int g = e * gpe + gi;
+        const int v = clamp_valid(valid, g, c);
+        for (int r0 = 0; r0 < v; r0 += kDwRows, ++it) {
+          const uint32_t full = ring.acquire(it, L::kStage);
+          const uint32_t s = stages + (it % L::kStages) * L::kStage;
 #pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
+          for (int p = 0; p < L::kNA; ++p)
 #pragma unroll
-      for (int w = 0; w < (GATED ? 2 : 1); ++w) {
-        uint32_t b[2][4], a[4][4];
+            for (int w = 0; w < 2; ++w)
+              tma_load(s + (2 * p + w) * kDwBox, &tm_a, full,
+                       box_col(m0, w, m_dim), r0,
+                       KIND == 0 ? g : p * n_g + g);
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb)
-          frag_b(b[nb], s + (kNA + w) * kT, kA, wn + 16 * nb, kk);
+          for (int q = 0; q < L::kNB; ++q)
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {        // the hi plane, then the lo
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            frag_a(a[i], s + (2 * w + p) * kT, kA, wm + 16 * i, kk);
-          mma_block<4, 2>(acc, a, b);
+            for (int b = 0; b < kBoxes; ++b)
+              tma_load(s + (2 * L::kNA + kBoxes * q + b) * kDwBox, &tm_b,
+                       full, box_col(n0, b % kOutBoxes, n_dim), r0,
+                       KIND == 0 ? (2 + 2 * (b / kOutBoxes) + q) * n_g + g
+                                 : g);
         }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x & 127;
+  const int lane = tw & 31;
+  const int tq = lane & 3;
+  const int gq = lane >> 2;
+  // acc[4 j + 2 r + e]: M row 64 cw + wrow + 8 r of the tile, N column
+  // 8 j + 2 tq + e
+  const int wrow = 16 * (tw >> 5) + gq;
+  const uint32_t out_s = base + cw * kBoxes * kOutBox;
+  uint8_t* const out_p = basep + cw * kBoxes * kOutBox;
+  float acc[kAcc];
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int e, mt, nt;
+    walk.tile(t, &e, &mt, &nt);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    for (int gi = 0; gi < gpe; ++gi) {
+      const int v = clamp_valid(valid, e * gpe + gi, c);
+      for (int r0 = 0; r0 < v; r0 += kDwRows, ++it) {
+        ring.wait_full(it);
+        const uint32_t s = stages + (it % L::kStages) * L::kStage;
+        const int rows = v - r0;
+        if (rows < kDwRows) {
+          // rows [rows, kDwRows) of every box: bytes [rows * 128, kDwBox)
+          // (a swizzle moves 16-byte chunks within a 128-byte row only)
+          constexpr int kBoxesAll = 2 * L::kNA + kBoxes * L::kNB;
+          const int chunks = (kDwRows - rows) * 8;
+          uint8_t* const sp = basep + (s - base) + rows * 128;
+          for (int i = threadIdx.x - 128; i < kBoxesAll * chunks; i += 256)
+            *reinterpret_cast<uint4*>(sp + (i / chunks) * kDwBox +
+                                      (i % chunks) * 16) =
+                make_uint4(0, 0, 0, 0);
+          // the zeros reach wgmma (the async proxy) before either
+          // warpgroup's products read the stage
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        }
+        pin(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + wm + 16 * i + (lane >> 2) + 8 * half;
-      if (row >= c) continue;
-      const bool keep = row < v;   // a select: rows past valid are 0
+        for (int kk = 0; kk < kDwRows / 16; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = wn + 8 * j + 2 * (lane & 3);
-        if (col >= cols) continue;
-        *reinterpret_cast<uint32_t*>(og + (int64_t)row * d + col) =
-            pack(keep ? acc[i][j][2 * half] : 0.f,
-                 keep ? acc[i][j][2 * half + 1] : 0.f);
+          for (int p = 0; p < L::kNA; ++p) {
+            const uint64_t da =
+                desc(s + (2 * p + cw) * kDwBox + kk * 16 * 128, kDwBox, 1024);
+#pragma unroll
+            for (int q = 0; q < L::kNB; ++q)
+              wgmma_n256<1, 1>(
+                  acc, da,
+                  desc(s + (2 * L::kNA + kBoxes * q) * kDwBox + kk * 16 * 128,
+                       kDwBox, 1024));
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc);
+        ring.release(it, lane);
       }
     }
-}
 
-// Step 3: one weight gradient of expert e over a 128 x 128 tile of (M, N),
-// out[e] = the sum over its groups g and rows r < valid[g] of a[g, r]^T
-// b[g, r] (dw1 = h^T dU and dw1g = h^T dG: a one bf16 plane, b the hi/lo
-// planes; dw2 = act^T dy: a the hi/lo planes, b one), every product of a's
-// planes with b's in one f32 accumulator, rounded once to bf16.  The kept
-// rows are the contraction, kK a stage: rows past valid[g] read as zeros
-// and a group's stages end with its last kept row, so an expert with no
-// kept row writes zeros.  8 warps, each 64 x 32.
-template <int NA, int NB>
-__global__ void __launch_bounds__(kThreads, 1)
-ffn_bwd_dw_mma_kernel(const bf16* __restrict__ a, int64_t a_plane,
-                      const bf16* __restrict__ b, int64_t b_plane,
-                      const int* __restrict__ valid, bf16* __restrict__ out,
-                      int c, int m_dim, int n_dim, int gpe) {
-  constexpr int kT = kK * row_of(kCols);     // a [k][128] tile
-  constexpr int kStage = (NA + NB) * kT;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * kCols, n0 = blockIdx.x * kCols;
-  extern __shared__ __align__(128) unsigned char bwd_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(bwd_smem);
-
-  int nk = 0;                                // stages over the expert's rows
-  for (int gi = 0; gi < gpe; ++gi)
-    nk += (clamp_valid(valid, e * gpe + gi, c) + kK - 1) / kK;
-  auto load = [&](int t) {
-    // stage t -> (group, its first row)
-    int gi = 0, r0 = t * kK, v = clamp_valid(valid, e * gpe, c);
-    while (r0 >= (v + kK - 1) / kK * kK) {
-      r0 -= (v + kK - 1) / kK * kK;
-      v = clamp_valid(valid, e * gpe + ++gi, c);
-    }
-    const int64_t row = (int64_t)(e * gpe + gi) * c + r0;
-    bf16* s = smem + (t % kStages) * kStage;
+    // the epilogue: once the last tile's stores have read the staging,
+    // bf16 pairs into it in TMA's 128-byte swizzle (row m, column chunk k
+    // at m * 128 + ((k ^ (m % 8)) * 16); m % 8 = gq), then one store a box
+    if (tw == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
 #pragma unroll
-    for (int p = 0; p < NA; ++p)
-      load_tile<kK, kCols>(s + p * kT, a + p * a_plane + row * m_dim + m0,
-                           m_dim, v - r0, m_dim - m0, a);
+    for (int j = 0; j < kAcc / 4; ++j)
 #pragma unroll
-    for (int p = 0; p < NB; ++p)
-      load_tile<kK, kCols>(s + (NA + p) * kT,
-                           b + p * b_plane + row * n_dim + n0, n_dim, v - r0,
-                           n_dim - n0, b);
-  };
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  float acc[4][4][4];
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(
+            out_p + (j / 8) * kOutBox + (wrow + 8 * r) * 128 +
+            (((j % 8) ^ gq) << 4) + 4 * tq) =
+            bf16x2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+    const int m = mt * kRows + 64 * cw;
+    if (tw == 0 && m < m_dim) {
+      const int n0 = nt * kOutBoxes * 64;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
-  }
-  for (int kb = 0; kb < nk; ++kb) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (kb + kStages - 1 < nk) load(kb + kStages - 1);
-    cp_async_commit();
-    const bf16* s = smem + (kb % kStages) * kStage;
-#pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      uint32_t bf[NB][2][4], af[4][4];
-#pragma unroll
-      for (int p = 0; p < NB; ++p)
-#pragma unroll
-        for (int nb = 0; nb < 2; ++nb)
-          frag_b_t(bf[p][nb], s + (NA + p) * kT, row_of(kCols),
-                   wn + 16 * nb, kk);
-#pragma unroll
-      for (int p = 0; p < NA; ++p) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          frag_a_t(af[i], s + p * kT, row_of(kCols), wm + 16 * i, kk);
-#pragma unroll
-        for (int q = 0; q < NB; ++q) mma_block<4, 2>(acc, af, bf[q]);
+      for (int b = 0; b < kBoxes; ++b) {
+        const int n = n0 + 64 * (b % kOutBoxes);
+        if (n < n_dim)
+          tma_store(b < kOutBoxes ? &tm_o : &tm_og, out_s + b * kOutBox, n,
+                    m, e);
       }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
-  cp_async_wait<0>();
-
-  bf16* oe = out + (int64_t)e * m_dim * n_dim;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
-      if (m >= m_dim) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + 8 * j + 2 * (lane & 3);
-        if (n >= n_dim) continue;
-        *reinterpret_cast<uint32_t*>(oe + (int64_t)m * n_dim + n) =
-            pack(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-    }
+  // the staging is read before the CTA's shared memory goes
+  if (tw == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Dynamic shared memory of each kernel
-constexpr int act_smem(bool gated) {
-  return 2 * kStages *
-         (2 * kRows * row_of(kK) + (gated ? 2 : 1) * kK * row_of(kActCols) +
-          kActCols * row_of(kK));
-}
-constexpr int dh_smem(bool gated) {
-  return 2 * kStages * (gated ? 6 : 3) * kRows * row_of(kK);
-}
-constexpr int dw_smem() { return 2 * kStages * 3 * kK * row_of(kCols); }
+}  // namespace tc
 
-}  // namespace mm
+// Launch a persistent kernel of the backward, opting it into its shared
+// memory once.  (Programmatic dependent launch, as the forward's launch B
+// takes, timed the same here, and the profiler then counts a launch's
+// wait for its predecessor as its own time.)
+template <auto Kernel, typename... Args>
+int launch_persistent(int ctas, int threads, int smem, cudaStream_t stream,
+                      Args... args) {
+  static bool done = false;
+  const cudaError_t e = allow_smem(Kernel, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  Kernel<<<ctas, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The tensor maps of the backward's five launches.
+struct BwdMaps {
+  CUtensorMap dy, w2, h, w1, w1g;     // step 1 (1a: dy, w2; 1b: h, w1, w1g)
+  CUtensorMap planes, w1k, w1gk;      // step 2
+  CUtensorMap h32, dy32, planes32;    // step 3's operands
+  CUtensorMap dw1, dw1g, dw2;         // step 3's outputs
+};
 
 template <int ACT, bool GATED>
-int launch_bwd_act_mma(const void* h, const void* w1, const void* w1g,
-                       const void* w2, const void* dy, const int* valid,
-                       __nv_bfloat16* planes, int g, int c, int d, int f,
-                       int gpe, cudaStream_t stream) {
-  static bool done = false;
-  constexpr int smem = mm::act_smem(GATED);
-  const cudaError_t e =
-      allow_smem(mm::ffn_bwd_act_mma_kernel<ACT, GATED>, smem, &done);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((f + mm::kActCols - 1) / mm::kActCols,
-                  (c + mm::kRows - 1) / mm::kRows, g);
-  using bf = __nv_bfloat16;
-  mm::ffn_bwd_act_mma_kernel<ACT, GATED><<<grid, mm::kThreads, smem, stream>>>(
-      static_cast<const bf*>(h), static_cast<const bf*>(w1),
-      static_cast<const bf*>(w1g), static_cast<const bf*>(w2),
-      static_cast<const bf*>(dy), valid, planes, g, c, d, f, gpe);
-  return (int)cudaGetLastError();
+int launch_bwd_act_tc(const BwdMaps& m, const int* valid, const float* dact,
+                      __nv_bfloat16* planes, int g, int c, int d, int f,
+                      tc::Walk walk, int ctas, cudaStream_t stream) {
+  return launch_persistent<tc::ffn_bwd_act_wgmma_kernel<ACT, GATED>>(
+      ctas, tc::kThreads, tc::smem_bytes(tc::kUpStage, tc::kUpStages),
+      stream, m.h, m.w1, m.w1g, valid, dact, planes, g, c, d, f, walk);
 }
 
-template <bool GATED>
-int launch_bwd_dh_mma(const __nv_bfloat16* planes, const void* w1,
-                      const void* w1g, const int* valid, void* dh, int g,
-                      int c, int d, int f, int gpe, cudaStream_t stream) {
-  static bool done = false;
-  constexpr int smem = mm::dh_smem(GATED);
-  const cudaError_t e =
-      allow_smem(mm::ffn_bwd_dh_mma_kernel<GATED>, smem, &done);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((d + mm::kCols - 1) / mm::kCols,
-                  (c + mm::kRows - 1) / mm::kRows, g);
-  using bf = __nv_bfloat16;
-  mm::ffn_bwd_dh_mma_kernel<GATED><<<grid, mm::kThreads, smem, stream>>>(
-      planes, static_cast<const bf*>(w1), static_cast<const bf*>(w1g), valid,
-      static_cast<bf*>(dh), g, c, d, f, gpe);
-  return (int)cudaGetLastError();
+// Persistent CTAs of a walk of `tiles` tiles: at most `ctas`, none idle.
+int grid_of(int64_t tiles, int ctas) {
+  return (int)(tiles < ctas ? (tiles > 0 ? tiles : 1) : ctas);
 }
 
-template <int NA, int NB>
-int launch_bwd_dw_mma(const __nv_bfloat16* a, int64_t a_plane,
-                      const __nv_bfloat16* b, int64_t b_plane,
-                      const int* valid, void* out, int e, int c, int m_dim,
-                      int n_dim, int gpe, cudaStream_t stream) {
-  static bool done = false;
-  constexpr int smem = mm::dw_smem();
-  const cudaError_t err =
-      allow_smem(mm::ffn_bwd_dw_mma_kernel<NA, NB>, smem, &done);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_dim + mm::kCols - 1) / mm::kCols,
-                  (m_dim + mm::kCols - 1) / mm::kCols, e);
-  mm::ffn_bwd_dw_mma_kernel<NA, NB><<<grid, mm::kThreads, smem, stream>>>(
-      a, a_plane, b, b_plane, valid, static_cast<__nv_bfloat16*>(out), c,
-      m_dim, n_dim, gpe);
-  return (int)cudaGetLastError();
-}
-
-// The tensor-core backward: bf16, D and F multiples of 8, every base on a
-// 16-byte boundary (cp.async); step 1 into ws = bf16 [6, G, C, F] (act, dU
-// and dG as hi/lo planes), then steps 2 and 3.
-int launch_bwd_mma(int act_code, const void* h, const void* w1,
-                   const void* w1g, const void* w2, const void* dy,
-                   const int* valid, void* ws, void* dh, void* dw1,
-                   void* dw1g, void* dw2, int g, int c, int d, int f, int e,
-                   cudaStream_t stream) {
+// The tensor-core backward: bf16, D and F multiples of 64, every base on a
+// 16-byte boundary (TMA); step 1 into ws = bf16 [8, G, C, F] (act, dU and
+// dG as hi/lo planes, then the bytes of planes 6-7 as step 1a's f32 dact
+// [G, C, F]; [6, G, C, F] ungated, dact in planes 4-5), then steps 2 and
+// 3, each launch persistent over at most `ctas` CTAs.
+int launch_bwd_wgmma(int act_code, const void* h, const void* w1,
+                     const void* w1g, const void* w2, const void* dy,
+                     const int* valid, void* ws, void* dh, void* dw1,
+                     void* dw1g, void* dw2, int g, int c, int d, int f, int e,
+                     int ctas, cudaStream_t stream) {
   const bool gated = act_code == kSwiglu || act_code == kGeglu;
-  if (d % 8 != 0 || f % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (d % tc::kDepth != 0 || f % tc::kDepth != 0 || ctas < 1)
+    return (int)cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w1) |
         reinterpret_cast<uintptr_t>(gated ? w1g : w1) |
         reinterpret_cast<uintptr_t>(w2) | reinterpret_cast<uintptr_t>(dy) |
@@ -2011,46 +1992,92 @@ int launch_bwd_mma(int act_code, const void* h, const void* w1,
        16) != 0)
     return (int)cudaErrorMisalignedAddress;
   const int gpe = g / e;
+  const int n_planes = gated ? 6 : 4;
+  const int n_row = (c + tc::kRows - 1) / tc::kRows;
+  const int dw1_cols = gated ? tc::kN / 2 : tc::kN;
+  const int act_cols = gated ? tc::kN / 2 : tc::kN;
+  const tc::Walk dactw{n_row, (f + tc::kN - 1) / tc::kN, g, gpe};
+  const tc::Walk act{n_row, (f + act_cols - 1) / act_cols, g, gpe};
+  const tc::Walk dhw{n_row, (d + tc::kN - 1) / tc::kN, g, gpe};
+  const tc::DwWalk dw1w{(d + tc::kRows - 1) / tc::kRows,
+                        (f + dw1_cols - 1) / dw1_cols, e};
+  const tc::DwWalk dw2w{(f + tc::kRows - 1) / tc::kRows,
+                        (d + tc::kN - 1) / tc::kN, e};
+  // every walk's tile index fits an int (D and F tiles at most d / 64
+  // and f / 64 each)
+  if ((int64_t)n_row * (d / 64 + f / 64) * g > 0x7fffffff ||
+      (int64_t)(d / 64) * (f / 64) * e > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   auto* planes = static_cast<__nv_bfloat16*>(ws);
-  int err;
+  auto* dact =
+      reinterpret_cast<float*>(planes + (int64_t)n_planes * g * c * f);
+  BwdMaps m;
+  const void* gate_w = gated ? w1g : w1;
+  if (!map3(&m.dy, dy, d, c, g, tc::kRows) ||
+      !map3(&m.w2, w2, d, f, e, tc::kN) ||
+      !map3(&m.h, h, d, c, g, tc::kRows) ||
+      !map3(&m.w1, w1, f, d, e, tc::kDepth) ||
+      !map3(&m.w1g, gate_w, f, d, e, tc::kDepth) ||
+      !map3(&m.planes, planes, f, c, n_planes * g, tc::kRows) ||
+      !map3(&m.w1k, w1, f, d, e, tc::kN) ||
+      !map3(&m.w1gk, gate_w, f, d, e, tc::kN) ||
+      !map3(&m.h32, h, d, c, g, tc::kDwRows) ||
+      !map3(&m.dy32, dy, d, c, g, tc::kDwRows) ||
+      !map3(&m.planes32, planes, f, c, n_planes * g, tc::kDwRows) ||
+      !map3(&m.dw1, dw1, f, d, e, 64) ||
+      !map3(&m.dw1g, gated ? dw1g : dw1, f, d, e, 64) ||
+      !map3(&m.dw2, dw2, d, f, e, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int up_smem = tc::smem_bytes(tc::kUpStage, tc::kUpStages);
+  int err = launch_persistent<tc::ffn_bwd_dact_wgmma_kernel<float>>(
+      grid_of((int64_t)dactw.n_row * dactw.n_col * g, ctas), tc::kThreads,
+      up_smem, stream, m.dy, m.w2, valid, dact, c, d, f, dactw);
+  if (err != 0) return err;
+  const int ctas_act = grid_of((int64_t)act.n_row * act.n_col * g, ctas);
   switch (act_code) {
     case kSwiglu:
-      err = launch_bwd_act_mma<kSwiglu, true>(h, w1, w1g, w2, dy, valid,
-                                              planes, g, c, d, f, gpe, stream);
+      err = launch_bwd_act_tc<kSwiglu, true>(m, valid, dact, planes, g, c, d,
+                                             f, act, ctas_act, stream);
       break;
     case kGeglu:
-      err = launch_bwd_act_mma<kGeglu, true>(h, w1, w1g, w2, dy, valid,
-                                             planes, g, c, d, f, gpe, stream);
+      err = launch_bwd_act_tc<kGeglu, true>(m, valid, dact, planes, g, c, d,
+                                            f, act, ctas_act, stream);
       break;
     case kRelu2:
-      err = launch_bwd_act_mma<kRelu2, false>(h, w1, w1g, w2, dy, valid,
-                                              planes, g, c, d, f, gpe, stream);
+      err = launch_bwd_act_tc<kRelu2, false>(m, valid, dact, planes, g, c, d,
+                                             f, act, ctas_act, stream);
       break;
     case kGelu:
-      err = launch_bwd_act_mma<kGelu, false>(h, w1, w1g, w2, dy, valid,
-                                             planes, g, c, d, f, gpe, stream);
+      err = launch_bwd_act_tc<kGelu, false>(m, valid, dact, planes, g, c, d,
+                                            f, act, ctas_act, stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (err != 0) return err;
-  err = gated ? launch_bwd_dh_mma<true>(planes, w1, w1g, valid, dh, g, c, d,
-                                        f, gpe, stream)
-              : launch_bwd_dh_mma<false>(planes, w1, w1, valid, dh, g, c, d,
-                                         f, gpe, stream);
+  constexpr int dh_smem = tc::smem_bytes(tc::kDownStage, tc::kDownStages);
+  const int ctas_dh = grid_of((int64_t)dhw.n_row * dhw.n_col * g, ctas);
+  auto* dhb = static_cast<__nv_bfloat16*>(dh);
+  err = gated ? launch_persistent<tc::ffn_bwd_dh_wgmma_kernel<true>>(
+                    ctas_dh, tc::kThreads, dh_smem, stream, m.planes,
+                    m.w1k, m.w1gk, valid, dhb, g, c, d, f, dhw)
+              : launch_persistent<tc::ffn_bwd_dh_wgmma_kernel<false>>(
+                    ctas_dh, tc::kThreads, dh_smem, stream, m.planes,
+                    m.w1k, m.w1gk, valid, dhb, g, c, d, f, dhw);
   if (err != 0) return err;
-  const int64_t plane = (int64_t)g * c * f;
-  const auto* hb = static_cast<const __nv_bfloat16*>(h);
-  if ((err = launch_bwd_dw_mma<1, 2>(hb, 0, planes + 2 * plane, plane, valid,
-                                     dw1, e, c, d, f, gpe, stream)) != 0)
-    return err;
-  if (gated &&
-      (err = launch_bwd_dw_mma<1, 2>(hb, 0, planes + 4 * plane, plane, valid,
-                                     dw1g, e, c, d, f, gpe, stream)) != 0)
-    return err;
-  return launch_bwd_dw_mma<2, 1>(planes, plane,
-                                 static_cast<const __nv_bfloat16*>(dy), 0,
-                                 valid, dw2, e, c, f, d, gpe, stream);
+  const int ctas_dw1 = grid_of((int64_t)dw1w.n_m * dw1w.n_n * e, ctas);
+  constexpr int dw1_smem = tc::DwGeom<0>::kSmem;
+  err = gated ? launch_persistent<tc::ffn_bwd_dw_wgmma_kernel<0, true>>(
+                    ctas_dw1, tc::kThreads, dw1_smem, stream, m.h32,
+                    m.planes32, m.dw1, m.dw1g, valid, g, c, d, f, gpe, dw1w)
+              : launch_persistent<tc::ffn_bwd_dw_wgmma_kernel<0, false>>(
+                    ctas_dw1, tc::kThreads, dw1_smem, stream, m.h32,
+                    m.planes32, m.dw1, m.dw1g, valid, g, c, d, f, gpe, dw1w);
+  if (err != 0) return err;
+  const int ctas_dw2 = grid_of((int64_t)dw2w.n_m * dw2w.n_n * e, ctas);
+  return launch_persistent<tc::ffn_bwd_dw_wgmma_kernel<1, false>>(
+      ctas_dw2, tc::kThreads, tc::DwGeom<1>::kSmem, stream, m.planes32,
+      m.dy32, m.dw2, m.dw2, valid, g, c, f, d, gpe, dw2w);
 }
 
 }  // namespace
@@ -2097,15 +2124,17 @@ extern "C" int grouped_ffn_launch(int dtype, int engine, int act_code,
 // the gated 0 and 1; an expert with no kept row gets zeros), by steps 1-3
 // on one stream.  engine: 0 = SIMT (either type, any shape; ws f32
 // [3, G, C, F]: act, dU, dG), 1 = the tensor cores (bf16, D and F
-// multiples of 8, 16-byte aligned bases; ws bf16 [6, G, C, F]: act, dU and
-// dG as hi/lo planes).  Returns a cudaError_t (0 = every launch made).
+// multiples of 64, 16-byte aligned bases; ws bf16 [6, G, C, F]: act, dU
+// and dG as hi/lo planes, [4, G, C, F] ungated; at most `ctas` persistent
+// CTAs a launch).  Returns a cudaError_t (0 = every launch made).
 extern "C" int grouped_ffn_bwd_launch(int dtype, int engine, int act_code,
                                       const void* h, const void* w1,
                                       const void* w1g, const void* w2,
                                       const void* dy, const int* valid,
                                       void* ws, void* dh, void* dw1,
                                       void* dw1g, void* dw2, int g, int c,
-                                      int d, int f, int e, void* stream) {
+                                      int d, int f, int e, int ctas,
+                                      void* stream) {
   if (g < 1 || c < 1 || d < 1 || f < 1 || e < 1 || g % e != 0)
     return (int)cudaErrorInvalidValue;
   const bool gated = act_code == kSwiglu || act_code == kGeglu;
@@ -2116,8 +2145,8 @@ extern "C" int grouped_ffn_bwd_launch(int dtype, int engine, int act_code,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (engine == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return launch_bwd_mma(act_code, h, w1, w1g, w2, dy, valid, ws, dh, dw1,
-                          dw1g, dw2, g, c, d, f, e, s);
+    return launch_bwd_wgmma(act_code, h, w1, w1g, w2, dy, valid, ws, dh,
+                            dw1, dw1g, dw2, g, c, d, f, e, ctas, s);
   }
   if (engine != 0) return (int)cudaErrorInvalidValue;
   float* wsf = static_cast<float*>(ws);
@@ -2149,6 +2178,74 @@ extern "C" int grouped_tile_shape(int engine, int gated, int* rows,
     return (int)cudaErrorInvalidValue;
   }
   return 0;
+}
+
+// CTAs of `kernel` an SM keeps resident at `smem` bytes of dynamic shared
+// memory (the occupancy API; needs a card), or -1.
+template <typename Kernel>
+int resident(Kernel kernel, int threads, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// The tensor-core backward's geometry, read by the tests against the
+// Python plan (grouped_matmul.py::grouped_bwd_plan): launch 0 step 1a
+// (dact), 1 step 1b (act, dU, dG), 2 step 2 (dh), 3 step 3's dw1 [and
+// dw1g], 4 its dw2; gated 1 for swiglu and geglu; what = 0 threads a CTA,
+// 1 rows of an output tile, 2 its columns (of one output tensor), 3 the
+// contraction depth of a stage, 4 stages, 5 dynamic shared memory bytes,
+// 6 CTAs an SM keeps resident (the occupancy API on the compiled kernel;
+// needs a card).  Returns -1 for another argument or a failed query.
+extern "C" int grouped_bwd_geometry(int launch, int gated, int what) {
+  if (launch < 0 || launch > 4 || what < 0 || what > 6) return -1;
+  switch (launch) {
+    case 0:
+    case 1: {
+      const int up = tc::smem_bytes(tc::kUpStage, tc::kUpStages);
+      const int v[6] = {tc::kThreads, tc::kRows,
+                        launch == 1 && gated ? tc::kN / 2 : tc::kN,
+                        tc::kDepth, tc::kUpStages, up};
+      if (what < 6) return v[what];
+      if (launch == 0)
+        return resident(tc::ffn_bwd_dact_wgmma_kernel<float>, v[0], v[5]);
+      return gated ? resident(tc::ffn_bwd_act_wgmma_kernel<kSwiglu, true>,
+                              v[0], v[5])
+                   : resident(tc::ffn_bwd_act_wgmma_kernel<kRelu2, false>,
+                              v[0], v[5]);
+    }
+    case 2: {
+      const int v[6] = {tc::kThreads, tc::kRows, tc::kN, tc::kDepth,
+                        tc::kDownStages,
+                        tc::smem_bytes(tc::kDownStage, tc::kDownStages)};
+      if (what == 6)
+        return gated ? resident(tc::ffn_bwd_dh_wgmma_kernel<true>, v[0], v[5])
+                     : resident(tc::ffn_bwd_dh_wgmma_kernel<false>, v[0],
+                                v[5]);
+      return v[what];
+    }
+    default: {
+      using L0 = tc::DwGeom<0>;
+      using L1 = tc::DwGeom<1>;
+      const bool dw1 = launch == 3;
+      const int v[6] = {tc::kThreads, tc::kRows,
+                        dw1 && gated ? tc::kN / 2 : tc::kN, tc::kDwRows,
+                        dw1 ? L0::kStages : L1::kStages,
+                        dw1 ? L0::kSmem : L1::kSmem};
+      if (what == 6)
+        return !dw1 ? resident(tc::ffn_bwd_dw_wgmma_kernel<1, false>, v[0],
+                               v[5])
+               : gated ? resident(tc::ffn_bwd_dw_wgmma_kernel<0, true>, v[0],
+                                  v[5])
+                       : resident(tc::ffn_bwd_dw_wgmma_kernel<0, false>, v[0],
+                                  v[5]);
+      return v[what];
+    }
+  }
 }
 
 extern "C" const char* grouped_error_string(int err) {

@@ -46,15 +46,25 @@ calls, ``ENGINE_LAUNCHES`` the calls of each engine.
 
 Its backward is ``grouped_expert_ffn_bwd``, which dispatches the same way:
 the CUDA kernels of ``grouped_ffn_bwd_launch`` (three steps: u, the gate
-and dact again with act, dU and dG; dh; the three weight gradients over
-each expert's kept rows), on the tensor cores (``mma.sync``, with act, dU
-and dG as bf16 hi/lo planes) where the forward's tensor-core engine runs
-and on SIMT otherwise (``bwd_engine``), or ``grouped_expert_ffn_bwd_torch``
-on the CPU: the reference's backward (``jax.vjp`` of
+and dact again with act, dU and dG; dh; the weight gradients over each
+expert's kept rows), on the tensor cores where the forward's tensor-core
+engine runs (``bwd_engine`` "mma": five persistent ``wgmma`` GEMMs fed by
+TMA, act, dU and dG as bf16 hi/lo planes; step 1 is dact into an f32
+workspace, then u beside the gate with act, dU and dG, each shaped as the
+forward's launch A, and step 3 is two launches, [dw1 | dw1g] and dw2,
+with TMA-store epilogues; ``grouped_bwd_plan`` gives each launch's
+geometry and walk) and on SIMT otherwise, or
+``grouped_expert_ffn_bwd_torch`` on
+the CPU: the reference's backward (``jax.vjp`` of
 ``grouped_expert_ffn_jnp``) written out as formulas, every product in
 f32.  No TPU kernel stands behind it.  ``GROUPED_BWD_LAUNCHES`` counts its
 kernel calls, ``BWD_ENGINE_LAUNCHES`` the calls of each engine, and
-``grouped_bwd_work`` is its work function.
+``grouped_bwd_work`` is its work function.  At moonshot's training call
+(G = E = 64, C = 240, D 2048, F 1408, swiglu, ~12,288 kept rows) the
+tensor-core backward takes 2.34 ms on an NVIDIA H100 80GB HBM3 at 700 W,
+against 5.89-5.98 ms for the ``mma.sync`` kernels it replaced, 0.71 ms of
+bound and 1.82 ms for autograd through three bf16 ``bmm``
+(``scripts/grouped_bwd_turns.py``; PERF.md).
 """
 
 from __future__ import annotations
@@ -85,6 +95,28 @@ _BWD_ENGINE_CODE = {"simt": 0, "mma": 1}
 _GELU_K, _GELU_C = 0.7978845608028654, 0.044715
 #: the tensor-core engine's D and F granularity: one 128-byte TMA box
 TC_DEPTH = 64
+#: the tensor-core backward's launches (``csrc/grouped_matmul.cu``,
+#: namespace ``tc``): step 1's two ("dact", then "act": act, dU, dG),
+#: step 2 ("dh") and step 3's two ("dw1": dw1 beside dw1g, "dw2"), and
+#: each one's geometry, gated
+#: (swiglu, geglu) and not: threads a CTA, output rows and columns a tile
+#: (columns of each output tensor), the contraction a stage (D, F or kept
+#: rows), stages of its ring and dynamic shared memory.  A variant is a
+#: source edit of both; ``grouped_bwd_built`` reads the library's and the
+#: card tests hold them equal
+GROUPED_BWD_STEPS = ("dact", "act", "dh", "dw1", "dw2")
+GROUPED_BWD_GEOMETRY = {
+    ("dact", True): (384, 128, 256, 64, 4, 197696),
+    ("dact", False): (384, 128, 256, 64, 4, 197696),
+    ("act", True): (384, 128, 128, 64, 4, 197696),
+    ("act", False): (384, 128, 256, 64, 4, 197696),
+    ("dh", True): (384, 128, 256, 64, 3, 197680),
+    ("dh", False): (384, 128, 256, 64, 3, 197680),
+    ("dw1", True): (384, 128, 128, 32, 4, 230464),
+    ("dw1", False): (384, 128, 256, 32, 4, 230464),
+    ("dw2", True): (384, 128, 256, 32, 5, 230480),
+    ("dw2", False): (384, 128, 256, 32, 5, 230480),
+}
 
 
 def gated(mlp: str) -> bool:
@@ -249,6 +281,112 @@ def bwd_engine(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
     return "mma" if _tensor_cores(h, w1, w2) else "simt"
 
 
+class BwdLaunch(NamedTuple):
+    """One launch of the tensor-core backward: its geometry
+    (``GROUPED_BWD_GEOMETRY``), the tiles of its walk in the order of the
+    linear tile index (``walk`` names its axes, slowest first; tile t is
+    (group or expert, first row, first column) of the launch's output),
+    and its persistent CTAs: CTA b takes tiles b, b + grid, b + 2 grid..."""
+    step: str
+    threads: int
+    rows: int
+    cols: int
+    depth: int
+    stages: int
+    smem: int
+    walk: tuple[str, ...]
+    tiles: tuple[tuple[int, int, int], ...]
+    grid: int
+
+
+class GroupedBwdPlan(NamedTuple):
+    """How one tensor-core backward call runs on the card: its five
+    launches in stream order."""
+    launches: tuple[BwdLaunch, ...]
+
+
+def _row_walk(n_row: int, n_col: int, n_g: int, gpe: int, rows: int,
+              cols: int) -> list[tuple[int, int, int]]:
+    """Steps 1 and 2 (the kernels' ``Walk``): row tiles fastest, then the
+    groups of one expert, then column tiles, then experts, so the CTAs
+    that run at once share an expert's block of weights in L2."""
+    out = []
+    for t in range(n_row * n_col * n_g):
+        rt, t = t % n_row, t // n_row
+        gi, t = t % gpe, t // gpe
+        col, e = t % n_col, t // n_col
+        out.append((e * gpe + gi, rt * rows, col * cols))
+    return out
+
+
+def _dw_walk(n_m: int, n_n: int, e: int, rows: int, cols: int
+             ) -> list[tuple[int, int, int]]:
+    """Step 3 (the kernel's ``DwWalk``): M tiles fastest, then N tiles,
+    then experts, so the CTAs that run at once share one expert's kept
+    rows in L2."""
+    out = []
+    for t in range(n_m * n_n * e):
+        mt, t = t % n_m, t // n_m
+        out.append((t // n_n, mt * rows, (t % n_n) * cols))
+    return out
+
+
+def grouped_bwd_plan(n_g: int, c: int, d: int, f: int, e: int, gated: bool,
+                     n_sm: int = 132) -> GroupedBwdPlan:
+    """The tensor-core backward's plan for h [n_g, c, d] over ``e``
+    experts of [d, f] (gated: swiglu, geglu): step 1 over 128-row x 256-F
+    tiles of dact, then 128-row x 128-F tiles (256 ungated) of act, dU and
+    dG, of every group (the kernels skip a row tile at or past valid[g]),
+    step 2 over 128-row x 256-D tiles of dh (one past valid[g]
+    is written as zeros), step 3's [dw1 | dw1g] over 128-D x 128-F tiles
+    (256-F ungated) and dw2 over 128-F x 256-D tiles of each expert, each
+    tile contracting its expert's kept rows ``dw_stages`` at a time.
+    Every launch is persistent: min(n_sm, tiles) CTAs.  Host arithmetic
+    on the shapes and the SM count only (no ``valid``): it runs on the
+    CPU and under the dry run's recorder."""
+    if min(n_g, c, d, f, e, n_sm) < 1 or n_g % e:
+        raise ValueError("grouped_bwd_plan takes positive sizes and G a "
+                         "multiple of E")
+    if d % TC_DEPTH or f % TC_DEPTH:
+        raise ValueError(f"the tensor-core backward takes D and F multiples "
+                         f"of {TC_DEPTH}; got {d}, {f}")
+    gpe = n_g // e
+    launches = []
+    for step in GROUPED_BWD_STEPS:
+        threads, rows, cols, depth, stages, smem = GROUPED_BWD_GEOMETRY[
+            (step, bool(gated))]
+        if step in ("dact", "act", "dh"):
+            n_out = d if step == "dh" else f
+            walk = ("expert", "column", "group", "row")
+            tiles = _row_walk(-(-c // rows), -(-n_out // cols), n_g, gpe,
+                              rows, cols)
+        else:
+            m_out, n_out = (d, f) if step == "dw1" else (f, d)
+            walk = ("expert", "column", "row")
+            tiles = _dw_walk(-(-m_out // rows), -(-n_out // cols), e, rows,
+                             cols)
+        launches.append(BwdLaunch(step, threads, rows, cols, depth, stages,
+                                  smem, walk, tuple(tiles),
+                                  max(1, min(n_sm, len(tiles)))))
+    return GroupedBwdPlan(tuple(launches))
+
+
+def dw_stages(valid, c: int, expert: int, gpe: int, depth: int = 32
+              ) -> list[tuple[int, int, int]]:
+    """The stages step 3 contracts for a tile of ``expert``, in order:
+    (group, first row, kept rows) for each ``depth`` rows of each of its
+    groups below valid[g] (clamped to [0, c]).  The kernel loads whole
+    ``depth``-row boxes and zeroes rows [kept, depth) of a stage in shared
+    memory before its products, so only kept rows reach a weight
+    gradient; an expert with no kept row has no stage and stores zeros.
+    The host twin of the kernel's loop, for the CPU tests."""
+    out = []
+    for g in range(expert * gpe, (expert + 1) * gpe):
+        v = max(0, min(int(valid[g]), c))
+        out += [(g, r0, min(depth, v - r0)) for r0 in range(0, v, depth)]
+    return out
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("grouped_matmul")
     if lib.grouped_ffn_launch.argtypes is None:
@@ -257,11 +395,14 @@ def _lib() -> ctypes.CDLL:
                                            i, i, i, i, i, i, p]
         lib.grouped_ffn_launch.restype = i
         lib.grouped_ffn_bwd_launch.argtypes = [i, i, i, p, p, p, p, p, p, p,
-                                               p, p, p, p, i, i, i, i, i, p]
+                                               p, p, p, p, i, i, i, i, i, i,
+                                               p]
         lib.grouped_ffn_bwd_launch.restype = i
         out = ctypes.POINTER(ctypes.c_int)
         lib.grouped_tile_shape.argtypes = [i, i, out, out, out]
         lib.grouped_tile_shape.restype = i
+        lib.grouped_bwd_geometry.argtypes = [i, i, i]
+        lib.grouped_bwd_geometry.restype = i
         lib.grouped_error_string.argtypes = [i]
         lib.grouped_error_string.restype = ctypes.c_char_p
     return lib
@@ -427,6 +568,21 @@ def tile_shape(engine: str, mlp: str) -> tuple[int, int, int]:
     return rows.value, up.value, down.value
 
 
+def grouped_bwd_built(gated: bool) -> dict[str, tuple[int, ...]]:
+    """The built tensor-core backward's geometry, read from the library:
+    for each launch (``GROUPED_BWD_STEPS``) its threads, output rows and
+    columns a tile, contraction a stage, stages, dynamic shared memory and
+    the CTAs an SM keeps resident (the occupancy API on the compiled
+    kernel; needs a card)."""
+    lib = _lib()
+    got = {step: tuple(lib.grouped_bwd_geometry(i, int(gated), what)
+                       for what in range(7))
+           for i, step in enumerate(GROUPED_BWD_STEPS)}
+    if min(min(v) for v in got.values()) < 0:
+        raise RuntimeError(f"grouped_bwd_geometry: {got}")
+    return got
+
+
 def down_product_f32(h: torch.Tensor, w1: torch.Tensor,
                      w1_gate: torch.Tensor | None, w2: torch.Tensor,
                      valid: torch.Tensor, mlp: str) -> torch.Tensor:
@@ -484,16 +640,20 @@ def grouped_expert_ffn_bwd(h: torch.Tensor, w1: torch.Tensor,
     engine = bwd_engine(h, w1, w2)
     n_g, c, d = h.shape
     e, _, f = w1.shape
+    ctas = 0
     if engine == "mma":
+        ctas = _sm_count(h.device.index if h.device.index is not None
+                         else torch.cuda.current_device())
         bad = [name for name, t in (("h", h), ("w1", w1), ("w1_gate", w1_gate),
                                     ("w2", w2), ("dy", dy))
                if t is not None and t.data_ptr() % 16]
         if bad:
-            raise ValueError(f"the tensor-core grouped backward copies "
-                             f"16-byte chunks: {', '.join(bad)} must start "
-                             f"on a 16-byte boundary")
-        # act, dU (and dG) as bf16 hi/lo planes
-        ws = torch.empty((6 if gated(mlp) else 4, n_g, c, f),
+            raise ValueError(f"the tensor-core grouped backward loads by "
+                             f"TMA: {', '.join(bad)} must start on a 16-byte "
+                             f"boundary")
+        # act, dU (and dG) as bf16 hi/lo planes, then the f32 dact in the
+        # bytes of two more
+        ws = torch.empty((8 if gated(mlp) else 6, n_g, c, f),
                          dtype=torch.bfloat16, device=h.device)
     else:
         ws = torch.empty((3 if gated(mlp) else 2, n_g, c, f),
@@ -510,7 +670,7 @@ def grouped_expert_ffn_bwd(h: torch.Tensor, w1: torch.Tensor,
             None if w1_gate is None else w1_gate.data_ptr(), w2.data_ptr(),
             dy.data_ptr(), counts.data_ptr(), ws.data_ptr(), dh.data_ptr(),
             dw1.data_ptr(), None if dw1g is None else dw1g.data_ptr(),
-            dw2.data_ptr(), n_g, c, d, f, e, stream)
+            dw2.data_ptr(), n_g, c, d, f, e, ctas, stream)
     if err != 0:
         raise RuntimeError(f"grouped_expert_ffn backward kernel launch "
                            f"failed: {lib.grouped_error_string(err).decode()}")

@@ -1543,6 +1543,111 @@ def test_grouped_ffn_bwd_is_the_functions_backward(cuda, dtype):
         assert torch.equal(g_, w_)
 
 
+def _poison_bwd_workspace(cuda, shape, mlp):
+    """Free a block of the tensor-core backward's workspace size filled
+    with NaN, so the call's torch.empty takes it back: the planes past
+    valid then hold NaN, as they may in any call."""
+    g, c, _, f, _ = shape
+    junk = torch.full((8 if gm.gated(mlp) else 6, g, c, f), float("nan"),
+                      dtype=torch.bfloat16, device=cuda)
+    del junk
+
+
+def _nonfinite_past_valid(t, valid):
+    """t with NaN and Inf (alternate rows) past each group's valid."""
+    rows = torch.arange(t.shape[1], device=t.device)[None, :, None]
+    junk = torch.where(rows % 2 == 0, float("nan"), float("inf"))
+    return torch.where(rows < valid[:, None, None], t, junk.to(t.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ["swiglu", "geglu", "relu2", "gelu"])
+def test_grouped_ffn_bwd_tensor_cores_keep_nonfinite_garbage_out(cuda, mlp):
+    """NaN and Inf in h and dy past valid, and NaN in the workspace's
+    planes past valid, reach no gradient: dh is exactly 0 past valid and
+    finite, every weight gradient finite (the rows past valid are step 3's
+    contraction: the kernel zeroes them in shared memory), expert 0 (no
+    kept row) exactly 0, and the rest within 2e-2 of the plain backward,
+    which selects the padded rows away.  The backward's twin of
+    test_grouped_ffn_tensor_cores_keep_nonfinite_garbage_out."""
+    shape = GROUPED_BWD_TC_SHAPES[0]
+    h, w1, w1g, w2, valid, dy = _grouped_bwd_inputs(cuda, torch.bfloat16,
+                                                    shape, 11)
+    h, dy = _nonfinite_past_valid(h, valid), _nonfinite_past_valid(dy, valid)
+    w1g = w1g if gm.gated(mlp) else None
+    _poison_bwd_workspace(cuda, shape, mlp)
+    got = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, mlp)
+    torch.cuda.synchronize()
+    want = gm.grouped_expert_ffn_bwd_torch(
+        *[None if t is None else t.float() for t in (h, w1, w1g, w2)], valid,
+        dy.float(), mlp)
+    live = (torch.arange(shape[1], device=cuda)[None, :, None]
+            < valid[:, None, None]).expand_as(h)
+    for name, g_, w_ in zip(("dh", "dw1", "dw1g", "dw2"), got, want):
+        if g_ is None:
+            continue
+        assert torch.isfinite(g_.float()).all(), name
+        _close(g_, w_, 2e-2, f"{name} {mlp}")
+        zero = g_[~live] if name == "dh" else g_[0]
+        assert torch.equal(zero.float(), torch.zeros_like(zero.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ["swiglu", "relu2"])
+def test_grouped_ffn_bwd_tensor_cores_repeat_their_bits(cuda, mlp):
+    """Two calls of the tensor-core backward give equal bits in every
+    gradient: each output tile is summed by one CTA in a fixed order, with
+    no split of the contraction and no atomics."""
+    shape = GROUPED_BWD_TC_SHAPES[1]
+    h, w1, w1g, w2, valid, dy = _grouped_bwd_inputs(cuda, torch.bfloat16,
+                                                    shape, 12)
+    w1g = w1g if gm.gated(mlp) else None
+    first = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, mlp)
+    second = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, mlp)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlp", ["swiglu", "gelu"])
+def test_grouped_ffn_bwd_tensor_cores_all_empty_give_zeros(cuda, mlp):
+    """A call that keeps no row (every valid 0), with NaN in h, dy and the
+    workspace, gives exact zeros in dh and every weight gradient."""
+    shape = GROUPED_BWD_TC_SHAPES[1]
+    h, w1, w1g, w2, valid, dy = _grouped_bwd_inputs(cuda, torch.bfloat16,
+                                                    shape, 13)
+    valid = torch.zeros_like(valid)
+    h, dy = _nonfinite_past_valid(h, valid), _nonfinite_past_valid(dy, valid)
+    w1g = w1g if gm.gated(mlp) else None
+    _poison_bwd_workspace(cuda, shape, mlp)
+    got = gm.grouped_expert_ffn_bwd(h, w1, w1g, w2, valid, dy, mlp)
+    torch.cuda.synchronize()
+    for g_ in got:
+        if g_ is not None:
+            assert torch.equal(g_.float(), torch.zeros_like(g_.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
+def test_grouped_bwd_built_kernels_match_their_plan(cuda, gated):
+    """The built tensor-core backward's geometry (threads, output tile,
+    contraction a stage, stages, shared memory) is
+    ``grouped_matmul.grouped_bwd_plan``'s for each of its four launches,
+    and the card keeps one CTA of each resident on an SM (the launches
+    are persistent, one CTA an SM)."""
+    built = gm.grouped_bwd_built(gated)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g, c, d, f, e = 64, 240, 2048, 1408, 64
+    plan = gm.grouped_bwd_plan(g, c, d, f, e, gated, n_sm=n_sm)
+    for ln in plan.launches:
+        got = built[ln.step]
+        assert got[:6] == (ln.threads, ln.rows, ln.cols, ln.depth,
+                           ln.stages, ln.smem), ln.step
+        assert got[6] == 1, ln.step
+        assert ln.grid == n_sm
+
+
 @pytest.mark.gpu
 def test_grouped_ffn_bwd_rejects_what_it_does_not_take(cuda):
     h, w1, w1g, w2, valid, dy = _grouped_bwd_inputs(
