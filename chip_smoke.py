@@ -32,11 +32,17 @@ phase that fails:
                engines against the plain partials (1e-4 of their size)
                and, merged, the plain unsharded output;
   3. serve   — phi4-mini-3.8b at its published size (32 layers, bf16,
-               seeded random weights) through ServeEngine; the kernel's
-               launch count must equal n_layers x decode steps;
+               seeded random weights) through ServeEngine, each decode
+               step one replay of the step captured at warm-up (the
+               engine's ``quantum_mode`` must be "graph"); the kernel's
+               launch count must equal n_layers x decode steps; the same
+               requests with the step run from Python (``run_eager``)
+               must give the same tokens bit for bit; one decode step
+               profiled both ways;
   4. e2e     — the same prompts through the engine at full width, 2
                layers, f32, once with the kernel and once with the plain
-               version pinned: the greedy tokens must be equal;
+               version pinned, both captured: the greedy tokens must be
+               equal;
   5. train   — phi4-mini-3.8b at its published size (32 layers, bf16,
                B=2, S=1024, AdamW with f32 moments, remat) for 5 steps of
                build_train_step: finite losses, and exactly 64 forward
@@ -2328,11 +2334,18 @@ def make_prompts(vocab: int) -> list[np.ndarray]:
             for p in plens]
 
 
-def serve(torch, model, prompts, n_new, max_seq=512, **kw):
+def serve(torch, model, prompts, n_new, max_seq=512, eager=False, **kw):
+    """Serve ``prompts`` through a ServeEngine of 8 slots and 16-token
+    pages; returns (tokens, engine, host wall, paged launches).  On the
+    card the engine replays its captured decode step; ``eager`` runs the
+    step from Python instead, through the step object's explicit
+    ``run_eager`` (the engine has no switch for it)."""
     from repro_torch.kernels import paged_attention as paged
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(model, slots=8, page_size=16, max_seq=max_seq, **kw)
+    if eager:
+        eng.step.capture = eng.step.replay = eng.step.run_eager
     rids = [eng.submit(p, n_new) for p in prompts]
     paged.LAUNCHES = 0                # counts of this run only
     t0 = time.perf_counter()
@@ -2340,52 +2353,76 @@ def serve(torch, model, prompts, n_new, max_seq=512, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged.LAUNCHES
+    if eager:
+        # the patches point back at the step; unbound, nothing keeps the
+        # model alive once the caller deletes it
+        del eng.step.capture, eng.step.replay
     return [out[r] for r in rids], eng, wall, launches
+
+
+def check_graph(eng, what: str) -> str:
+    """Fail unless ``eng`` ran its quanta as replays of a captured step;
+    returns the words that say so."""
+    if eng.quantum_mode != "graph" or eng.step.graph is None:
+        fail(f"{what}: the engine ran its quanta {eng.quantum_mode}, "
+             f"captured {eng.step.graph is not None}, not as graph replays")
+    counts = ", ".join(
+        f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+        f"{'' if key is None else f'[{key}]'} +{n}"
+        for (mod, name, key), n in eng.step.replay_launches.items())
+    return f"quanta as CUDA graph replays ({counts or 'no launch'} a replay)"
 
 
 def profile_decode_step(torch, model, slots: int = 8, page: int = 16,
                         pos: int = 192) -> None:
-    """Where one serving decode step's time goes: host wall per step (no
-    profiler), device time per step by kernel from torch.profiler, and the
-    device's busy share.  Every slot is active at position ``pos``."""
+    """Where one serving decode step's time goes, the step run from Python
+    (``PagedStep.run_eager``) beside one replay of its CUDA graph: host
+    wall per step (no profiler), device time per step by kernel from
+    torch.profiler, and the device's busy share.  Every slot is active,
+    from position ``pos`` on (each step advances it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = model.device
+    from repro_torch.serve.engine import build_paged_step
+
+    dev, n = model.device, 10
     pmax = 512 // page
     specs = model.paged_cache_specs(slots, slots * pmax, page)
     cache = {k: torch.zeros(shape, dtype=dt, device=dev)
              for k, (shape, dt) in specs.items()}
-    table = torch.arange(slots * pmax, dtype=torch.int32,
-                         device=dev).reshape(slots, pmax)
-    tok = torch.arange(slots, dtype=torch.int32, device=dev)
-    posv = torch.full((slots,), pos, dtype=torch.int32, device=dev)
-    act = torch.ones(slots, dtype=torch.bool, device=dev)
-
-    def step():
-        return model.decode_step_paged(cache, table, tok, posv, act)
-
-    for _ in range(3):
-        step()
+    step = build_paged_step(model, cache, slots=slots, max_pages=pmax,
+                            max_chunk=4 * n)
+    table = np.arange(slots * pmax, dtype=np.int32).reshape(slots, pmax)
+    tok = np.arange(slots, dtype=np.int32)[:, None]
+    z = np.zeros(slots, np.int32)
+    step.load(table, tok, z + 1, z, z + pos)        # every slot inactive
+    step.capture()
     torch.cuda.synchronize()
-    n = 10
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
+    bound = model.cfg.param_count() * 2 / HBM_BW * 1e3
+    for way, run in (("eager from Python", step.run_eager),
+                     ("one CUDA graph replay", step.replay)):
+        step.load(table, tok, z + 1, z + 4 * n, z + pos)
+        for _ in range(3):
+            run()
         torch.cuda.synchronize()
-    per_kernel = device_ms_by_kernel(torch, prof, n)
-    dev_ms = sum(per_kernel.values())
-    print(f"  one decode step (8 slots at position {pos}): {wall_ms:.2f} ms "
-          f"host wall, {dev_ms:.2f} ms device time by torch.profiler "
-          f"(busy share {dev_ms / wall_ms * 100:.1f}%; weights-streaming "
-          f"bound {model.cfg.param_count() * 2 / HBM_BW * 1e3:.2f} ms)",
-          flush=True)
-    print_by_kind(per_kernel, "decode step")
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+        per_kernel = device_ms_by_kernel(torch, prof, n)
+        dev_ms = sum(per_kernel.values())
+        print(f"  one decode step ({slots} slots at positions {pos}-"
+              f"{pos + 2 * n + 2}), {way}: {wall_ms:.3f} ms host wall, "
+              f"{dev_ms:.3f} ms device time by torch.profiler (busy share "
+              f"{dev_ms / wall_ms * 100:.1f}%; weights-streaming bound "
+              f"{bound:.2f} ms)", flush=True)
+        print_by_kind(per_kernel, f"decode step ({way})")
+    del step, cache
 
 
 def phase_serve(torch):
@@ -2415,6 +2452,7 @@ def phase_serve(torch):
     if launches != want:
         fail(f"paged-attention launches {launches} != n_layers x decode "
              f"steps = {cfg.n_layers} x {eng.decode_steps}")
+    way = check_graph(eng, "phase 3")
     s = eng.metrics.summary()
     tokens = sum(len(p) for p in prompts) + sum(len(t) for t in got)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2434,10 +2472,26 @@ def phase_serve(torch):
                   flush=True)
     print(f"  paged_attention launches {launches} = {cfg.n_layers} layers "
           f"x {eng.decode_steps} decode steps; {wall / eng.decode_steps * 1e3:.2f}"
-          f" ms host wall per decode step", flush=True)
+          f" ms host wall per decode step; {way}", flush=True)
     PHASE3.update(tokens=got, decode_steps=eng.decode_steps)
+    del eng
+    eager, eng, e_wall, e_launches = serve(torch, model, prompts, 32,
+                                           schedule="auto", eager=True)
+    for i, (a, b) in enumerate(zip(got, eager)):
+        if not np.array_equal(a, b):
+            fail(f"request {i}: graph replays {a.tolist()} != run_eager "
+                 f"{b.tolist()}")
+    if e_launches != cfg.n_layers * eng.decode_steps:
+        fail(f"run_eager: paged launches {e_launches} != {cfg.n_layers} x "
+             f"{eng.decode_steps}")
+    print(f"  the same 8 requests with each step through run_eager (the "
+          f"step from Python): tokens equal the graph replays' bit for bit;"
+          f" {eng.decode_steps} decode steps, {e_wall:.2f} s "
+          f"({e_wall / eng.decode_steps * 1e3:.2f} ms host wall a step), "
+          f"paged launches {e_launches}", flush=True)
+    del eng
     profile_decode_step(torch, model)
-    del model, eng
+    del model
     torch.cuda.empty_cache()
     return launches
 
@@ -2462,13 +2516,16 @@ def phase_e2e(torch):
         if launches != want:
             fail(f"{engine}: paged-attention launches {launches} != {want}")
         runs[engine] = got
+        way = check_graph(eng, f"phase 4 ({engine})")
+        del eng
     for i, (a, b) in enumerate(zip(runs["auto"], runs["torch"])):
         if not np.array_equal(a, b):
             fail(f"request {i}: kernel path {a.tolist()} != plain path "
                  f"{b.tolist()}")
     print(f"  phi4-mini-3.8b full width, 2 layers, f32 (TF32 off): greedy "
           f"tokens of 8 requests equal between the kernel path and the "
-          f"plain path", flush=True)
+          f"plain path, both with their {way.split(' (')[0]} (the plain "
+          f"paged version captured too)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3015,6 +3072,7 @@ def phase_moe_serve(torch):
     if gm.GROUPED_LAUNCHES:
         fail(f"the decode flow launched the grouped kernel "
              f"{gm.GROUPED_LAUNCHES} times")
+    way = check_graph(eng, "phase 8")
     sm = eng.metrics.summary()
     n_tok = sum(len(q) for q in prompts) + sum(len(t) for t in got)
     print(f"  served 8 requests (prompts {min(map(len, prompts))}-"
@@ -3025,7 +3083,7 @@ def phase_moe_serve(torch):
           f"{sm['mean_tpot_s'] * 1e3:.2f} ms, {eng.decode_steps} decode "
           f"steps ({wall / eng.decode_steps * 1e3:.2f} ms host wall each), "
           f"paged_attention launches {paged_launches} = {cfg.n_layers} x "
-          f"{eng.decode_steps}", flush=True)
+          f"{eng.decode_steps}; {way}", flush=True)
     for rec in cap.records:
         if rec.op == "serve_schedule":
             print(f"  decision serve_schedule({rec.mode}, C={rec.chunks})",
@@ -3707,6 +3765,7 @@ def mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
         eng = ServeEngine(model, **MESH_SERVE)
         rids = [eng.submit(p, MESH_NEW) for p in prompts]
         got = eng.run()
+        res.setdefault("modes", []).append(eng.quantum_mode)
         return [got[r].tolist() for r in rids]
 
     def step(model):
@@ -3820,6 +3879,7 @@ def phase_mesh(torch, root, card):
               f"one card, not NCCL: staged messages and gloo's own copies "
               f"of all-reduces) {res[0][spec]['staged']} / "
               f"{res[1][spec]['staged']}", flush=True)
+    quantum = mesh_modes(res, "phase 11")
     for r in range(2):
         if res[r]["1x2_tokens"] != res[0]["one_tokens"]:
             fail(f"1x2 rank {r} greedy tokens {res[r]['1x2_tokens']} != "
@@ -3833,7 +3893,7 @@ def phase_mesh(torch, root, card):
     print(f"  ServeEngine on 1x2 (the page pool over 2 cache shards, the "
           f"paged kernel's partials of each shard LSE-merged; paged kernel "
           f"launches {res[0]['1x2_paged']} / {res[1]['1x2_paged']} by "
-          f"rank): greedy tokens equal 1x1's (paged kernel, "
+          f"rank; {quantum}): greedy tokens equal 1x1's (paged kernel, "
           f"{res[0]['one_paged']} launches): {res[0]['one_tokens']}; no "
           f"plain version handed a CUDA tensor on either rank", flush=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
@@ -3922,6 +3982,7 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
         eng = ServeEngine(model, **MESH_SERVE)
         rids = [eng.submit(p, MESH_NEW) for p in prompts]
         got = eng.run()
+        res.setdefault("modes", []).append(eng.quantum_mode)
         return [got[r].tolist() for r in rids]
 
     def step(model):
@@ -4073,6 +4134,17 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+def mesh_modes(res: list[dict], what: str) -> str:
+    """The engines' ways of running a quantum in a two-rank phase: rank
+    0's 1x1 engine replays its graph, every 1x2 engine runs the step from
+    Python (its collectives go through gloo and host buffers)."""
+    want = [["graph", "eager"], ["eager"]]
+    got = [r["modes"] for r in res]
+    if got != want:
+        fail(f"{what}: the engines ran their quanta {got}, not {want}")
+    return "1x1 quanta as graph replays, 1x2 eager (gloo)"
+
+
 def run_rank_pair(flag: str, what: str, timeout: int) -> list[dict]:
     """Start this script twice with ``flag`` (ranks 0 and 1, file://
     init); a failure in either fails ``what``.  Returns their results.
@@ -4185,13 +4257,14 @@ def phase_moe_mesh(torch, card):
               f"{res[1][name]['staged']}; rank 0 decisions "
               f"{sorted(set(res[0][name]['decisions']))} "
               f"(x{len(res[0][name]['decisions'])})", flush=True)
+    quantum = mesh_modes(res, "phase 12")
     for r in range(2):
         if res[r]["mesh_tokens"] != res[0]["one_tokens"]:
             fail(f"1x2 rank {r} greedy tokens {res[r]['mesh_tokens']} != "
                  f"1x1 {res[0]['one_tokens']}")
     print(f"  ServeEngine on 1x2 (ep_a2a, the experts' gate columns per "
           f"rank, summed over 'model'; paged launches "
-          f"{res[0]['mesh_paged']}): greedy tokens equal 1x1's "
+          f"{res[0]['mesh_paged']}; {quantum}): greedy tokens equal 1x1's "
           f"({res[0]['one_paged']} paged launches): "
           f"{res[0]['one_tokens']}", flush=True)
     worst = 0.0
@@ -4435,12 +4508,13 @@ def phase_families(torch, root, card):
     if fa.FWD_LAUNCHES or paged.LAUNCHES:
         fail(f"mamba2-130m launched attention kernels: flash "
              f"{fa.FWD_LAUNCHES}, paged {paged.LAUNCHES}")
+    way = check_graph(eng, "phase 13 mamba2-130m")
     print(f"  mamba2-130m ({cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.ssm_heads} SSM heads, d_state {cfg.ssm.d_state}, bf16): "
           f"8 requests of 48 tokens + {FAM_NEW} new through ServeEngine in "
           f"{wall:.2f} s ({eng.decode_steps} decode steps, "
-          f"{wall / eng.decode_steps * 1e3:.2f} ms host wall each); tokens "
-          f"equal the contiguous Generator's; no attention launch",
+          f"{wall / eng.decode_steps * 1e3:.2f} ms host wall each, {way});"
+          f" tokens equal the contiguous Generator's; no attention launch",
           flush=True)
     del model, eng
     torch.cuda.empty_cache()
@@ -4470,13 +4544,14 @@ def phase_families(torch, root, card):
             len(t) != FAM_NEW for t in got):
         fail(f"hymba serving: paged launches {launches} != "
              f"{cfg.n_layers} x {eng.decode_steps}")
+    way = check_graph(eng, "phase 13 hymba-1.5b")
     print(f"  hymba-1.5b ({cfg.n_layers} layers, heads {cfg.n_heads} -> "
           f"{cfg.padded_heads}, {cfg.ssm_heads} SSM heads, window "
           f"{cfg.sliding_window} except layers {cfg.full_attn_layers}, "
           f"bf16): prefill 2 x 2048 in {pre_ms:.1f} ms ({cfg.n_layers} flash "
           f"launches); 4 requests served in {wall:.2f} s, paged launches "
-          f"{launches} = {cfg.n_layers} x {eng.decode_steps} decode steps",
-          flush=True)
+          f"{launches} = {cfg.n_layers} x {eng.decode_steps} decode steps, "
+          f"{way}", flush=True)
     del model, eng
     torch.cuda.empty_cache()
     loss, norm, ms, _ = family_train(torch, cfg, 1, FAM_TRAIN_S, grads=False)
@@ -4567,6 +4642,7 @@ def phase_families(torch, root, card):
         if launches != want:
             fail(f"hymba 2 layers ({engine}): paged launches {launches}, "
                  f"not {want}")
+        check_graph(eng, f"phase 13 hymba 2 layers ({engine})")
         toks[engine] = [t.tolist() for t in got]
         del eng
         if engine == "auto":
@@ -4577,6 +4653,7 @@ def phase_families(torch, root, card):
             if launches != cfg.n_layers * steps:
                 fail(f"hymba 2 layers, long prompt: paged launches "
                      f"{launches}, not {cfg.n_layers} x {steps}")
+            check_graph(eng, "phase 13 hymba 2 layers, long prompt")
             toks["long"] = [t.tolist() for t in got]
             gen = Generator(model, ShapeConfig("s", max_seq, 1, "decode"))
             toks["contiguous"] = [
@@ -5326,6 +5403,7 @@ def plan_serve(torch, tmp, card):
         np.random.default_rng = real_rng
     torch.cuda.synchronize()
     launches, steps = paged.LAUNCHES, out["engine"].decode_steps
+    way = check_graph(out["engine"], "(15) (b) launch.serve")
     got = out["tokens"]
     del out
     gc.collect()
@@ -5348,7 +5426,7 @@ def plan_serve(torch, tmp, card):
             print(f"  launch.serve --plan program: {line.strip()}",
                   flush=True)
     print(f"  (b) launch.serve phi4-mini-3.8b uncut, phase 3's 8 requests: "
-          f"tokens equal phase 3's; paged launches {launches} = "
+          f"tokens equal phase 3's; {way}; paged launches {launches} = "
           f"{cfg.n_layers} x {steps} decode steps (phase 3: "
           f"{PHASE3['decode_steps']}); launch wall {wall:.1f} s; "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
@@ -5812,9 +5890,18 @@ def phase_nemotron(torch, card):
         torch.empty((8, 512 // 16), dtype=torch.int32, device="meta"))
     if plan.engine != "mma":
         fail(f"(17) (b) the paged kernel would take {plan} at head_dim 192")
-    # every NEMO_PAGED_EVERY-th paged call's inputs and output are kept
-    # (the engine writes its pools in place) and held to the plain version
-    # in f32 after the run
+    torch.cuda.reset_peak_memory_stats()
+    fa.FWD_LAUNCHES = 0
+    got, eng, wall, launches = serve(torch, model, prompts, 32,
+                                     schedule="auto")
+    way = check_graph(eng, "(17) (b)")
+    steps = eng.decode_steps
+    s = eng.metrics.summary()
+    del eng
+    # the same requests with the step run from Python (run_eager): every
+    # NEMO_PAGED_EVERY-th paged call's inputs and output are kept (the
+    # engine writes its pools in place) and held to the plain version in
+    # f32 after the run; a replay runs no Python, so no spy sees its calls
     kept, real = [], paged.paged_attention
 
     def spy(*args, **kw):
@@ -5825,14 +5912,21 @@ def phase_nemotron(torch, card):
         return out
 
     spy.calls = 0
-    torch.cuda.reset_peak_memory_stats()
-    fa.FWD_LAUNCHES = 0
     paged.paged_attention = spy
     try:
-        got, eng, wall, launches = serve(torch, model, prompts, 32,
-                                         schedule="auto")
+        eager, eng, e_wall, e_launches = serve(torch, model, prompts, 32,
+                                               schedule="auto", eager=True)
     finally:
         paged.paged_attention = real
+    e_steps = eng.decode_steps
+    del eng
+    for i, (a, b) in enumerate(zip(got, eager)):
+        if not np.array_equal(a, b):
+            fail(f"(17) (b) request {i}: graph replays {a.tolist()} != "
+                 f"run_eager {b.tolist()}")
+    if spy.calls != e_launches or e_launches != cfg.n_layers * e_steps:
+        fail(f"(17) (b) run_eager: {spy.calls} paged calls, {e_launches} "
+             f"launches, {e_steps} decode steps")
     paged_err, top = 0.0, 0
     for args, kw, out in kept:
         q, kp, vp, table, lens = args
@@ -5854,31 +5948,31 @@ def phase_nemotron(torch, card):
         if len(toks) != 32 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             fail(f"(17) (b) request {i} returned {len(toks)} tokens in "
                  f"[{toks.min()}, {toks.max()}]")
-    if launches != cfg.n_layers * eng.decode_steps:
+    if launches != cfg.n_layers * steps:
         fail(f"(17) (b) paged launches {launches} != {cfg.n_layers} x "
-             f"{eng.decode_steps} decode steps")
+             f"{steps} decode steps")
     if fa.FWD_LAUNCHES:
         fail(f"(17) (b) the engine launched the flash forward "
              f"{fa.FWD_LAUNCHES} times: its prompts go through the paged "
              f"decode step (chunked prefill)")
-    s = eng.metrics.summary()
     print(f"  (b) ServeEngine: 8 requests (prompts "
           f"{min(map(len, prompts))}-{max(map(len, prompts))}, 32 new each)"
           f" in {wall:.2f} s, mean TTFT {s['mean_ttft_s'] * 1e3:.1f} ms, "
-          f"mean TPOT {s['mean_tpot_s'] * 1e3:.2f} ms; paged launches "
-          f"{launches} = {cfg.n_layers} x {eng.decode_steps} decode steps "
+          f"mean TPOT {s['mean_tpot_s'] * 1e3:.2f} ms, {way}; paged launches "
+          f"{launches} = {cfg.n_layers} x {steps} decode steps "
           f"(paged_mma_kernel<192>, G = {cfg.n_heads // cfg.n_kv_heads}, "
           f"{plan.n_splits} splits of {plan.pages_per_split} pages, "
           f"{plan.ctas} CTAs at 512 positions), the prompts included "
           f"(chunked prefill through the paged decode step: no flash "
-          f"launch); every {NEMO_PAGED_EVERY}th paged call "
+          f"launch); {wall / steps * 1e3:.2f} ms host wall per decode step;"
+          f" served again through run_eager ({e_wall:.2f} s, "
+          f"{e_wall / e_steps * 1e3:.2f} ms a step): tokens equal the "
+          f"replays', and every {NEMO_PAGED_EVERY}th paged call "
           f"({-(-spy.calls // NEMO_PAGED_EVERY)} calls, chains up to {top}) "
           f"within {paged_err:.3e} of the plain version in f32 (atol and "
-          f"rtol 2e-2, phase 2's bf16 tolerance); "
-          f"{wall / eng.decode_steps * 1e3:.2f} ms host wall per decode "
-          f"step; peak memory "
+          f"rtol 2e-2, phase 2's bf16 tolerance); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    del eng, got
+    del got, eager
 
     # (c) ring attention at one rank, against the megatron prefill
     tokens = torch.from_numpy(rng.integers(

@@ -4,12 +4,20 @@
 One dispatched quantum advances every decode slot by up to C tokens:
 slots still inside their prompt consume prompt tokens (chunked prefill),
 slots past it feed their own last sample back (decode).  The reference
-compiles the quantum as one ``lax.scan`` over ``Model.decode_step_paged``;
-the port runs it as a Python loop of C decode steps on the device, with
-one host sync per quantum (the sampled tokens).  C — the scheduling
-quantum — is the managed knob, chosen by ``managed.resolve_serve_schedule``
-from the serve cost model and corrected online from serve/metrics.py's
-measured step latencies.
+compiles the quantum as one ``lax.scan`` over ``Model.decode_step_paged``
+(``build_paged_step``, one jitted function per C).  The port's
+``build_paged_step`` is one decode step written against static device
+buffers (the plan, the step counter, the sampled tokens) and the cache
+pools, every write in place; on a card ``warmup`` captures it once in a
+CUDA graph and each step of a quantum is one replay, so a quantum costs
+one H2D of the plan, a replay a step and one D2H of the tokens.  C only
+sets how often the graph is replayed, so a re-tuned C captures nothing.
+On the CPU, and over a mesh of processes (whose collectives go through
+gloo and host buffers, which a graph cannot hold), the same step runs
+eagerly; ``quantum_mode`` says which.  C — the scheduling quantum — is
+the managed knob, chosen by ``managed.resolve_serve_schedule`` from the
+serve cost model and corrected online from serve/metrics.py's measured
+step latencies.
 
 The cache is the paged pool of serve/kv_cache.py: per-layer page pools,
 one host-side page table, pages recycled through the free list as
@@ -44,8 +52,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import cost_model, managed, overlap
+from repro_torch.core import cost_model, instrument, managed, overlap
 from repro_torch.core.faults import FaultPlan
+from repro_torch.kernels import (flash_attention, grouped_matmul,
+                                 paged_attention, stencil)
 from repro_torch.models import attention
 from repro_torch.models.model import Model
 from repro_torch.obs.calibrate import Recalibrator
@@ -55,6 +65,181 @@ from repro_torch.serve.kv_cache import (PagedCacheConfig, PagePoolExhausted,
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import (QuantumPlan, Request,
                                          RequestRejected, ServeScheduler)
+
+#: the kernel modules whose module-level ``*LAUNCHES`` counters a replay
+#: advances by what its capture recorded
+_COUNTED = (flash_attention, grouped_matmul, paged_attention, stencil)
+
+
+def _launch_counts() -> dict[tuple, int]:
+    """Every kernel launch counter: (module, name, key or None) -> count
+    (a dict counter, such as launches by engine, per key)."""
+    out = {}
+    for mod in _COUNTED:
+        for name, val in vars(mod).items():
+            if not name.endswith("LAUNCHES"):
+                continue
+            if isinstance(val, dict):
+                out.update({(mod, name, k): n for k, n in val.items()})
+            else:
+                out[(mod, name, None)] = val
+    return out
+
+
+def _add_launches(delta: dict[tuple, int]) -> None:
+    for (mod, name, key), n in delta.items():
+        if key is None:
+            setattr(mod, name, getattr(mod, name) + n)
+        else:
+            getattr(mod, name)[key] += n
+
+
+class PagedStep:
+    """One decode step of a quantum against static buffers (the port of
+    the reference's scan body; ``build_paged_step`` makes it).
+
+    The plan lives in one int32 device buffer, in views: ``table`` [slots,
+    max_pages], ``tokens`` [slots, max_chunk], ``n_in``, ``steps``,
+    ``pos`` and ``last`` [slots], and ``t`` [1], the step counter; the
+    sampled tokens go to ``out`` [slots, max_chunk].  ``load`` fills them
+    with one copy, each step then reads and writes only them and the
+    cache pools, in place, so the step can be captured in a CUDA graph
+    (``capture``) and replayed (``replay``) any number of times a
+    quantum; ``run_eager`` runs it from Python."""
+
+    def __init__(self, model: Model, cache: dict[str, torch.Tensor], *,
+                 slots: int, max_pages: int, max_chunk: int):
+        self.model = model
+        self.cache = cache
+        self.slots, self.max_chunk = slots, max_chunk
+        dev = model.device
+        # the pools' identity: a graph holds their addresses
+        self._ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        self._sizes = [slots * max_pages, slots * max_chunk] + [slots] * 4 \
+            + [1]
+        self._shapes = [(slots, max_pages), (slots, max_chunk)] \
+            + [(slots,)] * 4 + [(1,)]
+        self._buf = torch.zeros(sum(self._sizes), dtype=torch.int32,
+                                device=dev)
+        # the host side of the one copy: pinned on a card (with an event
+        # that says when its last copy is done), the buffer itself on the
+        # CPU
+        on_card = dev.type == "cuda"
+        self._host = (torch.zeros(self._buf.shape, dtype=torch.int32,
+                                  pin_memory=True) if on_card else self._buf)
+        self._copied = torch.cuda.Event() if on_card else None
+        (self.table, self.tokens, self.n_in, self.steps, self.pos,
+         self.last, self.t) = self._split(self._buf)
+        self.out = torch.zeros((slots, max_chunk), dtype=torch.int32,
+                               device=dev)
+        self.graph = None
+        #: launch counters' change over one step, added on every replay
+        self.replay_launches: dict[tuple, int] = {}
+
+    def _split(self, buf: torch.Tensor) -> list[torch.Tensor]:
+        return [t.view(shape)
+                for t, shape in zip(buf.split(self._sizes), self._shapes)]
+
+    def load(self, table: np.ndarray, tokens: np.ndarray, n_in: np.ndarray,
+             steps: np.ndarray, pos: np.ndarray) -> None:
+        """Copy a quantum's plan into the buffers with one H2D and reset
+        ``t`` to 0 and ``last`` to each slot's first input token.  Refuses
+        pools rebound since the step was built (swap-in and the steps
+        write them in place; a captured step writes the old ones)."""
+        if {k: v.data_ptr() for k, v in self.cache.items()} != self._ptrs:
+            raise RuntimeError("the serving cache's pools were rebound; a "
+                               "captured step writes the ones it was "
+                               "built on")
+        if int(steps.max(initial=0)) > self.max_chunk:
+            raise ValueError(f"a quantum of {int(steps.max())} steps; the "
+                             f"buffers hold {self.max_chunk}")
+        if self._copied is not None:
+            self._copied.synchronize()
+        w = min(tokens.shape[1], self.max_chunk)
+        h_table, h_tok, h_n_in, h_steps, h_pos, h_last, h_t = \
+            (v.numpy() for v in self._split(self._host))
+        h_table[:] = table
+        h_tok[:] = 0
+        h_tok[:, :w] = tokens[:, :w]
+        h_n_in[:] = n_in
+        h_steps[:] = steps
+        h_pos[:] = pos
+        h_last[:] = tokens[:, 0]
+        h_t[:] = 0
+        if self._copied is not None:
+            self._buf.copy_(self._host, non_blocking=True)
+            self._copied.record()
+
+    @torch.no_grad()
+    def run_eager(self) -> None:
+        """One step from Python: slot b feeds ``tokens[b, t]`` while t <
+        n_in[b] and its last sample after; slots with t >= steps[b] are
+        inactive (no cache write, no position advance)."""
+        idx = self.t.long().expand(self.slots, 1)
+        tok = torch.where(self.t < self.n_in,
+                          self.tokens.gather(1, idx)[:, 0], self.last)
+        act = self.t < self.steps
+        nxt, cache = self.model.decode_step_paged(self.cache, self.table,
+                                                  tok, self.pos, act)
+        if cache is not self.cache:
+            raise RuntimeError("decode_step_paged returned another cache")
+        self.pos.add_(act.to(torch.int32))
+        self.last.copy_(torch.where(act, nxt, self.last))
+        self.out.scatter_(1, idx, nxt[:, None])
+        self.t.add_(1)
+
+    def capture(self) -> None:
+        """Run one step eagerly on a side stream (it builds the kernels and
+        warms the libraries, so no first-call work falls inside the
+        capture; call it with every slot inactive), then capture the step
+        in a CUDA graph on that stream.  The capture launches nothing, so
+        the launch counters are set back to where they were and their
+        change is kept for ``replay``.  A failed capture raises."""
+        if instrument.ACTIVE is not None:
+            raise RuntimeError("a recorder would see one captured step for "
+                               "every replay")
+        dev = self.model.device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.run_eager()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self.run_eager()
+        after = _launch_counts()
+        self.replay_launches = {k: n - before[k] for k, n in after.items()
+                                if n != before[k]}
+        _add_launches({k: -n for k, n in self.replay_launches.items()})
+        self.graph = graph
+
+    def replay(self) -> None:
+        """One step: the captured graph, and the launches it holds added
+        to the kernels' counters."""
+        self.graph.replay()
+        _add_launches(self.replay_launches)
+
+    def read(self, chunk: int) -> np.ndarray:
+        """The sampled tokens [slots, chunk] (one D2H, which waits for the
+        quantum's steps); columns past the buffers' width are zeros."""
+        w = min(chunk, self.max_chunk)
+        got = self.out[:, :w].to("cpu", copy=True).numpy()
+        if w == chunk:
+            return got
+        return np.pad(got, ((0, 0), (0, chunk - w)))
+
+
+def build_paged_step(model: Model, cache: dict[str, torch.Tensor], *,
+                     slots: int, max_pages: int, max_chunk: int
+                     ) -> PagedStep:
+    """The decode quantum's step over ``cache`` (the engine's pools, which
+    it writes in place): the port of the reference's ``build_paged_step``.
+    The reference jits one scan per C; here C only counts the steps a
+    quantum runs, so one step object, sized for the longest quantum
+    (``max_chunk``), serves every C."""
+    return PagedStep(model, cache, slots=slots, max_pages=max_pages,
+                     max_chunk=max_chunk)
 
 
 class ServeEngine:
@@ -143,6 +328,17 @@ class ServeEngine:
         self.cache = {name: torch.zeros(shape, dtype=dtype,
                                         device=self.device)
                       for name, (shape, dtype) in self._cache_specs.items()}
+        # the reference's _step_fn keeps one jitted quantum per C; the
+        # port's one step serves every C, up to a chain's whole length
+        self.step = build_paged_step(
+            model, self.cache, slots=slots, max_pages=pages_per_seq,
+            max_chunk=pages_per_seq * page_size)
+        #: "graph": each step of a quantum is one replay of the step
+        #: captured at warm-up (a card, every mesh axis of size 1);
+        #: "eager": the step runs from Python (the CPU, or a mesh of
+        #: processes, whose collectives go through host buffers)
+        self.quantum_mode = ("graph" if self.device.type == "cuda" and all(
+            n == 1 for n in model.ctx.axis_sizes.values()) else "eager")
 
     # -- device state --------------------------------------------------------
 
@@ -150,45 +346,33 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _table(self) -> torch.Tensor:
-        return torch.from_numpy(self.pt.table).to(self.device)
-
     def warmup(self) -> None:
         """Build the kernels and warm the device libraries outside the
         measured loop: one decode step with every slot inactive writes
-        only the pools' trailing page and leaves all state as it was."""
-        z = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
-        self.model.decode_step_paged(self.cache, self._table(), z, z,
-                                     z.bool())
+        only the pools' trailing page and leaves all state as it was.  In
+        graph mode the step is then captured (``PagedStep.capture``)."""
+        z = np.zeros(self.slots, np.int32)
+        self.step.load(self.pt.table, z[:, None], z + 1, z, z)
+        if self.quantum_mode == "graph":
+            self.step.capture()
+        else:
+            self.step.run_eager()
         self.decode_steps += 1
         self._sync()
         self._warm = True
 
     def _run_quantum(self, plan: QuantumPlan) -> np.ndarray:
-        """Run one quantum on the device: step t feeds slot b
-        ``tokens[b, t]`` while t < n_in[b] (prompt / chain seed) and its own
-        previous sample afterwards; slots with t >= steps[b] are inactive
-        (no cache write, no position advance).  Steps past the longest
-        slot's count are not run: they would change nothing.  Returns the
-        sampled tokens [slots, C] (one host sync)."""
-        dev = self.device
-        table = self._table()
-        tokens = torch.from_numpy(plan.tokens).to(dev)
-        n_in = torch.from_numpy(plan.n_in).to(dev)
-        steps = torch.from_numpy(plan.steps).to(dev)
-        pos = torch.from_numpy(plan.pos).to(dev)
-        last = tokens[:, 0]
-        out = torch.zeros_like(tokens)
-        for t in range(int(plan.steps.max())):
-            tok = torch.where(t < n_in, tokens[:, t], last)
-            act = t < steps
-            nxt, self.cache = self.model.decode_step_paged(
-                self.cache, table, tok, pos, act)
-            pos = pos + act.to(torch.int32)
-            last = torch.where(act, nxt, last)
-            out[:, t] = nxt
+        """Run one quantum on the device: the plan in one copy, then one
+        step (a graph replay, or the step from Python) for each step of the
+        longest slot's count: steps past it would change nothing.  Returns
+        the sampled tokens [slots, C] (one host sync)."""
+        st = self.step
+        st.load(self.pt.table, plan.tokens, plan.n_in, plan.steps, plan.pos)
+        advance = st.replay if self.quantum_mode == "graph" else st.run_eager
+        for _ in range(int(plan.steps.max())):
+            advance()
             self.decode_steps += 1
-        return out.cpu().numpy()
+        return st.read(plan.chunk)
 
     # -- queue ---------------------------------------------------------------
 
