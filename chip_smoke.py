@@ -47,13 +47,19 @@ phase that fails:
                B=2, S=1024, AdamW with f32 moments, remat) for 5 steps of
                build_train_step: finite losses, and exactly 64 forward
                (32 layers + 32 recomputed) and 32 backward flash launches
-               per step; then prefill_sp on 2 prompts of 1024 tokens;
+               per step, steps 2-5 replays of the step captured in the
+               first (``TrainStep.step_mode`` "graph"); one step replayed
+               and one from Python (``run_eager``), each with its host
+               wall, device time by kind, busy share and peak memory; then
+               prefill_sp on 2 prompts of 1024 tokens;
   6. parity  — training, prefill and generation at full width, 2 layers,
                f32, TF32 off, with the flash kernels and with the plain
                versions pinned: gradients, 3 steps' losses and updates,
-               and greedy tokens agree; the contiguous Generator's tokens
-               equal the paged engine's; TrainLoop recovers from an
-               injected failure through its checkpoints;
+               and greedy tokens agree (both paths' steps after the first
+               graph replays); the contiguous Generator's tokens equal the
+               paged engine's; TrainLoop recovers from an injected failure
+               through its checkpoints, binding and capturing its step
+               again after the restore;
   7. jacobi  — the paper's Jacobi solve at 16386 x 16386 f32 on one rank
                through halo.jacobi_solve: 256 sweeps each of bulk,
                interleaved, and aggregated at the k that
@@ -69,8 +75,9 @@ phase that fails:
                decode steps, no grouped launch); 3 training steps at full
                width and 4 layers with exactly 8 grouped launches per
                step, all on the tensor cores, and exactly 4 grouped
-               backward launches per step on the tensor cores, and a
-               fourth step under torch.profiler; and at 2 layers in f32
+               backward launches per step on the tensor cores, steps 2-3
+               graph replays, then one step replayed and one from Python
+               timed and profiled as phase 5's; and at 2 layers in f32
                (the grouped kernels' SIMT engines, forward and backward)
                the kernel path against the plain path (loss, gradients,
                prefill logits) and the contiguous Generator against the
@@ -84,7 +91,8 @@ phase that fails:
                of the same tokens, 16 greedy tokens from its cache; 3
                training steps (B=2, S=1024) with exactly 64 carry launches
                (32 layers + 32 recomputed) and 32 block-backward launches
-               per step; and at 2 layers in f32 the ring with the kernels,
+               per step, steps 2-3 graph replays; and at 2 layers in f32
+               the ring with the kernels,
                the ring with the plain step and its plain backward, and
                megatron with the flash kernels agree in loss, gradients,
                prefill logits and greedy tokens;
@@ -97,7 +105,10 @@ phase that fails:
                ``train_100m --steps 50`` (110 M
                parameters, S 256, B 8, 1x1, async checkpoints; exactly
                24 forward and 12 backward flash launches a step): host
-               wall per step and tokens/s beside the card;
+               wall per step and tokens/s beside the card; in both every
+               step after the first a graph replay; one train_100m step
+               replayed and one from Python, timed and profiled as phase
+               5's;
  11. mesh    — two processes on the one card over gloo (``--mesh-rank``,
                file:// init): phi4-mini-3.8b at full width, 2 layers, f32,
                TF32 off; one ``build_train_step`` step (B 2, S 1024) on
@@ -111,7 +122,8 @@ phase that fails:
                bytes between the card and host memory per step (gloo on
                one card, not NCCL: staged messages and gloo's own copies
                of all-reduces), and ``jacobi_mdmp --ranks 2`` (every
-               schedule equal, and equal to one rank);
+               schedule equal, and equal to one rank); the mesh steps run
+               eager (gloo), the 1x1 oracle through ``run_eager``;
  12. moe     — two processes on the card again (``--moe-mesh-rank``):
     mesh       moonshot-v1-16b-a3b at full width, 2 layers, f32, a
                capacity factor that drops no token; one train step (B 2,
@@ -125,12 +137,13 @@ phase that fails:
                engine's tokens against 1x1's, and a bf16 prefill per
                layout whose grouped launches all take the tensor cores and
                whose first call, at its shard shape, is held to the plain
-               version as phase 2 holds it;
+               version as phase 2 holds it; the steps eager as phase 11's;
  13. families — the flash kernels against the plain versions at the
                families' shapes; mamba2-130m (bf16, uncut) through
                ServeEngine against the contiguous Generator; hymba-1.5b
                uncut: a 2 x 2048 prefill (its 1024 window bites), served,
-               one bf16 training step of 1 x 2048; whisper-small (1500
+               three bf16 training steps of 1 x 2048 (a capture, two
+               replays); whisper-small (1500
                stub frames, prefill 2 x 448, 16 tokens) and internvl2-1b
                (256 stub patches, prefill 2 x 1024, 16 tokens); f32
                training of mamba2 and hymba (4 layers) at chunk 256 with
@@ -144,7 +157,8 @@ phase that fails:
                microbatches of B=2 x S=1024): 2 warm-up and 3 timed steps
                and a gpipe step, exactly 128 forward and 64 backward flash
                launches a step, the first loss within 2e-3 of phase 5's
-               plain step; two processes on the card as pod stages over
+               plain step, every pipelined step eager; two processes on
+               the card as pod stages over
                gloo (``--pipe-mesh-rank``): phi4-mini at full width, 4
                layers, f32, one step under gpipe, 1f1b, interleaved and
                auto against rank 0's 1x1 step (loss and gradient norm
@@ -157,7 +171,9 @@ phase that fails:
                scales); and train_100m's model through TrainLoop with the
                managed cadence and a fault plan placed on that run's own
                saves (a rank death and a corrupt checkpoint): every event
-               fires, the restore passes over the corrupt checkpoint, the
+               fires, each restore binds the step again and captures it
+               again (every other step a replay), the restore passes over
+               the corrupt checkpoint, the
                ckpt_interval decisions print with the measured write
                bandwidth, and the resumed losses equal the nearer of two
                uninterrupted runs' (bit for bit when those agree, else
@@ -166,8 +182,9 @@ phase that fails:
                ``launch.train`` with phi4-mini uncut (B=2 x S=1024, 3
                steps, 1x1) planned, strictly verified and traced against
                the plain launch (the program_plan line, no finding,
-               exactly 64 / 32 flash launches a step, the first loss bit
-               for bit and later ones within PLAN_LOSS_RTOL, the trace's
+               exactly 64 / 32 flash launches a step, steps 2-3 graph
+               replays, the first loss bit for bit and later ones within
+               PLAN_LOSS_RTOL, the trace's
                spans, ``launch.trace`` summary and diff), the end-of-run
                save stood in; ``launch.serve`` planned and traced on
                phase 3's requests (phase 3's tokens, 32 paged launches a
@@ -191,7 +208,8 @@ phase that fails:
                predicted peak memory within DRYRUN_PEAK_BAND of
                ``max_memory_allocated``; then four production cells on a
                fake 256 / 512-rank group (``DRYRUN_CELLS``), each ok, with
-               no process group left and the card untouched;
+               no process group left and the card untouched (a step on
+               meta tensors runs eager);
  17. nemotron — nemotron-4-340b at full width (d_model 18432, 96/8 heads
                of 192, d_ff 73728 relu2, vocab 256000), cut to 2 layers in
                bf16: prefill_sp of 1 x 4096 (2 flash launches, logits
@@ -206,7 +224,8 @@ phase that fails:
                against the plain path's; and nemotron's reduced config
                widened to head_dim 192 (d_model 768, 4/2 heads, d_ff 3072)
                trained 3 AdamW steps in bf16 at B=2 x S=2048 with exact
-               flash launch counts, and in f32 held to the plain path
+               flash launch counts (steps 2-3 graph replays), and in f32
+               held to the plain path
                (loss 1e-5, gradients 1e-4).
 
 Phase 2 also holds the flash forward, backward, carry step and block
@@ -247,6 +266,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2360,17 +2380,106 @@ def serve(torch, model, prompts, n_new, max_seq=512, eager=False, **kw):
     return [out[r] for r in rids], eng, wall, launches
 
 
+def launch_words(delta: dict) -> str:
+    """A step object's ``replay_launches`` in words."""
+    return ", ".join(
+        f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+        f"{'' if key is None else f'[{key}]'} +{n}"
+        for (mod, name, key), n in delta.items()) or "no launch"
+
+
 def check_graph(eng, what: str) -> str:
     """Fail unless ``eng`` ran its quanta as replays of a captured step;
     returns the words that say so."""
     if eng.quantum_mode != "graph" or eng.step.graph is None:
         fail(f"{what}: the engine ran its quanta {eng.quantum_mode}, "
              f"captured {eng.step.graph is not None}, not as graph replays")
-    counts = ", ".join(
-        f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
-        f"{'' if key is None else f'[{key}]'} +{n}"
-        for (mod, name, key), n in eng.step.replay_launches.items())
-    return f"quanta as CUDA graph replays ({counts or 'no launch'} a replay)"
+    return (f"quanta as CUDA graph replays "
+            f"({launch_words(eng.step.replay_launches)} a replay)")
+
+
+def check_train_graph(step, what: str, replays: int,
+                      bindings: int = 1) -> str:
+    """Fail unless the training step object ``step`` ran every step after
+    each binding's first as a replay of its captured CUDA graph:
+    ``replays`` replays over ``bindings`` bindings.  Returns the words
+    that say so."""
+    if step.step_mode != "graph" or step.graph is None:
+        fail(f"{what}: the training step ran {step.step_mode}, captured "
+             f"{step.graph is not None}, not as graph replays")
+    if (step.replays, step.bindings) != (replays, bindings):
+        fail(f"{what}: {step.replays} graph replays over {step.bindings} "
+             f"bindings, not {replays} over {bindings}")
+    return (f"steps after each binding's first as CUDA graph replays "
+            f"({replays} replays, {bindings} binding"
+            f"{'s' if bindings > 1 else ''}; "
+            f"{launch_words(step.replay_launches)} a replay)")
+
+
+@contextlib.contextmanager
+def kept_train_steps(module):
+    """The training step objects ``module.build_train_step`` makes inside
+    the block (an example or a launcher that keeps its step to itself)."""
+    made, real = [], module.build_train_step
+
+    def build(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    module.build_train_step = build
+    try:
+        yield made
+    finally:
+        module.build_train_step = real
+
+
+def train_step_modes(torch, step, opt, batches, what: str) -> dict:
+    """One training step as a replay of ``step``'s captured graph and one
+    from Python (``run_eager`` over the same state), each timed bare, then
+    once more under torch.profiler: host wall, device time by kind, busy
+    share, peak memory allocated over the bare step and reserved after
+    it.  The graph and its pool are released before the eager steps (at
+    phi4-mini's full width the pool and an eager step's temporaries do
+    not fit the card together).  ``batches``: four batches on the card.
+    Returns {"graph" | "eager": (host ms, device ms, peak GB)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out, it = {}, iter(batches)
+    for way, label in (("graph", "one CUDA graph replay"),
+                       ("eager", "eager from Python")):
+        if way == "eager":
+            step.release()
+
+        def run(batch):
+            if way == "eager":
+                step.load(opt, batch)
+                return float(step.run_eager()["loss"])
+            return float(step(opt, batch)[1]["loss"])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(next(it))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reserved = torch.cuda.memory_reserved() / 1e9
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(next(it))
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        per_kernel = device_ms_by_kernel(torch, prof, 1)
+        dev = sum(per_kernel.values())
+        print(f"  {what}, {label}: {wall:.2f} ms host wall; under "
+              f"torch.profiler {prof_wall:.2f} ms host wall, {dev:.2f} ms "
+              f"device time (busy share {dev / prof_wall * 100:.1f}%); peak "
+              f"{peak:.2f} GB allocated, {reserved:.2f} GB reserved",
+              flush=True)
+        print_by_kind(per_kernel, f"{what} ({label})")
+        out[way] = (wall, dev, peak)
+    return out
 
 
 def profile_decode_step(torch, model, slots: int = 8, page: int = 16,
@@ -2589,8 +2698,6 @@ def train_batch(torch, data, step):
 
 
 def phase_train(torch):
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLMData
     from repro_torch.kernels import flash_attention as fa
@@ -2642,30 +2749,18 @@ def phase_train(torch):
     tok_s = b * s * 3 / sum(walls[2:])
     print(f"  5 steps: losses {[round(x, 4) for x in losses]}; after 2 "
           f"warm-up steps {sum(walls[2:]) / 3 * 1e3:.1f} ms per step = "
-          f"{tok_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB",
-          flush=True)
+          f"{tok_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"reserved; {check_train_graph(step, 'phase 5', 4)}", flush=True)
 
-    # where one step's device time goes (a sixth step, outside the counts)
-    batch = train_batch(torch, data, 5)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        opt, metrics = step(opt, batch)
-        float(metrics["loss"])
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    per_kernel = device_ms_by_kernel(torch, prof, 1)
-    dev_ms = sum(per_kernel.values())
-    flash_ms = sum(v for k, v in per_kernel.items() if "flash_" in k)
-    print(f"  one step under torch.profiler: {prof_wall * 1e3:.1f} ms host "
-          f"wall, {dev_ms:.1f} ms device time (busy share "
-          f"{dev_ms / (prof_wall * 1e3) * 100:.1f}%), flash kernels "
-          f"{flash_ms:.1f} ms ({flash_ms / max(dev_ms, 1e-9) * 100:.1f}%)",
-          flush=True)
-    print_by_kind(per_kernel, "training step")
+    # where one step's time goes, replayed and from Python (steps 6-9,
+    # outside the counts)
+    train_step_modes(torch, step, opt,
+                     [train_batch(torch, data, i) for i in range(5, 9)],
+                     "one phi4-mini-3.8b training step")
 
     # prefill of 2 prompts of 1024 tokens through the same weights
-    del opt, step, batch, metrics
+    del opt, step, metrics
     torch.cuda.empty_cache()
     tokens = torch.from_numpy(data.global_batch_at(6)["tokens"]).cuda()
     model.prefill_sp({"tokens": tokens})                  # warm-up
@@ -2738,10 +2833,15 @@ def phase_parity(torch):
         p0 = {k: v.detach().clone() for k, v in
               flatten_specs(model.params()).items()}
         fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
-        loss, _ = model.loss_sp(train_batch(torch, data, 0))
+        loss, aux = model.loss_sp(train_batch(torch, data, 0))
         grads = torch.autograd.grad(
             loss, list(flatten_specs(model.params()).values()))
         grads = dict(zip(flatten_specs(model.params()), grads))
+        # a live autograd graph keeps its parameters' AccumulateGrad nodes
+        # on this (the legacy) stream, which the step's capture cannot
+        # join
+        loss0 = loss.item()
+        del loss, aux
         want = (2 * cfg.n_layers, cfg.n_layers) if engine == "auto" \
             else (0, 0)
         if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
@@ -2758,13 +2858,15 @@ def phase_parity(torch):
             fail(f"{engine}: flash launches {fa.FWD_LAUNCHES} / "
                  f"{fa.BWD_LAUNCHES} in 3 steps, not {3 * want[0]} / "
                  f"{3 * want[1]}")
+        graph_words = check_train_graph(step, f"phase 6 ({engine})", 2)
         upd = {k: (v.detach() - p0[k]) for k, v in
                flatten_specs(model.params()).items()}
         prompts = data.global_batch_at(9)["tokens"][:, :256]
         logits, _ = model.prefill_sp({"tokens": torch.from_numpy(
             prompts).cuda()})
-        runs[engine] = dict(loss=loss.item(), grads=grads, losses=losses,
-                            upd=upd, greedy=logits.argmax(-1).cpu())
+        runs[engine] = dict(loss=loss0, grads=grads, losses=losses,
+                            upd=upd, greedy=logits.argmax(-1).cpu(),
+                            graph=graph_words)
         if engine == "auto":
             kernel_model = model
         else:
@@ -2790,8 +2892,8 @@ def phase_parity(torch):
           f"gradient within {worst[0]:.2e} of its largest magnitude "
           f"(tolerance 1e-4); 3 steps' losses {a['losses']} vs "
           f"{b['losses']} (rtol 1e-5); updates within {upd_err:.2e} "
-          f"(relative norm, tolerance 1e-3); prefill greedy tokens equal",
-          flush=True)
+          f"(relative norm, tolerance 1e-3); prefill greedy tokens equal; "
+          f"both paths' {a['graph']}", flush=True)
 
     # the contiguous Generator against the paged ServeEngine, kernel model
     prompts = data.global_batch_at(10)["tokens"][:, :96]
@@ -2817,8 +2919,8 @@ def phase_parity(torch):
                 raise RuntimeError("injected failure")
 
         opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
-        loop = TrainLoop(build_train_step(kernel_model, opt_cfg),
-                         kernel_model, opt_cfg, data,
+        step = build_train_step(kernel_model, opt_cfg)
+        loop = TrainLoop(step, kernel_model, opt_cfg, data,
                          TrainLoopConfig(total_steps=3, ckpt_every=2,
                                          ckpt_dir=ckpt_dir, keep=1),
                          fault_hook=fault)
@@ -2831,15 +2933,18 @@ def phase_parity(torch):
             fail(f"TrainLoop ended at {out['step']} with "
                  f"{out['restarts']} restarts: {out['history']}")
         saves = loop.ckpt_metrics.saves
+        # steps 0 and 1 on the first binding (one replay), step 2 on the
+        # restored state's (its first: no replay)
+        words = check_train_graph(step, "phase 6 TrainLoop", 1, 2)
         print(f"  TrainLoop: 3 steps, a failure at step 2 restored from "
               f"the step-2 checkpoint ({len(saves)} saves of "
               f"{saves[-1].nbytes / 1e9:.2f} GB, snapshot "
               f"{saves[-1].snapshot_s:.2f} s, drain {saves[-1].drain_s:.2f}"
-              f" s, write {saves[-1].write_s:.2f} s); {wall:.1f} s in all",
-              flush=True)
+              f" s, write {saves[-1].write_s:.2f} s); {wall:.1f} s in all; "
+              f"{words}", flush=True)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    del kernel_model, loop, opt, out
+    del kernel_model, loop, opt, out, step
     torch.cuda.empty_cache()
 
 
@@ -3097,10 +3202,9 @@ def phase_moe_serve(torch):
 
 
 def phase_moe_train(torch):
-    """Step 4: moonshot at full width, 4 of its 48 layers, 3 steps and a
-    fourth under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Step 4: moonshot at full width, 4 of its 48 layers, 3 steps (a
+    capture and two graph replays), then one step replayed and one from
+    Python, each timed bare and under the profiler."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLMData
     from repro_torch.kernels import flash_attention as fa
@@ -3159,24 +3263,16 @@ def phase_moe_train(torch):
           f"launches per step (grouped on the tensor cores, flash "
           f"forward, flash backward, grouped, grouped backward, grouped "
           f"backward on the tensor cores) {counts[0]}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; "
+          f"{check_train_graph(step, 'phase 8', 2)}", flush=True)
 
-    # where one step's device time goes (a fourth step, outside the counts)
-    batch = train_batch(torch, data, 3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        opt, metrics = step(opt, batch)
-        float(metrics["loss"])
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    per_kernel = device_ms_by_kernel(torch, prof, 1)
-    dev_ms = sum(per_kernel.values())
-    print(f"  one MoE training step under torch.profiler: "
-          f"{prof_wall * 1e3:.1f} ms host wall, {dev_ms:.1f} ms device time "
-          f"(busy share {dev_ms / (prof_wall * 1e3) * 100:.1f}%)", flush=True)
-    print_by_kind(per_kernel, "MoE training step")
-    del model, opt, step, batch, metrics
+    # where one step's time goes, replayed and from Python (steps 4-7,
+    # outside the counts)
+    train_step_modes(torch, step, opt,
+                     [train_batch(torch, data, i) for i in range(3, 7)],
+                     "one MoE training step")
+    del model, opt, step, metrics
     torch.cuda.empty_cache()
     return sum(c[4] for c in counts)
 
@@ -3443,7 +3539,8 @@ def phase_ring_prefill_and_train(torch):
           f"{launches['carry']} carry launches in this phase's ring runs (2 "
           f"prefills x {cfg.n_layers} + 3 steps x {2 * cfg.n_layers}), "
           f"{launches['block']} block-backward launches (3 steps x "
-          f"{cfg.n_layers})", flush=True)
+          f"{cfg.n_layers}); {check_train_graph(step, 'phase 9 ring', 2)}",
+          flush=True)
     batch = train_batch(torch, data, 3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3454,9 +3551,10 @@ def phase_ring_prefill_and_train(torch):
         prof_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = device_ms_by_kernel(torch, prof, 1)
     dev_ms = sum(per_kernel.values())
-    print(f"  one ring training step under torch.profiler: {prof_ms:.1f} ms "
-          f"host wall, {dev_ms:.1f} ms device time (busy share "
-          f"{dev_ms / prof_ms * 100:.1f}%)", flush=True)
+    print(f"  one ring training step (a graph replay) under "
+          f"torch.profiler: {prof_ms:.1f} ms host wall, {dev_ms:.1f} ms "
+          f"device time (busy share {dev_ms / prof_ms * 100:.1f}%)",
+          flush=True)
     print_by_kind(per_kernel, "ring training step")
     del model, opt, step, batch, metrics
     torch.cuda.empty_cache()
@@ -3634,6 +3732,7 @@ def phase_examples(torch, card):
     card; each run's flash launches counted from 0 and held exact, and
     the quickstart's kernels and model held to the plain versions."""
     from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
     from repro_torch.examples import quickstart, train_100m
     from repro_torch.kernels import flash_attention as fa
 
@@ -3642,9 +3741,12 @@ def phase_examples(torch, card):
     try:
         fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
-        out = quickstart.run(QUICKSTART_STEPS, device="cuda",
-                             ckpt_dir=os.path.join(tmp, "quickstart"))
+        with kept_train_steps(quickstart) as made:
+            out = quickstart.run(QUICKSTART_STEPS, device="cuda",
+                                 ckpt_dir=os.path.join(tmp, "quickstart"))
         qs_s = time.perf_counter() - t0
+        qs_graph = check_train_graph(made[0], "quickstart",
+                                     QUICKSTART_STEPS - 1)
         losses = [h["loss"] for h in out["history"]]
         got = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
         n_layers = configs.get_reduced("granite-34b").n_layers
@@ -3668,14 +3770,16 @@ def phase_examples(torch, card):
               f"{got[1]} backward, {qs_s:.1f} s; its flash kernels against "
               f"the plain versions (f32 and bf16) worst {worst_k:.2e} of "
               f"the largest magnitude; its model in f32, kernels against "
-              f"plain: loss within 1e-5, gradients within {worst_p:.2e}",
-              flush=True)
+              f"plain: loss within 1e-5, gradients within {worst_p:.2e}; "
+              f"its {qs_graph}", flush=True)
         launches["quickstart"] = got
 
         fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
         ckpt = os.path.join(tmp, "train_100m")
-        out = train_100m.main(["--steps", str(EXAMPLE_STEPS), "--ckpt",
-                               ckpt])
+        with kept_train_steps(train_100m) as made:
+            out = train_100m.main(["--steps", str(EXAMPLE_STEPS), "--ckpt",
+                                   ckpt])
+        step = made[0]
         hist = out["history"]
         losses = [h["loss"] for h in hist]
         n_layers = train_100m.CONFIG_100M.n_layers
@@ -3686,6 +3790,7 @@ def phase_examples(torch, card):
         if got != want or not os.listdir(ckpt):
             fail(f"train_100m: flash launches {got} (want {want}), "
                  f"checkpoints {os.listdir(ckpt)}")
+        tm_graph = check_train_graph(step, "train_100m", EXAMPLE_STEPS - 1)
         walls = sorted(h["time_s"] for h in hist[EXAMPLE_WARMUP:])
         med = walls[len(walls) // 2]
         tokens = 8 * 256
@@ -3696,8 +3801,16 @@ def phase_examples(torch, card):
               f"steps {EXAMPLE_WARMUP}-{EXAMPLE_STEPS - 1} = "
               f"{tokens / med:.0f} tokens/s; loss {losses[0]:.3f} -> "
               f"{losses[-1]:.3f}; flash launches {got[0]} forward / {got[1]} "
-              f"backward; on {card}", flush=True)
+              f"backward; {tm_graph}; on {card}", flush=True)
         launches["train_100m"] = got
+        # one step replayed and one from Python, on the trained state
+        data = SyntheticLMData(DataConfig(
+            vocab_size=train_100m.CONFIG_100M.vocab_size, seq_len=256,
+            global_batch=8))
+        train_step_modes(torch, step, out["opt"],
+                         [train_batch(torch, data, EXAMPLE_STEPS + i)
+                          for i in range(4)], "one train_100m step")
+        del step, made, out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -3775,13 +3888,13 @@ def mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
         opt = adamw_init(model.params(), opt_cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, metrics = fn(opt, batch)
+        _, metrics = eager_step(fn, opt, batch)
         loss = float(metrics["loss"])
         torch.cuda.synchronize()
         return dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
                     ms=(time.perf_counter() - t0) * 1e3,
                     fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
-                    staged=transport.staged_bytes())
+                    staged=transport.staged_bytes(), mode=fn.step_mode)
 
     one = None
     spy = plain_spy().__enter__()
@@ -3880,6 +3993,7 @@ def phase_mesh(torch, root, card):
               f"of all-reduces) {res[0][spec]['staged']} / "
               f"{res[1][spec]['staged']}", flush=True)
     quantum = mesh_modes(res, "phase 11")
+    print(f"  {mesh_step_modes(res, MESH_SPECS, 'phase 11')}", flush=True)
     for r in range(2):
         if res[r]["1x2_tokens"] != res[0]["one_tokens"]:
             fail(f"1x2 rank {r} greedy tokens {res[r]['1x2_tokens']} != "
@@ -3995,7 +4109,7 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with managed.capture_decisions() as cap:
-            _, metrics = fn(opt, batch)
+            _, metrics = eager_step(fn, opt, batch)
             loss = float(metrics["loss"])
         torch.cuda.synchronize()
         recs = [r for r in cap.records
@@ -4006,7 +4120,7 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
                     engines=dict(gm.ENGINE_LAUNCHES),
                     bwd=gm.GROUPED_BWD_LAUNCHES,
                     bwd_engines=dict(gm.BWD_ENGINE_LAUNCHES),
-                    staged=transport.staged_bytes(),
+                    staged=transport.staged_bytes(), mode=fn.step_mode,
                     decisions=[f"{r.op}({r.mode}, g={r.chunks}, "
                                f"{r.nbytes} B)" for r in recs])
 
@@ -4134,6 +4248,29 @@ def moe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+def eager_step(fn, opt, batch):
+    """One training step issued from Python whatever ``fn``'s mode: where
+    it would be captured (a card, every axis of size 1), through its
+    ``run_eager`` over its static buffers.  The two-rank phases' 1x1
+    oracles run so, beside their meshes' eager steps."""
+    if fn.step_mode == "graph":
+        fn.load(opt, batch)
+        return opt, fn.run_eager()
+    return fn(opt, batch)
+
+
+def mesh_step_modes(res: list[dict], keys, what: str) -> str:
+    """Fail unless every training step of a two-rank phase's meshes ran
+    eager (its collectives go through gloo and host buffers, which a
+    graph cannot hold); returns the words that say so."""
+    bad = [(r, k, res[r][k]["mode"]) for r in range(2) for k in keys
+           if res[r][k]["mode"] != "eager"]
+    if bad:
+        fail(f"{what}: training steps ran {bad}, not eager")
+    return ("the training steps on the 2-rank meshes eager (gloo), the 1x1 "
+            "oracle from Python through run_eager")
+
+
 def mesh_modes(res: list[dict], what: str) -> str:
     """The engines' ways of running a quantum in a two-rank phase: rank
     0's 1x1 engine replays its graph, every 1x2 engine runs the step from
@@ -4258,6 +4395,8 @@ def phase_moe_mesh(torch, card):
               f"{sorted(set(res[0][name]['decisions']))} "
               f"(x{len(res[0][name]['decisions'])})", flush=True)
     quantum = mesh_modes(res, "phase 12")
+    runs = [name for name, *_ in MOE_MESH_RUNS]
+    print(f"  {mesh_step_modes(res, runs, 'phase 12')}", flush=True)
     for r in range(2):
         if res[r]["mesh_tokens"] != res[0]["one_tokens"]:
             fail(f"1x2 rank {r} greedy tokens {res[r]['mesh_tokens']} != "
@@ -4384,10 +4523,13 @@ def attention_calls(cfg) -> int:
 
 
 def family_train(torch, cfg, b, s, *, grads: bool):
-    """One build_train_step step (AdamW) from seeded weights, with exact
+    """Three build_train_step steps (AdamW) from seeded weights, the
+    first captured and the others CUDA graph replays, each with exact
     flash launch counts (forward and remat replay, one backward per
     call); with ``grads`` every gradient of a separate loss_sp is checked
-    finite first.  Returns (loss, grad_norm, ms, largest |gradient|)."""
+    finite first.  Returns (the first step's loss, grad_norm and ms, a
+    replay's ms, the largest |gradient|, the words that say the steps
+    were replays)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import Model, flatten_specs
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -4398,7 +4540,7 @@ def family_train(torch, cfg, b, s, *, grads: bool):
     batch = family_batch(torch, cfg, b, s, SEED)
     gmax = None
     if grads:
-        loss, _ = model.loss_sp(batch)
+        loss, aux = model.loss_sp(batch)
         leaves = flatten_specs(model.params())
         gs = torch.autograd.grad(loss, list(leaves.values()))
         bad = [n for n, g in zip(leaves, gs) if not torch.isfinite(g).all()]
@@ -4406,27 +4548,34 @@ def family_train(torch, cfg, b, s, *, grads: bool):
             fail(f"{cfg.name} {cfg.dtype}: loss {float(loss)}, gradients "
                  f"not finite: {bad[:8]}")
         gmax = max(g.abs().max().item() for g in gs)
-        del gs, loss
+        # freed before the step's capture (phase 6 says why)
+        del gs, loss, aux
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
     step = build_train_step(model, opt_cfg)
     opt = adamw_init(model.params(), opt_cfg)
-    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, m = step(opt, batch)
-    loss, norm = float(m["loss"]), float(m["grad_norm"])
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     n = attention_calls(cfg)
     want = (2 * n if cfg.remat else n, n)
-    if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
-        fail(f"{cfg.name} train step: flash launches {fa.FWD_LAUNCHES} / "
-             f"{fa.BWD_LAUNCHES}, not {want}")
-    if not (np.isfinite(loss) and np.isfinite(norm)):
-        fail(f"{cfg.name} train step: loss {loss}, grad_norm {norm}")
+    out = []
+    for i in range(3):
+        if i:
+            batch = family_batch(torch, cfg, b, s, SEED + i)
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(opt, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out.append((loss, norm, (time.perf_counter() - t0) * 1e3))
+        if (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) != want:
+            fail(f"{cfg.name} train step {i}: flash launches "
+                 f"{fa.FWD_LAUNCHES} / {fa.BWD_LAUNCHES}, not {want}")
+        if not (np.isfinite(loss) and np.isfinite(norm)):
+            fail(f"{cfg.name} train step {i}: loss {loss}, grad_norm "
+                 f"{norm}")
+    words = check_train_graph(step, f"{cfg.name} {cfg.dtype}", 2)
     del model, opt, step
     torch.cuda.empty_cache()
-    return loss, norm, ms, gmax
+    return (*out[0], out[-1][2], gmax, words)
 
 
 def family_parity(torch, cfg, b, s):
@@ -4554,10 +4703,13 @@ def phase_families(torch, root, card):
           f"{way}", flush=True)
     del model, eng
     torch.cuda.empty_cache()
-    loss, norm, ms, _ = family_train(torch, cfg, 1, FAM_TRAIN_S, grads=False)
+    loss, norm, ms, replay_ms, _, words = family_train(
+        torch, cfg, 1, FAM_TRAIN_S, grads=False)
     print(f"  hymba-1.5b bf16 train step 1 x {FAM_TRAIN_S}: loss {loss:.4f},"
-          f" grad_norm {norm:.4f}, {ms:.1f} ms host wall, flash launches "
-          f"{2 * cfg.n_layers} / {cfg.n_layers}", flush=True)
+          f" grad_norm {norm:.4f}, {ms:.1f} ms host wall (its capture "
+          f"included), {replay_ms:.1f} ms as a replay, flash launches "
+          f"{2 * cfg.n_layers} / {cfg.n_layers} a step; {words}",
+          flush=True)
 
     # whisper-small and internvl2-1b: prefill with the stubs, 16 tokens
     for arch, s in (("whisper-small", 448), ("internvl2-1b", 1024)):
@@ -4595,14 +4747,15 @@ def phase_families(torch, root, card):
     for arch in ("mamba2-130m", "hymba-1.5b"):
         cfg = dataclasses.replace(configs.get_config(arch), dtype="float32")
         torch.cuda.reset_peak_memory_stats()
-        loss, norm, ms, gmax = family_train(torch, cfg, 1, FAM_TRAIN_S,
-                                            grads=True)
+        loss, norm, ms, replay_ms, gmax, words = family_train(
+            torch, cfg, 1, FAM_TRAIN_S, grads=True)
         peak = torch.cuda.max_memory_allocated() / 1e9
         print(f"  {arch} f32 full size, {cfg.n_layers} layers, 1 x "
               f"{FAM_TRAIN_S} (SSD chunk {cfg.ssm.chunk}): every gradient "
               f"finite (largest |g| {gmax:.3e}); train step loss "
-              f"{loss:.4f}, grad_norm {norm:.4f}, {ms:.1f} ms, peak memory "
-              f"{peak:.2f} GB", flush=True)
+              f"{loss:.4f}, grad_norm {norm:.4f}, {ms:.1f} ms (capture "
+              f"included), {replay_ms:.1f} ms as a replay, peak memory "
+              f"{peak:.2f} GB; {words}", flush=True)
 
     # each family at 2 layers in f32: kernels against the plain path
     worst = 0.0
@@ -4725,9 +4878,13 @@ COMPRESS_LOSS_RTOL = 5e-2
 #: (d) train_100m's model through TrainLoop with the managed cadence; the
 #: fault plan's steps follow the faulted run's own checkpoints (the
 #: cadence is decided from measured times): a rank death the step after
-#: its first save, a corrupt event the step after its second
+#: its first save, a corrupt event the step after its second.  The
+#: Young/Daly interval is sqrt(2 x save cost x MTBF) / step time: with a
+#: 1 GB save costing 0.4-0.5 s, an MTBF of 20 ms puts it at 4-8 of the
+#: ~24 ms steps a graph replay takes (1 s did so for the ~110-145 ms
+#: steps from Python), so the run saves several times in its 30 steps
 FAULT_STEPS = 30
-FAULT_MTBF_S = 1.0
+FAULT_MTBF_S = 0.02
 #: the resumed losses must lie within this many times the spread of two
 #: uninterrupted runs (the bf16 flash backward's reduce-adds sum in an
 #: order that varies, so runs differ), and equal them bit for bit where
@@ -4773,6 +4930,9 @@ def pipeline_one_rank(torch, plain):
         step = build_train_step(model, opt_cfg, pipeline=sched,
                                 pipe_microbatches=PIPE_M, global_batch=b,
                                 seq_len=s)
+        if step.step_mode != "eager":
+            fail(f"the pipelined step ({sched}) runs {step.step_mode}, not "
+                 f"eager")
         for _ in range(steps):
             batch = train_batch(torch, data, len(losses))
             fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
@@ -4805,7 +4965,8 @@ def pipeline_one_rank(torch, plain):
           f"{b * s / ms * 1e3:.1f} tokens/s (phase 5's plain step "
           f"{plain['ms']:.1f} ms = {plain['tok_s']:.1f} tokens/s); gpipe "
           f"step {walls[5] * 1e3:.1f} ms; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the pipelined "
+          f"steps eager (a pipeline runs no captured graph)", flush=True)
     del model, opt, step, metrics
     torch.cuda.empty_cache()
     return want
@@ -4880,7 +5041,8 @@ def pipe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
             for i in range(steps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                opt, metrics = fn(opt, train_batch(torch, data, i))
+                opt, metrics = eager_step(fn, opt,
+                                          train_batch(torch, data, i))
                 out["losses"].append(float(metrics["loss"]))
                 torch.cuda.synchronize()
                 out["ms"].append((time.perf_counter() - t0) * 1e3)
@@ -4896,6 +5058,7 @@ def pipe_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
                                   if r.op == "all_reduce") / steps
         out["decision"] = [(r.mode, r.chunks) for r in cap.records
                            if r.op == "pipeline_schedule"]
+        out["mode"] = fn.step_mode
         del opt, fn
         return out
 
@@ -5031,6 +5194,8 @@ def pipeline_two_ranks(torch, card):
           f"step host wall {plain['ms']} / {packed['ms']} ms; bytes "
           f"between card and host memory in the first step "
           f"{plain['staged']} / {packed['staged']}", flush=True)
+    keys = list(PIPE_SCHEDULES) + ["compress0", "compress1"]
+    print(f"  {mesh_step_modes(res, keys, 'phase 14 (b, c)')}", flush=True)
 
 
 class OwnSavesPlan:
@@ -5092,8 +5257,9 @@ def fault_run(torch, tmp, name, plan=None):
     """train_100m's model (bf16, uncut) through TrainLoop with the managed
     cadence, FAULT_STEPS steps of 8 x 256; under an ``OwnSavesPlan`` when
     one is given.  Returns the loop, its result, the loss of each step
-    (the last run of a step that ran twice) and every step run in order
-    as (step, loss)."""
+    (the last run of a step that ran twice), every step run in order as
+    (step, loss) and the words that say each binding's steps after its
+    first were CUDA graph replays (a restore binds again)."""
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.tuner import ScheduleTuner
     from repro_torch.data.pipeline import DataConfig, SyntheticLMData
@@ -5110,7 +5276,8 @@ def fault_run(torch, tmp, name, plan=None):
     data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
                                       global_batch=8))
     box = {}
-    loop = TrainLoop(build_train_step(model, opt_cfg), model, opt_cfg, data,
+    step = build_train_step(model, opt_cfg)
+    loop = TrainLoop(step, model, opt_cfg, data,
                      TrainLoopConfig(total_steps=FAULT_STEPS,
                                      ckpt_every=max(5, FAULT_STEPS // 4),
                                      ckpt_dir=os.path.join(tmp, name),
@@ -5125,8 +5292,11 @@ def fault_run(torch, tmp, name, plan=None):
     out = loop.run(*loop.init_state(seed=SEED))
     ran = [(h["step"], h["loss"]) for h in out["history"]]
     losses = dict(ran)
-    del model
-    return loop, out, [losses[i] for i in range(FAULT_STEPS)], ran
+    bindings = out["restarts"] + 1
+    words = check_train_graph(step, f"phase 14 (d) run {name}",
+                              out["steps_executed"] - bindings, bindings)
+    del model, step
+    return loop, out, [losses[i] for i in range(FAULT_STEPS)], ran, words
 
 
 def fault_loop(torch, card):
@@ -5139,10 +5309,10 @@ def fault_loop(torch, card):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
     try:
-        loop_a, out_a, a, _ = fault_run(torch, tmp, "a")
-        _, _, b, _ = fault_run(torch, tmp, "b")
+        loop_a, out_a, a, _, _ = fault_run(torch, tmp, "a")
+        _, _, b, _, _ = fault_run(torch, tmp, "b")
         plan = OwnSavesPlan()
-        loop, out, f, ran = fault_run(torch, tmp, "f", plan)
+        loop, out, f, ran, words = fault_run(torch, tmp, "f", plan)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     saved_a = [r.step for r in loop_a.ckpt_metrics.saves]
@@ -5182,8 +5352,8 @@ def fault_loop(torch, card):
           f"saves: every event fired, {out['restarts']} restarts, "
           f"{out['steps_executed']} steps executed; the rank death "
           f"restored step {restored[0]}, the corrupt checkpoint (step "
-          f"{plan.corrupted}) was passed over for step {restored[1]}",
-          flush=True)
+          f"{plan.corrupted}) was passed over for step {restored[1]}; "
+          f"the faulted run's {words}", flush=True)
     for rec in decisions:
         print(f"  decision ckpt_interval({rec.mode} N={rec.interval} snap="
               f"{rec.snapshot_bytes / 1e6:.1f}MB step {rec.step_s * 1e3:.2f} "
@@ -5266,7 +5436,6 @@ class saves_stood_in:
 def launch_quietly(main, argv):
     """``main(argv)`` with its output captured: (result, text, seconds).
     The plan and the tracer a launch installs are taken down after."""
-    import contextlib
     import io
 
     from repro_torch import obs
@@ -5306,15 +5475,20 @@ def plan_train(torch, tmp, card):
                 os.path.join(tmp, f"ck_{name}"), "--trace", path] + flags
         fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
         saves = []
-        with saves_stood_in(saves):
+        with saves_stood_in(saves), kept_train_steps(train_cli) as made:
             out, text, wall = launch_quietly(train_cli.main, argv)
         torch.cuda.synchronize()
+        if "train step: graph" not in text:
+            fail(f"launch.train ({name}) did not print its step's mode "
+                 f"graph: {text[-2000:]}")
         runs[name] = dict(losses=[h["loss"] for h in out["history"]],
                           fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
                           text=text, wall=wall, path=path, saves=saves,
                           step_ms=[h["time_s"] * 1e3
-                                   for h in out["history"]])
-        del out
+                                   for h in out["history"]],
+                          graph=check_train_graph(
+                              made[0], f"launch.train ({name})", 2))
+        del out, made
         gc.collect()
         torch.cuda.empty_cache()
     prog, local = runs["program"], runs["local"]
@@ -5346,7 +5520,6 @@ def plan_train(torch, tmp, card):
     if names.count("train.step") != 3 or "lint.preflight" not in names \
             or "plan.resolve" not in names:
         fail(f"the planned launch's trace holds spans {sorted(set(names))}")
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -5369,8 +5542,8 @@ def plan_train(torch, tmp, card):
           f"{local['step_ms']} ms; launch walls {prog['wall']:.1f} / "
           f"{local['wall']:.1f} s; end-of-run saves stood in "
           f"{prog['saves']} / {local['saves']}; trace "
-          f"{len(names)} spans; {time.perf_counter() - t0:.1f} s on {card}",
-          flush=True)
+          f"{len(names)} spans; both launches' {prog['graph']}; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
 
 def plan_serve(torch, tmp, card):
@@ -5437,7 +5610,6 @@ def plan_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
     over gloo, planned and verified strictly, then plainly; the losses,
     gradient norms, installed knobs and decision records go to
     rank{r}.json."""
-    import contextlib
     import io
 
     import torch
@@ -5467,6 +5639,8 @@ def plan_mesh_rank_main(rank: int, init: str, out_dir: str) -> None:
             metrics.append({"loss": float(m["loss"]),
                             "grad_norm": float(m["grad_norm"])})
             return opt, m
+        # a mesh of gloo processes: eager, as the launcher prints
+        step.step_mode = fn.step_mode
         return step
 
     train_cli.build_train_step = build
@@ -5701,8 +5875,12 @@ def phase_dryrun(torch, card, train):
     the card untouched."""
     import torch.distributed as dist
 
+    from repro_torch import configs
     from repro_torch.core import cost_model as cm
     from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_loop import build_train_step
 
     t16 = time.perf_counter()
     torch.cuda.synchronize()
@@ -5722,6 +5900,14 @@ def phase_dryrun(torch, card, train):
                  rec, counter, {"flash_attention_fwd": train["prefill_fwd"]},
                  train["prefill_ms"], train["prefill_ms"],
                  train["prefill_peak"])
+
+    # the counted step is the eager one: on meta tensors nothing captures
+    meta = build_train_step(Model(configs.get_reduced("phi4-mini-3.8b"),
+                                  device="meta"), AdamWConfig())
+    if meta.step_mode != "eager":
+        fail(f"(16) a step on meta tensors runs {meta.step_mode}")
+    print("  (16) the counted steps run eager (meta tensors), phase 5's as "
+          "a captured graph: the counts hold for both", flush=True)
 
     # (c) phase 8's moonshot prefill (host wall), grouped work at capacity
     p, m = MOE_PREFILL, MOE_MEASURED
@@ -6081,7 +6267,8 @@ def phase_nemotron(torch, card):
           f" B={tr['b']} x S={tr['s']}: {tr['steps']} AdamW steps, losses "
           f"{[round(x, 4) for x in losses]}, {', '.join(f'{w:.1f}' for w in walls)}"
           f" ms host wall, flash launches {want[0]} / {want[1]} a step; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"{check_train_graph(step, '(17) (e)', tr['steps'] - 1)}",
           flush=True)
     del model, step, opt, batch
     torch.cuda.empty_cache()

@@ -83,8 +83,8 @@ def main(argv: list[str]) -> int:
     tmp = tempfile.mkdtemp(prefix="fault_spread_")
     try:
         for i, (name, plan) in enumerate(plans.items()):
-            loop, out, losses[name], _ = cs.fault_run(torch, tmp, f"r{i}",
-                                                      plan)
+            loop, out, losses[name], _, _ = cs.fault_run(
+                torch, tmp, f"r{i}", plan)
             print(f"{name}: saves {[r.step for r in loop.ckpt_metrics.saves]}"
                   f", restores {[r.step for r in loop.ckpt_metrics.restores]}"
                   f", plan {plan.spec if plan else None!r}, intervals "

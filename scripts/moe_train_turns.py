@@ -41,9 +41,12 @@ def summary(lines: list[str]) -> str:
     text = "\n".join(lines)
     walls = re.search(r"host wall per step \[([^\]]*)\] ms", text)
     peak = re.search(r"peak memory ([\d.]+) GB", text)
-    prof = re.search(r"under torch.profiler: ([\d.]+) ms host wall, "
+    # the first profiled step: the step's only one before the step was a
+    # CUDA graph, its replay since
+    prof = re.search(r"under torch.profiler:? ([\d.]+) ms host wall, "
                      r"([\d.]+) ms device time", text)
-    kinds = re.search(r"MoE training step device time by kind: (.*)", text)
+    kinds = re.search(r"MoE training step(?: \(one CUDA graph replay\))? "
+                      r"device time by kind: (.*)", text)
     return (f"host wall per step [{walls.group(1) if walls else '?'}] ms; "
             f"profiled step {prof.group(1) if prof else '?'} ms host wall, "
             f"{prof.group(2) if prof else '?'} ms device; peak "

@@ -8,9 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-
-def pad_to_multiple(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
+from repro_torch.parallel.sharding import pad_to_multiple
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,3 @@
+from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+
+__all__ = ["DataConfig", "SyntheticLMData"]

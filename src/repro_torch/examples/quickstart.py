@@ -56,6 +56,7 @@ def run(steps: int = 30, *, device: str = "cuda",
         opt, s0 = loop.init_state()
         bridge.params_from_numpy(params, model)
     out = loop.run(opt, s0)
+    out["step_mode"] = step_fn.step_mode
     gen = Generator(model, ShapeConfig("qs", seq_len=64, global_batch=2,
                                        kind="decode"))
     out["continuation"] = gen.generate(PROMPT, n_new=8)[0].tolist()
@@ -76,6 +77,7 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"loss: {first:.3f} -> {last:.3f} over {args.steps} steps "
           f"({out['restarts']} restarts, {len(out['stragglers'])} "
           f"stragglers)")
+    print(f"train step: {out['step_mode']}")
     print("greedy continuation:", out["continuation"])
     return out
 

@@ -77,6 +77,7 @@ def main(argv: list[str] | None = None) -> dict:
     managed.clear_decision_log()
     step_fn = build_train_step(model, opt_cfg, pipeline=args.pipeline,
                                global_batch=args.batch, seq_len=args.seq)
+    say(f"train step: {step_fn.step_mode}")
     for rec in managed.decision_log():
         if rec.op == "pipeline_schedule":
             say(f"pipeline schedule: {rec.mode} M={rec.chunks} "

@@ -204,6 +204,7 @@ def main(argv: list[str] | None = None) -> dict:
         model, opt_cfg, compress_pod=args.compress_pod,
         pipeline=args.pipeline, pipe_microbatches=args.microbatches,
         global_batch=args.batch, seq_len=args.seq)
+    say(f"train step: {step_fn.step_mode}")
     for rec in managed.decision_log():
         if rec.op == "pipeline_schedule":
             say(f"decision pipeline_schedule({rec.mode} M={rec.chunks} "

@@ -1,0 +1,3 @@
+from repro_torch.models.model import Model
+
+__all__ = ["Model"]

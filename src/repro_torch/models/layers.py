@@ -14,6 +14,7 @@ function below is the plain one-device computation.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -75,14 +76,25 @@ def _silu(u: torch.Tensor) -> torch.Tensor:
     return u * torch.sigmoid(u)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _rounded_const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to ``like``'s type, a 0-d tensor on its device made
+    by a fill: a copy from host memory would stop a CUDA graph capture."""
+    return torch.full((), _rounded(value, like.dtype), dtype=like.dtype,
+                      device=like.device)
+
+
 def _gelu_tanh(u: torch.Tensor) -> torch.Tensor:
     """jax.nn.gelu's default (tanh) form op by op in u's type, its
     constants rounded to that type — the reference's rounding in bf16,
     where torch's fused GELU rounds once and differs in about 40% of the
     elements by an ulp."""
-    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=u.dtype,
-                     device=u.device)
-    k = torch.tensor(0.044715, dtype=u.dtype, device=u.device)
+    c = _rounded_const(math.sqrt(2.0 / math.pi), u)
+    k = _rounded_const(0.044715, u)
     return u * (0.5 * (1.0 + torch.tanh(c * (u + k * u ** 3))))
 
 

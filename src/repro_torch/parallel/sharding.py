@@ -17,10 +17,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.configs.base import pad_to_multiple
-
 __all__ = ["LOGICAL_RULES", "MeshCtx", "ParamSpec", "pad_to_multiple",
            "padded", "shard_of"]
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """``n`` rounded up to a multiple of ``m``."""
+    return ((n + m - 1) // m) * m
 
 
 def padded(n: int, m: int) -> tuple[int, int]:

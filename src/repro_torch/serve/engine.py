@@ -54,8 +54,7 @@ import torch
 
 from repro_torch.core import cost_model, instrument, managed, overlap
 from repro_torch.core.faults import FaultPlan
-from repro_torch.kernels import (flash_attention, grouped_matmul,
-                                 paged_attention, stencil)
+from repro_torch.kernels import counters
 from repro_torch.models import attention
 from repro_torch.models.model import Model
 from repro_torch.obs.calibrate import Recalibrator
@@ -65,34 +64,6 @@ from repro_torch.serve.kv_cache import (PagedCacheConfig, PagePoolExhausted,
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import (QuantumPlan, Request,
                                          RequestRejected, ServeScheduler)
-
-#: the kernel modules whose module-level ``*LAUNCHES`` counters a replay
-#: advances by what its capture recorded
-_COUNTED = (flash_attention, grouped_matmul, paged_attention, stencil)
-
-
-def _launch_counts() -> dict[tuple, int]:
-    """Every kernel launch counter: (module, name, key or None) -> count
-    (a dict counter, such as launches by engine, per key)."""
-    out = {}
-    for mod in _COUNTED:
-        for name, val in vars(mod).items():
-            if not name.endswith("LAUNCHES"):
-                continue
-            if isinstance(val, dict):
-                out.update({(mod, name, k): n for k, n in val.items()})
-            else:
-                out[(mod, name, None)] = val
-    return out
-
-
-def _add_launches(delta: dict[tuple, int]) -> None:
-    for (mod, name, key), n in delta.items():
-        if key is None:
-            setattr(mod, name, getattr(mod, name) + n)
-        else:
-            getattr(mod, name)[key] += n
-
 
 class PagedStep:
     """One decode step of a quantum against static buffers (the port of
@@ -204,21 +175,20 @@ class PagedStep:
         with torch.cuda.stream(side):
             self.run_eager()
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = _launch_counts()
+        before = counters.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
             self.run_eager()
-        after = _launch_counts()
-        self.replay_launches = {k: n - before[k] for k, n in after.items()
-                                if n != before[k]}
-        _add_launches({k: -n for k, n in self.replay_launches.items()})
+        self.replay_launches = counters.change_since(before)
+        counters.add_launches({k: -n for k, n in
+                               self.replay_launches.items()})
         self.graph = graph
 
     def replay(self) -> None:
         """One step: the captured graph, and the launches it holds added
         to the kernels' counters."""
         self.graph.replay()
-        _add_launches(self.replay_launches)
+        counters.add_launches(self.replay_launches)
 
     def read(self, chunk: int) -> np.ndarray:
         """The sampled tokens [slots, chunk] (one D2H, which waits for the

@@ -17,7 +17,10 @@ The step differentiates ``Model.loss_sp`` with autograd — the
 flash-attention backward is the CUDA kernel on a card — then takes one
 AdamW step that updates the model's parameters IN PLACE (the reference
 donates its buffers and returns new ones).  With ``pipeline`` the pod
-axis runs as pipeline stages instead (parallel/pipeline.py).
+axis runs as pipeline stages instead (parallel/pipeline.py).  The
+reference compiles the step into one program; on one card the port
+captures it in a CUDA graph at its first call and replays it from then on
+(``TrainStep``), and issues it op by op from Python elsewhere.
 
 Fault tolerance: periodic async checkpoints, restore-and-retry on a
 failed step (``fault_hook`` and the deterministic ``fault_plan`` of
@@ -39,10 +42,11 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import checkpoint as ckpt_lib
-from repro_torch.core import managed, overlap
+from repro_torch.core import instrument, managed, overlap
 from repro_torch.core import tuner as tuner_lib
 from repro_torch.core.faults import FaultPlan
 from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.kernels import counters
 from repro_torch.models import layers as model_layers
 from repro_torch.models import transformer
 from repro_torch.models.model import (Model, flatten_specs,
@@ -109,8 +113,9 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
                      pipe_microbatches: int | None = None,
                      global_batch: int | None = None,
                      seq_len: int | None = None
-                     ) -> Callable[[dict, dict], tuple[dict, dict]]:
-    """Returns ``step(opt_state, batch) -> (opt_state, metrics)``.
+                     ) -> "TrainStep":
+    """Returns ``step(opt_state, batch) -> (opt_state, metrics)``, a
+    ``TrainStep`` (a captured CUDA graph on one card, eager elsewhere).
 
     ``batch`` holds the GLOBAL tokens and labels [B, S] on the model's
     device; each rank takes its rows (``ctx.shard_batch``).  The step
@@ -271,7 +276,155 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
         metrics["loss"] = loss
         return opt_state, metrics
 
-    return step
+    return TrainStep(model, step, pipelined=use_pipe)
+
+
+class TrainStep:
+    """The training step as one program: the port of the reference's
+    jitted, state-donating step (``build_train_step`` makes it).
+
+    ``step(opt_state, batch) -> (opt_state, metrics)``: the model's
+    parameters and ``opt_state`` are updated in place, metrics are 0-d
+    tensors.  ``step_mode`` says how a call runs:
+
+      * "graph" on a card where every mesh axis has size 1, the step is
+        not pipelined and no ``instrument`` recorder is active: the step
+        is bound to the parameters, ``opt_state`` and static buffers in
+        the batch's shapes (``load`` copies each batch in).  The first
+        call of a binding runs the step eagerly on a side stream (a real
+        step: it builds the kernels and warms the libraries) and captures
+        it in a CUDA graph, which runs nothing; every later call replays
+        the graph.  A call whose parameters, moments, step counter or
+        batch shapes are not the bound ones (a restored checkpoint, a new
+        batch shape) drops the graph and its memory pool and binds again,
+        as the reference's jit compiles again for a new shape;
+      * "eager" elsewhere (the CPU, meta tensors, a mesh of processes, the
+        pipelined step, under a recorder): every op is issued from Python
+        on the arguments themselves.
+
+    A replay runs no Python, so the kernels' launch counters are advanced
+    by what the capture counted (``replay_launches``); the decisions are
+    logged by the first pass over a shape (the model resolves each shape
+    once), the binding's warm-up step, as the reference logs them once per
+    trace."""
+
+    def __init__(self, model: Model, body: Callable[[dict, dict],
+                                                    tuple[dict, dict]], *,
+                 pipelined: bool):
+        self.model = model
+        self._body = body
+        self._pipelined = pipelined
+        #: the bound optimizer state and the static batch buffers
+        self.opt_state: dict | None = None
+        self.batch: dict[str, torch.Tensor] | None = None
+        self._binding: tuple | None = None
+        #: bindings made (a new binding captures again in graph mode)
+        self.bindings = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self._out: dict[str, torch.Tensor] | None = None
+        #: launch counters' change over one step, added on every replay
+        self.replay_launches: dict[tuple, int] = {}
+        #: replays run (every call in graph mode but a binding's first)
+        self.replays = 0
+
+    @property
+    def step_mode(self) -> str:
+        ctx = self.model.ctx
+        if (self.model.device.type == "cuda" and not self._pipelined
+                and all(int(n) == 1 for n in ctx.axis_sizes.values())
+                and instrument.ACTIVE is None):
+            return "graph"
+        return "eager"
+
+    def __call__(self, opt_state: dict, batch: dict) -> tuple[dict, dict]:
+        if self.step_mode == "eager":
+            return self._body(opt_state, batch)
+        self.load(opt_state, batch)
+        if self.graph is None:
+            metrics = self.capture()
+        else:
+            self.replay()
+            # the next replay overwrites the graph's outputs
+            metrics = {k: v.clone() for k, v in self._out.items()}
+        return opt_state, metrics
+
+    def _binding_of(self, opt_state: dict, batch: dict) -> tuple:
+        leaves = (list(flatten_specs(self.model.params()).values())
+                  + list(flatten_specs(opt_state["mu"]).values())
+                  + list(flatten_specs(opt_state["nu"]).values())
+                  + [opt_state["step"]])
+        return (tuple(t.data_ptr() for t in leaves),
+                tuple((k, tuple(v.shape), v.dtype)
+                      for k, v in sorted(batch.items())))
+
+    def load(self, opt_state: dict, batch: dict) -> None:
+        """Bind the step to ``opt_state`` and ``batch``'s shapes unless it
+        is bound to them already, then copy ``batch`` into the static
+        buffers.  A new binding drops the captured graph."""
+        binding = self._binding_of(opt_state, batch)
+        if binding != self._binding:
+            self.release()
+            self._binding = binding
+            self.opt_state = opt_state
+            self.batch = {k: torch.empty_like(v, device=self.model.device)
+                          for k, v in batch.items()}
+            self.bindings += 1
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+
+    def release(self) -> None:
+        """Drop the binding, the captured graph and the graph's memory
+        pool (the step's temporaries, held between replays); the next
+        call binds and captures again."""
+        self._binding = self.graph = self._out = None
+        self.opt_state = self.batch = None
+        self.replay_launches = {}
+        if self.model.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def run_eager(self) -> dict:
+        """One step from Python over the bound state and the static
+        buffers; returns its metrics."""
+        _, metrics = self._body(self.opt_state, self.batch)
+        return metrics
+
+    def capture(self) -> dict:
+        """The binding's first step, run eagerly on a side stream, then the
+        step captured in a CUDA graph on that stream (the capture launches
+        nothing).  The launch counters are set back to where they were
+        before the capture and their change is kept for ``replay``.
+        Returns the first step's metrics.  A failed capture raises; one
+        cause is a live autograd graph of an earlier forward through the
+        parameters on the default stream (a loss the caller keeps), whose
+        AccumulateGrad nodes make the capture wait on that stream."""
+        if instrument.ACTIVE is not None:
+            raise RuntimeError("a recorder would see one captured step for "
+                               "every replay")
+        dev = self.model.device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            metrics = self.run_eager()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        metrics = {k: v.clone() for k, v in metrics.items()}
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        before = counters.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = self.run_eager()
+        self.replay_launches = counters.change_since(before)
+        counters.add_launches({k: -n for k, n in
+                               self.replay_launches.items()})
+        self.graph, self._out = graph, out
+        return metrics
+
+    def replay(self) -> None:
+        """One step: the captured graph, and the launches it holds added
+        to the kernels' counters."""
+        self.graph.replay()
+        counters.add_launches(self.replay_launches)
+        self.replays += 1
 
 
 # ---------------------------------------------------------------------------
