@@ -38,7 +38,13 @@ phase that fails:
                launch count must equal n_layers x decode steps; the same
                requests with the step run from Python (``run_eager``)
                must give the same tokens bit for bit; one decode step
-               profiled both ways;
+               profiled both ways; then the contiguous Generator (8
+               prompts of 96 tokens, 64 new, a 256-position cache), each
+               token one replay of its captured ``DecodeStep`` and, on a
+               Generator of its own, each step from Python
+               (``run_eager``), timed in turns while nvidia-smi reads the
+               SM clock and profiled by kind: equal tokens, and every step
+               a capture or a replay;
   4. e2e     — the same prompts through the engine at full width, 2
                layers, f32, once with the kernel and once with the plain
                version pinned, both captured: the greedy tokens must be
@@ -56,10 +62,11 @@ phase that fails:
                f32, TF32 off, with the flash kernels and with the plain
                versions pinned: gradients, 3 steps' losses and updates,
                and greedy tokens agree (both paths' steps after the first
-               graph replays); the contiguous Generator's tokens equal the
-               paged engine's; TrainLoop recovers from an injected failure
-               through its checkpoints, binding and capturing its step
-               again after the restore;
+               graph replays); the contiguous Generator's tokens, its
+               decode steps as graph replays and through ``run_eager``,
+               equal the paged engine's; TrainLoop recovers from an
+               injected failure through its checkpoints, binding and
+               capturing its step again after the restore;
   7. jacobi  — the paper's Jacobi solve at 16386 x 16386 f32 on one rank
                through halo.jacobi_solve: 256 sweeps each of bulk,
                interleaved, and aggregated at the k that
@@ -256,6 +263,11 @@ group; dh exactly 0 past valid, an empty expert's weight gradients
 exactly 0; on the tensor cores every gradient equal to the plain f32 one
 rounded on 99% of its elements), and at moonshot's training call (C =
 240) it is timed in turns with torch autograd through three bf16 bmm.
+
+Every contiguous Generator of the phases (3, 6, 8, the ring generation of
+9, 13 and 17 (d)) must decode as CUDA graph replays of its
+``DecodeStep`` (``check_decode_graph``); the contiguous decode launches
+no hand-written kernel.
 
 The lines before the last hold one JSON object of kernel measurements and
 the card's name and power limit as nvidia-smi reports them; the last line
@@ -2534,6 +2546,150 @@ def profile_decode_step(torch, model, slots: int = 8, page: int = 16,
     del step, cache
 
 
+#: the contiguous decode's full-width timing (phase 3): 8 prompts of 96
+#: tokens, 64 new tokens, a 256-position cache
+CONTIG = dict(b=8, p=96, new=64, seq=256)
+
+
+def check_decode_graph(gen, what: str) -> str:
+    """Fail unless the contiguous Generator ``gen`` ran every decode step
+    as its step's capture (a binding's first step) or a replay of the
+    captured CUDA graph, with ``decode_mode`` "graph".  Returns the words
+    that say so."""
+    st = gen.step
+    if st.decode_mode != "graph" or st.graph is None:
+        fail(f"{what}: the contiguous decode ran {st.decode_mode}, "
+             f"captured {st.graph is not None}, not as graph replays")
+    if st.steps != st.captures + st.replays or st.captures > st.bindings:
+        fail(f"{what}: {st.steps} decode steps, {st.captures} captures and "
+             f"{st.replays} replays over {st.bindings} bindings")
+    return (f"decode steps as CUDA graph replays ({st.replays} replays and "
+            f"{st.captures} capture{'s' if st.captures > 1 else ''} over "
+            f"{st.steps} steps; {launch_words(st.replay_launches)} a "
+            f"replay)")
+
+
+def contiguous_decode_modes(torch, model,
+                            order=("graph", "eager", "graph")) -> dict:
+    """The contiguous Generator at ``CONTIG``: its decode steps as replays
+    of the captured step ("graph") and issued from Python ("eager",
+    through the step's ``run_eager``), after a short warm-up generation
+    each (8 + 8 tokens: the capture), one timed generation for each entry
+    of ``order`` (phase 3 takes one eager generation between two replayed
+    ones: an eager one costs 10-15 s at this size) while another thread
+    reads the SM clock, then the short generation each under
+    torch.profiler.  A Generator without a step object (an
+    older checkout) runs "eager" only.  Returns {mode: {"tokens",
+    "wall_ms": host wall a decode step of each turn, "mhz": the SM clock
+    over each turn, "prof_wall_ms", "device_ms": a step's device time,
+    "per_kernel"}} and the graph mode's Generator under "gen"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.serve_loop import Generator
+
+    c = CONTIG
+    rng = np.random.default_rng(SEED + 33)
+    prompts = rng.integers(0, model.cfg.vocab_size - 1,
+                           size=(c["b"], c["p"])).astype(np.int32)
+    shape = ShapeConfig("contig", c["seq"], c["b"], "decode")
+    gens = {"graph": Generator(model, shape)}
+    modes = ["graph", "eager"] if hasattr(gens["graph"], "step") \
+        else ["eager"]
+    if modes[0] == "eager":
+        gens = {"eager": gens["graph"]}
+    else:
+        # a Generator of its own, its step's capture and replay pointed at
+        # run_eager (the step has no switch for it)
+        gens["eager"] = Generator(model, shape)
+        eager = gens["eager"].step
+        eager.capture = eager.replay = eager.run_eager
+    steps = c["p"] + c["new"] - 1
+
+    short = prompts[:, :8]
+    out = {m: {"wall_ms": [], "mhz": []} for m in modes}
+    for m in modes:
+        gens[m].generate(short, 8)                     # warm-up
+    order = [m for m in order if m in modes]
+    marks = []
+
+    def timed():
+        for m in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = gens[m].generate(prompts, c["new"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            marks.append((m, t0, t1))
+            if "tokens" not in out[m]:
+                out[m]["tokens"] = toks
+            elif not np.array_equal(toks, out[m]["tokens"]):
+                fail(f"contiguous decode ({m}): two generations of the same "
+                     f"prompts differ")
+    _, clocks = with_clocks(timed)
+    for m, t0, t1 in marks:
+        out[m]["wall_ms"].append((t1 - t0) / steps * 1e3)
+        mhz = [x[1] for x in clocks if t0 <= x[0] <= t1]
+        out[m]["mhz"].append((min(mhz), max(mhz)) if mhz else None)
+    # the profile over a short generation: every step attends the whole
+    # cache, so a step's work does not depend on its position
+    n_prof = short.shape[1] + 8 - 1
+    for m in modes:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gens[m].generate(short, 8)
+            torch.cuda.synchronize()
+            out[m]["prof_wall_ms"] = (time.perf_counter() - t0) / n_prof \
+                * 1e3
+        out[m]["per_kernel"] = device_ms_by_kernel(torch, prof, n_prof)
+        out[m]["device_ms"] = sum(out[m]["per_kernel"].values())
+    if "graph" in gens:
+        # unbound, the patches no longer keep the model alive
+        del gens["eager"].step.capture, gens["eager"].step.replay
+        out["gen"] = gens["graph"]
+        # the f32 copies of the whole K and V cache that attention_decode
+        # makes in every layer (k_cache.float(), v_cache.float()), alone
+        # in a CUDA graph: a step's worth
+        cache = gens["graph"].step.cache
+        slabs = [leaf[i] for leaf in (cache["k"], cache["v"])
+                 for i in range(leaf.shape[0])]
+        out["graph"]["f32_cache_copies_ms"] = graph_ms(
+            torch, [lambda: [t.float() for t in slabs]], 20)
+    return out
+
+
+def print_contiguous_modes(res: dict, what: str, card: str) -> None:
+    """``contiguous_decode_modes``' result, a line a mode (with ``card``,
+    the card's name and power limit) and its device time by kind."""
+    c = CONTIG
+    for m in ("graph", "eager"):
+        if m not in res:
+            continue
+        r = res[m]
+        label = ("one CUDA graph replay a step" if m == "graph"
+                 else "each step from Python (run_eager)")
+        turns = ", ".join(f"{w:.3f} ms (SM {mhz[0]:.0f}-{mhz[1]:.0f} MHz)"
+                          if mhz else f"{w:.3f} ms"
+                          for w, mhz in zip(r["wall_ms"], r["mhz"]))
+        print(f"  {what} contiguous decode, {c['b']} prompts of {c['p']} + "
+              f"{c['new']} new tokens, {c['seq']}-position cache, {label}: "
+              f"host wall a decode step by turn {turns}; under "
+              f"torch.profiler {r['prof_wall_ms']:.3f} ms host wall, "
+              f"{r['device_ms']:.3f} ms device time a step (busy share "
+              f"{r['device_ms'] / r['prof_wall_ms'] * 100:.1f}%); on {card}",
+              flush=True)
+        print_by_kind(r["per_kernel"], f"{what} contiguous decode step "
+                      f"({label})")
+        if "f32_cache_copies_ms" in r:
+            ms = r["f32_cache_copies_ms"]
+            print(f"  {what} contiguous decode: the f32 copies of the whole "
+                  f"K/V cache a step (k_cache.float(), v_cache.float() in "
+                  f"every layer) take {ms:.3f} ms alone in a CUDA graph, "
+                  f"{ms / max(r['device_ms'], 1e-9) * 100:.1f}% of a "
+                  f"replayed step's device time", flush=True)
+
+
 def phase_serve(torch):
     from repro_torch import configs
     from repro_torch.core import managed
@@ -2600,7 +2756,18 @@ def phase_serve(torch):
           f"paged launches {e_launches}", flush=True)
     del eng
     profile_decode_step(torch, model)
-    del model
+    contig = contiguous_decode_modes(torch, model)
+    if not np.array_equal(contig["graph"]["tokens"],
+                          contig["eager"]["tokens"]):
+        fail(f"contiguous decode: graph replays "
+             f"{contig['graph']['tokens'].tolist()} != run_eager "
+             f"{contig['eager']['tokens'].tolist()}")
+    way = check_decode_graph(contig["gen"], "phase 3 contiguous decode")
+    print_contiguous_modes(contig, "phase 3", card_line())
+    print(f"  the contiguous Generator's {CONTIG['new']} tokens of "
+          f"{CONTIG['b']} prompts equal between graph replays and run_eager;"
+          f" {way}", flush=True)
+    del contig, model
     torch.cuda.empty_cache()
     return launches
 
@@ -2896,17 +3063,29 @@ def phase_parity(torch):
           f"both paths' {a['graph']}", flush=True)
 
     # the contiguous Generator against the paged ServeEngine, kernel model
+    # (its decode steps as graph replays, and from Python through the
+    # step's run_eager, as serve(..., eager=True) runs the paged engine's)
     prompts = data.global_batch_at(10)["tokens"][:, :96]
     shape = ShapeConfig("smoke", 256, prompts.shape[0], "decode")
-    contiguous = Generator(kernel_model, shape).generate(prompts, 16)
+    gen = Generator(kernel_model, shape)
+    contiguous = gen.generate(prompts, 16)
+    way = check_decode_graph(gen, "phase 6 contiguous Generator")
+    eager_gen = Generator(kernel_model, shape)
+    eager_gen.step.capture = eager_gen.step.replay = eager_gen.step.run_eager
+    eager = eager_gen.generate(prompts, 16)
+    del eager_gen.step.capture, eager_gen.step.replay, eager_gen, gen
     paged = Generator(kernel_model, shape, engine="paged",
                       page_size=16).generate(prompts, 16)
+    if not np.array_equal(contiguous, eager):
+        fail(f"contiguous Generator: graph replays {contiguous.tolist()} != "
+             f"run_eager {eager.tolist()}")
     if not np.array_equal(contiguous, paged):
         fail(f"contiguous Generator {contiguous.tolist()} != paged engine "
              f"{paged.tolist()}")
-    print(f"  Generator: contiguous cache and paged ServeEngine give the "
-          f"same {paged.shape[1]} greedy tokens for {paged.shape[0]} "
-          f"prompts of {prompts.shape[1]}", flush=True)
+    print(f"  Generator: the contiguous cache (graph replays and run_eager) "
+          f"and the paged ServeEngine give the same {paged.shape[1]} greedy "
+          f"tokens for {paged.shape[0]} prompts of {prompts.shape[1]}; "
+          f"contiguous {way}", flush=True)
 
     # TrainLoop with an injected failure, checkpoints in a temporary dir
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -3367,7 +3546,8 @@ def phase_moe_parity(torch):
     prompts = data.global_batch_at(10)["tokens"][:, :48]
     shape = ShapeConfig("smoke", 128, prompts.shape[0], "decode")
     with plain_spy() as spy:
-        contiguous = Generator(kernel_model, shape).generate(prompts, 16)
+        gen = Generator(kernel_model, shape)
+        contiguous = gen.generate(prompts, 16)
         paged = Generator(kernel_model, shape, engine="paged",
                           page_size=16).generate(prompts, 16)
     spy.check("phase 8, the Generators")
@@ -3376,7 +3556,10 @@ def phase_moe_parity(torch):
              f"engine {paged.tolist()}")
     print(f"  Generator: contiguous cache and paged ServeEngine give the "
           f"same {paged.shape[1]} greedy tokens for {paged.shape[0]} "
-          f"prompts of {prompts.shape[1]}", flush=True)
+          f"prompts of {prompts.shape[1]}; contiguous "
+          f"{check_decode_graph(gen, 'phase 8 contiguous Generator')}",
+          flush=True)
+    del gen
     del kernel_model
     torch.cuda.empty_cache()
 
@@ -3485,12 +3668,14 @@ def phase_ring_prefill_and_train(torch):
     if new.shape != (1, RING_NEW) or new.min() < 0 \
             or new.max() >= cfg.vocab_size:
         fail(f"generation from the ring prefill gave {new.tolist()}")
+    gen_way = check_decode_graph(gen_tok, "phase 9 ring generation")
     print(f"  against megatron's prefill (flash forward kernel) of the same "
           f"tokens: last-token logits within {err:.3e} (tolerance "
           f"{RING_LOGIT_TOL} x {scale:.3g}), cache K/V identical up to "
           f"{kv_err:.1e}, same greedy token: {bool(same)}; {RING_NEW} greedy "
           f"tokens from the ring prefill's cache through the contiguous "
-          f"Generator in {gen_s:.2f} s: {new[0].tolist()}", flush=True)
+          f"Generator in {gen_s:.2f} s ({gen_way}): {new[0].tolist()}",
+          flush=True)
     del logits, cache, mega, gen_tok
     torch.cuda.empty_cache()
 
@@ -4649,11 +4834,13 @@ def phase_families(torch, root, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     served = np.stack([out[r] for r in rids])
-    contiguous = Generator(model, ShapeConfig("s", 96, 8, "decode")).generate(
-        prompts, FAM_NEW)
+    gen = Generator(model, ShapeConfig("s", 96, 8, "decode"))
+    contiguous = gen.generate(prompts, FAM_NEW)
     if not np.array_equal(served, contiguous):
         fail(f"mamba2-130m: ServeEngine tokens {served.tolist()} != "
              f"contiguous Generator {contiguous.tolist()}")
+    contig_way = check_decode_graph(gen, "phase 13 mamba2-130m contiguous")
+    del gen
     if fa.FWD_LAUNCHES or paged.LAUNCHES:
         fail(f"mamba2-130m launched attention kernels: flash "
              f"{fa.FWD_LAUNCHES}, paged {paged.LAUNCHES}")
@@ -4663,8 +4850,8 @@ def phase_families(torch, root, card):
           f"8 requests of 48 tokens + {FAM_NEW} new through ServeEngine in "
           f"{wall:.2f} s ({eng.decode_steps} decode steps, "
           f"{wall / eng.decode_steps * 1e3:.2f} ms host wall each, {way});"
-          f" tokens equal the contiguous Generator's; no attention launch",
-          flush=True)
+          f" tokens equal the contiguous Generator's ({contig_way}); no "
+          f"attention launch", flush=True)
     del model, eng
     torch.cuda.empty_cache()
 
@@ -4727,6 +4914,7 @@ def phase_families(torch, root, card):
         t0 = time.perf_counter()
         toks = gen.prefill_generate(prompt, FAM_NEW, **stubs)
         wall = time.perf_counter() - t0
+        way = check_decode_graph(gen, f"phase 13 {arch}")
         n = attention_calls(cfg)
         if (fa.FWD_LAUNCHES, paged.LAUNCHES) != (n, 0):
             fail(f"{arch}: flash launches {fa.FWD_LAUNCHES} (want {n}), "
@@ -4738,7 +4926,7 @@ def phase_families(torch, root, card):
                 else f"{cfg.vision.n_patches} stub patches")
         print(f"  {arch} ({cfg.n_layers} layers, d {cfg.d_model}, bf16): "
               f"{stub}, prefill 2 x {s} and {FAM_NEW} greedy tokens in "
-              f"{wall:.2f} s, {n} flash launches (none in decode): "
+              f"{wall:.2f} s, {n} flash launches (none in decode), {way}: "
               f"{toks[0].tolist()}", flush=True)
         del model, gen
         torch.cuda.empty_cache()
@@ -4812,6 +5000,7 @@ def phase_families(torch, root, card):
             toks["contiguous"] = [
                 gen.prefill_generate(p[None], FAM_NEW)[0].tolist()
                 for p in hp2]
+            hymba_way = check_decode_graph(gen, "phase 13 hymba 2 layers")
             del eng, gen
         del model
     if toks["auto"] != toks["torch"]:
@@ -4827,7 +5016,8 @@ def phase_families(torch, root, card):
           f"{[len(p) for p in hp2]} + {FAM_NEW} (decode positions up to "
           f"{last_pos}, past the window; {cfg.n_layers} x {steps} paged "
           f"launches, {wall:.2f} s) they equal the contiguous Generator's "
-          f"(prefill_sp, then the ring-buffer cache)", flush=True)
+          f"(prefill_sp, then the ring-buffer cache; {hymba_way})",
+          flush=True)
     torch.cuda.empty_cache()
 
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
@@ -6211,8 +6401,11 @@ def phase_nemotron(torch, card):
         fa.FWD_LAUNCHES = 0
         logits, _ = model.prefill_sp({"tokens": torch.from_numpy(
             prompts).cuda()})
-        toks = Generator(model, shape).prefill_generate(prompts, p["new"])
+        gen = Generator(model, shape)
+        toks = gen.prefill_generate(prompts, p["new"])
         runs[engine] = (logits, np.asarray(toks), fa.FWD_LAUNCHES)
+        nemo_way = check_decode_graph(gen, f"(17) (d) {engine}")
+        del gen
     model.attn_engine = "auto"
     (lk, tk, nk), (lp, tp, npl) = runs["auto"], runs["torch"]
     if nk < 2 * cfg1.n_layers or npl:
@@ -6227,8 +6420,8 @@ def phase_nemotron(torch, card):
           f"{cfg1.param_count() / 1e9:.2f} B params): prefill logits of "
           f"{p['b']} x {p['s']} within {err:.3e} of the plain engine's "
           f"(tolerance 1e-4 of {lp.abs().max().item():.3g}); "
-          f"{p['new']} greedy tokens from each prefill equal; flash "
-          f"launches {nk} / 0; peak memory "
+          f"{p['new']} greedy tokens from each prefill equal ({nemo_way}); "
+          f"flash launches {nk} / 0; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     del model, runs, lk, lp
     torch.cuda.empty_cache()

@@ -168,9 +168,12 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, ctx: MeshCtx,
                      else alloc(specs))
             token = torch.empty((shape.global_batch,), dtype=torch.int32,
                                 device="meta")
+            # the position a 0-d int32 tensor, as the step takes it on the
+            # card (the reference's traced [] int32); the owner test and
+            # the masks run on the device whatever its value
+            pos = torch.zeros((), dtype=torch.int32, device="meta")
             counter.start()
-            # position 0: rank 0's cache shard owns the written position
-            counter.stop(step(cache, token, 0))
+            counter.stop(step(cache, token, pos))
     return counter
 
 

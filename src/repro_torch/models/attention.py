@@ -383,9 +383,9 @@ def _merge_over_cache(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 
 
 def attention_decode(x: torch.Tensor,
-                     kv_cache: tuple[torch.Tensor, torch.Tensor], pos: int,
-                     params: dict, cfg: ModelConfig, ctx: MeshCtx, *,
-                     window: int = 0
+                     kv_cache: tuple[torch.Tensor, torch.Tensor],
+                     pos: torch.Tensor, params: dict, cfg: ModelConfig,
+                     ctx: MeshCtx, *, window: int = 0
                      ) -> tuple[torch.Tensor,
                                 tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode attention against the CONTIGUOUS cache.
@@ -393,11 +393,14 @@ def attention_decode(x: torch.Tensor,
     x:        [B, D_loc(data)] (batch replicated over the mesh)
     kv_cache: (k, v) each [B, S_shard, KV, hd], sequence sharded over
               cache_axes(ctx) — for SWA layers the shards cover the
-              window as a ring buffer.  Updated IN PLACE by the shard that
-              owns ``pos`` (the reference returns an updated copy of a
-              donated buffer); a position past the cache is not written,
-              as the reference's owner test drops it.
-    pos:      the global position being written / attended.
+              window as a ring buffer.  Updated IN PLACE (the reference
+              returns an updated copy of a donated buffer): the row at
+              ``pos``'s slot takes the new K/V on the shard that owns it
+              and keeps its old value elsewhere; a position past the
+              cache is owned by no shard and is not written.
+    pos:      [] int32 on x's device — the global position being written
+              and attended.  Nothing here reads it on the host, so the
+              step can be captured in a CUDA graph.
     Returns (y [B, D_loc(data)], cache)."""
     b = x.shape[0]
     h, kvh, hd = cfg.padded_heads, padded_kv_heads(cfg), cfg.head_dim
@@ -405,13 +408,18 @@ def attention_decode(x: torch.Tensor,
     s_shard = k_cache.shape[1]
     n_sh = cache_shards(ctx)
     me = cache_rank(ctx)
-    posv = torch.full((b,), pos, device=x.device)
-    q, knew, vnew = _decode_qkv(x, params, posv, cfg, ctx)
+    q, knew, vnew = _decode_qkv(x, params, pos.reshape(1).expand(b), cfg,
+                                ctx)
 
+    # the reference's owner test (ring-buffer slot for SWA)
     slot_global = pos if window <= 0 else pos % (s_shard * n_sh)
-    if slot_global // s_shard == me:         # this shard owns pos
-        k_cache[:, slot_global % s_shard] = knew.to(k_cache.dtype)
-        v_cache[:, slot_global % s_shard] = vnew.to(v_cache.dtype)
+    owner = slot_global // s_shard
+    slot = (slot_global % s_shard).long().reshape(1)
+    is_mine = owner == me
+    for cache, new in ((k_cache, knew), (v_cache, vnew)):
+        old = cache.index_select(1, slot)
+        cache.index_copy_(1, slot, torch.where(
+            is_mine, new[:, None].to(cache.dtype), old))
 
     qg = _all_heads(q, ctx).reshape(b, kvh, h // kvh, hd)
     # products of the cache's type accumulated in f32 (the reference's
@@ -425,7 +433,8 @@ def attention_decode(x: torch.Tensor,
         cand = torch.where(slot_ids <= pos % ring,
                            (pos // ring) * ring + slot_ids,
                            (pos // ring - 1) * ring + slot_ids)
-        valid = (cand >= max(0, pos + 1 - window)) & (cand <= pos)
+        valid = (cand >= torch.clamp(pos + 1 - window, min=0)) \
+            & (cand <= pos)
     else:
         valid = slot_ids <= pos
     logits = torch.where(valid, logits, -math.inf)

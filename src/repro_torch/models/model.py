@@ -5,7 +5,8 @@ of ``repro.models.model``, every family):
   * ``prefill_sp(batch)``                 prefill -> (last-token logits,
                                           cache)
   * ``decode_step(cache, token, pos)``    one-token decode, contiguous
-                                          cache
+                                          cache (``pos`` a 0-d device
+                                          tensor)
   * ``decode_step_paged(...)``            one-token decode, paged cache
 
 ``Model`` is an ``nn.Module`` holding its parameters in the reference's
@@ -466,11 +467,17 @@ class Model(nn.Module):
         return layers.logits_decode(x, tree["unembed"], ctx)
 
     @torch.no_grad()
-    def decode_step(self, cache: dict | list, token: torch.Tensor, pos: int
+    def decode_step(self, cache: dict | list, token: torch.Tensor,
+                    pos: torch.Tensor | int
                     ) -> tuple[torch.Tensor, dict | list]:
         """One greedy decode step against the CONTIGUOUS cache.  token: [B]
-        int32; pos: the position written and attended.  Returns
-        (next_token [B] int32, cache), the cache written in place."""
+        int32; pos: the position written and attended, [] int32 on the
+        model's device as the reference's (an int becomes one here, and
+        only here).  Nothing below reads a device value on the host, so
+        the step can be captured in a CUDA graph.  Returns (next_token
+        [B] int32, cache), the cache written in place."""
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), pos, dtype=torch.int32, device=self.device)
         tree = self.params()
         x = layers.embed_decode(token, tree["embed"], self.cfg, self.ctx)
         x, cache = transformer.stack_decode(x, tree["layers"], cache, pos,

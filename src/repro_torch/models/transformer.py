@@ -257,13 +257,14 @@ def _write(state: dict, new: dict) -> None:
         state[k].copy_(v.to(state[k].dtype))
 
 
-def block_decode(x: torch.Tensor, p: dict, state: dict, pos: int,
-                 cfg: ModelConfig, ctx: MeshCtx, *,
+def block_decode(x: torch.Tensor, p: dict, state: dict,
+                 pos: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx, *,
                  window: int) -> tuple[torch.Tensor, dict]:
-    """One-token decode block against the CONTIGUOUS cache.  ``state``
-    holds this layer's cache views, written in place: ("k", "v") slabs,
-    the SSM state and conv ring (ssm, hybrid), and the encoder's ("xk",
-    "xv") (audio, read only).  Returns (x, state)."""
+    """One-token decode block against the CONTIGUOUS cache at ``pos`` ([]
+    int32 on the device).  ``state`` holds this layer's cache views,
+    written in place: ("k", "v") slabs, the SSM state and conv ring (ssm,
+    hybrid), and the encoder's ("xk", "xv") (audio, read only).  Returns
+    (x, state)."""
     h = layers.rms_norm_sharded(x, _ln_loc(p["ln1"], ctx), cfg.norm_eps,
                                 "data", ctx)
     if cfg.family == "ssm":
@@ -327,11 +328,12 @@ def cross_block_decode(x: torch.Tensor, p: dict,
 
 
 def stack_decode(x: torch.Tensor, stacked: dict | list, cache: dict | list,
-                 pos: int, cfg: ModelConfig, ctx: MeshCtx
+                 pos: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx
                  ) -> tuple[torch.Tensor, Any]:
-    """Contiguous-cache decode over layers: each layer works on views of
-    its cache (stacked [L, ...] leaves, or the hybrid family's per-layer
-    list), so the cache is updated in place and returned as is."""
+    """Contiguous-cache decode over layers at ``pos`` ([] int32 on the
+    device): each layer works on views of its cache (stacked [L, ...]
+    leaves, or the hybrid family's per-layer list), so the cache is
+    updated in place and returned as is."""
     for i, p in enumerate(per_layer(stacked)):
         x, _ = block_decode(x, p, _cache_layer(cache, i), pos, cfg, ctx,
                             window=layer_window(cfg, i))

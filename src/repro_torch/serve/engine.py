@@ -52,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import cost_model, instrument, managed, overlap
+from repro_torch.core import cost_model, managed, overlap
 from repro_torch.core.faults import FaultPlan
 from repro_torch.kernels import counters
 from repro_torch.models import attention
@@ -65,51 +65,76 @@ from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import (QuantumPlan, Request,
                                          RequestRejected, ServeScheduler)
 
+
+class PlanBuffer:
+    """Static int32 plan buffers on the device, filled together by one
+    host-to-device copy: ``views`` of one device buffer, in the given
+    shapes (a 0-d view for ``()``), and their host twins (``host``),
+    pinned on a card, where an event says when the last copy out of them
+    is done; on the CPU the twins are the views themselves.  A captured
+    step reads the views, so they keep their addresses."""
+
+    def __init__(self, shapes: list[tuple[int, ...]],
+                 device: torch.device):
+        self._shapes = shapes
+        self._sizes = [math.prod(s) for s in shapes]
+        self.buf = torch.zeros(sum(self._sizes), dtype=torch.int32,
+                               device=device)
+        on_card = device.type == "cuda"
+        self._host = (self.buf if device.type == "cpu" else torch.zeros(
+            self.buf.shape, dtype=torch.int32, pin_memory=on_card))
+        self._copied = torch.cuda.Event() if on_card else None
+        self.views = self._split(self.buf)
+
+    def _split(self, buf: torch.Tensor) -> list[torch.Tensor]:
+        return [t.view(shape)
+                for t, shape in zip(buf.split(self._sizes), self._shapes)]
+
+    def host(self) -> list[np.ndarray]:
+        """The host twins of ``views`` as arrays to fill before ``send``
+        (this waits for the last copy out of them)."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        return [v.numpy() for v in self._split(self._host)]
+
+    def send(self) -> None:
+        """The host twins into the views: one copy, in stream order."""
+        if self._host is self.buf:
+            return
+        self.buf.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+
 class PagedStep:
     """One decode step of a quantum against static buffers (the port of
     the reference's scan body; ``build_paged_step`` makes it).
 
-    The plan lives in one int32 device buffer, in views: ``table`` [slots,
-    max_pages], ``tokens`` [slots, max_chunk], ``n_in``, ``steps``,
-    ``pos`` and ``last`` [slots], and ``t`` [1], the step counter; the
-    sampled tokens go to ``out`` [slots, max_chunk].  ``load`` fills them
-    with one copy, each step then reads and writes only them and the
-    cache pools, in place, so the step can be captured in a CUDA graph
-    (``capture``) and replayed (``replay``) any number of times a
-    quantum; ``run_eager`` runs it from Python."""
+    The plan lives in one int32 device buffer (a ``PlanBuffer``), in
+    views: ``table`` [slots, max_pages], ``tokens`` [slots, max_chunk],
+    ``n_in``, ``steps``, ``pos`` and ``last`` [slots], and ``t`` [1], the
+    step counter; the sampled tokens go to ``out`` [slots, max_chunk].
+    ``load`` fills them with one copy, each step then reads and writes
+    only them and the cache pools, in place, so the step can be captured
+    in a CUDA graph (``capture``) and replayed (``replay``) any number of
+    times a quantum; ``run_eager`` runs it from Python."""
 
     def __init__(self, model: Model, cache: dict[str, torch.Tensor], *,
                  slots: int, max_pages: int, max_chunk: int):
         self.model = model
         self.cache = cache
         self.slots, self.max_chunk = slots, max_chunk
-        dev = model.device
         # the pools' identity: a graph holds their addresses
-        self._ptrs = {k: v.data_ptr() for k, v in cache.items()}
-        self._sizes = [slots * max_pages, slots * max_chunk] + [slots] * 4 \
-            + [1]
-        self._shapes = [(slots, max_pages), (slots, max_chunk)] \
-            + [(slots,)] * 4 + [(1,)]
-        self._buf = torch.zeros(sum(self._sizes), dtype=torch.int32,
-                                device=dev)
-        # the host side of the one copy: pinned on a card (with an event
-        # that says when its last copy is done), the buffer itself on the
-        # CPU
-        on_card = dev.type == "cuda"
-        self._host = (torch.zeros(self._buf.shape, dtype=torch.int32,
-                                  pin_memory=True) if on_card else self._buf)
-        self._copied = torch.cuda.Event() if on_card else None
+        self._ptrs = counters.addresses(cache.values())
+        self._plan = PlanBuffer([(slots, max_pages), (slots, max_chunk)]
+                                + [(slots,)] * 4 + [(1,)], model.device)
         (self.table, self.tokens, self.n_in, self.steps, self.pos,
-         self.last, self.t) = self._split(self._buf)
+         self.last, self.t) = self._plan.views
         self.out = torch.zeros((slots, max_chunk), dtype=torch.int32,
-                               device=dev)
+                               device=model.device)
         self.graph = None
         #: launch counters' change over one step, added on every replay
         self.replay_launches: dict[tuple, int] = {}
-
-    def _split(self, buf: torch.Tensor) -> list[torch.Tensor]:
-        return [t.view(shape)
-                for t, shape in zip(buf.split(self._sizes), self._shapes)]
 
     def load(self, table: np.ndarray, tokens: np.ndarray, n_in: np.ndarray,
              steps: np.ndarray, pos: np.ndarray) -> None:
@@ -117,18 +142,16 @@ class PagedStep:
         ``t`` to 0 and ``last`` to each slot's first input token.  Refuses
         pools rebound since the step was built (swap-in and the steps
         write them in place; a captured step writes the old ones)."""
-        if {k: v.data_ptr() for k, v in self.cache.items()} != self._ptrs:
+        if counters.addresses(self.cache.values()) != self._ptrs:
             raise RuntimeError("the serving cache's pools were rebound; a "
                                "captured step writes the ones it was "
                                "built on")
         if int(steps.max(initial=0)) > self.max_chunk:
             raise ValueError(f"a quantum of {int(steps.max())} steps; the "
                              f"buffers hold {self.max_chunk}")
-        if self._copied is not None:
-            self._copied.synchronize()
         w = min(tokens.shape[1], self.max_chunk)
         h_table, h_tok, h_n_in, h_steps, h_pos, h_last, h_t = \
-            (v.numpy() for v in self._split(self._host))
+            self._plan.host()
         h_table[:] = table
         h_tok[:] = 0
         h_tok[:, :w] = tokens[:, :w]
@@ -137,9 +160,7 @@ class PagedStep:
         h_pos[:] = pos
         h_last[:] = tokens[:, 0]
         h_t[:] = 0
-        if self._copied is not None:
-            self._buf.copy_(self._host, non_blocking=True)
-            self._copied.record()
+        self._plan.send()
 
     @torch.no_grad()
     def run_eager(self) -> None:
@@ -160,35 +181,17 @@ class PagedStep:
         self.t.add_(1)
 
     def capture(self) -> None:
-        """Run one step eagerly on a side stream (it builds the kernels and
-        warms the libraries, so no first-call work falls inside the
-        capture; call it with every slot inactive), then capture the step
-        in a CUDA graph on that stream.  The capture launches nothing, so
-        the launch counters are set back to where they were and their
-        change is kept for ``replay``.  A failed capture raises."""
-        if instrument.ACTIVE is not None:
-            raise RuntimeError("a recorder would see one captured step for "
-                               "every replay")
-        dev = self.model.device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.run_eager()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = counters.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            self.run_eager()
-        self.replay_launches = counters.change_since(before)
-        counters.add_launches({k: -n for k, n in
-                               self.replay_launches.items()})
-        self.graph = graph
+        """Run one step eagerly on a side stream, then capture the step in
+        a CUDA graph (``counters.capture``; call it with every slot
+        inactive, so the eager step changes no state).  A failed capture
+        raises."""
+        _, self.graph, _, self.replay_launches = counters.capture(
+            self.run_eager, self.model.device)
 
     def replay(self) -> None:
         """One step: the captured graph, and the launches it holds added
         to the kernels' counters."""
-        self.graph.replay()
-        counters.add_launches(self.replay_launches)
+        counters.replay(self.graph, self.replay_launches)
 
     def read(self, chunk: int) -> np.ndarray:
         """The sampled tokens [slots, chunk] (one D2H, which waits for the

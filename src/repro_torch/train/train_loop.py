@@ -353,7 +353,7 @@ class TrainStep:
                   + list(flatten_specs(opt_state["mu"]).values())
                   + list(flatten_specs(opt_state["nu"]).values())
                   + [opt_state["step"]])
-        return (tuple(t.data_ptr() for t in leaves),
+        return (counters.addresses(leaves),
                 tuple((k, tuple(v.shape), v.dtype)
                       for k, v in sorted(batch.items())))
 
@@ -397,33 +397,16 @@ class TrainStep:
         cause is a live autograd graph of an earlier forward through the
         parameters on the default stream (a loss the caller keeps), whose
         AccumulateGrad nodes make the capture wait on that stream."""
-        if instrument.ACTIVE is not None:
-            raise RuntimeError("a recorder would see one captured step for "
-                               "every replay")
-        dev = self.model.device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            metrics = self.run_eager()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        metrics, graph, out, self.replay_launches = counters.capture(
+            self.run_eager, self.model.device)
         metrics = {k: v.clone() for k, v in metrics.items()}
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        before = counters.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            out = self.run_eager()
-        self.replay_launches = counters.change_since(before)
-        counters.add_launches({k: -n for k, n in
-                               self.replay_launches.items()})
         self.graph, self._out = graph, out
         return metrics
 
     def replay(self) -> None:
         """One step: the captured graph, and the launches it holds added
         to the kernels' counters."""
-        self.graph.replay()
-        counters.add_launches(self.replay_launches)
+        counters.replay(self.graph, self.replay_launches)
         self.replays += 1
 
 
